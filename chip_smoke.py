@@ -21,12 +21,28 @@ run from the repository root.  It
 5. holds each kernel against its plain PyTorch twin on the card at the
    served shapes and at B=512, T=512, and a whole ``encode_step`` on the
    kernels against the same step on the twins (CPU), in all three modes;
-6. times each kernel, its twin and one library call computing the same
+6. trains: writes a synthetic corpus (1024 segments of 8 classes, 0.10 to
+   0.50 s, fs=32000, two speakers, in four wav files) and runs the
+   training CLI ``seq2seq_abcd_vae_tpu_torch.cli.learning_main`` at the
+   publication config (batch 512, ``--speaker_embed_dim 256``,
+   ``--stft_method pallas``) for 2 epochs with 1 of pretraining, then
+   again with ``-e 3`` to resume; checks history.log, the checkpoint and
+   that the checkpoint encodes; each kernel's launches must equal the
+   steps that use it (forwards once per training and evaluation step,
+   backwards once per training step);
+7. holds the LSTM's forward (with the saved cell states) and backward and
+   the decoder's fused-loss forward and backward against their twins on
+   the card at B=512 and the corpus's largest bucket (ragged lengths, one
+   row of length 0), and one whole training step on the kernels (card)
+   against the same step on the twins (CPU): loss, every gradient and the
+   parameters after the SGD step;
+8. times each kernel, its twin and one library call computing the same
    function (a yardstick the port never calls) with CUDA events, and
    prints one ``{"kernels": [...]}`` line with launches, times, the bound
-   and the largest error, after the serve latencies and the time of one
-   served batch by stage;
-7. ends with ``{"ok": true, "device": {...}}`` as its last line.
+   and the largest error, after the serve latencies, the time of one
+   served batch and of one training step by stage, and the training
+   throughput;
+9. ends with ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result.  Without a card it exits 2 before doing anything.
@@ -39,6 +55,7 @@ import csv
 import json
 import math
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -77,6 +94,21 @@ LSTM_ATOL = 1e-4
 #   then the head's float32 products (1024 -> 256 -> 256 -> 128) on two
 #   different BLAS libraries.
 STEP_ATOL = {"probs": 1e-5, "logits": 1e-4, "features": 1e-4}
+# - training kernels vs twins, and a training step on the card's kernels vs
+#   the twins on the CPU: loss sums of up to B * T * F float32 terms in
+#   another order, 1e-5 relative; each gradient to 1e-4 of the leaf's
+#   largest magnitude, since a leaf sums the products of every step and
+#   row in another order; each parameter after the SGD step to 1e-4 of the
+#   leaf's largest update plus 4 float32 ulps of its largest value (the
+#   rounding of p + update).
+LOSS_RTOL = 1e-5
+GRAD_FRACTION = 1e-4
+
+# training phase: the corpus and the CLI's publication config
+TRAIN_FS = 32000
+TRAIN_SEGMENTS = 1024
+TRAIN_BATCH = 512
+SPEAKER_EMBED = 256
 
 
 def smi_line() -> str:
@@ -495,6 +527,500 @@ def step_phase(dev, ckpt_path, rng):
     return errs, breakdown
 
 
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def write_corpus(root: str, seed: int) -> str:
+    """1024 segments of 8 classes (harmonic tones with an envelope and
+    noise), durations uniform over 0.10-0.50 s, at fs=32000 in four PCM16
+    wav files, two speakers; every 8th segment is validation data.
+    Returns the annotation CSV's path."""
+    import scipy.io.wavfile as spw
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    files = 4
+    per_file = TRAIN_SEGMENTS // files
+    rows = []
+    gap = int(0.05 * TRAIN_FS)
+    for fi in range(files):
+        parts, pos = [np.zeros(gap, np.float32)], gap
+        for j in range(per_file):
+            i = fi * per_file + j
+            label = int(rng.integers(0, 8))
+            n = int(rng.uniform(0.10, 0.50) * TRAIN_FS)
+            tt = np.arange(n) / TRAIN_FS
+            f0 = 500.0 * (1 + label) * (1.0 + 0.05 * rng.normal())
+            tone = sum(np.sin(2 * np.pi * f0 * h * tt) / h
+                       for h in (1, 2, 3))
+            env = np.sin(np.pi * np.arange(n) / n)
+            seg = (6000 * env * tone + 300 * rng.normal(size=n))
+            parts += [seg.astype(np.float32), np.zeros(gap, np.float32)]
+            rows.append((pos / TRAIN_FS, (pos + n) / TRAIN_FS,
+                         f"synth{fi}.wav",
+                         "valid" if i % 8 == 7 else "train",
+                         f"spk{fi % 2}", f"c{label}"))
+            pos += n + gap
+        audio = np.clip(np.concatenate(parts), -32768, 32767)
+        spw.write(os.path.join(root, f"synth{fi}.wav"), TRAIN_FS,
+                  audio.astype(np.int16))
+    path = os.path.join(root, "annotation.csv")
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["onset", "offset", "input_path", "data_type", "speaker",
+                    "label"])
+        for on, off, wav, dtype, spk, label in rows:
+            w.writerow([f"{on:.6f}", f"{off:.6f}", wav, dtype, spk, label])
+    return path
+
+
+def training_counters():
+    from seq2seq_abcd_vae_tpu_torch.ops import (decoder_kernel, lstm_kernel,
+                                                stft_kernel)
+    return {"log_spectrogram": stft_kernel.log_spectrogram_kernel,
+            "lstm_layer_bidir_fused": lstm_kernel.lstm_layer_bidir_fused,
+            "lstm_layer_bidir_fused_bwd":
+                lstm_kernel.lstm_layer_bidir_fused_bwd,
+            "decoder_loop_fused_losses_fwd":
+                decoder_kernel.decoder_fused_losses_fwd,
+            "decoder_loop_fused_losses_bwd":
+                decoder_kernel.decoder_fused_losses_bwd}
+
+
+def check_history(path: str, resumed: bool):
+    with open(path) as f:
+        log = f.read()
+    for needle in ("END OF PRETRAINING.", "END OF TRAINING") + (
+            ("LEARNING RETRIEVED.",
+             "To be restarted from the beginning of epoch #: 3")
+            if resumed else ()):
+        if needle not in log:
+            raise AssertionError(f"history.log lacks {needle!r}")
+    values = [float(v) for v in re.findall(
+        r"(?:mean loss|\(per string\)): (-?[0-9]+\.[0-9]+|-?nan|-?inf)",
+        log)]
+    if not values or not all(math.isfinite(v) for v in values):
+        raise AssertionError("history.log has a non-finite loss")
+    return len(values)
+
+
+def train_phase(dev, work: str, seed: int):
+    """The training main path through the CLI, counted, then resumed."""
+    from seq2seq_abcd_vae_tpu_torch.cli import learning_main
+    corpus_dir = os.path.join(work, "corpus")
+    t0 = time.perf_counter()
+    csv_path = write_corpus(corpus_dir, seed)
+    corpus_s = time.perf_counter() - t0
+    argv = [corpus_dir, csv_path, "-S", work, "-j", "train", "-b",
+            str(TRAIN_BATCH), "--pretrain_epochs", "1", "--stft_method",
+            "pallas", "-d", dev.type, "-N", str(NORMALIZER), "-s", str(seed),
+            "--encoder_rnn_hidden_size", str(HIDDEN),
+            "--decoder_rnn_hidden_size", str(HIDDEN),
+            "--mlp_hidden_size", str(MLP_HIDDEN), "-K", str(K),
+            "-f", str(FEATURE_DIM), "--speaker_embed_dim", str(SPEAKER_EMBED)]
+    counters = training_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    first = learning_main.main(argv + ["-e", "2"])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    run_dir = os.path.join(work, "train")
+    lines = check_history(os.path.join(run_dir, "history.log"), False)
+    if not os.path.isfile(os.path.join(run_dir, "checkpoint.pt")):
+        raise AssertionError("no checkpoint.pt after training")
+    t0 = time.perf_counter()
+    second = learning_main.main(argv + ["-e", "3"])
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    check_history(os.path.join(run_dir, "history.log"), True)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    train_steps = first.steps["train"] + second.steps["train"]
+    eval_steps = first.steps["eval"] + second.steps["eval"]
+    want = {"log_spectrogram": train_steps + eval_steps,
+            "lstm_layer_bidir_fused": train_steps + eval_steps,
+            "lstm_layer_bidir_fused_bwd": train_steps,
+            "decoder_loop_fused_losses_fwd": train_steps + eval_steps,
+            "decoder_loop_fused_losses_bwd": train_steps}
+    print(f"training main path: {train_steps} training + {eval_steps} "
+          f"evaluation steps in {first_s:.2f} + {second_s:.2f} s (corpus "
+          f"written in {corpus_s:.2f} s); launches {launches}", flush=True)
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+
+    # the trained checkpoint encodes on the card
+    from seq2seq_abcd_vae_tpu_torch.data.annotations import AnnotationParser
+    from seq2seq_abcd_vae_tpu_torch.data.batching import (DataLoader,
+                                                          FrontendSpec)
+    from seq2seq_abcd_vae_tpu_torch.infer.encode import Encoder, encode_step
+    spec = FrontendSpec(int(0.008 * TRAIN_FS), int(0.004 * TRAIN_FS))
+    valid = AnnotationParser(corpus_dir, csv_path).get_data("valid")
+    batch = next(iter(DataLoader(valid, spec, batch_size=128)))
+    enc = Encoder(os.path.join(run_dir, "checkpoint.pt"), device=dev.type,
+                  stft_method="pallas")
+    probs = encode_step(enc.params, torch.from_numpy(batch.audio).to(dev),
+                        torch.from_numpy(batch.num_frames).to(dev),
+                        enc.statics(spec, EPSILON, NORMALIZER),
+                        batch.bucket_frames, "probs").cpu()
+    if not (torch.isfinite(probs).all()
+            and (probs.sum(-1) - 1).abs().max() < 1e-5):
+        raise AssertionError("the trained checkpoint's probs do not sum "
+                             "to 1")
+    epochs = first.epoch_seconds + second.epoch_seconds
+    throughput = {"epochs": [{"epoch": e, "train_s": sec,
+                              "segments_per_s": n / sec}
+                             for e, sec, n in epochs],
+                  "history_loss_values": lines}
+    later = [n / sec for e, sec, n in epochs[1:]]
+    throughput["segments_per_s_after_first_epoch"] = (
+        sum(later) / len(later) if later else None)
+    return {"launches": launches, "train_steps": train_steps,
+            "eval_steps": eval_steps, "corpus_dir": corpus_dir,
+            "csv": csv_path, "throughput": throughput}
+
+
+def largest_batch(corpus_dir: str, csv_path: str):
+    """The corpus's longest 511 training segments as one batch of 512 rows
+    (the last a padding row of length 0) at the largest bucket."""
+    from seq2seq_abcd_vae_tpu_torch.data.annotations import AnnotationParser
+    from seq2seq_abcd_vae_tpu_torch.data.batching import (DataLoader,
+                                                          FrontendSpec)
+    spec = FrontendSpec(int(0.008 * TRAIN_FS), int(0.004 * TRAIN_FS))
+    ds = AnnotationParser(corpus_dir, csv_path).get_data("train")
+    loader = DataLoader(ds, spec, batch_size=TRAIN_BATCH,
+                        pad_to_batch_size=True)
+    longest = np.argsort(-ds.lengths_np, kind="stable")[:TRAIN_BATCH - 1]
+    return loader.make_batch(longest), spec, ds
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+            ).item()
+
+
+def lstm_train_phase(dev, rng, t, launches):
+    """LSTM forward (saving cs) and backward kernels vs twins at the
+    training shape; their times, bounds and the cuDNN yardstick."""
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    b, f, h = TRAIN_BATCH, 129, HIDDEN
+    x = torch.from_numpy(rng.normal(size=(t, b, f)).astype(np.float32)
+                         ).to(dev)
+    lens = rng.integers(1, t + 1, size=b).astype(np.int32)
+    lens[0], lens[-1] = t, 0
+    lengths = torch.from_numpy(lens).to(dev)
+    bound_w = 1.0 / np.sqrt(h)
+    w = [torch.from_numpy(rng.uniform(-bound_w, bound_w, size=s).astype(
+        np.float32)).to(dev)
+        for s in ((2, f, 4 * h), (2, 4 * h), (2, h, 4 * h), (2, 4 * h))]
+    fwd = lk.lstm_layer_bidir_fused(x, lengths, *w, return_cs=True)
+    fwd_ref = lk.lstm_layer_bidir_fused_plain(x, lengths, *w,
+                                              return_cs=True)
+    fwd_err = max_err(fwd, fwd_ref)
+    if not fwd_err <= LSTM_ATOL:
+        raise AssertionError(f"LSTM forward (with cs) vs twin: {fwd_err}")
+    outs, h_n, c_n, cs = fwd
+    dh_n = torch.from_numpy(rng.normal(size=h_n.shape).astype(
+        np.float32)).to(dev)
+    dc_n = torch.from_numpy(rng.normal(size=c_n.shape).astype(
+        np.float32)).to(dev)
+    args = (x, lengths, *w, outs, cs, None, dh_n, dc_n)
+    got = lk.lstm_layer_bidir_fused_bwd(*args)
+    want = lk.lstm_layer_bidir_fused_bwd_plain(*args)
+    torch.cuda.synchronize()
+    errs = {n: rel_err(g, r) for n, g, r in zip(
+        ("dx", "dw_ih", "db_ih", "dw_hh", "db_hh"), got, want)}
+    if max(errs.values()) > GRAD_FRACTION:
+        raise AssertionError(f"LSTM backward vs twin: {errs}")
+    kernel_ms = cuda_ms(lambda: lk.lstm_layer_bidir_fused_bwd(*args),
+                        iters=5)
+    plain_ms = cuda_ms(lambda: lk.lstm_layer_bidir_fused_bwd_plain(*args),
+                       iters=2, warmup=1)
+    fwd_ms = cuda_ms(lambda: lk.lstm_layer_bidir_fused(x, lengths, *w,
+                                                       return_cs=True),
+                     iters=5)
+    # the yardstick: cuDNN's bidirectional LSTM, forward and backward, on
+    # packed sequences of the same shape (the zero-length row dropped)
+    lstm = torch.nn.LSTM(f, h, bidirectional=True).to(dev)
+    with torch.no_grad():
+        for d, sfx in enumerate(("", "_reverse")):
+            getattr(lstm, "weight_ih_l0" + sfx).copy_(w[0][d].T)
+            getattr(lstm, "bias_ih_l0" + sfx).copy_(w[1][d])
+            getattr(lstm, "weight_hh_l0" + sfx).copy_(w[2][d].T)
+            getattr(lstm, "bias_hh_l0" + sfx).copy_(w[3][d])
+    keep = lens > 0
+    x_lib = x[:, torch.from_numpy(keep).to(dev)].clone().requires_grad_(True)
+    lens_lib = torch.from_numpy(lens[keep].astype(np.int64))
+
+    def library():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            x_lib, lens_lib, enforce_sorted=False)
+        _, (hh, cc) = lstm(packed)
+        torch.autograd.backward((hh, cc), (dh_n[:, keep.nonzero()[0]],
+                                           dc_n[:, keep.nonzero()[0]]))
+
+    library_ms = cuda_ms(library, iters=5)
+    steps = int(lens.sum())  # active row-steps per direction
+    per = 2.0 * (f + h) * 4 * h  # one direction's gate products per row-step
+    # gates recomputed (its inputs hold no gates), dz @ [W_ih | W_hh]^T and
+    # the weight gradients: three times the forward's products
+    flops = 2 * steps * 3 * per
+    nbytes = 4.0 * (t * b * f + 2 * (f + h + 2) * 4 * h      # x, weights
+                    + 2 * t * 2 * b * h + 2 * 2 * b * h       # outs, cs, dh, dc
+                    + t * b * f + 2 * (f + h + 2) * 4 * h) + 4 * b  # outputs
+    bms, by = bound_ms(flops, nbytes)
+    entry = {
+        "name": "lstm_layer_bidir_fused_bwd",
+        "route": "cuda",
+        "source": "seq2seq_abcd_vae_tpu_torch/csrc/lstm_bidir.cu",
+        "helper_source": "seq2seq_abcd_vae_tpu_torch/csrc/wgrad.cu",
+        "replaces": "seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:682",
+        "launches": launches,
+        "max_abs_err": max(max_err(g, r) for g, r in zip(got, want)),
+        "max_rel_err": max(errs.values()), "rel_errs": errs,
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bms,
+        "bound_by": by, "library_ms": library_ms,
+        "library_call": "nn.LSTM(bidirectional) forward + backward, packed",
+        "shape": f"T={t} B={b} F={f} H={h} (douts zero)",
+        "tolerance": f"{GRAD_FRACTION} of each leaf's max |value|",
+    }
+    return entry, {"forward_with_cs_ms": fwd_ms, "forward_with_cs_err":
+                   fwd_err}
+
+
+def _decoder_kernel_args(dev, rng, t, b):
+    h, m, f = HIDDEN, MLP_HIDDEN, 129
+    lens = rng.integers(1, t + 1, size=b)
+    lens[0], lens[-1] = t, 0
+
+    def uni(bound, *shape):
+        return torch.from_numpy(rng.uniform(-bound, bound, size=shape)
+                                .astype(np.float32)).to(dev)
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale)
+                                .astype(np.float32)).to(dev)
+
+    return [normal(t, b, f), torch.from_numpy(lens.astype(np.int32)).to(dev),
+            uni(1 / np.sqrt(h), h, 4 * h + 2 * m), uni(2 / np.sqrt(h), 4 * h),
+            uni(1 / np.sqrt(h), 2 * m), uni(1 / np.sqrt(m), m, f),
+            uni(1 / np.sqrt(m), m, f), uni(1 / np.sqrt(m), 2 * f),
+            uni(1 / np.sqrt(h), f, 4 * h), normal(t, b, f),
+            uni(1 / np.sqrt(h), h, m), uni(1 / np.sqrt(h), m),
+            uni(1 / np.sqrt(m), m), uni(1 / np.sqrt(m), 1),
+            normal(b, h, scale=0.5), normal(b, h, scale=0.5)], lens
+
+
+def decoder_train_phase(dev, rng, t, launches_fwd, launches_bwd):
+    """The fused-loss decoder kernels vs twins at the training shape, with
+    their times and bounds (no single library call computes this loop:
+    the sample it feeds back depends on the step before)."""
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    b, h, m, f = TRAIN_BATCH, HIDDEN, MLP_HIDDEN, 129
+    args, lens = _decoder_kernel_args(dev, rng, t, b)
+    got = dk.decoder_fused_losses_fwd(*args)
+    want = dk.decoder_fused_losses_fwd_plain(*args)
+    torch.cuda.synchronize()
+    loss_err = max(abs(g.item() - r.item()) / abs(r.item())
+                   for g, r in zip(got[1:3], want[1:3]))
+    state_err = max_err((got[0], got[3], got[4]),
+                        (want[0], want[3], want[4]))
+    if not (loss_err <= LOSS_RTOL and state_err <= LSTM_ATOL):
+        raise AssertionError(f"decoder forward vs twin: losses {loss_err}, "
+                             f"states {state_err}")
+    repeat = dk.decoder_fused_losses_fwd(*args)
+    if (repeat[1].item(), repeat[2].item()) != (got[1].item(),
+                                                got[2].item()):
+        raise AssertionError("decoder forward losses differ between runs")
+    dlast = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)
+                             ).to(dev)
+    gscale = torch.tensor([1.0 / 511, 1.0 / 511], device=dev)
+    bwd_args = (*args, want[3], want[4], dlast, gscale)
+    g_all = dk.decoder_fused_losses_bwd(*bwd_args)
+    r_all = dk.decoder_fused_losses_bwd_plain(*bwd_args)
+    torch.cuda.synchronize()
+    names = ("dw_cat", "dbias", "db1", "dw2m", "dw2v", "db2", "dw_ih",
+             "dwo1", "dbo1", "dwo2", "dbo2", "dh0", "dc0")
+    errs = {n: rel_err(g, r) for n, g, r in zip(names, g_all, r_all)}
+    if max(errs.values()) > GRAD_FRACTION:
+        raise AssertionError(f"decoder backward vs twin: {errs}")
+    fwd_ms = cuda_ms(lambda: dk.decoder_fused_losses_fwd(*args), iters=5)
+    fwd_plain_ms = cuda_ms(lambda: dk.decoder_fused_losses_fwd_plain(*args),
+                           iters=2, warmup=1)
+    bwd_ms = cuda_ms(lambda: dk.decoder_fused_losses_bwd(*bwd_args), iters=3)
+    bwd_plain_ms = cuda_ms(
+        lambda: dk.decoder_fused_losses_bwd_plain(*bwd_args), iters=2,
+        warmup=1)
+    # per row-step: h @ w_cat, the emission's second layer (mean and
+    # logvar), the fed-back x @ w_ih and the offset MLP's first layer
+    per = 2.0 * (h * (4 * h + 2 * m) + 2 * m * f + f * 4 * h + h * m)
+    steps = int(lens.sum())  # row-steps the losses depend on
+    weights = (h * (4 * h + 2 * m) + 4 * h + 2 * m + 2 * m * f + 2 * f
+               + f * 4 * h + h * m + 2 * m + 1)
+    fwd_bytes = 4.0 * (2 * t * b * f + weights + 2 * b * h   # inputs
+                       + b * h + 2 + 2 * t * b * h) + 4 * b  # outputs
+    bwd_bytes = 4.0 * (2 * t * b * f + weights + 2 * b * h + 2 * t * b * h
+                       + b * h + 2 + weights + 2 * b * h) + 4 * b
+    f_bms, f_by = bound_ms(steps * per, fwd_bytes)
+    # recompute plus the adjoint products and the weight gradients
+    b_bms, b_by = bound_ms(3 * steps * per, bwd_bytes)
+    common = {"route": "cuda",
+              "source": "seq2seq_abcd_vae_tpu_torch/csrc/decoder.cu",
+              "library_ms": None,
+              "library_call": "none: no single PyTorch call runs this loop",
+              "shape": f"T={t} B={b} F={f} H={h} m={m} Mo={m}"}
+    fwd_entry = dict(common, **{
+        "name": "decoder_loop_fused_losses",
+        "replaces": "seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:1983",
+        "launches": launches_fwd,
+        "max_abs_err": max(state_err, max(abs(g.item() - r.item()) for g, r
+                                          in zip(got[1:3], want[1:3]))),
+        "loss_rel_err": loss_err, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+        "bound_ms": f_bms, "bound_by": f_by,
+        "tolerance": f"losses {LOSS_RTOL} relative, states {LSTM_ATOL}"})
+    bwd_entry = dict(common, **{
+        "name": "decoder_loop_fused_losses_bwd",
+        "helper_source": "seq2seq_abcd_vae_tpu_torch/csrc/wgrad.cu",
+        "replaces": "seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:2042",
+        "launches": launches_bwd,
+        "max_abs_err": max(max_err(g, r) for g, r in zip(g_all, r_all)),
+        "max_rel_err": max(errs.values()), "rel_errs": errs,
+        "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": b_bms,
+        "bound_by": b_by,
+        "tolerance": f"{GRAD_FRACTION} of each leaf's max |value|"})
+    return fwd_entry, bwd_entry
+
+
+def step_on(device, params0, cfg, batch, spec, noise, n_data):
+    """One training step (loss, gradients, SGD with clip 1.0, lr 1.0) on
+    ``device`` from copies of ``params0``."""
+    from seq2seq_abcd_vae_tpu_torch.train import learner as L
+    from seq2seq_abcd_vae_tpu_torch.train import optim
+    from seq2seq_abcd_vae_tpu_torch.tree import tree_leaves, tree_map
+    params = tree_map(lambda p: p.detach().to(device).clone()
+                      .requires_grad_(True), params0)
+    statics = L.StepStatics(cfg, spec.frame_length, spec.step_size,
+                            spec.window, EPSILON, NORMALIZER, "pallas")
+    noise = {k: v.to(device) for k, v in noise.items()}
+    loss, metrics = L.losses_and_metrics(
+        params, statics, torch.from_numpy(batch.audio).to(device),
+        torch.from_numpy(batch.num_frames).to(device),
+        torch.from_numpy(batch.speakers).to(device), noise, n_data, 1.0,
+        False, batch.bucket_frames)
+    leaves = tree_leaves(params)
+    opt = optim.make_optimizer(leaves, 1.0, 0.0)
+    loss.backward()
+    grads = [p.grad.detach().clone() for p in leaves]
+    optim.clip_and_step(opt, leaves, 1.0)
+    return loss.detach(), metrics, grads, [p.detach() for p in leaves]
+
+
+def whole_step_phase(dev, corpus_dir, csv_path, seed):
+    """One training step on the kernels (card) against the same step on
+    the twins (CPU); returns the checks and the step's inputs."""
+    from seq2seq_abcd_vae_tpu_torch.configs import (ABCDSamplerConfig,
+                                                    DecoderConfig,
+                                                    EncoderConfig)
+    from seq2seq_abcd_vae_tpu_torch.models import vae
+    from seq2seq_abcd_vae_tpu_torch.train import learner as L
+    from seq2seq_abcd_vae_tpu_torch.tree import tree_leaves
+    batch, spec, ds = largest_batch(corpus_dir, csv_path)
+    f = spec.num_bins
+    enc = EncoderConfig(f, HIDDEN)
+    cfg = vae.ModelConfig(
+        enc, ABCDSamplerConfig(enc.hidden_size_total, MLP_HIDDEN, K,
+                               FEATURE_DIM),
+        DecoderConfig(f, HIDDEN, MLP_HIDDEN, FEATURE_DIM, num_speakers=2,
+                      speaker_embed_dim=SPEAKER_EMBED))
+    params0 = vae.model_init(torch.Generator().manual_seed(seed), cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    noise = {k: v.cpu() for k, v in L.draw_noise(
+        gen, cfg, len(batch.num_frames), batch.bucket_frames, dev).items()}
+    n_data = float(len(ds))
+    card = step_on(dev, params0, cfg, batch, spec, noise, n_data)
+    cpu = step_on(torch.device("cpu"), params0, cfg, batch, spec, noise,
+                  n_data)
+    loss_err = abs(card[0].item() - cpu[0].item()) / abs(cpu[0].item())
+    grad_err = max(rel_err(g, r) for g, r in zip(card[2], cpu[2]))
+    p0 = tree_leaves(params0)
+    # parameters after the step: the updates' difference within
+    # GRAD_FRACTION of the leaf's largest update, plus the float32
+    # rounding of p + update (a few ulps of the leaf's largest value)
+    upd_err = 0.0
+    for pc, pr, a in zip(card[3], cpu[3], p0):
+        allowed = (GRAD_FRACTION * (pr - a).abs().max()
+                   + 4 * torch.finfo(torch.float32).eps * a.abs().max())
+        upd_err = max(upd_err, ((pc.cpu() - pr).abs().max()
+                                / allowed.clamp_min(1e-30)).item())
+    if not (loss_err <= LOSS_RTOL and grad_err <= GRAD_FRACTION
+            and upd_err <= 1.0):
+        raise AssertionError(f"training step, kernels vs twins: loss "
+                             f"{loss_err}, gradients {grad_err}, updates "
+                             f"{upd_err}")
+    checks = {"loss_rel_err": loss_err, "grad_max_rel_err": grad_err,
+              "param_err_over_allowed": upd_err, "loss": card[0].item(),
+              "leaves": len(p0)}
+    return checks, (params0, cfg, batch, spec, noise, n_data)
+
+
+def train_step_breakdown(dev, params0, cfg, batch, spec, noise, n_data):
+    """The card's training step by stage, CUDA events around each."""
+    from seq2seq_abcd_vae_tpu_torch.models import abcd as abcd_mod
+    from seq2seq_abcd_vae_tpu_torch.models import decoder as dec_mod
+    from seq2seq_abcd_vae_tpu_torch.models import encoder as enc_mod
+    from seq2seq_abcd_vae_tpu_torch.train import learner as L
+    from seq2seq_abcd_vae_tpu_torch.train import optim
+    from seq2seq_abcd_vae_tpu_torch.tree import tree_leaves, tree_map
+    params = tree_map(lambda p: p.detach().to(dev).clone()
+                      .requires_grad_(True), params0)
+    leaves = tree_leaves(params)
+    opt = optim.make_optimizer(leaves, 1.0, 0.0)
+    statics = L.StepStatics(cfg, spec.frame_length, spec.step_size,
+                            spec.window, EPSILON, NORMALIZER, "pallas")
+    audio = torch.from_numpy(batch.audio).to(dev)
+    frames = torch.from_numpy(batch.num_frames).to(dev)
+    speakers = torch.from_numpy(batch.speakers).to(dev)
+    noise_d = {k: v.to(dev) for k, v in noise.items()}
+    stages = ("frontend", "encoder_forward", "head", "decoder_forward",
+              "backward", "optimiser")
+    totals = {s: 0.0 for s in stages}
+    reps = 3
+    for rep in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        inputs = L.frontend(statics, audio, batch.bucket_frames)
+        ev[1].record()
+        hidden = enc_mod.encoder_apply(params["encoder"], cfg.encoder,
+                                       inputs, frames)
+        ev[2].record()
+        head = params["feature_sampler"]
+        logits = abcd_mod.abcd_logits(head, hidden)
+        feats = abcd_mod.abcd_sample(head, logits, 1.0, noise_d["gumbel"])
+        kl = abcd_mod.abcd_kl(head, cfg.latent, logits, n_data,
+                              row_mask=(frames > 0).float())
+        ev[3].record()
+        em, off = dec_mod.decoder_losses(params["decoder"], cfg.decoder,
+                                         feats, frames, inputs,
+                                         noise_d["decoder"], speakers)
+        loss = (em + off + kl) / (frames > 0).sum()
+        ev[4].record()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[5].record()
+        optim.clip_and_step(opt, leaves, 1.0)
+        ev[6].record()
+        torch.cuda.synchronize()
+        if rep:  # the first repetition warms up
+            for i, s in enumerate(stages):
+                totals[s] += ev[i].elapsed_time(ev[i + 1]) / reps
+    totals["step"] = sum(totals[s] for s in stages)
+    shape = {"B": len(batch.num_frames), "T": batch.bucket_frames,
+             "real_rows": batch.num_real,
+             "real_frames": int(batch.num_frames.sum())}
+    return totals, shape
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -615,13 +1141,45 @@ def run(args, root, dev, rng, work) -> int:
     print("serve " + json.dumps(serve), flush=True)
 
     # ---- kernels vs twins, times ------------------------------------
-    kernels = [stft_phase(dev, rng, launches["log_spectrogram"]),
-               lstm_phase(dev, rng, launches["lstm_layer_bidir_fused"])]
+    # ---- the training main path, counted ----------------------------
+    train = train_phase(dev, work, args.seed)
+    tl = train["launches"]
+    print("training throughput " + json.dumps(train["throughput"]),
+          flush=True)
+
+    # ---- kernels vs twins, times ------------------------------------
+    both = {k: {"serve": launches.get(k, 0), "train": tl[k]} for k in tl}
+    kernels = [stft_phase(dev, rng, launches["log_spectrogram"]
+                          + tl["log_spectrogram"]),
+               lstm_phase(dev, rng, launches["lstm_layer_bidir_fused"]
+                          + tl["lstm_layer_bidir_fused"])]
+    for entry in kernels:
+        entry["launches_by_path"] = both[entry["name"]]
     step_errs, breakdown = step_phase(dev, ckpt32, rng)
     print("encode_step kernels vs twins " + json.dumps(step_errs),
           flush=True)
     print(f"served batch B={BATCH} T=512 fs=32000, ms "
           + json.dumps(breakdown), flush=True)
+
+    checks, step_inputs = whole_step_phase(dev, train["corpus_dir"],
+                                           train["csv"], args.seed)
+    stages, shape = train_step_breakdown(dev, *step_inputs)
+    t_train = shape["T"]
+    lstm_bwd, lstm_fwd_cs = lstm_train_phase(
+        dev, rng, t_train, tl["lstm_layer_bidir_fused_bwd"])
+    dec_fwd, dec_bwd = decoder_train_phase(
+        dev, rng, t_train, tl["decoder_loop_fused_losses_fwd"],
+        tl["decoder_loop_fused_losses_bwd"])
+    lstm_bwd["launches_by_path"] = both["lstm_layer_bidir_fused_bwd"]
+    dec_fwd["launches_by_path"] = both["decoder_loop_fused_losses_fwd"]
+    dec_bwd["launches_by_path"] = both["decoder_loop_fused_losses_bwd"]
+    kernels += [lstm_bwd, dec_fwd, dec_bwd]
+    print("training step, kernels (card) vs twins (CPU) "
+          + json.dumps(checks), flush=True)
+    print("LSTM forward with saved cs at the training shape "
+          + json.dumps(lstm_fwd_cs), flush=True)
+    print(f"training step {json.dumps(shape)}, ms " + json.dumps(stages),
+          flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

@@ -10,7 +10,9 @@ caller passes ``device="cpu"``.
 
 Ported so far: the encode server (``cli/serve_main.py`` ->
 ``serve/server.py`` -> ``infer/encode.encode_step``) for the
-bidirectional LSTM encoder with the ABCD head.
+bidirectional LSTM encoder with the ABCD head, and ABCD-VAE training
+(``cli/learning_main.py`` -> ``train/learner.py`` -> ``models/vae.py``)
+with the unidirectional LSTM decoder.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,140 @@
+"""Training entry point of the port (ABCD-VAE):
+
+    python -m seq2seq_abcd_vae_tpu_torch.cli.learning_main INPUT_ROOT \\
+        ANNOTATION.csv -S SAVE_ROOT -j JOB [-d cuda|cpu] [options]
+
+The flow of seq2seq_abcd_vae_tpu/cli/learning_main.py: save-dir layout,
+speaker_coding.json persistence, STFT geometry derived from the first
+wav's sampling rate, the decoder's cell defaulting to the encoder's, the
+validation batch defaulting to the training batch.  Runs on the card
+unless ``-d cpu``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+from ..data.annotations import AnnotationParser
+from ..data.batching import FrontendSpec
+from ..train.learner import Learner
+from ..train.logging_utils import logger
+from . import flags
+
+
+def get_save_dir(save_root: str, job_id_str: str) -> str:
+    save_dir = os.path.join(save_root, job_id_str)
+    os.makedirs(save_dir, exist_ok=True)
+    return save_dir
+
+
+def _refuse_unported(parameters) -> None:
+    if parameters.num_data_partitions not in (None, 1):
+        raise NotImplementedError(
+            "data-parallel training is not ported yet")
+    if parameters.device_corpus_cache == "on":
+        raise NotImplementedError(
+            "the device-resident corpus cache is not ported yet")
+    if parameters.profile_dir is not None:
+        raise NotImplementedError("--profile_dir is not ported yet")
+
+
+def main(argv=None) -> Learner:
+    parameters = flags.build_learning_parser().parse_args(argv)
+    _refuse_unported(parameters)
+    if torch.device(parameters.device).type == "cuda":
+        # float32 products outside the kernels, unless asked otherwise
+        torch.backends.cuda.matmul.allow_tf32 = (
+            parameters.matmul_precision not in ("highest", "float32"))
+
+    save_root = parameters.save_root
+    if save_root is None:
+        save_root = parameters.input_root
+    save_dir = get_save_dir(save_root, parameters.job_id)
+
+    speaker2ix = None
+    speaker_coding_path = os.path.join(save_dir, "speaker_coding.json")
+    if os.path.isfile(speaker_coding_path):
+        with open(speaker_coding_path, "r") as f:
+            speaker2ix = json.load(f)
+    data_parser = AnnotationParser(parameters.input_root,
+                                   parameters.annotation_file,
+                                   annotation_sep=parameters.annotation_sep,
+                                   speaker2ix=speaker2ix)
+    fs = data_parser.get_sample_freq()
+    num_speakers = data_parser.get_num_speakers()
+    if num_speakers > 0 and speaker2ix is None:
+        with open(speaker_coding_path, "w") as f:
+            json.dump(data_parser.speaker2ix, f)
+
+    fft_frame_length = int(np.floor(parameters.fft_frame_length * fs))
+    fft_step_size = int(np.floor(parameters.fft_step_size * fs))
+    if parameters.decoder_rnn_type is None:
+        parameters.decoder_rnn_type = parameters.encoder_rnn_type
+    batching_mode = parameters.batching_mode or (
+        "length_sorted" if parameters.length_sorted_batches else None)
+
+    learner = Learner(
+        input_size=int(fft_frame_length / 2 + 1),
+        encoder_rnn_hidden_size=parameters.encoder_rnn_hidden_size,
+        decoder_rnn_hidden_size=parameters.decoder_rnn_hidden_size,
+        mlp_hidden_size=parameters.mlp_hidden_size,
+        num_feature_categories=parameters.num_feature_categories,
+        feature_dim=parameters.feature_dim,
+        save_dir=save_dir,
+        encoder_rnn_type=parameters.encoder_rnn_type,
+        decoder_rnn_type=parameters.decoder_rnn_type,
+        encoder_rnn_layers=parameters.encoder_rnn_layers,
+        encoder_hidden_dropout=parameters.encoder_hidden_dropout,
+        decoder_input_dropout=parameters.decoder_input_dropout,
+        device=parameters.device,
+        seed=parameters.seed,
+        decoder_self_feedback=not parameters.greedy_decoder,
+        bidirectional_encoder=not parameters.unidirectional_encoder,
+        bidirectional_decoder=parameters.bidirectional_decoder,
+        right2left_decoder_weight=parameters.right2left_decoder_weight,
+        esn_leak=parameters.esn_leak,
+        num_speakers=num_speakers if num_speakers > 0 else None,
+        speaker_embed_dim=parameters.speaker_embed_dim,
+        prior_concentration=parameters.prior_concentration,
+        stft_method=parameters.stft_method,
+        batching_mode=batching_mode)
+
+    frontend = FrontendSpec(fft_frame_length, fft_step_size,
+                            centering=not parameters.fft_no_centering,
+                            window=parameters.fft_window_type)
+    logger.info("log(abs(STFT(wav))) + {eps}) / {normalizer} will be the "
+                "input.".format(eps=parameters.epsilon,
+                                normalizer=parameters.data_normalizer))
+    logger.info("Sampling frequency of data: {fs}".format(fs=fs))
+    logger.info("STFT window type: {fft_window}".format(
+        fft_window=parameters.fft_window_type))
+    logger.info("STFT frame lengths: {fft_frame_length_in_sec} sec".format(
+        fft_frame_length_in_sec=parameters.fft_frame_length))
+    logger.info("STFT step size: {fft_step_size_in_sec} sec".format(
+        fft_step_size_in_sec=parameters.fft_step_size))
+
+    train_dataset = data_parser.get_data(data_type="train",
+                                         channel=parameters.channel)
+    valid_dataset = data_parser.get_data(data_type="valid",
+                                         channel=parameters.channel)
+    if parameters.validation_batch_size is None:
+        parameters.validation_batch_size = parameters.batch_size
+    learner.learn(train_dataset, valid_dataset, parameters.epochs,
+                  parameters.batch_size, parameters.validation_batch_size,
+                  frontend=frontend, epsilon=parameters.epsilon,
+                  data_normalizer=parameters.data_normalizer,
+                  pretrain_epochs=parameters.pretrain_epochs,
+                  learning_rate=parameters.learning_rate,
+                  momentum=parameters.momentum,
+                  gradient_clip=parameters.clip,
+                  patience=parameters.patience)
+    return learner
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

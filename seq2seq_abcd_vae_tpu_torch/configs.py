@@ -1,11 +1,12 @@
 """Module configuration dataclasses (own copy of the JAX package's
-``configs.py``, as far as serving needs).
+``configs.py``, as far as serving and training need).
 
 Each config is rebuilt from the ``*_init_parameters`` dict stored beside
 its module's weights in ``checkpoint.pt``, which is what makes a
-checkpoint self-describing.  The serving slice of the port runs the
-bidirectional LSTM encoder with the ABCD head; ``check_served`` names the
-configurations that wait for later slices.
+checkpoint self-describing.  The port serves the bidirectional LSTM
+encoder with the ABCD head, and trains it with the unidirectional LSTM
+decoder (isotropic-Gaussian emission, sampled self-feedback);
+``check_served`` names the configurations that wait for later slices.
 """
 
 from __future__ import annotations
@@ -57,8 +58,7 @@ class EncoderConfig:
 
 @dataclass(frozen=True)
 class DecoderConfig:
-    """RNN_Variational_Decoder config.  Serving parses it to read a
-    checkpoint and otherwise ignores it."""
+    """RNN_Variational_Decoder config."""
     output_size: int
     rnn_hidden_size: int
     mlp_hidden_size: int
@@ -79,6 +79,20 @@ class DecoderConfig:
             raise ValueError("Only rnn_layers=1 is currently supported.")
         if not self.self_feedback:
             object.__setattr__(self, "input_dropout", 1.0)
+
+    @property
+    def has_speaker_embedding(self) -> bool:
+        return (self.num_speakers is not None
+                and self.speaker_embed_dim is not None)
+
+    @property
+    def hidden_size_total(self) -> int:
+        total = self.rnn_layers * self.rnn_hidden_size
+        if self.rnn_type == "LSTM":
+            total *= 2
+        if self.bidirectional:
+            total *= 2
+        return total
 
     def pack_init_parameters(self) -> dict[str, Any]:
         p = {
@@ -128,9 +142,13 @@ class ABCDSamplerConfig:
         return cls(**p)
 
 
-def check_served(encoder: EncoderConfig, latent_type: str = "abcd") -> None:
-    """Raise NotImplementedError for what this slice of the port does not
-    serve yet: other cells, unidirectional encoders, the plain VAE."""
+def check_served(encoder: EncoderConfig, latent_type: str = "abcd",
+                 decoder: Optional[DecoderConfig] = None) -> None:
+    """Raise NotImplementedError for what the port does not serve or train
+    yet: other cells, unidirectional encoders, the plain VAE, and (with a
+    ``decoder``, the training path) encoder dropout and every decoder but
+    the unidirectional LSTM with isotropic-Gaussian emission and sampled
+    self-feedback without input dropout."""
     if encoder.rnn_type != "LSTM":
         raise NotImplementedError(
             f"{encoder.rnn_type} encoders are not ported yet (the GRU, "
@@ -143,3 +161,26 @@ def check_served(encoder: EncoderConfig, latent_type: str = "abcd") -> None:
         raise NotImplementedError(
             f"latent type {latent_type!r} (the plain Gaussian VAE and its "
             "'params' mode) is not ported yet; it comes with a later slice")
+    if decoder is None:
+        return
+    if encoder.hidden_dropout > 0.0:
+        raise NotImplementedError(
+            "encoder inter-layer dropout is not ported yet (multi-layer "
+            "dropout comes with a later slice)")
+    if decoder.rnn_type != "LSTM":
+        raise NotImplementedError(
+            f"{decoder.rnn_type} decoders are not ported yet (the GRU, "
+            "Elman RNN and ESN decoder loops come with a later slice)")
+    if decoder.bidirectional:
+        raise NotImplementedError(
+            "the bidirectional decoder is not ported yet")
+    if decoder.input_dropout >= 1.0:
+        raise NotImplementedError(
+            "the greedy decoder (no self-feedback) is not ported yet")
+    if decoder.input_dropout > 0.0:
+        raise NotImplementedError(
+            "decoder input dropout is not ported yet")
+    if decoder.emission_distr_name != "isotropic_gaussian":
+        raise NotImplementedError(
+            f"emission {decoder.emission_distr_name!r} is not ported; the "
+            "port has the isotropic Gaussian only")

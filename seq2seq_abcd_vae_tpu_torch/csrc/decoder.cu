@@ -1,0 +1,683 @@
+// The LSTM decoder's time loop with its two training losses fused, forward
+// and backward, written for Hopper (sm_90a).
+//
+// Replaces seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:
+// decoder_loop_fused_losses (`_fused_fwd_call` / `_fused_fwd_kernel` and
+// `_fused_bwd_call` / `_fused_bwd_kernel`, with_offset=True).  Step t of the
+// loop, in the order of the scan body (models/decoder.py:341-361):
+//
+//   big  = h @ w_cat                         w_cat = [W_hh | emission lin1]
+//   emh  = tanh(big[:, 4H:] + b1)
+//   mean = emh[:, :m] @ w2m + b2[:F];  logvar = emh[:, m:] @ w2v + b2[F:]
+//   x    = mean + exp(logvar / 2) * noise[t-1]   (0 on a row's first step)
+//   gates = big[:, :4H] + x @ w_ih + bias;   c2, h2 = the LSTM cell
+//   h, c  = (h2, c2) while t < len, else frozen
+//
+// The emission at step t is position t-1's, so step t adds position t-1's
+// Gaussian NLL against targets[t-1] (gated by pmt = 1 <= t <= len); the
+// caller adds position T-1's term from out_last (the last step's pre-mask
+// h2).  The offset MLP runs on the pre-mask h2 of every step and adds its
+// BCE against (t == len - 1) while t < len.  These are exactly the TPU
+// kernel's slot map and masks (_step_masks, _offset_target).
+//
+// Design: rows are independent, so one block owns kRows batch rows and the
+// whole time loop; no block waits for another.  Every per-step product is a
+// loop over output columns (one column per thread, the tile's rows in
+// registers) reading the weight row-major, so neighbouring threads read
+// neighbouring addresses; the intermediates (big, x, h2, the offset hidden)
+// live in shared memory, five barriers a step.  The weights (2.5 MB at the
+// publication width, far more than a block holds) are re-read from L2 at
+// every step by every block: with the tile's 8 rows per weight load that
+// L2 -> SM traffic, not the card's float32 rate, bounds the loop.  The loss
+// sums are accumulated per thread in float64, reduced per block in a fixed
+// order, and the per-block partials are added in block order by a second
+// one-block kernel: no atomics, so a run repeats exactly.
+//
+// The backward runs the reverse-time adjoint of the same step for the same
+// tile of rows, recomputing the step from the saved h_{t-1}, c_{t-1} (h0,
+// c0 at t == 0), scaled by the loss cotangents (dnll, dbce) plus the
+// cotangent of out_last.  Weight gradients are sums over every (t, b): the
+// kernel writes each step's operands and cotangents as streams, and
+// csrc/wgrad.cu reduces them in a fixed order.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kRows = 8;  // batch rows per block
+constexpr int kThreads = 256;
+constexpr double kLog2Pi = 1.8378770664093453;
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.f / (1.f + expf(-x));
+}
+
+__device__ __forceinline__ float warp_sum(float s) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) s += __shfl_xor_sync(0xffffffffu, s, off);
+  return s;
+}
+
+// big[r][j] = (h @ w_cat)[r][j], with tanh(. + b1) on the emission columns.
+__device__ __forceinline__ void big_product(const float* __restrict__ w_cat,
+                                            const float* __restrict__ b1,
+                                            const float* s_h, float* s_big,
+                                            int H, int G4, int G) {
+  for (int j = threadIdx.x; j < G; j += blockDim.x) {
+    float acc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < H; ++k) {
+      const float w = __ldg(w_cat + (int64_t)k * G + j);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(s_h[r * H + k], w, acc[r]);
+    }
+    const float bj = j < G4 ? 0.f : b1[j - G4];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      s_big[r * G + j] = j < G4 ? acc[r] : tanhf(acc[r] + bj);
+  }
+}
+
+// emission mean / logvar of column f for every row of the tile.
+__device__ __forceinline__ void emission(const float* __restrict__ w2m,
+                                         const float* __restrict__ w2v,
+                                         const float* __restrict__ b2,
+                                         const float* s_big, int f, int F,
+                                         int M, int G4, int G,
+                                         float* mean, float* lv) {
+  float am[kRows], av[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    am[r] = 0.f;
+    av[r] = 0.f;
+  }
+#pragma unroll 4
+  for (int k = 0; k < M; ++k) {
+    const float wm = __ldg(w2m + (int64_t)k * F + f);
+    const float wv = __ldg(w2v + (int64_t)k * F + f);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      am[r] = fmaf(s_big[r * G + G4 + k], wm, am[r]);
+      av[r] = fmaf(s_big[r * G + G4 + M + k], wv, av[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    mean[r] = am[r] + b2[f];
+    lv[r] = av[r] + b2[F + f];
+  }
+}
+
+// gates of hidden unit u: big[:, g*H+u] + x @ w_ih[:, g*H+u] + bias.
+__device__ __forceinline__ void gate_inputs(const float* __restrict__ w_ih,
+                                            const float* __restrict__ bias,
+                                            const float* s_x,
+                                            const float* s_big, int u, int F,
+                                            int H, int G,
+                                            float z[4][kRows]) {
+  const int G4 = 4 * H;
+  float ax[4][kRows];
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) ax[g][r] = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < F; ++k) {
+    float w[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) w[g] = __ldg(w_ih + (int64_t)k * G4 + g * H + u);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float xv = s_x[r * F + k];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) ax[g][r] = fmaf(xv, w[g], ax[g][r]);
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const float bg = bias[g * H + u];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      z[g][r] = (s_big[r * G + g * H + u] + ax[g][r]) + bg;
+  }
+}
+
+// oh[r][j] = tanh(h2 @ wo1 + bo1)
+__device__ __forceinline__ void offset_hidden(const float* __restrict__ wo1,
+                                              const float* __restrict__ bo1,
+                                              const float* s_h2, float* s_oh,
+                                              int H, int Mo) {
+  for (int j = threadIdx.x; j < Mo; j += blockDim.x) {
+    float acc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < H; ++k) {
+      const float w = __ldg(wo1 + (int64_t)k * Mo + j);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(s_h2[r * H + k], w, acc[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s_oh[r * Mo + j] = tanhf(acc[r] + bo1[j]);
+  }
+}
+
+__device__ __forceinline__ float offset_logit(const float* __restrict__ wo2,
+                                              const float* s_oh, int r,
+                                              int Mo, float bo2) {
+  const int lane = threadIdx.x % 32;
+  float s = 0.f;
+  for (int j = lane; j < Mo; j += 32) s = fmaf(s_oh[r * Mo + j], wo2[j], s);
+  return warp_sum(s) + bo2;
+}
+
+__global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
+    const float* __restrict__ noise,    // (T, B, F)
+    const int* __restrict__ lengths,    // (B,)
+    const float* __restrict__ w_cat,    // (H, 4H + 2M)
+    const float* __restrict__ bias,     // (4H,)  b_ih + b_hh
+    const float* __restrict__ b1,       // (2M,)
+    const float* __restrict__ w2m,      // (M, F)
+    const float* __restrict__ w2v,      // (M, F)
+    const float* __restrict__ b2,       // (2F,)
+    const float* __restrict__ w_ih,     // (F, 4H)
+    const float* __restrict__ targets,  // (T, B, F)
+    const float* __restrict__ wo1,      // (H, Mo)
+    const float* __restrict__ bo1,      // (Mo,)
+    const float* __restrict__ wo2,      // (Mo,)
+    const float* __restrict__ bo2,      // (1,)
+    const float* __restrict__ h0,       // (B, H)
+    const float* __restrict__ c0,       // (B, H)
+    float* __restrict__ out_last,       // (B, H)
+    float* __restrict__ hs,             // (T, B, H) or nullptr
+    float* __restrict__ cs,             // (T, B, H) or nullptr
+    double* __restrict__ partial,       // (blocks, 2)
+    int T, int B, int F, int H, int M, int Mo) {
+  extern __shared__ float smem[];
+  __shared__ double s_red[kThreads];
+  const int G4 = 4 * H, G = G4 + 2 * M;
+  float* s_h = smem;                 // [kRows][H]   carry h
+  float* s_c = s_h + kRows * H;      // [kRows][H]   carry c
+  float* s_big = s_c + kRows * H;    // [kRows][G]
+  float* s_x = s_big + kRows * G;    // [kRows][F]
+  float* s_h2 = s_x + kRows * F;     // [kRows][H]   pre-mask h2
+  float* s_oh = s_h2 + kRows * H;    // [kRows][Mo]
+
+  const int r0 = blockIdx.x * kRows;
+  const int nrows = min(kRows, B - r0);
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int warp = tid / 32, nwarps = nth / 32;
+  int len[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) len[r] = r < nrows ? lengths[r0 + r] : 0;
+  for (int i = tid; i < kRows * H; i += nth) {
+    const int r = i / H;
+    s_h[i] = r < nrows ? h0[(int64_t)r0 * H + i] : 0.f;
+    s_c[i] = r < nrows ? c0[(int64_t)r0 * H + i] : 0.f;
+  }
+  const float bo2v = bo2[0];
+  double nll_acc = 0.0, bce_acc = 0.0;
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    big_product(w_cat, b1, s_h, s_big, H, G4, G);
+    __syncthreads();
+
+    for (int f = tid; f < F; f += nth) {
+      float mean[kRows], lv[kRows];
+      emission(w2m, w2v, b2, s_big, f, F, M, G4, G, mean, lv);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const bool pmt = t >= 1 && t - 1 < len[r];
+        float x = 0.f;
+        if (pmt) {
+          const int64_t o = ((int64_t)(t - 1) * B + r0 + r) * F + f;
+          x = mean[r] + expf(0.5f * lv[r]) * noise[o];
+          const float diff = targets[o] - mean[r];
+          nll_acc += (double)(0.5f * ((float)kLog2Pi + lv[r]
+                                      + diff * expf(-lv[r]) * diff));
+        }
+        s_x[r * F + f] = x;
+      }
+    }
+    __syncthreads();
+
+    for (int u = tid; u < H; u += nth) {
+      float z[4][kRows];
+      gate_inputs(w_ih, bias, s_x, s_big, u, F, H, G, z);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float ig = sigmoid(z[0][r]);
+        const float fg = sigmoid(z[1][r]);
+        const float gg = tanhf(z[2][r]);
+        const float og = sigmoid(z[3][r]);
+        const int i = r * H + u;
+        const float c2 = fg * s_c[i] + ig * gg;
+        const float h2 = og * tanhf(c2);
+        s_h2[i] = h2;
+        if (t < len[r]) {
+          s_h[i] = h2;
+          s_c[i] = c2;
+        }
+        if (r < nrows) {
+          const int64_t o = ((int64_t)t * B + r0 + r) * H + u;
+          if (hs) hs[o] = s_h[i];
+          if (cs) cs[o] = s_c[i];
+          if (t == T - 1) out_last[(int64_t)(r0 + r) * H + u] = h2;
+        }
+      }
+    }
+    __syncthreads();
+
+    offset_hidden(wo1, bo1, s_h2, s_oh, H, Mo);
+    __syncthreads();
+
+    for (int r = warp; r < kRows; r += nwarps) {
+      const float z = offset_logit(wo2, s_oh, r, Mo, bo2v);
+      if (tid % 32 == 0 && t < len[r]) {
+        const float y = t == len[r] - 1 ? 1.f : 0.f;
+        bce_acc += (double)(fmaxf(z, 0.f) - z * y
+                            + log1pf(expf(-fabsf(z))));
+      }
+    }
+    // The next step's first barrier orders these reads of s_oh before the
+    // next writes to it.
+  }
+
+  // fixed-order block reduction of the two loss sums
+  __syncthreads();
+  s_red[tid] = nll_acc;
+  __syncthreads();
+  if (tid == 0) {
+    double s = 0.0;
+    for (int i = 0; i < nth; ++i) s += s_red[i];
+    partial[blockIdx.x * 2] = s;
+  }
+  __syncthreads();
+  s_red[tid] = bce_acc;
+  __syncthreads();
+  if (tid == 0) {
+    double s = 0.0;
+    for (int i = 0; i < nth; ++i) s += s_red[i];
+    partial[blockIdx.x * 2 + 1] = s;
+  }
+}
+
+__global__ void loss_sum_kernel(const double* __restrict__ partial,
+                                int blocks, float* __restrict__ losses) {
+  if (threadIdx.x != 0) return;
+  double nll = 0.0, bce = 0.0;
+  for (int i = 0; i < blocks; ++i) {
+    nll += partial[2 * i];
+    bce += partial[2 * i + 1];
+  }
+  losses[0] = (float)nll;
+  losses[1] = (float)bce;
+}
+
+__global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
+    const float* __restrict__ noise, const int* __restrict__ lengths,
+    const float* __restrict__ w_cat, const float* __restrict__ bias,
+    const float* __restrict__ b1, const float* __restrict__ w2m,
+    const float* __restrict__ w2v, const float* __restrict__ b2,
+    const float* __restrict__ w_ih, const float* __restrict__ targets,
+    const float* __restrict__ wo1, const float* __restrict__ bo1,
+    const float* __restrict__ wo2, const float* __restrict__ bo2,
+    const float* __restrict__ h0, const float* __restrict__ c0,
+    const float* __restrict__ w_catT,   // (G, H)
+    const float* __restrict__ w_ihT,    // (4H, F)
+    const float* __restrict__ w2mT,     // (F, M)
+    const float* __restrict__ w2vT,     // (F, M)
+    const float* __restrict__ wo1T,     // (Mo, H)
+    const float* __restrict__ hs,       // (T, B, H)
+    const float* __restrict__ cs,       // (T, B, H)
+    const float* __restrict__ dlast,    // (B, H)
+    const float* __restrict__ gscale,   // (2,)  dnll, dbce
+    float* __restrict__ dh0,            // (B, H)
+    float* __restrict__ dc0,            // (B, H)
+    float* __restrict__ hp_s,           // (T, B, H)   h_{t-1}
+    float* __restrict__ dbig_s,         // (T, B, G)   [dz | d(emh pre-tanh)]
+    float* __restrict__ x_s,            // (T, B, F)   fed-back input
+    float* __restrict__ emh_s,          // (T, B, 2M)
+    float* __restrict__ dem_s,          // (T, B, 2F)  [dmean | dlogvar]
+    float* __restrict__ h2_s,           // (T, B, H)
+    float* __restrict__ doh_s,          // (T, B, Mo)
+    float* __restrict__ oh_s,           // (T, B, Mo)
+    float* __restrict__ dzo_s,          // (T, B)      offset-logit cotangent
+    int T, int B, int F, int H, int M, int Mo) {
+  extern __shared__ float smem[];
+  const int G4 = 4 * H, G = G4 + 2 * M;
+  float* s_hp = smem;                // [kRows][H]   h_{t-1}
+  float* s_big = s_hp + kRows * H;   // [kRows][G]   big, then gates, then dbig
+  float* s_ml = s_big + kRows * G;   // [kRows][2F]  mean|logvar, then dmean|dlogvar
+  float* s_x = s_ml + kRows * 2 * F; // [kRows][F]
+  float* s_c2 = s_x + kRows * F;     // [kRows][H]
+  float* s_h2 = s_c2 + kRows * H;    // [kRows][H]
+  float* s_oh = s_h2 + kRows * H;    // [kRows][Mo]  oh, then doh
+  float* s_dh = s_oh + kRows * Mo;   // [kRows][H]   carry cotangents
+  float* s_dc = s_dh + kRows * H;    // [kRows][H]
+  float* s_zo = s_dc + kRows * H;    // [kRows]      offset-logit cotangent
+
+  const int r0 = blockIdx.x * kRows;
+  const int nrows = min(kRows, B - r0);
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int warp = tid / 32, nwarps = nth / 32;
+  int len[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) len[r] = r < nrows ? lengths[r0 + r] : 0;
+  const float gnll = gscale[0], gbce = gscale[1];
+  const float bo2v = bo2[0];
+  for (int i = tid; i < kRows * H; i += nth) {
+    s_dh[i] = 0.f;
+    s_dc[i] = 0.f;
+  }
+
+  for (int t = T - 1; t >= 0; --t) {
+    for (int i = tid; i < kRows * H; i += nth) {
+      const int r = i / H;
+      float v = 0.f;
+      if (r < nrows)
+        v = t > 0 ? hs[((int64_t)(t - 1) * B + r0) * H + i]
+                  : h0[(int64_t)r0 * H + i];
+      s_hp[i] = v;
+    }
+    __syncthreads();
+
+    // ---- recompute the step
+    big_product(w_cat, b1, s_hp, s_big, H, G4, G);
+    __syncthreads();
+
+    for (int f = tid; f < F; f += nth) {
+      float mean[kRows], lv[kRows];
+      emission(w2m, w2v, b2, s_big, f, F, M, G4, G, mean, lv);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const bool pmt = t >= 1 && t - 1 < len[r];
+        float x = 0.f;
+        if (pmt) {
+          const int64_t o = ((int64_t)(t - 1) * B + r0 + r) * F + f;
+          x = mean[r] + expf(0.5f * lv[r]) * noise[o];
+        }
+        s_ml[r * 2 * F + f] = mean[r];
+        s_ml[r * 2 * F + F + f] = lv[r];
+        s_x[r * F + f] = x;
+        if (r < nrows) x_s[((int64_t)t * B + r0 + r) * F + f] = x;
+      }
+    }
+    __syncthreads();
+
+    for (int u = tid; u < H; u += nth) {
+      float z[4][kRows];
+      gate_inputs(w_ih, bias, s_x, s_big, u, F, H, G, z);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int i = r * H + u;
+        const float ig = sigmoid(z[0][r]);
+        const float fg = sigmoid(z[1][r]);
+        const float gg = tanhf(z[2][r]);
+        const float og = sigmoid(z[3][r]);
+        float c_prev = 0.f;
+        if (r < nrows)
+          c_prev = t > 0 ? cs[((int64_t)(t - 1) * B + r0) * H + i]
+                         : c0[(int64_t)r0 * H + i];
+        const float c2 = fg * c_prev + ig * gg;
+        const float h2 = og * tanhf(c2);
+        s_big[r * G + u] = ig;
+        s_big[r * G + H + u] = fg;
+        s_big[r * G + 2 * H + u] = gg;
+        s_big[r * G + 3 * H + u] = og;
+        s_c2[i] = c2;
+        s_h2[i] = h2;
+        if (r < nrows) h2_s[((int64_t)t * B + r0 + r) * H + u] = h2;
+      }
+    }
+    __syncthreads();
+
+    offset_hidden(wo1, bo1, s_h2, s_oh, H, Mo);
+    __syncthreads();
+
+    // ---- adjoint: offset BCE
+    for (int r = warp; r < kRows; r += nwarps) {
+      const float z = offset_logit(wo2, s_oh, r, Mo, bo2v);
+      if (tid % 32 == 0) {
+        const bool mt = t < len[r];
+        const float y = t == len[r] - 1 ? 1.f : 0.f;
+        const float dzo = mt ? gbce * (sigmoid(z) - y) : 0.f;
+        s_zo[r] = dzo;
+        if (r < nrows) dzo_s[(int64_t)t * B + r0 + r] = dzo;
+      }
+    }
+    __syncthreads();
+
+    for (int j = tid; j < Mo; j += nth) {
+      const float w = wo2[j];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float oh = s_oh[r * Mo + j];
+        const float doh = (s_zo[r] * w) * (1.f - oh * oh);
+        s_oh[r * Mo + j] = doh;
+        if (r < nrows) {
+          const int64_t o = ((int64_t)t * B + r0 + r) * Mo + j;
+          oh_s[o] = oh;
+          doh_s[o] = doh;
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- adjoint: the LSTM cell
+    for (int u = tid; u < H; u += nth) {
+      float acc[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+#pragma unroll 4
+      for (int j = 0; j < Mo; ++j) {
+        const float w = __ldg(wo1T + (int64_t)j * H + u);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(s_oh[r * Mo + j], w, acc[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int i = r * H + u;
+        const bool mt = t < len[r];
+        float dl = 0.f;
+        if (t == T - 1 && r < nrows) dl = dlast[(int64_t)(r0 + r) * H + u];
+        const float dh_carry = s_dh[i], dc_carry = s_dc[i];
+        const float dh2 = (acc[r] + dl) + (mt ? dh_carry : 0.f);
+        const float ig = s_big[r * G + u];
+        const float fg = s_big[r * G + H + u];
+        const float gg = s_big[r * G + 2 * H + u];
+        const float og = s_big[r * G + 3 * H + u];
+        const float tc = tanhf(s_c2[i]);
+        const float do_ = dh2 * tc;
+        const float dc2 = (mt ? dc_carry : 0.f) + dh2 * og * (1.f - tc * tc);
+        float c_prev = 0.f;
+        if (r < nrows)
+          c_prev = t > 0 ? cs[((int64_t)(t - 1) * B + r0) * H + i]
+                         : c0[(int64_t)r0 * H + i];
+        const float df = dc2 * c_prev;
+        const float di = dc2 * gg;
+        const float dg = dc2 * ig;
+        s_big[r * G + u] = di * ig * (1.f - ig);
+        s_big[r * G + H + u] = df * fg * (1.f - fg);
+        s_big[r * G + 2 * H + u] = dg * (1.f - gg * gg);
+        s_big[r * G + 3 * H + u] = do_ * og * (1.f - og);
+        s_dh[i] = mt ? 0.f : dh_carry;  // pass-through part of dh_{t-1}
+        s_dc[i] = (mt ? 0.f : dc_carry) + dc2 * fg;
+      }
+    }
+    __syncthreads();
+
+    // ---- adjoint: the fed-back sample and the emission NLL
+    for (int f = tid; f < F; f += nth) {
+      float acc[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+#pragma unroll 4
+      for (int j = 0; j < G4; ++j) {
+        const float w = __ldg(w_ihT + (int64_t)j * F + f);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(s_big[r * G + j], w, acc[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const bool pmt = t >= 1 && t - 1 < len[r];
+        float dmean = 0.f, dlv = 0.f;
+        if (pmt) {
+          const int64_t o = ((int64_t)(t - 1) * B + r0 + r) * F + f;
+          const float mean = s_ml[r * 2 * F + f];
+          const float lv = s_ml[r * 2 * F + F + f];
+          const float dx = acc[r];
+          const float eps = noise[o];
+          const float inv_var = expf(-lv);
+          const float diff = targets[o] - mean;
+          dmean = dx - gnll * diff * inv_var;
+          dlv = dx * 0.5f * expf(0.5f * lv) * eps
+                + gnll * 0.5f * (1.f - diff * inv_var * diff);
+        }
+        s_ml[r * 2 * F + f] = dmean;
+        s_ml[r * 2 * F + F + f] = dlv;
+        if (r < nrows) {
+          const int64_t o = ((int64_t)t * B + r0 + r) * 2 * F;
+          dem_s[o + f] = dmean;
+          dem_s[o + F + f] = dlv;
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- adjoint: the emission MLP's hidden layer
+    for (int j = tid; j < 2 * M; j += nth) {
+      const bool is_m = j < M;
+      const float* wT = is_m ? w2mT + j : w2vT + (j - M);
+      const int off = is_m ? 0 : F;
+      float acc[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+#pragma unroll 4
+      for (int f = 0; f < F; ++f) {
+        const float w = __ldg(wT + (int64_t)f * M);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          acc[r] = fmaf(s_ml[r * 2 * F + off + f], w, acc[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float emh = s_big[r * G + G4 + j];
+        s_big[r * G + G4 + j] = acc[r] * (1.f - emh * emh);
+        if (r < nrows) emh_s[((int64_t)t * B + r0 + r) * 2 * M + j] = emh;
+      }
+    }
+    __syncthreads();
+
+    // streams for the weight gradients
+    for (int i = tid; i < nrows * G; i += nth)
+      dbig_s[((int64_t)t * B + r0) * G + i] = s_big[i];
+    for (int i = tid; i < nrows * H; i += nth)
+      hp_s[((int64_t)t * B + r0) * H + i] = s_hp[i];
+
+    // dh_{t-1} = pass-through + dbig @ w_cat^T
+    for (int u = tid; u < H; u += nth) {
+      float acc[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+#pragma unroll 4
+      for (int j = 0; j < G; ++j) {
+        const float w = __ldg(w_catT + (int64_t)j * H + u);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(s_big[r * G + j], w, acc[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) s_dh[r * H + u] += acc[r];
+    }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < nrows * H; i += nth) {
+    dh0[(int64_t)r0 * H + i] = s_dh[i];
+    dc0[(int64_t)r0 * H + i] = s_dc[i];
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+long long abcd_decoder_fwd_smem_bytes(int F, int H, int M, int Mo) {
+  return (long long)kRows * (3 * H + 4 * H + 2 * M + F + Mo)
+         * (long long)sizeof(float);
+}
+
+long long abcd_decoder_bwd_smem_bytes(int F, int H, int M, int Mo) {
+  return ((long long)kRows * (5 * H + 4 * H + 2 * M + 3 * F + Mo) + kRows)
+         * (long long)sizeof(float);
+}
+
+// Forward (see the comment at the top).  hs / cs may be nullptr (no
+// backward to follow).  `partial` holds 2 * ceil(B / 8) doubles; `losses`
+// receives (nll over positions 0..T-2, bce over all positions).
+int abcd_decoder_fwd(const float* noise, const int* lengths,
+                     const float* w_cat, const float* bias, const float* b1,
+                     const float* w2m, const float* w2v, const float* b2,
+                     const float* w_ih, const float* targets,
+                     const float* wo1, const float* bo1, const float* wo2,
+                     const float* bo2, const float* h0, const float* c0,
+                     float* out_last, float* hs, float* cs, double* partial,
+                     float* losses, int T, int B, int F, int H, int M,
+                     int Mo, void* stream) {
+  if (T < 1 || B < 1 || F < 1 || H < 1 || M < 1 || Mo < 1)
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)abcd_decoder_fwd_smem_bytes(F, H, M, Mo);
+  cudaError_t err = cudaFuncSetAttribute(
+      decoder_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (B + kRows - 1) / kRows;
+  cudaStream_t s = (cudaStream_t)stream;
+  decoder_fwd_kernel<<<blocks, kThreads, smem, s>>>(
+      noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, targets, wo1, bo1,
+      wo2, bo2, h0, c0, out_last, hs, cs, partial, T, B, F, H, M, Mo);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  loss_sum_kernel<<<1, 32, 0, s>>>(partial, blocks, losses);
+  return (int)cudaGetLastError();
+}
+
+// Backward (see the comment at the top): writes dh0, dc0 and the streams
+// that csrc/wgrad.cu reduces into the weight gradients.
+int abcd_decoder_bwd(const float* noise, const int* lengths,
+                     const float* w_cat, const float* bias, const float* b1,
+                     const float* w2m, const float* w2v, const float* b2,
+                     const float* w_ih, const float* targets,
+                     const float* wo1, const float* bo1, const float* wo2,
+                     const float* bo2, const float* h0, const float* c0,
+                     const float* w_catT, const float* w_ihT,
+                     const float* w2mT, const float* w2vT, const float* wo1T,
+                     const float* hs, const float* cs, const float* dlast,
+                     const float* gscale, float* dh0, float* dc0,
+                     float* hp_s, float* dbig_s, float* x_s, float* emh_s,
+                     float* dem_s, float* h2_s, float* doh_s, float* oh_s,
+                     float* dzo_s, int T, int B, int F, int H, int M, int Mo,
+                     void* stream) {
+  if (T < 1 || B < 1 || F < 1 || H < 1 || M < 1 || Mo < 1)
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)abcd_decoder_bwd_smem_bytes(F, H, M, Mo);
+  cudaError_t err = cudaFuncSetAttribute(
+      decoder_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (B + kRows - 1) / kRows;
+  decoder_bwd_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, targets, wo1, bo1,
+      wo2, bo2, h0, c0, w_catT, w_ihT, w2mT, w2vT, wo1T, hs, cs, dlast,
+      gscale, dh0, dc0, hp_s, dbig_s, x_s, emh_s, dem_s, h2_s, doh_s, oh_s,
+      dzo_s, T, B, F, H, M, Mo);
+  return (int)cudaGetLastError();
+}
+
+const char* abcd_cuda_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

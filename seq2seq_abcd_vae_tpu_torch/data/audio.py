@@ -66,3 +66,55 @@ def center_pad_segment(x: np.ndarray, pad: int, out: np.ndarray) -> None:
     out[pad:pad + n] = x
     stop = n - 2 - pad
     out[pad + n: 2 * pad + n] = x[n - 2: (None if stop < 0 else stop):-1]
+
+
+class SegmentDataset:
+    """Variable-length audio segments from annotation rows.
+
+    ``rows`` is a list of (index label, row dict) pairs; segment bounds are
+    computed once, and raw samples come from the shared WavCache.
+    """
+
+    def __init__(self, rows, wav_cache: WavCache, channel: int = 0,
+                 speaker2ix: dict | None = None):
+        self.rows = [row for _, row in rows]
+        self.wav_cache = wav_cache
+        self.channel = channel
+        self.speaker2ix = speaker2ix
+        n = len(rows)
+        self.index_labels = np.asarray([ix for ix, _ in rows], np.int64)
+        self.onsets_np = np.zeros(n, np.int64)
+        self.offsets_np = np.zeros(n, np.int64)
+        self.paths = [row["input_path"] for row in self.rows]
+        ref_fs = None
+        for path in dict.fromkeys(self.paths):
+            fs = wav_cache.sample_freq(path)
+            if ref_fs is None:
+                ref_fs = fs
+            elif fs != ref_fs:
+                import warnings
+                warnings.warn(
+                    f"{path} has fs={fs} but the corpus was set up for "
+                    f"fs={ref_fs}; STFT geometry will be wrong for this "
+                    "file", stacklevel=2)
+            pos = [i for i, p in enumerate(self.paths) if p == path]
+            on, off = segment_sample_bounds(
+                [float(self.rows[i]["onset"]) for i in pos],
+                [float(self.rows[i]["offset"]) for i in pos], fs)
+            self.onsets_np[pos] = on
+            self.offsets_np[pos] = off
+        self.lengths_np = self.offsets_np - self.onsets_np
+        if speaker2ix is None:
+            self.speakers_np = np.full(n, -1, np.int32)
+        else:
+            self.speakers_np = np.asarray(
+                [speaker2ix[str(row["speaker"])] for row in self.rows],
+                np.int32)
+
+    def segment_raw_pos(self, pos: int) -> np.ndarray:
+        """Raw samples by positional index."""
+        wav = self.wav_cache.read(self.paths[pos], self.channel)
+        return wav[self.onsets_np[pos]:self.offsets_np[pos]]
+
+    def __len__(self) -> int:
+        return len(self.rows)

@@ -3,8 +3,8 @@ seq2seq_abcd_vae_tpu/models/encoder.py, bidirectional LSTM only).
 
 The output is the flattened final state: for each (layer, direction) the
 LSTM's h and c are concatenated, and the blocks are flattened row-major
-in torch order, so the width is layers * hidden * 2 * 2.  Serving is
-deterministic, so there is no inter-layer dropout.
+in torch order, so the width is layers * hidden * 2 * 2.  Inter-layer
+dropout is not ported (``configs.check_trainable`` refuses it).
 """
 
 from __future__ import annotations
@@ -12,7 +12,24 @@ from __future__ import annotations
 import torch
 
 from ..configs import EncoderConfig, check_served
+from . import initializers as init
 from . import rnn as rnn_mod
+
+
+def encoder_init(gen: torch.Generator, cfg: EncoderConfig) -> list:
+    """Fresh layers, each ``{"w_ih" (2, F, 4H), "b_ih" (2, 4H), "w_hh"
+    (2, H, 4H), "b_hh" (2, 4H)}`` with the two directions stacked (drawn
+    forward direction first, as the JAX package stores them)."""
+    check_served(cfg)
+    layers = []
+    for index in range(cfg.rnn_layers):
+        in_size = (cfg.input_size if index == 0
+                   else 2 * cfg.rnn_hidden_size)
+        pair = [init.rnn_gate_params(gen, in_size, cfg.rnn_hidden_size, 4)
+                for _ in range(2)]
+        layers.append({k: torch.stack([p[k] for p in pair])
+                       for k in pair[0]})
+    return layers
 
 
 def encoder_apply(params: list, cfg: EncoderConfig, x: torch.Tensor,

@@ -6,7 +6,9 @@ frozen once it ends, which reproduces the reference's packed-sequence
 "shrinking batch" exactly, and the reverse direction joins short rows
 late.  Both directions of a layer run in one call of
 ``ops/lstm_kernel.lstm_layer_bidir_fused``: the CUDA kernel for tensors on
-the card, its plain twin for tensors on the CPU.  Gates are in torch
+the card, its plain twin for tensors on the CPU.  When autograd needs a
+gradient the call goes through ``lstm_layer_bidir_fused_train``, whose
+backward is the hand-written reverse-time kernel.  Gates are in torch
 order (i, f, g, o).
 """
 
@@ -37,9 +39,12 @@ def run_rnn_layer_bidir(layer: dict, x: torch.Tensor,
     Returns (outs_fwd (B, T, H), outs_bwd (B, T, H),
     [(h, c)_fwd, (h, c)_bwd]) as the JAX function does.
     """
-    outs, h_n, c_n = lstm_kernel.lstm_layer_bidir_fused(
-        x.transpose(0, 1).contiguous(), lengths, layer["w_ih"],
-        layer["b_ih"], layer["w_hh"], layer["b_hh"])
+    args = (x.transpose(0, 1).contiguous(), lengths, layer["w_ih"],
+            layer["b_ih"], layer["w_hh"], layer["b_hh"])
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        outs, h_n, c_n = lstm_kernel.lstm_layer_bidir_fused_train(*args)
+    else:
+        outs, h_n, c_n = lstm_kernel.lstm_layer_bidir_fused(*args)
     outs_f = outs[:, 0].transpose(0, 1)
     outs_b = outs[:, 1].flip(0).transpose(0, 1)
     return outs_f, outs_b, [(h_n[0], c_n[0]), (h_n[1], c_n[1])]

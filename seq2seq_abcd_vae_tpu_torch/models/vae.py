@@ -1,0 +1,89 @@
+"""Assembled seq2seq ABCD-VAE: encoder -> ABCD head -> decoder, one loss
+(PyTorch port of seq2seq_abcd_vae_tpu/models/vae.py, the ABCD family).
+
+The losses are unnormalised sums; ``training_loss`` divides them by the
+number of real rows.  The randomness is an input: the Gumbel noise (B, K)
+of the head and the decoder's noise (T, B, F), so that the parity tests
+can hand both packages the same draws.  Pretraining (``no_sample``)
+bypasses the Gumbel sample.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..configs import (ABCDSamplerConfig, DecoderConfig, EncoderConfig,
+                       check_served)
+from . import abcd as abcd_mod
+from . import decoder as dec_mod
+from . import encoder as enc_mod
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    encoder: EncoderConfig
+    latent: ABCDSamplerConfig
+    decoder: DecoderConfig
+
+    @property
+    def latent_type(self) -> str:
+        return "abcd"
+
+    def check(self) -> None:
+        if not isinstance(self.latent, ABCDSamplerConfig):
+            raise NotImplementedError(
+                "the plain Gaussian VAE is not ported yet")
+        check_served(self.encoder, "abcd", self.decoder)
+
+
+def model_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    cfg.check()
+    return {
+        "encoder": enc_mod.encoder_init(gen, cfg.encoder),
+        "feature_sampler": abcd_mod.abcd_init(gen, cfg.latent),
+        "decoder": dec_mod.decoder_init(gen, cfg.decoder),
+    }
+
+
+def forward_losses(params: dict, cfg: ModelConfig, *, inputs, lengths,
+                   speakers, gumbel_noise, decoder_noise, entire_data_size,
+                   temperature=1.0, no_sample: bool = False) -> dict:
+    """One forward pass: the three unnormalised loss sums and the logits.
+
+    inputs: (B, T, F) padded log-spectrograms; lengths: (B,) frame counts
+    (0 marks batch-padding rows); gumbel_noise (B, K) (unused when
+    ``no_sample``); decoder_noise (T, B, F).
+    """
+    row_mask = (lengths > 0).to(inputs.dtype)
+    last_hidden = enc_mod.encoder_apply(params["encoder"], cfg.encoder,
+                                        inputs, lengths)
+    head = params["feature_sampler"]
+    logits = abcd_mod.abcd_logits(head, last_hidden)
+    features = abcd_mod.abcd_sample(head, logits, temperature, gumbel_noise,
+                                    no_sample=no_sample)
+    kl = abcd_mod.abcd_kl(head, cfg.latent, logits, entire_data_size,
+                          row_mask=row_mask)
+    emission_loss, offset_loss = dec_mod.decoder_losses(
+        params["decoder"], cfg.decoder, features, lengths, inputs,
+        decoder_noise, speaker=speakers)
+    return {"emission_loss": emission_loss, "offset_loss": offset_loss,
+            "kl_loss": kl, "num_rows": row_mask.sum(),
+            "category_logits": logits}
+
+
+def training_loss(params: dict, cfg: ModelConfig, batch: dict, noise: dict,
+                  entire_data_size, temperature=1.0, no_sample: bool = False):
+    """Scalar loss = (emission + offset + KL) / real rows, and the aux
+    dict.  ``batch`` holds inputs, lengths, speakers; ``noise`` holds
+    ``gumbel`` and ``decoder``."""
+    out = forward_losses(params, cfg, inputs=batch["inputs"],
+                         lengths=batch["lengths"],
+                         speakers=batch.get("speakers"),
+                         gumbel_noise=noise.get("gumbel"),
+                         decoder_noise=noise["decoder"],
+                         entire_data_size=entire_data_size,
+                         temperature=temperature, no_sample=no_sample)
+    total = out["emission_loss"] + out["offset_loss"] + out["kl_loss"]
+    return total / out["num_rows"], out

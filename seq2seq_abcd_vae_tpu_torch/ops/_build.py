@@ -21,17 +21,24 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"stft": _PKG / "csrc" / "stft.cu",
-           "lstm_bidir": _PKG / "csrc" / "lstm_bidir.cu"}
+           "lstm_bidir": _PKG / "csrc" / "lstm_bidir.cu",
+           "decoder": _PKG / "csrc" / "decoder.cu",
+           "wgrad": _PKG / "csrc" / "wgrad.cu"}
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# argument types of each library's launch function, pointers and the
-# stream as c_void_p so that ctypes never cuts them to 32 bits
+_L = ctypes.c_longlong
+# argument types of each library's entry points, pointers and the stream
+# as c_void_p so that ctypes never cuts them to 32 bits
 SIGNATURES = {
-    "stft": ("abcd_log_spectrogram",
-             [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-              _P]),
-    "lstm_bidir": ("abcd_lstm_bidir_fwd",
-                   [_P] * 9 + [_I] * 4 + [_P]),
+    "stft": {"abcd_log_spectrogram":
+             [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]},
+    "lstm_bidir": {"abcd_lstm_bidir_fwd": [_P] * 10 + [_I] * 4 + [_P],
+                   "abcd_lstm_bidir_bwd": [_P] * 16 + [_I] * 4 + [_P]},
+    "decoder": {"abcd_decoder_fwd": [_P] * 21 + [_I] * 6 + [_P],
+                "abcd_decoder_bwd": [_P] * 36 + [_I] * 6 + [_P]},
+    "wgrad": {"abcd_wgrad": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P],
+              "abcd_wgrad_splits": [_I, _I, _I],
+              "abcd_add2": [_P, _P, _P, _L, _P]},
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -95,10 +102,10 @@ def load(name: str) -> ctypes.CDLL:
     if not path.exists():
         build((name,))
     lib = ctypes.CDLL(str(path))
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.abcd_cuda_error_string.argtypes = [ctypes.c_int]
     lib.abcd_cuda_error_string.restype = ctypes.c_char_p
     return lib

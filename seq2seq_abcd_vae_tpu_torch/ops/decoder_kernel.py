@@ -1,0 +1,345 @@
+"""The LSTM decoder's time loop with both training losses fused, forward
+and backward: the CUDA kernels of ``csrc/decoder.cu`` and their plain
+PyTorch twins.
+
+Replaces seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:
+decoder_loop_fused_losses (``_fused_fwd_call`` / ``_fused_fwd_kernel``,
+``_fused_bwd_call`` / ``_fused_bwd_kernel``, with_offset=True).  The loop
+samples its own feedback (zero first input, then the sampled emission of
+the previous position with the presampled ``noise``), accumulates the
+Gaussian emission NLL of positions 0..T-2 against ``targets`` and the
+offset MLP's BCE against (t == len - 1), and returns the last step's
+pre-mask h2, from which the caller adds position T-1's emission term.
+:func:`decoder_loop_fused_losses` wires both kernels into
+``torch.autograd``; each wrapper launches its kernel for CUDA tensors and
+takes its twin only for CPU tensors.
+
+Arguments, in the JAX function's order and layouts ((in, out) matrices):
+noise and targets (T, B, F) position-major; lengths (B,) int32; w_cat
+(H, 4H + 2m) = [W_hh | emission lin1]; bias (4H,) = b_ih + b_hh; b1 (2m,);
+w2m, w2v (m, F); b2 (2F,); w_ih (F, 4H); the offset MLP's wo1 (H, Mo),
+bo1 (Mo,), wo2 (Mo,) and bo2 (1,); h0, c0 (B, H).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build, wgrad
+
+_LOG_2PI = math.log(2.0 * math.pi)
+ROWS_PER_BLOCK = 8  # kRows in csrc/decoder.cu
+
+_NAMES = ("noise", "lengths", "w_cat", "bias", "b1", "w2m", "w2v", "b2",
+          "w_ih", "targets", "wo1", "bo1", "wo2", "bo2", "h0", "c0")
+
+
+def _shapes(args):
+    noise, _, w_cat, _, _, w2m, _, _, _, _, wo1 = args[:11]
+    t, b, f = noise.shape
+    hidden = w_cat.shape[0]
+    m = w2m.shape[0]
+    mo = wo1.shape[1]
+    return t, b, f, hidden, m, mo
+
+
+def _check(args):
+    if len(args) != len(_NAMES):
+        raise TypeError(f"expected {len(_NAMES)} arguments")
+    if args[0].dim() != 3:
+        raise ValueError("noise must be (T, B, F)")
+    t, b, f, hidden, m, mo = _shapes(args)
+    want = {"noise": (t, b, f), "lengths": (b,),
+            "w_cat": (hidden, 4 * hidden + 2 * m), "bias": (4 * hidden,),
+            "b1": (2 * m,), "w2m": (m, f), "w2v": (m, f), "b2": (2 * f,),
+            "w_ih": (f, 4 * hidden), "targets": (t, b, f),
+            "wo1": (hidden, mo), "bo1": (mo,), "wo2": (mo,), "bo2": (1,),
+            "h0": (b, hidden), "c0": (b, hidden)}
+    device = args[0].device
+    for name, tensor in zip(_NAMES, args):
+        if tuple(tensor.shape) != want[name]:
+            raise ValueError(f"{name} has shape {tuple(tensor.shape)}, "
+                             f"expected {want[name]}")
+        dtype = torch.int32 if name == "lengths" else torch.float32
+        if tensor.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {tensor.dtype}")
+        if tensor.device != device:
+            raise ValueError(f"{name} is on {tensor.device}, noise on "
+                             f"{device}")
+        if not tensor.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    if t < 1 or b < 1:
+        raise ValueError("need at least one step and one row")
+
+
+def _masks(t, lengths, device):
+    """(T, B, 1) step masks: mt (t < len), pmt (1 <= t <= len: the step
+    carries position t-1's emission) and the offset target (t == len-1)."""
+    steps = torch.arange(t, device=device)[:, None]
+    lens = lengths.to(device).long()[None, :]
+    mt = steps < lens
+    pmt = (steps >= 1) & (steps - 1 < lens)
+    y = (steps == lens - 1).float()
+    return mt.unsqueeze(-1), pmt.unsqueeze(-1), y.unsqueeze(-1)
+
+
+def _cell(big, x, w_ih, bias, c, hidden):
+    gates = (big[:, :4 * hidden] + x @ w_ih) + bias
+    i, f, g, o = gates.chunk(4, dim=-1)
+    i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                  torch.sigmoid(o))
+    c2 = f * c + i * g
+    return i, f, g, o, c2, o * torch.tanh(c2)
+
+
+def _emission(big, hidden, m, b1, w2m, w2v, b2, f_dim):
+    emh = torch.tanh(big[:, 4 * hidden:] + b1)
+    mean = emh[:, :m] @ w2m + b2[:f_dim]
+    logvar = emh[:, m:] @ w2v + b2[f_dim:]
+    return emh, mean, logvar
+
+
+def _bce(z, y):
+    return (torch.clamp(z, min=0.0) - z * y
+            + torch.log1p(torch.exp(-torch.abs(z))))
+
+
+def decoder_fused_losses_fwd_plain(noise, lengths, w_cat, bias, b1, w2m,
+                                   w2v, b2, w_ih, targets, wo1, bo1, wo2,
+                                   bo2, h0, c0):
+    """Plain PyTorch twin of the forward kernel: the scan body of
+    models/decoder.py:_run_direction with the losses of
+    decoder_pallas._fused_fwd_kernel, step by step.
+
+    Returns (out_last (B, H), nll (), bce (), hs (T, B, H), cs (T, B, H));
+    hs / cs are the masked carries after each step.
+    """
+    t, b, f, hidden, m, _ = _shapes((noise, lengths, w_cat, bias, b1, w2m,
+                                     w2v, b2, w_ih, targets, wo1))
+    mt, pmt, y = _masks(t, lengths, noise.device)
+    h, c = h0, c0
+    nll = noise.new_zeros(())
+    bce = noise.new_zeros(())
+    zero = noise.new_zeros((b, f))
+    hs, cs = [], []
+    for s in range(t):
+        big = h @ w_cat
+        _, mean, logvar = _emission(big, hidden, m, b1, w2m, w2v, b2, f)
+        eps = noise[s - 1] if s > 0 else zero
+        tgt = targets[s - 1] if s > 0 else zero
+        x = torch.where(pmt[s], mean + torch.exp(0.5 * logvar) * eps, 0.0)
+        diff = tgt - mean
+        nll_s = 0.5 * (_LOG_2PI + logvar + diff * torch.exp(-logvar) * diff)
+        nll = nll + torch.where(pmt[s], nll_s, 0.0).sum()
+        _, _, _, _, c2, h2 = _cell(big, x, w_ih, bias, c, hidden)
+        oh = torch.tanh(h2 @ wo1 + bo1)
+        z = (oh * wo2).sum(-1, keepdim=True) + bo2
+        bce = bce + torch.where(mt[s], _bce(z, y[s]), 0.0).sum()
+        h = torch.where(mt[s], h2, h)
+        c = torch.where(mt[s], c2, c)
+        hs.append(h)
+        cs.append(c)
+    return h2, nll, bce, torch.stack(hs), torch.stack(cs)
+
+
+def decoder_fused_losses_fwd(*args, save: bool = True):
+    """The forward: (out_last, nll, bce, hs, cs); hs / cs are None when
+    ``save`` is False (no backward follows, so the kernel writes neither).
+    CUDA tensors launch the kernel (one count); CPU tensors take
+    ``decoder_fused_losses_fwd_plain``."""
+    _check(args)
+    noise = args[0]
+    if noise.device.type == "cpu":
+        out = decoder_fused_losses_fwd_plain(*args)
+        return out if save else out[:3] + (None, None)
+    t, b, f, hidden, m, mo = _shapes(args)
+    lib = _build.load("decoder")
+    dev = noise.device
+    out_last = torch.empty((b, hidden), dtype=torch.float32, device=dev)
+    hs = (torch.empty((t, b, hidden), dtype=torch.float32, device=dev)
+          if save else None)
+    cs = torch.empty_like(hs) if save else None
+    blocks = -(-b // ROWS_PER_BLOCK)
+    partial = torch.empty((blocks, 2), dtype=torch.float64, device=dev)
+    losses = torch.empty((2,), dtype=torch.float32, device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.abcd_decoder_fwd(*[a.data_ptr() for a in args],
+                                   out_last.data_ptr(), ptr(hs), ptr(cs),
+                                   partial.data_ptr(), losses.data_ptr(),
+                                   t, b, f, hidden, m, mo, stream)
+    _build.check(lib, err, "decoder_loop_fused_losses")
+    decoder_fused_losses_fwd.launches += 1
+    return out_last, losses[0].clone(), losses[1].clone(), hs, cs
+
+
+decoder_fused_losses_fwd.launches = 0
+
+
+def decoder_fused_losses_bwd_plain(noise, lengths, w_cat, bias, b1, w2m,
+                                   w2v, b2, w_ih, targets, wo1, bo1, wo2,
+                                   bo2, h0, c0, hs, cs, dlast, gscale):
+    """Plain PyTorch twin of the backward kernel: the explicit
+    reverse-time adjoint of the forward (not autograd through it), in the
+    order of operations of decoder_pallas._fused_bwd_kernel.
+
+    ``gscale`` is (2,): the cotangents of (nll, bce); ``dlast`` (B, H) that
+    of out_last.  Returns (dw_cat, dbias, db1, dw2m, dw2v, db2, dw_ih, dwo1,
+    dbo1, dwo2, dbo2, dh0, dc0) in the arguments' layouts.
+    """
+    t, b, f, hidden, m, _ = _shapes((noise, lengths, w_cat, bias, b1, w2m,
+                                     w2v, b2, w_ih, targets, wo1))
+    mt, pmt, y = _masks(t, lengths, noise.device)
+    gnll, gbce = gscale[0], gscale[1]
+    zero_f = noise.new_zeros((b, f))
+    dh = h0.new_zeros((b, hidden))
+    dc = h0.new_zeros((b, hidden))
+    streams = {k: [None] * t for k in ("hp", "dbig", "x", "emh", "dem",
+                                       "h2", "doh", "oh", "dzo")}
+    for s in reversed(range(t)):
+        h_prev = hs[s - 1] if s > 0 else h0
+        c_prev = cs[s - 1] if s > 0 else c0
+        eps = noise[s - 1] if s > 0 else zero_f
+        tgt = targets[s - 1] if s > 0 else zero_f
+        big = h_prev @ w_cat
+        emh, mean, logvar = _emission(big, hidden, m, b1, w2m, w2v, b2, f)
+        std = torch.exp(0.5 * logvar)
+        x = torch.where(pmt[s], mean + std * eps, 0.0)
+        i, fg, g, o, c2, h2 = _cell(big, x, w_ih, bias, c_prev, hidden)
+        tc = torch.tanh(c2)
+        oh = torch.tanh(h2 @ wo1 + bo1)
+        z = (oh * wo2).sum(-1, keepdim=True) + bo2
+        dzo = torch.where(mt[s], gbce * (torch.sigmoid(z) - y[s]), 0.0)
+        doh = (dzo * wo2) * (1.0 - oh * oh)
+        dl = dlast if s == t - 1 else 0.0
+        dh2 = (doh @ wo1.T + dl) + torch.where(mt[s], dh, 0.0)
+        do = dh2 * tc
+        dc2 = torch.where(mt[s], dc, 0.0) + dh2 * o * (1.0 - tc * tc)
+        df, di, dg = dc2 * c_prev, dc2 * g, dc2 * i
+        dz = torch.cat([di * i * (1.0 - i), df * fg * (1.0 - fg),
+                        dg * (1.0 - g * g), do * o * (1.0 - o)], dim=-1)
+        dx = torch.where(pmt[s], dz @ w_ih.T, 0.0)
+        inv_var = torch.exp(-logvar)
+        diff = tgt - mean
+        gm = torch.where(pmt[s], gnll, 0.0)
+        dmean = dx - gm * diff * inv_var
+        dlogvar = dx * 0.5 * std * eps + gm * 0.5 * (1.0 - diff * inv_var
+                                                     * diff)
+        demh = torch.cat([dmean @ w2m.T, dlogvar @ w2v.T], dim=-1)
+        dbig = torch.cat([dz, demh * (1.0 - emh * emh)], dim=-1)
+        dh = torch.where(mt[s], 0.0, dh) + dbig @ w_cat.T
+        dc = torch.where(mt[s], 0.0, dc) + dc2 * fg
+        for k, v in (("hp", h_prev), ("dbig", dbig), ("x", x), ("emh", emh),
+                     ("dem", torch.cat([dmean, dlogvar], -1)), ("h2", h2),
+                     ("doh", doh), ("oh", oh), ("dzo", dzo)):
+            streams[k][s] = v
+    st = {k: torch.cat(v) for k, v in streams.items()}  # (T * B, .)
+    return _weight_grads(st, hidden, m, f, wgrad.at_b_plain) + (dh, dc)
+
+
+def _weight_grads(st, hidden, m, f, at_b):
+    """Every weight gradient from the (T * B, .) streams."""
+    g4 = 4 * hidden
+    dbig = st["dbig"]
+    dw_cat = at_b(st["hp"], dbig)
+    dbig_sum = at_b(None, dbig).reshape(-1)
+    dw_ih = at_b(st["x"], dbig[:, :g4])
+    dw2m = at_b(st["emh"][:, :m], st["dem"][:, :f])
+    dw2v = at_b(st["emh"][:, m:], st["dem"][:, f:])
+    db2 = at_b(None, st["dem"]).reshape(-1)
+    dwo1 = at_b(st["h2"], st["doh"])
+    dbo1 = at_b(None, st["doh"]).reshape(-1)
+    dwo2 = at_b(st["oh"], st["dzo"]).reshape(-1)
+    dbo2 = at_b(None, st["dzo"]).reshape(-1)
+    return (dw_cat, dbig_sum[:g4], dbig_sum[g4:], dw2m, dw2v, db2, dw_ih,
+            dwo1, dbo1, dwo2, dbo2)
+
+
+def decoder_fused_losses_bwd(*args):
+    """The backward: args as the forward's, then hs, cs, dlast (B, H) and
+    gscale (2,) = the cotangents of (nll, bce).  Returns the 13 gradients
+    of ``decoder_fused_losses_bwd_plain``.  CUDA tensors launch the
+    reverse-time kernel, then ``ops/wgrad.py``'s reductions of its streams
+    (one count); CPU tensors take the twin."""
+    fwd_args, (hs, cs, dlast, gscale) = args[:16], args[16:]
+    _check(fwd_args)
+    t, b, f, hidden, m, mo = _shapes(fwd_args)
+    dev = fwd_args[0].device
+    for name, tensor, shape in (("hs", hs, (t, b, hidden)),
+                                ("cs", cs, (t, b, hidden)),
+                                ("dlast", dlast, (b, hidden)),
+                                ("gscale", gscale, (2,))):
+        if (tuple(tensor.shape) != shape or tensor.dtype != torch.float32
+                or tensor.device != dev or not tensor.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 {shape} on "
+                             f"{dev}")
+    if dev.type == "cpu":
+        return decoder_fused_losses_bwd_plain(*args)
+    lib = _build.load("decoder")
+    w_cat, w2m, w2v, w_ih, wo1 = (fwd_args[i] for i in (2, 5, 6, 8, 10))
+    g = w_cat.shape[1]
+    transposed = [w.transpose(0, 1).contiguous()
+                  for w in (w_cat, w_ih, w2m, w2v, wo1)]
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                       device=dev)
+    dh0, dc0 = empty(b, hidden), empty(b, hidden)
+    st = {"hp": empty(t, b, hidden), "dbig": empty(t, b, g),
+          "x": empty(t, b, f), "emh": empty(t, b, 2 * m),
+          "dem": empty(t, b, 2 * f), "h2": empty(t, b, hidden),
+          "doh": empty(t, b, mo), "oh": empty(t, b, mo),
+          "dzo": empty(t, b, 1)}
+    order = ("hp", "dbig", "x", "emh", "dem", "h2", "doh", "oh", "dzo")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.abcd_decoder_bwd(
+            *[a.data_ptr() for a in fwd_args],
+            *[w.data_ptr() for w in transposed],
+            hs.data_ptr(), cs.data_ptr(), dlast.data_ptr(),
+            gscale.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+            *[st[k].data_ptr() for k in order], t, b, f, hidden, m, mo,
+            stream)
+        _build.check(lib, err, "decoder_loop_fused_losses backward")
+        rows = {k: v.view(t * b, v.shape[-1]) for k, v in st.items()}
+        grads = _weight_grads(rows, hidden, m, f, wgrad.at_b)
+    decoder_fused_losses_bwd.launches += 1
+    return grads + (dh0, dc0)
+
+
+decoder_fused_losses_bwd.launches = 0
+
+
+class _DecoderFusedLosses(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *args):
+        out_last, nll, bce, hs, cs = decoder_fused_losses_fwd(*args)
+        ctx.save_for_backward(*args, hs, cs)
+        return out_last, nll, bce
+
+    @staticmethod
+    def backward(ctx, dlast, dnll, dbce):
+        saved = ctx.saved_tensors
+        gscale = torch.stack([dnll.reshape(()), dbce.reshape(())]).float()
+        grads = decoder_fused_losses_bwd(*saved, dlast.contiguous(),
+                                         gscale.contiguous())
+        (dw_cat, dbias, db1, dw2m, dw2v, db2, dw_ih, dwo1, dbo1, dwo2, dbo2,
+         dh0, dc0) = grads
+        return (None, None, dw_cat, dbias, db1, dw2m, dw2v, db2, dw_ih, None,
+                dwo1, dbo1, dwo2, dbo2, dh0, dc0)
+
+
+def decoder_loop_fused_losses(noise, lengths, w_cat, bias, b1, w2m, w2v, b2,
+                              w_ih, targets, wo1, bo1, wo2, bo2, h0, c0):
+    """(out_last (B, H), nll (), bce ()), differentiable in every weight and
+    in h0 / c0: nll covers positions 0..T-2 (the caller adds T-1's term
+    from out_last), bce every position.  Without autograd only the forward
+    runs, and it saves no trajectories."""
+    args = (noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, targets,
+            wo1, bo1, wo2, bo2, h0, c0)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _DecoderFusedLosses.apply(*args)
+    return decoder_fused_losses_fwd(*args, save=False)[:3]

@@ -1,14 +1,17 @@
-"""Fused bidirectional masked LSTM layer, forward: the CUDA kernel
-``csrc/lstm_bidir.cu`` and its plain PyTorch twin.
+"""Fused bidirectional masked LSTM layer, forward and backward: the CUDA
+kernels of ``csrc/lstm_bidir.cu`` and their plain PyTorch twins.
 
-Replaces the forward of seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:
-lstm_layer_bidir_fused (``_fwdf_call`` / ``_fwdf_kernel``).  Both
-directions of one layer over RAW inputs: the input projection x_t @ W_ih
-runs per step inside the kernel, direction 1 reads time reversed, and a
-row's carries are frozen outside its span.  The kernel's time loop is
-sequential and re-reads the weights from L2 every step, which bounds it
-(see the source).  The wrapper launches the kernel for CUDA tensors and
-takes the twin only for CPU tensors.
+Replaces seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:lstm_layer_bidir_fused,
+forward (``_fwdf_call`` / ``_fwdf_kernel``) and backward (``_bwdf_call`` /
+``_bwdf_kernel``).  Both directions of one layer over RAW inputs: the
+input projection x_t @ W_ih runs per step inside the kernel, direction 1
+reads time reversed, and a row's carries are frozen outside its span.  The
+kernels' time loops are sequential and re-read the weights from L2 every
+step, which bounds them (see the source).  The backward recomputes the
+gates from the saved h/c trajectories and leaves the weight-gradient sums
+to ``ops/wgrad.py``.  :func:`lstm_layer_bidir_fused_train` wires both into
+``torch.autograd``.  Each wrapper launches its kernel for CUDA tensors and
+takes its twin only for CPU tensors.
 
 Layouts are the JAX package's: w_ih (2, F, 4H), w_hh (2, H, 4H),
 b_ih / b_hh (2, 4H), gates in torch order (i, f, g, o).
@@ -18,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, wgrad
 
 # one thread per hidden unit in a block (kMaxHidden in csrc/lstm_bidir.cu)
 MAX_HIDDEN = 512
@@ -38,28 +41,40 @@ def lstm_step(w_hh: torch.Tensor, b_hh: torch.Tensor, x_proj: torch.Tensor,
     return h2, c2
 
 
-def lstm_layer_bidir_fused_plain(x, lengths, w_ih, b_ih, w_hh, b_hh):
-    """Plain PyTorch twin of the kernel: same signature, same result.
+def _active(t: int, lengths: torch.Tensor, device) -> torch.Tensor:
+    """(T, 2, B, 1) step masks: direction 0 active while t < len,
+    direction 1 (its own flipped time) while t >= T - len."""
+    steps = torch.arange(t, device=device)[:, None]
+    lengths = lengths.to(device)[None, :]
+    return torch.stack([steps < lengths, steps >= t - lengths],
+                       dim=1).unsqueeze(-1)
+
+
+def lstm_layer_bidir_fused_plain(x, lengths, w_ih, b_ih, w_hh, b_hh,
+                                 return_cs: bool = False):
+    """Plain PyTorch twin of the forward kernel: same signature, same
+    result.
 
     Returns (outs (T, 2, B, H) with direction 1 in its own flipped time,
-    h_n (2, B, H), c_n (2, B, H)).
+    h_n (2, B, H), c_n (2, B, H)), and the saved cell states ``cs``
+    (T, 2, B, H) after them when ``return_cs``.
     """
     t, b, _ = x.shape
     hidden = w_hh.shape[1]
     xs = torch.stack([x, x.flip(0)], dim=1)                  # (T, 2, B, F)
-    steps = torch.arange(t, device=x.device)[:, None]
-    lengths = lengths.to(x.device)[None, :]
-    active = torch.stack([steps < lengths, steps >= t - lengths],
-                         dim=1).unsqueeze(-1)                # (T, 2, B, 1)
+    active = _active(t, lengths, x.device)                   # (T, 2, B, 1)
     h = x.new_zeros((2, b, hidden))
     c = x.new_zeros((2, b, hidden))
-    outs = []
+    outs, cs = [], []
     for s in range(t):
         x_proj = torch.matmul(xs[s], w_ih) + b_ih.unsqueeze(-2)
         h2, c2 = lstm_step(w_hh, b_hh, x_proj, h, c)
         h = torch.where(active[s], h2, h)
         c = torch.where(active[s], c2, c)
         outs.append(h)
+        cs.append(c)
+    if return_cs:
+        return torch.stack(outs), h, c, torch.stack(cs)
     return torch.stack(outs), h, c
 
 
@@ -94,7 +109,8 @@ def _check(x, lengths, w_ih, b_ih, w_hh, b_hh):
         raise ValueError(f"unsupported device {x.device}")
 
 
-def lstm_layer_bidir_fused(x, lengths, w_ih, b_ih, w_hh, b_hh):
+def lstm_layer_bidir_fused(x, lengths, w_ih, b_ih, w_hh, b_hh,
+                           return_cs: bool = False):
     """Both directions of one masked LSTM layer over raw inputs.
 
     Args:
@@ -103,14 +119,16 @@ def lstm_layer_bidir_fused(x, lengths, w_ih, b_ih, w_hh, b_hh):
       w_ih (2, F, 4H), b_ih (2, 4H), w_hh (2, H, 4H), b_hh (2, 4H).
 
     Returns (outs (T, 2, B, H), h_n (2, B, H), c_n (2, B, H)), as
-    ``lstm_pallas.lstm_layer_bidir_fused``.  CUDA tensors launch the
-    kernel on the current stream (and count one launch); CPU tensors take
+    ``lstm_pallas.lstm_layer_bidir_fused``, and with ``return_cs`` the
+    saved cell states (T, 2, B, H) for the backward (serving asks for
+    none, so it writes no extra bytes).  CUDA tensors launch the kernel on
+    the current stream (and count one launch); CPU tensors take
     ``lstm_layer_bidir_fused_plain``.
     """
     _check(x, lengths, w_ih, b_ih, w_hh, b_hh)
     if x.device.type == "cpu":
         return lstm_layer_bidir_fused_plain(x, lengths, w_ih, b_ih, w_hh,
-                                            b_hh)
+                                            b_hh, return_cs)
     t, b, f = x.shape
     hidden = w_hh.shape[1]
     if hidden > MAX_HIDDEN:
@@ -118,20 +136,163 @@ def lstm_layer_bidir_fused(x, lengths, w_ih, b_ih, w_hh, b_hh):
                          f"units, got {hidden}")
     lib = _build.load("lstm_bidir")
     outs = torch.empty((t, 2, b, hidden), dtype=x.dtype, device=x.device)
+    cs = torch.empty_like(outs) if return_cs else None
     h_n = torch.empty((2, b, hidden), dtype=x.dtype, device=x.device)
     c_n = torch.empty((2, b, hidden), dtype=x.dtype, device=x.device)
+    result = (outs, h_n, c_n, cs) if return_cs else (outs, h_n, c_n)
     if b == 0:
-        return outs, h_n, c_n
+        return result
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.abcd_lstm_bidir_fwd(
             x.data_ptr(), lengths.data_ptr(), w_ih.data_ptr(),
             b_ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-            outs.data_ptr(), h_n.data_ptr(), c_n.data_ptr(), t, b, f,
-            hidden, stream)
+            outs.data_ptr(), None if cs is None else cs.data_ptr(),
+            h_n.data_ptr(), c_n.data_ptr(), t, b, f, hidden, stream)
     _build.check(lib, err, "lstm_layer_bidir_fused")
     lstm_layer_bidir_fused.launches += 1
-    return outs, h_n, c_n
+    return result
 
 
 lstm_layer_bidir_fused.launches = 0
+
+
+def lstm_layer_bidir_fused_bwd_plain(x, lengths, w_ih, b_ih, w_hh, b_hh,
+                                     outs, cs, douts, dh_n, dc_n):
+    """Plain PyTorch twin of the backward kernel: the explicit
+    reverse-time adjoint of ``lstm_layer_bidir_fused_plain`` (not autograd
+    through it), in the TPU kernel's order of operations.
+
+    Args as the forward's, plus its saved ``outs`` and ``cs``
+    (T, 2, B, H), ``douts`` (T, 2, B, H) or None for a zero cotangent, and
+    ``dh_n`` / ``dc_n`` (2, B, H).  Returns (dx (T, B, F), dw_ih, db_ih,
+    dw_hh, db_hh) in the weights' layouts.
+    """
+    t, b, _ = x.shape
+    hidden = w_hh.shape[1]
+    xs = torch.stack([x, x.flip(0)], dim=1)                  # (T, 2, B, F)
+    active = _active(t, lengths, x.device)
+    zero = x.new_zeros((2, b, hidden))
+    w_ih_t, w_hh_t = w_ih.transpose(1, 2), w_hh.transpose(1, 2)
+    dh, dc = dh_n, dc_n
+    dzs, hps, dxs = [None] * t, [None] * t, [None] * t
+    for s in reversed(range(t)):
+        h_prev = outs[s - 1] if s > 0 else zero
+        c_prev = cs[s - 1] if s > 0 else zero
+        act = active[s]
+        gates = (((torch.matmul(xs[s], w_ih) + b_ih.unsqueeze(-2))
+                  + torch.matmul(h_prev, w_hh)) + b_hh.unsqueeze(-2))
+        i, f, g, o = gates.chunk(4, dim=-1)
+        i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                      torch.sigmoid(o))
+        c2 = torch.where(act, cs[s], f * c_prev + i * g)
+        tc = torch.tanh(c2)
+        dh_t = dh if douts is None else dh + douts[s]
+        dh_step = torch.where(act, dh_t, 0.0)
+        dc_step = torch.where(act, dc, 0.0)
+        do = dh_step * tc
+        dc2 = dc_step + dh_step * o * (1.0 - tc * tc)
+        df, di, dg = dc2 * c_prev, dc2 * g, dc2 * i
+        dz = torch.cat([di * i * (1.0 - i), df * f * (1.0 - f),
+                        dg * (1.0 - g * g), do * o * (1.0 - o)], dim=-1)
+        dh = torch.where(act, 0.0, dh_t) + torch.matmul(dz, w_hh_t)
+        dc = torch.where(act, dc2 * f, dc)
+        dzs[s], hps[s], dxs[s] = dz, h_prev, torch.matmul(dz, w_ih_t)
+    dz, hp, dx_own = torch.stack(dzs), torch.stack(hps), torch.stack(dxs)
+    dx = dx_own[:, 0] + dx_own[:, 1].flip(0)
+    dw_ih = torch.einsum("tdbf,tdbg->dfg", xs, dz)
+    dw_hh = torch.einsum("tdbh,tdbg->dhg", hp, dz)
+    db = dz.sum(dim=(0, 2))
+    return dx, dw_ih, db, dw_hh, db.clone()
+
+
+def lstm_layer_bidir_fused_bwd(x, lengths, w_ih, b_ih, w_hh, b_hh, outs, cs,
+                               douts, dh_n, dc_n):
+    """The layer's backward: (dx, dw_ih, db_ih, dw_hh, db_hh).
+
+    CUDA tensors launch the reverse-time kernel, then ``ops/wgrad.py``'s
+    reductions of its streams (counted as one launch of this wrapper);
+    CPU tensors take ``lstm_layer_bidir_fused_bwd_plain``.  ``douts`` may
+    be None: the final layer's outs feed nothing, and the kernel then reads
+    no (T, 2, B, H) zero stream.
+    """
+    _check(x, lengths, w_ih, b_ih, w_hh, b_hh)
+    t, b, f = x.shape
+    hidden = w_hh.shape[1]
+    state = (t, 2, b, hidden)
+    for name, tensor, shape in (("outs", outs, state), ("cs", cs, state),
+                                ("douts", douts, state),
+                                ("dh_n", dh_n, state[1:]),
+                                ("dc_n", dc_n, state[1:])):
+        if tensor is None and name == "douts":
+            continue
+        if (tuple(tensor.shape) != shape or tensor.dtype != torch.float32
+                or tensor.device != x.device or not tensor.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 {shape} on "
+                             f"{x.device}")
+    if x.device.type == "cpu":
+        return lstm_layer_bidir_fused_bwd_plain(
+            x, lengths, w_ih, b_ih, w_hh, b_hh, outs, cs, douts, dh_n, dc_n)
+    lib = _build.load("lstm_bidir")
+    g = 4 * hidden
+    w_ih_t = w_ih.transpose(1, 2).contiguous()
+    w_hh_t = w_hh.transpose(1, 2).contiguous()
+    dz = torch.empty((2, t, b, g), dtype=x.dtype, device=x.device)
+    hp = torch.empty((2, t, b, hidden), dtype=x.dtype, device=x.device)
+    dx_dir = torch.empty((2, t, b, f), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.abcd_lstm_bidir_bwd(
+            x.data_ptr(), lengths.data_ptr(), w_ih.data_ptr(),
+            b_ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+            w_ih_t.data_ptr(), w_hh_t.data_ptr(), outs.data_ptr(),
+            cs.data_ptr(), None if douts is None else douts.data_ptr(),
+            dh_n.data_ptr(), dc_n.data_ptr(), dz.data_ptr(), hp.data_ptr(),
+            dx_dir.data_ptr(), t, b, f, hidden, stream)
+        _build.check(lib, err, "lstm_layer_bidir_fused backward")
+        dx = wgrad.add2(dx_dir[0], dx_dir[1])
+        x_rows = x.view(t * b, f)
+        dw_ih = torch.stack([wgrad.at_b(x_rows, dz[d].view(t * b, g))
+                             for d in range(2)])
+        dw_hh = torch.stack([wgrad.at_b(hp[d].view(t * b, hidden),
+                                        dz[d].view(t * b, g))
+                             for d in range(2)])
+        db = torch.cat([wgrad.at_b(None, dz[d].view(t * b, g))
+                        for d in range(2)])
+    lstm_layer_bidir_fused_bwd.launches += 1
+    return dx, dw_ih, db, dw_hh, db.clone()
+
+
+lstm_layer_bidir_fused_bwd.launches = 0
+
+
+class _LSTMBidirFused(torch.autograd.Function):
+    """Forward kernel (saving ``cs``) and backward kernel as one
+    differentiable op; ``lengths`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, lengths, w_ih, b_ih, w_hh, b_hh):
+        outs, h_n, c_n, cs = lstm_layer_bidir_fused(
+            x, lengths, w_ih, b_ih, w_hh, b_hh, return_cs=True)
+        ctx.save_for_backward(x, lengths, w_ih, b_ih, w_hh, b_hh, outs, cs)
+        # an unused output (the final layer's outs) arrives as None, and
+        # the backward kernel then reads no zero stream
+        ctx.set_materialize_grads(False)
+        return outs, h_n, c_n
+
+    @staticmethod
+    def backward(ctx, douts, dh_n, dc_n):
+        x, lengths, w_ih, b_ih, w_hh, b_hh, outs, cs = ctx.saved_tensors
+        zero = outs.new_zeros(outs.shape[1:])
+        dh_n = zero if dh_n is None else dh_n.contiguous()
+        dc_n = zero if dc_n is None else dc_n.contiguous()
+        douts = None if douts is None else douts.contiguous()
+        dx, dw_ih, db_ih, dw_hh, db_hh = lstm_layer_bidir_fused_bwd(
+            x, lengths, w_ih, b_ih, w_hh, b_hh, outs, cs, douts, dh_n, dc_n)
+        return dx, None, dw_ih, db_ih, dw_hh, db_hh
+
+
+def lstm_layer_bidir_fused_train(x, lengths, w_ih, b_ih, w_hh, b_hh):
+    """``lstm_layer_bidir_fused`` with gradients to x and the four
+    weights, through the backward kernel (or its twin on the CPU)."""
+    return _LSTMBidirFused.apply(x, lengths, w_ih, b_ih, w_hh, b_hh)

@@ -105,3 +105,140 @@ def test_lstm_kernel_hidden_limit(cuda):
         torch.testing.assert_close(g, r, rtol=0, atol=1e-5)
     with pytest.raises(ValueError, match="at most"):
         lstm_kernel.lstm_layer_bidir_fused(*args(lstm_kernel.MAX_HIDDEN + 8))
+
+
+# ---------------------------------------------------------------------------
+# training kernels: the LSTM's backward, the fused-loss decoder, and the
+# weight-gradient reductions they share
+# ---------------------------------------------------------------------------
+
+def _rel_max_err(got, want):
+    """max |got - want| over max |want|: the tolerance is a fraction of each
+    leaf's largest value (sums of many float32 terms in another order)."""
+    scale = max(want.abs().max().item(), 1e-30)
+    return (got - want).abs().max().item() / scale
+
+
+def _uniform(rng, cuda, bound, *shape):
+    return torch.from_numpy(rng.uniform(-bound, bound, size=shape).astype(
+        np.float32)).to(cuda)
+
+
+@pytest.mark.parametrize("with_douts", [False, True])
+def test_lstm_backward_kernel_matches_twin(cuda, with_douts):
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    rng = np.random.default_rng(21)
+    t, b, f, h = 37, 21, 129, 256
+    x = torch.from_numpy(rng.normal(size=(t, b, f)).astype(np.float32)
+                         ).to(cuda)
+    lengths = rng.integers(1, t + 1, size=b).astype(np.int32)
+    lengths[:2] = (t, 0)
+    lengths = torch.from_numpy(lengths).to(cuda)
+    w = [_uniform(rng, cuda, 1 / 16, *s)
+         for s in ((2, f, 4 * h), (2, 4 * h), (2, h, 4 * h), (2, 4 * h))]
+    outs, h_n, c_n, cs = lk.lstm_layer_bidir_fused(x, lengths, *w,
+                                                   return_cs=True)
+    want_fwd = lk.lstm_layer_bidir_fused_plain(x, lengths, *w,
+                                               return_cs=True)
+    for g, r in zip((outs, h_n, c_n, cs), want_fwd):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
+    douts = (torch.from_numpy(rng.normal(size=outs.shape).astype(
+        np.float32)).to(cuda) if with_douts else None)
+    dh_n = torch.from_numpy(rng.normal(size=h_n.shape).astype(
+        np.float32)).to(cuda)
+    dc_n = torch.from_numpy(rng.normal(size=c_n.shape).astype(
+        np.float32)).to(cuda)
+    before = lk.lstm_layer_bidir_fused_bwd.launches
+    got = lk.lstm_layer_bidir_fused_bwd(x, lengths, *w, outs, cs, douts,
+                                        dh_n, dc_n)
+    want = lk.lstm_layer_bidir_fused_bwd_plain(x, lengths, *w, outs, cs,
+                                               douts, dh_n, dc_n)
+    torch.cuda.synchronize()
+    assert lk.lstm_layer_bidir_fused_bwd.launches == before + 1
+    for name, g, r in zip(("dx", "dw_ih", "db_ih", "dw_hh", "db_hh"), got,
+                          want):
+        assert _rel_max_err(g, r) <= 1e-4, name
+
+
+def _decoder_args(rng, cuda, t, b, f, h, m, mo, lengths):
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(cuda)
+    return [normal(t, b, f), torch.tensor(lengths, dtype=torch.int32,
+                                          device=cuda),
+            _uniform(rng, cuda, 1 / np.sqrt(h), h, 4 * h + 2 * m),
+            _uniform(rng, cuda, 2 / np.sqrt(h), 4 * h),
+            _uniform(rng, cuda, 1 / np.sqrt(h), 2 * m),
+            _uniform(rng, cuda, 1 / np.sqrt(m), m, f),
+            _uniform(rng, cuda, 1 / np.sqrt(m), m, f),
+            _uniform(rng, cuda, 1 / np.sqrt(m), 2 * f),
+            _uniform(rng, cuda, 1 / np.sqrt(h), f, 4 * h),
+            normal(t, b, f),
+            _uniform(rng, cuda, 1 / np.sqrt(h), h, mo),
+            _uniform(rng, cuda, 1 / np.sqrt(h), mo),
+            _uniform(rng, cuda, 1 / np.sqrt(mo), mo),
+            _uniform(rng, cuda, 1 / np.sqrt(mo), 1),
+            normal(b, h, scale=0.5), normal(b, h, scale=0.5)]
+
+
+@pytest.mark.parametrize("shape", [(33, 21, 129, 256, 256, 256),
+                                   (7, 5, 9, 40, 12, 10)])
+def test_decoder_kernels_match_twins(cuda, shape):
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    rng = np.random.default_rng(31)
+    t, b, f, h, m, mo = shape
+    lengths = rng.integers(1, t + 1, size=b)
+    lengths[:2] = (t, 0)
+    args = _decoder_args(rng, cuda, t, b, f, h, m, mo, lengths)
+    before = dk.decoder_fused_losses_fwd.launches
+    got = dk.decoder_fused_losses_fwd(*args)
+    want = dk.decoder_fused_losses_fwd_plain(*args)
+    torch.cuda.synchronize()
+    assert dk.decoder_fused_losses_fwd.launches == before + 1
+    # loss sums of many float32 terms: 1e-5 relative
+    for g, r in zip(got[1:3], want[1:3]):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=0)
+    for g, r in zip((got[0], got[3], got[4]), (want[0], want[3], want[4])):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
+    dlast = torch.from_numpy(rng.normal(size=(b, h)).astype(
+        np.float32)).to(cuda)
+    gscale = torch.tensor([0.7, 1.3], device=cuda)
+    before = dk.decoder_fused_losses_bwd.launches
+    g_all = dk.decoder_fused_losses_bwd(*args, want[3], want[4], dlast,
+                                        gscale)
+    r_all = dk.decoder_fused_losses_bwd_plain(*args, want[3], want[4], dlast,
+                                              gscale)
+    torch.cuda.synchronize()
+    assert dk.decoder_fused_losses_bwd.launches == before + 1
+    names = ("dw_cat", "dbias", "db1", "dw2m", "dw2v", "db2", "dw_ih",
+             "dwo1", "dbo1", "dwo2", "dbo2", "dh0", "dc0")
+    for name, g, r in zip(names, g_all, r_all):
+        assert g.shape == r.shape, name
+        assert _rel_max_err(g, r) <= 1e-4, name
+
+
+def test_decoder_forward_repeats_exactly(cuda):
+    """Per-block partial sums added in a fixed order: no atomics, so two
+    runs give the same bits."""
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    rng = np.random.default_rng(41)
+    args = _decoder_args(rng, cuda, 20, 40, 9, 16, 8, 8,
+                         rng.integers(0, 21, size=40))
+    a = dk.decoder_fused_losses_fwd(*args)
+    b = dk.decoder_fused_losses_fwd(*args)
+    assert a[1].item() == b[1].item() and a[2].item() == b[2].item()
+
+
+@pytest.mark.parametrize("rows,k,n", [(5000, 129, 1024), (33, 1, 70),
+                                      (70000, 3, 1)])
+def test_wgrad_matches_plain(cuda, rows, k, n):
+    from seq2seq_abcd_vae_tpu_torch.ops import wgrad
+    rng = np.random.default_rng(rows)
+    a = torch.from_numpy(rng.normal(size=(rows, k + 3)).astype(
+        np.float32)).to(cuda)[:, :k]
+    b = torch.from_numpy(rng.normal(size=(rows, n)).astype(
+        np.float32)).to(cuda)
+    for aa in (a, None):
+        got = wgrad.at_b(aa, b)
+        want = wgrad.at_b_plain(aa, b)
+        assert _rel_max_err(got, want) <= 1e-5

@@ -64,3 +64,15 @@ def padded_batch(rng, frames, bucket):
         jax_audio.center_pad_segment(seg, pad, audio[i])
         num_frames[i] = 1 + n // STEP
     return audio, num_frames
+
+
+def few_torch_threads_fixture():
+    """Hold torch to 2 intra-op threads for a port test and restore the
+    setting afterwards, so that the port's tests load the CPU lightly."""
+    import torch
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
