@@ -6,43 +6,52 @@
 run from the repository root.  It
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds both CUDA kernels from ``seq2seq_abcd_vae_tpu_torch/csrc``, one
-   nvcc per source, all started together;
+2. builds every CUDA kernel library from ``seq2seq_abcd_vae_tpu_torch/
+   csrc``, one nvcc per source, all started together;
 3. makes publication-width weights from ``--seed`` with numpy, in the JAX
    package's layout (bidirectional LSTM encoder, 1 layer, hidden 256; ABCD
    head with K=128, f=256, MLP hidden 256), and writes them as v2
    ``checkpoint.pt`` files with the port's writer;
-4. drives the main path: ``serve_main`` on Unix sockets at ``-b 64`` with
-   ``--stft_method pallas``, answering requests of varied lengths across
-   the buckets at fs=32000 (probs), the fixture's wav spans at fs=16000
-   (logits) and a few requests in features mode, from concurrent clients;
-   the kernels' launch counters are zeroed just before and read just
-   after, and each must be > 0;
-5. holds each kernel against its plain PyTorch twin on the card at the
-   served shapes and at B=512, T=512, and a whole ``encode_step`` on the
-   kernels against the same step on the twins (CPU), in all three modes;
-6. trains: writes a synthetic corpus (1024 segments of 8 classes, 0.10 to
+4. drives the serving path: ``serve_main`` on Unix sockets at ``-b 64``
+   with ``--stft_method pallas``, answering requests of varied lengths
+   across the buckets at fs=32000 (probs), the fixture's wav spans at
+   fs=16000 (logits) and a few requests in features mode, from concurrent
+   clients;
+5. trains: writes a synthetic corpus (1024 segments of 8 classes, 0.10 to
    0.50 s, fs=32000, two speakers, in four wav files) and runs the
    training CLI ``seq2seq_abcd_vae_tpu_torch.cli.learning_main`` at the
    publication config (batch 512, ``--speaker_embed_dim 256``,
    ``--stft_method pallas``) for 2 epochs with 1 of pretraining, then
-   again with ``-e 3`` to resume; checks history.log, the checkpoint and
-   that the checkpoint encodes; each kernel's launches must equal the
-   steps that use it (forwards once per training and evaluation step,
-   backwards once per training step);
-7. holds the LSTM's forward (with the saved cell states) and backward and
-   the decoder's fused-loss forward and backward against their twins on
-   the card at B=512 and the corpus's largest bucket (ragged lengths, one
-   row of length 0), and one whole training step on the kernels (card)
-   against the same step on the twins (CPU): loss, every gradient and the
-   parameters after the SGD step;
-8. times each kernel, its twin and one library call computing the same
+   again with ``-e 3`` to resume, once with the bidirectional encoder and
+   once with ``--unidirectional_encoder``; checks history.log and that
+   each kernel ran exactly for the steps that use it (forwards once per
+   training and evaluation step, backwards once per training step, the
+   other encoder's kernels never);
+6. encodes the corpus with the encode CLI (``cli/encode_main.main``) in
+   probs, logits and features modes, as CSV and as npz, from both trained
+   checkpoints, on the card and on the CPU's twins: rows = segments x
+   width, probabilities summing to 1, the npz values equal to the CSV's
+   parsed back bit for bit, card and CPU CSVs equal outside the values and
+   the values within tolerance;
+7. decodes the validation segments' features generatively with
+   ``infer/decode.decode_features`` on the unidirectional checkpoint, in
+   sample mode (one ``decoder_loop`` launch) and mean mode, against the
+   same calls on the card's twins and on the CPU with the same noise;
+   every main path (4-7) runs with all launch counters set to 0 just
+   before and read just after, and every kernel must have run on one;
+8. holds each kernel against its plain PyTorch twin on the card at the
+   main paths' shapes (ragged lengths, one row of length 0), the
+   recurrent kernels also at hidden size 1024, and one whole training step
+   (each encoder) on the kernels (card) against the same step on the
+   twins (CPU): loss, every gradient and the parameters after the SGD
+   step;
+9. times each kernel, its twin and one library call computing the same
    function (a yardstick the port never calls) with CUDA events, and
    prints one ``{"kernels": [...]}`` line with launches, times, the bound
    and the largest error, after the serve latencies, the time of one
-   served batch and of one training step by stage, and the training
-   throughput;
-9. ends with ``{"ok": true, "device": {...}}`` as its last line.
+   served batch and of one training step by stage, the training and
+   encode throughputs;
+10. ends with ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result.  Without a card it exits 2 before doing anything.
@@ -103,6 +112,11 @@ STEP_ATOL = {"probs": 1e-5, "logits": 1e-4, "features": 1e-4}
 #   rounding of p + update).
 LOSS_RTOL = 1e-5
 GRAD_FRACTION = 1e-4
+# - decode_features on the card's kernel vs the card's twins and the CPU:
+#   float32 products in another order, carried through up to 125 sampled
+#   steps whose fed-back sample passes each step's rounding on (emission
+#   parameters and samples are O(1)-O(10) in magnitude).
+DECODE_ATOL = 1e-3
 
 # training phase: the corpus and the CLI's publication config
 TRAIN_FS = 32000
@@ -441,7 +455,7 @@ def lstm_phase(dev, rng, launches):
         entry = {
             "name": "lstm_layer_bidir_fused",
             "route": "cuda",
-            "source": "seq2seq_abcd_vae_tpu_torch/csrc/lstm_bidir.cu",
+            "source": "seq2seq_abcd_vae_tpu_torch/csrc/lstm.cu",
             "replaces": "seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:776",
             "launches": launches,
             "max_abs_err": max(checks.values()),
@@ -619,9 +633,7 @@ def train_phase(dev, work: str, seed: int):
             "--decoder_rnn_hidden_size", str(HIDDEN),
             "--mlp_hidden_size", str(MLP_HIDDEN), "-K", str(K),
             "-f", str(FEATURE_DIM), "--speaker_embed_dim", str(SPEAKER_EMBED)]
-    counters = training_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = zero_counters()
     t0 = time.perf_counter()
     first = learning_main.main(argv + ["-e", "2"])
     torch.cuda.synchronize()
@@ -642,7 +654,8 @@ def train_phase(dev, work: str, seed: int):
             "lstm_layer_bidir_fused": train_steps + eval_steps,
             "lstm_layer_bidir_fused_bwd": train_steps,
             "decoder_loop_fused_losses_fwd": train_steps + eval_steps,
-            "decoder_loop_fused_losses_bwd": train_steps}
+            "decoder_loop_fused_losses_bwd": train_steps,
+            "lstm_layer": 0, "lstm_layer_bwd": 0, "decoder_loop": 0}
     print(f"training main path: {train_steps} training + {eval_steps} "
           f"evaluation steps in {first_s:.2f} + {second_s:.2f} s (corpus "
           f"written in {corpus_s:.2f} s); launches {launches}", flush=True)
@@ -774,7 +787,7 @@ def lstm_train_phase(dev, rng, t, launches):
     entry = {
         "name": "lstm_layer_bidir_fused_bwd",
         "route": "cuda",
-        "source": "seq2seq_abcd_vae_tpu_torch/csrc/lstm_bidir.cu",
+        "source": "seq2seq_abcd_vae_tpu_torch/csrc/lstm.cu",
         "helper_source": "seq2seq_abcd_vae_tpu_torch/csrc/wgrad.cu",
         "replaces": "seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:682",
         "launches": launches,
@@ -790,8 +803,8 @@ def lstm_train_phase(dev, rng, t, launches):
                    fwd_err}
 
 
-def _decoder_kernel_args(dev, rng, t, b):
-    h, m, f = HIDDEN, MLP_HIDDEN, 129
+def _decoder_kernel_args(dev, rng, t, b, h=HIDDEN):
+    m, f = MLP_HIDDEN, 129
     lens = rng.integers(1, t + 1, size=b)
     lens[0], lens[-1] = t, 0
 
@@ -917,9 +930,10 @@ def step_on(device, params0, cfg, batch, spec, noise, n_data):
     return loss.detach(), metrics, grads, [p.detach() for p in leaves]
 
 
-def whole_step_phase(dev, corpus_dir, csv_path, seed):
+def whole_step_phase(dev, corpus_dir, csv_path, seed, bidirectional=True):
     """One training step on the kernels (card) against the same step on
-    the twins (CPU); returns the checks and the step's inputs."""
+    the twins (CPU), with the bidirectional or the unidirectional encoder;
+    returns the checks and the step's inputs."""
     from seq2seq_abcd_vae_tpu_torch.configs import (ABCDSamplerConfig,
                                                     DecoderConfig,
                                                     EncoderConfig)
@@ -928,7 +942,7 @@ def whole_step_phase(dev, corpus_dir, csv_path, seed):
     from seq2seq_abcd_vae_tpu_torch.tree import tree_leaves
     batch, spec, ds = largest_batch(corpus_dir, csv_path)
     f = spec.num_bins
-    enc = EncoderConfig(f, HIDDEN)
+    enc = EncoderConfig(f, HIDDEN, bidirectional=bidirectional)
     cfg = vae.ModelConfig(
         enc, ABCDSamplerConfig(enc.hidden_size_total, MLP_HIDDEN, K,
                                FEATURE_DIM),
@@ -1022,6 +1036,484 @@ def train_step_breakdown(dev, params0, cfg, batch, spec, noise, n_data):
     return totals, shape
 
 # ---------------------------------------------------------------------------
+# the unidirectional slice: training, the offline encode CLI, decoding
+# ---------------------------------------------------------------------------
+
+def all_counters():
+    """Every kernel wrapper's counter, by the name in the kernels line."""
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel, lstm_kernel
+    return dict(training_counters(),
+                lstm_layer=lstm_kernel.lstm_layer,
+                lstm_layer_bwd=lstm_kernel.lstm_layer_bwd,
+                decoder_loop=decoder_kernel.decoder_loop)
+
+
+def zero_counters() -> dict:
+    counters = all_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def uni_train_phase(dev, work: str, corpus_dir: str, csv_path: str,
+                    seed: int):
+    """The unidirectional encoder trained through the CLI on the synthetic
+    corpus (2 epochs, 1 of pretraining, then resumed to 3), counted: the
+    one-direction LSTM kernels run, the bidirectional ones do not."""
+    from seq2seq_abcd_vae_tpu_torch.cli import learning_main
+    argv = [corpus_dir, csv_path, "-S", work, "-j", "uni", "-b",
+            str(TRAIN_BATCH), "--pretrain_epochs", "1", "--stft_method",
+            "pallas", "-d", dev.type, "-N", str(NORMALIZER), "-s", str(seed),
+            "--unidirectional_encoder",
+            "--encoder_rnn_hidden_size", str(HIDDEN),
+            "--decoder_rnn_hidden_size", str(HIDDEN),
+            "--mlp_hidden_size", str(MLP_HIDDEN), "-K", str(K),
+            "-f", str(FEATURE_DIM), "--speaker_embed_dim", str(SPEAKER_EMBED)]
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    first = learning_main.main(argv + ["-e", "2"])
+    second = learning_main.main(argv + ["-e", "3"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    run_dir = os.path.join(work, "uni")
+    check_history(os.path.join(run_dir, "history.log"), True)
+    train_steps = first.steps["train"] + second.steps["train"]
+    eval_steps = first.steps["eval"] + second.steps["eval"]
+    steps = train_steps + eval_steps
+    want = {"log_spectrogram": steps, "lstm_layer_bidir_fused": 0,
+            "lstm_layer_bidir_fused_bwd": 0,
+            "decoder_loop_fused_losses_fwd": steps,
+            "decoder_loop_fused_losses_bwd": train_steps,
+            "lstm_layer": steps, "lstm_layer_bwd": train_steps,
+            "decoder_loop": 0}
+    print(f"unidirectional training main path: {train_steps} training + "
+          f"{eval_steps} evaluation steps in {wall:.2f} s; launches "
+          f"{launches}", flush=True)
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    epochs = first.epoch_seconds + second.epoch_seconds
+    later = [n / sec for _, sec, n in epochs[1:]]
+    return {"launches": launches, "train_steps": train_steps,
+            "eval_steps": eval_steps,
+            "checkpoint": os.path.join(run_dir, "checkpoint.pt"),
+            "segments_per_s_after_first_epoch":
+                sum(later) / len(later) if later else None,
+            "epochs": [{"epoch": e, "train_s": sec, "segments": n}
+                       for e, sec, n in epochs]}
+
+
+def read_long_csv(path: str):
+    """(header, [(data_ix, var, rest)], value texts) of a long CSV."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    rows = [line.split(",", 3) for line in lines[1:]]
+    return (lines[0], [(r[0], r[1], r[3] if len(r) > 3 else None)
+                       for r in rows], [r[2] for r in rows])
+
+
+def encode_cli_phase(dev, work: str, corpus_dir: str, csv_path: str,
+                     checkpoints: dict):
+    """The encode CLI (``encode_main.main``) in probs, logits and features
+    modes on each checkpoint, as CSV and as npz, on the card (counted) and
+    on the CPU's twins: rows, probabilities, npz = CSV values bit for bit,
+    card CSV = CPU CSV (values within tolerance, other bytes equal)."""
+    from seq2seq_abcd_vae_tpu_torch.cli import encode_main
+    common = [corpus_dir, csv_path, str(NORMALIZER), "-b", str(TRAIN_BATCH),
+              "--stft_method", "pallas"]
+    out_dir = os.path.join(work, "encoded")
+    os.makedirs(out_dir, exist_ok=True)
+    counters = zero_counters()
+    card = {}
+    for name, ckpt in checkpoints.items():
+        for mode in ("probs", "logits", "features"):
+            for fmt in ("csv", "npz"):
+                path = os.path.join(out_dir, f"{name}-{mode}.{fmt}")
+                t0 = time.perf_counter()
+                encode_main.main(mode, [ckpt] + common + [
+                    "-S", path, "-d", dev.type, "--save_format", fmt])
+                torch.cuda.synchronize()
+                card[(name, mode, fmt)] = (path, time.perf_counter() - t0)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    checks, segments = {}, None
+    for name, ckpt in checkpoints.items():
+        for mode in ("probs", "logits", "features"):
+            head, keys, texts = read_long_csv(card[(name, mode, "csv")][0])
+            width = FEATURE_DIM if mode == "features" else K
+            ixs = list(dict.fromkeys(k[0] for k in keys))
+            segments = len(ixs)
+            if len(keys) != segments * width:
+                raise AssertionError(f"{name} {mode}: {len(keys)} rows for "
+                                     f"{segments} segments")
+            vals = np.asarray(texts, np.float32)
+            if not np.all(np.isfinite(vals)):
+                raise AssertionError(f"{name} {mode}: non-finite values")
+            if mode == "probs":
+                per = {}
+                for (ix, _, _), v in zip(keys, vals):
+                    per[ix] = per.get(ix, 0.0) + float(v)
+                worst = max(abs(v - 1.0) for v in per.values())
+                if worst > 1e-5:
+                    raise AssertionError(f"{name} probs sum off by {worst}")
+            with np.load(card[(name, mode, "npz")][0]) as z:
+                data_ix, values, zmode = z["data_ix"], z["values"], z["mode"]
+            if str(zmode) != mode or values.shape != (segments, width):
+                raise AssertionError(f"{name} {mode}: npz {values.shape}")
+            parsed = {(int(k[0]), int(k[1])): v for k, v in zip(keys, vals)}
+            back = np.asarray([[parsed[(int(ix), j)] for j in range(width)]
+                               for ix in data_ix], np.float32)
+            if back.tobytes() != values.tobytes():
+                raise AssertionError(f"{name} {mode}: npz values differ "
+                                     "from the CSV's")
+            cpu_path = os.path.join(out_dir, f"{name}-{mode}-cpu.csv")
+            encode_main.main(mode, [ckpt] + common + ["-S", cpu_path, "-d",
+                                                      "cpu"])
+            c_head, c_keys, c_texts = read_long_csv(cpu_path)
+            if c_head != head or c_keys != keys:
+                raise AssertionError(f"{name} {mode}: card and CPU CSVs "
+                                     "differ outside the values")
+            err = float(np.abs(vals.astype(np.float64) - np.asarray(
+                c_texts, np.float64)).max())
+            checks[f"{name}_{mode}"] = err
+            if not err <= STEP_ATOL[mode]:
+                raise AssertionError(f"encode CLI {name} {mode}: card vs "
+                                     f"CPU {err} > {STEP_ATOL[mode]}")
+    throughput = {f"{n}_{m}_{f}": segments / sec
+                  for (n, m, f), (_, sec) in card.items()}
+    return {"launches": launches, "segments": segments,
+            "card_vs_cpu_max_abs_err": checks,
+            "segments_per_s": throughput}
+
+
+def swap_twin(module, name: str, twin):
+    """Context: ``module.name`` is ``twin`` inside (the card's twins in a
+    whole call), restored after."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def swapped():
+        kernel = getattr(module, name)
+        setattr(module, name, twin)
+        try:
+            yield
+        finally:
+            setattr(module, name, kernel)
+    return swapped()
+
+
+def decode_phase(dev, ckpt_path: str, corpus_dir: str, csv_path: str,
+                 seed: int):
+    """``decode_features`` on the unidirectional checkpoint from the
+    features of the corpus's validation segments at their lengths:
+    ``sample`` mode on the kernel (counted) against the same call on the
+    card's twins and on the CPU with the same noise; ``mean`` likewise."""
+    from seq2seq_abcd_vae_tpu_torch.data.annotations import AnnotationParser
+    from seq2seq_abcd_vae_tpu_torch.data.batching import (DataLoader,
+                                                          FrontendSpec)
+    from seq2seq_abcd_vae_tpu_torch.infer.decode import (decode_features,
+                                                         load_model)
+    from seq2seq_abcd_vae_tpu_torch.infer.encode import Encoder, encode_step
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel
+    spec = FrontendSpec(int(0.008 * TRAIN_FS), int(0.004 * TRAIN_FS))
+    parser = AnnotationParser(corpus_dir, csv_path)
+    valid = parser.get_data("valid")
+    batch = next(iter(DataLoader(valid, spec, batch_size=len(valid))))
+    enc = Encoder(ckpt_path, device=dev.type, stft_method="pallas")
+    feats = encode_step(enc.params, torch.from_numpy(batch.audio).to(dev),
+                        torch.from_numpy(batch.num_frames).to(dev),
+                        enc.statics(spec, EPSILON, NORMALIZER),
+                        batch.bucket_frames, "features")
+    models = {d: load_model(ckpt_path, d.type)
+              for d in (dev, torch.device("cpu"))}
+    lengths = torch.from_numpy(batch.num_frames)
+    speakers = torch.from_numpy(batch.speakers)
+    t = batch.bucket_frames
+    cfg = models[dev][1]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    noise = torch.randn((t, len(lengths), cfg.decoder.output_size),
+                        generator=gen, device=dev)
+
+    def run(device, mode, twin=False):
+        args = (models[device][0], cfg, feats.to(device),
+                lengths.to(device), t)
+        kw = dict(noise=noise.to(device), speaker=speakers.to(device),
+                  emission_mode=mode)
+        if twin:
+            with swap_twin(decoder_kernel, "decoder_loop",
+                           decoder_kernel.decoder_loop_plain):
+                return decode_features(*args, **kw)
+        return decode_features(*args, **kw)
+
+    counters = zero_counters()
+    card = {mode: run(dev, mode) for mode in ("sample", "mean")}
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if launches["decoder_loop"] != 1:
+        raise AssertionError(f"decoder_loop launched "
+                             f"{launches['decoder_loop']} times for one "
+                             "sample call")
+    errs = {}
+    for mode, got in card.items():
+        refs = {"cpu": run(torch.device("cpu"), mode)}
+        if mode == "sample":
+            refs["card_twins"] = run(dev, mode, twin=True)
+        for where, ref in refs.items():
+            streams = (("out", got.out, ref.out),
+                       ("mean", got.emission_params[0],
+                        ref.emission_params[0]),
+                       ("logvar", got.emission_params[1],
+                        ref.emission_params[1]),
+                       ("offset", got.offset_weights, ref.offset_weights))
+            for name, g, r in streams:
+                if not torch.isfinite(g).all():
+                    raise AssertionError(f"decode {mode}: non-finite {name}")
+                errs[f"{mode}_{name}_vs_{where}"] = max_err(g, r)
+    worst = max(errs.values())
+    if not worst <= DECODE_ATOL:
+        raise AssertionError(f"decode_features: {errs}")
+    ms = {mode: cuda_ms(lambda m=mode: run(dev, m), iters=3, warmup=1)
+          for mode in ("sample", "mean")}
+    return {"launches": launches, "rows": len(lengths), "T": t,
+            "max_abs_err": errs, "ms": ms}
+
+
+def _lstm_weights(rng, dev, h, *shapes):
+    bound = 1.0 / np.sqrt(h)
+    return [torch.from_numpy(rng.uniform(-bound, bound, size=s).astype(
+        np.float32)).to(dev) for s in shapes]
+
+
+def lstm_layer_phase(dev, rng, launches_fwd, launches_bwd):
+    """The one-direction LSTM kernels vs twins (ragged lengths, one empty
+    row, both span directions) at the training shape B=512, T=125 and at
+    B=64, T=512, timed at the training shape beside cuDNN's LSTM."""
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    h, f = HIDDEN, 129
+    checks = {}
+    timed = None
+    for b, t in ((TRAIN_BATCH, 125), (BATCH, 512)):
+        lens = rng.integers(1, t + 1, size=b).astype(np.int32)
+        lens[0], lens[-1] = t, 0
+        lengths = torch.from_numpy(lens).to(dev)
+        xp = torch.from_numpy(rng.normal(size=(t, b, 4 * h)).astype(
+            np.float32)).to(dev)
+        w_hh, b_hh = _lstm_weights(rng, dev, h, (h, 4 * h), (4 * h,))
+        for reverse in (False, True):
+            fwd = lk.lstm_layer(xp, lengths, w_hh, b_hh, reverse, True)
+            ref = lk.lstm_layer_plain(xp, lengths, w_hh, b_hh, reverse, True)
+            torch.cuda.synchronize()
+            err = max_err(fwd, ref)
+            checks[f"fwd_B{b}_T{t}_rev{int(reverse)}"] = err
+            if not err <= LSTM_ATOL:
+                raise AssertionError(f"lstm_layer vs twin B={b} T={t} "
+                                     f"reverse={reverse}: {err}")
+            outs, h_n, c_n, cs = ref
+            dh_n = torch.from_numpy(rng.normal(size=(b, h)).astype(
+                np.float32)).to(dev)
+            dc_n = torch.from_numpy(rng.normal(size=(b, h)).astype(
+                np.float32)).to(dev)
+            bwd = (xp, lengths, w_hh, b_hh, outs, cs, None, dh_n, dc_n,
+                   reverse)
+            got = lk.lstm_layer_bwd(*bwd)
+            want = lk.lstm_layer_bwd_plain(*bwd)
+            torch.cuda.synchronize()
+            rel = {n: rel_err(g, r) for n, g, r in zip(
+                ("dxp", "dw_hh", "db_hh"), got, want)}
+            checks[f"bwd_B{b}_T{t}_rev{int(reverse)}"] = max(rel.values())
+            if max(rel.values()) > GRAD_FRACTION:
+                raise AssertionError(f"lstm_layer backward vs twin B={b} "
+                                     f"T={t} reverse={reverse}: {rel}")
+            if (b, reverse) == (TRAIN_BATCH, False):
+                timed = (b, t, lens, xp, lengths, w_hh, b_hh, bwd,
+                         max_err(got, want))
+    b, t, lens, xp, lengths, w_hh, b_hh, bwd, bwd_abs = timed
+    x = torch.from_numpy(rng.normal(size=(t, b, f)).astype(np.float32)
+                         ).to(dev)
+    fwd_ms = cuda_ms(lambda: lk.lstm_layer(xp, lengths, w_hh, b_hh), 5)
+    fwd_plain_ms = cuda_ms(
+        lambda: lk.lstm_layer_plain(xp, lengths, w_hh, b_hh), 2, 1)
+    bwd_ms = cuda_ms(lambda: lk.lstm_layer_bwd(*bwd), 5)
+    bwd_plain_ms = cuda_ms(lambda: lk.lstm_layer_bwd_plain(*bwd), 2, 1)
+    # the yardstick: cuDNN's unidirectional LSTM on the same recurrent
+    # weights over packed sequences (the zero-length row dropped); it also
+    # computes the input projection, which the kernel is handed
+    lstm = torch.nn.LSTM(f, h).to(dev)
+    with torch.no_grad():
+        lstm.weight_hh_l0.copy_(w_hh.T)
+        lstm.bias_hh_l0.copy_(b_hh)
+    keep = torch.from_numpy(lens > 0).to(dev)
+    x_lib = x[:, keep].clone().requires_grad_(True)
+    lens_lib = torch.from_numpy(lens[lens > 0].astype(np.int64))
+    dh_lib = bwd[7][keep][None]
+
+    def library_fwd():
+        with torch.no_grad():
+            packed = torch.nn.utils.rnn.pack_padded_sequence(
+                x_lib, lens_lib, enforce_sorted=False)
+            return lstm(packed)[1]
+
+    def library_fwd_bwd():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            x_lib, lens_lib, enforce_sorted=False)
+        _, (hh, cc) = lstm(packed)
+        torch.autograd.backward((hh, cc), (dh_lib, dh_lib))
+
+    lib_fwd_ms = cuda_ms(library_fwd, 5)
+    lib_bwd_ms = cuda_ms(library_fwd_bwd, 5)
+    steps = int(lens.sum())  # active row-steps
+    per = 2.0 * h * 4 * h    # h @ W_hh per row-step
+    fwd_bytes = 4.0 * (t * b * 4 * h + h * 4 * h + 4 * h      # xp, W, b
+                       + t * b * h + 2 * b * h) + 4 * b       # outs, h_n, c_n
+    bwd_bytes = 4.0 * (t * b * 4 * h + h * 4 * h + 4 * h      # xp, W, b
+                       + 2 * t * b * h + 2 * b * h            # outs, cs, dh, dc
+                       + t * b * 4 * h + h * 4 * h + 4 * h) + 4 * b
+    f_bms, f_by = bound_ms(steps * per, fwd_bytes)
+    # gates recomputed, dz @ W_hh^T and h_prev^T dz: three times the
+    # forward's products
+    b_bms, b_by = bound_ms(3 * steps * per, bwd_bytes)
+    common = {"route": "cuda",
+              "source": "seq2seq_abcd_vae_tpu_torch/csrc/lstm.cu",
+              "shape": f"T={t} B={b} H={h} (xp given; ragged, one empty "
+                       "row)"}
+    fwd_entry = dict(common, **{
+        "name": "lstm_layer",
+        "replaces": "seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:149",
+        "launches": launches_fwd,
+        "max_abs_err": max(v for k, v in checks.items()
+                           if k.startswith("fwd")),
+        "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": f_bms,
+        "bound_by": f_by, "library_ms": lib_fwd_ms,
+        "library_call": "nn.LSTM (unidirectional) forward, packed",
+        "tolerance": LSTM_ATOL, "checks": checks})
+    bwd_entry = dict(common, **{
+        "name": "lstm_layer_bwd",
+        "helper_source": "seq2seq_abcd_vae_tpu_torch/csrc/wgrad.cu",
+        "replaces": "seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:192",
+        "launches": launches_bwd, "max_abs_err": bwd_abs,
+        "max_rel_err": max(v for k, v in checks.items()
+                           if k.startswith("bwd")),
+        "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": b_bms,
+        "bound_by": b_by, "library_ms": lib_bwd_ms,
+        "library_call": "nn.LSTM (unidirectional) forward + backward, "
+                        "packed",
+        "tolerance": f"{GRAD_FRACTION} of each leaf's max |value|"})
+    return fwd_entry, bwd_entry
+
+
+def decoder_loop_phase(dev, rng, launches):
+    """The plain sampled decoder loop vs its twin at B=128, T=125 (the
+    corpus's validation segments) and B=64, T=512, timed at the first."""
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    h, m, f = HIDDEN, MLP_HIDDEN, 129
+    checks, timed = {}, None
+    for b, t in ((128, 125), (BATCH, 512)):
+        full, lens = _decoder_kernel_args(dev, rng, t, b)
+        args = full[:9] + full[14:]
+        got = dk.decoder_loop(*args)
+        want = dk.decoder_loop_plain(*args)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        checks[f"B{b}_T{t}"] = err
+        if not err <= LSTM_ATOL:
+            raise AssertionError(f"decoder_loop vs twin B={b} T={t}: {err}")
+        if timed is None:
+            timed = (b, t, lens, args)
+    b, t, lens, args = timed
+    ms = cuda_ms(lambda: dk.decoder_loop(*args), 5)
+    plain_ms = cuda_ms(lambda: dk.decoder_loop_plain(*args), 2, 1)
+    # per row-step: h @ w_cat, the emission's second layer (mean and
+    # logvar) and the fed-back x @ w_ih; every step of every row runs
+    per = 2.0 * (h * (4 * h + 2 * m) + 2 * m * f + f * 4 * h)
+    weights = (h * (4 * h + 2 * m) + 4 * h + 2 * m + 2 * m * f + 2 * f
+               + f * 4 * h)
+    nbytes = 4.0 * (t * b * f + weights + 2 * b * h          # inputs
+                    + t * b * h + 2 * t * b * f) + 4 * b      # outputs
+    bms, by = bound_ms(t * b * per, nbytes)
+    return {"name": "decoder_loop", "route": "cuda",
+            "source": "seq2seq_abcd_vae_tpu_torch/csrc/decoder.cu",
+            "replaces": "seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:298",
+            "launches": launches, "max_abs_err": max(checks.values()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None,
+            "library_call": "none: no single PyTorch call runs the sampled "
+                            "loop",
+            "shape": f"T={t} B={b} F={f} H={h} m={m} (ragged, one empty "
+                     "row)",
+            "tolerance": LSTM_ATOL, "checks": checks}
+
+
+def wide_hidden_phase(dev, rng):
+    """Hidden size 1024 (the widest the JAX CLI takes) through every
+    recurrent kernel with the row tile its shared memory allows, against
+    the twins, at small B and T."""
+    from seq2seq_abcd_vae_tpu_torch.ops import _build
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    h, f, m, b, t = 1024, 129, MLP_HIDDEN, 24, 16
+    lens = rng.integers(1, t + 1, size=b).astype(np.int32)
+    lens[0], lens[-1] = t, 0
+    lengths = torch.from_numpy(lens).to(dev)
+    normal = lambda *s: torch.from_numpy(rng.normal(size=s).astype(
+        np.float32)).to(dev)
+    errs = {}
+    w = _lstm_weights(rng, dev, h, (2, f, 4 * h), (2, 4 * h), (2, h, 4 * h),
+                      (2, 4 * h))
+    x = normal(t, b, f)
+    got = lk.lstm_layer_bidir_fused(x, lengths, *w, return_cs=True)
+    ref = lk.lstm_layer_bidir_fused_plain(x, lengths, *w, return_cs=True)
+    errs["bidir_fwd"] = max_err(got, ref)
+    bwd = (x, lengths, *w, ref[0], ref[3], None, normal(2, b, h),
+           normal(2, b, h))
+    errs["bidir_bwd_rel"] = max(rel_err(g, r) for g, r in zip(
+        lk.lstm_layer_bidir_fused_bwd(*bwd),
+        lk.lstm_layer_bidir_fused_bwd_plain(*bwd)))
+    w_hh, b_hh = _lstm_weights(rng, dev, h, (h, 4 * h), (4 * h,))
+    xp = normal(t, b, 4 * h)
+    got = lk.lstm_layer(xp, lengths, w_hh, b_hh, False, True)
+    ref = lk.lstm_layer_plain(xp, lengths, w_hh, b_hh, False, True)
+    errs["uni_fwd"] = max_err(got, ref)
+    bwd = (xp, lengths, w_hh, b_hh, ref[0], ref[3], None, normal(b, h),
+           normal(b, h))
+    errs["uni_bwd_rel"] = max(rel_err(g, r) for g, r in zip(
+        lk.lstm_layer_bwd(*bwd), lk.lstm_layer_bwd_plain(*bwd)))
+    args, _ = _decoder_kernel_args(dev, rng, t, b, h=h)
+    got = dk.decoder_fused_losses_fwd(*args)
+    ref = dk.decoder_fused_losses_fwd_plain(*args)
+    errs["decoder_fwd_loss_rel"] = max(
+        abs(g.item() - r.item()) / abs(r.item())
+        for g, r in zip(got[1:3], ref[1:3]))
+    errs["decoder_fwd_states"] = max_err((got[0], got[3], got[4]),
+                                         (ref[0], ref[3], ref[4]))
+    bwd = (*args, ref[3], ref[4], normal(b, h),
+           torch.tensor([0.5, 0.5], device=dev))
+    errs["decoder_bwd_rel"] = max(rel_err(g, r) for g, r in zip(
+        dk.decoder_fused_losses_bwd(*bwd),
+        dk.decoder_fused_losses_bwd_plain(*bwd)))
+    loop = args[:9] + args[14:]
+    errs["decoder_loop"] = max_err(dk.decoder_loop(*loop),
+                                   dk.decoder_loop_plain(*loop))
+    torch.cuda.synchronize()
+    lib = _build.load("lstm")
+    dlib = _build.load("decoder")
+    rows = {"lstm_bidir_fwd": lib.abcd_lstm_rows(0, f, h),
+            "lstm_bidir_bwd": lib.abcd_lstm_rows(1, f, h),
+            "lstm_fwd": lib.abcd_lstm_rows(2, 0, h),
+            "lstm_bwd": lib.abcd_lstm_rows(3, 0, h),
+            "decoder_fused_fwd": dlib.abcd_decoder_rows(0, f, h, m, m),
+            "decoder_fused_bwd": dlib.abcd_decoder_rows(1, f, h, m, m),
+            "decoder_loop": dlib.abcd_decoder_rows(2, f, h, m, 0)}
+    limits = {"bidir_fwd": LSTM_ATOL, "uni_fwd": LSTM_ATOL,
+              "decoder_fwd_states": LSTM_ATOL, "decoder_loop": LSTM_ATOL,
+              "decoder_fwd_loss_rel": LOSS_RTOL,
+              "bidir_bwd_rel": GRAD_FRACTION, "uni_bwd_rel": GRAD_FRACTION,
+              "decoder_bwd_rel": GRAD_FRACTION}
+    bad = {k: v for k, v in errs.items() if not v <= limits[k]}
+    if bad:
+        raise AssertionError(f"H=1024 kernels vs twins: {bad}")
+    return {"H": h, "B": b, "T": t, "errors": errs, "row_tiles": rows}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1074,8 +1566,7 @@ def run(args, root, dev, rng, work) -> int:
     common = ["-b", str(BATCH), "--stft_method", "pallas", "-d", "cuda"]
 
     # ---- the main path, counted -------------------------------------
-    stft_kernel.log_spectrogram_kernel.launches = 0
-    lstm_kernel.lstm_layer_bidir_fused.launches = 0
+    zero_counters()
     t_serve = time.perf_counter()
 
     reqs32 = random_requests(rng, 32000, 96)
@@ -1140,45 +1631,80 @@ def run(args, root, dev, rng, work) -> int:
                                     for k, v in launches.items()}}
     print("serve " + json.dumps(serve), flush=True)
 
-    # ---- kernels vs twins, times ------------------------------------
     # ---- the training main path, counted ----------------------------
     train = train_phase(dev, work, args.seed)
-    tl = train["launches"]
     print("training throughput " + json.dumps(train["throughput"]),
           flush=True)
 
+    # ---- the unidirectional slice's main paths, each counted ---------
+    corpus_dir, csv_path = train["corpus_dir"], train["csv"]
+    uni = uni_train_phase(dev, work, corpus_dir, csv_path, args.seed)
+    print("unidirectional training throughput " + json.dumps(
+        {k: uni[k] for k in ("segments_per_s_after_first_epoch",
+                             "epochs")}), flush=True)
+    enc_cli = encode_cli_phase(
+        dev, work, corpus_dir, csv_path,
+        {"uni": uni["checkpoint"],
+         "bidir": os.path.join(work, "train", "checkpoint.pt")})
+    print("encode CLI " + json.dumps(enc_cli), flush=True)
+    decode = decode_phase(dev, uni["checkpoint"], corpus_dir, csv_path,
+                          args.seed)
+    print("decode_features " + json.dumps(decode), flush=True)
+
+    paths = {"serve": launches, "train": train["launches"],
+             "uni_train": uni["launches"], "encode_cli": enc_cli["launches"],
+             "decode": decode["launches"]}
+
+    def by_path(name):
+        return {p: counts.get(name, 0) for p, counts in paths.items()}
+
+    def total(name):
+        return sum(by_path(name).values())
+
     # ---- kernels vs twins, times ------------------------------------
-    both = {k: {"serve": launches.get(k, 0), "train": tl[k]} for k in tl}
-    kernels = [stft_phase(dev, rng, launches["log_spectrogram"]
-                          + tl["log_spectrogram"]),
-               lstm_phase(dev, rng, launches["lstm_layer_bidir_fused"]
-                          + tl["lstm_layer_bidir_fused"])]
-    for entry in kernels:
-        entry["launches_by_path"] = both[entry["name"]]
+    kernels = [stft_phase(dev, rng, total("log_spectrogram")),
+               lstm_phase(dev, rng, total("lstm_layer_bidir_fused"))]
     step_errs, breakdown = step_phase(dev, ckpt32, rng)
     print("encode_step kernels vs twins " + json.dumps(step_errs),
           flush=True)
     print(f"served batch B={BATCH} T=512 fs=32000, ms "
           + json.dumps(breakdown), flush=True)
 
-    checks, step_inputs = whole_step_phase(dev, train["corpus_dir"],
-                                           train["csv"], args.seed)
+    checks, step_inputs = whole_step_phase(dev, corpus_dir, csv_path,
+                                           args.seed)
     stages, shape = train_step_breakdown(dev, *step_inputs)
+    uni_checks, uni_inputs = whole_step_phase(dev, corpus_dir, csv_path,
+                                              args.seed, bidirectional=False)
+    uni_stages, uni_shape = train_step_breakdown(dev, *uni_inputs)
     t_train = shape["T"]
     lstm_bwd, lstm_fwd_cs = lstm_train_phase(
-        dev, rng, t_train, tl["lstm_layer_bidir_fused_bwd"])
+        dev, rng, t_train, total("lstm_layer_bidir_fused_bwd"))
     dec_fwd, dec_bwd = decoder_train_phase(
-        dev, rng, t_train, tl["decoder_loop_fused_losses_fwd"],
-        tl["decoder_loop_fused_losses_bwd"])
-    lstm_bwd["launches_by_path"] = both["lstm_layer_bidir_fused_bwd"]
-    dec_fwd["launches_by_path"] = both["decoder_loop_fused_losses_fwd"]
-    dec_bwd["launches_by_path"] = both["decoder_loop_fused_losses_bwd"]
-    kernels += [lstm_bwd, dec_fwd, dec_bwd]
+        dev, rng, t_train, total("decoder_loop_fused_losses_fwd"),
+        total("decoder_loop_fused_losses_bwd"))
+    uni_fwd, uni_bwd = lstm_layer_phase(dev, rng, total("lstm_layer"),
+                                        total("lstm_layer_bwd"))
+    loop = decoder_loop_phase(dev, rng, total("decoder_loop"))
+    wide = wide_hidden_phase(dev, rng)
+    kernels += [lstm_bwd, dec_fwd, dec_bwd, uni_fwd, uni_bwd, loop]
+    for entry in kernels:
+        key = {"decoder_loop_fused_losses": "decoder_loop_fused_losses_fwd"
+               }.get(entry["name"], entry["name"])
+        entry["launches_by_path"] = by_path(key)
+        if entry["launches"] <= 0:
+            raise AssertionError(f"kernel {entry['name']} was launched on "
+                                 "no main path")
     print("training step, kernels (card) vs twins (CPU) "
           + json.dumps(checks), flush=True)
+    print("unidirectional training step, kernels (card) vs twins (CPU) "
+          + json.dumps(uni_checks), flush=True)
     print("LSTM forward with saved cs at the training shape "
           + json.dumps(lstm_fwd_cs), flush=True)
     print(f"training step {json.dumps(shape)}, ms " + json.dumps(stages),
+          flush=True)
+    print(f"unidirectional training step {json.dumps(uni_shape)}, ms "
+          + json.dumps(uni_stages), flush=True)
+    print("hidden size 1024, kernels vs twins " + json.dumps(wide),
           flush=True)
 
     print(json.dumps({"kernels": kernels}))

@@ -9,10 +9,12 @@ wrapper takes for CPU tensors.  Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``.
 
 Ported so far: the encode server (``cli/serve_main.py`` ->
-``serve/server.py`` -> ``infer/encode.encode_step``) for the
-bidirectional LSTM encoder with the ABCD head, and ABCD-VAE training
+``serve/server.py`` -> ``infer/encode.encode_step``) for the LSTM encoder
+(bidirectional or unidirectional) with the ABCD head; ABCD-VAE training
 (``cli/learning_main.py`` -> ``train/learner.py`` -> ``models/vae.py``)
-with the unidirectional LSTM decoder.
+with the unidirectional LSTM decoder; the offline encode CLI
+(``cli/encode_main.py`` -> ``infer/encode.Encoder.encode_dataset``, CSV
+and npz); generative decoding (``infer/decode.decode_features``).
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,11 @@
-"""Argparse builder of the training CLI (the port's own copy of the
-learning half of seq2seq_abcd_vae_tpu/cli/flags.py, ABCD variant).
+"""The argparse parsers of the training and encode CLIs (the port's own copy
+of seq2seq_abcd_vae_tpu/cli/flags.py, ABCD variant).
 
 Flag names, defaults and help strings match the JAX package's, but for
 ``-d/--device``: the port's entry points run on the card (``cuda``)
 unless the caller asks for the CPU.  Options of the JAX CLI that the port
 does not run yet are accepted and refused with NotImplementedError where
-they would change the result (see ``cli/learning_main.py``).
+they would change the result (see ``refuse_unported``).
 """
 
 from __future__ import annotations
@@ -138,5 +138,55 @@ def build_learning_parser() -> argparse.ArgumentParser:
     a("--prior_concentration", type=float, default=1.0,
       help="Concentration of the Dirichlet prior on the probability "
            "of the discrete feature.")
+    _extras(p)
+    return p
+
+
+def refuse_unported(parameters) -> None:
+    """Raise NotImplementedError for a JAX CLI option the port does not
+    run yet."""
+    if parameters.num_data_partitions not in (None, 1):
+        raise NotImplementedError(
+            "data-parallel training is not ported yet")
+    if parameters.device_corpus_cache == "on":
+        raise NotImplementedError(
+            "the device-resident corpus cache is not ported yet")
+    if parameters.profile_dir is not None:
+        raise NotImplementedError("--profile_dir is not ported yet")
+
+
+def build_encode_parser() -> argparse.ArgumentParser:
+    """The encode CLIs' parser (abcd variant; the plain VAE's ``-p`` waits
+    for its port)."""
+    p = argparse.ArgumentParser()
+    a = p.add_argument
+    a("model_path", type=str,
+      help="Path to the configuration file of a trained model.")
+    a("input_root", type=str,
+      help="Path to the root directory under which inputs are located.")
+    a("annotation_file", type=str,
+      help="Path to the annotation csv file.")
+    a("data_normalizer", type=float,
+      help="Normalizing constant to devide the data.")
+    a("--annotation_sep", type=str, default=",",
+      help='Separator symbol of the annotation file. Comma "," by default '
+           "(i.e., csv).")
+    a("-d", "--device", type=str, default="cuda", help="Computing device.")
+    a("-S", "--save_path", type=str, default=None,
+      help="Path to the file where results are saved.")
+    a("--fft_frame_length", type=float, default=0.008,
+      help="FFT frame length in sec.")
+    a("--fft_step_size", type=float, default=0.004,
+      help="FFT step size in sec.")
+    a("--fft_window_type", type=str, default="hann_window",
+      help='Window type for FFT. "hann_window" by default.')
+    a("--fft_no_centering", action="store_true",
+      help="If selected, no centering in FFT.")
+    a("--channel", type=int, default=0,
+      help="Channel ID # (starting from 0) of multichannel recordings "
+           "to use.")
+    a("-E", "--epsilon", type=float, default=EPSILON_DEFAULT,
+      help="Small positive real number to add to avoid log(0).")
+    a("-b", "--batch_size", type=int, default=1, help="Batch size.")
     _extras(p)
     return p

@@ -32,20 +32,9 @@ def get_save_dir(save_root: str, job_id_str: str) -> str:
     return save_dir
 
 
-def _refuse_unported(parameters) -> None:
-    if parameters.num_data_partitions not in (None, 1):
-        raise NotImplementedError(
-            "data-parallel training is not ported yet")
-    if parameters.device_corpus_cache == "on":
-        raise NotImplementedError(
-            "the device-resident corpus cache is not ported yet")
-    if parameters.profile_dir is not None:
-        raise NotImplementedError("--profile_dir is not ported yet")
-
-
 def main(argv=None) -> Learner:
     parameters = flags.build_learning_parser().parse_args(argv)
-    _refuse_unported(parameters)
+    flags.refuse_unported(parameters)
     if torch.device(parameters.device).type == "cuda":
         # float32 products outside the kernels, unless asked otherwise
         torch.backends.cuda.matmul.allow_tf32 = (

@@ -3,10 +3,11 @@
 
 Each config is rebuilt from the ``*_init_parameters`` dict stored beside
 its module's weights in ``checkpoint.pt``, which is what makes a
-checkpoint self-describing.  The port serves the bidirectional LSTM
-encoder with the ABCD head, and trains it with the unidirectional LSTM
-decoder (isotropic-Gaussian emission, sampled self-feedback);
-``check_served`` names the configurations that wait for later slices.
+checkpoint self-describing.  The port serves the LSTM encoder (one or
+both directions) with the ABCD head, and trains it with the
+unidirectional LSTM decoder (isotropic-Gaussian emission, sampled
+self-feedback); ``check_served`` names the configurations that wait for
+later slices.
 """
 
 from __future__ import annotations
@@ -145,7 +146,7 @@ class ABCDSamplerConfig:
 def check_served(encoder: EncoderConfig, latent_type: str = "abcd",
                  decoder: Optional[DecoderConfig] = None) -> None:
     """Raise NotImplementedError for what the port does not serve or train
-    yet: other cells, unidirectional encoders, the plain VAE, and (with a
+    yet: other cells, the plain VAE, and (with a
     ``decoder``, the training path) encoder dropout and every decoder but
     the unidirectional LSTM with isotropic-Gaussian emission and sampled
     self-feedback without input dropout."""
@@ -153,10 +154,6 @@ def check_served(encoder: EncoderConfig, latent_type: str = "abcd",
         raise NotImplementedError(
             f"{encoder.rnn_type} encoders are not ported yet (the GRU, "
             "Elman RNN and ESN cells come with a later slice of the port)")
-    if not encoder.bidirectional:
-        raise NotImplementedError(
-            "unidirectional encoders are not ported yet (they come with "
-            "the single-direction LSTM kernel in a later slice)")
     if latent_type != "abcd":
         raise NotImplementedError(
             f"latent type {latent_type!r} (the plain Gaussian VAE and its "
@@ -167,6 +164,13 @@ def check_served(encoder: EncoderConfig, latent_type: str = "abcd",
         raise NotImplementedError(
             "encoder inter-layer dropout is not ported yet (multi-layer "
             "dropout comes with a later slice)")
+    check_decoder(decoder)
+
+
+def check_decoder(decoder: DecoderConfig) -> None:
+    """Raise NotImplementedError for every decoder but the unidirectional
+    LSTM with isotropic-Gaussian emission and sampled self-feedback without
+    input dropout (training and generative decoding alike)."""
     if decoder.rnn_type != "LSTM":
         raise NotImplementedError(
             f"{decoder.rnn_type} decoders are not ported yet (the GRU, "

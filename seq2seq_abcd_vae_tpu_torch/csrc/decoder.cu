@@ -1,10 +1,12 @@
-// The LSTM decoder's time loop with its two training losses fused, forward
-// and backward, written for Hopper (sm_90a).
+// The LSTM decoder's sampled time loop, written for Hopper (sm_90a): with
+// its two training losses fused (forward and backward), and as the plain
+// loop that writes its streams (forward).
 //
 // Replaces seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:
 // decoder_loop_fused_losses (`_fused_fwd_call` / `_fused_fwd_kernel` and
-// `_fused_bwd_call` / `_fused_bwd_kernel`, with_offset=True).  Step t of the
-// loop, in the order of the scan body (models/decoder.py:341-361):
+// `_fused_bwd_call` / `_fused_bwd_kernel`, with_offset=True) and the forward
+// of decoder_loop (`_fwd_call` / `_fwd_kernel`).  Step t of the loop, in the
+// order of the scan body (models/decoder.py:341-361):
 //
 //   big  = h @ w_cat                         w_cat = [W_hh | emission lin1]
 //   emh  = tanh(big[:, 4H:] + b1)
@@ -13,29 +15,35 @@
 //   gates = big[:, :4H] + x @ w_ih + bias;   c2, h2 = the LSTM cell
 //   h, c  = (h2, c2) while t < len, else frozen
 //
-// The emission at step t is position t-1's, so step t adds position t-1's
-// Gaussian NLL against targets[t-1] (gated by pmt = 1 <= t <= len); the
-// caller adds position T-1's term from out_last (the last step's pre-mask
-// h2).  The offset MLP runs on the pre-mask h2 of every step and adds its
-// BCE against (t == len - 1) while t < len.  These are exactly the TPU
-// kernel's slot map and masks (_step_masks, _offset_target).
+// The emission at step t is position t-1's.  The fused-loss mode adds
+// position t-1's Gaussian NLL against targets[t-1] (gated by pmt = 1 <= t
+// <= len); the caller adds position T-1's term from out_last (the last
+// step's pre-mask h2).  Its offset MLP runs on the pre-mask h2 of every step
+// and adds its BCE against (t == len - 1) while t < len.  The plain loop
+// (decoder_loop) instead writes the pre-mask h2 of step t to slot t of outs
+// and step t's emission to POSITION slot t-1 of the mean / logvar streams,
+// step 0's parked on slot T-1 for the caller to overwrite.  These are
+// exactly the TPU kernels' slot maps and masks (_step_masks, _offset_target,
+// the `pos` output index map of `_fwd_call`).
 //
-// Design: rows are independent, so one block owns kRows batch rows and the
-// whole time loop; no block waits for another.  Every per-step product is a
-// loop over output columns (one column per thread, the tile's rows in
-// registers) reading the weight row-major, so neighbouring threads read
-// neighbouring addresses; the intermediates (big, x, h2, the offset hidden)
-// live in shared memory, five barriers a step.  The weights (2.5 MB at the
+// Design: rows are independent, so one block owns R batch rows and the
+// whole time loop; no block waits for another.  R (8, 4 or 2) is chosen at
+// launch so that the block's shared memory fits the card (at H=1024 the
+// fused kernels take 4 rows).  Every per-step product is a loop over output
+// columns (one column per thread, the tile's rows in registers) reading the
+// weight row-major, so neighbouring threads read neighbouring addresses; the
+// intermediates (big, x, h2, the offset hidden) live in shared memory, five
+// barriers a step (three in the plain loop).  The weights (2.5 MB at the
 // publication width, far more than a block holds) are re-read from L2 at
-// every step by every block: with the tile's 8 rows per weight load that
-// L2 -> SM traffic, not the card's float32 rate, bounds the loop.  The loss
-// sums are accumulated per thread in float64, reduced per block in a fixed
-// order, and the per-block partials are added in block order by a second
-// one-block kernel: no atomics, so a run repeats exactly.
+// every step by every block: with the tile's rows per weight load that L2 ->
+// SM traffic, not the card's float32 rate, bounds the loop.  The loss sums
+// are accumulated per thread in float64, reduced per block in a fixed order,
+// and the per-block partials are added in block order by a second one-block
+// kernel: no atomics, so a run repeats exactly.
 //
-// The backward runs the reverse-time adjoint of the same step for the same
-// tile of rows, recomputing the step from the saved h_{t-1}, c_{t-1} (h0,
-// c0 at t == 0), scaled by the loss cotangents (dnll, dbce) plus the
+// The backward runs the reverse-time adjoint of the fused-loss step for the
+// same tile of rows, recomputing the step from the saved h_{t-1}, c_{t-1}
+// (h0, c0 at t == 0), scaled by the loss cotangents (dnll, dbce) plus the
 // cotangent of out_last.  Weight gradients are sums over every (t, b): the
 // kernel writes each step's operands and cotangents as streams, and
 // csrc/wgrad.cu reduces them in a fixed order.
@@ -45,7 +53,6 @@
 
 namespace {
 
-constexpr int kRows = 8;  // batch rows per block
 constexpr int kThreads = 256;
 constexpr double kLog2Pi = 1.8378770664093453;
 
@@ -60,37 +67,39 @@ __device__ __forceinline__ float warp_sum(float s) {
 }
 
 // big[r][j] = (h @ w_cat)[r][j], with tanh(. + b1) on the emission columns.
+template <int R>
 __device__ __forceinline__ void big_product(const float* __restrict__ w_cat,
                                             const float* __restrict__ b1,
                                             const float* s_h, float* s_big,
                                             int H, int G4, int G) {
   for (int j = threadIdx.x; j < G; j += blockDim.x) {
-    float acc[kRows];
+    float acc[R];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+    for (int r = 0; r < R; ++r) acc[r] = 0.f;
 #pragma unroll 4
     for (int k = 0; k < H; ++k) {
       const float w = __ldg(w_cat + (int64_t)k * G + j);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(s_h[r * H + k], w, acc[r]);
+      for (int r = 0; r < R; ++r) acc[r] = fmaf(s_h[r * H + k], w, acc[r]);
     }
     const float bj = j < G4 ? 0.f : b1[j - G4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
+    for (int r = 0; r < R; ++r)
       s_big[r * G + j] = j < G4 ? acc[r] : tanhf(acc[r] + bj);
   }
 }
 
 // emission mean / logvar of column f for every row of the tile.
+template <int R>
 __device__ __forceinline__ void emission(const float* __restrict__ w2m,
                                          const float* __restrict__ w2v,
                                          const float* __restrict__ b2,
                                          const float* s_big, int f, int F,
                                          int M, int G4, int G,
                                          float* mean, float* lv) {
-  float am[kRows], av[kRows];
+  float am[R], av[R];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < R; ++r) {
     am[r] = 0.f;
     av[r] = 0.f;
   }
@@ -99,38 +108,39 @@ __device__ __forceinline__ void emission(const float* __restrict__ w2m,
     const float wm = __ldg(w2m + (int64_t)k * F + f);
     const float wv = __ldg(w2v + (int64_t)k * F + f);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
+    for (int r = 0; r < R; ++r) {
       am[r] = fmaf(s_big[r * G + G4 + k], wm, am[r]);
       av[r] = fmaf(s_big[r * G + G4 + M + k], wv, av[r]);
     }
   }
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < R; ++r) {
     mean[r] = am[r] + b2[f];
     lv[r] = av[r] + b2[F + f];
   }
 }
 
 // gates of hidden unit u: big[:, g*H+u] + x @ w_ih[:, g*H+u] + bias.
+template <int R>
 __device__ __forceinline__ void gate_inputs(const float* __restrict__ w_ih,
                                             const float* __restrict__ bias,
                                             const float* s_x,
                                             const float* s_big, int u, int F,
                                             int H, int G,
-                                            float z[4][kRows]) {
+                                            float z[4][R]) {
   const int G4 = 4 * H;
-  float ax[4][kRows];
+  float ax[4][R];
 #pragma unroll
   for (int g = 0; g < 4; ++g)
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) ax[g][r] = 0.f;
+    for (int r = 0; r < R; ++r) ax[g][r] = 0.f;
 #pragma unroll 4
   for (int k = 0; k < F; ++k) {
     float w[4];
 #pragma unroll
     for (int g = 0; g < 4; ++g) w[g] = __ldg(w_ih + (int64_t)k * G4 + g * H + u);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
+    for (int r = 0; r < R; ++r) {
       const float xv = s_x[r * F + k];
 #pragma unroll
       for (int g = 0; g < 4; ++g) ax[g][r] = fmaf(xv, w[g], ax[g][r]);
@@ -140,28 +150,29 @@ __device__ __forceinline__ void gate_inputs(const float* __restrict__ w_ih,
   for (int g = 0; g < 4; ++g) {
     const float bg = bias[g * H + u];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
+    for (int r = 0; r < R; ++r)
       z[g][r] = (s_big[r * G + g * H + u] + ax[g][r]) + bg;
   }
 }
 
 // oh[r][j] = tanh(h2 @ wo1 + bo1)
+template <int R>
 __device__ __forceinline__ void offset_hidden(const float* __restrict__ wo1,
                                               const float* __restrict__ bo1,
                                               const float* s_h2, float* s_oh,
                                               int H, int Mo) {
   for (int j = threadIdx.x; j < Mo; j += blockDim.x) {
-    float acc[kRows];
+    float acc[R];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+    for (int r = 0; r < R; ++r) acc[r] = 0.f;
 #pragma unroll 4
     for (int k = 0; k < H; ++k) {
       const float w = __ldg(wo1 + (int64_t)k * Mo + j);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(s_h2[r * H + k], w, acc[r]);
+      for (int r = 0; r < R; ++r) acc[r] = fmaf(s_h2[r * H + k], w, acc[r]);
     }
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) s_oh[r * Mo + j] = tanhf(acc[r] + bo1[j]);
+    for (int r = 0; r < R; ++r) s_oh[r * Mo + j] = tanhf(acc[r] + bo1[j]);
   }
 }
 
@@ -174,6 +185,12 @@ __device__ __forceinline__ float offset_logit(const float* __restrict__ wo2,
   return warp_sum(s) + bo2;
 }
 
+// kLosses: the fused-loss forward (decoder_loop_fused_losses).  Otherwise
+// the plain sampled loop (decoder_loop): no targets, offset MLP or loss
+// sums; it writes the pre-mask h2 of every step to outs at slot t and the
+// emission parameters computed at step t to mean_s / logvar_s at POSITION
+// slot t - 1, step 0's parked on slot T - 1 (the caller overwrites it).
+template <int R, bool kLosses>
 __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
     const float* __restrict__ noise,    // (T, B, F)
     const int* __restrict__ lengths,    // (B,)
@@ -184,72 +201,83 @@ __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
     const float* __restrict__ w2v,      // (M, F)
     const float* __restrict__ b2,       // (2F,)
     const float* __restrict__ w_ih,     // (F, 4H)
-    const float* __restrict__ targets,  // (T, B, F)
-    const float* __restrict__ wo1,      // (H, Mo)
-    const float* __restrict__ bo1,      // (Mo,)
-    const float* __restrict__ wo2,      // (Mo,)
-    const float* __restrict__ bo2,      // (1,)
+    const float* __restrict__ targets,  // (T, B, F)   kLosses only
+    const float* __restrict__ wo1,      // (H, Mo)     kLosses only
+    const float* __restrict__ bo1,      // (Mo,)       kLosses only
+    const float* __restrict__ wo2,      // (Mo,)       kLosses only
+    const float* __restrict__ bo2,      // (1,)        kLosses only
     const float* __restrict__ h0,       // (B, H)
     const float* __restrict__ c0,       // (B, H)
-    float* __restrict__ out_last,       // (B, H)
+    float* __restrict__ out_last,       // (B, H)      kLosses only
     float* __restrict__ hs,             // (T, B, H) or nullptr
     float* __restrict__ cs,             // (T, B, H) or nullptr
-    double* __restrict__ partial,       // (blocks, 2)
+    double* __restrict__ partial,       // (blocks, 2) kLosses only
+    float* __restrict__ outs,           // (T, B, H)   loop only
+    float* __restrict__ mean_s,         // (T, B, F)   loop only
+    float* __restrict__ logvar_s,       // (T, B, F)   loop only
     int T, int B, int F, int H, int M, int Mo) {
   extern __shared__ float smem[];
-  __shared__ double s_red[kThreads];
+  __shared__ double s_red[kLosses ? kThreads : 1];
   const int G4 = 4 * H, G = G4 + 2 * M;
-  float* s_h = smem;                 // [kRows][H]   carry h
-  float* s_c = s_h + kRows * H;      // [kRows][H]   carry c
-  float* s_big = s_c + kRows * H;    // [kRows][G]
-  float* s_x = s_big + kRows * G;    // [kRows][F]
-  float* s_h2 = s_x + kRows * F;     // [kRows][H]   pre-mask h2
-  float* s_oh = s_h2 + kRows * H;    // [kRows][Mo]
+  float* s_h = smem;             // [R][H]   carry h
+  float* s_c = s_h + R * H;      // [R][H]   carry c
+  float* s_big = s_c + R * H;    // [R][G]
+  float* s_x = s_big + R * G;    // [R][F]
+  float* s_h2 = s_x + R * F;     // [R][H]   pre-mask h2 (kLosses only)
+  float* s_oh = s_h2 + R * H;    // [R][Mo]  (kLosses only)
 
-  const int r0 = blockIdx.x * kRows;
-  const int nrows = min(kRows, B - r0);
+  const int r0 = blockIdx.x * R;
+  const int nrows = min(R, B - r0);
   const int tid = threadIdx.x, nth = blockDim.x;
   const int warp = tid / 32, nwarps = nth / 32;
-  int len[kRows];
+  int len[R];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) len[r] = r < nrows ? lengths[r0 + r] : 0;
-  for (int i = tid; i < kRows * H; i += nth) {
+  for (int r = 0; r < R; ++r) len[r] = r < nrows ? lengths[r0 + r] : 0;
+  for (int i = tid; i < R * H; i += nth) {
     const int r = i / H;
     s_h[i] = r < nrows ? h0[(int64_t)r0 * H + i] : 0.f;
     s_c[i] = r < nrows ? c0[(int64_t)r0 * H + i] : 0.f;
   }
-  const float bo2v = bo2[0];
+  const float bo2v = kLosses ? bo2[0] : 0.f;
   double nll_acc = 0.0, bce_acc = 0.0;
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
-    big_product(w_cat, b1, s_h, s_big, H, G4, G);
+    big_product<R>(w_cat, b1, s_h, s_big, H, G4, G);
     __syncthreads();
 
+    const int slot = t == 0 ? T - 1 : t - 1;  // position of this emission
     for (int f = tid; f < F; f += nth) {
-      float mean[kRows], lv[kRows];
-      emission(w2m, w2v, b2, s_big, f, F, M, G4, G, mean, lv);
+      float mean[R], lv[R];
+      emission<R>(w2m, w2v, b2, s_big, f, F, M, G4, G, mean, lv);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int r = 0; r < R; ++r) {
         const bool pmt = t >= 1 && t - 1 < len[r];
         float x = 0.f;
         if (pmt) {
           const int64_t o = ((int64_t)(t - 1) * B + r0 + r) * F + f;
           x = mean[r] + expf(0.5f * lv[r]) * noise[o];
-          const float diff = targets[o] - mean[r];
-          nll_acc += (double)(0.5f * ((float)kLog2Pi + lv[r]
-                                      + diff * expf(-lv[r]) * diff));
+          if (kLosses) {
+            const float diff = targets[o] - mean[r];
+            nll_acc += (double)(0.5f * ((float)kLog2Pi + lv[r]
+                                        + diff * expf(-lv[r]) * diff));
+          }
         }
         s_x[r * F + f] = x;
+        if (!kLosses && r < nrows) {
+          const int64_t o = ((int64_t)slot * B + r0 + r) * F + f;
+          mean_s[o] = mean[r];
+          logvar_s[o] = lv[r];
+        }
       }
     }
     __syncthreads();
 
     for (int u = tid; u < H; u += nth) {
-      float z[4][kRows];
-      gate_inputs(w_ih, bias, s_x, s_big, u, F, H, G, z);
+      float z[4][R];
+      gate_inputs<R>(w_ih, bias, s_x, s_big, u, F, H, G, z);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int r = 0; r < R; ++r) {
         const float ig = sigmoid(z[0][r]);
         const float fg = sigmoid(z[1][r]);
         const float gg = tanhf(z[2][r]);
@@ -257,7 +285,7 @@ __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
         const int i = r * H + u;
         const float c2 = fg * s_c[i] + ig * gg;
         const float h2 = og * tanhf(c2);
-        s_h2[i] = h2;
+        if (kLosses) s_h2[i] = h2;
         if (t < len[r]) {
           s_h[i] = h2;
           s_c[i] = c2;
@@ -266,26 +294,30 @@ __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
           const int64_t o = ((int64_t)t * B + r0 + r) * H + u;
           if (hs) hs[o] = s_h[i];
           if (cs) cs[o] = s_c[i];
-          if (t == T - 1) out_last[(int64_t)(r0 + r) * H + u] = h2;
+          if (!kLosses) outs[o] = h2;
+          if (kLosses && t == T - 1) out_last[(int64_t)(r0 + r) * H + u] = h2;
         }
       }
     }
     __syncthreads();
 
-    offset_hidden(wo1, bo1, s_h2, s_oh, H, Mo);
-    __syncthreads();
+    if (kLosses) {
+      offset_hidden<R>(wo1, bo1, s_h2, s_oh, H, Mo);
+      __syncthreads();
 
-    for (int r = warp; r < kRows; r += nwarps) {
-      const float z = offset_logit(wo2, s_oh, r, Mo, bo2v);
-      if (tid % 32 == 0 && t < len[r]) {
-        const float y = t == len[r] - 1 ? 1.f : 0.f;
-        bce_acc += (double)(fmaxf(z, 0.f) - z * y
-                            + log1pf(expf(-fabsf(z))));
+      for (int r = warp; r < R; r += nwarps) {
+        const float z = offset_logit(wo2, s_oh, r, Mo, bo2v);
+        if (tid % 32 == 0 && t < len[r]) {
+          const float y = t == len[r] - 1 ? 1.f : 0.f;
+          bce_acc += (double)(fmaxf(z, 0.f) - z * y
+                              + log1pf(expf(-fabsf(z))));
+        }
       }
+      // The next step's first barrier orders these reads of s_oh before
+      // the next writes to it.
     }
-    // The next step's first barrier orders these reads of s_oh before the
-    // next writes to it.
   }
+  if (!kLosses) return;
 
   // fixed-order block reduction of the two loss sums
   __syncthreads();
@@ -318,6 +350,7 @@ __global__ void loss_sum_kernel(const double* __restrict__ partial,
   losses[1] = (float)bce;
 }
 
+template <int R>
 __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
     const float* __restrict__ noise, const int* __restrict__ lengths,
     const float* __restrict__ w_cat, const float* __restrict__ bias,
@@ -350,33 +383,33 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
     int T, int B, int F, int H, int M, int Mo) {
   extern __shared__ float smem[];
   const int G4 = 4 * H, G = G4 + 2 * M;
-  float* s_hp = smem;                // [kRows][H]   h_{t-1}
-  float* s_big = s_hp + kRows * H;   // [kRows][G]   big, then gates, then dbig
-  float* s_ml = s_big + kRows * G;   // [kRows][2F]  mean|logvar, then dmean|dlogvar
-  float* s_x = s_ml + kRows * 2 * F; // [kRows][F]
-  float* s_c2 = s_x + kRows * F;     // [kRows][H]
-  float* s_h2 = s_c2 + kRows * H;    // [kRows][H]
-  float* s_oh = s_h2 + kRows * H;    // [kRows][Mo]  oh, then doh
-  float* s_dh = s_oh + kRows * Mo;   // [kRows][H]   carry cotangents
-  float* s_dc = s_dh + kRows * H;    // [kRows][H]
-  float* s_zo = s_dc + kRows * H;    // [kRows]      offset-logit cotangent
+  float* s_hp = smem;                // [R][H]   h_{t-1}
+  float* s_big = s_hp + R * H;   // [R][G]   big, then gates, then dbig
+  float* s_ml = s_big + R * G;   // [R][2F]  mean|logvar, then dmean|dlogvar
+  float* s_x = s_ml + R * 2 * F; // [R][F]
+  float* s_c2 = s_x + R * F;     // [R][H]
+  float* s_h2 = s_c2 + R * H;    // [R][H]
+  float* s_oh = s_h2 + R * H;    // [R][Mo]  oh, then doh
+  float* s_dh = s_oh + R * Mo;   // [R][H]   carry cotangents
+  float* s_dc = s_dh + R * H;    // [R][H]
+  float* s_zo = s_dc + R * H;    // [R]      offset-logit cotangent
 
-  const int r0 = blockIdx.x * kRows;
-  const int nrows = min(kRows, B - r0);
+  const int r0 = blockIdx.x * R;
+  const int nrows = min(R, B - r0);
   const int tid = threadIdx.x, nth = blockDim.x;
   const int warp = tid / 32, nwarps = nth / 32;
-  int len[kRows];
+  int len[R];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) len[r] = r < nrows ? lengths[r0 + r] : 0;
+  for (int r = 0; r < R; ++r) len[r] = r < nrows ? lengths[r0 + r] : 0;
   const float gnll = gscale[0], gbce = gscale[1];
   const float bo2v = bo2[0];
-  for (int i = tid; i < kRows * H; i += nth) {
+  for (int i = tid; i < R * H; i += nth) {
     s_dh[i] = 0.f;
     s_dc[i] = 0.f;
   }
 
   for (int t = T - 1; t >= 0; --t) {
-    for (int i = tid; i < kRows * H; i += nth) {
+    for (int i = tid; i < R * H; i += nth) {
       const int r = i / H;
       float v = 0.f;
       if (r < nrows)
@@ -387,14 +420,14 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
     __syncthreads();
 
     // ---- recompute the step
-    big_product(w_cat, b1, s_hp, s_big, H, G4, G);
+    big_product<R>(w_cat, b1, s_hp, s_big, H, G4, G);
     __syncthreads();
 
     for (int f = tid; f < F; f += nth) {
-      float mean[kRows], lv[kRows];
-      emission(w2m, w2v, b2, s_big, f, F, M, G4, G, mean, lv);
+      float mean[R], lv[R];
+      emission<R>(w2m, w2v, b2, s_big, f, F, M, G4, G, mean, lv);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int r = 0; r < R; ++r) {
         const bool pmt = t >= 1 && t - 1 < len[r];
         float x = 0.f;
         if (pmt) {
@@ -410,10 +443,10 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
     __syncthreads();
 
     for (int u = tid; u < H; u += nth) {
-      float z[4][kRows];
-      gate_inputs(w_ih, bias, s_x, s_big, u, F, H, G, z);
+      float z[4][R];
+      gate_inputs<R>(w_ih, bias, s_x, s_big, u, F, H, G, z);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int r = 0; r < R; ++r) {
         const int i = r * H + u;
         const float ig = sigmoid(z[0][r]);
         const float fg = sigmoid(z[1][r]);
@@ -436,11 +469,11 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
     }
     __syncthreads();
 
-    offset_hidden(wo1, bo1, s_h2, s_oh, H, Mo);
+    offset_hidden<R>(wo1, bo1, s_h2, s_oh, H, Mo);
     __syncthreads();
 
     // ---- adjoint: offset BCE
-    for (int r = warp; r < kRows; r += nwarps) {
+    for (int r = warp; r < R; r += nwarps) {
       const float z = offset_logit(wo2, s_oh, r, Mo, bo2v);
       if (tid % 32 == 0) {
         const bool mt = t < len[r];
@@ -455,7 +488,7 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
     for (int j = tid; j < Mo; j += nth) {
       const float w = wo2[j];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int r = 0; r < R; ++r) {
         const float oh = s_oh[r * Mo + j];
         const float doh = (s_zo[r] * w) * (1.f - oh * oh);
         s_oh[r * Mo + j] = doh;
@@ -470,17 +503,17 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
 
     // ---- adjoint: the LSTM cell
     for (int u = tid; u < H; u += nth) {
-      float acc[kRows];
+      float acc[R];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+      for (int r = 0; r < R; ++r) acc[r] = 0.f;
 #pragma unroll 4
       for (int j = 0; j < Mo; ++j) {
         const float w = __ldg(wo1T + (int64_t)j * H + u);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(s_oh[r * Mo + j], w, acc[r]);
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(s_oh[r * Mo + j], w, acc[r]);
       }
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int r = 0; r < R; ++r) {
         const int i = r * H + u;
         const bool mt = t < len[r];
         float dl = 0.f;
@@ -513,17 +546,17 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
 
     // ---- adjoint: the fed-back sample and the emission NLL
     for (int f = tid; f < F; f += nth) {
-      float acc[kRows];
+      float acc[R];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+      for (int r = 0; r < R; ++r) acc[r] = 0.f;
 #pragma unroll 4
       for (int j = 0; j < G4; ++j) {
         const float w = __ldg(w_ihT + (int64_t)j * F + f);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(s_big[r * G + j], w, acc[r]);
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(s_big[r * G + j], w, acc[r]);
       }
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int r = 0; r < R; ++r) {
         const bool pmt = t >= 1 && t - 1 < len[r];
         float dmean = 0.f, dlv = 0.f;
         if (pmt) {
@@ -554,18 +587,18 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
       const bool is_m = j < M;
       const float* wT = is_m ? w2mT + j : w2vT + (j - M);
       const int off = is_m ? 0 : F;
-      float acc[kRows];
+      float acc[R];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+      for (int r = 0; r < R; ++r) acc[r] = 0.f;
 #pragma unroll 4
       for (int f = 0; f < F; ++f) {
         const float w = __ldg(wT + (int64_t)f * M);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
+        for (int r = 0; r < R; ++r)
           acc[r] = fmaf(s_ml[r * 2 * F + off + f], w, acc[r]);
       }
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int r = 0; r < R; ++r) {
         const float emh = s_big[r * G + G4 + j];
         s_big[r * G + G4 + j] = acc[r] * (1.f - emh * emh);
         if (r < nrows) emh_s[((int64_t)t * B + r0 + r) * 2 * M + j] = emh;
@@ -581,17 +614,17 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
 
     // dh_{t-1} = pass-through + dbig @ w_cat^T
     for (int u = tid; u < H; u += nth) {
-      float acc[kRows];
+      float acc[R];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+      for (int r = 0; r < R; ++r) acc[r] = 0.f;
 #pragma unroll 4
       for (int j = 0; j < G; ++j) {
         const float w = __ldg(w_catT + (int64_t)j * H + u);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(s_big[r * G + j], w, acc[r]);
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(s_big[r * G + j], w, acc[r]);
       }
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) s_dh[r * H + u] += acc[r];
+      for (int r = 0; r < R; ++r) s_dh[r * H + u] += acc[r];
     }
     __syncthreads();
   }
@@ -602,23 +635,151 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
   }
 }
 
+// kind: 0 fused-loss forward, 1 fused-loss backward, 2 the plain loop's
+// forward.  Floats of shared memory per row of the tile (the backward adds
+// the offset-logit cotangent).
+long long smem_bytes(int kind, int rows, int F, int H, int M, int Mo) {
+  long long per_row;
+  if (kind == 0) {
+    per_row = 3LL * H + 4LL * H + 2LL * M + F + Mo;
+  } else if (kind == 1) {
+    per_row = 5LL * H + 4LL * H + 2LL * M + 3LL * F + Mo + 1;
+  } else {
+    per_row = 2LL * H + 4LL * H + 2LL * M + F;
+  }
+  return (long long)rows * per_row * (long long)sizeof(float);
+}
+
+template <int R>
+const void* kernel_of(int kind) {
+  switch (kind) {
+    case 0: return (const void*)decoder_fwd_kernel<R, true>;
+    case 1: return (const void*)decoder_bwd_kernel<R>;
+    default: return (const void*)decoder_fwd_kernel<R, false>;
+  }
+}
+
+const void* kernel_for(int kind, int rows) {
+  switch (rows) {
+    case 8: return kernel_of<8>(kind);
+    case 4: return kernel_of<4>(kind);
+    case 2: return kernel_of<2>(kind);
+    default: return nullptr;
+  }
+}
+
+// Dynamic shared memory a block of this kernel may ask for on the current
+// card: the opt-in maximum less the kernel's static shared memory.
+long long smem_limit(const void* fn) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  cudaFuncAttributes a;
+  if (cudaFuncGetAttributes(&a, fn) != cudaSuccess) return 0;
+  return (long long)optin - (long long)a.sharedSizeBytes;
+}
+
+// Sets the kernel's shared-memory allowance; cudaErrorInvalidValue when the
+// row tile is not one of 8, 4, 2 or its shared memory does not fit.
+cudaError_t prepare(int kind, int rows, int F, int H, int M, int Mo,
+                    int* smem_out) {
+  const void* fn = kernel_for(kind, rows);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  const long long smem = smem_bytes(kind, rows, F, H, M, Mo);
+  if (smem > smem_limit(fn)) return cudaErrorInvalidValue;
+  *smem_out = (int)smem;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <int R, bool kLosses>
+void launch_fwd(int blocks, int smem, cudaStream_t s, const float* noise,
+                const int* lengths, const float* w_cat, const float* bias,
+                const float* b1, const float* w2m, const float* w2v,
+                const float* b2, const float* w_ih, const float* targets,
+                const float* wo1, const float* bo1, const float* wo2,
+                const float* bo2, const float* h0, const float* c0,
+                float* out_last, float* hs, float* cs, double* partial,
+                float* outs, float* mean_s, float* logvar_s, int T, int B,
+                int F, int H, int M, int Mo) {
+  decoder_fwd_kernel<R, kLosses><<<blocks, kThreads, smem, s>>>(
+      noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, targets, wo1, bo1,
+      wo2, bo2, h0, c0, out_last, hs, cs, partial, outs, mean_s, logvar_s, T,
+      B, F, H, M, Mo);
+}
+
+template <bool kLosses>
+void dispatch_fwd(int rows, int blocks, int smem, cudaStream_t s,
+                  const float* noise, const int* lengths, const float* w_cat,
+                  const float* bias, const float* b1, const float* w2m,
+                  const float* w2v, const float* b2, const float* w_ih,
+                  const float* targets, const float* wo1, const float* bo1,
+                  const float* wo2, const float* bo2, const float* h0,
+                  const float* c0, float* out_last, float* hs, float* cs,
+                  double* partial, float* outs, float* mean_s,
+                  float* logvar_s, int T, int B, int F, int H, int M,
+                  int Mo) {
+  auto go = rows == 8   ? &launch_fwd<8, kLosses>
+            : rows == 4 ? &launch_fwd<4, kLosses>
+                        : &launch_fwd<2, kLosses>;
+  go(blocks, smem, s, noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih,
+     targets, wo1, bo1, wo2, bo2, h0, c0, out_last, hs, cs, partial, outs,
+     mean_s, logvar_s, T, B, F, H, M, Mo);
+}
+
+template <int R>
+void launch_bwd(int blocks, int smem, cudaStream_t s, const float* noise,
+                const int* lengths, const float* w_cat, const float* bias,
+                const float* b1, const float* w2m, const float* w2v,
+                const float* b2, const float* w_ih, const float* targets,
+                const float* wo1, const float* bo1, const float* wo2,
+                const float* bo2, const float* h0, const float* c0,
+                const float* w_catT, const float* w_ihT, const float* w2mT,
+                const float* w2vT, const float* wo1T, const float* hs,
+                const float* cs, const float* dlast, const float* gscale,
+                float* dh0, float* dc0, float* hp_s, float* dbig_s,
+                float* x_s, float* emh_s, float* dem_s, float* h2_s,
+                float* doh_s, float* oh_s, float* dzo_s, int T, int B, int F,
+                int H, int M, int Mo) {
+  decoder_bwd_kernel<R><<<blocks, kThreads, smem, s>>>(
+      noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, targets, wo1, bo1,
+      wo2, bo2, h0, c0, w_catT, w_ihT, w2mT, w2vT, wo1T, hs, cs, dlast,
+      gscale, dh0, dc0, hp_s, dbig_s, x_s, emh_s, dem_s, h2_s, doh_s, oh_s,
+      dzo_s, T, B, F, H, M, Mo);
+}
+
 }  // namespace
 
 extern "C" {
 
-long long abcd_decoder_fwd_smem_bytes(int F, int H, int M, int Mo) {
-  return (long long)kRows * (3 * H + 4 * H + 2 * M + F + Mo)
-         * (long long)sizeof(float);
+// The largest row tile (8, 4 or 2) whose shared memory fits the card for
+// kernel `kind` (0 fused-loss forward, 1 fused-loss backward, 2 the plain
+// loop's forward); 0 when none does.
+int abcd_decoder_rows(int kind, int F, int H, int M, int Mo) {
+  for (int rows = 8; rows >= 2; rows /= 2) {
+    const void* fn = kernel_for(kind, rows);
+    if (fn != nullptr && smem_bytes(kind, rows, F, H, M, Mo) <= smem_limit(fn))
+      return rows;
+  }
+  return 0;
 }
 
-long long abcd_decoder_bwd_smem_bytes(int F, int H, int M, int Mo) {
-  return ((long long)kRows * (5 * H + 4 * H + 2 * M + 3 * F + Mo) + kRows)
-         * (long long)sizeof(float);
+long long abcd_decoder_smem_bytes(int kind, int rows, int F, int H, int M,
+                                  int Mo) {
+  return smem_bytes(kind, rows, F, H, M, Mo);
 }
 
-// Forward (see the comment at the top).  hs / cs may be nullptr (no
-// backward to follow).  `partial` holds 2 * ceil(B / 8) doubles; `losses`
-// receives (nll over positions 0..T-2, bce over all positions).
+long long abcd_decoder_smem_limit(int kind, int rows) {
+  const void* fn = kernel_for(kind, rows);
+  return fn == nullptr ? 0 : smem_limit(fn);
+}
+
+// Fused-loss forward (kind 0; see the comment at the top).  hs / cs may be
+// nullptr (no backward to follow).  `partial` holds 2 * ceil(B / rows)
+// doubles; `losses` receives (nll over positions 0..T-2, bce over all
+// positions).
 int abcd_decoder_fwd(const float* noise, const int* lengths,
                      const float* w_cat, const float* bias, const float* b1,
                      const float* w2m, const float* w2v, const float* b2,
@@ -627,26 +788,51 @@ int abcd_decoder_fwd(const float* noise, const int* lengths,
                      const float* bo2, const float* h0, const float* c0,
                      float* out_last, float* hs, float* cs, double* partial,
                      float* losses, int T, int B, int F, int H, int M,
-                     int Mo, void* stream) {
+                     int Mo, int rows, void* stream) {
   if (T < 1 || B < 1 || F < 1 || H < 1 || M < 1 || Mo < 1)
     return (int)cudaErrorInvalidValue;
-  const int smem = (int)abcd_decoder_fwd_smem_bytes(F, H, M, Mo);
-  cudaError_t err = cudaFuncSetAttribute(
-      decoder_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int smem = 0;
+  cudaError_t err = prepare(0, rows, F, H, M, Mo, &smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (B + kRows - 1) / kRows;
+  const int blocks = (B + rows - 1) / rows;
   cudaStream_t s = (cudaStream_t)stream;
-  decoder_fwd_kernel<<<blocks, kThreads, smem, s>>>(
-      noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, targets, wo1, bo1,
-      wo2, bo2, h0, c0, out_last, hs, cs, partial, T, B, F, H, M, Mo);
+  dispatch_fwd<true>(rows, blocks, smem, s, noise, lengths, w_cat, bias, b1,
+                     w2m, w2v, b2, w_ih, targets, wo1, bo1, wo2, bo2, h0, c0,
+                     out_last, hs, cs, partial, nullptr, nullptr, nullptr, T,
+                     B, F, H, M, Mo);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   loss_sum_kernel<<<1, 32, 0, s>>>(partial, blocks, losses);
   return (int)cudaGetLastError();
 }
 
-// Backward (see the comment at the top): writes dh0, dc0 and the streams
-// that csrc/wgrad.cu reduces into the weight gradients.
+// The plain sampled loop's forward (kind 2): outs (T, B, H) = the pre-mask
+// h2 of every step, mean_s / logvar_s (T, B, F) position-indexed (slot T - 1
+// holds step 0's emission).  hs / cs may be nullptr.
+int abcd_decoder_loop_fwd(const float* noise, const int* lengths,
+                          const float* w_cat, const float* bias,
+                          const float* b1, const float* w2m,
+                          const float* w2v, const float* b2,
+                          const float* w_ih, const float* h0,
+                          const float* c0, float* outs, float* mean_s,
+                          float* logvar_s, float* hs, float* cs, int T,
+                          int B, int F, int H, int M, int rows,
+                          void* stream) {
+  if (T < 1 || B < 1 || F < 1 || H < 1 || M < 1)
+    return (int)cudaErrorInvalidValue;
+  int smem = 0;
+  cudaError_t err = prepare(2, rows, F, H, M, 0, &smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (B + rows - 1) / rows;
+  dispatch_fwd<false>(rows, blocks, smem, (cudaStream_t)stream, noise,
+                      lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, nullptr,
+                      nullptr, nullptr, nullptr, nullptr, h0, c0, nullptr, hs,
+                      cs, nullptr, outs, mean_s, logvar_s, T, B, F, H, M, 0);
+  return (int)cudaGetLastError();
+}
+
+// Backward (kind 1; see the comment at the top): writes dh0, dc0 and the
+// streams that csrc/wgrad.cu reduces into the weight gradients.
 int abcd_decoder_bwd(const float* noise, const int* lengths,
                      const float* w_cat, const float* bias, const float* b1,
                      const float* w2m, const float* w2v, const float* b2,
@@ -660,19 +846,19 @@ int abcd_decoder_bwd(const float* noise, const int* lengths,
                      float* hp_s, float* dbig_s, float* x_s, float* emh_s,
                      float* dem_s, float* h2_s, float* doh_s, float* oh_s,
                      float* dzo_s, int T, int B, int F, int H, int M, int Mo,
-                     void* stream) {
+                     int rows, void* stream) {
   if (T < 1 || B < 1 || F < 1 || H < 1 || M < 1 || Mo < 1)
     return (int)cudaErrorInvalidValue;
-  const int smem = (int)abcd_decoder_bwd_smem_bytes(F, H, M, Mo);
-  cudaError_t err = cudaFuncSetAttribute(
-      decoder_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int smem = 0;
+  cudaError_t err = prepare(1, rows, F, H, M, Mo, &smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (B + kRows - 1) / kRows;
-  decoder_bwd_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, targets, wo1, bo1,
-      wo2, bo2, h0, c0, w_catT, w_ihT, w2mT, w2vT, wo1T, hs, cs, dlast,
-      gscale, dh0, dc0, hp_s, dbig_s, x_s, emh_s, dem_s, h2_s, doh_s, oh_s,
-      dzo_s, T, B, F, H, M, Mo);
+  const int blocks = (B + rows - 1) / rows;
+  auto go = rows == 8 ? &launch_bwd<8> : rows == 4 ? &launch_bwd<4>
+                                                   : &launch_bwd<2>;
+  go(blocks, smem, (cudaStream_t)stream, noise, lengths, w_cat, bias, b1,
+     w2m, w2v, b2, w_ih, targets, wo1, bo1, wo2, bo2, h0, c0, w_catT, w_ihT,
+     w2mT, w2vT, wo1T, hs, cs, dlast, gscale, dh0, dc0, hp_s, dbig_s, x_s,
+     emh_s, dem_s, h2_s, doh_s, oh_s, dzo_s, T, B, F, H, M, Mo);
   return (int)cudaGetLastError();
 }
 

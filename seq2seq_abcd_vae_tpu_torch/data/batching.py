@@ -6,12 +6,15 @@ centring already written, plus frame counts; padding rows have length 0
 and are masked out of every loss.  The bucket edges follow the
 bucket-shuffled composition (the band maxes of the sorted frame counts,
 ``chunk_optimal_bucket_edges``), so a corpus has few distinct padded
-lengths.  The shuffle uses an explicit numpy Generator with the JAX
+lengths.  The JAX loader's bucket-policy overrides
+(``SEQ2SEQ_BUCKET_POLICY``, ``SEQ2SEQ_NUM_BUCKETS``) are not ported: the
+port refuses to run with either set rather than batch differently.  The shuffle uses an explicit numpy Generator with the JAX
 package's default seed, so both packages compose the same batches.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Iterator, Sequence
 
@@ -19,6 +22,10 @@ import numpy as np
 
 from ..ops import stft as stft_ops
 from .audio import SegmentDataset, center_pad_segment
+
+
+# the JAX loader's environment overrides of its bucket edges
+UNPORTED_ENV = ("SEQ2SEQ_BUCKET_POLICY", "SEQ2SEQ_NUM_BUCKETS")
 
 
 @dataclass
@@ -163,6 +170,12 @@ class DataLoader:
         if batching_mode not in ("uniform", "bucket_shuffled",
                                  "length_sorted"):
             raise ValueError(f"unknown batching mode {batching_mode!r}")
+        for name in UNPORTED_ENV:
+            if os.environ.get(name):
+                raise NotImplementedError(
+                    f"{name}={os.environ[name]!r} is set: the JAX loader's "
+                    "bucket-policy override is not ported (the port always "
+                    "uses the 'chunk' edges); unset it")
         self.dataset = dataset
         self.frontend = frontend
         self.batch_size = batch_size

@@ -1,4 +1,4 @@
-"""Autoregressive variational decoder, training losses (PyTorch port of
+"""Autoregressive variational decoder (PyTorch port of
 seq2seq_abcd_vae_tpu/models/decoder.py, unidirectional LSTM only).
 
 - latent (+ the speaker embedding, a concatenation) -> initial (h, c) via
@@ -9,23 +9,41 @@ seq2seq_abcd_vae_tpu/models/decoder.py, unidirectional LSTM only).
 - losses are unnormalised sums over valid steps: the Gaussian emission
   NLL and the offset BCE against (t == len - 1).
 
-Training runs the JAX package's ``loss_only`` fast path: the whole loop
-with both losses in one hand-written kernel
+Training (``decoder_losses``) runs the JAX package's ``loss_only`` fast
+path: the whole loop with both losses in one hand-written kernel
 (``ops/decoder_kernel.decoder_loop_fused_losses``, its plain twin on the
 CPU), and position T-1's emission term recomputed here from the last
 step's hidden state.
+
+Decoding (``decoder_apply``) returns the streams, as the JAX function's
+non-``loss_only`` path does: ``sample`` mode runs the sampled loop in one
+hand-written kernel (``ops/decoder_kernel.decoder_loop``) and overwrites
+slot T-1 of its position-indexed emission streams from the last step's
+pre-mask hidden state; ``mean`` mode feeds the emission mean back and runs
+the JAX package's scan body as a loop of batched products on the tensors'
+device (the JAX package takes its kernel for ``sample`` only).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from .. import distributions as dist
-from ..configs import DecoderConfig
+from ..configs import DecoderConfig, check_decoder
 from ..ops import decoder_kernel
 from . import initializers as init
 from . import mlp as mlp_mod
 from . import sampler as sampler_mod
+
+
+class DecoderOutput(NamedTuple):
+    emission_loss: Optional[torch.Tensor]  # scalar sum over valid steps
+    offset_loss: Optional[torch.Tensor]    # scalar sum over valid steps
+    out: torch.Tensor                      # (B, T, F) emitted samples
+    emission_params: tuple                 # (mean, log_variance) (B, T, F)
+    offset_weights: torch.Tensor           # (B, T) pre-sigmoid logits
 
 
 def decoder_init(gen: torch.Generator, cfg: DecoderConfig) -> dict:
@@ -55,6 +73,30 @@ def split_hidden(cfg: DecoderConfig, hidden: torch.Tensor):
     return hc[..., 0].contiguous(), hc[..., 1].contiguous()
 
 
+def _initial_state(params: dict, cfg: DecoderConfig, features, speaker):
+    """(h0, c0) from the latent (+ the speaker embedding)."""
+    if cfg.has_speaker_embedding:
+        # a dense gather: padding rows' id -1 takes the last row, as in
+        # the JAX package, and their losses are masked
+        emb = params["embed_speaker"][speaker.long()]
+        features = torch.cat([features, emb], dim=-1)
+    lin = params["feature2hidden"]
+    return split_hidden(cfg, features @ lin["w"] + lin["b"])
+
+
+def _loop_weights(params: dict) -> dict:
+    """The loop's fused operands in decoder_pallas.decoder_loop's layout."""
+    cell = params["rnn_cell"]
+    em = params["emission_sampler"]["to_parameters"]
+    w1 = em["lin1"]["w"]                                   # (2, H, m)
+    return {"w_cat": torch.cat([cell["w_hh"], w1.permute(1, 0, 2).reshape(
+                w1.shape[1], -1)], dim=1),
+            "bias": cell["b_ih"] + cell["b_hh"],
+            "b1": em["lin1"]["b"].reshape(-1), "w2m": em["lin2"]["w"][0],
+            "w2v": em["lin2"]["w"][1], "b2": em["lin2"]["b"].reshape(-1),
+            "w_ih": cell["w_ih"]}
+
+
 def decoder_losses(params: dict, cfg: DecoderConfig, features: torch.Tensor,
                    lengths: torch.Tensor, ground_truth_out: torch.Tensor,
                    noise: torch.Tensor, speaker: torch.Tensor | None = None):
@@ -68,26 +110,14 @@ def decoder_losses(params: dict, cfg: DecoderConfig, features: torch.Tensor,
         ``noise[p]``.
       speaker: (B,) int ids when the config embeds speakers.
     """
-    if cfg.has_speaker_embedding:
-        # a dense gather: padding rows' id -1 takes the last row, as in
-        # the JAX package, and their losses are masked
-        emb = params["embed_speaker"][speaker.long()]
-        features = torch.cat([features, emb], dim=-1)
-    lin = params["feature2hidden"]
-    h0, c0 = split_hidden(cfg, features @ lin["w"] + lin["b"])
-    cell = params["rnn_cell"]
-    em = params["emission_sampler"]["to_parameters"]
+    h0, c0 = _initial_state(params, cfg, features, speaker)
+    w = _loop_weights(params)
     off = params["offset_predictor"]
-    w1 = em["lin1"]["w"]                                   # (2, H, m)
-    w_cat = torch.cat([cell["w_hh"],
-                       w1.permute(1, 0, 2).reshape(w1.shape[1], -1)],
-                      dim=1)
     t = ground_truth_out.shape[1]
     lengths = lengths.to(torch.int32)
     out_last, nll, bce = decoder_kernel.decoder_loop_fused_losses(
-        noise.contiguous(), lengths, w_cat, cell["b_ih"] + cell["b_hh"],
-        em["lin1"]["b"].reshape(-1), em["lin2"]["w"][0], em["lin2"]["w"][1],
-        em["lin2"]["b"].reshape(-1), cell["w_ih"],
+        noise.contiguous(), lengths, w["w_cat"], w["bias"], w["b1"],
+        w["w2m"], w["w2v"], w["b2"], w["w_ih"],
         ground_truth_out.transpose(0, 1).contiguous(), off["lin1"]["w"],
         off["lin1"]["b"], off["lin2"]["w"].reshape(-1), off["lin2"]["b"],
         h0, c0)
@@ -97,3 +127,98 @@ def decoder_losses(params: dict, cfg: DecoderConfig, features: torch.Tensor,
     emission_loss = nll - dist.log_pdf_isotropic_gaussian(
         ground_truth_out[:, -1], *last, mask=mask_last)
     return emission_loss, bce
+
+
+def _mean_loop(params: dict, w: dict, h0, c0, lengths, t: int):
+    """The JAX scan body in mean mode (models/decoder.py:_run_direction):
+    the emission mean of the previous position is fed back.  Returns the
+    pre-mask h2 of every step, (T, B, H)."""
+    cell = params["rnn_cell"]
+    hidden = h0.shape[1]
+    f_dim = w["w_ih"].shape[0]
+    m = w["w2m"].shape[0]
+    steps = torch.arange(t, device=h0.device)[:, None]
+    lens = lengths.long()[None, :]
+    mt = (steps < lens).unsqueeze(-1)
+    pmt = ((steps >= 1) & (steps - 1 < lens)).unsqueeze(-1)
+    h, c = h0, c0
+    outs = []
+    for s in range(t):
+        big = h @ w["w_cat"]
+        emh = torch.tanh(big[:, 4 * hidden:] + w["b1"])
+        mean = emh[:, :m] @ w["w2m"] + w["b2"][:f_dim]
+        x = torch.where(pmt[s], mean, 0.0)
+        gates = ((x @ cell["w_ih"] + cell["b_ih"])
+                 + (big[:, :4 * hidden] + cell["b_hh"]))
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c2 = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h2 = torch.sigmoid(o) * torch.tanh(c2)
+        h = torch.where(mt[s], h2, h)
+        c = torch.where(mt[s], c2, c)
+        outs.append(h2)
+    return torch.stack(outs)
+
+
+def decoder_apply(params: dict, cfg: DecoderConfig, features: torch.Tensor,
+                  lengths: torch.Tensor, total_steps: int, *,
+                  noise: torch.Tensor | None = None,
+                  speaker: torch.Tensor | None = None,
+                  ground_truth_out: torch.Tensor | None = None,
+                  ground_truth_offset: torch.Tensor | None = None,
+                  emission_mode: str = "sample") -> DecoderOutput:
+    """Decode a batch of latents (the JAX function's deterministic,
+    non-``loss_only`` path).
+
+    Args:
+      features: (B, feature_size) latents; lengths: (B,) valid steps.
+      total_steps: T.
+      noise: (T, B, F) standard normals, UNSHIFTED (position p's sample
+        uses ``noise[p]``); needed in ``sample`` mode only.
+      speaker: (B,) int ids when the config embeds speakers.
+      ground_truth_out (B, T, F) / ground_truth_offset (B, T): targets of
+        the optional losses.
+      emission_mode: ``sample`` (the kernel) or ``mean``.
+
+    Returns a DecoderOutput whose (B, T, .) streams are padding at and
+    past ``lengths``.
+    """
+    check_decoder(cfg)
+    if emission_mode not in ("sample", "mean"):
+        raise ValueError(f"unknown emission mode {emission_mode!r}")
+    h0, c0 = _initial_state(params, cfg, features, speaker)
+    w = _loop_weights(params)
+    lengths = lengths.to(torch.int32)
+    if emission_mode == "sample":
+        if noise is None or tuple(noise.shape) != (
+                total_steps, features.shape[0], cfg.output_size):
+            raise ValueError("sample mode needs noise of shape (T, B, F)")
+        outs, mean_s, logvar_s = decoder_kernel.decoder_loop(
+            noise.contiguous(), lengths, w["w_cat"], w["bias"], w["b1"],
+            w["w2m"], w["w2v"], w["b2"], w["w_ih"], h0, c0)
+        # slot T-1 holds step 0's parked emission: the final position's
+        # comes from the last step's pre-mask hidden state
+        last = sampler_mod.sampler_apply(params["emission_sampler"],
+                                         outs[-1])
+        em = tuple(torch.cat([p_s[:-1], p_last[None]]).transpose(0, 1)
+                   for p_s, p_last in zip((mean_s, logvar_s), last))
+        out = dist.gaussian_from_noise(noise.transpose(0, 1), *em)
+    else:
+        outs = _mean_loop(params, w, h0, c0, lengths, total_steps)
+        em = sampler_mod.sampler_apply(params["emission_sampler"],
+                                       outs.transpose(0, 1))
+        out = em[0]
+    rnn_out = outs.transpose(0, 1)                         # (B, T, H)
+    offset_logits = mlp_mod.mlp_apply(params["offset_predictor"],
+                                      rnn_out).squeeze(-1)
+    mask = (torch.arange(total_steps, device=lengths.device)[None, :]
+            < lengths[:, None]).to(rnn_out.dtype)
+    emission_loss = offset_loss = None
+    if ground_truth_out is not None:
+        emission_loss = -dist.log_pdf_isotropic_gaussian(
+            ground_truth_out, *em, mask=mask[..., None])
+    if ground_truth_offset is not None:
+        z, y = offset_logits, ground_truth_offset
+        per = (torch.clamp(z, min=0.0) - z * y
+               + torch.log1p(torch.exp(-torch.abs(z))))
+        offset_loss = (per * mask).sum()
+    return DecoderOutput(emission_loss, offset_loss, out, em, offset_logits)

@@ -1,10 +1,11 @@
 """Variational sequence encoder (PyTorch port of
-seq2seq_abcd_vae_tpu/models/encoder.py, bidirectional LSTM only).
+seq2seq_abcd_vae_tpu/models/encoder.py, LSTM only).
 
 The output is the flattened final state: for each (layer, direction) the
 LSTM's h and c are concatenated, and the blocks are flattened row-major
-in torch order, so the width is layers * hidden * 2 * 2.  Inter-layer
-dropout is not ported (``configs.check_trainable`` refuses it).
+in torch order, so the width is layers * hidden * (2 if bidirectional)
+* 2.  Inter-layer dropout is not ported (``configs.check_served`` refuses
+it for training).
 """
 
 from __future__ import annotations
@@ -17,18 +18,21 @@ from . import rnn as rnn_mod
 
 
 def encoder_init(gen: torch.Generator, cfg: EncoderConfig) -> list:
-    """Fresh layers, each ``{"w_ih" (2, F, 4H), "b_ih" (2, 4H), "w_hh"
-    (2, H, 4H), "b_hh" (2, 4H)}`` with the two directions stacked (drawn
-    forward direction first, as the JAX package stores them)."""
+    """Fresh layers.  Bidirectional: each ``{"w_ih" (2, F, 4H), "b_ih"
+    (2, 4H), "w_hh" (2, H, 4H), "b_hh" (2, 4H)}`` with the two directions
+    stacked (drawn forward direction first, as the JAX package stores
+    them); unidirectional: the same without the leading axis."""
     check_served(cfg)
+    dirs = 2 if cfg.bidirectional else 1
     layers = []
     for index in range(cfg.rnn_layers):
         in_size = (cfg.input_size if index == 0
-                   else 2 * cfg.rnn_hidden_size)
-        pair = [init.rnn_gate_params(gen, in_size, cfg.rnn_hidden_size, 4)
-                for _ in range(2)]
-        layers.append({k: torch.stack([p[k] for p in pair])
-                       for k in pair[0]})
+                   else dirs * cfg.rnn_hidden_size)
+        drawn = [init.rnn_gate_params(gen, in_size, cfg.rnn_hidden_size, 4)
+                 for _ in range(dirs)]
+        layers.append({k: torch.stack([p[k] for p in drawn])
+                       for k in drawn[0]} if cfg.bidirectional
+                      else drawn[0])
     return layers
 
 
@@ -43,10 +47,14 @@ def encoder_apply(params: list, cfg: EncoderConfig, x: torch.Tensor,
     finals = []
     y = x
     for layer in params:
-        outs_f, outs_b, both = rnn_mod.run_rnn_layer_bidir(layer, y,
-                                                         lengths)
-        finals.extend(both)
-        y = torch.cat([outs_f, outs_b], dim=-1)
+        if cfg.bidirectional:
+            outs_f, outs_b, both = rnn_mod.run_rnn_layer_bidir(layer, y,
+                                                             lengths)
+            finals.extend(both)
+            y = torch.cat([outs_f, outs_b], dim=-1)
+        else:
+            y, final = rnn_mod.run_rnn_layer(layer, y, lengths)
+            finals.append(final)
     return _flatten_final(finals)
 
 

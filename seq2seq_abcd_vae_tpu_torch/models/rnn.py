@@ -1,15 +1,16 @@
 """Masked recurrent layers over padded batches (PyTorch port of
-seq2seq_abcd_vae_tpu/models/rnn.py, bidirectional LSTM only).
+seq2seq_abcd_vae_tpu/models/rnn.py, LSTM only).
 
 Variable lengths are padded arrays plus row lengths: a row's carries are
 frozen once it ends, which reproduces the reference's packed-sequence
 "shrinking batch" exactly, and the reverse direction joins short rows
 late.  Both directions of a layer run in one call of
-``ops/lstm_kernel.lstm_layer_bidir_fused``: the CUDA kernel for tensors on
-the card, its plain twin for tensors on the CPU.  When autograd needs a
-gradient the call goes through ``lstm_layer_bidir_fused_train``, whose
-backward is the hand-written reverse-time kernel.  Gates are in torch
-order (i, f, g, o).
+``ops/lstm_kernel.lstm_layer_bidir_fused``; one direction runs in
+``ops/lstm_kernel.lstm_layer`` over the hoisted input projection.  Each is
+the CUDA kernel for tensors on the card, its plain twin for tensors on the
+CPU.  When autograd needs a gradient the call goes through the ``_train``
+variant, whose backward is the hand-written reverse-time kernel.  Gates
+are in torch order (i, f, g, o).
 """
 
 from __future__ import annotations
@@ -41,10 +42,44 @@ def run_rnn_layer_bidir(layer: dict, x: torch.Tensor,
     """
     args = (x.transpose(0, 1).contiguous(), lengths, layer["w_ih"],
             layer["b_ih"], layer["w_hh"], layer["b_hh"])
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+    if _needs_grad(args):
         outs, h_n, c_n = lstm_kernel.lstm_layer_bidir_fused_train(*args)
     else:
         outs, h_n, c_n = lstm_kernel.lstm_layer_bidir_fused(*args)
     outs_f = outs[:, 0].transpose(0, 1)
     outs_b = outs[:, 1].flip(0).transpose(0, 1)
     return outs_f, outs_b, [(h_n[0], c_n[0]), (h_n[1], c_n[1])]
+
+
+def _needs_grad(args) -> bool:
+    return torch.is_grad_enabled() and any(a.requires_grad for a in args)
+
+
+def run_rnn_layer(params: dict, x: torch.Tensor, lengths: torch.Tensor,
+                  reverse: bool = False):
+    """One direction of one LSTM layer over a padded batch.
+
+    Args:
+      params: ``{"w_ih" (F, 4H), "b_ih" (4H,), "w_hh" (H, 4H),
+        "b_hh" (4H,)}``.
+      x: (B, T, F) inputs; lengths: (B,) int32 valid steps per row (the
+        JAX function takes the equivalent prefix mask).
+      reverse: run t = T-1 .. 0 (the right-to-left direction).
+
+    Returns (outputs (B, T, H), (h_n, c_n)) as the JAX function does: the
+    hidden state at each position (frozen after a row ends; zero before it
+    joins in reverse) and the state after the row's last processed
+    position.
+    """
+    # the hoisted input projection: one large product outside the kernel
+    xp = (x @ params["w_ih"] + params["b_ih"]).transpose(0, 1)
+    if reverse:
+        xp = xp.flip(0)
+    args = (xp.contiguous(), lengths, params["w_hh"], params["b_hh"])
+    if _needs_grad(args):
+        outs, h_n, c_n = lstm_kernel.lstm_layer_train(*args, reverse)
+    else:
+        outs, h_n, c_n = lstm_kernel.lstm_layer(*args, reverse)
+    if reverse:
+        outs = outs.flip(0)
+    return outs.transpose(0, 1), (h_n, c_n)

@@ -21,7 +21,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"stft": _PKG / "csrc" / "stft.cu",
-           "lstm_bidir": _PKG / "csrc" / "lstm_bidir.cu",
+           "lstm": _PKG / "csrc" / "lstm.cu",
            "decoder": _PKG / "csrc" / "decoder.cu",
            "wgrad": _PKG / "csrc" / "wgrad.cu"}
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -32,14 +32,26 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "stft": {"abcd_log_spectrogram":
              [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]},
-    "lstm_bidir": {"abcd_lstm_bidir_fwd": [_P] * 10 + [_I] * 4 + [_P],
-                   "abcd_lstm_bidir_bwd": [_P] * 16 + [_I] * 4 + [_P]},
-    "decoder": {"abcd_decoder_fwd": [_P] * 21 + [_I] * 6 + [_P],
-                "abcd_decoder_bwd": [_P] * 36 + [_I] * 6 + [_P]},
+    "lstm": {"abcd_lstm_bidir_fwd": [_P] * 10 + [_I] * 5 + [_P],
+             "abcd_lstm_fwd": [_P] * 8 + [_I] * 5 + [_P],
+             "abcd_lstm_bidir_bwd": [_P] * 16 + [_I] * 5 + [_P],
+             "abcd_lstm_bwd": [_P] * 12 + [_I] * 5 + [_P],
+             "abcd_lstm_rows": [_I] * 3,
+             "abcd_lstm_smem_bytes": [_I] * 4,
+             "abcd_lstm_smem_limit": [_I] * 2},
+    "decoder": {"abcd_decoder_fwd": [_P] * 21 + [_I] * 7 + [_P],
+                "abcd_decoder_loop_fwd": [_P] * 16 + [_I] * 6 + [_P],
+                "abcd_decoder_bwd": [_P] * 36 + [_I] * 7 + [_P],
+                "abcd_decoder_rows": [_I] * 5,
+                "abcd_decoder_smem_bytes": [_I] * 6,
+                "abcd_decoder_smem_limit": [_I] * 2},
     "wgrad": {"abcd_wgrad": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P],
               "abcd_wgrad_splits": [_I, _I, _I],
               "abcd_add2": [_P, _P, _P, _L, _P]},
 }
+# entry points that return a byte count; every other one returns an int
+_LONG_RESULTS = {"abcd_lstm_smem_bytes", "abcd_lstm_smem_limit",
+                 "abcd_decoder_smem_bytes", "abcd_decoder_smem_limit"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -105,10 +117,27 @@ def load(name: str) -> ctypes.CDLL:
     for fn_name, argtypes in SIGNATURES[name].items():
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _L if fn_name in _LONG_RESULTS else ctypes.c_int
     lib.abcd_cuda_error_string.argtypes = [ctypes.c_int]
     lib.abcd_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def row_tile(lib: ctypes.CDLL, family: str, kind: int, dims, what: str) -> int:
+    """The row tile (8, 4 or 2 batch rows per block) that the library picks
+    for kernel ``kind`` of ``family`` (``lstm`` or ``decoder``) at the
+    widths ``dims``: the largest whose shared memory fits the card.  Raises
+    ValueError when even 2 rows need more shared memory than a block may
+    have."""
+    rows = getattr(lib, f"abcd_{family}_rows")(kind, *dims)
+    if rows == 0:
+        need = getattr(lib, f"abcd_{family}_smem_bytes")(kind, 2, *dims)
+        limit = getattr(lib, f"abcd_{family}_smem_limit")(kind, 2)
+        raise ValueError(
+            f"{what} at widths {tuple(dims)} needs {need} bytes of shared "
+            f"memory per block even at 2 rows a block; this card admits "
+            f"{limit}")
+    return rows
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

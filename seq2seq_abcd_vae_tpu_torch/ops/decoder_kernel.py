@@ -1,10 +1,11 @@
-"""The LSTM decoder's time loop with both training losses fused, forward
-and backward: the CUDA kernels of ``csrc/decoder.cu`` and their plain
-PyTorch twins.
+"""The LSTM decoder's sampled time loop: the CUDA kernels of
+``csrc/decoder.cu`` and their plain PyTorch twins.
 
 Replaces seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:
 decoder_loop_fused_losses (``_fused_fwd_call`` / ``_fused_fwd_kernel``,
-``_fused_bwd_call`` / ``_fused_bwd_kernel``, with_offset=True).  The loop
+``_fused_bwd_call`` / ``_fused_bwd_kernel``, with_offset=True), and the
+forward of decoder_loop (``_fwd_call`` / ``_fwd_kernel``), for which see
+:func:`decoder_loop`.  The fused loop
 samples its own feedback (zero first input, then the sampled emission of
 the previous position with the presampled ``noise``), accumulates the
 Gaussian emission NLL of positions 0..T-2 against ``targets`` and the
@@ -30,7 +31,8 @@ import torch
 from . import _build, wgrad
 
 _LOG_2PI = math.log(2.0 * math.pi)
-ROWS_PER_BLOCK = 8  # kRows in csrc/decoder.cu
+# kernel kinds of csrc/decoder.cu (abcd_decoder_rows)
+_FUSED_FWD, _FUSED_BWD, _LOOP_FWD = 0, 1, 2
 
 _NAMES = ("noise", "lengths", "w_cat", "bias", "b1", "w2m", "w2v", "b2",
           "w_ih", "targets", "wo1", "bo1", "wo2", "bo2", "h0", "c0")
@@ -158,12 +160,14 @@ def decoder_fused_losses_fwd(*args, save: bool = True):
         return out if save else out[:3] + (None, None)
     t, b, f, hidden, m, mo = _shapes(args)
     lib = _build.load("decoder")
+    rows = _build.row_tile(lib, "decoder", _FUSED_FWD, (f, hidden, m, mo),
+                           "decoder_loop_fused_losses")
     dev = noise.device
     out_last = torch.empty((b, hidden), dtype=torch.float32, device=dev)
     hs = (torch.empty((t, b, hidden), dtype=torch.float32, device=dev)
           if save else None)
     cs = torch.empty_like(hs) if save else None
-    blocks = -(-b // ROWS_PER_BLOCK)
+    blocks = -(-b // rows)
     partial = torch.empty((blocks, 2), dtype=torch.float64, device=dev)
     losses = torch.empty((2,), dtype=torch.float32, device=dev)
     ptr = lambda x: None if x is None else x.data_ptr()
@@ -172,7 +176,7 @@ def decoder_fused_losses_fwd(*args, save: bool = True):
         err = lib.abcd_decoder_fwd(*[a.data_ptr() for a in args],
                                    out_last.data_ptr(), ptr(hs), ptr(cs),
                                    partial.data_ptr(), losses.data_ptr(),
-                                   t, b, f, hidden, m, mo, stream)
+                                   t, b, f, hidden, m, mo, rows, stream)
     _build.check(lib, err, "decoder_loop_fused_losses")
     decoder_fused_losses_fwd.launches += 1
     return out_last, losses[0].clone(), losses[1].clone(), hs, cs
@@ -281,6 +285,8 @@ def decoder_fused_losses_bwd(*args):
     if dev.type == "cpu":
         return decoder_fused_losses_bwd_plain(*args)
     lib = _build.load("decoder")
+    rows = _build.row_tile(lib, "decoder", _FUSED_BWD, (f, hidden, m, mo),
+                           "decoder_loop_fused_losses backward")
     w_cat, w2m, w2v, w_ih, wo1 = (fwd_args[i] for i in (2, 5, 6, 8, 10))
     g = w_cat.shape[1]
     transposed = [w.transpose(0, 1).contiguous()
@@ -302,7 +308,7 @@ def decoder_fused_losses_bwd(*args):
             hs.data_ptr(), cs.data_ptr(), dlast.data_ptr(),
             gscale.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
             *[st[k].data_ptr() for k in order], t, b, f, hidden, m, mo,
-            stream)
+            rows, stream)
         _build.check(lib, err, "decoder_loop_fused_losses backward")
         rows = {k: v.view(t * b, v.shape[-1]) for k, v in st.items()}
         grads = _weight_grads(rows, hidden, m, f, wgrad.at_b)
@@ -343,3 +349,112 @@ def decoder_loop_fused_losses(noise, lengths, w_cat, bias, b1, w2m, w2v, b2,
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         return _DecoderFusedLosses.apply(*args)
     return decoder_fused_losses_fwd(*args, save=False)[:3]
+
+
+# ---------------------------------------------------------------------------
+# the plain sampled loop (decoder_pallas.decoder_loop), forward
+# ---------------------------------------------------------------------------
+
+_LOOP_NAMES = ("noise", "lengths", "w_cat", "bias", "b1", "w2m", "w2v", "b2",
+               "w_ih", "h0", "c0")
+
+
+def _check_loop(args):
+    """Shapes, types and devices of a ``decoder_loop`` call."""
+    if len(args) != len(_LOOP_NAMES):
+        raise TypeError(f"expected {len(_LOOP_NAMES)} arguments")
+    noise, _, w_cat, _, _, w2m = args[:6]
+    if noise.dim() != 3 or w_cat.dim() != 2 or w2m.dim() != 2:
+        raise ValueError("noise must be (T, B, F), w_cat (H, 4H + 2m) and "
+                         "w2m (m, F)")
+    t, b, f = noise.shape
+    hidden, m = w_cat.shape[0], w2m.shape[0]
+    want = {"noise": (t, b, f), "lengths": (b,),
+            "w_cat": (hidden, 4 * hidden + 2 * m), "bias": (4 * hidden,),
+            "b1": (2 * m,), "w2m": (m, f), "w2v": (m, f), "b2": (2 * f,),
+            "w_ih": (f, 4 * hidden), "h0": (b, hidden), "c0": (b, hidden)}
+    for name, tensor in zip(_LOOP_NAMES, args):
+        dtype = torch.int32 if name == "lengths" else torch.float32
+        if (tuple(tensor.shape) != want[name] or tensor.dtype != dtype
+                or tensor.device != noise.device
+                or not tensor.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous {dtype} "
+                             f"{want[name]} on {noise.device}, got "
+                             f"{tensor.dtype} {tuple(tensor.shape)} on "
+                             f"{tensor.device}")
+    if noise.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {noise.device}")
+    if t < 1 or b < 1:
+        raise ValueError("need at least one step and one row")
+    return t, b, f, hidden, m
+
+
+def decoder_loop_plain(noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih,
+                       h0, c0):
+    """Plain PyTorch twin of the ``decoder_loop`` forward kernel: the scan
+    body of models/decoder.py:_run_direction in sample mode, with the
+    output slot map of decoder_pallas._fwd_call.
+
+    Returns (outs (T, B, H) the PRE-mask h2 of each step, mean_s and
+    logvar_s (T, B, F) position-indexed: slot p holds the emission computed
+    at step p + 1, slot T - 1 step 0's).
+    """
+    t, b, f, hidden, m = _check_loop((noise, lengths, w_cat, bias, b1, w2m,
+                                      w2v, b2, w_ih, h0, c0))
+    mt, pmt, _ = _masks(t, lengths, noise.device)
+    h, c = h0, c0
+    zero = noise.new_zeros((b, f))
+    outs, means, logvars = [], [], []
+    for s in range(t):
+        big = h @ w_cat
+        _, mean, logvar = _emission(big, hidden, m, b1, w2m, w2v, b2, f)
+        eps = noise[s - 1] if s > 0 else zero
+        x = torch.where(pmt[s], mean + torch.exp(0.5 * logvar) * eps, 0.0)
+        _, _, _, _, c2, h2 = _cell(big, x, w_ih, bias, c, hidden)
+        h = torch.where(mt[s], h2, h)
+        c = torch.where(mt[s], c2, c)
+        outs.append(h2)
+        means.append(mean)
+        logvars.append(logvar)
+    # step s's emission belongs to position s - 1; step 0's parks on T - 1
+    shift = lambda xs: torch.stack(xs[1:] + xs[:1])
+    return torch.stack(outs), shift(means), shift(logvars)
+
+
+def decoder_loop(noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, h0,
+                 c0):
+    """The whole sampled decoder loop, forward only.
+
+    Args in the order and layouts of decoder_pallas.decoder_loop: noise
+    (T, B, F) UNSHIFTED (step t consumes noise[t - 1]), lengths (B,) int32,
+    w_cat (H, 4H + 2m), bias (4H,) = b_ih + b_hh, b1 (2m,), w2m / w2v
+    (m, F), b2 (2F,), w_ih (F, 4H), h0 / c0 (B, H).
+
+    Returns (outs, mean_s, logvar_s) as :func:`decoder_loop_plain`.  CUDA
+    tensors launch the kernel (one count); CPU tensors take the twin.  The
+    kernel writes no carry trajectories: nothing differentiates through
+    this loop in the port (its backward is not ported).
+    """
+    args = (noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, h0, c0)
+    t, b, f, hidden, m = _check_loop(args)
+    if noise.device.type == "cpu":
+        return decoder_loop_plain(*args)
+    lib = _build.load("decoder")
+    rows = _build.row_tile(lib, "decoder", _LOOP_FWD, (f, hidden, m, 0),
+                           "decoder_loop")
+    dev = noise.device
+    outs = torch.empty((t, b, hidden), dtype=torch.float32, device=dev)
+    mean_s = torch.empty((t, b, f), dtype=torch.float32, device=dev)
+    logvar_s = torch.empty_like(mean_s)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.abcd_decoder_loop_fwd(
+            *[a.data_ptr() for a in args], outs.data_ptr(),
+            mean_s.data_ptr(), logvar_s.data_ptr(), None, None, t, b, f,
+            hidden, m, rows, stream)
+    _build.check(lib, err, "decoder_loop")
+    decoder_loop.launches += 1
+    return outs, mean_s, logvar_s
+
+
+decoder_loop.launches = 0

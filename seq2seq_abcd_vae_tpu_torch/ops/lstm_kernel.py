@@ -1,20 +1,31 @@
-"""Fused bidirectional masked LSTM layer, forward and backward: the CUDA
-kernels of ``csrc/lstm_bidir.cu`` and their plain PyTorch twins.
+"""Masked LSTM layers, forward and backward: the CUDA kernels of
+``csrc/lstm.cu`` and their plain PyTorch twins.
 
-Replaces seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:lstm_layer_bidir_fused,
-forward (``_fwdf_call`` / ``_fwdf_kernel``) and backward (``_bwdf_call`` /
-``_bwdf_kernel``).  Both directions of one layer over RAW inputs: the
-input projection x_t @ W_ih runs per step inside the kernel, direction 1
-reads time reversed, and a row's carries are frozen outside its span.  The
-kernels' time loops are sequential and re-read the weights from L2 every
-step, which bounds them (see the source).  The backward recomputes the
-gates from the saved h/c trajectories and leaves the weight-gradient sums
-to ``ops/wgrad.py``.  :func:`lstm_layer_bidir_fused_train` wires both into
-``torch.autograd``.  Each wrapper launches its kernel for CUDA tensors and
-takes its twin only for CPU tensors.
+- ``lstm_layer_bidir_fused`` replaces
+  seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:lstm_layer_bidir_fused, forward
+  (``_fwdf_call`` / ``_fwdf_kernel``) and backward (``_bwdf_call`` /
+  ``_bwdf_kernel``): both directions of one layer over RAW inputs, the
+  input projection x_t @ W_ih run per step inside the kernel, direction 1
+  reading time reversed.
+- ``lstm_layer`` replaces seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:lstm_layer,
+  forward (``_fwd_call`` / ``_fwd_kernel``) and backward (``_bwd_call`` /
+  ``_bwd_kernel``): one direction over a precomputed xp = x @ W_ih + b_ih,
+  with ``reverse`` selecting the flipped span [T - len, T).
 
-Layouts are the JAX package's: w_ih (2, F, 4H), w_hh (2, H, 4H),
-b_ih / b_hh (2, 4H), gates in torch order (i, f, g, o).
+A row's carries are frozen outside its span and ``outs`` holds the masked
+carry.  The kernels' time loops are sequential and re-read the weights
+from L2 every step, which bounds them (see the source).  The backwards
+recompute the gates from the saved h/c trajectories and leave the
+weight-gradient sums to ``ops/wgrad.py``; ``lstm_layer_bidir_fused_train``
+and ``lstm_layer_train`` wire them into ``torch.autograd``.  Each wrapper
+launches its kernel for CUDA tensors and takes its twin only for CPU
+tensors.  The kernels pick their row tile (8, 4 or 2 rows a block) at
+launch so that shared memory fits the card; the widest hidden size is what
+shared memory admits (``_build.row_tile`` says so when it does not).
+
+Layouts are the JAX package's: w_ih (2, F, 4H), w_hh (2, H, 4H) and
+b_ih / b_hh (2, 4H) for the pair, w_hh (H, 4H) and b_hh (4H,) for one
+direction, gates in torch order (i, f, g, o).
 """
 
 from __future__ import annotations
@@ -23,8 +34,8 @@ import torch
 
 from . import _build, wgrad
 
-# one thread per hidden unit in a block (kMaxHidden in csrc/lstm_bidir.cu)
-MAX_HIDDEN = 512
+# kernel kinds of csrc/lstm.cu (abcd_lstm_rows)
+_BIDIR_FWD, _BIDIR_BWD, _FWD, _BWD = 0, 1, 2, 3
 
 
 def lstm_step(w_hh: torch.Tensor, b_hh: torch.Tensor, x_proj: torch.Tensor,
@@ -41,13 +52,21 @@ def lstm_step(w_hh: torch.Tensor, b_hh: torch.Tensor, x_proj: torch.Tensor,
     return h2, c2
 
 
-def _active(t: int, lengths: torch.Tensor, device) -> torch.Tensor:
-    """(T, 2, B, 1) step masks: direction 0 active while t < len,
-    direction 1 (its own flipped time) while t >= T - len."""
+def _span(t: int, lengths: torch.Tensor, reverse: bool,
+          device) -> torch.Tensor:
+    """(T, B, 1) step masks: active while t < len, or, reversed, while
+    t >= T - len (ops/_mask_utils.span_mask)."""
     steps = torch.arange(t, device=device)[:, None]
     lengths = lengths.to(device)[None, :]
-    return torch.stack([steps < lengths, steps >= t - lengths],
-                       dim=1).unsqueeze(-1)
+    active = steps >= t - lengths if reverse else steps < lengths
+    return active.unsqueeze(-1)
+
+
+def _active(t: int, lengths: torch.Tensor, device) -> torch.Tensor:
+    """(T, 2, B, 1) step masks of the two directions, direction 1 in its
+    own flipped time."""
+    return torch.stack([_span(t, lengths, False, device),
+                        _span(t, lengths, True, device)], dim=1)
 
 
 def lstm_layer_bidir_fused_plain(x, lengths, w_ih, b_ih, w_hh, b_hh,
@@ -131,10 +150,9 @@ def lstm_layer_bidir_fused(x, lengths, w_ih, b_ih, w_hh, b_hh,
                                             b_hh, return_cs)
     t, b, f = x.shape
     hidden = w_hh.shape[1]
-    if hidden > MAX_HIDDEN:
-        raise ValueError(f"the kernel takes at most {MAX_HIDDEN} hidden "
-                         f"units, got {hidden}")
-    lib = _build.load("lstm_bidir")
+    lib = _build.load("lstm")
+    rows = _build.row_tile(lib, "lstm", _BIDIR_FWD, (f, hidden),
+                           "lstm_layer_bidir_fused")
     outs = torch.empty((t, 2, b, hidden), dtype=x.dtype, device=x.device)
     cs = torch.empty_like(outs) if return_cs else None
     h_n = torch.empty((2, b, hidden), dtype=x.dtype, device=x.device)
@@ -148,7 +166,7 @@ def lstm_layer_bidir_fused(x, lengths, w_ih, b_ih, w_hh, b_hh,
             x.data_ptr(), lengths.data_ptr(), w_ih.data_ptr(),
             b_ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
             outs.data_ptr(), None if cs is None else cs.data_ptr(),
-            h_n.data_ptr(), c_n.data_ptr(), t, b, f, hidden, stream)
+            h_n.data_ptr(), c_n.data_ptr(), t, b, f, hidden, rows, stream)
     _build.check(lib, err, "lstm_layer_bidir_fused")
     lstm_layer_bidir_fused.launches += 1
     return result
@@ -233,7 +251,9 @@ def lstm_layer_bidir_fused_bwd(x, lengths, w_ih, b_ih, w_hh, b_hh, outs, cs,
     if x.device.type == "cpu":
         return lstm_layer_bidir_fused_bwd_plain(
             x, lengths, w_ih, b_ih, w_hh, b_hh, outs, cs, douts, dh_n, dc_n)
-    lib = _build.load("lstm_bidir")
+    lib = _build.load("lstm")
+    rows = _build.row_tile(lib, "lstm", _BIDIR_BWD, (f, hidden),
+                           "lstm_layer_bidir_fused backward")
     g = 4 * hidden
     w_ih_t = w_ih.transpose(1, 2).contiguous()
     w_hh_t = w_hh.transpose(1, 2).contiguous()
@@ -248,7 +268,7 @@ def lstm_layer_bidir_fused_bwd(x, lengths, w_ih, b_ih, w_hh, b_hh, outs, cs,
             w_ih_t.data_ptr(), w_hh_t.data_ptr(), outs.data_ptr(),
             cs.data_ptr(), None if douts is None else douts.data_ptr(),
             dh_n.data_ptr(), dc_n.data_ptr(), dz.data_ptr(), hp.data_ptr(),
-            dx_dir.data_ptr(), t, b, f, hidden, stream)
+            dx_dir.data_ptr(), t, b, f, hidden, rows, stream)
         _build.check(lib, err, "lstm_layer_bidir_fused backward")
         dx = wgrad.add2(dx_dir[0], dx_dir[1])
         x_rows = x.view(t * b, f)
@@ -296,3 +316,230 @@ def lstm_layer_bidir_fused_train(x, lengths, w_ih, b_ih, w_hh, b_hh):
     """``lstm_layer_bidir_fused`` with gradients to x and the four
     weights, through the backward kernel (or its twin on the CPU)."""
     return _LSTMBidirFused.apply(x, lengths, w_ih, b_ih, w_hh, b_hh)
+
+
+# ---------------------------------------------------------------------------
+# one direction over a precomputed input projection (lstm_pallas.lstm_layer)
+# ---------------------------------------------------------------------------
+
+def lstm_layer_plain(xp, lengths, w_hh, b_hh, reverse: bool = False,
+                     return_cs: bool = False):
+    """Plain PyTorch twin of the one-direction forward kernel: same
+    signature, same result.
+
+    Returns (outs (T, B, H), h_n (B, H), c_n (B, H)), outs the masked
+    carry after each step, and the saved cell states ``cs`` (T, B, H) after
+    them when ``return_cs``.
+    """
+    t, b, _ = xp.shape
+    hidden = w_hh.shape[0]
+    active = _span(t, lengths, reverse, xp.device)
+    h = xp.new_zeros((b, hidden))
+    c = xp.new_zeros((b, hidden))
+    outs, cs = [], []
+    for s in range(t):
+        h2, c2 = lstm_step(w_hh, b_hh, xp[s], h, c)
+        h = torch.where(active[s], h2, h)
+        c = torch.where(active[s], c2, c)
+        outs.append(h)
+        cs.append(c)
+    if return_cs:
+        return torch.stack(outs), h, c, torch.stack(cs)
+    return torch.stack(outs), h, c
+
+
+def _check_layer(xp, lengths, w_hh, b_hh, **state):
+    """Shapes, types and devices of a one-direction call (and of the
+    backward's saved states and cotangents, passed by name; None skips)."""
+    if xp.dim() != 3 or w_hh.dim() != 2:
+        raise ValueError("xp must be (T, B, 4H) and w_hh (H, 4H), got "
+                         f"{tuple(xp.shape)} and {tuple(w_hh.shape)}")
+    t, b, g = xp.shape
+    hidden = w_hh.shape[0]
+    if t < 1 or hidden < 1 or g != 4 * hidden:
+        raise ValueError(f"xp {tuple(xp.shape)} does not match w_hh "
+                         f"{tuple(w_hh.shape)}")
+    want = {"xp": (xp, (t, b, g)), "w_hh": (w_hh, (hidden, g)),
+            "b_hh": (b_hh, (g,))}
+    for name, tensor in state.items():
+        if tensor is not None:
+            want[name] = (tensor, (t, b, hidden) if name in (
+                "outs", "cs", "douts") else (b, hidden))
+    for name, (tensor, shape) in want.items():
+        if (tuple(tensor.shape) != shape or tensor.dtype != torch.float32
+                or tensor.device != xp.device
+                or not tensor.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 {shape} on "
+                             f"{xp.device}, got {tensor.dtype} "
+                             f"{tuple(tensor.shape)} on {tensor.device}")
+    if (tuple(lengths.shape) != (b,) or lengths.dtype != torch.int32
+            or lengths.device != xp.device):
+        raise ValueError(f"lengths must be int32 of shape ({b},) on "
+                         f"{xp.device}")
+    if xp.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {xp.device}")
+
+
+def lstm_layer(xp, lengths, w_hh, b_hh, reverse: bool = False,
+               return_cs: bool = False):
+    """One direction of a masked LSTM layer over a projected input.
+
+    Args:
+      xp: (T, B, 4H) float32, x @ W_ih + b_ih (time-flipped by the caller
+        for the reverse direction).
+      lengths: (B,) int32 valid steps per row.
+      w_hh (H, 4H), b_hh (4H,).
+      reverse: active on [T - len, T) instead of [0, len).
+
+    Returns (outs (T, B, H), h_n (B, H), c_n (B, H)), as
+    ``lstm_pallas.lstm_layer``, and with ``return_cs`` the saved cell
+    states (T, B, H) for the backward.  CUDA tensors launch the kernel on
+    the current stream (and count one launch); CPU tensors take
+    ``lstm_layer_plain``.
+    """
+    _check_layer(xp, lengths, w_hh, b_hh)
+    if xp.device.type == "cpu":
+        return lstm_layer_plain(xp, lengths, w_hh, b_hh, reverse, return_cs)
+    t, b, _ = xp.shape
+    hidden = w_hh.shape[0]
+    lib = _build.load("lstm")
+    rows = _build.row_tile(lib, "lstm", _FWD, (0, hidden), "lstm_layer")
+    outs = torch.empty((t, b, hidden), dtype=xp.dtype, device=xp.device)
+    cs = torch.empty_like(outs) if return_cs else None
+    h_n = torch.empty((b, hidden), dtype=xp.dtype, device=xp.device)
+    c_n = torch.empty_like(h_n)
+    result = (outs, h_n, c_n, cs) if return_cs else (outs, h_n, c_n)
+    if b == 0:
+        return result
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.abcd_lstm_fwd(
+            xp.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
+            b_hh.data_ptr(), outs.data_ptr(),
+            None if cs is None else cs.data_ptr(), h_n.data_ptr(),
+            c_n.data_ptr(), t, b, hidden, int(reverse), rows, stream)
+    _build.check(lib, err, "lstm_layer")
+    lstm_layer.launches += 1
+    return result
+
+
+lstm_layer.launches = 0
+
+
+def lstm_layer_bwd_plain(xp, lengths, w_hh, b_hh, outs, cs, douts, dh_n,
+                         dc_n, reverse: bool = False):
+    """Plain PyTorch twin of the one-direction backward kernel: the
+    explicit reverse-time adjoint of ``lstm_layer_plain`` (not autograd
+    through it), in the order of operations of lstm_pallas._bwd_kernel.
+
+    Args as the forward's, plus its saved ``outs`` and ``cs`` (T, B, H),
+    ``douts`` (T, B, H) or None for a zero cotangent, and ``dh_n`` /
+    ``dc_n`` (B, H).  Returns (dxp (T, B, 4H), dw_hh (H, 4H), db_hh (4H,)).
+    """
+    t, b, _ = xp.shape
+    hidden = w_hh.shape[0]
+    active = _span(t, lengths, reverse, xp.device)
+    zero = xp.new_zeros((b, hidden))
+    w_hh_t = w_hh.transpose(0, 1)
+    dh, dc = dh_n, dc_n
+    dzs, hps = [None] * t, [None] * t
+    for s in reversed(range(t)):
+        h_prev = outs[s - 1] if s > 0 else zero
+        c_prev = cs[s - 1] if s > 0 else zero
+        act = active[s]
+        gates = (xp[s] + torch.matmul(h_prev, w_hh)) + b_hh
+        i, f, g, o = gates.chunk(4, dim=-1)
+        i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                      torch.sigmoid(o))
+        c2 = torch.where(act, cs[s], f * c_prev + i * g)
+        tc = torch.tanh(c2)
+        dh_t = dh if douts is None else dh + douts[s]
+        dh_step = torch.where(act, dh_t, 0.0)
+        dc_step = torch.where(act, dc, 0.0)
+        do = dh_step * tc
+        dc2 = dc_step + dh_step * o * (1.0 - tc * tc)
+        df, di, dg = dc2 * c_prev, dc2 * g, dc2 * i
+        dz = torch.cat([di * i * (1.0 - i), df * f * (1.0 - f),
+                        dg * (1.0 - g * g), do * o * (1.0 - o)], dim=-1)
+        dh = torch.where(act, 0.0, dh_t) + torch.matmul(dz, w_hh_t)
+        dc = torch.where(act, dc2 * f, dc)
+        dzs[s], hps[s] = dz, h_prev
+    dxp, hp = torch.stack(dzs), torch.stack(hps)
+    dw_hh = torch.einsum("tbh,tbg->hg", hp, dxp)
+    return dxp, dw_hh, dxp.sum(dim=(0, 1))
+
+
+def lstm_layer_bwd(xp, lengths, w_hh, b_hh, outs, cs, douts, dh_n, dc_n,
+                   reverse: bool = False):
+    """The one-direction layer's backward: (dxp, dw_hh, db_hh).
+
+    CUDA tensors launch the reverse-time kernel, then ``ops/wgrad.py``'s
+    reductions of its streams (counted as one launch of this wrapper);
+    CPU tensors take ``lstm_layer_bwd_plain``.  ``douts`` may be None: the
+    final layer's outs feed nothing, and the kernel then reads no
+    (T, B, H) zero stream.
+    """
+    _check_layer(xp, lengths, w_hh, b_hh, outs=outs, cs=cs, douts=douts,
+                 dh_n=dh_n, dc_n=dc_n)
+    if xp.device.type == "cpu":
+        return lstm_layer_bwd_plain(xp, lengths, w_hh, b_hh, outs, cs,
+                                    douts, dh_n, dc_n, reverse)
+    t, b, g = xp.shape
+    hidden = w_hh.shape[0]
+    lib = _build.load("lstm")
+    rows = _build.row_tile(lib, "lstm", _BWD, (0, hidden),
+                           "lstm_layer backward")
+    w_hh_t = w_hh.transpose(0, 1).contiguous()
+    dxp = torch.empty((t, b, g), dtype=xp.dtype, device=xp.device)
+    hp = torch.empty((t, b, hidden), dtype=xp.dtype, device=xp.device)
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.abcd_lstm_bwd(
+            xp.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
+            b_hh.data_ptr(), w_hh_t.data_ptr(), outs.data_ptr(),
+            cs.data_ptr(), None if douts is None else douts.data_ptr(),
+            dh_n.data_ptr(), dc_n.data_ptr(), dxp.data_ptr(), hp.data_ptr(),
+            t, b, hidden, int(reverse), rows, stream)
+        _build.check(lib, err, "lstm_layer backward")
+        rows_dz = dxp.view(t * b, g)
+        dw_hh = wgrad.at_b(hp.view(t * b, hidden), rows_dz)
+        db_hh = wgrad.at_b(None, rows_dz).reshape(-1)
+    lstm_layer_bwd.launches += 1
+    return dxp, dw_hh, db_hh
+
+
+lstm_layer_bwd.launches = 0
+
+
+class _LSTMLayer(torch.autograd.Function):
+    """One-direction forward kernel (saving ``cs``) and backward kernel as
+    one differentiable op; ``lengths`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, xp, lengths, w_hh, b_hh, reverse):
+        outs, h_n, c_n, cs = lstm_layer(xp, lengths, w_hh, b_hh, reverse,
+                                        return_cs=True)
+        ctx.save_for_backward(xp, lengths, w_hh, b_hh, outs, cs)
+        ctx.reverse = reverse
+        # an unused output (a final layer's outs) arrives as None, and the
+        # backward kernel then reads no zero stream
+        ctx.set_materialize_grads(False)
+        return outs, h_n, c_n
+
+    @staticmethod
+    def backward(ctx, douts, dh_n, dc_n):
+        xp, lengths, w_hh, b_hh, outs, cs = ctx.saved_tensors
+        zero = outs.new_zeros(outs.shape[1:])
+        dh_n = zero if dh_n is None else dh_n.contiguous()
+        dc_n = zero if dc_n is None else dc_n.contiguous()
+        douts = None if douts is None else douts.contiguous()
+        dxp, dw_hh, db_hh = lstm_layer_bwd(xp, lengths, w_hh, b_hh, outs,
+                                           cs, douts, dh_n, dc_n,
+                                           ctx.reverse)
+        return dxp, None, dw_hh, db_hh, None
+
+
+def lstm_layer_train(xp, lengths, w_hh, b_hh, reverse: bool = False):
+    """``lstm_layer`` with gradients to xp, w_hh and b_hh, through the
+    backward kernel (or its twin on the CPU)."""
+    return _LSTMLayer.apply(xp, lengths, w_hh, b_hh, reverse)

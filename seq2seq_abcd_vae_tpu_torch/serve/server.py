@@ -58,7 +58,8 @@ class EncodeService:
     """Resident encoder with request batching.
 
     Args:
-      model_path: a v2 ``checkpoint.pt`` (self-describing).
+      model_path: a ``checkpoint.pt`` (self-describing, either package;
+        a bidirectional or unidirectional LSTM encoder).
       data_normalizer: the log-amplitude divisor ``N`` used in training.
       sample_freq: the service's fixed sampling rate; requests carrying a
         different ``fs`` are rejected, not resampled.

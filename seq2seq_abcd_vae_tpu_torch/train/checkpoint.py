@@ -3,10 +3,16 @@ JAX package's ``train/checkpoint.py`` format, zip + numpy only).
 
 A v2 checkpoint is a zip archive: one ``meta.json`` entry (the format
 version and every JSON-safe payload value, with placeholders for arrays)
-and one ``.npy`` entry per array.  No pickle is read or written, so
-loading cannot execute code.  The optimizer state is stored as its flat
-leaf list and comes back as :class:`OptimizerLeaves`.  The round-1
-pickle format is not read by the port.
+and one ``.npy`` entry per array.  No pickle is written, and v2 loading
+reads none.  The optimizer state is stored as its flat leaf list and
+comes back as :class:`OptimizerLeaves`.
+
+A round-1 checkpoint is a pickle of the payload dict.  The port reads it
+with a restricted unpickler that admits only numpy's array and scalar
+reconstructors, plain builtin containers and the JAX package's
+``OptimizerLeaves`` (mapped to this module's, without importing that
+package); any other name raises :class:`UnsupportedPickle`.  A plain
+``pickle.load`` would import whatever the pickle names, jax included.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import pickle
 import tempfile
 import zipfile
 from dataclasses import dataclass
@@ -96,14 +103,56 @@ def save_checkpoint(save_dir: str, payload: dict[str, Any]) -> str:
     return path
 
 
+class UnsupportedPickle(pickle.UnpicklingError):
+    """A round-1 checkpoint names something beyond numpy and builtins."""
+
+
+# (module, name) pairs a round-1 checkpoint may name: numpy's array and
+# scalar reconstructors (both numpy 1 and numpy 2 module paths) and plain
+# builtin containers
+_PICKLE_NUMPY = {"_reconstruct", "scalar", "_frombuffer", "ndarray",
+                 "dtype"}
+_PICKLE_NUMPY_MODULES = {"numpy", "numpy.core.multiarray",
+                         "numpy._core.multiarray", "numpy.core.numeric",
+                         "numpy._core.numeric"}
+_PICKLE_BUILTINS = {"dict", "list", "tuple", "set", "frozenset", "int",
+                    "float", "complex", "bool", "str", "bytes", "bytearray",
+                    "slice", "range"}
+
+
+class _RestrictedUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module in _PICKLE_NUMPY_MODULES and name in _PICKLE_NUMPY:
+            return super().find_class(module, name)
+        if module == "builtins" and name in _PICKLE_BUILTINS:
+            return super().find_class(module, name)
+        if (module == "seq2seq_abcd_vae_tpu.train.checkpoint"
+                and name == "OptimizerLeaves"):
+            return OptimizerLeaves
+        raise UnsupportedPickle(
+            f"the round-1 checkpoint names {module}.{name}; the port reads "
+            "only numpy arrays and builtin containers from a pickle (re-save "
+            "the checkpoint in the v2 format with the JAX package)")
+
+
+def _load_pickle(path: str) -> dict[str, Any]:
+    try:
+        with open(path, "rb") as f:
+            return _RestrictedUnpickler(f).load()
+    except UnsupportedPickle:
+        raise
+    except (pickle.UnpicklingError, EOFError) as e:
+        raise ValueError(f"{path} is not a v2 (zip) checkpoint and does not "
+                         f"read as a round-1 pickle ({e})") from e
+
+
 def load_checkpoint(path: str) -> dict[str, Any]:
-    """Read a v2 checkpoint into dicts, lists and numpy arrays."""
+    """Read a checkpoint (v2, or a round-1 pickle) into dicts, lists and
+    numpy arrays."""
     with open(path, "rb") as f:
         magic = f.read(2)
     if magic != b"PK":
-        raise ValueError(f"{path} is not a v2 (zip) checkpoint; the "
-                         "round-1 pickle format is read only by the JAX "
-                         "package")
+        return _load_pickle(path)
     with zipfile.ZipFile(path) as z:
         meta = json.loads(z.read("meta.json"))
         arrays = {}

@@ -7,9 +7,15 @@ b_ih (4H,), b_hh (4H,)}``; the ABCD head as ``feature_sampler.
 posterior_shape_logits (K,)}``; and the decoder as ``decoder.
 {feature2hidden, rnn_cell, emission_sampler.to_parameters (k-stacked),
 offset_predictor[, embed_speaker]}``.  The port keeps every layout but
-one: it stacks the two directions of each encoder layer on a leading
-axis, since the kernel's public function takes ``w_ih (2, F, 4H)``,
-``w_hh (2, H, 4H)`` and ``b_ih`` / ``b_hh (2, 4H)``.
+one: it stacks the two directions of each bidirectional encoder layer on
+a leading axis, since the kernel's public function takes
+``w_ih (2, F, 4H)``, ``w_hh (2, H, 4H)`` and ``b_ih`` / ``b_hh (2, 4H)``;
+a unidirectional layer (``"fwd"`` only) keeps the JAX shapes.
+
+The encoder loads tolerantly, as the JAX package's ``retrieve_model``
+loads it (the reference's ``strict=False``): a key the checkpoint lacks
+keeps its fresh initialisation and a key it has beyond the config's is
+dropped, each with a logged warning.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch
 
 from ..configs import DecoderConfig, EncoderConfig, check_served
 from ..tree import tree_map
+from .logging_utils import logger
 
 _HEAD_KEYS = ("to_code_like", "codebook", "posterior_shape_logits")
 
@@ -61,35 +68,91 @@ def _checked(tree, shapes, device, path="decoder") -> dict:
     return _tensor(arr, device)
 
 
+def _flatten_paths(tree, prefix=""):
+    """Leaves by "/"-joined dict path (a list is a leaf, as in the JAX
+    package's overlay)."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flatten_paths(v, prefix + "/" + str(k)))
+    return out
+
+
+def overlay_params(template: dict, loaded: dict, module_name: str) -> dict:
+    """``loaded`` laid over ``template`` by path, tolerantly (the JAX
+    package's ``checkpoint.overlay_params(..., strict=False)``): a path
+    ``loaded`` lacks keeps the template's value, a path it has beyond the
+    template's is dropped, each with a warning."""
+    t_flat = _flatten_paths(template)
+    l_flat = _flatten_paths(loaded)
+    for k in sorted(set(t_flat) - set(l_flat)):
+        logger.warning("%s: checkpoint lacks %s; keeping fresh init",
+                       module_name, k)
+    for k in sorted(set(l_flat) - set(t_flat)):
+        logger.warning("%s: dropping unexpected checkpoint entry %s",
+                       module_name, k)
+
+    def rebuild(tmpl, path=""):
+        if isinstance(tmpl, dict):
+            return {k: rebuild(v, path + "/" + str(k))
+                    for k, v in tmpl.items()}
+        return l_flat.get(path, tmpl)
+
+    return rebuild(template)
+
+
+def _fresh_encoder(cfg: EncoderConfig) -> dict:
+    """A freshly initialised encoder in the JAX layout (the template of
+    the tolerant load)."""
+    from ..models.encoder import encoder_init
+    return _encoder_to_jax(encoder_init(torch.Generator().manual_seed(0),
+                                        cfg))
+
+
+def _directions(cfg: EncoderConfig) -> tuple:
+    return ("fwd", "bwd") if cfg.bidirectional else ("fwd",)
+
+
 def params_from_jax(tree: dict, cfg: EncoderConfig, device="cpu",
                     decoder_cfg: DecoderConfig | None = None) -> dict:
     """JAX parameter tree (numpy arrays, as ``load_checkpoint`` returns it)
     -> the port's float32 tensors on ``device``.
 
     Returns ``{"encoder": [layer, ...], "feature_sampler": head}`` where
-    each layer is ``{"w_ih", "b_ih", "w_hh", "b_hh"}`` stacked over the two
-    directions and ``head`` keeps the JAX head's nesting (its
+    each layer is ``{"w_ih", "b_ih", "w_hh", "b_hh"}``, stacked over the
+    two directions when the encoder is bidirectional, the encoder loaded
+    tolerantly (see the module docstring), and ``head`` keeps the JAX
+    head's nesting (its
     ``posterior_shape_logits`` when the tree has them); with
     ``decoder_cfg`` also ``"decoder"``, in the JAX nesting, its shapes
     checked against the config.
     """
     check_served(cfg)
     gates = 4 * cfg.rnn_hidden_size
+    dirs = _directions(cfg)
+    encoder = overlay_params(_fresh_encoder(cfg), tree["encoder"],
+                             "encoder")
     layers = []
-    for index, layer in enumerate(tree["encoder"]["layers"]):
-        in_size = cfg.input_size if index == 0 else 2 * cfg.rnn_hidden_size
+    for index, layer in enumerate(encoder["layers"]):
+        in_size = (cfg.input_size if index == 0
+                   else len(dirs) * cfg.rnn_hidden_size)
         want = {"w_ih": (in_size, gates), "w_hh": (cfg.rnn_hidden_size,
                                                    gates),
                 "b_ih": (gates,), "b_hh": (gates,)}
+        if set(layer) != set(dirs):
+            raise ValueError(f"encoder layer {index} holds {sorted(layer)}, "
+                             f"the config expects {sorted(dirs)}")
         stacked = {}
         for name, shape in want.items():
-            pair = [np.asarray(layer[d][name]) for d in ("fwd", "bwd")]
-            for arr in pair:
+            per_dir = [np.asarray(layer[d][name]) for d in dirs]
+            for arr in per_dir:
                 if arr.shape != shape:
                     raise ValueError(
                         f"encoder layer {index} {name} has shape "
                         f"{arr.shape}, the config expects {shape}")
-            stacked[name] = _tensor(np.stack(pair), device)
+            stacked[name] = _tensor(np.stack(per_dir) if len(dirs) == 2
+                                    else per_dir[0], device)
         layers.append(stacked)
     if len(layers) != cfg.rnn_layers:
         raise ValueError(f"checkpoint holds {len(layers)} encoder layers, "
@@ -107,15 +170,29 @@ def params_from_jax(tree: dict, cfg: EncoderConfig, device="cpu",
     return out
 
 
+def _to_np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def _encoder_to_jax(layers: list) -> dict:
+    """The port's encoder layers -> the JAX ``{"layers": [{"fwd"[, "bwd"]}
+    ...]}`` tree (a stacked layer split back into its two directions)."""
+    out = []
+    for layer in layers:
+        if layer["w_hh"].dim() == 3:
+            out.append({d: {k: _to_np(v[i]) for k, v in layer.items()}
+                        for i, d in enumerate(("fwd", "bwd"))})
+        else:
+            out.append({"fwd": {k: _to_np(v) for k, v in layer.items()}})
+    return {"layers": out}
+
+
 def params_to_jax(params: dict) -> dict:
     """The port's parameters -> the JAX package's tree of float32 numpy
-    arrays (each encoder layer split back into its two directions)."""
-    to_np = lambda t: t.detach().cpu().numpy().astype(np.float32)
-    layers = [{d: {k: to_np(v[i]) for k, v in layer.items()}
-               for i, d in enumerate(("fwd", "bwd"))}
-              for layer in params["encoder"]]
-    out = {"encoder": {"layers": layers},
-           "feature_sampler": tree_map(to_np, params["feature_sampler"])}
+    arrays (each bidirectional encoder layer split back into its two
+    directions)."""
+    out = {"encoder": _encoder_to_jax(params["encoder"]),
+           "feature_sampler": tree_map(_to_np, params["feature_sampler"])}
     if "decoder" in params:
-        out["decoder"] = tree_map(to_np, params["decoder"])
+        out["decoder"] = tree_map(_to_np, params["decoder"])
     return out

@@ -17,7 +17,8 @@ Contract kept from the JAX package:
   epoch lines report per-string means.
 
 A step is eager PyTorch around the hand-written kernels: the STFT
-frontend, the bidirectional LSTM encoder (forward and backward), the
+frontend, the LSTM encoder (both directions in one kernel, or one
+direction over the hoisted input projection; forward and backward), the
 fused-loss decoder loop (forward and backward).  Per-batch metrics stay on
 the device and are read once per epoch.  The random draws (Gumbel noise,
 the decoder's sampling noise) come from a ``torch.Generator`` on the

@@ -81,7 +81,7 @@ def test_params_from_jax_layout():
 
 @pytest.mark.parametrize("kwargs", [dict(rnn_type="GRU"),
                                     dict(rnn_type="ESN"),
-                                    dict(bidirectional=False)])
+                                    dict(rnn_type="RNN")])
 def test_later_slices_raise(kwargs):
     cfg = EncoderConfig(BINS, 8, **kwargs)
     with pytest.raises(NotImplementedError, match="later slice"):

@@ -86,25 +86,77 @@ def test_kernels_on_ragged_shapes(cuda):
 
 
 def test_lstm_kernel_hidden_limit(cuda):
-    """The widest hidden size a block can launch runs and matches the twin;
-    one wider is refused by the wrapper, not by a launch failure."""
+    """The widest hidden size the JAX CLI takes (1024) runs through the
+    bidirectional forward and backward kernels with a smaller row tile and
+    matches the twins; a hidden size whose shared memory no row tile fits
+    is refused by the wrapper's row-tile choice, not by a launch failure."""
+    from seq2seq_abcd_vae_tpu_torch.ops import _build
     rng = np.random.default_rng(11)
-    t, b, f = 5, 3, 4
-
-    def args(h):
-        w = [torch.from_numpy(rng.uniform(-0.1, 0.1, size=s).astype(
-            np.float32)).to(cuda)
-            for s in ((2, f, 4 * h), (2, 4 * h), (2, h, 4 * h), (2, 4 * h))]
-        x = torch.from_numpy(rng.normal(size=(t, b, f)).astype(np.float32))
-        return (x.to(cuda), torch.tensor([5, 2, 0], dtype=torch.int32,
-                                         device=cuda), *w)
-
-    a = args(lstm_kernel.MAX_HIDDEN)
-    for g, r in zip(lstm_kernel.lstm_layer_bidir_fused(*a),
-                    lstm_kernel.lstm_layer_bidir_fused_plain(*a)):
+    t, b, f, h = 5, 6, 129, 1024
+    w = [torch.from_numpy(rng.uniform(-0.03, 0.03, size=s).astype(
+        np.float32)).to(cuda)
+        for s in ((2, f, 4 * h), (2, 4 * h), (2, h, 4 * h), (2, 4 * h))]
+    x = torch.from_numpy(rng.normal(size=(t, b, f)).astype(np.float32))
+    args = (x.to(cuda), torch.tensor([5, 2, 0, 1, 4, 5], dtype=torch.int32,
+                                     device=cuda), *w)
+    got = lstm_kernel.lstm_layer_bidir_fused(*args, return_cs=True)
+    want = lstm_kernel.lstm_layer_bidir_fused_plain(*args, return_cs=True)
+    for g, r in zip(got, want):
         torch.testing.assert_close(g, r, rtol=0, atol=1e-5)
-    with pytest.raises(ValueError, match="at most"):
-        lstm_kernel.lstm_layer_bidir_fused(*args(lstm_kernel.MAX_HIDDEN + 8))
+    outs, h_n, c_n, cs = want
+    dh_n = torch.from_numpy(rng.normal(size=h_n.shape).astype(
+        np.float32)).to(cuda)
+    bwd = (*args, outs, cs, None, dh_n, torch.zeros_like(dh_n))
+    for g, r in zip(lstm_kernel.lstm_layer_bidir_fused_bwd(*bwd),
+                    lstm_kernel.lstm_layer_bidir_fused_bwd_plain(*bwd)):
+        assert _rel_max_err(g, r) <= 1e-4
+    lib = _build.load("lstm")
+    assert lib.abcd_lstm_rows(1, f, h) == 4  # 8 rows need 233,504 bytes
+    with pytest.raises(ValueError, match="shared memory"):
+        _build.row_tile(lib, "lstm", 3, (0, 4200), "lstm_layer backward")
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("h,with_douts", [(256, False), (256, True),
+                                          (1024, False), (2304, False)])
+def test_lstm_layer_kernels_match_twins(cuda, reverse, h, with_douts):
+    """The one-direction layer (the unidirectional encoder): forward with
+    the saved cell states and backward, against the twins, with ragged
+    lengths and an empty row; H=1024 takes 4 rows a block in the backward
+    and H=2304 takes 2."""
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    rng = np.random.default_rng(h + reverse)
+    t, b = (37, 21) if h == 256 else (4, 5)
+    xp = torch.from_numpy(rng.normal(size=(t, b, 4 * h)).astype(np.float32)
+                          ).to(cuda)
+    lengths = rng.integers(1, t + 1, size=b).astype(np.int32)
+    lengths[:2] = (t, 0)
+    lengths = torch.from_numpy(lengths).to(cuda)
+    w_hh = _uniform(rng, cuda, 1 / np.sqrt(h), h, 4 * h)
+    b_hh = _uniform(rng, cuda, 1 / np.sqrt(h), 4 * h)
+    before = lk.lstm_layer.launches
+    got = lk.lstm_layer(xp, lengths, w_hh, b_hh, reverse, return_cs=True)
+    want = lk.lstm_layer_plain(xp, lengths, w_hh, b_hh, reverse,
+                               return_cs=True)
+    torch.cuda.synchronize()
+    assert lk.lstm_layer.launches == before + 1
+    # float32 dot products of H terms in another order through T steps
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
+    outs, h_n, c_n, cs = want
+    normal = lambda shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(cuda)
+    douts = normal(outs.shape) if with_douts else None
+    bwd = (xp, lengths, w_hh, b_hh, outs, cs, douts, normal(h_n.shape),
+           normal(c_n.shape), reverse)
+    before = lk.lstm_layer_bwd.launches
+    g_all = lk.lstm_layer_bwd(*bwd)
+    r_all = lk.lstm_layer_bwd_plain(*bwd)
+    torch.cuda.synchronize()
+    assert lk.lstm_layer_bwd.launches == before + 1
+    for name, g, r in zip(("dxp", "dw_hh", "db_hh"), g_all, r_all):
+        assert g.shape == r.shape, name
+        assert _rel_max_err(g, r) <= 1e-4, name
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +234,8 @@ def _decoder_args(rng, cuda, t, b, f, h, m, mo, lengths):
 
 
 @pytest.mark.parametrize("shape", [(33, 21, 129, 256, 256, 256),
-                                   (7, 5, 9, 40, 12, 10)])
+                                   (7, 5, 9, 40, 12, 10),
+                                   (6, 11, 129, 1024, 256, 256)])
 def test_decoder_kernels_match_twins(cuda, shape):
     from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
     rng = np.random.default_rng(31)
@@ -242,3 +295,27 @@ def test_wgrad_matches_plain(cuda, rows, k, n):
         got = wgrad.at_b(aa, b)
         want = wgrad.at_b_plain(aa, b)
         assert _rel_max_err(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(33, 21, 129, 256, 256),
+                                   (7, 5, 9, 40, 12),
+                                   (6, 11, 129, 1024, 256)])
+def test_decoder_loop_kernel_matches_twin(cuda, shape):
+    """The plain sampled loop (generative decode): the pre-mask outs and
+    the position-indexed emission streams, with ragged lengths and an
+    empty row."""
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    rng = np.random.default_rng(51)
+    t, b, f, h, m = shape
+    lengths = rng.integers(1, t + 1, size=b)
+    lengths[:2] = (t, 0)
+    full = _decoder_args(rng, cuda, t, b, f, h, m, m, lengths)
+    args = full[:9] + full[14:]
+    before = dk.decoder_loop.launches
+    got = dk.decoder_loop(*args)
+    want = dk.decoder_loop_plain(*args)
+    torch.cuda.synchronize()
+    assert dk.decoder_loop.launches == before + 1
+    # float32 products in another order through T sampled steps
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
