@@ -37,21 +37,27 @@ run from the repository root.  It
    ``infer/decode.decode_features`` on the unidirectional checkpoint, in
    sample mode (one ``decoder_loop`` launch) and mean mode, against the
    same calls on the card's twins and on the CPU with the same noise;
-   every main path (4-7) runs with all launch counters set to 0 just
+8. trains the GRU model (``-R GRU``: bidirectional GRU encoder, GRU
+   decoder) through the same CLI at the same config, 2 epochs then
+   resumed to 3, where no LSTM kernel may run; encodes the corpus from
+   its checkpoint with the encode CLI (probs and features, CSV, card vs
+   CPU) and serves it through ``serve_main`` (probs at fs=32000, frame
+   counts up to 512);
+   every main path (4-8) runs with all launch counters set to 0 just
    before and read just after, and every kernel must have run on one;
-8. holds each kernel against its plain PyTorch twin on the card at the
+9. holds each kernel against its plain PyTorch twin on the card at the
    main paths' shapes (ragged lengths, one row of length 0), the
    recurrent kernels also at hidden size 1024, and one whole training step
-   (each encoder) on the kernels (card) against the same step on the
-   twins (CPU): loss, every gradient and the parameters after the SGD
-   step;
-9. times each kernel, its twin and one library call computing the same
-   function (a yardstick the port never calls) with CUDA events, and
-   prints one ``{"kernels": [...]}`` line with launches, times, the bound
-   and the largest error, after the serve latencies, the time of one
-   served batch and of one training step by stage, the training and
-   encode throughputs;
-10. ends with ``{"ok": true, "device": {...}}`` as its last line.
+   (each LSTM encoder, and the GRU model) on the kernels (card) against
+   the same step on the twins (CPU): loss, every gradient and the
+   parameters after the SGD step;
+10. times each kernel, its twin and one library call computing the same
+    function (a yardstick the port never calls) with CUDA events, and
+    prints one ``{"kernels": [...]}`` line (12 kernels) with launches,
+    times, the bound and the largest error, after the serve latencies,
+    the time of one served batch and of one training step by stage, the
+    training and encode throughputs;
+11. ends with ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result.  Without a card it exits 2 before doing anything.
@@ -650,12 +656,12 @@ def train_phase(dev, work: str, seed: int):
     launches = {name: fn.launches for name, fn in counters.items()}
     train_steps = first.steps["train"] + second.steps["train"]
     eval_steps = first.steps["eval"] + second.steps["eval"]
-    want = {"log_spectrogram": train_steps + eval_steps,
-            "lstm_layer_bidir_fused": train_steps + eval_steps,
-            "lstm_layer_bidir_fused_bwd": train_steps,
-            "decoder_loop_fused_losses_fwd": train_steps + eval_steps,
-            "decoder_loop_fused_losses_bwd": train_steps,
-            "lstm_layer": 0, "lstm_layer_bwd": 0, "decoder_loop": 0}
+    want = expected(counters,
+                    log_spectrogram=train_steps + eval_steps,
+                    lstm_layer_bidir_fused=train_steps + eval_steps,
+                    lstm_layer_bidir_fused_bwd=train_steps,
+                    decoder_loop_fused_losses_fwd=train_steps + eval_steps,
+                    decoder_loop_fused_losses_bwd=train_steps)
     print(f"training main path: {train_steps} training + {eval_steps} "
           f"evaluation steps in {first_s:.2f} + {second_s:.2f} s (corpus "
           f"written in {corpus_s:.2f} s); launches {launches}", flush=True)
@@ -803,8 +809,11 @@ def lstm_train_phase(dev, rng, t, launches):
                    fwd_err}
 
 
-def _decoder_kernel_args(dev, rng, t, b, h=HIDDEN):
+def _decoder_kernel_args(dev, rng, t, b, h=HIDDEN, gru=False):
+    """The fused-loss decoder's arguments (LSTM, or with ``gru`` the GRU
+    loop's: b_ih and b_hh apart, no c0) and the rows' lengths."""
     m, f = MLP_HIDDEN, 129
+    gh = (3 if gru else 4) * h
     lens = rng.integers(1, t + 1, size=b)
     lens[0], lens[-1] = t, 0
 
@@ -816,77 +825,96 @@ def _decoder_kernel_args(dev, rng, t, b, h=HIDDEN):
         return torch.from_numpy((rng.normal(size=shape) * scale)
                                 .astype(np.float32)).to(dev)
 
-    return [normal(t, b, f), torch.from_numpy(lens.astype(np.int32)).to(dev),
-            uni(1 / np.sqrt(h), h, 4 * h + 2 * m), uni(2 / np.sqrt(h), 4 * h),
-            uni(1 / np.sqrt(h), 2 * m), uni(1 / np.sqrt(m), m, f),
-            uni(1 / np.sqrt(m), m, f), uni(1 / np.sqrt(m), 2 * f),
-            uni(1 / np.sqrt(h), f, 4 * h), normal(t, b, f),
-            uni(1 / np.sqrt(h), h, m), uni(1 / np.sqrt(h), m),
-            uni(1 / np.sqrt(m), m), uni(1 / np.sqrt(m), 1),
-            normal(b, h, scale=0.5), normal(b, h, scale=0.5)], lens
+    # drawn in argument order (the LSTM's as in earlier runs)
+    args = [normal(t, b, f), torch.from_numpy(lens.astype(np.int32)).to(dev),
+            uni(1 / np.sqrt(h), h, gh + 2 * m)]
+    args += ([uni(1 / np.sqrt(h), gh), uni(1 / np.sqrt(h), gh)] if gru
+             else [uni(2 / np.sqrt(h), gh)])
+    args += [uni(1 / np.sqrt(h), 2 * m), uni(1 / np.sqrt(m), m, f),
+             uni(1 / np.sqrt(m), m, f), uni(1 / np.sqrt(m), 2 * f),
+             uni(1 / np.sqrt(h), f, gh), normal(t, b, f),
+             uni(1 / np.sqrt(h), h, m), uni(1 / np.sqrt(h), m),
+             uni(1 / np.sqrt(m), m), uni(1 / np.sqrt(m), 1)]
+    args += [normal(b, h, scale=0.5) for _ in range(1 if gru else 2)]
+    return args, lens
 
 
-def decoder_train_phase(dev, rng, t, launches_fwd, launches_bwd):
-    """The fused-loss decoder kernels vs twins at the training shape, with
-    their times and bounds (no single library call computes this loop:
-    the sample it feeds back depends on the step before)."""
+def decoder_train_phase(dev, rng, t, launches_fwd, launches_bwd, gru=False):
+    """The fused-loss decoder kernels (LSTM, or with ``gru`` the GRU loop)
+    vs twins at the training shape, with their times and bounds (no single
+    library call computes this loop: the sample it feeds back depends on
+    the step before)."""
     from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
     b, h, m, f = TRAIN_BATCH, HIDDEN, MLP_HIDDEN, 129
-    args, lens = _decoder_kernel_args(dev, rng, t, b)
-    got = dk.decoder_fused_losses_fwd(*args)
-    want = dk.decoder_fused_losses_fwd_plain(*args)
+    if gru:
+        fwd, fwd_plain = (dk.gru_decoder_fused_losses_fwd,
+                          dk.gru_decoder_fused_losses_fwd_plain)
+        bwd, bwd_plain = (dk.gru_decoder_fused_losses_bwd,
+                          dk.gru_decoder_fused_losses_bwd_plain)
+    else:
+        fwd, fwd_plain = (dk.decoder_fused_losses_fwd,
+                          dk.decoder_fused_losses_fwd_plain)
+        bwd, bwd_plain = (dk.decoder_fused_losses_bwd,
+                          dk.decoder_fused_losses_bwd_plain)
+    args, lens = _decoder_kernel_args(dev, rng, t, b, gru=gru)
+    n_state = 1 if gru else 2   # h (and the LSTM's c)
+    got = fwd(*args)
+    want = fwd_plain(*args)
     torch.cuda.synchronize()
     loss_err = max(abs(g.item() - r.item()) / abs(r.item())
                    for g, r in zip(got[1:3], want[1:3]))
-    state_err = max_err((got[0], got[3], got[4]),
-                        (want[0], want[3], want[4]))
+    states = (0,) + tuple(range(3, 3 + n_state))
+    state_err = max_err(tuple(got[i] for i in states),
+                        tuple(want[i] for i in states))
     if not (loss_err <= LOSS_RTOL and state_err <= LSTM_ATOL):
         raise AssertionError(f"decoder forward vs twin: losses {loss_err}, "
                              f"states {state_err}")
-    repeat = dk.decoder_fused_losses_fwd(*args)
+    repeat = fwd(*args)
     if (repeat[1].item(), repeat[2].item()) != (got[1].item(),
                                                 got[2].item()):
         raise AssertionError("decoder forward losses differ between runs")
     dlast = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)
                              ).to(dev)
     gscale = torch.tensor([1.0 / 511, 1.0 / 511], device=dev)
-    bwd_args = (*args, want[3], want[4], dlast, gscale)
-    g_all = dk.decoder_fused_losses_bwd(*bwd_args)
-    r_all = dk.decoder_fused_losses_bwd_plain(*bwd_args)
+    bwd_args = (*args, *want[3:3 + n_state], dlast, gscale)
+    g_all = bwd(*bwd_args)
+    r_all = bwd_plain(*bwd_args)
     torch.cuda.synchronize()
-    names = ("dw_cat", "dbias", "db1", "dw2m", "dw2v", "db2", "dw_ih",
-             "dwo1", "dbo1", "dwo2", "dbo2", "dh0", "dc0")
+    names = (("dw_cat", "db_ih", "db_hh") if gru else ("dw_cat", "dbias")) + (
+        "db1", "dw2m", "dw2v", "db2", "dw_ih", "dwo1", "dbo1", "dwo2",
+        "dbo2") + (("dh0",) if gru else ("dh0", "dc0"))
     errs = {n: rel_err(g, r) for n, g, r in zip(names, g_all, r_all)}
     if max(errs.values()) > GRAD_FRACTION:
         raise AssertionError(f"decoder backward vs twin: {errs}")
-    fwd_ms = cuda_ms(lambda: dk.decoder_fused_losses_fwd(*args), iters=5)
-    fwd_plain_ms = cuda_ms(lambda: dk.decoder_fused_losses_fwd_plain(*args),
-                           iters=2, warmup=1)
-    bwd_ms = cuda_ms(lambda: dk.decoder_fused_losses_bwd(*bwd_args), iters=3)
-    bwd_plain_ms = cuda_ms(
-        lambda: dk.decoder_fused_losses_bwd_plain(*bwd_args), iters=2,
-        warmup=1)
+    fwd_ms = cuda_ms(lambda: fwd(*args), iters=5)
+    fwd_plain_ms = cuda_ms(lambda: fwd_plain(*args), iters=2, warmup=1)
+    bwd_ms = cuda_ms(lambda: bwd(*bwd_args), iters=3)
+    bwd_plain_ms = cuda_ms(lambda: bwd_plain(*bwd_args), iters=2, warmup=1)
     # per row-step: h @ w_cat, the emission's second layer (mean and
     # logvar), the fed-back x @ w_ih and the offset MLP's first layer
-    per = 2.0 * (h * (4 * h + 2 * m) + 2 * m * f + f * 4 * h + h * m)
+    gh = (3 if gru else 4) * h
+    per = 2.0 * (h * (gh + 2 * m) + 2 * m * f + f * gh + h * m)
     steps = int(lens.sum())  # row-steps the losses depend on
-    weights = (h * (4 * h + 2 * m) + 4 * h + 2 * m + 2 * m * f + 2 * f
-               + f * 4 * h + h * m + 2 * m + 1)
-    fwd_bytes = 4.0 * (2 * t * b * f + weights + 2 * b * h   # inputs
-                       + b * h + 2 + 2 * t * b * h) + 4 * b  # outputs
-    bwd_bytes = 4.0 * (2 * t * b * f + weights + 2 * b * h + 2 * t * b * h
-                       + b * h + 2 + weights + 2 * b * h) + 4 * b
+    weights = (h * (gh + 2 * m) + (2 if gru else 1) * gh + 2 * m
+               + 2 * m * f + 2 * f + f * gh + h * m + 2 * m + 1)
+    fwd_bytes = 4.0 * (2 * t * b * f + weights + n_state * b * h  # inputs
+                       + b * h + 2 + n_state * t * b * h) + 4 * b  # outputs
+    bwd_bytes = 4.0 * (2 * t * b * f + weights + n_state * b * h
+                       + n_state * t * b * h + b * h + 2 + weights
+                       + n_state * b * h) + 4 * b
     f_bms, f_by = bound_ms(steps * per, fwd_bytes)
     # recompute plus the adjoint products and the weight gradients
     b_bms, b_by = bound_ms(3 * steps * per, bwd_bytes)
+    prefix = "gru_" if gru else ""
+    lines = (898, 937) if gru else (1983, 2042)
     common = {"route": "cuda",
               "source": "seq2seq_abcd_vae_tpu_torch/csrc/decoder.cu",
               "library_ms": None,
               "library_call": "none: no single PyTorch call runs this loop",
               "shape": f"T={t} B={b} F={f} H={h} m={m} Mo={m}"}
     fwd_entry = dict(common, **{
-        "name": "decoder_loop_fused_losses",
-        "replaces": "seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:1983",
+        "name": prefix + "decoder_loop_fused_losses",
+        "replaces": f"seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:{lines[0]}",
         "launches": launches_fwd,
         "max_abs_err": max(state_err, max(abs(g.item() - r.item()) for g, r
                                           in zip(got[1:3], want[1:3]))),
@@ -894,9 +922,9 @@ def decoder_train_phase(dev, rng, t, launches_fwd, launches_bwd):
         "bound_ms": f_bms, "bound_by": f_by,
         "tolerance": f"losses {LOSS_RTOL} relative, states {LSTM_ATOL}"})
     bwd_entry = dict(common, **{
-        "name": "decoder_loop_fused_losses_bwd",
+        "name": prefix + "decoder_loop_fused_losses_bwd",
         "helper_source": "seq2seq_abcd_vae_tpu_torch/csrc/wgrad.cu",
-        "replaces": "seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:2042",
+        "replaces": f"seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:{lines[1]}",
         "launches": launches_bwd,
         "max_abs_err": max(max_err(g, r) for g, r in zip(g_all, r_all)),
         "max_rel_err": max(errs.values()), "rel_errs": errs,
@@ -930,10 +958,12 @@ def step_on(device, params0, cfg, batch, spec, noise, n_data):
     return loss.detach(), metrics, grads, [p.detach() for p in leaves]
 
 
-def whole_step_phase(dev, corpus_dir, csv_path, seed, bidirectional=True):
+def whole_step_phase(dev, corpus_dir, csv_path, seed, bidirectional=True,
+                     rnn_type="LSTM"):
     """One training step on the kernels (card) against the same step on
-    the twins (CPU), with the bidirectional or the unidirectional encoder;
-    returns the checks and the step's inputs."""
+    the twins (CPU), with the bidirectional or the unidirectional LSTM
+    encoder, or the GRU model (``rnn_type="GRU"``: bidirectional GRU
+    encoder and GRU decoder); returns the checks and the step's inputs."""
     from seq2seq_abcd_vae_tpu_torch.configs import (ABCDSamplerConfig,
                                                     DecoderConfig,
                                                     EncoderConfig)
@@ -942,12 +972,13 @@ def whole_step_phase(dev, corpus_dir, csv_path, seed, bidirectional=True):
     from seq2seq_abcd_vae_tpu_torch.tree import tree_leaves
     batch, spec, ds = largest_batch(corpus_dir, csv_path)
     f = spec.num_bins
-    enc = EncoderConfig(f, HIDDEN, bidirectional=bidirectional)
+    enc = EncoderConfig(f, HIDDEN, rnn_type=rnn_type,
+                        bidirectional=bidirectional)
     cfg = vae.ModelConfig(
         enc, ABCDSamplerConfig(enc.hidden_size_total, MLP_HIDDEN, K,
                                FEATURE_DIM),
-        DecoderConfig(f, HIDDEN, MLP_HIDDEN, FEATURE_DIM, num_speakers=2,
-                      speaker_embed_dim=SPEAKER_EMBED))
+        DecoderConfig(f, HIDDEN, MLP_HIDDEN, FEATURE_DIM, rnn_type=rnn_type,
+                      num_speakers=2, speaker_embed_dim=SPEAKER_EMBED))
     params0 = vae.model_init(torch.Generator().manual_seed(seed), cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
     noise = {k: v.cpu() for k, v in L.draw_noise(
@@ -1041,11 +1072,23 @@ def train_step_breakdown(dev, params0, cfg, batch, spec, noise, n_data):
 
 def all_counters():
     """Every kernel wrapper's counter, by the name in the kernels line."""
-    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel, lstm_kernel
+    from seq2seq_abcd_vae_tpu_torch.ops import (decoder_kernel, gru_kernel,
+                                                lstm_kernel)
     return dict(training_counters(),
                 lstm_layer=lstm_kernel.lstm_layer,
                 lstm_layer_bwd=lstm_kernel.lstm_layer_bwd,
-                decoder_loop=decoder_kernel.decoder_loop)
+                decoder_loop=decoder_kernel.decoder_loop,
+                gru_layer_bidir_fused=gru_kernel.gru_layer_bidir_fused,
+                gru_layer_bidir_fused_bwd=gru_kernel.gru_layer_bidir_fused_bwd,
+                gru_decoder_loop_fused_losses_fwd=(
+                    decoder_kernel.gru_decoder_fused_losses_fwd),
+                gru_decoder_loop_fused_losses_bwd=(
+                    decoder_kernel.gru_decoder_fused_losses_bwd))
+
+
+def expected(counters: dict, **launches) -> dict:
+    """Every counter 0 but the ones named."""
+    return dict({name: 0 for name in counters}, **launches)
 
 
 def zero_counters() -> dict:
@@ -1081,12 +1124,10 @@ def uni_train_phase(dev, work: str, corpus_dir: str, csv_path: str,
     train_steps = first.steps["train"] + second.steps["train"]
     eval_steps = first.steps["eval"] + second.steps["eval"]
     steps = train_steps + eval_steps
-    want = {"log_spectrogram": steps, "lstm_layer_bidir_fused": 0,
-            "lstm_layer_bidir_fused_bwd": 0,
-            "decoder_loop_fused_losses_fwd": steps,
-            "decoder_loop_fused_losses_bwd": train_steps,
-            "lstm_layer": steps, "lstm_layer_bwd": train_steps,
-            "decoder_loop": 0}
+    want = expected(counters, log_spectrogram=steps,
+                    decoder_loop_fused_losses_fwd=steps,
+                    decoder_loop_fused_losses_bwd=train_steps,
+                    lstm_layer=steps, lstm_layer_bwd=train_steps)
     print(f"unidirectional training main path: {train_steps} training + "
           f"{eval_steps} evaluation steps in {wall:.2f} s; launches "
           f"{launches}", flush=True)
@@ -1113,10 +1154,12 @@ def read_long_csv(path: str):
 
 
 def encode_cli_phase(dev, work: str, corpus_dir: str, csv_path: str,
-                     checkpoints: dict):
-    """The encode CLI (``encode_main.main``) in probs, logits and features
-    modes on each checkpoint, as CSV and as npz, on the card (counted) and
-    on the CPU's twins: rows, probabilities, npz = CSV values bit for bit,
+                     checkpoints: dict,
+                     modes=("probs", "logits", "features"),
+                     formats=("csv", "npz")):
+    """The encode CLI (``encode_main.main``) in ``modes`` on each
+    checkpoint, in each of ``formats``, on the card (counted) and as CSV on
+    the CPU's twins: rows, probabilities, npz = CSV values bit for bit,
     card CSV = CPU CSV (values within tolerance, other bytes equal)."""
     from seq2seq_abcd_vae_tpu_torch.cli import encode_main
     common = [corpus_dir, csv_path, str(NORMALIZER), "-b", str(TRAIN_BATCH),
@@ -1126,8 +1169,8 @@ def encode_cli_phase(dev, work: str, corpus_dir: str, csv_path: str,
     counters = zero_counters()
     card = {}
     for name, ckpt in checkpoints.items():
-        for mode in ("probs", "logits", "features"):
-            for fmt in ("csv", "npz"):
+        for mode in modes:
+            for fmt in formats:
                 path = os.path.join(out_dir, f"{name}-{mode}.{fmt}")
                 t0 = time.perf_counter()
                 encode_main.main(mode, [ckpt] + common + [
@@ -1137,7 +1180,7 @@ def encode_cli_phase(dev, work: str, corpus_dir: str, csv_path: str,
     launches = {k: fn.launches for k, fn in counters.items()}
     checks, segments = {}, None
     for name, ckpt in checkpoints.items():
-        for mode in ("probs", "logits", "features"):
+        for mode in modes:
             head, keys, texts = read_long_csv(card[(name, mode, "csv")][0])
             width = FEATURE_DIM if mode == "features" else K
             ixs = list(dict.fromkeys(k[0] for k in keys))
@@ -1155,16 +1198,9 @@ def encode_cli_phase(dev, work: str, corpus_dir: str, csv_path: str,
                 worst = max(abs(v - 1.0) for v in per.values())
                 if worst > 1e-5:
                     raise AssertionError(f"{name} probs sum off by {worst}")
-            with np.load(card[(name, mode, "npz")][0]) as z:
-                data_ix, values, zmode = z["data_ix"], z["values"], z["mode"]
-            if str(zmode) != mode or values.shape != (segments, width):
-                raise AssertionError(f"{name} {mode}: npz {values.shape}")
-            parsed = {(int(k[0]), int(k[1])): v for k, v in zip(keys, vals)}
-            back = np.asarray([[parsed[(int(ix), j)] for j in range(width)]
-                               for ix in data_ix], np.float32)
-            if back.tobytes() != values.tobytes():
-                raise AssertionError(f"{name} {mode}: npz values differ "
-                                     "from the CSV's")
+            if "npz" in formats:
+                check_npz(card[(name, mode, "npz")][0], keys, vals, mode,
+                          (segments, width))
             cpu_path = os.path.join(out_dir, f"{name}-{mode}-cpu.csv")
             encode_main.main(mode, [ckpt] + common + ["-S", cpu_path, "-d",
                                                       "cpu"])
@@ -1183,6 +1219,19 @@ def encode_cli_phase(dev, work: str, corpus_dir: str, csv_path: str,
     return {"launches": launches, "segments": segments,
             "card_vs_cpu_max_abs_err": checks,
             "segments_per_s": throughput}
+
+
+def check_npz(path: str, keys, vals, mode: str, shape):
+    """The npz sidecar holds the CSV's values bit for bit."""
+    with np.load(path) as z:
+        data_ix, values, zmode = z["data_ix"], z["values"], z["mode"]
+    if str(zmode) != mode or values.shape != shape:
+        raise AssertionError(f"{path}: npz {values.shape}")
+    parsed = {(int(k[0]), int(k[1])): v for k, v in zip(keys, vals)}
+    back = np.asarray([[parsed[(int(ix), j)] for j in range(shape[1])]
+                       for ix in data_ix], np.float32)
+    if back.tobytes() != values.tobytes():
+        raise AssertionError(f"{path}: npz values differ from the CSV's")
 
 
 def swap_twin(module, name: str, twin):
@@ -1442,12 +1491,231 @@ def decoder_loop_phase(dev, rng, launches):
             "tolerance": LSTM_ATOL, "checks": checks}
 
 
+# ---------------------------------------------------------------------------
+# the GRU slice: training, encoding and serving a GRU model
+# ---------------------------------------------------------------------------
+
+def gru_train_phase(dev, work: str, corpus_dir: str, csv_path: str,
+                    seed: int):
+    """The GRU model (``-R GRU``: the bidirectional GRU encoder, the GRU
+    decoder by default) trained through the CLI on the synthetic corpus (2
+    epochs, 1 of pretraining, then resumed to 3), counted: the GRU kernels
+    run, no LSTM kernel does."""
+    from seq2seq_abcd_vae_tpu_torch.cli import learning_main
+    from seq2seq_abcd_vae_tpu_torch.train import checkpoint as ckpt
+    argv = [corpus_dir, csv_path, "-S", work, "-j", "gru", "-b",
+            str(TRAIN_BATCH), "--pretrain_epochs", "1", "--stft_method",
+            "pallas", "-d", dev.type, "-N", str(NORMALIZER), "-s", str(seed),
+            "-R", "GRU",
+            "--encoder_rnn_hidden_size", str(HIDDEN),
+            "--decoder_rnn_hidden_size", str(HIDDEN),
+            "--mlp_hidden_size", str(MLP_HIDDEN), "-K", str(K),
+            "-f", str(FEATURE_DIM), "--speaker_embed_dim", str(SPEAKER_EMBED)]
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    first = learning_main.main(argv + ["-e", "2"])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    run_dir = os.path.join(work, "gru")
+    check_history(os.path.join(run_dir, "history.log"), False)
+    t0 = time.perf_counter()
+    second = learning_main.main(argv + ["-e", "3"])
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    check_history(os.path.join(run_dir, "history.log"), True)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    train_steps = first.steps["train"] + second.steps["train"]
+    eval_steps = first.steps["eval"] + second.steps["eval"]
+    steps = train_steps + eval_steps
+    want = expected(counters, log_spectrogram=steps,
+                    gru_layer_bidir_fused=steps,
+                    gru_layer_bidir_fused_bwd=train_steps,
+                    gru_decoder_loop_fused_losses_fwd=steps,
+                    gru_decoder_loop_fused_losses_bwd=train_steps)
+    print(f"GRU training main path: {train_steps} training + {eval_steps} "
+          f"evaluation steps in {first_s:.2f} + {second_s:.2f} s; launches "
+          f"{launches}", flush=True)
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    path = os.path.join(run_dir, "checkpoint.pt")
+    c = ckpt.load_checkpoint(path)
+    cells = (c["encoder_init_parameters"]["rnn_type"],
+             c["decoder_init_parameters"]["rnn_type"])
+    if cells != ("GRU", "GRU"):
+        raise AssertionError(f"the GRU checkpoint holds cells {cells}")
+    epochs = first.epoch_seconds + second.epoch_seconds
+    later = [n / sec for _, sec, n in epochs[1:]]
+    return {"launches": launches, "train_steps": train_steps,
+            "eval_steps": eval_steps, "checkpoint": path,
+            "segments_per_s_after_first_epoch":
+                sum(later) / len(later) if later else None,
+            "epochs": [{"epoch": e, "train_s": sec, "segments": n}
+                       for e, sec, n in epochs]}
+
+
+def gru_serve_phase(work: str, ckpt_path: str, rng):
+    """The GRU checkpoint served through ``serve_main`` (probs at fs=32000,
+    frame counts up to 512, 4 clients), counted: the GRU encoder's kernel
+    and the frontend run, no LSTM kernel does."""
+    counters = zero_counters()
+    reqs = random_requests(rng, 32000, 32)
+    (answers, latency), ping = run_service(
+        [ckpt_path, str(NORMALIZER), "32000", "--mode", "probs", "-b",
+         str(BATCH), "--stft_method", "pallas", "-d", "cuda"],
+        os.path.join(work, "gru.sock"),
+        lambda path: concurrent_clients(path, reqs, 32000))
+    check_answers(answers, "probs", K)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    ran = {k for k, n in launches.items() if n}
+    if ran != {"log_spectrogram", "gru_layer_bidir_fused"}:
+        raise AssertionError(f"GRU serving launched {launches}")
+    lat = np.asarray(latency)
+    return {"launches": launches, "requests": len(lat),
+            "batches": ping["stats"]["batches"],
+            "latency_ms_p50": float(np.percentile(lat, 50)),
+            "latency_ms_p90": float(np.percentile(lat, 90)),
+            "latency_ms_max": float(lat.max())}
+
+
+def _gru_library(dev, f, h, w):
+    """The yardstick: cuDNN's bidirectional GRU with the same weights."""
+    gru = torch.nn.GRU(f, h, bidirectional=True).to(dev)
+    with torch.no_grad():
+        for d, sfx in enumerate(("", "_reverse")):
+            getattr(gru, "weight_ih_l0" + sfx).copy_(w[0][d].T)
+            getattr(gru, "bias_ih_l0" + sfx).copy_(w[1][d])
+            getattr(gru, "weight_hh_l0" + sfx).copy_(w[2][d].T)
+            getattr(gru, "bias_hh_l0" + sfx).copy_(w[3][d])
+    return gru
+
+
+def gru_layer_phase(dev, rng, t_train, launches_fwd, launches_bwd):
+    """The bidirectional GRU layer's kernels vs twins (ragged lengths, one
+    empty row): the forward at the served shape B=64, T=512 and at the
+    training shape B=512, T=``t_train``, the backward at the training
+    shape; timed beside cuDNN's GRU on packed sequences (the empty row
+    dropped)."""
+    from seq2seq_abcd_vae_tpu_torch.ops import gru_kernel as gk
+    f, h = 129, HIDDEN
+    checks, cases = {}, {}
+    for b, t in ((BATCH, 512), (TRAIN_BATCH, t_train)):
+        lens = rng.integers(1, t + 1, size=b).astype(np.int32)
+        lens[0], lens[-1] = t, 0
+        x = torch.from_numpy(rng.normal(size=(t, b, f)).astype(np.float32)
+                             ).to(dev)
+        w = _lstm_weights(rng, dev, h, (2, f, 3 * h), (2, 3 * h),
+                          (2, h, 3 * h), (2, 3 * h))
+        args = (x, torch.from_numpy(lens).to(dev), *w)
+        got = gk.gru_layer_bidir_fused(*args)
+        want = gk.gru_layer_bidir_fused_plain(*args)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        checks[f"fwd_B{b}_T{t}"] = err
+        if not err <= LSTM_ATOL:
+            raise AssertionError(f"GRU forward vs twin at B={b} T={t}: "
+                                 f"{err} > {LSTM_ATOL}")
+        cases[b] = (t, lens, args, want)
+    # the backward at the training shape
+    t, lens, args, (outs, h_n) = cases[TRAIN_BATCH]
+    dh_n = torch.from_numpy(rng.normal(size=h_n.shape).astype(np.float32)
+                            ).to(dev)
+    bwd = (*args, outs, None, dh_n)
+    got = gk.gru_layer_bidir_fused_bwd(*bwd)
+    want = gk.gru_layer_bidir_fused_bwd_plain(*bwd)
+    torch.cuda.synchronize()
+    errs = {n: rel_err(g, r) for n, g, r in zip(
+        ("dx", "dw_ih", "db_ih", "dw_hh", "db_hh"), got, want)}
+    if max(errs.values()) > GRAD_FRACTION:
+        raise AssertionError(f"GRU backward vs twin: {errs}")
+    bwd_abs = max(max_err(g, r) for g, r in zip(got, want))
+    bwd_ms = cuda_ms(lambda: gk.gru_layer_bidir_fused_bwd(*bwd), iters=5)
+    bwd_plain_ms = cuda_ms(lambda: gk.gru_layer_bidir_fused_bwd_plain(*bwd),
+                           iters=2, warmup=1)
+    train_fwd_ms = cuda_ms(lambda: gk.gru_layer_bidir_fused(*args), iters=5)
+    keep = lens > 0
+    keep_dev = torch.from_numpy(keep).to(dev)
+    gru = _gru_library(dev, f, h, args[2:])
+    x_lib = args[0][:, keep_dev].clone().requires_grad_(True)
+    lens_lib = torch.from_numpy(lens[keep].astype(np.int64))
+    dh_lib = dh_n[:, keep_dev]
+
+    def library_fwd_bwd():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            x_lib, lens_lib, enforce_sorted=False)
+        torch.autograd.backward(gru(packed)[1], dh_lib)
+
+    lib_bwd_ms = cuda_ms(library_fwd_bwd, iters=5)
+    steps = int(lens.sum())      # active row-steps per direction
+    per = 2.0 * (f + h) * 3 * h  # one direction's gate products per row-step
+    weights = 2 * (f + h + 2) * 3 * h
+    # gates recomputed, dxp @ W_ih^T, dhg @ W_hh^T and the weight
+    # gradients: three times the forward's products
+    b = TRAIN_BATCH
+    bwd_bytes = 4.0 * (t * b * f + weights + t * 2 * b * h     # x, W, outs
+                       + 2 * b * h                              # dh_n
+                       + t * b * f + weights) + 4 * b           # dx, dW
+    b_bms, b_by = bound_ms(2 * steps * 3 * per, bwd_bytes)
+
+    # the forward's entry at the served shape
+    t, lens, args, want = cases[BATCH]
+    b = BATCH
+    fwd_ms = cuda_ms(lambda: gk.gru_layer_bidir_fused(*args), iters=5)
+    fwd_plain_ms = cuda_ms(lambda: gk.gru_layer_bidir_fused_plain(*args),
+                           iters=2, warmup=1)
+    keep = lens > 0
+    keep_dev = torch.from_numpy(keep).to(dev)
+    gru = _gru_library(dev, f, h, args[2:])
+    x_lib = args[0][:, keep_dev].contiguous()
+    lens_lib = torch.from_numpy(lens[keep].astype(np.int64))
+
+    @torch.no_grad()
+    def library_fwd():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            x_lib, lens_lib, enforce_sorted=False)
+        return gru(packed)[1]
+
+    lib_err = max_err(library_fwd(), want[1][:, keep_dev])
+    lib_fwd_ms = cuda_ms(library_fwd, iters=5)
+    steps = int(lens.sum())
+    fwd_bytes = 4.0 * (t * b * f + weights + t * 2 * b * h
+                       + 2 * b * h) + 4 * b
+    f_bms, f_by = bound_ms(2 * steps * per, fwd_bytes)
+    common = {"route": "cuda",
+              "source": "seq2seq_abcd_vae_tpu_torch/csrc/gru.cu"}
+    fwd_entry = dict(common, **{
+        "name": "gru_layer_bidir_fused",
+        "replaces": "seq2seq_abcd_vae_tpu/ops/gru_pallas.py:484",
+        "launches": launches_fwd,
+        "max_abs_err": max(v for k, v in checks.items()),
+        "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": f_bms,
+        "bound_by": f_by, "library_ms": lib_fwd_ms,
+        "library_call": "nn.GRU(bidirectional) on a packed sequence",
+        "library_max_abs_err": lib_err,
+        "ms_at_training_shape": train_fwd_ms,
+        "shape": f"T={t} B={b} F={f} H={h} (ragged, one empty row)",
+        "tolerance": LSTM_ATOL, "checks": checks})
+    bwd_entry = dict(common, **{
+        "name": "gru_layer_bidir_fused_bwd",
+        "helper_source": "seq2seq_abcd_vae_tpu_torch/csrc/wgrad.cu",
+        "replaces": "seq2seq_abcd_vae_tpu/ops/gru_pallas.py:395",
+        "launches": launches_bwd, "max_abs_err": bwd_abs,
+        "max_rel_err": max(errs.values()), "rel_errs": errs,
+        "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": b_bms,
+        "bound_by": b_by, "library_ms": lib_bwd_ms,
+        "library_call": "nn.GRU(bidirectional) forward + backward, packed",
+        "shape": f"T={t_train} B={TRAIN_BATCH} F={f} H={h} (douts zero)",
+        "tolerance": f"{GRAD_FRACTION} of each leaf's max |value|"})
+    return fwd_entry, bwd_entry
+
+
 def wide_hidden_phase(dev, rng):
     """Hidden size 1024 (the widest the JAX CLI takes) through every
     recurrent kernel with the row tile its shared memory allows, against
     the twins, at small B and T."""
     from seq2seq_abcd_vae_tpu_torch.ops import _build
     from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    from seq2seq_abcd_vae_tpu_torch.ops import gru_kernel as gk
     from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
     h, f, m, b, t = 1024, 129, MLP_HIDDEN, 24, 16
     lens = rng.integers(1, t + 1, size=b).astype(np.int32)
@@ -1492,8 +1760,30 @@ def wide_hidden_phase(dev, rng):
     loop = args[:9] + args[14:]
     errs["decoder_loop"] = max_err(dk.decoder_loop(*loop),
                                    dk.decoder_loop_plain(*loop))
+    w = _lstm_weights(rng, dev, h, (2, f, 3 * h), (2, 3 * h), (2, h, 3 * h),
+                      (2, 3 * h))
+    got = gk.gru_layer_bidir_fused(x, lengths, *w)
+    ref = gk.gru_layer_bidir_fused_plain(x, lengths, *w)
+    errs["gru_fwd"] = max_err(got, ref)
+    bwd = (x, lengths, *w, ref[0], normal(*ref[0].shape), normal(2, b, h))
+    errs["gru_bwd_rel"] = max(rel_err(g, r) for g, r in zip(
+        gk.gru_layer_bidir_fused_bwd(*bwd),
+        gk.gru_layer_bidir_fused_bwd_plain(*bwd)))
+    args, _ = _decoder_kernel_args(dev, rng, t, b, h=h, gru=True)
+    got = dk.gru_decoder_fused_losses_fwd(*args)
+    ref = dk.gru_decoder_fused_losses_fwd_plain(*args)
+    errs["gru_decoder_fwd_loss_rel"] = max(
+        abs(g.item() - r.item()) / abs(r.item())
+        for g, r in zip(got[1:3], ref[1:3]))
+    errs["gru_decoder_fwd_states"] = max_err((got[0], got[3]),
+                                             (ref[0], ref[3]))
+    bwd = (*args, ref[3], normal(b, h), torch.tensor([0.5, 0.5], device=dev))
+    errs["gru_decoder_bwd_rel"] = max(rel_err(g, r) for g, r in zip(
+        dk.gru_decoder_fused_losses_bwd(*bwd),
+        dk.gru_decoder_fused_losses_bwd_plain(*bwd)))
     torch.cuda.synchronize()
     lib = _build.load("lstm")
+    glib = _build.load("gru")
     dlib = _build.load("decoder")
     rows = {"lstm_bidir_fwd": lib.abcd_lstm_rows(0, f, h),
             "lstm_bidir_bwd": lib.abcd_lstm_rows(1, f, h),
@@ -1501,12 +1791,20 @@ def wide_hidden_phase(dev, rng):
             "lstm_bwd": lib.abcd_lstm_rows(3, 0, h),
             "decoder_fused_fwd": dlib.abcd_decoder_rows(0, f, h, m, m),
             "decoder_fused_bwd": dlib.abcd_decoder_rows(1, f, h, m, m),
-            "decoder_loop": dlib.abcd_decoder_rows(2, f, h, m, 0)}
+            "decoder_loop": dlib.abcd_decoder_rows(2, f, h, m, 0),
+            "gru_fwd": glib.abcd_gru_rows(0, f, h),
+            "gru_bwd": glib.abcd_gru_rows(1, f, h),
+            "gru_decoder_fused_fwd": dlib.abcd_decoder_rows(3, f, h, m, m),
+            "gru_decoder_fused_bwd": dlib.abcd_decoder_rows(4, f, h, m, m)}
     limits = {"bidir_fwd": LSTM_ATOL, "uni_fwd": LSTM_ATOL,
               "decoder_fwd_states": LSTM_ATOL, "decoder_loop": LSTM_ATOL,
               "decoder_fwd_loss_rel": LOSS_RTOL,
               "bidir_bwd_rel": GRAD_FRACTION, "uni_bwd_rel": GRAD_FRACTION,
-              "decoder_bwd_rel": GRAD_FRACTION}
+              "decoder_bwd_rel": GRAD_FRACTION, "gru_fwd": LSTM_ATOL,
+              "gru_bwd_rel": GRAD_FRACTION,
+              "gru_decoder_fwd_loss_rel": LOSS_RTOL,
+              "gru_decoder_fwd_states": LSTM_ATOL,
+              "gru_decoder_bwd_rel": GRAD_FRACTION}
     bad = {k: v for k, v in errs.items() if not v <= limits[k]}
     if bad:
         raise AssertionError(f"H=1024 kernels vs twins: {bad}")
@@ -1651,9 +1949,24 @@ def run(args, root, dev, rng, work) -> int:
                           args.seed)
     print("decode_features " + json.dumps(decode), flush=True)
 
+    # ---- the GRU slice's main paths, each counted ---------------------
+    gru = gru_train_phase(dev, work, corpus_dir, csv_path, args.seed)
+    print("GRU training throughput " + json.dumps(
+        {k: gru[k] for k in ("segments_per_s_after_first_epoch",
+                             "epochs")}), flush=True)
+    gru_enc = encode_cli_phase(dev, work, corpus_dir, csv_path,
+                               {"gru": gru["checkpoint"]},
+                               modes=("probs", "features"),
+                               formats=("csv",))
+    print("GRU encode CLI " + json.dumps(gru_enc), flush=True)
+    gru_serve = gru_serve_phase(work, gru["checkpoint"], rng)
+    print("GRU serve " + json.dumps(gru_serve), flush=True)
+
     paths = {"serve": launches, "train": train["launches"],
              "uni_train": uni["launches"], "encode_cli": enc_cli["launches"],
-             "decode": decode["launches"]}
+             "decode": decode["launches"], "gru_train": gru["launches"],
+             "gru_encode_cli": gru_enc["launches"],
+             "gru_serve": gru_serve["launches"]}
 
     def by_path(name):
         return {p: counts.get(name, 0) for p, counts in paths.items()}
@@ -1685,10 +1998,22 @@ def run(args, root, dev, rng, work) -> int:
     uni_fwd, uni_bwd = lstm_layer_phase(dev, rng, total("lstm_layer"),
                                         total("lstm_layer_bwd"))
     loop = decoder_loop_phase(dev, rng, total("decoder_loop"))
+    gru_checks, gru_inputs = whole_step_phase(dev, corpus_dir, csv_path,
+                                              args.seed, rnn_type="GRU")
+    gru_stages, gru_shape = train_step_breakdown(dev, *gru_inputs)
+    gru_fwd, gru_bwd = gru_layer_phase(
+        dev, rng, t_train, total("gru_layer_bidir_fused"),
+        total("gru_layer_bidir_fused_bwd"))
+    gru_dec_fwd, gru_dec_bwd = decoder_train_phase(
+        dev, rng, t_train, total("gru_decoder_loop_fused_losses_fwd"),
+        total("gru_decoder_loop_fused_losses_bwd"), gru=True)
     wide = wide_hidden_phase(dev, rng)
-    kernels += [lstm_bwd, dec_fwd, dec_bwd, uni_fwd, uni_bwd, loop]
+    kernels += [lstm_bwd, dec_fwd, dec_bwd, uni_fwd, uni_bwd, loop, gru_fwd,
+                gru_bwd, gru_dec_fwd, gru_dec_bwd]
     for entry in kernels:
-        key = {"decoder_loop_fused_losses": "decoder_loop_fused_losses_fwd"
+        key = {"decoder_loop_fused_losses": "decoder_loop_fused_losses_fwd",
+               "gru_decoder_loop_fused_losses":
+                   "gru_decoder_loop_fused_losses_fwd",
                }.get(entry["name"], entry["name"])
         entry["launches_by_path"] = by_path(key)
         if entry["launches"] <= 0:
@@ -1704,6 +2029,10 @@ def run(args, root, dev, rng, work) -> int:
           flush=True)
     print(f"unidirectional training step {json.dumps(uni_shape)}, ms "
           + json.dumps(uni_stages), flush=True)
+    print("GRU training step, kernels (card) vs twins (CPU) "
+          + json.dumps(gru_checks), flush=True)
+    print(f"GRU training step {json.dumps(gru_shape)}, ms "
+          + json.dumps(gru_stages), flush=True)
     print("hidden size 1024, kernels vs twins " + json.dumps(wide),
           flush=True)
 

@@ -4,10 +4,10 @@
 Each config is rebuilt from the ``*_init_parameters`` dict stored beside
 its module's weights in ``checkpoint.pt``, which is what makes a
 checkpoint self-describing.  The port serves the LSTM encoder (one or
-both directions) with the ABCD head, and trains it with the
-unidirectional LSTM decoder (isotropic-Gaussian emission, sampled
-self-feedback); ``check_served`` names the configurations that wait for
-later slices.
+both directions) and the bidirectional GRU encoder with the ABCD head,
+and trains them with the unidirectional LSTM or GRU decoder
+(isotropic-Gaussian emission, sampled self-feedback); ``check_served``
+and ``check_decoder`` name the configurations that wait for later slices.
 """
 
 from __future__ import annotations
@@ -146,14 +146,18 @@ class ABCDSamplerConfig:
 def check_served(encoder: EncoderConfig, latent_type: str = "abcd",
                  decoder: Optional[DecoderConfig] = None) -> None:
     """Raise NotImplementedError for what the port does not serve or train
-    yet: other cells, the plain VAE, and (with a
-    ``decoder``, the training path) encoder dropout and every decoder but
-    the unidirectional LSTM with isotropic-Gaussian emission and sampled
-    self-feedback without input dropout."""
-    if encoder.rnn_type != "LSTM":
+    yet: encoders but the LSTM (one or both directions) and the
+    bidirectional GRU, the plain VAE, and (with a ``decoder``, the training
+    path) encoder dropout and every decoder ``check_decoder`` refuses for
+    training."""
+    if encoder.rnn_type not in ("LSTM", "GRU"):
         raise NotImplementedError(
-            f"{encoder.rnn_type} encoders are not ported yet (the GRU, "
-            "Elman RNN and ESN cells come with a later slice of the port)")
+            f"{encoder.rnn_type} encoders are not ported yet (the Elman RNN "
+            "and ESN cells come with a later slice of the port)")
+    if encoder.rnn_type == "GRU" and not encoder.bidirectional:
+        raise NotImplementedError(
+            "the unidirectional GRU encoder (the gru_layer kernel) is not "
+            "ported yet; it comes with a later slice of the port")
     if latent_type != "abcd":
         raise NotImplementedError(
             f"latent type {latent_type!r} (the plain Gaussian VAE and its "
@@ -167,23 +171,31 @@ def check_served(encoder: EncoderConfig, latent_type: str = "abcd",
     check_decoder(decoder)
 
 
-def check_decoder(decoder: DecoderConfig) -> None:
-    """Raise NotImplementedError for every decoder but the unidirectional
-    LSTM with isotropic-Gaussian emission and sampled self-feedback without
-    input dropout (training and generative decoding alike)."""
-    if decoder.rnn_type != "LSTM":
+def check_decoder(decoder: DecoderConfig, training: bool = True) -> None:
+    """Raise NotImplementedError for every decoder the port does not run
+    yet.  Training takes the unidirectional LSTM or GRU decoder with
+    isotropic-Gaussian emission and sampled self-feedback, without input
+    dropout.  Generative decoding (``training=False``) is deterministic, as
+    the JAX package's ``decode_features`` is: input dropout and the greedy
+    decoder act only in training, so their checkpoints decode on the
+    sampled loop; it takes the LSTM decoder only (GRU decoding, the
+    ``gru_decoder_loop`` kernel, comes with a later slice)."""
+    cells = ("LSTM", "GRU") if training else ("LSTM",)
+    if decoder.rnn_type not in cells:
         raise NotImplementedError(
-            f"{decoder.rnn_type} decoders are not ported yet (the GRU, "
-            "Elman RNN and ESN decoder loops come with a later slice)")
+            f"{'training' if training else 'decoding'} a "
+            f"{decoder.rnn_type} decoder is not ported yet (it comes with "
+            "a later slice of the port)")
     if decoder.bidirectional:
         raise NotImplementedError(
             "the bidirectional decoder is not ported yet")
-    if decoder.input_dropout >= 1.0:
+    if training and decoder.input_dropout >= 1.0:
         raise NotImplementedError(
-            "the greedy decoder (no self-feedback) is not ported yet")
-    if decoder.input_dropout > 0.0:
+            "training the greedy decoder (no self-feedback) is not ported "
+            "yet")
+    if training and decoder.input_dropout > 0.0:
         raise NotImplementedError(
-            "decoder input dropout is not ported yet")
+            "training with decoder input dropout is not ported yet")
     if decoder.emission_distr_name != "isotropic_gaussian":
         raise NotImplementedError(
             f"emission {decoder.emission_distr_name!r} is not ported; the "

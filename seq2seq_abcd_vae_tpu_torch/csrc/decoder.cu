@@ -1,18 +1,25 @@
-// The LSTM decoder's sampled time loop, written for Hopper (sm_90a): with
-// its two training losses fused (forward and backward), and as the plain
-// loop that writes its streams (forward).
+// The decoder's sampled time loop, written for Hopper (sm_90a): for the
+// LSTM cell with its two training losses fused (forward and backward) and as
+// the plain loop that writes its streams (forward), and for the GRU cell
+// with the losses fused (forward and backward).
 //
 // Replaces seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:
 // decoder_loop_fused_losses (`_fused_fwd_call` / `_fused_fwd_kernel` and
-// `_fused_bwd_call` / `_fused_bwd_kernel`, with_offset=True) and the forward
-// of decoder_loop (`_fwd_call` / `_fwd_kernel`).  Step t of the loop, in the
-// order of the scan body (models/decoder.py:341-361):
+// `_fused_bwd_call` / `_fused_bwd_kernel`, with_offset=True), the forward
+// of decoder_loop (`_fwd_call` / `_fwd_kernel`) and
+// gru_decoder_loop_fused_losses (`_gru_floss_fwd_call` /
+// `_gru_floss_fwd_kernel` and `_gru_floss_bwd_call` /
+// `_gru_floss_bwd_kernel`).  Step t of the loop, in the order of the scan
+// body (models/decoder.py:341-361):
 //
 //   big  = h @ w_cat                         w_cat = [W_hh | emission lin1]
-//   emh  = tanh(big[:, 4H:] + b1)
+//   emh  = tanh(big[:, GH:] + b1)            GH = 4H (LSTM) | 3H (GRU)
 //   mean = emh[:, :m] @ w2m + b2[:F];  logvar = emh[:, m:] @ w2v + b2[F:]
 //   x    = mean + exp(logvar / 2) * noise[t-1]   (0 on a row's first step)
-//   gates = big[:, :4H] + x @ w_ih + bias;   c2, h2 = the LSTM cell
+//   LSTM: gates = big[:, :4H] + x @ w_ih + bias;   c2, h2 = the LSTM cell
+//   GRU:  xp = x @ w_ih + b_ih;  hp = big[:, :3H] + b_hh;
+//         r, z = sigmoid(xp + hp);  n = tanh(xp_n + r * hp_n);
+//         h2 = (1 - z) * n + z * h           (no c; b_hh inside the reset)
 //   h, c  = (h2, c2) while t < len, else frozen
 //
 // The emission at step t is position t-1's.  The fused-loss mode adds
@@ -66,12 +73,13 @@ __device__ __forceinline__ float warp_sum(float s) {
   return s;
 }
 
-// big[r][j] = (h @ w_cat)[r][j], with tanh(. + b1) on the emission columns.
+// big[r][j] = (h @ w_cat)[r][j], with tanh(. + b1) on the emission columns
+// (the columns past the GH gate columns).
 template <int R>
 __device__ __forceinline__ void big_product(const float* __restrict__ w_cat,
                                             const float* __restrict__ b1,
                                             const float* s_h, float* s_big,
-                                            int H, int G4, int G) {
+                                            int H, int GH, int G) {
   for (int j = threadIdx.x; j < G; j += blockDim.x) {
     float acc[R];
 #pragma unroll
@@ -82,10 +90,10 @@ __device__ __forceinline__ void big_product(const float* __restrict__ w_cat,
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] = fmaf(s_h[r * H + k], w, acc[r]);
     }
-    const float bj = j < G4 ? 0.f : b1[j - G4];
+    const float bj = j < GH ? 0.f : b1[j - GH];
 #pragma unroll
     for (int r = 0; r < R; ++r)
-      s_big[r * G + j] = j < G4 ? acc[r] : tanhf(acc[r] + bj);
+      s_big[r * G + j] = j < GH ? acc[r] : tanhf(acc[r] + bj);
   }
 }
 
@@ -95,7 +103,7 @@ __device__ __forceinline__ void emission(const float* __restrict__ w2m,
                                          const float* __restrict__ w2v,
                                          const float* __restrict__ b2,
                                          const float* s_big, int f, int F,
-                                         int M, int G4, int G,
+                                         int M, int GH, int G,
                                          float* mean, float* lv) {
   float am[R], av[R];
 #pragma unroll
@@ -109,8 +117,8 @@ __device__ __forceinline__ void emission(const float* __restrict__ w2m,
     const float wv = __ldg(w2v + (int64_t)k * F + f);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      am[r] = fmaf(s_big[r * G + G4 + k], wm, am[r]);
-      av[r] = fmaf(s_big[r * G + G4 + M + k], wv, av[r]);
+      am[r] = fmaf(s_big[r * G + GH + k], wm, am[r]);
+      av[r] = fmaf(s_big[r * G + GH + M + k], wv, av[r]);
     }
   }
 #pragma unroll
@@ -155,6 +163,46 @@ __device__ __forceinline__ void gate_inputs(const float* __restrict__ w_ih,
   }
 }
 
+// GRU gate pre-activations of hidden unit u: xg = x @ w_ih[:, g*H+u] + b_ih
+// and hg = big[:, g*H+u] + b_hh (kept apart: b_hh sits inside the reset
+// product), for g = r, z, n.
+template <int R>
+__device__ __forceinline__ void gru_gate_inputs(const float* __restrict__ w_ih,
+                                                const float* __restrict__ b_ih,
+                                                const float* __restrict__ b_hh,
+                                                const float* s_x,
+                                                const float* s_big, int u,
+                                                int F, int H, int G,
+                                                float xg[3][R],
+                                                float hg[3][R]) {
+  const int G3 = 3 * H;
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int r = 0; r < R; ++r) xg[g][r] = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < F; ++k) {
+    float w[3];
+#pragma unroll
+    for (int g = 0; g < 3; ++g) w[g] = __ldg(w_ih + (int64_t)k * G3 + g * H + u);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float xv = s_x[r * F + k];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) xg[g][r] = fmaf(xv, w[g], xg[g][r]);
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+    const float bx = b_ih[g * H + u], bh = b_hh[g * H + u];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      xg[g][r] += bx;
+      hg[g][r] = s_big[r * G + g * H + u] + bh;
+    }
+  }
+}
+
 // oh[r][j] = tanh(h2 @ wo1 + bo1)
 template <int R>
 __device__ __forceinline__ void offset_hidden(const float* __restrict__ wo1,
@@ -190,27 +238,30 @@ __device__ __forceinline__ float offset_logit(const float* __restrict__ wo2,
 // sums; it writes the pre-mask h2 of every step to outs at slot t and the
 // emission parameters computed at step t to mean_s / logvar_s at POSITION
 // slot t - 1, step 0's parked on slot T - 1 (the caller overwrites it).
-template <int R, bool kLosses>
+// kGRU: the GRU cell (gru_decoder_loop_fused_losses; with kLosses only):
+// w_cat is (H, 3H + 2M), `bias` is b_ih and `bias_hh` b_hh, there is no c.
+template <int R, bool kLosses, bool kGRU>
 __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
     const float* __restrict__ noise,    // (T, B, F)
     const int* __restrict__ lengths,    // (B,)
-    const float* __restrict__ w_cat,    // (H, 4H + 2M)
-    const float* __restrict__ bias,     // (4H,)  b_ih + b_hh
+    const float* __restrict__ w_cat,    // (H, GH + 2M), GH = 4H | 3H
+    const float* __restrict__ bias,     // LSTM (4H,) b_ih + b_hh | GRU b_ih
+    const float* __restrict__ bias_hh,  // GRU (3H,) b_hh | LSTM unused
     const float* __restrict__ b1,       // (2M,)
     const float* __restrict__ w2m,      // (M, F)
     const float* __restrict__ w2v,      // (M, F)
     const float* __restrict__ b2,       // (2F,)
-    const float* __restrict__ w_ih,     // (F, 4H)
+    const float* __restrict__ w_ih,     // (F, GH)
     const float* __restrict__ targets,  // (T, B, F)   kLosses only
     const float* __restrict__ wo1,      // (H, Mo)     kLosses only
     const float* __restrict__ bo1,      // (Mo,)       kLosses only
     const float* __restrict__ wo2,      // (Mo,)       kLosses only
     const float* __restrict__ bo2,      // (1,)        kLosses only
     const float* __restrict__ h0,       // (B, H)
-    const float* __restrict__ c0,       // (B, H)
+    const float* __restrict__ c0,       // (B, H)      LSTM only
     float* __restrict__ out_last,       // (B, H)      kLosses only
     float* __restrict__ hs,             // (T, B, H) or nullptr
-    float* __restrict__ cs,             // (T, B, H) or nullptr
+    float* __restrict__ cs,             // (T, B, H) or nullptr (LSTM only)
     double* __restrict__ partial,       // (blocks, 2) kLosses only
     float* __restrict__ outs,           // (T, B, H)   loop only
     float* __restrict__ mean_s,         // (T, B, F)   loop only
@@ -218,10 +269,11 @@ __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
     int T, int B, int F, int H, int M, int Mo) {
   extern __shared__ float smem[];
   __shared__ double s_red[kLosses ? kThreads : 1];
-  const int G4 = 4 * H, G = G4 + 2 * M;
+  const int GH = (kGRU ? 3 : 4) * H, G = GH + 2 * M;
+  const int HC = kGRU ? 0 : H;   // the LSTM's c
   float* s_h = smem;             // [R][H]   carry h
-  float* s_c = s_h + R * H;      // [R][H]   carry c
-  float* s_big = s_c + R * H;    // [R][G]
+  float* s_c = s_h + R * H;      // [R][HC]  carry c
+  float* s_big = s_c + R * HC;   // [R][G]
   float* s_x = s_big + R * G;    // [R][F]
   float* s_h2 = s_x + R * F;     // [R][H]   pre-mask h2 (kLosses only)
   float* s_oh = s_h2 + R * H;    // [R][Mo]  (kLosses only)
@@ -236,20 +288,20 @@ __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
   for (int i = tid; i < R * H; i += nth) {
     const int r = i / H;
     s_h[i] = r < nrows ? h0[(int64_t)r0 * H + i] : 0.f;
-    s_c[i] = r < nrows ? c0[(int64_t)r0 * H + i] : 0.f;
+    if (!kGRU) s_c[i] = r < nrows ? c0[(int64_t)r0 * H + i] : 0.f;
   }
   const float bo2v = kLosses ? bo2[0] : 0.f;
   double nll_acc = 0.0, bce_acc = 0.0;
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
-    big_product<R>(w_cat, b1, s_h, s_big, H, G4, G);
+    big_product<R>(w_cat, b1, s_h, s_big, H, GH, G);
     __syncthreads();
 
     const int slot = t == 0 ? T - 1 : t - 1;  // position of this emission
     for (int f = tid; f < F; f += nth) {
       float mean[R], lv[R];
-      emission<R>(w2m, w2v, b2, s_big, f, F, M, G4, G, mean, lv);
+      emission<R>(w2m, w2v, b2, s_big, f, F, M, GH, G, mean, lv);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const bool pmt = t >= 1 && t - 1 < len[r];
@@ -274,26 +326,45 @@ __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
     __syncthreads();
 
     for (int u = tid; u < H; u += nth) {
-      float z[4][R];
-      gate_inputs<R>(w_ih, bias, s_x, s_big, u, F, H, G, z);
+      float h2v[R], c2v[R];
+      if constexpr (kGRU) {
+        float xg[3][R], hg[3][R];
+        gru_gate_inputs<R>(w_ih, bias, bias_hh, s_x, s_big, u, F, H, G, xg,
+                           hg);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float rg = sigmoid(xg[0][r] + hg[0][r]);
+          const float zg = sigmoid(xg[1][r] + hg[1][r]);
+          const float ng = tanhf(xg[2][r] + rg * hg[2][r]);
+          h2v[r] = (1.f - zg) * ng + zg * s_h[r * H + u];
+          c2v[r] = 0.f;
+        }
+      } else {
+        float z[4][R];
+        gate_inputs<R>(w_ih, bias, s_x, s_big, u, F, H, G, z);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float ig = sigmoid(z[0][r]);
+          const float fg = sigmoid(z[1][r]);
+          const float gg = tanhf(z[2][r]);
+          const float og = sigmoid(z[3][r]);
+          c2v[r] = fg * s_c[r * H + u] + ig * gg;
+          h2v[r] = og * tanhf(c2v[r]);
+        }
+      }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float ig = sigmoid(z[0][r]);
-        const float fg = sigmoid(z[1][r]);
-        const float gg = tanhf(z[2][r]);
-        const float og = sigmoid(z[3][r]);
         const int i = r * H + u;
-        const float c2 = fg * s_c[i] + ig * gg;
-        const float h2 = og * tanhf(c2);
+        const float h2 = h2v[r];
         if (kLosses) s_h2[i] = h2;
         if (t < len[r]) {
           s_h[i] = h2;
-          s_c[i] = c2;
+          if (!kGRU) s_c[i] = c2v[r];
         }
         if (r < nrows) {
           const int64_t o = ((int64_t)t * B + r0 + r) * H + u;
           if (hs) hs[o] = s_h[i];
-          if (cs) cs[o] = s_c[i];
+          if (!kGRU && cs) cs[o] = s_c[i];
           if (!kLosses) outs[o] = h2;
           if (kLosses && t == T - 1) out_last[(int64_t)(r0 + r) * H + u] = h2;
         }
@@ -350,10 +421,17 @@ __global__ void loss_sum_kernel(const double* __restrict__ partial,
   losses[1] = (float)bce;
 }
 
-template <int R>
+// kGRU: the GRU cell's adjoint (decoder_pallas.py:_gru_floss_bwd_kernel):
+// `bias` is b_ih, `bias_hh` b_hh, there is no c (c0, cs, dc0 unused); the
+// gate part of the dbig stream is dhp = [drpre, dzpre, dnpre * r] (the
+// cotangent of h @ W_hh + b_hh) and the extra dnp stream holds dnpre, the
+// candidate third of dxp = [drpre, dzpre, dnpre] (the cotangent of
+// x @ W_ih + b_ih).
+template <int R, bool kGRU>
 __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
     const float* __restrict__ noise, const int* __restrict__ lengths,
     const float* __restrict__ w_cat, const float* __restrict__ bias,
+    const float* __restrict__ bias_hh,
     const float* __restrict__ b1, const float* __restrict__ w2m,
     const float* __restrict__ w2v, const float* __restrict__ b2,
     const float* __restrict__ w_ih, const float* __restrict__ targets,
@@ -361,18 +439,18 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
     const float* __restrict__ wo2, const float* __restrict__ bo2,
     const float* __restrict__ h0, const float* __restrict__ c0,
     const float* __restrict__ w_catT,   // (G, H)
-    const float* __restrict__ w_ihT,    // (4H, F)
+    const float* __restrict__ w_ihT,    // (GH, F)
     const float* __restrict__ w2mT,     // (F, M)
     const float* __restrict__ w2vT,     // (F, M)
     const float* __restrict__ wo1T,     // (Mo, H)
     const float* __restrict__ hs,       // (T, B, H)
-    const float* __restrict__ cs,       // (T, B, H)
+    const float* __restrict__ cs,       // (T, B, H)   LSTM only
     const float* __restrict__ dlast,    // (B, H)
     const float* __restrict__ gscale,   // (2,)  dnll, dbce
     float* __restrict__ dh0,            // (B, H)
-    float* __restrict__ dc0,            // (B, H)
+    float* __restrict__ dc0,            // (B, H)      LSTM only
     float* __restrict__ hp_s,           // (T, B, H)   h_{t-1}
-    float* __restrict__ dbig_s,         // (T, B, G)   [dz | d(emh pre-tanh)]
+    float* __restrict__ dbig_s,         // (T, B, G)   [dgates | d(emh pre-tanh)]
     float* __restrict__ x_s,            // (T, B, F)   fed-back input
     float* __restrict__ emh_s,          // (T, B, 2M)
     float* __restrict__ dem_s,          // (T, B, 2F)  [dmean | dlogvar]
@@ -380,19 +458,21 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
     float* __restrict__ doh_s,          // (T, B, Mo)
     float* __restrict__ oh_s,           // (T, B, Mo)
     float* __restrict__ dzo_s,          // (T, B)      offset-logit cotangent
+    float* __restrict__ dnp_s,          // (T, B, H)   GRU only: dnpre
     int T, int B, int F, int H, int M, int Mo) {
   extern __shared__ float smem[];
-  const int G4 = 4 * H, G = G4 + 2 * M;
-  float* s_hp = smem;                // [R][H]   h_{t-1}
+  const int GH = (kGRU ? 3 : 4) * H, G = GH + 2 * M;
+  const int HC = kGRU ? 0 : H;   // the LSTM's dc
+  float* s_hp = smem;            // [R][H]   h_{t-1}
   float* s_big = s_hp + R * H;   // [R][G]   big, then gates, then dbig
   float* s_ml = s_big + R * G;   // [R][2F]  mean|logvar, then dmean|dlogvar
   float* s_x = s_ml + R * 2 * F; // [R][F]
-  float* s_c2 = s_x + R * F;     // [R][H]
+  float* s_c2 = s_x + R * F;     // [R][H]   LSTM c2 | GRU hp_n, then dnpre
   float* s_h2 = s_c2 + R * H;    // [R][H]
   float* s_oh = s_h2 + R * H;    // [R][Mo]  oh, then doh
   float* s_dh = s_oh + R * Mo;   // [R][H]   carry cotangents
-  float* s_dc = s_dh + R * H;    // [R][H]
-  float* s_zo = s_dc + R * H;    // [R]      offset-logit cotangent
+  float* s_dc = s_dh + R * H;    // [R][HC]
+  float* s_zo = s_dc + R * HC;   // [R]      offset-logit cotangent
 
   const int r0 = blockIdx.x * R;
   const int nrows = min(R, B - r0);
@@ -405,7 +485,7 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
   const float bo2v = bo2[0];
   for (int i = tid; i < R * H; i += nth) {
     s_dh[i] = 0.f;
-    s_dc[i] = 0.f;
+    if (!kGRU) s_dc[i] = 0.f;
   }
 
   for (int t = T - 1; t >= 0; --t) {
@@ -420,12 +500,12 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
     __syncthreads();
 
     // ---- recompute the step
-    big_product<R>(w_cat, b1, s_hp, s_big, H, G4, G);
+    big_product<R>(w_cat, b1, s_hp, s_big, H, GH, G);
     __syncthreads();
 
     for (int f = tid; f < F; f += nth) {
       float mean[R], lv[R];
-      emission<R>(w2m, w2v, b2, s_big, f, F, M, G4, G, mean, lv);
+      emission<R>(w2m, w2v, b2, s_big, f, F, M, GH, G, mean, lv);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const bool pmt = t >= 1 && t - 1 < len[r];
@@ -443,28 +523,48 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
     __syncthreads();
 
     for (int u = tid; u < H; u += nth) {
-      float z[4][R];
-      gate_inputs<R>(w_ih, bias, s_x, s_big, u, F, H, G, z);
+      if constexpr (kGRU) {
+        float xg[3][R], hg[3][R];
+        gru_gate_inputs<R>(w_ih, bias, bias_hh, s_x, s_big, u, F, H, G, xg,
+                           hg);
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = r * H + u;
-        const float ig = sigmoid(z[0][r]);
-        const float fg = sigmoid(z[1][r]);
-        const float gg = tanhf(z[2][r]);
-        const float og = sigmoid(z[3][r]);
-        float c_prev = 0.f;
-        if (r < nrows)
-          c_prev = t > 0 ? cs[((int64_t)(t - 1) * B + r0) * H + i]
-                         : c0[(int64_t)r0 * H + i];
-        const float c2 = fg * c_prev + ig * gg;
-        const float h2 = og * tanhf(c2);
-        s_big[r * G + u] = ig;
-        s_big[r * G + H + u] = fg;
-        s_big[r * G + 2 * H + u] = gg;
-        s_big[r * G + 3 * H + u] = og;
-        s_c2[i] = c2;
-        s_h2[i] = h2;
-        if (r < nrows) h2_s[((int64_t)t * B + r0 + r) * H + u] = h2;
+        for (int r = 0; r < R; ++r) {
+          const int i = r * H + u;
+          const float rg = sigmoid(xg[0][r] + hg[0][r]);
+          const float zg = sigmoid(xg[1][r] + hg[1][r]);
+          const float ng = tanhf(xg[2][r] + rg * hg[2][r]);
+          const float h2 = (1.f - zg) * ng + zg * s_hp[i];
+          s_big[r * G + u] = rg;
+          s_big[r * G + H + u] = zg;
+          s_big[r * G + 2 * H + u] = ng;
+          s_c2[i] = hg[2][r];
+          s_h2[i] = h2;
+          if (r < nrows) h2_s[((int64_t)t * B + r0 + r) * H + u] = h2;
+        }
+      } else {
+        float z[4][R];
+        gate_inputs<R>(w_ih, bias, s_x, s_big, u, F, H, G, z);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int i = r * H + u;
+          const float ig = sigmoid(z[0][r]);
+          const float fg = sigmoid(z[1][r]);
+          const float gg = tanhf(z[2][r]);
+          const float og = sigmoid(z[3][r]);
+          float c_prev = 0.f;
+          if (r < nrows)
+            c_prev = t > 0 ? cs[((int64_t)(t - 1) * B + r0) * H + i]
+                           : c0[(int64_t)r0 * H + i];
+          const float c2 = fg * c_prev + ig * gg;
+          const float h2 = og * tanhf(c2);
+          s_big[r * G + u] = ig;
+          s_big[r * G + H + u] = fg;
+          s_big[r * G + 2 * H + u] = gg;
+          s_big[r * G + 3 * H + u] = og;
+          s_c2[i] = c2;
+          s_h2[i] = h2;
+          if (r < nrows) h2_s[((int64_t)t * B + r0 + r) * H + u] = h2;
+        }
       }
     }
     __syncthreads();
@@ -501,7 +601,7 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
     }
     __syncthreads();
 
-    // ---- adjoint: the LSTM cell
+    // ---- adjoint: the cell
     for (int u = tid; u < H; u += nth) {
       float acc[R];
 #pragma unroll
@@ -518,28 +618,46 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
         const bool mt = t < len[r];
         float dl = 0.f;
         if (t == T - 1 && r < nrows) dl = dlast[(int64_t)(r0 + r) * H + u];
-        const float dh_carry = s_dh[i], dc_carry = s_dc[i];
+        const float dh_carry = s_dh[i];
         const float dh2 = (acc[r] + dl) + (mt ? dh_carry : 0.f);
-        const float ig = s_big[r * G + u];
-        const float fg = s_big[r * G + H + u];
-        const float gg = s_big[r * G + 2 * H + u];
-        const float og = s_big[r * G + 3 * H + u];
-        const float tc = tanhf(s_c2[i]);
-        const float do_ = dh2 * tc;
-        const float dc2 = (mt ? dc_carry : 0.f) + dh2 * og * (1.f - tc * tc);
-        float c_prev = 0.f;
-        if (r < nrows)
-          c_prev = t > 0 ? cs[((int64_t)(t - 1) * B + r0) * H + i]
-                         : c0[(int64_t)r0 * H + i];
-        const float df = dc2 * c_prev;
-        const float di = dc2 * gg;
-        const float dg = dc2 * ig;
-        s_big[r * G + u] = di * ig * (1.f - ig);
-        s_big[r * G + H + u] = df * fg * (1.f - fg);
-        s_big[r * G + 2 * H + u] = dg * (1.f - gg * gg);
-        s_big[r * G + 3 * H + u] = do_ * og * (1.f - og);
-        s_dh[i] = mt ? 0.f : dh_carry;  // pass-through part of dh_{t-1}
-        s_dc[i] = (mt ? 0.f : dc_carry) + dc2 * fg;
+        if constexpr (kGRU) {
+          const float rg = s_big[r * G + u];
+          const float zg = s_big[r * G + H + u];
+          const float ng = s_big[r * G + 2 * H + u];
+          const float hn = s_c2[i];
+          const float dn = dh2 * (1.f - zg);
+          const float dz = dh2 * (s_hp[i] - ng);
+          const float dnpre = dn * (1.f - ng * ng);
+          const float dr = dnpre * hn;
+          s_big[r * G + u] = dr * rg * (1.f - rg);
+          s_big[r * G + H + u] = dz * zg * (1.f - zg);
+          s_big[r * G + 2 * H + u] = dnpre * rg;
+          s_c2[i] = dnpre;
+          // pass-through part of dh_{t-1}
+          s_dh[i] = (mt ? 0.f : dh_carry) + dh2 * zg;
+        } else {
+          const float dc_carry = s_dc[i];
+          const float ig = s_big[r * G + u];
+          const float fg = s_big[r * G + H + u];
+          const float gg = s_big[r * G + 2 * H + u];
+          const float og = s_big[r * G + 3 * H + u];
+          const float tc = tanhf(s_c2[i]);
+          const float do_ = dh2 * tc;
+          const float dc2 = (mt ? dc_carry : 0.f) + dh2 * og * (1.f - tc * tc);
+          float c_prev = 0.f;
+          if (r < nrows)
+            c_prev = t > 0 ? cs[((int64_t)(t - 1) * B + r0) * H + i]
+                           : c0[(int64_t)r0 * H + i];
+          const float df = dc2 * c_prev;
+          const float di = dc2 * gg;
+          const float dg = dc2 * ig;
+          s_big[r * G + u] = di * ig * (1.f - ig);
+          s_big[r * G + H + u] = df * fg * (1.f - fg);
+          s_big[r * G + 2 * H + u] = dg * (1.f - gg * gg);
+          s_big[r * G + 3 * H + u] = do_ * og * (1.f - og);
+          s_dh[i] = mt ? 0.f : dh_carry;  // pass-through part of dh_{t-1}
+          s_dc[i] = (mt ? 0.f : dc_carry) + dc2 * fg;
+        }
       }
     }
     __syncthreads();
@@ -549,11 +667,22 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
       float acc[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] = 0.f;
+      // dx = dxp @ w_ih^T; the GRU's dxp differs from the gate part of
+      // dbig in its candidate third (dnpre, in s_c2)
+      const int JB = kGRU ? 2 * H : GH;
 #pragma unroll 4
-      for (int j = 0; j < G4; ++j) {
+      for (int j = 0; j < JB; ++j) {
         const float w = __ldg(w_ihT + (int64_t)j * F + f);
 #pragma unroll
         for (int r = 0; r < R; ++r) acc[r] = fmaf(s_big[r * G + j], w, acc[r]);
+      }
+      if (kGRU) {
+#pragma unroll 4
+        for (int j = 0; j < H; ++j) {
+          const float w = __ldg(w_ihT + (int64_t)(2 * H + j) * F + f);
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc[r] = fmaf(s_c2[r * H + j], w, acc[r]);
+        }
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -599,8 +728,8 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float emh = s_big[r * G + G4 + j];
-        s_big[r * G + G4 + j] = acc[r] * (1.f - emh * emh);
+        const float emh = s_big[r * G + GH + j];
+        s_big[r * G + GH + j] = acc[r] * (1.f - emh * emh);
         if (r < nrows) emh_s[((int64_t)t * B + r0 + r) * 2 * M + j] = emh;
       }
     }
@@ -609,8 +738,10 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
     // streams for the weight gradients
     for (int i = tid; i < nrows * G; i += nth)
       dbig_s[((int64_t)t * B + r0) * G + i] = s_big[i];
-    for (int i = tid; i < nrows * H; i += nth)
+    for (int i = tid; i < nrows * H; i += nth) {
       hp_s[((int64_t)t * B + r0) * H + i] = s_hp[i];
+      if (kGRU) dnp_s[((int64_t)t * B + r0) * H + i] = s_c2[i];
+    }
 
     // dh_{t-1} = pass-through + dbig @ w_cat^T
     for (int u = tid; u < H; u += nth) {
@@ -631,21 +762,22 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
 
   for (int i = tid; i < nrows * H; i += nth) {
     dh0[(int64_t)r0 * H + i] = s_dh[i];
-    dc0[(int64_t)r0 * H + i] = s_dc[i];
+    if (!kGRU) dc0[(int64_t)r0 * H + i] = s_dc[i];
   }
 }
 
 // kind: 0 fused-loss forward, 1 fused-loss backward, 2 the plain loop's
-// forward.  Floats of shared memory per row of the tile (the backward adds
+// forward (the LSTM cell); 3 fused-loss forward, 4 fused-loss backward (the
+// GRU cell).  Floats of shared memory per row of the tile (the backward adds
 // the offset-logit cotangent).
 long long smem_bytes(int kind, int rows, int F, int H, int M, int Mo) {
   long long per_row;
-  if (kind == 0) {
-    per_row = 3LL * H + 4LL * H + 2LL * M + F + Mo;
-  } else if (kind == 1) {
-    per_row = 5LL * H + 4LL * H + 2LL * M + 3LL * F + Mo + 1;
-  } else {
-    per_row = 2LL * H + 4LL * H + 2LL * M + F;
+  switch (kind) {
+    case 0: per_row = 3LL * H + 4LL * H + 2LL * M + F + Mo; break;
+    case 1: per_row = 5LL * H + 4LL * H + 2LL * M + 3LL * F + Mo + 1; break;
+    case 2: per_row = 2LL * H + 4LL * H + 2LL * M + F; break;
+    case 3: per_row = 2LL * H + 3LL * H + 2LL * M + F + Mo; break;
+    default: per_row = 4LL * H + 3LL * H + 2LL * M + 3LL * F + Mo + 1;
   }
   return (long long)rows * per_row * (long long)sizeof(float);
 }
@@ -653,9 +785,12 @@ long long smem_bytes(int kind, int rows, int F, int H, int M, int Mo) {
 template <int R>
 const void* kernel_of(int kind) {
   switch (kind) {
-    case 0: return (const void*)decoder_fwd_kernel<R, true>;
-    case 1: return (const void*)decoder_bwd_kernel<R>;
-    default: return (const void*)decoder_fwd_kernel<R, false>;
+    case 0: return (const void*)decoder_fwd_kernel<R, true, false>;
+    case 1: return (const void*)decoder_bwd_kernel<R, false>;
+    case 2: return (const void*)decoder_fwd_kernel<R, false, false>;
+    case 3: return (const void*)decoder_fwd_kernel<R, true, true>;
+    case 4: return (const void*)decoder_bwd_kernel<R, true>;
+    default: return nullptr;
   }
 }
 
@@ -694,60 +829,94 @@ cudaError_t prepare(int kind, int rows, int F, int H, int M, int Mo,
                               (int)smem);
 }
 
-template <int R, bool kLosses>
-void launch_fwd(int blocks, int smem, cudaStream_t s, const float* noise,
-                const int* lengths, const float* w_cat, const float* bias,
-                const float* b1, const float* w2m, const float* w2v,
-                const float* b2, const float* w_ih, const float* targets,
-                const float* wo1, const float* bo1, const float* wo2,
-                const float* bo2, const float* h0, const float* c0,
-                float* out_last, float* hs, float* cs, double* partial,
-                float* outs, float* mean_s, float* logvar_s, int T, int B,
-                int F, int H, int M, int Mo) {
-  decoder_fwd_kernel<R, kLosses><<<blocks, kThreads, smem, s>>>(
-      noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, targets, wo1, bo1,
-      wo2, bo2, h0, c0, out_last, hs, cs, partial, outs, mean_s, logvar_s, T,
-      B, F, H, M, Mo);
+// The forward's operands, in decoder_fwd_kernel's order.
+struct FwdArgs {
+  const float *noise; const int* lengths;
+  const float *w_cat, *bias, *bias_hh, *b1, *w2m, *w2v, *b2, *w_ih, *targets,
+      *wo1, *bo1, *wo2, *bo2, *h0, *c0;
+  float *out_last, *hs, *cs;
+  double* partial;
+  float *outs, *mean_s, *logvar_s;
+  int T, B, F, H, M, Mo;
+};
+
+template <int R, bool kLosses, bool kGRU>
+void launch_fwd(int blocks, int smem, cudaStream_t s, const FwdArgs& a) {
+  decoder_fwd_kernel<R, kLosses, kGRU><<<blocks, kThreads, smem, s>>>(
+      a.noise, a.lengths, a.w_cat, a.bias, a.bias_hh, a.b1, a.w2m, a.w2v,
+      a.b2, a.w_ih, a.targets, a.wo1, a.bo1, a.wo2, a.bo2, a.h0, a.c0,
+      a.out_last, a.hs, a.cs, a.partial, a.outs, a.mean_s, a.logvar_s, a.T,
+      a.B, a.F, a.H, a.M, a.Mo);
 }
 
-template <bool kLosses>
+template <bool kLosses, bool kGRU>
 void dispatch_fwd(int rows, int blocks, int smem, cudaStream_t s,
-                  const float* noise, const int* lengths, const float* w_cat,
-                  const float* bias, const float* b1, const float* w2m,
-                  const float* w2v, const float* b2, const float* w_ih,
-                  const float* targets, const float* wo1, const float* bo1,
-                  const float* wo2, const float* bo2, const float* h0,
-                  const float* c0, float* out_last, float* hs, float* cs,
-                  double* partial, float* outs, float* mean_s,
-                  float* logvar_s, int T, int B, int F, int H, int M,
-                  int Mo) {
-  auto go = rows == 8   ? &launch_fwd<8, kLosses>
-            : rows == 4 ? &launch_fwd<4, kLosses>
-                        : &launch_fwd<2, kLosses>;
-  go(blocks, smem, s, noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih,
-     targets, wo1, bo1, wo2, bo2, h0, c0, out_last, hs, cs, partial, outs,
-     mean_s, logvar_s, T, B, F, H, M, Mo);
+                  const FwdArgs& a) {
+  auto go = rows == 8   ? &launch_fwd<8, kLosses, kGRU>
+            : rows == 4 ? &launch_fwd<4, kLosses, kGRU>
+                        : &launch_fwd<2, kLosses, kGRU>;
+  go(blocks, smem, s, a);
 }
 
-template <int R>
-void launch_bwd(int blocks, int smem, cudaStream_t s, const float* noise,
-                const int* lengths, const float* w_cat, const float* bias,
-                const float* b1, const float* w2m, const float* w2v,
-                const float* b2, const float* w_ih, const float* targets,
-                const float* wo1, const float* bo1, const float* wo2,
-                const float* bo2, const float* h0, const float* c0,
-                const float* w_catT, const float* w_ihT, const float* w2mT,
-                const float* w2vT, const float* wo1T, const float* hs,
-                const float* cs, const float* dlast, const float* gscale,
-                float* dh0, float* dc0, float* hp_s, float* dbig_s,
-                float* x_s, float* emh_s, float* dem_s, float* h2_s,
-                float* doh_s, float* oh_s, float* dzo_s, int T, int B, int F,
-                int H, int M, int Mo) {
-  decoder_bwd_kernel<R><<<blocks, kThreads, smem, s>>>(
-      noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, targets, wo1, bo1,
-      wo2, bo2, h0, c0, w_catT, w_ihT, w2mT, w2vT, wo1T, hs, cs, dlast,
-      gscale, dh0, dc0, hp_s, dbig_s, x_s, emh_s, dem_s, h2_s, doh_s, oh_s,
-      dzo_s, T, B, F, H, M, Mo);
+// The backward's operands, in decoder_bwd_kernel's order.
+struct BwdArgs {
+  const float *noise; const int* lengths;
+  const float *w_cat, *bias, *bias_hh, *b1, *w2m, *w2v, *b2, *w_ih, *targets,
+      *wo1, *bo1, *wo2, *bo2, *h0, *c0, *w_catT, *w_ihT, *w2mT, *w2vT, *wo1T,
+      *hs, *cs, *dlast, *gscale;
+  float *dh0, *dc0, *hp_s, *dbig_s, *x_s, *emh_s, *dem_s, *h2_s, *doh_s,
+      *oh_s, *dzo_s, *dnp_s;
+  int T, B, F, H, M, Mo;
+};
+
+template <int R, bool kGRU>
+void launch_bwd(int blocks, int smem, cudaStream_t s, const BwdArgs& a) {
+  decoder_bwd_kernel<R, kGRU><<<blocks, kThreads, smem, s>>>(
+      a.noise, a.lengths, a.w_cat, a.bias, a.bias_hh, a.b1, a.w2m, a.w2v,
+      a.b2, a.w_ih, a.targets, a.wo1, a.bo1, a.wo2, a.bo2, a.h0, a.c0,
+      a.w_catT, a.w_ihT, a.w2mT, a.w2vT, a.wo1T, a.hs, a.cs, a.dlast,
+      a.gscale, a.dh0, a.dc0, a.hp_s, a.dbig_s, a.x_s, a.emh_s, a.dem_s,
+      a.h2_s, a.doh_s, a.oh_s, a.dzo_s, a.dnp_s, a.T, a.B, a.F, a.H, a.M,
+      a.Mo);
+}
+
+template <bool kGRU>
+void dispatch_bwd(int rows, int blocks, int smem, cudaStream_t s,
+                  const BwdArgs& a) {
+  auto go = rows == 8   ? &launch_bwd<8, kGRU>
+            : rows == 4 ? &launch_bwd<4, kGRU>
+                        : &launch_bwd<2, kGRU>;
+  go(blocks, smem, s, a);
+}
+
+// A fused-loss forward of either cell, then the block-order sum of the
+// per-block loss partials into `losses`.
+template <bool kGRU>
+int fused_fwd(const FwdArgs& a, float* losses, int rows, void* stream) {
+  if (a.T < 1 || a.B < 1 || a.F < 1 || a.H < 1 || a.M < 1 || a.Mo < 1)
+    return (int)cudaErrorInvalidValue;
+  int smem = 0;
+  cudaError_t err = prepare(kGRU ? 3 : 0, rows, a.F, a.H, a.M, a.Mo, &smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (a.B + rows - 1) / rows;
+  cudaStream_t s = (cudaStream_t)stream;
+  dispatch_fwd<true, kGRU>(rows, blocks, smem, s, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  loss_sum_kernel<<<1, 32, 0, s>>>(a.partial, blocks, losses);
+  return (int)cudaGetLastError();
+}
+
+template <bool kGRU>
+int fused_bwd(const BwdArgs& a, int rows, void* stream) {
+  if (a.T < 1 || a.B < 1 || a.F < 1 || a.H < 1 || a.M < 1 || a.Mo < 1)
+    return (int)cudaErrorInvalidValue;
+  int smem = 0;
+  cudaError_t err = prepare(kGRU ? 4 : 1, rows, a.F, a.H, a.M, a.Mo, &smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (a.B + rows - 1) / rows;
+  dispatch_bwd<kGRU>(rows, blocks, smem, (cudaStream_t)stream, a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -755,8 +924,7 @@ void launch_bwd(int blocks, int smem, cudaStream_t s, const float* noise,
 extern "C" {
 
 // The largest row tile (8, 4 or 2) whose shared memory fits the card for
-// kernel `kind` (0 fused-loss forward, 1 fused-loss backward, 2 the plain
-// loop's forward); 0 when none does.
+// kernel `kind` (see smem_bytes); 0 when none does.
 int abcd_decoder_rows(int kind, int F, int H, int M, int Mo) {
   for (int rows = 8; rows >= 2; rows /= 2) {
     const void* fn = kernel_for(kind, rows);
@@ -776,10 +944,10 @@ long long abcd_decoder_smem_limit(int kind, int rows) {
   return fn == nullptr ? 0 : smem_limit(fn);
 }
 
-// Fused-loss forward (kind 0; see the comment at the top).  hs / cs may be
-// nullptr (no backward to follow).  `partial` holds 2 * ceil(B / rows)
-// doubles; `losses` receives (nll over positions 0..T-2, bce over all
-// positions).
+// LSTM fused-loss forward (kind 0; see the comment at the top).  hs / cs
+// may be nullptr (no backward to follow).  `partial` holds
+// 2 * ceil(B / rows) doubles; `losses` receives (nll over positions
+// 0..T-2, bce over all positions).
 int abcd_decoder_fwd(const float* noise, const int* lengths,
                      const float* w_cat, const float* bias, const float* b1,
                      const float* w2m, const float* w2v, const float* b2,
@@ -789,21 +957,29 @@ int abcd_decoder_fwd(const float* noise, const int* lengths,
                      float* out_last, float* hs, float* cs, double* partial,
                      float* losses, int T, int B, int F, int H, int M,
                      int Mo, int rows, void* stream) {
-  if (T < 1 || B < 1 || F < 1 || H < 1 || M < 1 || Mo < 1)
-    return (int)cudaErrorInvalidValue;
-  int smem = 0;
-  cudaError_t err = prepare(0, rows, F, H, M, Mo, &smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (B + rows - 1) / rows;
-  cudaStream_t s = (cudaStream_t)stream;
-  dispatch_fwd<true>(rows, blocks, smem, s, noise, lengths, w_cat, bias, b1,
-                     w2m, w2v, b2, w_ih, targets, wo1, bo1, wo2, bo2, h0, c0,
-                     out_last, hs, cs, partial, nullptr, nullptr, nullptr, T,
-                     B, F, H, M, Mo);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  loss_sum_kernel<<<1, 32, 0, s>>>(partial, blocks, losses);
-  return (int)cudaGetLastError();
+  const FwdArgs a{noise, lengths, w_cat, bias, nullptr, b1, w2m, w2v, b2,
+                  w_ih, targets, wo1, bo1, wo2, bo2, h0, c0, out_last, hs,
+                  cs, partial, nullptr, nullptr, nullptr, T, B, F, H, M, Mo};
+  return fused_fwd<false>(a, losses, rows, stream);
+}
+
+// GRU fused-loss forward (kind 3): b_ih and b_hh apart, no c0 / cs; hs may
+// be nullptr.
+int abcd_gru_decoder_fwd(const float* noise, const int* lengths,
+                         const float* w_cat, const float* b_ih,
+                         const float* b_hh, const float* b1,
+                         const float* w2m, const float* w2v, const float* b2,
+                         const float* w_ih, const float* targets,
+                         const float* wo1, const float* bo1, const float* wo2,
+                         const float* bo2, const float* h0, float* out_last,
+                         float* hs, double* partial, float* losses, int T,
+                         int B, int F, int H, int M, int Mo, int rows,
+                         void* stream) {
+  const FwdArgs a{noise, lengths, w_cat, b_ih, b_hh, b1, w2m, w2v, b2, w_ih,
+                  targets, wo1, bo1, wo2, bo2, h0, nullptr, out_last, hs,
+                  nullptr, partial, nullptr, nullptr, nullptr, T, B, F, H, M,
+                  Mo};
+  return fused_fwd<true>(a, losses, rows, stream);
 }
 
 // The plain sampled loop's forward (kind 2): outs (T, B, H) = the pre-mask
@@ -824,15 +1000,16 @@ int abcd_decoder_loop_fwd(const float* noise, const int* lengths,
   cudaError_t err = prepare(2, rows, F, H, M, 0, &smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (B + rows - 1) / rows;
-  dispatch_fwd<false>(rows, blocks, smem, (cudaStream_t)stream, noise,
-                      lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, nullptr,
-                      nullptr, nullptr, nullptr, nullptr, h0, c0, nullptr, hs,
-                      cs, nullptr, outs, mean_s, logvar_s, T, B, F, H, M, 0);
+  const FwdArgs a{noise, lengths, w_cat, bias, nullptr, b1, w2m, w2v, b2,
+                  w_ih, nullptr, nullptr, nullptr, nullptr, nullptr, h0, c0,
+                  nullptr, hs, cs, nullptr, outs, mean_s, logvar_s, T, B, F,
+                  H, M, 0};
+  dispatch_fwd<false, false>(rows, blocks, smem, (cudaStream_t)stream, a);
   return (int)cudaGetLastError();
 }
 
-// Backward (kind 1; see the comment at the top): writes dh0, dc0 and the
-// streams that csrc/wgrad.cu reduces into the weight gradients.
+// LSTM backward (kind 1; see the comment at the top): writes dh0, dc0 and
+// the streams that csrc/wgrad.cu reduces into the weight gradients.
 int abcd_decoder_bwd(const float* noise, const int* lengths,
                      const float* w_cat, const float* bias, const float* b1,
                      const float* w2m, const float* w2v, const float* b2,
@@ -847,19 +1024,38 @@ int abcd_decoder_bwd(const float* noise, const int* lengths,
                      float* dem_s, float* h2_s, float* doh_s, float* oh_s,
                      float* dzo_s, int T, int B, int F, int H, int M, int Mo,
                      int rows, void* stream) {
-  if (T < 1 || B < 1 || F < 1 || H < 1 || M < 1 || Mo < 1)
-    return (int)cudaErrorInvalidValue;
-  int smem = 0;
-  cudaError_t err = prepare(1, rows, F, H, M, Mo, &smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (B + rows - 1) / rows;
-  auto go = rows == 8 ? &launch_bwd<8> : rows == 4 ? &launch_bwd<4>
-                                                   : &launch_bwd<2>;
-  go(blocks, smem, (cudaStream_t)stream, noise, lengths, w_cat, bias, b1,
-     w2m, w2v, b2, w_ih, targets, wo1, bo1, wo2, bo2, h0, c0, w_catT, w_ihT,
-     w2mT, w2vT, wo1T, hs, cs, dlast, gscale, dh0, dc0, hp_s, dbig_s, x_s,
-     emh_s, dem_s, h2_s, doh_s, oh_s, dzo_s, T, B, F, H, M, Mo);
-  return (int)cudaGetLastError();
+  const BwdArgs a{noise, lengths, w_cat, bias, nullptr, b1, w2m, w2v, b2,
+                  w_ih, targets, wo1, bo1, wo2, bo2, h0, c0, w_catT, w_ihT,
+                  w2mT, w2vT, wo1T, hs, cs, dlast, gscale, dh0, dc0, hp_s,
+                  dbig_s, x_s, emh_s, dem_s, h2_s, doh_s, oh_s, dzo_s,
+                  nullptr, T, B, F, H, M, Mo};
+  return fused_bwd<false>(a, rows, stream);
+}
+
+// GRU backward (kind 4): writes dh0 and the LSTM's streams (dbig's gate
+// part being dhp) plus dnp_s (T, B, H), the candidate third of dxp.
+int abcd_gru_decoder_bwd(const float* noise, const int* lengths,
+                         const float* w_cat, const float* b_ih,
+                         const float* b_hh, const float* b1,
+                         const float* w2m, const float* w2v, const float* b2,
+                         const float* w_ih, const float* targets,
+                         const float* wo1, const float* bo1, const float* wo2,
+                         const float* bo2, const float* h0,
+                         const float* w_catT, const float* w_ihT,
+                         const float* w2mT, const float* w2vT,
+                         const float* wo1T, const float* hs,
+                         const float* dlast, const float* gscale, float* dh0,
+                         float* hp_s, float* dbig_s, float* x_s,
+                         float* emh_s, float* dem_s, float* h2_s,
+                         float* doh_s, float* oh_s, float* dzo_s,
+                         float* dnp_s, int T, int B, int F, int H, int M,
+                         int Mo, int rows, void* stream) {
+  const BwdArgs a{noise, lengths, w_cat, b_ih, b_hh, b1, w2m, w2v, b2, w_ih,
+                  targets, wo1, bo1, wo2, bo2, h0, nullptr, w_catT, w_ihT,
+                  w2mT, w2vT, wo1T, hs, nullptr, dlast, gscale, dh0, nullptr,
+                  hp_s, dbig_s, x_s, emh_s, dem_s, h2_s, doh_s, oh_s, dzo_s,
+                  dnp_s, T, B, F, H, M, Mo};
+  return fused_bwd<true>(a, rows, stream);
 }
 
 const char* abcd_cuda_error_string(int err) {

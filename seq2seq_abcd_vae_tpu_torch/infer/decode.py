@@ -5,7 +5,11 @@ of seq2seq_abcd_vae_tpu/infer/decode.py).
 ``sample`` mode (the sampled emission is fed back,
 through the hand-written ``decoder_loop`` kernel on the card) or ``mean``
 mode (the reference's ``sampler2mean``: the emission mean is fed back and
-returned).  The JAX function draws its noise inside the call from a key;
+returned).  Being deterministic, it decodes checkpoints trained with
+decoder input dropout or ``--greedy_decoder`` as the JAX package does: on
+the same sampled loop, since both act only in training.  The LSTM decoder
+decodes so far; a GRU decoder's loop (``gru_decoder_loop``) comes with a
+later slice.  The JAX function draws its noise inside the call from a key;
 here the noise is an argument, or drawn from a ``torch.Generator``, so a
 caller (and a parity test) can hand both packages the same draws.
 """
@@ -35,7 +39,7 @@ def load_model(model_path: str, device: str = "cuda"):
         ABCDSamplerConfig.from_init_parameters(
             c["feature_sampler_init_parameters"]),
         DecoderConfig.from_init_parameters(c["decoder_init_parameters"]))
-    check_decoder(cfg.decoder)
+    check_decoder(cfg.decoder, training=False)
     params = params_from_jax(c, cfg.encoder, resolve_device(device),
                              decoder_cfg=cfg.decoder)
     return params, cfg

@@ -1,7 +1,7 @@
 """Encoding with a trained model (PyTorch port of
 seq2seq_abcd_vae_tpu/infer/encode.py, ABCD heads).
 
-``encode_step`` is one batch: frontend -> LSTM encoder -> ABCD head,
+``encode_step`` is one batch: frontend -> encoder -> ABCD head,
 answering in ``probs``, ``logits`` or ``features`` mode.  ``Encoder``
 loads a self-describing ``checkpoint.pt`` onto a device and writes a whole
 dataset as the reference's long CSV (``encode_dataset``: rows

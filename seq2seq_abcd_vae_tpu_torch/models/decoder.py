@@ -1,9 +1,9 @@
 """Autoregressive variational decoder (PyTorch port of
-seq2seq_abcd_vae_tpu/models/decoder.py, unidirectional LSTM only).
+seq2seq_abcd_vae_tpu/models/decoder.py, the unidirectional LSTM and GRU).
 
-- latent (+ the speaker embedding, a concatenation) -> initial (h, c) via
-  a Linear; the LSTM state is the torch interleave hidden.view(B, H, 2):
-  h = [..., 0], c = [..., 1];
+- latent (+ the speaker embedding, a concatenation) -> initial state via a
+  Linear; the LSTM state is the torch interleave hidden.view(B, H, 2):
+  h = [..., 0], c = [..., 1]; the GRU's is h = hidden.view(B, H);
 - the first input is zero, then the *sampled* emission is fed back: step
   s uses the noise that sampled position s-1;
 - losses are unnormalised sums over valid steps: the Gaussian emission
@@ -11,17 +11,19 @@ seq2seq_abcd_vae_tpu/models/decoder.py, unidirectional LSTM only).
 
 Training (``decoder_losses``) runs the JAX package's ``loss_only`` fast
 path: the whole loop with both losses in one hand-written kernel
-(``ops/decoder_kernel.decoder_loop_fused_losses``, its plain twin on the
+(``ops/decoder_kernel.decoder_loop_fused_losses`` for the LSTM,
+``gru_decoder_loop_fused_losses`` for the GRU, their plain twins on the
 CPU), and position T-1's emission term recomputed here from the last
 step's hidden state.
 
-Decoding (``decoder_apply``) returns the streams, as the JAX function's
-non-``loss_only`` path does: ``sample`` mode runs the sampled loop in one
-hand-written kernel (``ops/decoder_kernel.decoder_loop``) and overwrites
-slot T-1 of its position-indexed emission streams from the last step's
-pre-mask hidden state; ``mean`` mode feeds the emission mean back and runs
-the JAX package's scan body as a loop of batched products on the tensors'
-device (the JAX package takes its kernel for ``sample`` only).
+Decoding (``decoder_apply``, the LSTM so far) returns the streams, as the
+JAX function's non-``loss_only`` path does: ``sample`` mode runs the
+sampled loop in one hand-written kernel (``ops/decoder_kernel.
+decoder_loop``) and overwrites slot T-1 of its position-indexed emission
+streams from the last step's pre-mask hidden state; ``mean`` mode feeds
+the emission mean back and runs the JAX package's scan body as a loop of
+batched products on the tensors' device (the JAX package takes its kernel
+for ``sample`` only).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ..ops import decoder_kernel
 from . import initializers as init
 from . import mlp as mlp_mod
 from . import sampler as sampler_mod
+from .encoder import NUM_GATES
 
 
 class DecoderOutput(NamedTuple):
@@ -54,7 +57,8 @@ def decoder_init(gen: torch.Generator, cfg: DecoderConfig) -> dict:
         "feature2hidden": init.linear_params(gen, feat,
                                              cfg.hidden_size_total),
         "rnn_cell": init.rnn_gate_params(gen, cfg.output_size,
-                                         cfg.rnn_hidden_size, 4),
+                                         cfg.rnn_hidden_size,
+                                         NUM_GATES[cfg.rnn_type]),
         "emission_sampler": sampler_mod.sampler_init(
             gen, cfg.rnn_hidden_size, cfg.mlp_hidden_size, cfg.output_size,
             cfg.emission_distr_name),
@@ -68,7 +72,11 @@ def decoder_init(gen: torch.Generator, cfg: DecoderConfig) -> dict:
 
 
 def split_hidden(cfg: DecoderConfig, hidden: torch.Tensor):
-    """Torch-interleave split of the initial LSTM state."""
+    """(h0, c0) of the initial state: the torch-interleave split of the
+    LSTM's; the GRU's h alone, with a zero c."""
+    if cfg.rnn_type != "LSTM":
+        h = hidden.reshape(hidden.shape[0], cfg.rnn_hidden_size)
+        return h.contiguous(), torch.zeros_like(h)
     hc = hidden.reshape(hidden.shape[0], cfg.rnn_hidden_size, 2)
     return hc[..., 0].contiguous(), hc[..., 1].contiguous()
 
@@ -84,17 +92,23 @@ def _initial_state(params: dict, cfg: DecoderConfig, features, speaker):
     return split_hidden(cfg, features @ lin["w"] + lin["b"])
 
 
-def _loop_weights(params: dict) -> dict:
-    """The loop's fused operands in decoder_pallas.decoder_loop's layout."""
+def _loop_weights(params: dict, rnn_type: str = "LSTM") -> dict:
+    """The loop's fused operands in decoder_pallas.decoder_loop's layout
+    (the GRU's in gru_decoder_loop's: b_ih and b_hh apart, since b_hh sits
+    inside the reset product)."""
     cell = params["rnn_cell"]
     em = params["emission_sampler"]["to_parameters"]
     w1 = em["lin1"]["w"]                                   # (2, H, m)
-    return {"w_cat": torch.cat([cell["w_hh"], w1.permute(1, 0, 2).reshape(
-                w1.shape[1], -1)], dim=1),
-            "bias": cell["b_ih"] + cell["b_hh"],
-            "b1": em["lin1"]["b"].reshape(-1), "w2m": em["lin2"]["w"][0],
-            "w2v": em["lin2"]["w"][1], "b2": em["lin2"]["b"].reshape(-1),
-            "w_ih": cell["w_ih"]}
+    w = {"w_cat": torch.cat([cell["w_hh"], w1.permute(1, 0, 2).reshape(
+             w1.shape[1], -1)], dim=1),
+         "b1": em["lin1"]["b"].reshape(-1), "w2m": em["lin2"]["w"][0],
+         "w2v": em["lin2"]["w"][1], "b2": em["lin2"]["b"].reshape(-1),
+         "w_ih": cell["w_ih"]}
+    if rnn_type == "GRU":
+        w.update(b_ih=cell["b_ih"], b_hh=cell["b_hh"])
+    else:
+        w["bias"] = cell["b_ih"] + cell["b_hh"]
+    return w
 
 
 def decoder_losses(params: dict, cfg: DecoderConfig, features: torch.Tensor,
@@ -111,16 +125,22 @@ def decoder_losses(params: dict, cfg: DecoderConfig, features: torch.Tensor,
       speaker: (B,) int ids when the config embeds speakers.
     """
     h0, c0 = _initial_state(params, cfg, features, speaker)
-    w = _loop_weights(params)
+    w = _loop_weights(params, cfg.rnn_type)
     off = params["offset_predictor"]
     t = ground_truth_out.shape[1]
     lengths = lengths.to(torch.int32)
-    out_last, nll, bce = decoder_kernel.decoder_loop_fused_losses(
-        noise.contiguous(), lengths, w["w_cat"], w["bias"], w["b1"],
-        w["w2m"], w["w2v"], w["b2"], w["w_ih"],
-        ground_truth_out.transpose(0, 1).contiguous(), off["lin1"]["w"],
-        off["lin1"]["b"], off["lin2"]["w"].reshape(-1), off["lin2"]["b"],
-        h0, c0)
+    emission = (w["b1"], w["w2m"], w["w2v"], w["b2"], w["w_ih"],
+                ground_truth_out.transpose(0, 1).contiguous(),
+                off["lin1"]["w"], off["lin1"]["b"],
+                off["lin2"]["w"].reshape(-1), off["lin2"]["b"])
+    if cfg.rnn_type == "GRU":
+        out_last, nll, bce = decoder_kernel.gru_decoder_loop_fused_losses(
+            noise.contiguous(), lengths, w["w_cat"], w["b_ih"], w["b_hh"],
+            *emission, h0)
+    else:
+        out_last, nll, bce = decoder_kernel.decoder_loop_fused_losses(
+            noise.contiguous(), lengths, w["w_cat"], w["bias"], *emission,
+            h0, c0)
     # position T-1's emission term, from the last step's hidden state
     last = sampler_mod.sampler_apply(params["emission_sampler"], out_last)
     mask_last = (lengths > t - 1).to(out_last.dtype)[:, None]
@@ -182,7 +202,7 @@ def decoder_apply(params: dict, cfg: DecoderConfig, features: torch.Tensor,
     Returns a DecoderOutput whose (B, T, .) streams are padding at and
     past ``lengths``.
     """
-    check_decoder(cfg)
+    check_decoder(cfg, training=False)
     if emission_mode not in ("sample", "mean"):
         raise ValueError(f"unknown emission mode {emission_mode!r}")
     h0, c0 = _initial_state(params, cfg, features, speaker)

@@ -97,12 +97,14 @@ def lstm_layer_bidir_fused_plain(x, lengths, w_ih, b_ih, w_hh, b_hh,
     return torch.stack(outs), h, c
 
 
-def _check(x, lengths, w_ih, b_ih, w_hh, b_hh):
+def _check(x, lengths, w_ih, b_ih, w_hh, b_hh, gates: int = 4):
+    """Shapes, types and devices of a two-direction layer over raw x with
+    ``gates`` gate blocks (4 for the LSTM, 3 for the GRU)."""
     if x.dim() != 3:
         raise ValueError(f"x must be (T, B, F), got {tuple(x.shape)}")
     t, b, f = x.shape
     hidden = w_hh.shape[-2] if w_hh.dim() == 3 else -1
-    g = 4 * hidden
+    g = gates * hidden
     want = {"x": (x, (t, b, f)), "w_ih": (w_ih, (2, f, g)),
             "b_ih": (b_ih, (2, g)), "w_hh": (w_hh, (2, hidden, g)),
             "b_hh": (b_hh, (2, g))}

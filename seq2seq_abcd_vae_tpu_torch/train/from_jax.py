@@ -1,15 +1,16 @@
 """Carry parameter trees between the JAX package's layout and the port's.
 
 The JAX package stores each recurrent layer per direction, with (in, out)
-matrices: ``encoder.layers[l].{fwd,bwd}.{w_ih (F, 4H), w_hh (H, 4H),
-b_ih (4H,), b_hh (4H,)}``; the ABCD head as ``feature_sampler.
-{to_code_like.{lin1,lin2}.{w, b}, codebook (f, K),
-posterior_shape_logits (K,)}``; and the decoder as ``decoder.
+matrices: ``encoder.layers[l].{fwd,bwd}.{w_ih (F, gH), w_hh (H, gH),
+b_ih (gH,), b_hh (gH,)}`` with g = 4 gates for the LSTM and 3 for the
+GRU; the ABCD head as ``feature_sampler.{to_code_like.{lin1,lin2}.{w, b},
+codebook (f, K), posterior_shape_logits (K,)}``; and the decoder as
+``decoder.
 {feature2hidden, rnn_cell, emission_sampler.to_parameters (k-stacked),
 offset_predictor[, embed_speaker]}``.  The port keeps every layout but
 one: it stacks the two directions of each bidirectional encoder layer on
-a leading axis, since the kernel's public function takes
-``w_ih (2, F, 4H)``, ``w_hh (2, H, 4H)`` and ``b_ih`` / ``b_hh (2, 4H)``;
+a leading axis, since the kernels' public functions take
+``w_ih (2, F, gH)``, ``w_hh (2, H, gH)`` and ``b_ih`` / ``b_hh (2, gH)``;
 a unidirectional layer (``"fwd"`` only) keeps the JAX shapes.
 
 The encoder loads tolerantly, as the JAX package's ``retrieve_model``
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from ..configs import DecoderConfig, EncoderConfig, check_served
+from ..models.encoder import NUM_GATES, encoder_init
 from ..tree import tree_map
 from .logging_utils import logger
 
@@ -36,13 +38,14 @@ def _tensor(a, device) -> torch.Tensor:
 
 def _decoder_shapes(cfg: DecoderConfig) -> dict:
     h, m, f = cfg.rnn_hidden_size, cfg.mlp_hidden_size, cfg.output_size
+    g = NUM_GATES[cfg.rnn_type] * h
     feat = cfg.feature_size + (cfg.speaker_embed_dim
                                if cfg.has_speaker_embedding else 0)
     shapes = {
         "feature2hidden": {"w": (feat, cfg.hidden_size_total),
                            "b": (cfg.hidden_size_total,)},
-        "rnn_cell": {"w_ih": (f, 4 * h), "w_hh": (h, 4 * h),
-                     "b_ih": (4 * h,), "b_hh": (4 * h,)},
+        "rnn_cell": {"w_ih": (f, g), "w_hh": (h, g), "b_ih": (g,),
+                     "b_hh": (g,)},
         "emission_sampler": {"to_parameters": {
             "lin1": {"w": (2, h, m), "b": (2, m)},
             "lin2": {"w": (2, m, f), "b": (2, f)}}},
@@ -105,7 +108,6 @@ def overlay_params(template: dict, loaded: dict, module_name: str) -> dict:
 def _fresh_encoder(cfg: EncoderConfig) -> dict:
     """A freshly initialised encoder in the JAX layout (the template of
     the tolerant load)."""
-    from ..models.encoder import encoder_init
     return _encoder_to_jax(encoder_init(torch.Generator().manual_seed(0),
                                         cfg))
 
@@ -129,7 +131,7 @@ def params_from_jax(tree: dict, cfg: EncoderConfig, device="cpu",
     checked against the config.
     """
     check_served(cfg)
-    gates = 4 * cfg.rnn_hidden_size
+    gates = NUM_GATES[cfg.rnn_type] * cfg.rnn_hidden_size
     dirs = _directions(cfg)
     encoder = overlay_params(_fresh_encoder(cfg), tree["encoder"],
                              "encoder")

@@ -17,9 +17,10 @@ Contract kept from the JAX package:
   epoch lines report per-string means.
 
 A step is eager PyTorch around the hand-written kernels: the STFT
-frontend, the LSTM encoder (both directions in one kernel, or one
-direction over the hoisted input projection; forward and backward), the
-fused-loss decoder loop (forward and backward).  Per-batch metrics stay on
+frontend, the encoder (the LSTM's two directions in one kernel or one
+direction over the hoisted input projection, or the GRU's two directions
+in one kernel; forward and backward), the fused-loss LSTM or GRU decoder
+loop (forward and backward).  Per-batch metrics stay on
 the device and are read once per epoch.  The random draws (Gumbel noise,
 the decoder's sampling noise) come from a ``torch.Generator`` on the
 device, seeded per (epoch, phase) from the run's key, so a resumed run

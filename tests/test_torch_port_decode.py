@@ -160,9 +160,21 @@ def test_decode_features_draws_from_a_generator(model, tmp_path):
     assert torch.isfinite(draws[0]).all()
     with pytest.raises(ValueError, match="noise or a generator"):
         decode_features(port, pcfg, feats, lens, 4, speaker=speaker)
+    # decoding is deterministic: a greedy decoder's checkpoint decodes on
+    # the same sampled loop (its option acts only in training); a GRU
+    # decoder's loop is not ported yet
+    noise = torch.randn(4, 3, F, generator=torch.Generator().manual_seed(6))
     greedy = port_vae.ModelConfig(
         pcfg.encoder, pcfg.latent,
-        DecoderConfig(F, H, MLP, FEAT, self_feedback=False))
-    with pytest.raises(NotImplementedError, match="greedy"):
-        decode_features(port, greedy, feats, lens, 4, noise=torch.zeros(
-            4, 3, F))
+        DecoderConfig(F, H, MLP, FEAT, self_feedback=False,
+                      num_speakers=SPK, speaker_embed_dim=EMB))
+    torch.testing.assert_close(
+        decode_features(port, greedy, feats, lens, 4, noise=noise,
+                        speaker=speaker).out,
+        decode_features(port, pcfg, feats, lens, 4, noise=noise,
+                        speaker=speaker).out, rtol=0, atol=0)
+    gru = port_vae.ModelConfig(
+        pcfg.encoder, pcfg.latent,
+        DecoderConfig(F, H, MLP, FEAT, rnn_type="GRU"))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        decode_features(port, gru, feats, lens, 4, noise=noise)

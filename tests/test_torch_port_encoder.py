@@ -79,7 +79,8 @@ def test_params_from_jax_layout():
         params_from_jax(params, wrong)
 
 
-@pytest.mark.parametrize("kwargs", [dict(rnn_type="GRU"),
+@pytest.mark.parametrize("kwargs", [dict(rnn_type="GRU",
+                                         bidirectional=False),
                                     dict(rnn_type="ESN"),
                                     dict(rnn_type="RNN")])
 def test_later_slices_raise(kwargs):

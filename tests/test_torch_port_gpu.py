@@ -319,3 +319,116 @@ def test_decoder_loop_kernel_matches_twin(cuda, shape):
     # float32 products in another order through T sampled steps
     for g, r in zip(got, want):
         torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
+
+
+def _gru_layer_args(rng, cuda, t, b, f, h):
+    lengths = rng.integers(1, t + 1, size=b).astype(np.int32)
+    lengths[:2] = (t, 0)
+    x = torch.from_numpy(rng.normal(size=(t, b, f)).astype(np.float32)
+                         ).to(cuda)
+    w = [_uniform(rng, cuda, 1 / np.sqrt(h), *s)
+         for s in ((2, f, 3 * h), (2, 3 * h), (2, h, 3 * h), (2, 3 * h))]
+    return [x, torch.from_numpy(lengths).to(cuda), *w]
+
+
+@pytest.mark.parametrize("shape", [(125, 512, 129, 256), (37, 21, 129, 256),
+                                   (7, 5, 9, 40), (9, 11, 129, 1024)])
+def test_gru_layer_kernels_match_twins(cuda, shape):
+    """The bidirectional GRU layer's forward and backward kernels against
+    their twins: the training shape, a partial row tile with a hidden size
+    that is not a multiple of 32, and H=1024 (fewer rows a block)."""
+    from seq2seq_abcd_vae_tpu_torch.ops import gru_kernel as gk
+    rng = np.random.default_rng(61)
+    t, b, f, h = shape
+    args = _gru_layer_args(rng, cuda, t, b, f, h)
+    before = gk.gru_layer_bidir_fused.launches
+    got = gk.gru_layer_bidir_fused(*args)
+    want = gk.gru_layer_bidir_fused_plain(*args)
+    torch.cuda.synchronize()
+    assert gk.gru_layer_bidir_fused.launches == before + 1
+    # float32 dot products of F + H terms in another order through T steps
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
+    outs, h_n = want
+    for douts in (None, torch.from_numpy(rng.normal(size=outs.shape).astype(
+            np.float32)).to(cuda)):
+        dh_n = torch.from_numpy(rng.normal(size=h_n.shape).astype(
+            np.float32)).to(cuda)
+        before = gk.gru_layer_bidir_fused_bwd.launches
+        g_all = gk.gru_layer_bidir_fused_bwd(*args, outs, douts, dh_n)
+        r_all = gk.gru_layer_bidir_fused_bwd_plain(*args, outs, douts, dh_n)
+        torch.cuda.synchronize()
+        assert gk.gru_layer_bidir_fused_bwd.launches == before + 1
+        for name, g, r in zip(("dx", "dw_ih", "db_ih", "dw_hh", "db_hh"),
+                              g_all, r_all):
+            assert g.shape == r.shape, name
+            assert _rel_max_err(g, r) <= 1e-4, name
+
+
+def _gru_decoder_args(rng, cuda, t, b, f, h, m, mo, lengths):
+    lstm = _decoder_args(rng, cuda, t, b, f, h, m, mo, lengths)
+    return (lstm[:2] + [_uniform(rng, cuda, 1 / np.sqrt(h), h, 3 * h + 2 * m),
+                        _uniform(rng, cuda, 1 / np.sqrt(h), 3 * h),
+                        _uniform(rng, cuda, 1 / np.sqrt(h), 3 * h)]
+            + lstm[4:8] + [_uniform(rng, cuda, 1 / np.sqrt(h), f, 3 * h)]
+            + lstm[9:15])
+
+
+@pytest.mark.parametrize("shape", [(125, 512, 129, 256, 256, 256),
+                                   (33, 21, 129, 256, 256, 256),
+                                   (7, 5, 9, 40, 12, 10),
+                                   (6, 11, 129, 1024, 256, 256)])
+def test_gru_decoder_kernels_match_twins(cuda, shape):
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    rng = np.random.default_rng(71)
+    t, b, f, h, m, mo = shape
+    lengths = rng.integers(1, t + 1, size=b)
+    lengths[:2] = (t, 0)
+    args = _gru_decoder_args(rng, cuda, t, b, f, h, m, mo, lengths)
+    before = dk.gru_decoder_fused_losses_fwd.launches
+    got = dk.gru_decoder_fused_losses_fwd(*args)
+    want = dk.gru_decoder_fused_losses_fwd_plain(*args)
+    torch.cuda.synchronize()
+    assert dk.gru_decoder_fused_losses_fwd.launches == before + 1
+    # loss sums of many float32 terms: 1e-5 relative
+    for g, r in zip(got[1:3], want[1:3]):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=0)
+    for g, r in zip((got[0], got[3]), (want[0], want[3])):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
+    repeat = dk.gru_decoder_fused_losses_fwd(*args)
+    assert (repeat[1].item(), repeat[2].item()) == (got[1].item(),
+                                                    got[2].item())
+    dlast = torch.from_numpy(rng.normal(size=(b, h)).astype(
+        np.float32)).to(cuda)
+    gscale = torch.tensor([0.7, 1.3], device=cuda)
+    before = dk.gru_decoder_fused_losses_bwd.launches
+    g_all = dk.gru_decoder_fused_losses_bwd(*args, want[3], dlast, gscale)
+    r_all = dk.gru_decoder_fused_losses_bwd_plain(*args, want[3], dlast,
+                                                  gscale)
+    torch.cuda.synchronize()
+    assert dk.gru_decoder_fused_losses_bwd.launches == before + 1
+    names = ("dw_cat", "db_ih", "db_hh", "db1", "dw2m", "dw2v", "db2",
+             "dw_ih", "dwo1", "dbo1", "dwo2", "dbo2", "dh0")
+    for name, g, r in zip(names, g_all, r_all):
+        assert g.shape == r.shape, name
+        assert _rel_max_err(g, r) <= 1e-4, name
+
+
+def test_gru_kernels_refuse_a_width_no_row_tile_fits(cuda):
+    """At H=5000 the GRU layer's forward fits 2 rows a block but its
+    backward does not, nor the GRU decoder's backward: the wrappers raise
+    with both byte counts rather than launch."""
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    from seq2seq_abcd_vae_tpu_torch.ops import gru_kernel as gk
+    rng = np.random.default_rng(81)
+    t, b, f, h, m = 2, 2, 3, 5000, 4
+    args = _gru_layer_args(rng, cuda, t, b, f, h)
+    outs, h_n = gk.gru_layer_bidir_fused(*args)
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="shared memory"):
+        gk.gru_layer_bidir_fused_bwd(*args, outs, None, h_n)
+    dargs = _gru_decoder_args(rng, cuda, t, b, f, h, m, m, [2, 1])
+    hs = dk.gru_decoder_fused_losses_fwd_plain(*dargs)[3]
+    with pytest.raises(ValueError, match="shared memory"):
+        dk.gru_decoder_fused_losses_bwd(*dargs, hs, h_n[0].contiguous(),
+                                        torch.ones(2, device=cuda))

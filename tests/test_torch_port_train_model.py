@@ -167,10 +167,10 @@ def test_fresh_parameters_have_the_jax_tree():
     fresh = port_vae.model_init(torch.Generator().manual_seed(0), pcfg)
     got = tree_map(lambda a: a.shape, params_to_jax(fresh))
     assert got == want
-    with pytest.raises(NotImplementedError, match="GRU"):
+    with pytest.raises(NotImplementedError, match="RNN"):
         port_vae.ModelConfig(
             pcfg.encoder, pcfg.latent,
-            DecoderConfig(F, H, MLP, FEAT, rnn_type="GRU")).check()
+            DecoderConfig(F, H, MLP, FEAT, rnn_type="RNN")).check()
     with pytest.raises(NotImplementedError, match="greedy"):
         port_vae.ModelConfig(
             pcfg.encoder, pcfg.latent,
