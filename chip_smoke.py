@@ -43,21 +43,27 @@ run from the repository root.  It
    its checkpoint with the encode CLI (probs and features, CSV, card vs
    CPU) and serves it through ``serve_main`` (probs at fs=32000, frame
    counts up to 512);
-   every main path (4-8) runs with all launch counters set to 0 just
+9. trains the Elman RNN model (``-R RNN``) and the echo-state model
+   (``-R ESN --esn_leak 0.5``) the same way, where only the Elman layer
+   and the Elman / ESN decoder kernels run (the ESN's frozen reservoir
+   launches no layer backward, and its tensors in the resumed run's
+   checkpoint equal the first run's bit for bit); encodes the corpus from
+   both checkpoints (probs CSV, card vs CPU) and serves the ESN one;
+   every main path (4-9) runs with all launch counters set to 0 just
    before and read just after, and every kernel must have run on one;
-9. holds each kernel against its plain PyTorch twin on the card at the
-   main paths' shapes (ragged lengths, one row of length 0), the
-   recurrent kernels also at hidden size 1024, and one whole training step
-   (each LSTM encoder, and the GRU model) on the kernels (card) against
-   the same step on the twins (CPU): loss, every gradient and the
-   parameters after the SGD step;
-10. times each kernel, its twin and one library call computing the same
+10. holds each kernel against its plain PyTorch twin on the card at the
+    main paths' shapes (ragged lengths, one row of length 0), the Elman
+    kernels at leak 1.0 and 0.5, the recurrent kernels also at hidden size
+    1024, and one whole training step (each LSTM encoder, the GRU, RNN and
+    ESN models) on the kernels (card) against the same step on the twins
+    (CPU): loss, every gradient and the parameters after the SGD step;
+11. times each kernel, its twin and one library call computing the same
     function (a yardstick the port never calls) with CUDA events, and
-    prints one ``{"kernels": [...]}`` line (12 kernels) with launches,
+    prints one ``{"kernels": [...]}`` line (16 kernels) with launches,
     times, the bound and the largest error, after the serve latencies,
     the time of one served batch and of one training step by stage, the
     training and encode throughputs;
-11. ends with ``{"ok": true, "device": {...}}`` as its last line.
+12. ends with ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result.  Without a card it exits 2 before doing anything.
@@ -123,6 +129,11 @@ GRAD_FRACTION = 1e-4
 #   steps whose fed-back sample passes each step's rounding on (emission
 #   parameters and samples are O(1)-O(10) in magnitude).
 DECODE_ATOL = 1e-3
+
+# the keys of every entry of the kernels line
+KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms"}
 
 # training phase: the corpus and the CLI's publication config
 TRAIN_FS = 32000
@@ -809,11 +820,12 @@ def lstm_train_phase(dev, rng, t, launches):
                    fwd_err}
 
 
-def _decoder_kernel_args(dev, rng, t, b, h=HIDDEN, gru=False):
-    """The fused-loss decoder's arguments (LSTM, or with ``gru`` the GRU
-    loop's: b_ih and b_hh apart, no c0) and the rows' lengths."""
+def _decoder_kernel_args(dev, rng, t, b, h=HIDDEN, cell="LSTM", leak=1.0):
+    """The fused-loss decoder's arguments (the LSTM's; the GRU loop's: b_ih
+    and b_hh apart, no c0; the Elman / ESN loop's: one bias, zero below
+    leak 1, no c0) and the rows' lengths."""
     m, f = MLP_HIDDEN, 129
-    gh = (3 if gru else 4) * h
+    gh = {"LSTM": 4, "GRU": 3, "RNN": 1}[cell] * h
     lens = rng.integers(1, t + 1, size=b)
     lens[0], lens[-1] = t, 0
 
@@ -828,36 +840,43 @@ def _decoder_kernel_args(dev, rng, t, b, h=HIDDEN, gru=False):
     # drawn in argument order (the LSTM's as in earlier runs)
     args = [normal(t, b, f), torch.from_numpy(lens.astype(np.int32)).to(dev),
             uni(1 / np.sqrt(h), h, gh + 2 * m)]
-    args += ([uni(1 / np.sqrt(h), gh), uni(1 / np.sqrt(h), gh)] if gru
-             else [uni(2 / np.sqrt(h), gh)])
+    if cell == "GRU":
+        args += [uni(1 / np.sqrt(h), gh), uni(1 / np.sqrt(h), gh)]
+    else:
+        args.append(uni(2 / np.sqrt(h), gh) if leak == 1.0
+                    else torch.zeros(gh, device=dev))
     args += [uni(1 / np.sqrt(h), 2 * m), uni(1 / np.sqrt(m), m, f),
              uni(1 / np.sqrt(m), m, f), uni(1 / np.sqrt(m), 2 * f),
              uni(1 / np.sqrt(h), f, gh), normal(t, b, f),
              uni(1 / np.sqrt(h), h, m), uni(1 / np.sqrt(h), m),
              uni(1 / np.sqrt(m), m), uni(1 / np.sqrt(m), 1)]
-    args += [normal(b, h, scale=0.5) for _ in range(1 if gru else 2)]
+    args += [normal(b, h, scale=0.5)
+             for _ in range(2 if cell == "LSTM" else 1)]
     return args, lens
 
 
-def decoder_train_phase(dev, rng, t, launches_fwd, launches_bwd, gru=False):
-    """The fused-loss decoder kernels (LSTM, or with ``gru`` the GRU loop)
-    vs twins at the training shape, with their times and bounds (no single
-    library call computes this loop: the sample it feeds back depends on
-    the step before)."""
+def _decoder_pair(cell, leak=1.0):
+    """The fused-loss decoder's (forward, twin, backward, twin) for
+    ``cell``; the Elman / ESN loop's with ``leak`` bound."""
+    import functools
     from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
-    b, h, m, f = TRAIN_BATCH, HIDDEN, MLP_HIDDEN, 129
-    if gru:
-        fwd, fwd_plain = (dk.gru_decoder_fused_losses_fwd,
-                          dk.gru_decoder_fused_losses_fwd_plain)
-        bwd, bwd_plain = (dk.gru_decoder_fused_losses_bwd,
-                          dk.gru_decoder_fused_losses_bwd_plain)
-    else:
-        fwd, fwd_plain = (dk.decoder_fused_losses_fwd,
-                          dk.decoder_fused_losses_fwd_plain)
-        bwd, bwd_plain = (dk.decoder_fused_losses_bwd,
-                          dk.decoder_fused_losses_bwd_plain)
-    args, lens = _decoder_kernel_args(dev, rng, t, b, gru=gru)
-    n_state = 1 if gru else 2   # h (and the LSTM's c)
+    prefix = {"LSTM": "", "GRU": "gru_", "RNN": "rnn_"}[cell]
+    fns = [getattr(dk, f"{prefix}decoder_fused_losses_{part}")
+           for part in ("fwd", "fwd_plain", "bwd", "bwd_plain")]
+    if cell == "RNN":
+        fns = [functools.partial(fn, leak=leak) for fn in fns]
+    return fns
+
+
+def _decoder_check(dev, rng, t, b, cell, leak=1.0, h=HIDDEN):
+    """One fused-loss decoder's kernels against their twins: (args, the
+    twin's forward, the backward's args, the kernels' and the twins'
+    gradients, the errors); raises past the tolerances or when the
+    forward's losses do not repeat bit for bit."""
+    fwd, fwd_plain, bwd, bwd_plain = _decoder_pair(cell, leak)
+    args, lens = _decoder_kernel_args(dev, rng, t, b, h=h, cell=cell,
+                                      leak=leak)
+    n_state = 2 if cell == "LSTM" else 1   # h (and the LSTM's c)
     got = fwd(*args)
     want = fwd_plain(*args)
     torch.cuda.synchronize()
@@ -867,8 +886,8 @@ def decoder_train_phase(dev, rng, t, launches_fwd, launches_bwd, gru=False):
     state_err = max_err(tuple(got[i] for i in states),
                         tuple(want[i] for i in states))
     if not (loss_err <= LOSS_RTOL and state_err <= LSTM_ATOL):
-        raise AssertionError(f"decoder forward vs twin: losses {loss_err}, "
-                             f"states {state_err}")
+        raise AssertionError(f"{cell} decoder forward (leak {leak}) vs "
+                             f"twin: losses {loss_err}, states {state_err}")
     repeat = fwd(*args)
     if (repeat[1].item(), repeat[2].item()) != (got[1].item(),
                                                 got[2].item()):
@@ -880,22 +899,45 @@ def decoder_train_phase(dev, rng, t, launches_fwd, launches_bwd, gru=False):
     g_all = bwd(*bwd_args)
     r_all = bwd_plain(*bwd_args)
     torch.cuda.synchronize()
-    names = (("dw_cat", "db_ih", "db_hh") if gru else ("dw_cat", "dbias")) + (
+    names = (("dw_cat", "db_ih", "db_hh") if cell == "GRU"
+             else ("dw_cat", "dbias")) + (
         "db1", "dw2m", "dw2v", "db2", "dw_ih", "dwo1", "dbo1", "dwo2",
-        "dbo2") + (("dh0",) if gru else ("dh0", "dc0"))
+        "dbo2") + (("dh0", "dc0") if cell == "LSTM" else ("dh0",))
     errs = {n: rel_err(g, r) for n, g, r in zip(names, g_all, r_all)}
     if max(errs.values()) > GRAD_FRACTION:
-        raise AssertionError(f"decoder backward vs twin: {errs}")
+        raise AssertionError(f"{cell} decoder backward (leak {leak}) vs "
+                             f"twin: {errs}")
+    return (args, lens, got, want, loss_err, state_err, bwd_args, g_all,
+            r_all, errs)
+
+
+def decoder_train_phase(dev, rng, t, launches_fwd, launches_bwd,
+                        cell="LSTM"):
+    """The fused-loss decoder kernels of ``cell`` (LSTM, GRU, or the Elman
+    loop, also checked at the ESN's leak 0.5) vs twins at the training
+    shape, with their times and bounds (no single library call computes
+    this loop: the sample it feeds back depends on the step before)."""
+    b, h, m, f = TRAIN_BATCH, HIDDEN, MLP_HIDDEN, 129
+    fwd, fwd_plain, bwd, bwd_plain = _decoder_pair(cell)
+    (args, lens, got, want, loss_err, state_err, bwd_args, g_all, r_all,
+     errs) = _decoder_check(dev, rng, t, b, cell)
+    n_state = 2 if cell == "LSTM" else 1
+    extra = {}
+    if cell == "RNN":
+        esn = _decoder_check(dev, rng, t, b, cell, leak=0.5)
+        extra["esn_leak_0.5"] = {"loss_rel_err": esn[4],
+                                 "states_max_abs_err": esn[5],
+                                 "grad_max_rel_err": max(esn[9].values())}
     fwd_ms = cuda_ms(lambda: fwd(*args), iters=5)
     fwd_plain_ms = cuda_ms(lambda: fwd_plain(*args), iters=2, warmup=1)
     bwd_ms = cuda_ms(lambda: bwd(*bwd_args), iters=3)
     bwd_plain_ms = cuda_ms(lambda: bwd_plain(*bwd_args), iters=2, warmup=1)
     # per row-step: h @ w_cat, the emission's second layer (mean and
     # logvar), the fed-back x @ w_ih and the offset MLP's first layer
-    gh = (3 if gru else 4) * h
+    gh = {"LSTM": 4, "GRU": 3, "RNN": 1}[cell] * h
     per = 2.0 * (h * (gh + 2 * m) + 2 * m * f + f * gh + h * m)
     steps = int(lens.sum())  # row-steps the losses depend on
-    weights = (h * (gh + 2 * m) + (2 if gru else 1) * gh + 2 * m
+    weights = (h * (gh + 2 * m) + (2 if cell == "GRU" else 1) * gh + 2 * m
                + 2 * m * f + 2 * f + f * gh + h * m + 2 * m + 1)
     fwd_bytes = 4.0 * (2 * t * b * f + weights + n_state * b * h  # inputs
                        + b * h + 2 + n_state * t * b * h) + 4 * b  # outputs
@@ -905,8 +947,9 @@ def decoder_train_phase(dev, rng, t, launches_fwd, launches_bwd, gru=False):
     f_bms, f_by = bound_ms(steps * per, fwd_bytes)
     # recompute plus the adjoint products and the weight gradients
     b_bms, b_by = bound_ms(3 * steps * per, bwd_bytes)
-    prefix = "gru_" if gru else ""
-    lines = (898, 937) if gru else (1983, 2042)
+    prefix = {"LSTM": "", "GRU": "gru_", "RNN": "rnn_"}[cell]
+    lines = {"LSTM": (1983, 2042), "GRU": (898, 937),
+             "RNN": (1503, 1543)}[cell]
     common = {"route": "cuda",
               "source": "seq2seq_abcd_vae_tpu_torch/csrc/decoder.cu",
               "library_ms": None,
@@ -931,17 +974,22 @@ def decoder_train_phase(dev, rng, t, launches_fwd, launches_bwd, gru=False):
         "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": b_bms,
         "bound_by": b_by,
         "tolerance": f"{GRAD_FRACTION} of each leaf's max |value|"})
+    if extra:
+        fwd_entry["checks"] = bwd_entry["checks"] = extra
     return fwd_entry, bwd_entry
 
 
 def step_on(device, params0, cfg, batch, spec, noise, n_data):
     """One training step (loss, gradients, SGD with clip 1.0, lr 1.0) on
-    ``device`` from copies of ``params0``."""
+    ``device`` from copies of ``params0``; the gradients of the trainable
+    leaves (all but a frozen ESN reservoir) and every leaf after the
+    step."""
+    from seq2seq_abcd_vae_tpu_torch.models import vae
     from seq2seq_abcd_vae_tpu_torch.train import learner as L
     from seq2seq_abcd_vae_tpu_torch.train import optim
     from seq2seq_abcd_vae_tpu_torch.tree import tree_leaves, tree_map
-    params = tree_map(lambda p: p.detach().to(device).clone()
-                      .requires_grad_(True), params0)
+    params = vae.set_trainable(tree_map(
+        lambda p: p.detach().to(device).clone(), params0), cfg)
     statics = L.StepStatics(cfg, spec.frame_length, spec.step_size,
                             spec.window, EPSILON, NORMALIZER, "pallas")
     noise = {k: v.to(device) for k, v in noise.items()}
@@ -951,34 +999,37 @@ def step_on(device, params0, cfg, batch, spec, noise, n_data):
         torch.from_numpy(batch.speakers).to(device), noise, n_data, 1.0,
         False, batch.bucket_frames)
     leaves = tree_leaves(params)
-    opt = optim.make_optimizer(leaves, 1.0, 0.0)
+    trainable = [p for p in leaves if p.requires_grad]
+    opt = optim.make_optimizer(trainable, 1.0, 0.0)
     loss.backward()
-    grads = [p.grad.detach().clone() for p in leaves]
-    optim.clip_and_step(opt, leaves, 1.0)
+    grads = [p.grad.detach().clone() for p in trainable]
+    optim.clip_and_step(opt, trainable, 1.0)
     return loss.detach(), metrics, grads, [p.detach() for p in leaves]
 
 
 def whole_step_phase(dev, corpus_dir, csv_path, seed, bidirectional=True,
-                     rnn_type="LSTM"):
+                     rnn_type="LSTM", esn_leak=1.0):
     """One training step on the kernels (card) against the same step on
     the twins (CPU), with the bidirectional or the unidirectional LSTM
-    encoder, or the GRU model (``rnn_type="GRU"``: bidirectional GRU
-    encoder and GRU decoder); returns the checks and the step's inputs."""
+    encoder, or the model of another cell (``rnn_type`` GRU, RNN or ESN:
+    its bidirectional encoder and its decoder; the ESN's reservoir frozen,
+    unchanged bit for bit); returns the checks and the step's inputs."""
     from seq2seq_abcd_vae_tpu_torch.configs import (ABCDSamplerConfig,
                                                     DecoderConfig,
                                                     EncoderConfig)
     from seq2seq_abcd_vae_tpu_torch.models import vae
     from seq2seq_abcd_vae_tpu_torch.train import learner as L
-    from seq2seq_abcd_vae_tpu_torch.tree import tree_leaves
+    from seq2seq_abcd_vae_tpu_torch.tree import tree_leaves, tree_map
     batch, spec, ds = largest_batch(corpus_dir, csv_path)
     f = spec.num_bins
     enc = EncoderConfig(f, HIDDEN, rnn_type=rnn_type,
-                        bidirectional=bidirectional)
+                        bidirectional=bidirectional, esn_leak=esn_leak)
     cfg = vae.ModelConfig(
         enc, ABCDSamplerConfig(enc.hidden_size_total, MLP_HIDDEN, K,
                                FEATURE_DIM),
         DecoderConfig(f, HIDDEN, MLP_HIDDEN, FEATURE_DIM, rnn_type=rnn_type,
-                      num_speakers=2, speaker_embed_dim=SPEAKER_EMBED))
+                      esn_leak=esn_leak, num_speakers=2,
+                      speaker_embed_dim=SPEAKER_EMBED))
     params0 = vae.model_init(torch.Generator().manual_seed(seed), cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
     noise = {k: v.cpu() for k, v in L.draw_noise(
@@ -999,14 +1050,20 @@ def whole_step_phase(dev, corpus_dir, csv_path, seed, bidirectional=True,
                    + 4 * torch.finfo(torch.float32).eps * a.abs().max())
         upd_err = max(upd_err, ((pc.cpu() - pr).abs().max()
                                 / allowed.clamp_min(1e-30)).item())
+    # a frozen reservoir leaves the step exactly as it entered
+    frozen = vae.set_trainable(tree_map(lambda p: p.clone(), params0), cfg)
+    still = [i for i, p in enumerate(tree_leaves(frozen))
+             if not p.requires_grad]
+    moved = [i for i in still if not (torch.equal(card[3][i].cpu(), p0[i])
+                                      and torch.equal(cpu[3][i], p0[i]))]
     if not (loss_err <= LOSS_RTOL and grad_err <= GRAD_FRACTION
-            and upd_err <= 1.0):
+            and upd_err <= 1.0 and not moved):
         raise AssertionError(f"training step, kernels vs twins: loss "
                              f"{loss_err}, gradients {grad_err}, updates "
-                             f"{upd_err}")
+                             f"{upd_err}, frozen leaves moved {moved}")
     checks = {"loss_rel_err": loss_err, "grad_max_rel_err": grad_err,
               "param_err_over_allowed": upd_err, "loss": card[0].item(),
-              "leaves": len(p0)}
+              "leaves": len(p0), "frozen_leaves_unchanged": len(still)}
     return checks, (params0, cfg, batch, spec, noise, n_data)
 
 
@@ -1015,12 +1072,13 @@ def train_step_breakdown(dev, params0, cfg, batch, spec, noise, n_data):
     from seq2seq_abcd_vae_tpu_torch.models import abcd as abcd_mod
     from seq2seq_abcd_vae_tpu_torch.models import decoder as dec_mod
     from seq2seq_abcd_vae_tpu_torch.models import encoder as enc_mod
+    from seq2seq_abcd_vae_tpu_torch.models import vae
     from seq2seq_abcd_vae_tpu_torch.train import learner as L
     from seq2seq_abcd_vae_tpu_torch.train import optim
     from seq2seq_abcd_vae_tpu_torch.tree import tree_leaves, tree_map
-    params = tree_map(lambda p: p.detach().to(dev).clone()
-                      .requires_grad_(True), params0)
-    leaves = tree_leaves(params)
+    params = vae.set_trainable(tree_map(
+        lambda p: p.detach().to(dev).clone(), params0), cfg)
+    leaves = [p for p in tree_leaves(params) if p.requires_grad]
     opt = optim.make_optimizer(leaves, 1.0, 0.0)
     statics = L.StepStatics(cfg, spec.frame_length, spec.step_size,
                             spec.window, EPSILON, NORMALIZER, "pallas")
@@ -1072,8 +1130,8 @@ def train_step_breakdown(dev, params0, cfg, batch, spec, noise, n_data):
 
 def all_counters():
     """Every kernel wrapper's counter, by the name in the kernels line."""
-    from seq2seq_abcd_vae_tpu_torch.ops import (decoder_kernel, gru_kernel,
-                                                lstm_kernel)
+    from seq2seq_abcd_vae_tpu_torch.ops import (decoder_kernel, elman_kernel,
+                                                gru_kernel, lstm_kernel)
     return dict(training_counters(),
                 lstm_layer=lstm_kernel.lstm_layer,
                 lstm_layer_bwd=lstm_kernel.lstm_layer_bwd,
@@ -1083,7 +1141,14 @@ def all_counters():
                 gru_decoder_loop_fused_losses_fwd=(
                     decoder_kernel.gru_decoder_fused_losses_fwd),
                 gru_decoder_loop_fused_losses_bwd=(
-                    decoder_kernel.gru_decoder_fused_losses_bwd))
+                    decoder_kernel.gru_decoder_fused_losses_bwd),
+                rnn_layer_bidir_fused=elman_kernel.rnn_layer_bidir_fused,
+                rnn_layer_bidir_fused_bwd=(
+                    elman_kernel.rnn_layer_bidir_fused_bwd),
+                rnn_decoder_loop_fused_losses_fwd=(
+                    decoder_kernel.rnn_decoder_fused_losses_fwd),
+                rnn_decoder_loop_fused_losses_bwd=(
+                    decoder_kernel.rnn_decoder_fused_losses_bwd))
 
 
 def expected(counters: dict, **launches) -> dict:
@@ -1495,18 +1560,30 @@ def decoder_loop_phase(dev, rng, launches):
 # the GRU slice: training, encoding and serving a GRU model
 # ---------------------------------------------------------------------------
 
-def gru_train_phase(dev, work: str, corpus_dir: str, csv_path: str,
-                    seed: int):
-    """The GRU model (``-R GRU``: the bidirectional GRU encoder, the GRU
-    decoder by default) trained through the CLI on the synthetic corpus (2
-    epochs, 1 of pretraining, then resumed to 3), counted: the GRU kernels
-    run, no LSTM kernel does."""
+def _reservoir(c: dict) -> list:
+    """The ESN tensors (encoder layers and the decoder's cell) of a loaded
+    checkpoint."""
+    return ([layer[d][k] for layer in c["encoder"]["layers"]
+             for d in ("fwd", "bwd") for k in ("w_ih", "w_hh")]
+            + [c["decoder"]["rnn_cell"][k] for k in ("w_ih", "w_hh")])
+
+
+def cell_train_phase(dev, work: str, corpus_dir: str, csv_path: str,
+                     seed: int, cell: str, kernels: dict, extra=()):
+    """The model of another cell (``-R cell``: its bidirectional encoder
+    and, as ``--decoder_rnn_type`` follows ``-R``, its decoder) trained
+    through the CLI on the synthetic corpus (2 epochs, 1 of pretraining,
+    then resumed to 3), counted: each of ``kernels`` ran once per training
+    and evaluation step (``"steps"``) or per training step (``"train"``),
+    no other kernel ran.  For the ESN, the reservoir in the resumed run's
+    checkpoint must equal the first run's bit for bit (it is frozen)."""
     from seq2seq_abcd_vae_tpu_torch.cli import learning_main
     from seq2seq_abcd_vae_tpu_torch.train import checkpoint as ckpt
-    argv = [corpus_dir, csv_path, "-S", work, "-j", "gru", "-b",
+    job = cell.lower()
+    argv = [corpus_dir, csv_path, "-S", work, "-j", job, "-b",
             str(TRAIN_BATCH), "--pretrain_epochs", "1", "--stft_method",
             "pallas", "-d", dev.type, "-N", str(NORMALIZER), "-s", str(seed),
-            "-R", "GRU",
+            "-R", cell, *extra,
             "--encoder_rnn_hidden_size", str(HIDDEN),
             "--decoder_rnn_hidden_size", str(HIDDEN),
             "--mlp_hidden_size", str(MLP_HIDDEN), "-K", str(K),
@@ -1516,8 +1593,10 @@ def gru_train_phase(dev, work: str, corpus_dir: str, csv_path: str,
     first = learning_main.main(argv + ["-e", "2"])
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    run_dir = os.path.join(work, "gru")
+    run_dir = os.path.join(work, job)
+    path = os.path.join(run_dir, "checkpoint.pt")
     check_history(os.path.join(run_dir, "history.log"), False)
+    before = ckpt.load_checkpoint(path)
     t0 = time.perf_counter()
     second = learning_main.main(argv + ["-e", "3"])
     torch.cuda.synchronize()
@@ -1527,49 +1606,55 @@ def gru_train_phase(dev, work: str, corpus_dir: str, csv_path: str,
     train_steps = first.steps["train"] + second.steps["train"]
     eval_steps = first.steps["eval"] + second.steps["eval"]
     steps = train_steps + eval_steps
-    want = expected(counters, log_spectrogram=steps,
-                    gru_layer_bidir_fused=steps,
-                    gru_layer_bidir_fused_bwd=train_steps,
-                    gru_decoder_loop_fused_losses_fwd=steps,
-                    gru_decoder_loop_fused_losses_bwd=train_steps)
-    print(f"GRU training main path: {train_steps} training + {eval_steps} "
-          f"evaluation steps in {first_s:.2f} + {second_s:.2f} s; launches "
-          f"{launches}", flush=True)
+    want = expected(counters, log_spectrogram=steps, **{
+        name: steps if when == "steps" else train_steps
+        for name, when in kernels.items()})
+    print(f"{cell} training main path: {train_steps} training + "
+          f"{eval_steps} evaluation steps in {first_s:.2f} + "
+          f"{second_s:.2f} s; launches {launches}", flush=True)
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
-    path = os.path.join(run_dir, "checkpoint.pt")
     c = ckpt.load_checkpoint(path)
     cells = (c["encoder_init_parameters"]["rnn_type"],
              c["decoder_init_parameters"]["rnn_type"])
-    if cells != ("GRU", "GRU"):
-        raise AssertionError(f"the GRU checkpoint holds cells {cells}")
+    if cells != (cell, cell):
+        raise AssertionError(f"the {cell} checkpoint holds cells {cells}")
+    frozen = None
+    if cell == "ESN":
+        pairs = list(zip(_reservoir(before), _reservoir(c), strict=True))
+        if not all(a.tobytes() == b.tobytes() for a, b in pairs):
+            raise AssertionError("the ESN reservoir changed in training")
+        frozen = len(pairs)
     epochs = first.epoch_seconds + second.epoch_seconds
     later = [n / sec for _, sec, n in epochs[1:]]
     return {"launches": launches, "train_steps": train_steps,
             "eval_steps": eval_steps, "checkpoint": path,
+            "reservoir_tensors_unchanged": frozen,
             "segments_per_s_after_first_epoch":
                 sum(later) / len(later) if later else None,
             "epochs": [{"epoch": e, "train_s": sec, "segments": n}
                        for e, sec, n in epochs]}
 
 
-def gru_serve_phase(work: str, ckpt_path: str, rng):
-    """The GRU checkpoint served through ``serve_main`` (probs at fs=32000,
-    frame counts up to 512, 4 clients), counted: the GRU encoder's kernel
-    and the frontend run, no LSTM kernel does."""
+def cell_serve_phase(work: str, ckpt_path: str, rng, cell: str,
+                     layer_kernel: str):
+    """A checkpoint of another cell served through ``serve_main`` (probs
+    at fs=32000, frame counts up to 512, 4 clients), counted: the
+    encoder's kernel ``layer_kernel`` and the frontend run, no other
+    kernel does."""
     counters = zero_counters()
     reqs = random_requests(rng, 32000, 32)
     (answers, latency), ping = run_service(
         [ckpt_path, str(NORMALIZER), "32000", "--mode", "probs", "-b",
          str(BATCH), "--stft_method", "pallas", "-d", "cuda"],
-        os.path.join(work, "gru.sock"),
+        os.path.join(work, f"{cell.lower()}.sock"),
         lambda path: concurrent_clients(path, reqs, 32000))
     check_answers(answers, "probs", K)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
     ran = {k for k, n in launches.items() if n}
-    if ran != {"log_spectrogram", "gru_layer_bidir_fused"}:
-        raise AssertionError(f"GRU serving launched {launches}")
+    if ran != {"log_spectrogram", layer_kernel}:
+        raise AssertionError(f"{cell} serving launched {launches}")
     lat = np.asarray(latency)
     return {"launches": launches, "requests": len(lat),
             "batches": ping["stats"]["batches"],
@@ -1709,12 +1794,157 @@ def gru_layer_phase(dev, rng, t_train, launches_fwd, launches_bwd):
     return fwd_entry, bwd_entry
 
 
+def _rnn_library(dev, f, h, w):
+    """The yardstick: cuDNN's bidirectional tanh RNN with the same
+    weights."""
+    rnn = torch.nn.RNN(f, h, nonlinearity="tanh", bidirectional=True).to(dev)
+    with torch.no_grad():
+        for d, sfx in enumerate(("", "_reverse")):
+            getattr(rnn, "weight_ih_l0" + sfx).copy_(w[0][d].T)
+            getattr(rnn, "bias_ih_l0" + sfx).copy_(w[1][d])
+            getattr(rnn, "weight_hh_l0" + sfx).copy_(w[2][d].T)
+            getattr(rnn, "bias_hh_l0" + sfx).copy_(w[3][d])
+    return rnn
+
+
+def elman_layer_phase(dev, rng, t_train, launches_fwd, launches_bwd):
+    """The bidirectional Elman layer's kernels vs twins (ragged lengths,
+    one empty row): the forward at the served shape B=64, T=512 and at the
+    training shape B=512, T=``t_train``, each at leak 1.0 (the Elman cell)
+    and 0.5 (an ESN's, zero biases); the backward at the training shape at
+    both leaks; timed (leak 1.0) beside cuDNN's tanh RNN on packed
+    sequences (the empty row dropped)."""
+    from seq2seq_abcd_vae_tpu_torch.ops import elman_kernel as ek
+    f, h = 129, HIDDEN
+    checks, cases = {}, {}
+    for b, t in ((BATCH, 512), (TRAIN_BATCH, t_train)):
+        lens = rng.integers(1, t + 1, size=b).astype(np.int32)
+        lens[0], lens[-1] = t, 0
+        x = torch.from_numpy(rng.normal(size=(t, b, f)).astype(np.float32)
+                             ).to(dev)
+        w = _lstm_weights(rng, dev, h, (2, f, h), (2, h), (2, h, h), (2, h))
+        args = (x, torch.from_numpy(lens).to(dev), *w)
+        zero_b = (x, args[1], w[0], torch.zeros_like(w[1]), w[2],
+                  torch.zeros_like(w[3]))
+        for leak, a in ((1.0, args), (0.5, zero_b)):
+            got = ek.rnn_layer_bidir_fused(*a, leak)
+            want = ek.rnn_layer_bidir_fused_plain(*a, leak)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            checks[f"fwd_B{b}_T{t}_leak{leak}"] = err
+            if not err <= LSTM_ATOL:
+                raise AssertionError(f"Elman forward vs twin at B={b} T={t} "
+                                     f"leak {leak}: {err} > {LSTM_ATOL}")
+            cases[(b, leak)] = (t, lens, a, want)
+    # the backward at the training shape, both leaks
+    bwd_errs = {}
+    for leak in (0.5, 1.0):
+        t, lens, args, (outs, h_n) = cases[(TRAIN_BATCH, leak)]
+        dh_n = torch.from_numpy(rng.normal(size=h_n.shape).astype(
+            np.float32)).to(dev)
+        bwd = (*args, outs, None, dh_n, leak)
+        got = ek.rnn_layer_bidir_fused_bwd(*bwd)
+        want = ek.rnn_layer_bidir_fused_bwd_plain(*bwd)
+        torch.cuda.synchronize()
+        errs = {n: rel_err(g, r) for n, g, r in zip(
+            ("dx", "dw_ih", "db_ih", "dw_hh", "db_hh"), got, want)}
+        if max(errs.values()) > GRAD_FRACTION:
+            raise AssertionError(f"Elman backward vs twin, leak {leak}: "
+                                 f"{errs}")
+        bwd_errs[leak] = (errs, max(max_err(g, r)
+                                    for g, r in zip(got, want)))
+    errs, bwd_abs = bwd_errs[1.0]
+    checks["bwd_leak0.5_max_rel_err"] = max(bwd_errs[0.5][0].values())
+    bwd_ms = cuda_ms(lambda: ek.rnn_layer_bidir_fused_bwd(*bwd), iters=5)
+    bwd_plain_ms = cuda_ms(
+        lambda: ek.rnn_layer_bidir_fused_bwd_plain(*bwd), iters=2, warmup=1)
+    train_fwd_ms = cuda_ms(lambda: ek.rnn_layer_bidir_fused(*args), iters=5)
+    keep = lens > 0
+    keep_dev = torch.from_numpy(keep).to(dev)
+    rnn = _rnn_library(dev, f, h, args[2:])
+    x_lib = args[0][:, keep_dev].clone().requires_grad_(True)
+    lens_lib = torch.from_numpy(lens[keep].astype(np.int64))
+    dh_lib = dh_n[:, keep_dev]
+
+    def library_fwd_bwd():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            x_lib, lens_lib, enforce_sorted=False)
+        torch.autograd.backward(rnn(packed)[1], dh_lib)
+
+    lib_bwd_ms = cuda_ms(library_fwd_bwd, iters=5)
+    steps = int(lens.sum())      # active row-steps per direction
+    per = 2.0 * (f + h) * h      # one direction's products per row-step
+    weights = 2 * (f + h + 2) * h
+    # u recomputed, dpre @ W_ih^T, dpre @ W_hh^T and the weight
+    # gradients: three times the forward's products
+    b = TRAIN_BATCH
+    bwd_bytes = 4.0 * (t * b * f + weights + t * 2 * b * h     # x, W, outs
+                       + 2 * b * h                              # dh_n
+                       + t * b * f + weights) + 4 * b           # dx, dW
+    b_bms, b_by = bound_ms(2 * steps * 3 * per, bwd_bytes)
+
+    # the forward's entry at the served shape, leak 1.0
+    t, lens, args, want = cases[(BATCH, 1.0)]
+    b = BATCH
+    fwd_ms = cuda_ms(lambda: ek.rnn_layer_bidir_fused(*args), iters=5)
+    fwd_plain_ms = cuda_ms(lambda: ek.rnn_layer_bidir_fused_plain(*args),
+                           iters=2, warmup=1)
+    esn_ms = cuda_ms(lambda: ek.rnn_layer_bidir_fused(
+        *cases[(BATCH, 0.5)][2], 0.5), iters=5)
+    keep = lens > 0
+    keep_dev = torch.from_numpy(keep).to(dev)
+    rnn = _rnn_library(dev, f, h, args[2:])
+    x_lib = args[0][:, keep_dev].contiguous()
+    lens_lib = torch.from_numpy(lens[keep].astype(np.int64))
+
+    @torch.no_grad()
+    def library_fwd():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            x_lib, lens_lib, enforce_sorted=False)
+        return rnn(packed)[1]
+
+    lib_err = max_err(library_fwd(), want[1][:, keep_dev])
+    lib_fwd_ms = cuda_ms(library_fwd, iters=5)
+    steps = int(lens.sum())
+    fwd_bytes = 4.0 * (t * b * f + weights + t * 2 * b * h
+                       + 2 * b * h) + 4 * b
+    f_bms, f_by = bound_ms(2 * steps * per, fwd_bytes)
+    common = {"route": "cuda",
+              "source": "seq2seq_abcd_vae_tpu_torch/csrc/elman.cu"}
+    fwd_entry = dict(common, **{
+        "name": "rnn_layer_bidir_fused",
+        "replaces": "seq2seq_abcd_vae_tpu/ops/elman_pallas.py:457",
+        "launches": launches_fwd,
+        "max_abs_err": max(checks[k] for k in checks if k.startswith("fwd")),
+        "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": f_bms,
+        "bound_by": f_by, "library_ms": lib_fwd_ms,
+        "library_call": "nn.RNN(tanh, bidirectional) on a packed sequence",
+        "library_max_abs_err": lib_err,
+        "ms_at_training_shape": train_fwd_ms, "ms_at_leak_0.5": esn_ms,
+        "shape": f"T={t} B={b} F={f} H={h} (ragged, one empty row)",
+        "tolerance": LSTM_ATOL, "checks": checks})
+    bwd_entry = dict(common, **{
+        "name": "rnn_layer_bidir_fused_bwd",
+        "helper_source": "seq2seq_abcd_vae_tpu_torch/csrc/wgrad.cu",
+        "replaces": "seq2seq_abcd_vae_tpu/ops/elman_pallas.py:368",
+        "launches": launches_bwd, "max_abs_err": bwd_abs,
+        "max_rel_err": max(errs.values()), "rel_errs": errs,
+        "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": b_bms,
+        "bound_by": b_by, "library_ms": lib_bwd_ms,
+        "library_call":
+            "nn.RNN(tanh, bidirectional) forward + backward, packed",
+        "shape": f"T={t_train} B={TRAIN_BATCH} F={f} H={h} (douts zero)",
+        "tolerance": f"{GRAD_FRACTION} of each leaf's max |value|"})
+    return fwd_entry, bwd_entry
+
+
 def wide_hidden_phase(dev, rng):
     """Hidden size 1024 (the widest the JAX CLI takes) through every
     recurrent kernel with the row tile its shared memory allows, against
     the twins, at small B and T."""
     from seq2seq_abcd_vae_tpu_torch.ops import _build
     from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    from seq2seq_abcd_vae_tpu_torch.ops import elman_kernel as ek
     from seq2seq_abcd_vae_tpu_torch.ops import gru_kernel as gk
     from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
     h, f, m, b, t = 1024, 129, MLP_HIDDEN, 24, 16
@@ -1769,7 +1999,7 @@ def wide_hidden_phase(dev, rng):
     errs["gru_bwd_rel"] = max(rel_err(g, r) for g, r in zip(
         gk.gru_layer_bidir_fused_bwd(*bwd),
         gk.gru_layer_bidir_fused_bwd_plain(*bwd)))
-    args, _ = _decoder_kernel_args(dev, rng, t, b, h=h, gru=True)
+    args, _ = _decoder_kernel_args(dev, rng, t, b, h=h, cell="GRU")
     got = dk.gru_decoder_fused_losses_fwd(*args)
     ref = dk.gru_decoder_fused_losses_fwd_plain(*args)
     errs["gru_decoder_fwd_loss_rel"] = max(
@@ -1781,9 +2011,35 @@ def wide_hidden_phase(dev, rng):
     errs["gru_decoder_bwd_rel"] = max(rel_err(g, r) for g, r in zip(
         dk.gru_decoder_fused_losses_bwd(*bwd),
         dk.gru_decoder_fused_losses_bwd_plain(*bwd)))
+    w = _lstm_weights(rng, dev, h, (2, f, h), (2, h), (2, h, h), (2, h))
+    for leak in (1.0, 0.5):
+        wl = w if leak == 1.0 else [w[0], torch.zeros_like(w[1]), w[2],
+                                    torch.zeros_like(w[3])]
+        got = ek.rnn_layer_bidir_fused(x, lengths, *wl, leak)
+        ref = ek.rnn_layer_bidir_fused_plain(x, lengths, *wl, leak)
+        errs[f"elman_fwd_leak{leak}"] = max_err(got, ref)
+        bwd = (x, lengths, *wl, ref[0], normal(*ref[0].shape),
+               normal(2, b, h), leak)
+        errs[f"elman_bwd_rel_leak{leak}"] = max(rel_err(g, r) for g, r in zip(
+            ek.rnn_layer_bidir_fused_bwd(*bwd),
+            ek.rnn_layer_bidir_fused_bwd_plain(*bwd)))
+        fwd_d, fwd_p, bwd_d, bwd_p = _decoder_pair("RNN", leak)
+        args, _ = _decoder_kernel_args(dev, rng, t, b, h=h, cell="RNN",
+                                       leak=leak)
+        got, ref = fwd_d(*args), fwd_p(*args)
+        errs[f"rnn_decoder_fwd_loss_rel_leak{leak}"] = max(
+            abs(g.item() - r.item()) / abs(r.item())
+            for g, r in zip(got[1:3], ref[1:3]))
+        errs[f"rnn_decoder_fwd_states_leak{leak}"] = max_err(
+            (got[0], got[3]), (ref[0], ref[3]))
+        bwd = (*args, ref[3], normal(b, h),
+               torch.tensor([0.5, 0.5], device=dev))
+        errs[f"rnn_decoder_bwd_rel_leak{leak}"] = max(
+            rel_err(g, r) for g, r in zip(bwd_d(*bwd), bwd_p(*bwd)))
     torch.cuda.synchronize()
     lib = _build.load("lstm")
     glib = _build.load("gru")
+    elib = _build.load("elman")
     dlib = _build.load("decoder")
     rows = {"lstm_bidir_fwd": lib.abcd_lstm_rows(0, f, h),
             "lstm_bidir_bwd": lib.abcd_lstm_rows(1, f, h),
@@ -1795,7 +2051,11 @@ def wide_hidden_phase(dev, rng):
             "gru_fwd": glib.abcd_gru_rows(0, f, h),
             "gru_bwd": glib.abcd_gru_rows(1, f, h),
             "gru_decoder_fused_fwd": dlib.abcd_decoder_rows(3, f, h, m, m),
-            "gru_decoder_fused_bwd": dlib.abcd_decoder_rows(4, f, h, m, m)}
+            "gru_decoder_fused_bwd": dlib.abcd_decoder_rows(4, f, h, m, m),
+            "elman_fwd": elib.abcd_elman_rows(0, f, h),
+            "elman_bwd": elib.abcd_elman_rows(1, f, h),
+            "rnn_decoder_fused_fwd": dlib.abcd_decoder_rows(5, f, h, m, m),
+            "rnn_decoder_fused_bwd": dlib.abcd_decoder_rows(6, f, h, m, m)}
     limits = {"bidir_fwd": LSTM_ATOL, "uni_fwd": LSTM_ATOL,
               "decoder_fwd_states": LSTM_ATOL, "decoder_loop": LSTM_ATOL,
               "decoder_fwd_loss_rel": LOSS_RTOL,
@@ -1805,6 +2065,12 @@ def wide_hidden_phase(dev, rng):
               "gru_decoder_fwd_loss_rel": LOSS_RTOL,
               "gru_decoder_fwd_states": LSTM_ATOL,
               "gru_decoder_bwd_rel": GRAD_FRACTION}
+    for leak in (1.0, 0.5):
+        limits.update({f"elman_fwd_leak{leak}": LSTM_ATOL,
+                       f"elman_bwd_rel_leak{leak}": GRAD_FRACTION,
+                       f"rnn_decoder_fwd_loss_rel_leak{leak}": LOSS_RTOL,
+                       f"rnn_decoder_fwd_states_leak{leak}": LSTM_ATOL,
+                       f"rnn_decoder_bwd_rel_leak{leak}": GRAD_FRACTION})
     bad = {k: v for k, v in errs.items() if not v <= limits[k]}
     if bad:
         raise AssertionError(f"H=1024 kernels vs twins: {bad}")
@@ -1950,7 +2216,11 @@ def run(args, root, dev, rng, work) -> int:
     print("decode_features " + json.dumps(decode), flush=True)
 
     # ---- the GRU slice's main paths, each counted ---------------------
-    gru = gru_train_phase(dev, work, corpus_dir, csv_path, args.seed)
+    gru = cell_train_phase(dev, work, corpus_dir, csv_path, args.seed, "GRU",
+                           {"gru_layer_bidir_fused": "steps",
+                            "gru_layer_bidir_fused_bwd": "train",
+                            "gru_decoder_loop_fused_losses_fwd": "steps",
+                            "gru_decoder_loop_fused_losses_bwd": "train"})
     print("GRU training throughput " + json.dumps(
         {k: gru[k] for k in ("segments_per_s_after_first_epoch",
                              "epochs")}), flush=True)
@@ -1959,14 +2229,42 @@ def run(args, root, dev, rng, work) -> int:
                                modes=("probs", "features"),
                                formats=("csv",))
     print("GRU encode CLI " + json.dumps(gru_enc), flush=True)
-    gru_serve = gru_serve_phase(work, gru["checkpoint"], rng)
+    gru_serve = cell_serve_phase(work, gru["checkpoint"], rng, "GRU",
+                                 "gru_layer_bidir_fused")
     print("GRU serve " + json.dumps(gru_serve), flush=True)
+
+    # ---- the Elman / ESN slice's main paths, each counted -------------
+    elman = {"rnn_layer_bidir_fused": "steps",
+             "rnn_decoder_loop_fused_losses_fwd": "steps",
+             "rnn_decoder_loop_fused_losses_bwd": "train"}
+    rnn = cell_train_phase(dev, work, corpus_dir, csv_path, args.seed, "RNN",
+                           dict(elman, rnn_layer_bidir_fused_bwd="train"))
+    print("RNN training throughput " + json.dumps(
+        {k: rnn[k] for k in ("segments_per_s_after_first_epoch",
+                             "epochs")}), flush=True)
+    # the ESN's frozen reservoir takes no backward kernel
+    esn = cell_train_phase(dev, work, corpus_dir, csv_path, args.seed, "ESN",
+                           elman, extra=("--esn_leak", "0.5"))
+    print("ESN training throughput " + json.dumps(
+        {k: esn[k] for k in ("segments_per_s_after_first_epoch", "epochs",
+                             "reservoir_tensors_unchanged")}), flush=True)
+    elman_enc = encode_cli_phase(dev, work, corpus_dir, csv_path,
+                                 {"rnn": rnn["checkpoint"],
+                                  "esn": esn["checkpoint"]},
+                                 modes=("probs",), formats=("csv",))
+    print("RNN / ESN encode CLI " + json.dumps(elman_enc), flush=True)
+    esn_serve = cell_serve_phase(work, esn["checkpoint"], rng, "ESN",
+                                 "rnn_layer_bidir_fused")
+    print("ESN serve " + json.dumps(esn_serve), flush=True)
 
     paths = {"serve": launches, "train": train["launches"],
              "uni_train": uni["launches"], "encode_cli": enc_cli["launches"],
              "decode": decode["launches"], "gru_train": gru["launches"],
              "gru_encode_cli": gru_enc["launches"],
-             "gru_serve": gru_serve["launches"]}
+             "gru_serve": gru_serve["launches"],
+             "rnn_train": rnn["launches"], "esn_train": esn["launches"],
+             "elman_encode_cli": elman_enc["launches"],
+             "esn_serve": esn_serve["launches"]}
 
     def by_path(name):
         return {p: counts.get(name, 0) for p, counts in paths.items()}
@@ -2006,19 +2304,40 @@ def run(args, root, dev, rng, work) -> int:
         total("gru_layer_bidir_fused_bwd"))
     gru_dec_fwd, gru_dec_bwd = decoder_train_phase(
         dev, rng, t_train, total("gru_decoder_loop_fused_losses_fwd"),
-        total("gru_decoder_loop_fused_losses_bwd"), gru=True)
+        total("gru_decoder_loop_fused_losses_bwd"), cell="GRU")
+    rnn_checks, rnn_inputs = whole_step_phase(dev, corpus_dir, csv_path,
+                                              args.seed, rnn_type="RNN")
+    rnn_stages, rnn_shape = train_step_breakdown(dev, *rnn_inputs)
+    esn_checks, esn_inputs = whole_step_phase(dev, corpus_dir, csv_path,
+                                              args.seed, rnn_type="ESN",
+                                              esn_leak=0.5)
+    esn_stages, esn_shape = train_step_breakdown(dev, *esn_inputs)
+    elman_fwd, elman_bwd = elman_layer_phase(
+        dev, rng, t_train, total("rnn_layer_bidir_fused"),
+        total("rnn_layer_bidir_fused_bwd"))
+    rnn_dec_fwd, rnn_dec_bwd = decoder_train_phase(
+        dev, rng, t_train, total("rnn_decoder_loop_fused_losses_fwd"),
+        total("rnn_decoder_loop_fused_losses_bwd"), cell="RNN")
     wide = wide_hidden_phase(dev, rng)
     kernels += [lstm_bwd, dec_fwd, dec_bwd, uni_fwd, uni_bwd, loop, gru_fwd,
-                gru_bwd, gru_dec_fwd, gru_dec_bwd]
+                gru_bwd, gru_dec_fwd, gru_dec_bwd, elman_fwd, elman_bwd,
+                rnn_dec_fwd, rnn_dec_bwd]
     for entry in kernels:
         key = {"decoder_loop_fused_losses": "decoder_loop_fused_losses_fwd",
                "gru_decoder_loop_fused_losses":
                    "gru_decoder_loop_fused_losses_fwd",
+               "rnn_decoder_loop_fused_losses":
+                   "rnn_decoder_loop_fused_losses_fwd",
                }.get(entry["name"], entry["name"])
         entry["launches_by_path"] = by_path(key)
         if entry["launches"] <= 0:
             raise AssertionError(f"kernel {entry['name']} was launched on "
                                  "no main path")
+        lacking = KERNEL_KEYS - set(entry)
+        if lacking:
+            raise AssertionError(f"kernel {entry['name']} lacks {lacking}")
+    if len(kernels) != 16:
+        raise AssertionError(f"{len(kernels)} kernel entries, expected 16")
     print("training step, kernels (card) vs twins (CPU) "
           + json.dumps(checks), flush=True)
     print("unidirectional training step, kernels (card) vs twins (CPU) "
@@ -2033,6 +2352,13 @@ def run(args, root, dev, rng, work) -> int:
           + json.dumps(gru_checks), flush=True)
     print(f"GRU training step {json.dumps(gru_shape)}, ms "
           + json.dumps(gru_stages), flush=True)
+    for cell, checks_, shape_, stages_ in (
+            ("RNN", rnn_checks, rnn_shape, rnn_stages),
+            ("ESN", esn_checks, esn_shape, esn_stages)):
+        print(f"{cell} training step, kernels (card) vs twins (CPU) "
+              + json.dumps(checks_), flush=True)
+        print(f"{cell} training step {json.dumps(shape_)}, ms "
+              + json.dumps(stages_), flush=True)
     print("hidden size 1024, kernels vs twins " + json.dumps(wide),
           flush=True)
 

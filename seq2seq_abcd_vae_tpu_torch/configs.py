@@ -4,10 +4,11 @@
 Each config is rebuilt from the ``*_init_parameters`` dict stored beside
 its module's weights in ``checkpoint.pt``, which is what makes a
 checkpoint self-describing.  The port serves the LSTM encoder (one or
-both directions) and the bidirectional GRU encoder with the ABCD head,
-and trains them with the unidirectional LSTM or GRU decoder
-(isotropic-Gaussian emission, sampled self-feedback); ``check_served``
-and ``check_decoder`` name the configurations that wait for later slices.
+both directions) and the bidirectional GRU, Elman RNN and echo-state (ESN)
+encoders with the ABCD head, and trains them with the unidirectional LSTM,
+GRU, RNN or ESN decoder (isotropic-Gaussian emission, sampled
+self-feedback); ``check_served`` and ``check_decoder`` name the
+configurations that wait for later slices.
 """
 
 from __future__ import annotations
@@ -147,17 +148,18 @@ def check_served(encoder: EncoderConfig, latent_type: str = "abcd",
                  decoder: Optional[DecoderConfig] = None) -> None:
     """Raise NotImplementedError for what the port does not serve or train
     yet: encoders but the LSTM (one or both directions) and the
-    bidirectional GRU, the plain VAE, and (with a ``decoder``, the training
-    path) encoder dropout and every decoder ``check_decoder`` refuses for
-    training."""
-    if encoder.rnn_type not in ("LSTM", "GRU"):
+    bidirectional GRU, RNN and ESN, the plain VAE, and (with a ``decoder``,
+    the training path) encoder dropout and every decoder ``check_decoder``
+    refuses for training."""
+    if encoder.rnn_type not in ("LSTM", "GRU", "RNN", "ESN"):
         raise NotImplementedError(
-            f"{encoder.rnn_type} encoders are not ported yet (the Elman RNN "
-            "and ESN cells come with a later slice of the port)")
-    if encoder.rnn_type == "GRU" and not encoder.bidirectional:
+            f"the {encoder.rnn_type!r} encoder is not ported")
+    if encoder.rnn_type != "LSTM" and not encoder.bidirectional:
+        kernel = "gru_layer" if encoder.rnn_type == "GRU" else "rnn_layer"
         raise NotImplementedError(
-            "the unidirectional GRU encoder (the gru_layer kernel) is not "
-            "ported yet; it comes with a later slice of the port")
+            f"the unidirectional {encoder.rnn_type} encoder (the {kernel} "
+            "kernel) is not ported yet; it comes with a later slice of the "
+            "port")
     if latent_type != "abcd":
         raise NotImplementedError(
             f"latent type {latent_type!r} (the plain Gaussian VAE and its "
@@ -173,14 +175,15 @@ def check_served(encoder: EncoderConfig, latent_type: str = "abcd",
 
 def check_decoder(decoder: DecoderConfig, training: bool = True) -> None:
     """Raise NotImplementedError for every decoder the port does not run
-    yet.  Training takes the unidirectional LSTM or GRU decoder with
-    isotropic-Gaussian emission and sampled self-feedback, without input
-    dropout.  Generative decoding (``training=False``) is deterministic, as
-    the JAX package's ``decode_features`` is: input dropout and the greedy
-    decoder act only in training, so their checkpoints decode on the
-    sampled loop; it takes the LSTM decoder only (GRU decoding, the
-    ``gru_decoder_loop`` kernel, comes with a later slice)."""
-    cells = ("LSTM", "GRU") if training else ("LSTM",)
+    yet.  Training takes the unidirectional LSTM, GRU, RNN or ESN decoder
+    with isotropic-Gaussian emission and sampled self-feedback, without
+    input dropout.  Generative decoding (``training=False``) is
+    deterministic, as the JAX package's ``decode_features`` is: input
+    dropout and the greedy decoder act only in training, so their
+    checkpoints decode on the sampled loop; it takes the LSTM decoder only
+    (GRU, RNN and ESN decoding, the ``gru_decoder_loop`` and
+    ``rnn_decoder_loop`` kernels, come with a later slice)."""
+    cells = ("LSTM", "GRU", "RNN", "ESN") if training else ("LSTM",)
     if decoder.rnn_type not in cells:
         raise NotImplementedError(
             f"{'training' if training else 'decoding'} a "

@@ -1,7 +1,7 @@
 // The decoder's sampled time loop, written for Hopper (sm_90a): for the
 // LSTM cell with its two training losses fused (forward and backward) and as
-// the plain loop that writes its streams (forward), and for the GRU cell
-// with the losses fused (forward and backward).
+// the plain loop that writes its streams (forward), and for the GRU and the
+// Elman / ESN cells with the losses fused (forward and backward).
 //
 // Replaces seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:
 // decoder_loop_fused_losses (`_fused_fwd_call` / `_fused_fwd_kernel` and
@@ -9,17 +9,22 @@
 // of decoder_loop (`_fwd_call` / `_fwd_kernel`) and
 // gru_decoder_loop_fused_losses (`_gru_floss_fwd_call` /
 // `_gru_floss_fwd_kernel` and `_gru_floss_bwd_call` /
-// `_gru_floss_bwd_kernel`).  Step t of the loop, in the order of the scan
+// `_gru_floss_bwd_kernel`) and rnn_decoder_loop_fused_losses
+// (`_rnn_floss_fwd_call` / `_rnn_floss_fwd_kernel` and `_rnn_floss_bwd_call`
+// / `_rnn_floss_bwd_kernel`).  Step t of the loop, in the order of the scan
 // body (models/decoder.py:341-361):
 //
 //   big  = h @ w_cat                         w_cat = [W_hh | emission lin1]
-//   emh  = tanh(big[:, GH:] + b1)            GH = 4H (LSTM) | 3H (GRU)
+//   emh  = tanh(big[:, GH:] + b1)            GH = 4H | 3H (GRU) | H (RNN)
 //   mean = emh[:, :m] @ w2m + b2[:F];  logvar = emh[:, m:] @ w2v + b2[F:]
 //   x    = mean + exp(logvar / 2) * noise[t-1]   (0 on a row's first step)
 //   LSTM: gates = big[:, :4H] + x @ w_ih + bias;   c2, h2 = the LSTM cell
 //   GRU:  xp = x @ w_ih + b_ih;  hp = big[:, :3H] + b_hh;
 //         r, z = sigmoid(xp + hp);  n = tanh(xp_n + r * hp_n);
 //         h2 = (1 - z) * n + z * h           (no c; b_hh inside the reset)
+//   RNN:  u = tanh(big[:, :H] + x @ w_ih + bias);
+//         h2 = (1 - leak) * h + leak * u     (no c; the ESN: its leak and a
+//                                             zero bias; leak == 1 gives u)
 //   h, c  = (h2, c2) while t < len, else frozen
 //
 // The emission at step t is position t-1's.  The fused-loss mode adds
@@ -62,6 +67,13 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr double kLog2Pi = 1.8378770664093453;
+
+// the recurrent cell of a kernel instance
+constexpr int kLSTM = 0, kGRU = 1, kRNN = 2;
+
+__host__ __device__ constexpr int num_gates(int cell) {
+  return cell == kLSTM ? 4 : cell == kGRU ? 3 : 1;
+}
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
@@ -128,34 +140,35 @@ __device__ __forceinline__ void emission(const float* __restrict__ w2m,
   }
 }
 
-// gates of hidden unit u: big[:, g*H+u] + x @ w_ih[:, g*H+u] + bias.
-template <int R>
+// gates of hidden unit u: big[:, g*H+u] + x @ w_ih[:, g*H+u] + bias, for
+// the NG gates of the LSTM (4) or the Elman cell (1).
+template <int R, int NG>
 __device__ __forceinline__ void gate_inputs(const float* __restrict__ w_ih,
                                             const float* __restrict__ bias,
                                             const float* s_x,
                                             const float* s_big, int u, int F,
                                             int H, int G,
-                                            float z[4][R]) {
-  const int G4 = 4 * H;
-  float ax[4][R];
+                                            float z[NG][R]) {
+  const int GH = NG * H;
+  float ax[NG][R];
 #pragma unroll
-  for (int g = 0; g < 4; ++g)
+  for (int g = 0; g < NG; ++g)
 #pragma unroll
     for (int r = 0; r < R; ++r) ax[g][r] = 0.f;
 #pragma unroll 4
   for (int k = 0; k < F; ++k) {
-    float w[4];
+    float w[NG];
 #pragma unroll
-    for (int g = 0; g < 4; ++g) w[g] = __ldg(w_ih + (int64_t)k * G4 + g * H + u);
+    for (int g = 0; g < NG; ++g) w[g] = __ldg(w_ih + (int64_t)k * GH + g * H + u);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const float xv = s_x[r * F + k];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) ax[g][r] = fmaf(xv, w[g], ax[g][r]);
+      for (int g = 0; g < NG; ++g) ax[g][r] = fmaf(xv, w[g], ax[g][r]);
     }
   }
 #pragma unroll
-  for (int g = 0; g < 4; ++g) {
+  for (int g = 0; g < NG; ++g) {
     const float bg = bias[g * H + u];
 #pragma unroll
     for (int r = 0; r < R; ++r)
@@ -238,14 +251,17 @@ __device__ __forceinline__ float offset_logit(const float* __restrict__ wo2,
 // sums; it writes the pre-mask h2 of every step to outs at slot t and the
 // emission parameters computed at step t to mean_s / logvar_s at POSITION
 // slot t - 1, step 0's parked on slot T - 1 (the caller overwrites it).
-// kGRU: the GRU cell (gru_decoder_loop_fused_losses; with kLosses only):
-// w_cat is (H, 3H + 2M), `bias` is b_ih and `bias_hh` b_hh, there is no c.
-template <int R, bool kLosses, bool kGRU>
+// kCell == kGRU: the GRU cell (gru_decoder_loop_fused_losses; with kLosses
+// only): w_cat is (H, 3H + 2M), `bias` is b_ih and `bias_hh` b_hh, there is
+// no c.  kCell == kRNN: the Elman / ESN cell (rnn_decoder_loop_fused_losses;
+// with kLosses only): w_cat is (H, H + 2M), `bias` is b_ih + b_hh (zeros for
+// the ESN), there is no c, and `leak` mixes the carry into the update.
+template <int R, bool kLosses, int kCell>
 __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
     const float* __restrict__ noise,    // (T, B, F)
     const int* __restrict__ lengths,    // (B,)
-    const float* __restrict__ w_cat,    // (H, GH + 2M), GH = 4H | 3H
-    const float* __restrict__ bias,     // LSTM (4H,) b_ih + b_hh | GRU b_ih
+    const float* __restrict__ w_cat,    // (H, GH + 2M), GH = 4H | 3H | H
+    const float* __restrict__ bias,     // LSTM / RNN b_ih + b_hh | GRU b_ih
     const float* __restrict__ bias_hh,  // GRU (3H,) b_hh | LSTM unused
     const float* __restrict__ b1,       // (2M,)
     const float* __restrict__ w2m,      // (M, F)
@@ -266,11 +282,12 @@ __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
     float* __restrict__ outs,           // (T, B, H)   loop only
     float* __restrict__ mean_s,         // (T, B, F)   loop only
     float* __restrict__ logvar_s,       // (T, B, F)   loop only
-    int T, int B, int F, int H, int M, int Mo) {
+    int T, int B, int F, int H, int M, int Mo,
+    float leak) {                       // RNN only
   extern __shared__ float smem[];
   __shared__ double s_red[kLosses ? kThreads : 1];
-  const int GH = (kGRU ? 3 : 4) * H, G = GH + 2 * M;
-  const int HC = kGRU ? 0 : H;   // the LSTM's c
+  const int GH = num_gates(kCell) * H, G = GH + 2 * M;
+  const int HC = kCell == kLSTM ? H : 0;   // the LSTM's c
   float* s_h = smem;             // [R][H]   carry h
   float* s_c = s_h + R * H;      // [R][HC]  carry c
   float* s_big = s_c + R * HC;   // [R][G]
@@ -288,7 +305,7 @@ __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
   for (int i = tid; i < R * H; i += nth) {
     const int r = i / H;
     s_h[i] = r < nrows ? h0[(int64_t)r0 * H + i] : 0.f;
-    if (!kGRU) s_c[i] = r < nrows ? c0[(int64_t)r0 * H + i] : 0.f;
+    if (kCell == kLSTM) s_c[i] = r < nrows ? c0[(int64_t)r0 * H + i] : 0.f;
   }
   const float bo2v = kLosses ? bo2[0] : 0.f;
   double nll_acc = 0.0, bce_acc = 0.0;
@@ -327,7 +344,7 @@ __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
 
     for (int u = tid; u < H; u += nth) {
       float h2v[R], c2v[R];
-      if constexpr (kGRU) {
+      if constexpr (kCell == kGRU) {
         float xg[3][R], hg[3][R];
         gru_gate_inputs<R>(w_ih, bias, bias_hh, s_x, s_big, u, F, H, G, xg,
                            hg);
@@ -339,9 +356,17 @@ __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
           h2v[r] = (1.f - zg) * ng + zg * s_h[r * H + u];
           c2v[r] = 0.f;
         }
+      } else if constexpr (kCell == kRNN) {
+        float z[1][R];
+        gate_inputs<R, 1>(w_ih, bias, s_x, s_big, u, F, H, G, z);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          h2v[r] = (1.f - leak) * s_h[r * H + u] + leak * tanhf(z[0][r]);
+          c2v[r] = 0.f;
+        }
       } else {
         float z[4][R];
-        gate_inputs<R>(w_ih, bias, s_x, s_big, u, F, H, G, z);
+        gate_inputs<R, 4>(w_ih, bias, s_x, s_big, u, F, H, G, z);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float ig = sigmoid(z[0][r]);
@@ -359,12 +384,12 @@ __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
         if (kLosses) s_h2[i] = h2;
         if (t < len[r]) {
           s_h[i] = h2;
-          if (!kGRU) s_c[i] = c2v[r];
+          if (kCell == kLSTM) s_c[i] = c2v[r];
         }
         if (r < nrows) {
           const int64_t o = ((int64_t)t * B + r0 + r) * H + u;
           if (hs) hs[o] = s_h[i];
-          if (!kGRU && cs) cs[o] = s_c[i];
+          if (kCell == kLSTM && cs) cs[o] = s_c[i];
           if (!kLosses) outs[o] = h2;
           if (kLosses && t == T - 1) out_last[(int64_t)(r0 + r) * H + u] = h2;
         }
@@ -421,13 +446,17 @@ __global__ void loss_sum_kernel(const double* __restrict__ partial,
   losses[1] = (float)bce;
 }
 
-// kGRU: the GRU cell's adjoint (decoder_pallas.py:_gru_floss_bwd_kernel):
-// `bias` is b_ih, `bias_hh` b_hh, there is no c (c0, cs, dc0 unused); the
-// gate part of the dbig stream is dhp = [drpre, dzpre, dnpre * r] (the
-// cotangent of h @ W_hh + b_hh) and the extra dnp stream holds dnpre, the
-// candidate third of dxp = [drpre, dzpre, dnpre] (the cotangent of
-// x @ W_ih + b_ih).
-template <int R, bool kGRU>
+// kCell == kGRU: the GRU cell's adjoint
+// (decoder_pallas.py:_gru_floss_bwd_kernel): `bias` is b_ih, `bias_hh` b_hh,
+// there is no c (c0, cs, dc0 unused); the gate part of the dbig stream is
+// dhp = [drpre, dzpre, dnpre * r] (the cotangent of h @ W_hh + b_hh) and the
+// extra dnp stream holds dnpre, the candidate third of dxp = [drpre, dzpre,
+// dnpre] (the cotangent of x @ W_ih + b_ih).  kCell == kRNN: the Elman / ESN
+// cell's adjoint (decoder_pallas.py:_rnn_floss_bwd_kernel): no c, the gate
+// part of dbig is dpre = leak * dh2 * (1 - u^2) (the cotangent of the
+// pre-activation, hence of bias, x @ w_ih and h @ W_hh alike) and dh_{t-1}
+// gains (1 - leak) * dh2.
+template <int R, int kCell>
 __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
     const float* __restrict__ noise, const int* __restrict__ lengths,
     const float* __restrict__ w_cat, const float* __restrict__ bias,
@@ -459,16 +488,18 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
     float* __restrict__ oh_s,           // (T, B, Mo)
     float* __restrict__ dzo_s,          // (T, B)      offset-logit cotangent
     float* __restrict__ dnp_s,          // (T, B, H)   GRU only: dnpre
-    int T, int B, int F, int H, int M, int Mo) {
+    int T, int B, int F, int H, int M, int Mo,
+    float leak) {                       // RNN only
   extern __shared__ float smem[];
-  const int GH = (kGRU ? 3 : 4) * H, G = GH + 2 * M;
-  const int HC = kGRU ? 0 : H;   // the LSTM's dc
+  const int GH = num_gates(kCell) * H, G = GH + 2 * M;
+  const int HC = kCell == kLSTM ? H : 0;   // the LSTM's dc
+  const int HC2 = kCell == kRNN ? 0 : H;   // the width of s_c2
   float* s_hp = smem;            // [R][H]   h_{t-1}
   float* s_big = s_hp + R * H;   // [R][G]   big, then gates, then dbig
   float* s_ml = s_big + R * G;   // [R][2F]  mean|logvar, then dmean|dlogvar
   float* s_x = s_ml + R * 2 * F; // [R][F]
-  float* s_c2 = s_x + R * F;     // [R][H]   LSTM c2 | GRU hp_n, then dnpre
-  float* s_h2 = s_c2 + R * H;    // [R][H]
+  float* s_c2 = s_x + R * F;     // [R][HC2] LSTM c2 | GRU hp_n, then dnpre
+  float* s_h2 = s_c2 + R * HC2;  // [R][H]
   float* s_oh = s_h2 + R * H;    // [R][Mo]  oh, then doh
   float* s_dh = s_oh + R * Mo;   // [R][H]   carry cotangents
   float* s_dc = s_dh + R * H;    // [R][HC]
@@ -485,7 +516,7 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
   const float bo2v = bo2[0];
   for (int i = tid; i < R * H; i += nth) {
     s_dh[i] = 0.f;
-    if (!kGRU) s_dc[i] = 0.f;
+    if (kCell == kLSTM) s_dc[i] = 0.f;
   }
 
   for (int t = T - 1; t >= 0; --t) {
@@ -523,7 +554,7 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
     __syncthreads();
 
     for (int u = tid; u < H; u += nth) {
-      if constexpr (kGRU) {
+      if constexpr (kCell == kGRU) {
         float xg[3][R], hg[3][R];
         gru_gate_inputs<R>(w_ih, bias, bias_hh, s_x, s_big, u, F, H, G, xg,
                            hg);
@@ -541,9 +572,21 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
           s_h2[i] = h2;
           if (r < nrows) h2_s[((int64_t)t * B + r0 + r) * H + u] = h2;
         }
+      } else if constexpr (kCell == kRNN) {
+        float z[1][R];
+        gate_inputs<R, 1>(w_ih, bias, s_x, s_big, u, F, H, G, z);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int i = r * H + u;
+          const float ug = tanhf(z[0][r]);
+          const float h2 = (1.f - leak) * s_hp[i] + leak * ug;
+          s_big[r * G + u] = ug;
+          s_h2[i] = h2;
+          if (r < nrows) h2_s[((int64_t)t * B + r0 + r) * H + u] = h2;
+        }
       } else {
         float z[4][R];
-        gate_inputs<R>(w_ih, bias, s_x, s_big, u, F, H, G, z);
+        gate_inputs<R, 4>(w_ih, bias, s_x, s_big, u, F, H, G, z);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const int i = r * H + u;
@@ -620,7 +663,12 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
         if (t == T - 1 && r < nrows) dl = dlast[(int64_t)(r0 + r) * H + u];
         const float dh_carry = s_dh[i];
         const float dh2 = (acc[r] + dl) + (mt ? dh_carry : 0.f);
-        if constexpr (kGRU) {
+        if constexpr (kCell == kRNN) {
+          const float ug = s_big[r * G + u];
+          s_big[r * G + u] = (leak * dh2) * (1.f - ug * ug);
+          // pass-through part of dh_{t-1}
+          s_dh[i] = (mt ? 0.f : dh_carry) + (1.f - leak) * dh2;
+        } else if constexpr (kCell == kGRU) {
           const float rg = s_big[r * G + u];
           const float zg = s_big[r * G + H + u];
           const float ng = s_big[r * G + 2 * H + u];
@@ -669,14 +717,14 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
       for (int r = 0; r < R; ++r) acc[r] = 0.f;
       // dx = dxp @ w_ih^T; the GRU's dxp differs from the gate part of
       // dbig in its candidate third (dnpre, in s_c2)
-      const int JB = kGRU ? 2 * H : GH;
+      const int JB = kCell == kGRU ? 2 * H : GH;
 #pragma unroll 4
       for (int j = 0; j < JB; ++j) {
         const float w = __ldg(w_ihT + (int64_t)j * F + f);
 #pragma unroll
         for (int r = 0; r < R; ++r) acc[r] = fmaf(s_big[r * G + j], w, acc[r]);
       }
-      if (kGRU) {
+      if (kCell == kGRU) {
 #pragma unroll 4
         for (int j = 0; j < H; ++j) {
           const float w = __ldg(w_ihT + (int64_t)(2 * H + j) * F + f);
@@ -740,7 +788,7 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
       dbig_s[((int64_t)t * B + r0) * G + i] = s_big[i];
     for (int i = tid; i < nrows * H; i += nth) {
       hp_s[((int64_t)t * B + r0) * H + i] = s_hp[i];
-      if (kGRU) dnp_s[((int64_t)t * B + r0) * H + i] = s_c2[i];
+      if (kCell == kGRU) dnp_s[((int64_t)t * B + r0) * H + i] = s_c2[i];
     }
 
     // dh_{t-1} = pass-through + dbig @ w_cat^T
@@ -762,13 +810,14 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
 
   for (int i = tid; i < nrows * H; i += nth) {
     dh0[(int64_t)r0 * H + i] = s_dh[i];
-    if (!kGRU) dc0[(int64_t)r0 * H + i] = s_dc[i];
+    if (kCell == kLSTM) dc0[(int64_t)r0 * H + i] = s_dc[i];
   }
 }
 
 // kind: 0 fused-loss forward, 1 fused-loss backward, 2 the plain loop's
 // forward (the LSTM cell); 3 fused-loss forward, 4 fused-loss backward (the
-// GRU cell).  Floats of shared memory per row of the tile (the backward adds
+// GRU cell); 5 fused-loss forward, 6 fused-loss backward (the Elman / ESN
+// cell).  Floats of shared memory per row of the tile (the backward adds
 // the offset-logit cotangent).
 long long smem_bytes(int kind, int rows, int F, int H, int M, int Mo) {
   long long per_row;
@@ -777,7 +826,9 @@ long long smem_bytes(int kind, int rows, int F, int H, int M, int Mo) {
     case 1: per_row = 5LL * H + 4LL * H + 2LL * M + 3LL * F + Mo + 1; break;
     case 2: per_row = 2LL * H + 4LL * H + 2LL * M + F; break;
     case 3: per_row = 2LL * H + 3LL * H + 2LL * M + F + Mo; break;
-    default: per_row = 4LL * H + 3LL * H + 2LL * M + 3LL * F + Mo + 1;
+    case 4: per_row = 4LL * H + 3LL * H + 2LL * M + 3LL * F + Mo + 1; break;
+    case 5: per_row = 2LL * H + 1LL * H + 2LL * M + F + Mo; break;
+    default: per_row = 3LL * H + 1LL * H + 2LL * M + 3LL * F + Mo + 1;
   }
   return (long long)rows * per_row * (long long)sizeof(float);
 }
@@ -785,11 +836,13 @@ long long smem_bytes(int kind, int rows, int F, int H, int M, int Mo) {
 template <int R>
 const void* kernel_of(int kind) {
   switch (kind) {
-    case 0: return (const void*)decoder_fwd_kernel<R, true, false>;
-    case 1: return (const void*)decoder_bwd_kernel<R, false>;
-    case 2: return (const void*)decoder_fwd_kernel<R, false, false>;
-    case 3: return (const void*)decoder_fwd_kernel<R, true, true>;
-    case 4: return (const void*)decoder_bwd_kernel<R, true>;
+    case 0: return (const void*)decoder_fwd_kernel<R, true, kLSTM>;
+    case 1: return (const void*)decoder_bwd_kernel<R, kLSTM>;
+    case 2: return (const void*)decoder_fwd_kernel<R, false, kLSTM>;
+    case 3: return (const void*)decoder_fwd_kernel<R, true, kGRU>;
+    case 4: return (const void*)decoder_bwd_kernel<R, kGRU>;
+    case 5: return (const void*)decoder_fwd_kernel<R, true, kRNN>;
+    case 6: return (const void*)decoder_bwd_kernel<R, kRNN>;
     default: return nullptr;
   }
 }
@@ -838,23 +891,24 @@ struct FwdArgs {
   double* partial;
   float *outs, *mean_s, *logvar_s;
   int T, B, F, H, M, Mo;
+  float leak = 1.f;
 };
 
-template <int R, bool kLosses, bool kGRU>
+template <int R, bool kLosses, int kCell>
 void launch_fwd(int blocks, int smem, cudaStream_t s, const FwdArgs& a) {
-  decoder_fwd_kernel<R, kLosses, kGRU><<<blocks, kThreads, smem, s>>>(
+  decoder_fwd_kernel<R, kLosses, kCell><<<blocks, kThreads, smem, s>>>(
       a.noise, a.lengths, a.w_cat, a.bias, a.bias_hh, a.b1, a.w2m, a.w2v,
       a.b2, a.w_ih, a.targets, a.wo1, a.bo1, a.wo2, a.bo2, a.h0, a.c0,
       a.out_last, a.hs, a.cs, a.partial, a.outs, a.mean_s, a.logvar_s, a.T,
-      a.B, a.F, a.H, a.M, a.Mo);
+      a.B, a.F, a.H, a.M, a.Mo, a.leak);
 }
 
-template <bool kLosses, bool kGRU>
+template <bool kLosses, int kCell>
 void dispatch_fwd(int rows, int blocks, int smem, cudaStream_t s,
                   const FwdArgs& a) {
-  auto go = rows == 8   ? &launch_fwd<8, kLosses, kGRU>
-            : rows == 4 ? &launch_fwd<4, kLosses, kGRU>
-                        : &launch_fwd<2, kLosses, kGRU>;
+  auto go = rows == 8   ? &launch_fwd<8, kLosses, kCell>
+            : rows == 4 ? &launch_fwd<4, kLosses, kCell>
+                        : &launch_fwd<2, kLosses, kCell>;
   go(blocks, smem, s, a);
 }
 
@@ -867,55 +921,66 @@ struct BwdArgs {
   float *dh0, *dc0, *hp_s, *dbig_s, *x_s, *emh_s, *dem_s, *h2_s, *doh_s,
       *oh_s, *dzo_s, *dnp_s;
   int T, B, F, H, M, Mo;
+  float leak = 1.f;
 };
 
-template <int R, bool kGRU>
+template <int R, int kCell>
 void launch_bwd(int blocks, int smem, cudaStream_t s, const BwdArgs& a) {
-  decoder_bwd_kernel<R, kGRU><<<blocks, kThreads, smem, s>>>(
+  decoder_bwd_kernel<R, kCell><<<blocks, kThreads, smem, s>>>(
       a.noise, a.lengths, a.w_cat, a.bias, a.bias_hh, a.b1, a.w2m, a.w2v,
       a.b2, a.w_ih, a.targets, a.wo1, a.bo1, a.wo2, a.bo2, a.h0, a.c0,
       a.w_catT, a.w_ihT, a.w2mT, a.w2vT, a.wo1T, a.hs, a.cs, a.dlast,
       a.gscale, a.dh0, a.dc0, a.hp_s, a.dbig_s, a.x_s, a.emh_s, a.dem_s,
       a.h2_s, a.doh_s, a.oh_s, a.dzo_s, a.dnp_s, a.T, a.B, a.F, a.H, a.M,
-      a.Mo);
+      a.Mo, a.leak);
 }
 
-template <bool kGRU>
+template <int kCell>
 void dispatch_bwd(int rows, int blocks, int smem, cudaStream_t s,
                   const BwdArgs& a) {
-  auto go = rows == 8   ? &launch_bwd<8, kGRU>
-            : rows == 4 ? &launch_bwd<4, kGRU>
-                        : &launch_bwd<2, kGRU>;
+  auto go = rows == 8   ? &launch_bwd<8, kCell>
+            : rows == 4 ? &launch_bwd<4, kCell>
+                        : &launch_bwd<2, kCell>;
   go(blocks, smem, s, a);
 }
 
-// A fused-loss forward of either cell, then the block-order sum of the
+// The kernel kinds (see smem_bytes) of a cell's fused-loss pair.
+constexpr int fused_fwd_kind(int cell) {
+  return cell == kLSTM ? 0 : cell == kGRU ? 3 : 5;
+}
+constexpr int fused_bwd_kind(int cell) {
+  return cell == kLSTM ? 1 : cell == kGRU ? 4 : 6;
+}
+
+// A fused-loss forward of any cell, then the block-order sum of the
 // per-block loss partials into `losses`.
-template <bool kGRU>
+template <int kCell>
 int fused_fwd(const FwdArgs& a, float* losses, int rows, void* stream) {
   if (a.T < 1 || a.B < 1 || a.F < 1 || a.H < 1 || a.M < 1 || a.Mo < 1)
     return (int)cudaErrorInvalidValue;
   int smem = 0;
-  cudaError_t err = prepare(kGRU ? 3 : 0, rows, a.F, a.H, a.M, a.Mo, &smem);
+  cudaError_t err = prepare(fused_fwd_kind(kCell), rows, a.F, a.H, a.M, a.Mo,
+                            &smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (a.B + rows - 1) / rows;
   cudaStream_t s = (cudaStream_t)stream;
-  dispatch_fwd<true, kGRU>(rows, blocks, smem, s, a);
+  dispatch_fwd<true, kCell>(rows, blocks, smem, s, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   loss_sum_kernel<<<1, 32, 0, s>>>(a.partial, blocks, losses);
   return (int)cudaGetLastError();
 }
 
-template <bool kGRU>
+template <int kCell>
 int fused_bwd(const BwdArgs& a, int rows, void* stream) {
   if (a.T < 1 || a.B < 1 || a.F < 1 || a.H < 1 || a.M < 1 || a.Mo < 1)
     return (int)cudaErrorInvalidValue;
   int smem = 0;
-  cudaError_t err = prepare(kGRU ? 4 : 1, rows, a.F, a.H, a.M, a.Mo, &smem);
+  cudaError_t err = prepare(fused_bwd_kind(kCell), rows, a.F, a.H, a.M, a.Mo,
+                            &smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (a.B + rows - 1) / rows;
-  dispatch_bwd<kGRU>(rows, blocks, smem, (cudaStream_t)stream, a);
+  dispatch_bwd<kCell>(rows, blocks, smem, (cudaStream_t)stream, a);
   return (int)cudaGetLastError();
 }
 
@@ -960,7 +1025,7 @@ int abcd_decoder_fwd(const float* noise, const int* lengths,
   const FwdArgs a{noise, lengths, w_cat, bias, nullptr, b1, w2m, w2v, b2,
                   w_ih, targets, wo1, bo1, wo2, bo2, h0, c0, out_last, hs,
                   cs, partial, nullptr, nullptr, nullptr, T, B, F, H, M, Mo};
-  return fused_fwd<false>(a, losses, rows, stream);
+  return fused_fwd<kLSTM>(a, losses, rows, stream);
 }
 
 // GRU fused-loss forward (kind 3): b_ih and b_hh apart, no c0 / cs; hs may
@@ -979,7 +1044,26 @@ int abcd_gru_decoder_fwd(const float* noise, const int* lengths,
                   targets, wo1, bo1, wo2, bo2, h0, nullptr, out_last, hs,
                   nullptr, partial, nullptr, nullptr, nullptr, T, B, F, H, M,
                   Mo};
-  return fused_fwd<true>(a, losses, rows, stream);
+  return fused_fwd<kGRU>(a, losses, rows, stream);
+}
+
+// Elman / ESN fused-loss forward (kind 5): `bias` = b_ih + b_hh (zeros for
+// the ESN), no c0 / cs, `leak` in (0, 1]; hs may be nullptr.
+int abcd_rnn_decoder_fwd(const float* noise, const int* lengths,
+                         const float* w_cat, const float* bias,
+                         const float* b1, const float* w2m, const float* w2v,
+                         const float* b2, const float* w_ih,
+                         const float* targets, const float* wo1,
+                         const float* bo1, const float* wo2,
+                         const float* bo2, const float* h0, float* out_last,
+                         float* hs, double* partial, float* losses, int T,
+                         int B, int F, int H, int M, int Mo, float leak,
+                         int rows, void* stream) {
+  const FwdArgs a{noise, lengths, w_cat, bias, nullptr, b1, w2m, w2v, b2,
+                  w_ih, targets, wo1, bo1, wo2, bo2, h0, nullptr, out_last,
+                  hs, nullptr, partial, nullptr, nullptr, nullptr, T, B, F,
+                  H, M, Mo, leak};
+  return fused_fwd<kRNN>(a, losses, rows, stream);
 }
 
 // The plain sampled loop's forward (kind 2): outs (T, B, H) = the pre-mask
@@ -1004,7 +1088,7 @@ int abcd_decoder_loop_fwd(const float* noise, const int* lengths,
                   w_ih, nullptr, nullptr, nullptr, nullptr, nullptr, h0, c0,
                   nullptr, hs, cs, nullptr, outs, mean_s, logvar_s, T, B, F,
                   H, M, 0};
-  dispatch_fwd<false, false>(rows, blocks, smem, (cudaStream_t)stream, a);
+  dispatch_fwd<false, kLSTM>(rows, blocks, smem, (cudaStream_t)stream, a);
   return (int)cudaGetLastError();
 }
 
@@ -1029,7 +1113,7 @@ int abcd_decoder_bwd(const float* noise, const int* lengths,
                   w2mT, w2vT, wo1T, hs, cs, dlast, gscale, dh0, dc0, hp_s,
                   dbig_s, x_s, emh_s, dem_s, h2_s, doh_s, oh_s, dzo_s,
                   nullptr, T, B, F, H, M, Mo};
-  return fused_bwd<false>(a, rows, stream);
+  return fused_bwd<kLSTM>(a, rows, stream);
 }
 
 // GRU backward (kind 4): writes dh0 and the LSTM's streams (dbig's gate
@@ -1055,7 +1139,33 @@ int abcd_gru_decoder_bwd(const float* noise, const int* lengths,
                   w2mT, w2vT, wo1T, hs, nullptr, dlast, gscale, dh0, nullptr,
                   hp_s, dbig_s, x_s, emh_s, dem_s, h2_s, doh_s, oh_s, dzo_s,
                   dnp_s, T, B, F, H, M, Mo};
-  return fused_bwd<true>(a, rows, stream);
+  return fused_bwd<kGRU>(a, rows, stream);
+}
+
+// Elman / ESN backward (kind 6): writes dh0 and the LSTM's streams, the
+// gate part of dbig being dpre (H wide).
+int abcd_rnn_decoder_bwd(const float* noise, const int* lengths,
+                         const float* w_cat, const float* bias,
+                         const float* b1, const float* w2m, const float* w2v,
+                         const float* b2, const float* w_ih,
+                         const float* targets, const float* wo1,
+                         const float* bo1, const float* wo2,
+                         const float* bo2, const float* h0,
+                         const float* w_catT, const float* w_ihT,
+                         const float* w2mT, const float* w2vT,
+                         const float* wo1T, const float* hs,
+                         const float* dlast, const float* gscale, float* dh0,
+                         float* hp_s, float* dbig_s, float* x_s,
+                         float* emh_s, float* dem_s, float* h2_s,
+                         float* doh_s, float* oh_s, float* dzo_s, int T,
+                         int B, int F, int H, int M, int Mo, float leak,
+                         int rows, void* stream) {
+  const BwdArgs a{noise, lengths, w_cat, bias, nullptr, b1, w2m, w2v, b2,
+                  w_ih, targets, wo1, bo1, wo2, bo2, h0, nullptr, w_catT,
+                  w_ihT, w2mT, w2vT, wo1T, hs, nullptr, dlast, gscale, dh0,
+                  nullptr, hp_s, dbig_s, x_s, emh_s, dem_s, h2_s, doh_s, oh_s,
+                  dzo_s, nullptr, T, B, F, H, M, Mo, leak};
+  return fused_bwd<kRNN>(a, rows, stream);
 }
 
 const char* abcd_cuda_error_string(int err) {

@@ -1,9 +1,10 @@
 """Autoregressive variational decoder (PyTorch port of
-seq2seq_abcd_vae_tpu/models/decoder.py, the unidirectional LSTM and GRU).
+seq2seq_abcd_vae_tpu/models/decoder.py, the unidirectional LSTM, GRU,
+Elman RNN and echo-state (ESN) cells).
 
 - latent (+ the speaker embedding, a concatenation) -> initial state via a
   Linear; the LSTM state is the torch interleave hidden.view(B, H, 2):
-  h = [..., 0], c = [..., 1]; the GRU's is h = hidden.view(B, H);
+  h = [..., 0], c = [..., 1]; the other cells' is h = hidden.view(B, H);
 - the first input is zero, then the *sampled* emission is fed back: step
   s uses the noise that sampled position s-1;
 - losses are unnormalised sums over valid steps: the Gaussian emission
@@ -12,9 +13,13 @@ seq2seq_abcd_vae_tpu/models/decoder.py, the unidirectional LSTM and GRU).
 Training (``decoder_losses``) runs the JAX package's ``loss_only`` fast
 path: the whole loop with both losses in one hand-written kernel
 (``ops/decoder_kernel.decoder_loop_fused_losses`` for the LSTM,
-``gru_decoder_loop_fused_losses`` for the GRU, their plain twins on the
-CPU), and position T-1's emission term recomputed here from the last
-step's hidden state.
+``gru_decoder_loop_fused_losses`` for the GRU,
+``rnn_decoder_loop_fused_losses`` for the Elman cell and, with its leak
+and no biases, the ESN; their plain twins on the CPU), and position T-1's
+emission term recomputed here from the last step's hidden state.  The
+ESN's reservoir (the cell's ``w_ih`` and ``w_hh``) is frozen: it enters
+the loop detached, so gradients reach only the initial state (the latent)
+and the emission and offset MLPs, as in the JAX package.
 
 Decoding (``decoder_apply``, the LSTM so far) returns the streams, as the
 JAX function's non-``loss_only`` path does: ``sample`` mode runs the
@@ -35,6 +40,7 @@ import torch
 from .. import distributions as dist
 from ..configs import DecoderConfig, check_decoder
 from ..ops import decoder_kernel
+from . import esn as esn_mod
 from . import initializers as init
 from . import mlp as mlp_mod
 from . import sampler as sampler_mod
@@ -56,9 +62,7 @@ def decoder_init(gen: torch.Generator, cfg: DecoderConfig) -> dict:
     params = {
         "feature2hidden": init.linear_params(gen, feat,
                                              cfg.hidden_size_total),
-        "rnn_cell": init.rnn_gate_params(gen, cfg.output_size,
-                                         cfg.rnn_hidden_size,
-                                         NUM_GATES[cfg.rnn_type]),
+        "rnn_cell": _cell_init(gen, cfg),
         "emission_sampler": sampler_mod.sampler_init(
             gen, cfg.rnn_hidden_size, cfg.mlp_hidden_size, cfg.output_size,
             cfg.emission_distr_name),
@@ -71,9 +75,17 @@ def decoder_init(gen: torch.Generator, cfg: DecoderConfig) -> dict:
     return params
 
 
+def _cell_init(gen: torch.Generator, cfg: DecoderConfig) -> dict:
+    if cfg.rnn_type == "ESN":
+        return esn_mod.esn_layer_init(gen, cfg.output_size,
+                                      cfg.rnn_hidden_size)
+    return init.rnn_gate_params(gen, cfg.output_size, cfg.rnn_hidden_size,
+                                NUM_GATES[cfg.rnn_type])
+
+
 def split_hidden(cfg: DecoderConfig, hidden: torch.Tensor):
     """(h0, c0) of the initial state: the torch-interleave split of the
-    LSTM's; the GRU's h alone, with a zero c."""
+    LSTM's; the other cells' h alone, with a zero c."""
     if cfg.rnn_type != "LSTM":
         h = hidden.reshape(hidden.shape[0], cfg.rnn_hidden_size)
         return h.contiguous(), torch.zeros_like(h)
@@ -95,8 +107,13 @@ def _initial_state(params: dict, cfg: DecoderConfig, features, speaker):
 def _loop_weights(params: dict, rnn_type: str = "LSTM") -> dict:
     """The loop's fused operands in decoder_pallas.decoder_loop's layout
     (the GRU's in gru_decoder_loop's: b_ih and b_hh apart, since b_hh sits
-    inside the reset product)."""
+    inside the reset product; the ESN's reservoir detached, with a zero
+    bias)."""
     cell = params["rnn_cell"]
+    if rnn_type == "ESN":
+        # frozen before it joins w_cat: the concatenation's gradient then
+        # reaches the emission MLP's columns only
+        cell = {k: v.detach() for k, v in cell.items()}
     em = params["emission_sampler"]["to_parameters"]
     w1 = em["lin1"]["w"]                                   # (2, H, m)
     w = {"w_cat": torch.cat([cell["w_hh"], w1.permute(1, 0, 2).reshape(
@@ -106,6 +123,8 @@ def _loop_weights(params: dict, rnn_type: str = "LSTM") -> dict:
          "w_ih": cell["w_ih"]}
     if rnn_type == "GRU":
         w.update(b_ih=cell["b_ih"], b_hh=cell["b_hh"])
+    elif rnn_type == "ESN":
+        w["bias"] = cell["w_hh"].new_zeros(cell["w_hh"].shape[0])
     else:
         w["bias"] = cell["b_ih"] + cell["b_hh"]
     return w
@@ -137,6 +156,10 @@ def decoder_losses(params: dict, cfg: DecoderConfig, features: torch.Tensor,
         out_last, nll, bce = decoder_kernel.gru_decoder_loop_fused_losses(
             noise.contiguous(), lengths, w["w_cat"], w["b_ih"], w["b_hh"],
             *emission, h0)
+    elif cfg.rnn_type in ("RNN", "ESN"):
+        out_last, nll, bce = decoder_kernel.rnn_decoder_loop_fused_losses(
+            noise.contiguous(), lengths, w["w_cat"], w["bias"], *emission,
+            h0, leak=cfg.esn_leak if cfg.rnn_type == "ESN" else 1.0)
     else:
         out_last, nll, bce = decoder_kernel.decoder_loop_fused_losses(
             noise.contiguous(), lengths, w["w_cat"], w["bias"], *emission,

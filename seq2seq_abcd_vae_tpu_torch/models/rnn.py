@@ -1,25 +1,27 @@
 """Masked recurrent layers over padded batches (PyTorch port of
 seq2seq_abcd_vae_tpu/models/rnn.py: the LSTM in one or both directions,
-the GRU in both).
+the GRU and the Elman RNN in both).
 
 Variable lengths are padded arrays plus row lengths: a row's carries are
 frozen once it ends, which reproduces the reference's packed-sequence
 "shrinking batch" exactly, and the reverse direction joins short rows
 late.  Both directions of a layer run in one call of
-``ops/lstm_kernel.lstm_layer_bidir_fused`` or
-``ops/gru_kernel.gru_layer_bidir_fused``; one LSTM direction runs in
+``ops/lstm_kernel.lstm_layer_bidir_fused``,
+``ops/gru_kernel.gru_layer_bidir_fused`` or
+``ops/elman_kernel.rnn_layer_bidir_fused``; one LSTM direction runs in
 ``ops/lstm_kernel.lstm_layer`` over the hoisted input projection.  Each is
 the CUDA kernel for tensors on the card, its plain twin for tensors on the
 CPU.  When autograd needs a gradient the call goes through the ``_train``
 variant, whose backward is the hand-written reverse-time kernel.  Gates
-are in torch order: LSTM (i, f, g, o), GRU (r, z, n).
+are in torch order: LSTM (i, f, g, o), GRU (r, z, n); the Elman cell has
+one, tanh.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops import gru_kernel, lstm_kernel
+from ..ops import elman_kernel, gru_kernel, lstm_kernel
 from ..ops.lstm_kernel import lstm_step  # noqa: F401  (the cell, re-exported)
 
 
@@ -31,34 +33,37 @@ def lengths_to_mask(lengths: torch.Tensor, t: int) -> torch.Tensor:
 
 def run_rnn_layer_bidir(layer: dict, x: torch.Tensor,
                         lengths: torch.Tensor, rnn_type: str = "LSTM"):
-    """Both directions of one LSTM or GRU layer.
+    """Both directions of one LSTM, GRU or Elman layer.
 
     Args:
       layer: ``{"w_ih" (2, F, gH), "b_ih" (2, gH), "w_hh" (2, H, gH),
-        "b_hh" (2, gH)}``, directions stacked, g = 4 (LSTM) or 3 (GRU).
+        "b_hh" (2, gH)}``, directions stacked, g = 4 (LSTM), 3 (GRU) or 1
+        (RNN).
       x: (B, T, F) inputs; lengths: (B,) int32 valid steps per row (the
         JAX function takes the equivalent prefix mask).
-      rnn_type: ``LSTM`` or ``GRU``.
+      rnn_type: ``LSTM``, ``GRU`` or ``RNN``.
 
     Returns (outs_fwd (B, T, H), outs_bwd (B, T, H),
-    [(h, c)_fwd, (h, c)_bwd]) as the JAX function does; the GRU's c is
-    zeros.
+    [(h, c)_fwd, (h, c)_bwd]) as the JAX function does; the c of the GRU
+    and the Elman cell is zeros.
     """
     args = (x.transpose(0, 1).contiguous(), lengths, layer["w_ih"],
             layer["b_ih"], layer["w_hh"], layer["b_hh"])
-    if rnn_type == "GRU":
-        if _needs_grad(args):
-            outs, h_n = gru_kernel.gru_layer_bidir_fused_train(*args)
-        else:
-            outs, h_n = gru_kernel.gru_layer_bidir_fused(*args)
-        c_n = torch.zeros_like(h_n)
-    elif rnn_type == "LSTM":
-        if _needs_grad(args):
-            outs, h_n, c_n = lstm_kernel.lstm_layer_bidir_fused_train(*args)
-        else:
-            outs, h_n, c_n = lstm_kernel.lstm_layer_bidir_fused(*args)
+    grad = _needs_grad(args)
+    if rnn_type == "LSTM":
+        outs, h_n, c_n = (lstm_kernel.lstm_layer_bidir_fused_train if grad
+                          else lstm_kernel.lstm_layer_bidir_fused)(*args)
     else:
-        raise ValueError(f"no bidirectional layer for {rnn_type!r}")
+        if rnn_type == "GRU":
+            layer_fn = (gru_kernel.gru_layer_bidir_fused_train if grad
+                        else gru_kernel.gru_layer_bidir_fused)
+        elif rnn_type == "RNN":
+            layer_fn = (elman_kernel.rnn_layer_bidir_fused_train if grad
+                        else elman_kernel.rnn_layer_bidir_fused)
+        else:
+            raise ValueError(f"no bidirectional layer for {rnn_type!r}")
+        outs, h_n = layer_fn(*args)
+        c_n = torch.zeros_like(h_n)
     outs_f = outs[:, 0].transpose(0, 1)
     outs_b = outs[:, 1].flip(0).transpose(0, 1)
     return outs_f, outs_b, [(h_n[0], c_n[0]), (h_n[1], c_n[1])]

@@ -5,7 +5,8 @@ The losses are unnormalised sums; ``training_loss`` divides them by the
 number of real rows.  The randomness is an input: the Gumbel noise (B, K)
 of the head and the decoder's noise (T, B, F), so that the parity tests
 can hand both packages the same draws.  Pretraining (``no_sample``)
-bypasses the Gumbel sample.
+bypasses the Gumbel sample.  ``set_trainable`` marks the leaves that take
+gradients: all but the echo-state (ESN) reservoirs, which stay frozen.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from ..configs import (ABCDSamplerConfig, DecoderConfig, EncoderConfig,
                        check_served)
+from ..tree import tree_map
 from . import abcd as abcd_mod
 from . import decoder as dec_mod
 from . import encoder as enc_mod
@@ -45,6 +47,22 @@ def model_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
         "feature_sampler": abcd_mod.abcd_init(gen, cfg.latent),
         "decoder": dec_mod.decoder_init(gen, cfg.decoder),
     }
+
+
+def set_trainable(params: dict, cfg: ModelConfig) -> dict:
+    """Let every leaf of ``params`` require a gradient but the ESN
+    reservoirs (the encoder's layers of an ESN encoder, the ESN decoder's
+    cell): frozen, as the reference's ``requires_grad=False``, so the
+    optimiser neither steps them nor counts them in the clip (the JAX
+    package's zero gradient does the same).  Returns ``params``."""
+    tree_map(lambda p: p.requires_grad_(True), params)
+    frozen = []
+    if cfg.encoder.rnn_type == "ESN":
+        frozen += params["encoder"]
+    if cfg.decoder.rnn_type == "ESN":
+        frozen.append(params["decoder"]["rnn_cell"])
+    tree_map(lambda p: p.requires_grad_(False), frozen)
+    return params
 
 
 def forward_losses(params: dict, cfg: ModelConfig, *, inputs, lengths,

@@ -23,6 +23,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"stft": _PKG / "csrc" / "stft.cu",
            "lstm": _PKG / "csrc" / "lstm.cu",
            "gru": _PKG / "csrc" / "gru.cu",
+           "elman": _PKG / "csrc" / "elman.cu",
            "decoder": _PKG / "csrc" / "decoder.cu",
            "wgrad": _PKG / "csrc" / "wgrad.cu"}
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -45,11 +46,18 @@ SIGNATURES = {
             "abcd_gru_rows": [_I] * 3,
             "abcd_gru_smem_bytes": [_I] * 4,
             "abcd_gru_smem_limit": [_I] * 2},
+    "elman": {"abcd_elman_bidir_fwd": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+              "abcd_elman_bidir_bwd": [_P] * 14 + [_I] * 4 + [_F, _I, _P],
+              "abcd_elman_rows": [_I] * 3,
+              "abcd_elman_smem_bytes": [_I] * 4,
+              "abcd_elman_smem_limit": [_I] * 2},
     "decoder": {"abcd_decoder_fwd": [_P] * 21 + [_I] * 7 + [_P],
                 "abcd_decoder_loop_fwd": [_P] * 16 + [_I] * 6 + [_P],
                 "abcd_decoder_bwd": [_P] * 36 + [_I] * 7 + [_P],
                 "abcd_gru_decoder_fwd": [_P] * 20 + [_I] * 7 + [_P],
                 "abcd_gru_decoder_bwd": [_P] * 35 + [_I] * 7 + [_P],
+                "abcd_rnn_decoder_fwd": [_P] * 19 + [_I] * 6 + [_F, _I, _P],
+                "abcd_rnn_decoder_bwd": [_P] * 33 + [_I] * 6 + [_F, _I, _P],
                 "abcd_decoder_rows": [_I] * 5,
                 "abcd_decoder_smem_bytes": [_I] * 6,
                 "abcd_decoder_smem_limit": [_I] * 2},
@@ -60,6 +68,7 @@ SIGNATURES = {
 # entry points that return a byte count; every other one returns an int
 _LONG_RESULTS = {"abcd_lstm_smem_bytes", "abcd_lstm_smem_limit",
                  "abcd_gru_smem_bytes", "abcd_gru_smem_limit",
+                 "abcd_elman_smem_bytes", "abcd_elman_smem_limit",
                  "abcd_decoder_smem_bytes", "abcd_decoder_smem_limit"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -134,7 +143,8 @@ def load(name: str) -> ctypes.CDLL:
 
 def row_tile(lib: ctypes.CDLL, family: str, kind: int, dims, what: str) -> int:
     """The row tile (8, 4 or 2 batch rows per block) that the library picks
-    for kernel ``kind`` of ``family`` (``lstm``, ``gru`` or ``decoder``) at
+    for kernel ``kind`` of ``family`` (``lstm``, ``gru``, ``elman`` or
+    ``decoder``) at
     the widths ``dims``: the largest whose shared memory fits the card.
     Raises ValueError when even 2 rows need more shared memory than a
     block may have."""

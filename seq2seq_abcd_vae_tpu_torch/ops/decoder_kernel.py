@@ -5,9 +5,11 @@ Replaces seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:
 decoder_loop_fused_losses (``_fused_fwd_call`` / ``_fused_fwd_kernel``,
 ``_fused_bwd_call`` / ``_fused_bwd_kernel``, with_offset=True), the
 forward of decoder_loop (``_fwd_call`` / ``_fwd_kernel``), for which see
-:func:`decoder_loop`, and gru_decoder_loop_fused_losses
+:func:`decoder_loop`, gru_decoder_loop_fused_losses
 (``_gru_floss_fwd_call`` / ``_gru_floss_bwd_call``), for which see
-:func:`gru_decoder_loop_fused_losses`.  The fused loop
+:func:`gru_decoder_loop_fused_losses`, and rnn_decoder_loop_fused_losses
+(``_rnn_floss_fwd_call`` / ``_rnn_floss_bwd_call``), for which see
+:func:`rnn_decoder_loop_fused_losses`.  The fused loop
 samples its own feedback (zero first input, then the sampled emission of
 the previous position with the presampled ``noise``), accumulates the
 Gaussian emission NLL of positions 0..T-2 against ``targets`` and the
@@ -23,7 +25,9 @@ noise and targets (T, B, F) position-major; lengths (B,) int32; w_cat
 w2m, w2v (m, F); b2 (2F,); w_ih (F, 4H); the offset MLP's wo1 (H, Mo),
 bo1 (Mo,), wo2 (Mo,) and bo2 (1,); h0, c0 (B, H).  The GRU loop takes
 w_cat (H, 3H + 2m), b_ih and b_hh (3H,) apart (b_hh sits inside the reset
-product), w_ih (F, 3H) and h0 alone.
+product), w_ih (F, 3H) and h0 alone.  The Elman / ESN loop takes w_cat
+(H, H + 2m), bias (H,) = b_ih + b_hh (zeros for the ESN), w_ih (F, H), h0
+alone and the leak.
 """
 
 from __future__ import annotations
@@ -33,21 +37,26 @@ import math
 import torch
 
 from . import _build, wgrad
+from .elman_kernel import _check_leak
 
 _LOG_2PI = math.log(2.0 * math.pi)
 # kernel kinds of csrc/decoder.cu (abcd_decoder_rows)
-_FUSED_FWD, _FUSED_BWD, _LOOP_FWD, _GRU_FUSED_FWD, _GRU_FUSED_BWD = range(5)
+(_FUSED_FWD, _FUSED_BWD, _LOOP_FWD, _GRU_FUSED_FWD, _GRU_FUSED_BWD,
+ _RNN_FUSED_FWD, _RNN_FUSED_BWD) = range(7)
 
 _NAMES = ("noise", "lengths", "w_cat", "bias", "b1", "w2m", "w2v", "b2",
           "w_ih", "targets", "wo1", "bo1", "wo2", "bo2", "h0", "c0")
 _GRU_NAMES = ("noise", "lengths", "w_cat", "b_ih", "b_hh", "b1", "w2m",
               "w2v", "b2", "w_ih", "targets", "wo1", "bo1", "wo2", "bo2",
               "h0")
+_RNN_NAMES = _NAMES[:-1]
+# argument names and gate blocks of each cell's loop
+_CELLS = {"LSTM": (_NAMES, 4), "GRU": (_GRU_NAMES, 3), "RNN": (_RNN_NAMES, 1)}
 
 
-def _shapes(args, gru: bool = False):
-    """(T, B, F, H, m, Mo) of an LSTM or GRU argument list."""
-    by_name = dict(zip(_GRU_NAMES if gru else _NAMES, args))
+def _shapes(args, cell: str = "LSTM"):
+    """(T, B, F, H, m, Mo) of an LSTM, GRU or Elman argument list."""
+    by_name = dict(zip(_CELLS[cell][0], args))
     t, b, f = by_name["noise"].shape
     hidden = by_name["w_cat"].shape[0]
     m = by_name["w2m"].shape[0]
@@ -55,14 +64,14 @@ def _shapes(args, gru: bool = False):
     return t, b, f, hidden, m, mo
 
 
-def _check(args, gru: bool = False):
-    names = _GRU_NAMES if gru else _NAMES
+def _check(args, cell: str = "LSTM"):
+    names, gates = _CELLS[cell]
     if len(args) != len(names):
         raise TypeError(f"expected {len(names)} arguments")
     if args[0].dim() != 3:
         raise ValueError("noise must be (T, B, F)")
-    t, b, f, hidden, m, mo = _shapes(args, gru)
-    gh = (3 if gru else 4) * hidden
+    t, b, f, hidden, m, mo = _shapes(args, cell)
+    gh = gates * hidden
     want = {"noise": (t, b, f), "lengths": (b,),
             "w_cat": (hidden, gh + 2 * m), "bias": (gh,), "b_ih": (gh,),
             "b_hh": (gh,), "b1": (2 * m,), "w2m": (m, f), "w2v": (m, f),
@@ -260,12 +269,14 @@ def decoder_fused_losses_bwd_plain(noise, lengths, w_cat, bias, b1, w2m,
     return _weight_grads(st, hidden, m, f, wgrad.at_b_plain) + (dh, dc)
 
 
-def _weight_grads(st, hidden, m, f, at_b, gru: bool = False):
-    """Every weight gradient from the (T * B, .) streams: for the LSTM
-    (dw_cat, dbias, db1, ...), for the GRU (dw_cat, db_ih, db_hh, db1, ...),
-    whose dbig stream holds dhp, the cotangent of h @ W_hh + b_hh, and whose
-    ``dnp`` stream the candidate third of dxp, that of x @ W_ih + b_ih."""
-    gh = (3 if gru else 4) * hidden
+def _weight_grads(st, hidden, m, f, at_b, cell: str = "LSTM"):
+    """Every weight gradient from the (T * B, .) streams: for the LSTM and
+    the Elman cell (dw_cat, dbias, db1, ...), for the GRU (dw_cat, db_ih,
+    db_hh, db1, ...), whose dbig stream holds dhp, the cotangent of
+    h @ W_hh + b_hh, and whose ``dnp`` stream the candidate third of dxp,
+    that of x @ W_ih + b_ih."""
+    gru = cell == "GRU"
+    gh = _CELLS[cell][1] * hidden
     dbig = st["dbig"]
     dw_cat = at_b(st["hp"], dbig)
     dbig_sum = at_b(None, dbig).reshape(-1)
@@ -405,7 +416,7 @@ def gru_decoder_fused_losses_fwd_plain(noise, lengths, w_cat, b_ih, b_hh, b1,
     """
     args = (noise, lengths, w_cat, b_ih, b_hh, b1, w2m, w2v, b2, w_ih,
             targets, wo1, bo1, wo2, bo2, h0)
-    t, b, f, hidden, m, _ = _shapes(args, gru=True)
+    t, b, f, hidden, m, _ = _shapes(args, "GRU")
     mt, pmt, y = _masks(t, lengths, noise.device)
     h = h0
     nll = noise.new_zeros(())
@@ -435,12 +446,12 @@ def gru_decoder_fused_losses_fwd(*args, save: bool = True):
     is False (no backward follows, so the kernel writes none).  CUDA
     tensors launch the kernel (one count); CPU tensors take
     ``gru_decoder_fused_losses_fwd_plain``."""
-    _check(args, gru=True)
+    _check(args, "GRU")
     noise = args[0]
     if noise.device.type == "cpu":
         out = gru_decoder_fused_losses_fwd_plain(*args)
         return out if save else out[:3] + (None,)
-    t, b, f, hidden, m, mo = _shapes(args, gru=True)
+    t, b, f, hidden, m, mo = _shapes(args, "GRU")
     lib = _build.load("decoder")
     rows = _build.row_tile(lib, "decoder", _GRU_FUSED_FWD,
                            (f, hidden, m, mo),
@@ -479,7 +490,7 @@ def gru_decoder_fused_losses_bwd_plain(noise, lengths, w_cat, b_ih, b_hh, b1,
     """
     args = (noise, lengths, w_cat, b_ih, b_hh, b1, w2m, w2v, b2, w_ih,
             targets, wo1, bo1, wo2, bo2, h0)
-    t, b, f, hidden, m, _ = _shapes(args, gru=True)
+    t, b, f, hidden, m, _ = _shapes(args, "GRU")
     mt, pmt, y = _masks(t, lengths, noise.device)
     gnll, gbce = gscale[0], gscale[1]
     zero_f = noise.new_zeros((b, f))
@@ -527,7 +538,7 @@ def gru_decoder_fused_losses_bwd_plain(noise, lengths, w_cat, b_ih, b_hh, b1,
             streams[k][s] = v
     st = {k: torch.cat(v) for k, v in streams.items()}  # (T * B, .)
     return _weight_grads(st, hidden, m, f, wgrad.at_b_plain,
-                         gru=True) + (dh,)
+                         "GRU") + (dh,)
 
 
 def gru_decoder_fused_losses_bwd(*args):
@@ -537,8 +548,8 @@ def gru_decoder_fused_losses_bwd(*args):
     reverse-time kernel, then ``ops/wgrad.py``'s reductions of its streams
     (one count); CPU tensors take the twin."""
     fwd_args, (hs, dlast, gscale) = args[:16], args[16:]
-    _check(fwd_args, gru=True)
-    t, b, f, hidden, m, mo = _shapes(fwd_args, gru=True)
+    _check(fwd_args, "GRU")
+    t, b, f, hidden, m, mo = _shapes(fwd_args, "GRU")
     dev = fwd_args[0].device
     for name, tensor, shape in (("hs", hs, (t, b, hidden)),
                                 ("dlast", dlast, (b, hidden)),
@@ -575,7 +586,7 @@ def gru_decoder_fused_losses_bwd(*args):
             rows, stream)
         _build.check(lib, err, "gru_decoder_loop_fused_losses backward")
         rows = {k: v.view(t * b, v.shape[-1]) for k, v in st.items()}
-        grads = _weight_grads(rows, hidden, m, f, wgrad.at_b, gru=True)
+        grads = _weight_grads(rows, hidden, m, f, wgrad.at_b, "GRU")
     gru_decoder_fused_losses_bwd.launches += 1
     return grads + (dh0,)
 
@@ -614,6 +625,237 @@ def gru_decoder_loop_fused_losses(noise, lengths, w_cat, b_ih, b_hh, b1, w2m,
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         return _GRUDecoderFusedLosses.apply(*args)
     return gru_decoder_fused_losses_fwd(*args, save=False)[:3]
+
+
+# ---------------------------------------------------------------------------
+# the Elman / ESN loop with both losses fused
+# (decoder_pallas.rnn_decoder_loop_fused_losses)
+# ---------------------------------------------------------------------------
+
+def _rnn_cell(big, x, w_ih, bias, h, hidden, leak):
+    """u and h2 of one Elman / ESN step, in the order of
+    decoder_pallas._rnn_floss_fwd_kernel; at leak 1.0, h2 is exactly u."""
+    u = torch.tanh((big[:, :hidden] + x @ w_ih) + bias)
+    return u, (1.0 - leak) * h + leak * u
+
+
+def rnn_decoder_fused_losses_fwd_plain(noise, lengths, w_cat, bias, b1, w2m,
+                                       w2v, b2, w_ih, targets, wo1, bo1, wo2,
+                                       bo2, h0, leak=1.0):
+    """Plain PyTorch twin of the Elman / ESN forward kernel: the loop of
+    decoder_pallas._rnn_floss_fwd_kernel, step by step.
+
+    Returns (out_last (B, H), nll (), bce (), hs (T, B, H)); hs are the
+    masked carries after each step.
+    """
+    args = (noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, targets,
+            wo1, bo1, wo2, bo2, h0)
+    t, b, f, hidden, m, _ = _shapes(args, "RNN")
+    mt, pmt, y = _masks(t, lengths, noise.device)
+    h = h0
+    nll = noise.new_zeros(())
+    bce = noise.new_zeros(())
+    zero = noise.new_zeros((b, f))
+    hs = []
+    for s in range(t):
+        big = h @ w_cat
+        _, mean, logvar = _emission(big, hidden, m, b1, w2m, w2v, b2, f)
+        eps = noise[s - 1] if s > 0 else zero
+        tgt = targets[s - 1] if s > 0 else zero
+        x = torch.where(pmt[s], mean + torch.exp(0.5 * logvar) * eps, 0.0)
+        diff = tgt - mean
+        nll_s = 0.5 * (_LOG_2PI + logvar + diff * torch.exp(-logvar) * diff)
+        nll = nll + torch.where(pmt[s], nll_s, 0.0).sum()
+        h2 = _rnn_cell(big, x, w_ih, bias, h, hidden, leak)[1]
+        oh = torch.tanh(h2 @ wo1 + bo1)
+        z = (oh * wo2).sum(-1, keepdim=True) + bo2
+        bce = bce + torch.where(mt[s], _bce(z, y[s]), 0.0).sum()
+        h = torch.where(mt[s], h2, h)
+        hs.append(h)
+    return h2, nll, bce, torch.stack(hs)
+
+
+def rnn_decoder_fused_losses_fwd(*args, leak=1.0, save: bool = True):
+    """The Elman / ESN forward: (out_last, nll, bce, hs); hs is None when
+    ``save`` is False (no backward follows, so the kernel writes none).
+    CUDA tensors launch the kernel (one count); CPU tensors take
+    ``rnn_decoder_fused_losses_fwd_plain``."""
+    _check(args, "RNN")
+    leak = _check_leak(leak)
+    noise = args[0]
+    if noise.device.type == "cpu":
+        out = rnn_decoder_fused_losses_fwd_plain(*args, leak=leak)
+        return out if save else out[:3] + (None,)
+    t, b, f, hidden, m, mo = _shapes(args, "RNN")
+    lib = _build.load("decoder")
+    rows = _build.row_tile(lib, "decoder", _RNN_FUSED_FWD,
+                           (f, hidden, m, mo),
+                           "rnn_decoder_loop_fused_losses")
+    dev = noise.device
+    out_last = torch.empty((b, hidden), dtype=torch.float32, device=dev)
+    hs = (torch.empty((t, b, hidden), dtype=torch.float32, device=dev)
+          if save else None)
+    blocks = -(-b // rows)
+    partial = torch.empty((blocks, 2), dtype=torch.float64, device=dev)
+    losses = torch.empty((2,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.abcd_rnn_decoder_fwd(
+            *[a.data_ptr() for a in args], out_last.data_ptr(),
+            None if hs is None else hs.data_ptr(), partial.data_ptr(),
+            losses.data_ptr(), t, b, f, hidden, m, mo, leak, rows, stream)
+    _build.check(lib, err, "rnn_decoder_loop_fused_losses")
+    rnn_decoder_fused_losses_fwd.launches += 1
+    return out_last, losses[0].clone(), losses[1].clone(), hs
+
+
+rnn_decoder_fused_losses_fwd.launches = 0
+
+
+def rnn_decoder_fused_losses_bwd_plain(noise, lengths, w_cat, bias, b1, w2m,
+                                       w2v, b2, w_ih, targets, wo1, bo1, wo2,
+                                       bo2, h0, hs, dlast, gscale, leak=1.0):
+    """Plain PyTorch twin of the Elman / ESN backward kernel: the explicit
+    reverse-time adjoint of the forward (not autograd through it), in the
+    order of operations of decoder_pallas._rnn_floss_bwd_kernel.
+
+    ``gscale`` is (2,): the cotangents of (nll, bce); ``dlast`` (B, H) that
+    of out_last.  Returns (dw_cat, dbias, db1, dw2m, dw2v, db2, dw_ih, dwo1,
+    dbo1, dwo2, dbo2, dh0) in the arguments' layouts.
+    """
+    args = (noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, targets,
+            wo1, bo1, wo2, bo2, h0)
+    t, b, f, hidden, m, _ = _shapes(args, "RNN")
+    mt, pmt, y = _masks(t, lengths, noise.device)
+    gnll, gbce = gscale[0], gscale[1]
+    zero_f = noise.new_zeros((b, f))
+    dh = h0.new_zeros((b, hidden))
+    streams = {k: [None] * t for k in ("hp", "dbig", "x", "emh", "dem",
+                                       "h2", "doh", "oh", "dzo")}
+    for s in reversed(range(t)):
+        h_prev = hs[s - 1] if s > 0 else h0
+        eps = noise[s - 1] if s > 0 else zero_f
+        tgt = targets[s - 1] if s > 0 else zero_f
+        big = h_prev @ w_cat
+        emh, mean, logvar = _emission(big, hidden, m, b1, w2m, w2v, b2, f)
+        std = torch.exp(0.5 * logvar)
+        x = torch.where(pmt[s], mean + std * eps, 0.0)
+        u, h2 = _rnn_cell(big, x, w_ih, bias, h_prev, hidden, leak)
+        oh = torch.tanh(h2 @ wo1 + bo1)
+        zo = (oh * wo2).sum(-1, keepdim=True) + bo2
+        dzo = torch.where(mt[s], gbce * (torch.sigmoid(zo) - y[s]), 0.0)
+        doh = (dzo * wo2) * (1.0 - oh * oh)
+        dl = dlast if s == t - 1 else 0.0
+        dh2 = (doh @ wo1.T + dl) + torch.where(mt[s], dh, 0.0)
+        dpre = (leak * dh2) * (1.0 - u * u)
+        dh_prev = torch.where(mt[s], 0.0, dh) + (1.0 - leak) * dh2
+        dx = torch.where(pmt[s], dpre @ w_ih.T, 0.0)
+        inv_var = torch.exp(-logvar)
+        diff = tgt - mean
+        gm = torch.where(pmt[s], gnll, 0.0)
+        dmean = dx - gm * diff * inv_var
+        dlogvar = dx * 0.5 * std * eps + gm * 0.5 * (1.0 - diff * inv_var
+                                                     * diff)
+        demh = torch.cat([dmean @ w2m.T, dlogvar @ w2v.T], dim=-1)
+        dbig = torch.cat([dpre, demh * (1.0 - emh * emh)], dim=-1)
+        dh = dh_prev + dbig @ w_cat.T
+        for k, v in (("hp", h_prev), ("dbig", dbig), ("x", x), ("emh", emh),
+                     ("dem", torch.cat([dmean, dlogvar], -1)), ("h2", h2),
+                     ("doh", doh), ("oh", oh), ("dzo", dzo)):
+            streams[k][s] = v
+    st = {k: torch.cat(v) for k, v in streams.items()}  # (T * B, .)
+    return _weight_grads(st, hidden, m, f, wgrad.at_b_plain, "RNN") + (dh,)
+
+
+def rnn_decoder_fused_losses_bwd(*args, leak=1.0):
+    """The Elman / ESN backward: args as the forward's, then hs, dlast
+    (B, H) and gscale (2,) = the cotangents of (nll, bce).  Returns the 12
+    gradients of ``rnn_decoder_fused_losses_bwd_plain``.  CUDA tensors
+    launch the reverse-time kernel, then ``ops/wgrad.py``'s reductions of
+    its streams (one count); CPU tensors take the twin."""
+    fwd_args, (hs, dlast, gscale) = args[:15], args[15:]
+    _check(fwd_args, "RNN")
+    leak = _check_leak(leak)
+    t, b, f, hidden, m, mo = _shapes(fwd_args, "RNN")
+    dev = fwd_args[0].device
+    for name, tensor, shape in (("hs", hs, (t, b, hidden)),
+                                ("dlast", dlast, (b, hidden)),
+                                ("gscale", gscale, (2,))):
+        if (tuple(tensor.shape) != shape or tensor.dtype != torch.float32
+                or tensor.device != dev or not tensor.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 {shape} on "
+                             f"{dev}")
+    if dev.type == "cpu":
+        return rnn_decoder_fused_losses_bwd_plain(*args, leak=leak)
+    lib = _build.load("decoder")
+    rows = _build.row_tile(lib, "decoder", _RNN_FUSED_BWD,
+                           (f, hidden, m, mo),
+                           "rnn_decoder_loop_fused_losses backward")
+    w_cat, w2m, w2v, w_ih, wo1 = (fwd_args[i] for i in (2, 5, 6, 8, 10))
+    g = w_cat.shape[1]
+    transposed = [w.transpose(0, 1).contiguous()
+                  for w in (w_cat, w_ih, w2m, w2v, wo1)]
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                       device=dev)
+    dh0 = empty(b, hidden)
+    order = ("hp", "dbig", "x", "emh", "dem", "h2", "doh", "oh", "dzo")
+    widths = {"hp": hidden, "dbig": g, "x": f, "emh": 2 * m, "dem": 2 * f,
+              "h2": hidden, "doh": mo, "oh": mo, "dzo": 1}
+    st = {k: empty(t, b, widths[k]) for k in order}
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.abcd_rnn_decoder_bwd(
+            *[a.data_ptr() for a in fwd_args],
+            *[w.data_ptr() for w in transposed], hs.data_ptr(),
+            dlast.data_ptr(), gscale.data_ptr(), dh0.data_ptr(),
+            *[st[k].data_ptr() for k in order], t, b, f, hidden, m, mo,
+            leak, rows, stream)
+        _build.check(lib, err, "rnn_decoder_loop_fused_losses backward")
+        rows = {k: v.view(t * b, v.shape[-1]) for k, v in st.items()}
+        grads = _weight_grads(rows, hidden, m, f, wgrad.at_b, "RNN")
+    rnn_decoder_fused_losses_bwd.launches += 1
+    return grads + (dh0,)
+
+
+rnn_decoder_fused_losses_bwd.launches = 0
+
+
+class _RNNDecoderFusedLosses(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, leak, *args):
+        out_last, nll, bce, hs = rnn_decoder_fused_losses_fwd(*args,
+                                                              leak=leak)
+        ctx.save_for_backward(*args, hs)
+        ctx.leak = leak
+        return out_last, nll, bce
+
+    @staticmethod
+    def backward(ctx, dlast, dnll, dbce):
+        saved = ctx.saved_tensors
+        gscale = torch.stack([dnll.reshape(()), dbce.reshape(())]).float()
+        (dw_cat, dbias, db1, dw2m, dw2v, db2, dw_ih, dwo1, dbo1, dwo2, dbo2,
+         dh0) = rnn_decoder_fused_losses_bwd(
+            *saved, dlast.contiguous(), gscale.contiguous(), leak=ctx.leak)
+        return (None, None, None, dw_cat, dbias, db1, dw2m, dw2v, db2, dw_ih,
+                None, dwo1, dbo1, dwo2, dbo2, dh0)
+
+
+def rnn_decoder_loop_fused_losses(noise, lengths, w_cat, bias, b1, w2m, w2v,
+                                  b2, w_ih, targets, wo1, bo1, wo2, bo2, h0,
+                                  leak=1.0):
+    """The Elman / ESN decoder loop with both losses: (out_last (B, H),
+    nll (), bce ()), differentiable in every weight and in h0, as
+    decoder_pallas.rnn_decoder_loop_fused_losses: nll covers positions
+    0..T-2 (the caller adds T-1's term from out_last), bce every position.
+    ``leak`` below 1.0 selects the ESN cell (pass a zero ``bias``; the
+    ESN has none).  Without autograd only the forward runs, and it saves no
+    trajectory."""
+    args = (noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, targets,
+            wo1, bo1, wo2, bo2, h0)
+    leak = _check_leak(leak)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _RNNDecoderFusedLosses.apply(leak, *args)
+    return rnn_decoder_fused_losses_fwd(*args, leak=leak, save=False)[:3]
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,10 @@
 
 The JAX package stores each recurrent layer per direction, with (in, out)
 matrices: ``encoder.layers[l].{fwd,bwd}.{w_ih (F, gH), w_hh (H, gH),
-b_ih (gH,), b_hh (gH,)}`` with g = 4 gates for the LSTM and 3 for the
-GRU; the ABCD head as ``feature_sampler.{to_code_like.{lin1,lin2}.{w, b},
+b_ih (gH,), b_hh (gH,)}`` with g = 4 gates for the LSTM, 3 for the GRU
+and 1 for the Elman RNN, and the echo-state (ESN) reservoir's
+``{w_ih (F, H), w_hh (H, H)}`` without biases (the decoder's ESN cell
+likewise); the ABCD head as ``feature_sampler.{to_code_like.{lin1,lin2}.{w, b},
 codebook (f, K), posterior_shape_logits (K,)}``; and the decoder as
 ``decoder.
 {feature2hidden, rnn_cell, emission_sampler.to_parameters (k-stacked),
@@ -36,16 +38,24 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
 
+def _cell_shapes(rnn_type: str, in_size: int, hidden: int) -> dict:
+    """One direction's recurrent tensors: the ESN's reservoir has no
+    biases."""
+    g = NUM_GATES[rnn_type] * hidden
+    shapes = {"w_ih": (in_size, g), "w_hh": (hidden, g)}
+    if rnn_type != "ESN":
+        shapes.update(b_ih=(g,), b_hh=(g,))
+    return shapes
+
+
 def _decoder_shapes(cfg: DecoderConfig) -> dict:
     h, m, f = cfg.rnn_hidden_size, cfg.mlp_hidden_size, cfg.output_size
-    g = NUM_GATES[cfg.rnn_type] * h
     feat = cfg.feature_size + (cfg.speaker_embed_dim
                                if cfg.has_speaker_embedding else 0)
     shapes = {
         "feature2hidden": {"w": (feat, cfg.hidden_size_total),
                            "b": (cfg.hidden_size_total,)},
-        "rnn_cell": {"w_ih": (f, g), "w_hh": (h, g), "b_ih": (g,),
-                     "b_hh": (g,)},
+        "rnn_cell": _cell_shapes(cfg.rnn_type, f, h),
         "emission_sampler": {"to_parameters": {
             "lin1": {"w": (2, h, m), "b": (2, m)},
             "lin2": {"w": (2, m, f), "b": (2, f)}}},
@@ -122,8 +132,9 @@ def params_from_jax(tree: dict, cfg: EncoderConfig, device="cpu",
     -> the port's float32 tensors on ``device``.
 
     Returns ``{"encoder": [layer, ...], "feature_sampler": head}`` where
-    each layer is ``{"w_ih", "b_ih", "w_hh", "b_hh"}``, stacked over the
-    two directions when the encoder is bidirectional, the encoder loaded
+    each layer is ``{"w_ih", "b_ih", "w_hh", "b_hh"}`` (the ESN's
+    ``{"w_ih", "w_hh"}``), stacked over the two directions when the
+    encoder is bidirectional, the encoder loaded
     tolerantly (see the module docstring), and ``head`` keeps the JAX
     head's nesting (its
     ``posterior_shape_logits`` when the tree has them); with
@@ -131,7 +142,6 @@ def params_from_jax(tree: dict, cfg: EncoderConfig, device="cpu",
     checked against the config.
     """
     check_served(cfg)
-    gates = NUM_GATES[cfg.rnn_type] * cfg.rnn_hidden_size
     dirs = _directions(cfg)
     encoder = overlay_params(_fresh_encoder(cfg), tree["encoder"],
                              "encoder")
@@ -139,9 +149,7 @@ def params_from_jax(tree: dict, cfg: EncoderConfig, device="cpu",
     for index, layer in enumerate(encoder["layers"]):
         in_size = (cfg.input_size if index == 0
                    else len(dirs) * cfg.rnn_hidden_size)
-        want = {"w_ih": (in_size, gates), "w_hh": (cfg.rnn_hidden_size,
-                                                   gates),
-                "b_ih": (gates,), "b_hh": (gates,)}
+        want = _cell_shapes(cfg.rnn_type, in_size, cfg.rnn_hidden_size)
         if set(layer) != set(dirs):
             raise ValueError(f"encoder layer {index} holds {sorted(layer)}, "
                              f"the config expects {sorted(dirs)}")

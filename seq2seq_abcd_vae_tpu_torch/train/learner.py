@@ -18,13 +18,14 @@ Contract kept from the JAX package:
 
 A step is eager PyTorch around the hand-written kernels: the STFT
 frontend, the encoder (the LSTM's two directions in one kernel or one
-direction over the hoisted input projection, or the GRU's two directions
-in one kernel; forward and backward), the fused-loss LSTM or GRU decoder
-loop (forward and backward).  Per-batch metrics stay on
-the device and are read once per epoch.  The random draws (Gumbel noise,
-the decoder's sampling noise) come from a ``torch.Generator`` on the
-device, seeded per (epoch, phase) from the run's key, so a resumed run
-draws what an uninterrupted one would.
+direction over the hoisted input projection, or the two directions of the
+GRU, the Elman RNN or the echo-state network in one kernel; forward and
+backward, the frozen ESN reservoir forward only), the fused-loss LSTM,
+GRU or Elman / ESN decoder loop (forward and backward).  Per-batch
+metrics stay on the device and are read once per epoch.  The random
+draws (Gumbel noise, the decoder's sampling noise) come from a
+``torch.Generator`` on the device, seeded per (epoch, phase) from the
+run's key, so a resumed run draws what an uninterrupted one would.
 """
 
 from __future__ import annotations
@@ -195,7 +196,9 @@ class Learner:
             num_speakers=num_speakers, speaker_embed_dim=speaker_embed_dim)
         self.model_cfg = vae.ModelConfig(enc_cfg, latent_cfg, dec_cfg)
         gen = torch.Generator().manual_seed(seed)
-        self.params = self._on_device(vae.model_init(gen, self.model_cfg))
+        self.params = vae.set_trainable(
+            tree_map(lambda t: t.to(self.device),
+                     vae.model_init(gen, self.model_cfg)), self.model_cfg)
         self.iter_counts = 0
         self.epoch_init_iter_counts = 0
         self.step_count = 0
@@ -234,6 +237,8 @@ class Learner:
         if decoder_self_feedback:
             logger.info("Dropout rate in the input to the decoder RNN: "
                         "{do}".format(do=decoder_input_dropout))
+        if encoder_rnn_type == "ESN" or decoder_rnn_type == "ESN":
+            logger.info("ESN leak: {leak}".format(leak=esn_leak))
         if speaker_embed_dim is not None:
             logger.info("Speaker ID # is embedded and fed to the decoder.")
             logger.info("# of speakers: {num_speakers}".format(
@@ -242,12 +247,13 @@ class Learner:
                 speaker_embed_dim=speaker_embed_dim))
 
     # ------------------------------------------------------------------
-    def _on_device(self, tree):
-        return tree_map(lambda t: t.to(self.device).requires_grad_(True),
-                        tree)
-
     def _leaves(self) -> list:
         return tree_leaves(self.params)
+
+    def _trainable(self) -> list:
+        """The leaves the optimiser steps and clips: all but a frozen ESN
+        reservoir's."""
+        return [p for p in self._leaves() if p.requires_grad]
 
     def _generator(self, epoch: int, phase: int) -> torch.Generator:
         """The draws of one (epoch, phase), seeded from the run's key."""
@@ -277,7 +283,7 @@ class Learner:
             entire_n, self._temperature(), no_sample, batch.bucket_frames)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        optim.clip_and_step(self.optimizer, self._leaves(),
+        optim.clip_and_step(self.optimizer, self._trainable(),
                             self.gradient_clip)
         self.step_count += 1
         self.steps["train"] += 1
@@ -391,7 +397,7 @@ class Learner:
                         "{epoch}".format(epoch=initial_epoch))
             self.gradient_clip = self.checkpoint["gradient_clip"]
             momentum = self.checkpoint.get("momentum", momentum)
-            self.optimizer = optim.make_optimizer(self._leaves(),
+            self.optimizer = optim.make_optimizer(self._trainable(),
                                                   learning_rate, momentum)
             saved = self.checkpoint.get("optimizer")
             if isinstance(saved, ckpt.OptimizerLeaves):
@@ -401,7 +407,7 @@ class Learner:
                 self.checkpoint["lr_scheduler"])
         else:
             self.gradient_clip = gradient_clip
-            self.optimizer = optim.make_optimizer(self._leaves(),
+            self.optimizer = optim.make_optimizer(self._trainable(),
                                                   learning_rate, momentum)
             self.lr_scheduler = optim.ReduceLROnPlateau(patience=patience)
             logger.info("START LEARNING.")
@@ -449,7 +455,8 @@ class Learner:
     def _optimizer_leaves(self) -> list:
         """The optax leaves of the JAX package's optimiser state: step
         count, learning rate, then (with momentum) the traces in its
-        parameter order."""
+        parameter order (zeros for a frozen ESN reservoir, as the JAX
+        package's zero gradients leave them)."""
         leaves = [np.asarray(self.step_count, np.int32),
                   np.asarray(optim.get_learning_rate(self.optimizer),
                              np.float32)]
@@ -472,7 +479,8 @@ class Learner:
         buffers = params_from_jax(traces, cfg.encoder, self.device,
                                   decoder_cfg=cfg.decoder)
         for p, buf in zip(self._leaves(), tree_leaves(buffers)):
-            self.optimizer.state[p]["momentum_buffer"] = buf
+            if p.requires_grad:
+                self.optimizer.state[p]["momentum_buffer"] = buf
 
     def save_model(self, epoch: int) -> None:
         cfg = self.model_cfg
@@ -517,9 +525,9 @@ class Learner:
         self.model_cfg.check()
         self.iter_counts = latent_cfg.epoch_init_iter_counts
         self.epoch_init_iter_counts = latent_cfg.epoch_init_iter_counts
-        self.params = tree_map(
-            lambda t: t.requires_grad_(True),
-            params_from_jax(c, enc_cfg, self.device, decoder_cfg=dec_cfg))
+        self.params = vae.set_trainable(
+            params_from_jax(c, enc_cfg, self.device, decoder_cfg=dec_cfg),
+            self.model_cfg)
         self.gradient_clip = c["gradient_clip"]
         self.key = np.asarray(c["random_state"]).astype(np.uint32)
         self.step_count = 0

@@ -26,8 +26,8 @@ from seq2seq_abcd_vae_tpu_torch.models import decoder as dec_mod
 from seq2seq_abcd_vae_tpu_torch.models import vae as port_vae
 from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel
 from seq2seq_abcd_vae_tpu_torch.train.from_jax import params_from_jax
-from torch_port_fixtures import (few_torch_threads_fixture,
-                                 write_jax_checkpoint)
+from torch_port_fixtures import (few_torch_threads_fixture, one_step_scans,
+                                 port_init_tree, write_jax_checkpoint)
 
 few_torch_threads = pytest.fixture(autouse=True)(few_torch_threads_fixture)
 
@@ -88,8 +88,7 @@ def model():
                                JaxDecoderConfig(*dec, **dkw))
     pcfg = port_vae.ModelConfig(EncoderConfig(*enc), ABCDSamplerConfig(*lat),
                                 DecoderConfig(*dec, **dkw))
-    params = jax.tree_util.tree_map(np.asarray, jax.jit(
-        lambda k: jax_vae.model_init(k, jcfg))(jax.random.PRNGKey(4)))
+    params = port_init_tree(jcfg, 4)
     port = params_from_jax(params, pcfg.encoder, decoder_cfg=pcfg.decoder)
     return jcfg, pcfg, params, port
 
@@ -100,6 +99,7 @@ def test_decode_features_matches_jax(rng, monkeypatch, model, mode):
     (interpret mode here) and ``mean`` on its scan body."""
     monkeypatch.setenv("SEQ2SEQ_RNN_BACKEND",
                        "pallas" if mode == "sample" else "scan")
+    one_step_scans(monkeypatch)
     jcfg, pcfg, params, port = model
     tt = 8
     lens = np.asarray([8, 5, 0, 1, 7], np.int32)

@@ -17,8 +17,9 @@ from seq2seq_abcd_vae_tpu_torch.configs import EncoderConfig, check_served
 from seq2seq_abcd_vae_tpu_torch.data.batching import FrontendSpec
 from seq2seq_abcd_vae_tpu_torch.infer import encode as port_encode
 from seq2seq_abcd_vae_tpu_torch.train import checkpoint as port_ckpt
-from torch_port_fixtures import (EPS, FRAME, NORMALIZER, STEP, padded_batch,
-                                 small_model, write_jax_checkpoint)
+from torch_port_fixtures import (EPS, FRAME, NORMALIZER, STEP,
+                                 one_step_scans, padded_batch, small_model,
+                                 write_jax_checkpoint)
 
 # The frontend's quiet-bin cancellation bound (tests/test_stft_pallas.py)
 # would dominate a tolerance on the outputs, so both packages run the same
@@ -43,6 +44,7 @@ def jax_checkpoint(tmp_path_factory):
 def test_encode_step_matches_jax(rng, monkeypatch, jax_checkpoint, mode,
                                  method):
     monkeypatch.setenv("SEQ2SEQ_ENCODER_BACKEND", "scan")
+    one_step_scans(monkeypatch)
     cfg, params, path = jax_checkpoint
     audio, num_frames = padded_batch(rng, [16, 3, 9], BUCKET)
     statics = JaxStatics(cfg, FRAME, STEP, "hann_window", EPS, NORMALIZER,

@@ -28,11 +28,11 @@ from seq2seq_abcd_vae_tpu.data.batching import FrontendSpec as JaxFrontend
 from seq2seq_abcd_vae_tpu.infer.encode import (_annotation_suffixes,
                                                _encode_step, _format_rows)
 from seq2seq_abcd_vae_tpu.models import vae
-from seq2seq_abcd_vae_tpu.train import checkpoint as jax_ckpt
 from seq2seq_abcd_vae_tpu.train.learner import StepStatics as JaxStatics
 from seq2seq_abcd_vae_tpu_torch.cli import encode_main
 from torch_port_fixtures import (EPS, FRAME, NORMALIZER, STEP,
-                                 few_torch_threads_fixture, small_model,
+                                 few_torch_threads_fixture, one_step_scans,
+                                 port_init_tree, small_model,
                                  write_jax_checkpoint)
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
@@ -50,6 +50,7 @@ few_torch_threads = pytest.fixture(autouse=True)(few_torch_threads_fixture)
 def scan_backends(monkeypatch):
     monkeypatch.setenv("SEQ2SEQ_ENCODER_BACKEND", "scan")
     monkeypatch.setenv("SEQ2SEQ_RNN_BACKEND", "scan")
+    one_step_scans(monkeypatch)
 
 
 def _uni_model(hidden=8, k=6, feature_dim=10, mlp_hidden=12, seed=3):
@@ -58,8 +59,7 @@ def _uni_model(hidden=8, k=6, feature_dim=10, mlp_hidden=12, seed=3):
                             feature_dim)
     dec = DecoderConfig(FRAME // 2 + 1, hidden, mlp_hidden, feature_dim)
     cfg = vae.ModelConfig(enc, lat, dec)
-    params = vae.model_init(jax.random.PRNGKey(seed), cfg)
-    return cfg, jax_ckpt.tree_to_numpy(params)
+    return cfg, port_init_tree(cfg, seed)
 
 
 @pytest.fixture(scope="module")
@@ -126,7 +126,7 @@ def test_probs_csv_matches_jax_cli(tmp_path, checkpoints):
     want_path = tmp_path / "jax.csv"
     # one CPU device and few threads: the suite runs beside it
     env = dict(os.environ, JAX_PLATFORMS="cpu",
-               SEQ2SEQ_ABCD_VAE_NO_COMPILE_CACHE="1",
+               SEQ2SEQ_ABCD_VAE_NO_COMPILE_CACHE="1", SEQ2SEQ_SCAN_UNROLL="1",
                XLA_FLAGS="--xla_cpu_multi_thread_eigen=false "
                          "intra_op_parallelism_threads=2")
     done = subprocess.run(

@@ -15,7 +15,7 @@ from seq2seq_abcd_vae_tpu_torch.configs import EncoderConfig
 from seq2seq_abcd_vae_tpu_torch.models import abcd as port_abcd
 from seq2seq_abcd_vae_tpu_torch.models import encoder as port_encoder
 from seq2seq_abcd_vae_tpu_torch.train.from_jax import params_from_jax
-from torch_port_fixtures import BINS, small_model
+from torch_port_fixtures import BINS, one_step_scans, small_model
 
 # float32 products in another order through <= 2 layers of <= 11 steps
 # and a two-layer MLP
@@ -30,6 +30,7 @@ def _port_cfg(jax_cfg):
 @pytest.mark.parametrize("layers", [1, 2])
 def test_encoder_matches_jax(rng, monkeypatch, layers):
     monkeypatch.setenv("SEQ2SEQ_ENCODER_BACKEND", "scan")
+    one_step_scans(monkeypatch)
     cfg, params = small_model(hidden=8, layers=layers)
     x = rng.normal(size=(4, 11, BINS)).astype(np.float32)
     lengths = np.asarray([11, 4, 0, 9], np.int32)
@@ -81,8 +82,10 @@ def test_params_from_jax_layout():
 
 @pytest.mark.parametrize("kwargs", [dict(rnn_type="GRU",
                                          bidirectional=False),
-                                    dict(rnn_type="ESN"),
-                                    dict(rnn_type="RNN")])
+                                    dict(rnn_type="ESN",
+                                         bidirectional=False),
+                                    dict(rnn_type="RNN",
+                                         bidirectional=False)])
 def test_later_slices_raise(kwargs):
     cfg = EncoderConfig(BINS, 8, **kwargs)
     with pytest.raises(NotImplementedError, match="later slice"):

@@ -432,3 +432,103 @@ def test_gru_kernels_refuse_a_width_no_row_tile_fits(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         dk.gru_decoder_fused_losses_bwd(*dargs, hs, h_n[0].contiguous(),
                                         torch.ones(2, device=cuda))
+
+
+@pytest.mark.parametrize("leak", [1.0, 0.5])
+@pytest.mark.parametrize("shape", [(125, 512, 129, 256), (512, 64, 129, 256),
+                                   (7, 5, 9, 40), (9, 11, 129, 1024)])
+def test_elman_layer_kernels_match_twins(cuda, shape, leak):
+    """The bidirectional Elman layer's forward and backward kernels against
+    their twins at the Elman cell's leak (1.0) and an ESN's (0.5, zero
+    biases): the training and the served shapes, a partial row tile with a
+    hidden size that is not a multiple of 32, and H=1024."""
+    from seq2seq_abcd_vae_tpu_torch.ops import elman_kernel as ek
+    rng = np.random.default_rng(91)
+    t, b, f, h = shape
+    lengths = rng.integers(1, t + 1, size=b).astype(np.int32)
+    lengths[:2] = (t, 0)
+    x = torch.from_numpy(rng.normal(size=(t, b, f)).astype(np.float32)
+                         ).to(cuda)
+    w = [_uniform(rng, cuda, 1 / np.sqrt(h), *s)
+         for s in ((2, f, h), (2, h), (2, h, h), (2, h))]
+    if leak < 1.0:
+        w[1].zero_()
+        w[3].zero_()
+    args = (x, torch.from_numpy(lengths).to(cuda), *w)
+    before = ek.rnn_layer_bidir_fused.launches
+    got = ek.rnn_layer_bidir_fused(*args, leak)
+    want = ek.rnn_layer_bidir_fused_plain(*args, leak)
+    torch.cuda.synchronize()
+    assert ek.rnn_layer_bidir_fused.launches == before + 1
+    # float32 dot products of F + H terms in another order through T steps
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
+    outs, h_n = want
+    for douts in (None, torch.from_numpy(rng.normal(size=outs.shape).astype(
+            np.float32)).to(cuda)):
+        dh_n = torch.from_numpy(rng.normal(size=h_n.shape).astype(
+            np.float32)).to(cuda)
+        before = ek.rnn_layer_bidir_fused_bwd.launches
+        g_all = ek.rnn_layer_bidir_fused_bwd(*args, outs, douts, dh_n, leak)
+        r_all = ek.rnn_layer_bidir_fused_bwd_plain(*args, outs, douts, dh_n,
+                                                   leak)
+        torch.cuda.synchronize()
+        assert ek.rnn_layer_bidir_fused_bwd.launches == before + 1
+        for name, g, r in zip(("dx", "dw_ih", "db_ih", "dw_hh", "db_hh"),
+                              g_all, r_all):
+            assert g.shape == r.shape, name
+            assert _rel_max_err(g, r) <= 1e-4, name
+
+
+def _rnn_decoder_args(rng, cuda, t, b, f, h, m, mo, lengths, leak):
+    lstm = _decoder_args(rng, cuda, t, b, f, h, m, mo, lengths)
+    bias = (_uniform(rng, cuda, 2 / np.sqrt(h), h) if leak == 1.0
+            else torch.zeros(h, device=cuda))
+    return (lstm[:2] + [_uniform(rng, cuda, 1 / np.sqrt(h), h, h + 2 * m),
+                        bias] + lstm[4:8]
+            + [_uniform(rng, cuda, 1 / np.sqrt(h), f, h)] + lstm[9:15])
+
+
+@pytest.mark.parametrize("leak", [1.0, 0.5])
+@pytest.mark.parametrize("shape", [(125, 512, 129, 256, 256, 256),
+                                   (33, 21, 129, 256, 256, 256),
+                                   (7, 5, 9, 40, 12, 10),
+                                   (6, 11, 129, 1024, 256, 256)])
+def test_rnn_decoder_kernels_match_twins(cuda, shape, leak):
+    """The Elman / ESN fused-loss decoder's forward and backward kernels
+    against their twins; the forward's losses repeat bit for bit."""
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    rng = np.random.default_rng(101)
+    t, b, f, h, m, mo = shape
+    lengths = rng.integers(1, t + 1, size=b)
+    lengths[:2] = (t, 0)
+    args = _rnn_decoder_args(rng, cuda, t, b, f, h, m, mo, lengths, leak)
+    before = dk.rnn_decoder_fused_losses_fwd.launches
+    got = dk.rnn_decoder_fused_losses_fwd(*args, leak=leak)
+    want = dk.rnn_decoder_fused_losses_fwd_plain(*args, leak=leak)
+    torch.cuda.synchronize()
+    assert dk.rnn_decoder_fused_losses_fwd.launches == before + 1
+    # loss sums of many float32 terms: 1e-5 relative
+    for g, r in zip(got[1:3], want[1:3]):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=0)
+    for g, r in zip((got[0], got[3]), (want[0], want[3])):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
+    repeat = dk.rnn_decoder_fused_losses_fwd(*args, leak=leak)
+    assert (repeat[1].item(), repeat[2].item()) == (got[1].item(),
+                                                    got[2].item())
+    dlast = torch.from_numpy(rng.normal(size=(b, h)).astype(
+        np.float32)).to(cuda)
+    gscale = torch.tensor([0.7, 1.3], device=cuda)
+    before = dk.rnn_decoder_fused_losses_bwd.launches
+    g_all = dk.rnn_decoder_fused_losses_bwd(*args, want[3], dlast, gscale,
+                                            leak=leak)
+    r_all = dk.rnn_decoder_fused_losses_bwd_plain(*args, want[3], dlast,
+                                                  gscale, leak=leak)
+    torch.cuda.synchronize()
+    assert dk.rnn_decoder_fused_losses_bwd.launches == before + 1
+    names = ("dw_cat", "dbias", "db1", "dw2m", "dw2v", "db2", "dw_ih",
+             "dwo1", "dbo1", "dwo2", "dbo2", "dh0")
+    for name, g, r in zip(names, g_all, r_all):
+        assert g.shape == r.shape, name
+        assert _rel_max_err(g, r) <= 1e-4, name
+

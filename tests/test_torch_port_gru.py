@@ -25,7 +25,8 @@ from seq2seq_abcd_vae_tpu_torch.configs import DecoderConfig
 from seq2seq_abcd_vae_tpu_torch.models import decoder as port_decoder
 from seq2seq_abcd_vae_tpu_torch.models import rnn as port_rnn
 from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel, gru_kernel
-from torch_port_fixtures import few_torch_threads_fixture
+from seq2seq_abcd_vae_tpu_torch.tree import tree_map
+from torch_port_fixtures import few_torch_threads_fixture, one_step_scans
 
 few_torch_threads = pytest.fixture(autouse=True)(few_torch_threads_fixture)
 
@@ -76,6 +77,7 @@ def test_gru_layer_twin_matches_pallas_interpret_and_scan(rng, monkeypatch):
     np.testing.assert_array_equal(got[1][:, 1].numpy(), 0.0)  # empty row
 
     monkeypatch.setenv("SEQ2SEQ_ENCODER_BACKEND", "scan")
+    one_step_scans(monkeypatch)
     xb = np.ascontiguousarray(x.transpose(1, 0, 2))
     mask = jax_rnn.lengths_to_mask(jnp.asarray(lens), x.shape[0])
     with jax.default_matmul_precision("highest"):
@@ -154,8 +156,8 @@ def _decoder_case(rng, t=10, f=6, h=8, m=7, feat=5, embed=4,
                   rnn_type="GRU")
     jcfg = JaxDecoderConfig(f, h, m, feat, **cfg_kw)
     pcfg = DecoderConfig(f, h, m, feat, **cfg_kw)
-    params = jax.tree_util.tree_map(
-        np.asarray, jax_decoder.decoder_init(jax.random.PRNGKey(3), jcfg))
+    params = tree_map(lambda a: a.numpy(), port_decoder.decoder_init(
+        torch.Generator().manual_seed(3), pcfg))
     lens = np.asarray(lens, np.int32)
     b = len(lens)
     features = rng.normal(size=(b, feat)).astype(np.float32)
@@ -170,6 +172,7 @@ def test_gru_decoder_twins_match_jax_scan_and_grad(rng, monkeypatch):
     term from out_last) against decoder_apply's scan path: both losses
     and every gradient, the JAX call's own noise handed to the port."""
     monkeypatch.setenv("SEQ2SEQ_RNN_BACKEND", "scan")
+    one_step_scans(monkeypatch)
     jcfg, pcfg, params, features, lens, speakers, gt = _decoder_case(rng)
     b, t, f = gt.shape
     key = jax.random.PRNGKey(11)

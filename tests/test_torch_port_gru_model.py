@@ -36,8 +36,8 @@ from seq2seq_abcd_vae_tpu_torch.train import optim as port_optim
 from seq2seq_abcd_vae_tpu_torch.train.from_jax import (params_from_jax,
                                                        params_to_jax)
 from seq2seq_abcd_vae_tpu_torch.tree import tree_leaves, tree_map
-from torch_port_fixtures import (few_torch_threads_fixture,
-                                 write_jax_checkpoint)
+from torch_port_fixtures import (few_torch_threads_fixture, one_step_scans,
+                                 port_init_tree, write_jax_checkpoint)
 
 few_torch_threads = pytest.fixture(autouse=True)(few_torch_threads_fixture)
 
@@ -67,10 +67,16 @@ def test_gru_encoder_and_trees_match_jax(rng, monkeypatch):
     second): encoder_apply against the JAX scan path; the layers cross to
     the port and back unchanged; a fresh tree has the JAX shapes."""
     monkeypatch.setenv("SEQ2SEQ_ENCODER_BACKEND", "scan")
+    one_step_scans(monkeypatch)
     jcfg = JaxEncoderConfig(7, 5, rnn_type="GRU", rnn_layers=2)
     pcfg = EncoderConfig(7, 5, rnn_type="GRU", rnn_layers=2)
-    params = jax.tree_util.tree_map(
-        np.asarray, jax_encoder.encoder_init(jax.random.PRNGKey(2), jcfg))
+    params = params_to_jax({"encoder": port_encoder.encoder_init(
+        torch.Generator().manual_seed(2), pcfg), "feature_sampler": {}}
+    )["encoder"]
+    assert (jax.tree_util.tree_map(np.shape, params)
+            == jax.tree_util.tree_map(np.shape, jax.eval_shape(
+                lambda k: jax_encoder.encoder_init(k, jcfg),
+                jax.random.PRNGKey(2))))
     lens = np.asarray([11, 0, 6, 1], np.int32)
     x = rng.normal(size=(4, 11, 7)).astype(np.float32)
     with jax.default_matmul_precision("highest"):
@@ -116,6 +122,7 @@ def test_gru_model_tree_and_training_steps_match_jax(rng, monkeypatch):
     package's on the same weights, inputs and noise."""
     monkeypatch.setenv("SEQ2SEQ_ENCODER_BACKEND", "scan")
     monkeypatch.setenv("SEQ2SEQ_RNN_BACKEND", "scan")
+    one_step_scans(monkeypatch)
     jcfg, pcfg = _configs()
     want_shapes = jax.tree_util.tree_map(
         lambda a: a.shape,
@@ -137,8 +144,7 @@ def test_gru_model_tree_and_training_steps_match_jax(rng, monkeypatch):
     is_offset = (np.arange(tt)[None, :] == lens[:, None] - 1).astype(
         np.float32)
     n_data, temperature, lr, momentum, clip = 40.0, 0.8, 0.5, 0.9, 1.0
-    params = jax.tree_util.tree_map(np.asarray, jax.jit(
-        lambda k: jax_vae.model_init(k, jcfg))(jax.random.PRNGKey(7)))
+    params = port_init_tree(jcfg, 7)
     tx = jax_optim.make_optimizer(lr, momentum, clip)
     opt_state = tx.init(params)
     batch = {"inputs": jnp.asarray(inputs), "lengths": jnp.asarray(lens),
@@ -251,11 +257,11 @@ def test_decode_admits_training_only_decoder_options(rng, monkeypatch,
     a decoder stays refused."""
     monkeypatch.setenv("SEQ2SEQ_RNN_BACKEND",
                        "pallas" if mode == "sample" else "scan")
+    one_step_scans(monkeypatch)
     dec_kw = (dict(self_feedback=False) if kind == "greedy"
               else dict(input_dropout=0.3))
     jcfg, pcfg = _configs(enc_kw={}, dec_kw=dec_kw)
-    params = jax.tree_util.tree_map(np.asarray, jax.jit(
-        lambda k: jax_vae.model_init(k, jcfg))(jax.random.PRNGKey(4)))
+    params = port_init_tree(jcfg, 4)
     port, cfg = load_model(write_jax_checkpoint(tmp_path, jcfg, params),
                            device="cpu")
     # the checkpoint keeps input_dropout (1.0 for the greedy decoder)

@@ -15,6 +15,7 @@ from seq2seq_abcd_vae_tpu.models import rnn as jax_rnn
 from seq2seq_abcd_vae_tpu.ops import lstm_pallas
 from seq2seq_abcd_vae_tpu_torch.models import rnn as port_rnn
 from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel
+from torch_port_fixtures import one_step_scans
 
 # float32 dot products of F + H terms per gate summed in another order,
 # carried through at most 13 recurrent steps (the JAX package holds its
@@ -67,6 +68,7 @@ def test_layer_matches_jax_scan(rng, monkeypatch, case):
     """models/rnn.run_rnn_layer_bidir against the JAX function on its scan
     path (the encoder backend forced without touching the JAX selector)."""
     monkeypatch.setenv("SEQ2SEQ_ENCODER_BACKEND", "scan")
+    one_step_scans(monkeypatch)
     t, f, h, lengths = CASES[case]
     p_fwd, p_bwd, x, lens = _layer(rng, t, f, h, lengths, seed=1)
     with jax.default_matmul_precision("highest"):

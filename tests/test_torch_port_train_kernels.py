@@ -22,7 +22,8 @@ from seq2seq_abcd_vae_tpu_torch.configs import DecoderConfig
 from seq2seq_abcd_vae_tpu_torch.models import decoder as port_decoder
 from seq2seq_abcd_vae_tpu_torch.models import rnn as port_rnn
 from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel, lstm_kernel
-from torch_port_fixtures import few_torch_threads_fixture
+from seq2seq_abcd_vae_tpu_torch.tree import tree_map
+from torch_port_fixtures import few_torch_threads_fixture, one_step_scans
 
 few_torch_threads = pytest.fixture(few_torch_threads_fixture)
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
@@ -45,6 +46,7 @@ def assert_grad_close(got, want, name):
 @pytest.mark.parametrize("with_douts", [False, True])
 def test_lstm_backward_twin_matches_jax_grad(rng, monkeypatch, with_douts):
     monkeypatch.setenv("SEQ2SEQ_ENCODER_BACKEND", "scan")
+    one_step_scans(monkeypatch)
     t, f, h = 9, 5, 8
     lens = np.asarray([9, 0, 4, 1, 7], np.int32)
     b = len(lens)
@@ -115,8 +117,8 @@ def _decoder_case(rng, t=10, f=6, h=8, m=7, feat=5, embed=4,
     cfg_kw = dict(num_speakers=SPEAKERS, speaker_embed_dim=embed)
     jcfg = JaxDecoderConfig(f, h, m, feat, **cfg_kw)
     pcfg = DecoderConfig(f, h, m, feat, **cfg_kw)
-    params = jax.tree_util.tree_map(
-        np.asarray, jax_decoder.decoder_init(jax.random.PRNGKey(3), jcfg))
+    params = tree_map(lambda a: a.numpy(), port_decoder.decoder_init(
+        torch.Generator().manual_seed(3), pcfg))
     lens = np.asarray(lens, np.int32)
     b = len(lens)
     features = rng.normal(size=(b, feat)).astype(np.float32)
@@ -128,6 +130,7 @@ def _decoder_case(rng, t=10, f=6, h=8, m=7, feat=5, embed=4,
 
 def test_decoder_twins_match_jax_scan_and_grad(rng, monkeypatch):
     monkeypatch.setenv("SEQ2SEQ_RNN_BACKEND", "scan")
+    one_step_scans(monkeypatch)
     jcfg, pcfg, params, features, lens, speakers, gt = _decoder_case(rng)
     b, t, f = gt.shape
     key = jax.random.PRNGKey(11)

@@ -34,7 +34,7 @@ from seq2seq_abcd_vae_tpu_torch.train.from_jax import params_to_jax
 from seq2seq_abcd_vae_tpu_torch.train.learner import Learner
 from seq2seq_abcd_vae_tpu_torch.tree import tree_leaves, tree_unflatten
 from torch_port_fixtures import (BINS, EPS, NORMALIZER,
-                                 few_torch_threads_fixture)
+                                 few_torch_threads_fixture, port_init_tree)
 
 few_torch_threads = pytest.fixture(few_torch_threads_fixture)
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
@@ -147,8 +147,7 @@ def test_jax_checkpoint_resumes_in_port(tmp_path, rng):
     cfg = jax_vae.ModelConfig(
         enc, JaxABCDConfig(enc.hidden_size_total, 12, 6, 10),
         JaxDecoderConfig(BINS, 8, 12, 10))
-    params = jax.tree_util.tree_map(np.asarray, jax.jit(
-        lambda k: jax_vae.model_init(k, cfg))(jax.random.PRNGKey(0)))
+    params = port_init_tree(cfg, 0)
     momentum = 0.9
     tx = jax_optim.make_optimizer(0.25, momentum, 1.0)
     state = tx.init(params)

@@ -25,7 +25,8 @@ from seq2seq_abcd_vae_tpu.configs import GaussianSamplerConfig
 from seq2seq_abcd_vae_tpu.train import optim as jax_optim
 from seq2seq_abcd_vae_tpu_torch import distributions as port_dist
 from seq2seq_abcd_vae_tpu_torch.configs import (ABCDSamplerConfig,
-                                                DecoderConfig, EncoderConfig)
+                                                DecoderConfig, EncoderConfig,
+                                                check_decoder)
 from seq2seq_abcd_vae_tpu_torch.models import abcd as port_abcd
 from seq2seq_abcd_vae_tpu_torch.models import sampler as port_sampler
 from seq2seq_abcd_vae_tpu_torch.models import vae as port_vae
@@ -33,7 +34,8 @@ from seq2seq_abcd_vae_tpu_torch.train import optim as port_optim
 from seq2seq_abcd_vae_tpu_torch.train.from_jax import (params_from_jax,
                                                        params_to_jax)
 from seq2seq_abcd_vae_tpu_torch.tree import tree_leaves, tree_map
-from torch_port_fixtures import few_torch_threads_fixture
+from torch_port_fixtures import (few_torch_threads_fixture, one_step_scans,
+                                 port_init_tree)
 
 few_torch_threads = pytest.fixture(few_torch_threads_fixture)
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
@@ -168,9 +170,8 @@ def test_fresh_parameters_have_the_jax_tree():
     got = tree_map(lambda a: a.shape, params_to_jax(fresh))
     assert got == want
     with pytest.raises(NotImplementedError, match="RNN"):
-        port_vae.ModelConfig(
-            pcfg.encoder, pcfg.latent,
-            DecoderConfig(F, H, MLP, FEAT, rnn_type="RNN")).check()
+        check_decoder(DecoderConfig(F, H, MLP, FEAT, rnn_type="RNN"),
+                      training=False)
     with pytest.raises(NotImplementedError, match="greedy"):
         port_vae.ModelConfig(
             pcfg.encoder, pcfg.latent,
@@ -180,6 +181,7 @@ def test_fresh_parameters_have_the_jax_tree():
 def test_training_loss_and_sgd_steps_match_jax(rng, monkeypatch):
     monkeypatch.setenv("SEQ2SEQ_ENCODER_BACKEND", "scan")
     monkeypatch.setenv("SEQ2SEQ_RNN_BACKEND", "scan")
+    one_step_scans(monkeypatch)
     jcfg, pcfg = _configs()
     tt = 10
     lens = np.asarray([10, 7, 0, 3, 9], np.int32)
@@ -191,8 +193,7 @@ def test_training_loss_and_sgd_steps_match_jax(rng, monkeypatch):
     is_offset = (np.arange(tt)[None, :] == lens[:, None] - 1).astype(
         np.float32)
     n_data, temperature, lr, momentum, clip = 40.0, 0.8, 0.5, 0.9, 1.0
-    params = jax.tree_util.tree_map(np.asarray, jax.jit(
-        lambda k: jax_vae.model_init(k, jcfg))(jax.random.PRNGKey(7)))
+    params = port_init_tree(jcfg, 7)
     tx = jax_optim.make_optimizer(lr, momentum, clip)
     opt_state = tx.init(params)
     batch = {"inputs": jnp.asarray(inputs), "lengths": jnp.asarray(lens),

@@ -35,7 +35,8 @@ from seq2seq_abcd_vae_tpu_torch.train import optim as port_optim
 from seq2seq_abcd_vae_tpu_torch.train.from_jax import (params_from_jax,
                                                        params_to_jax)
 from seq2seq_abcd_vae_tpu_torch.tree import tree_leaves, tree_map
-from torch_port_fixtures import few_torch_threads_fixture
+from torch_port_fixtures import (few_torch_threads_fixture, one_step_scans,
+                                 port_init_tree)
 
 few_torch_threads = pytest.fixture(autouse=True)(few_torch_threads_fixture)
 
@@ -120,14 +121,16 @@ def _encoder(layers, input_size=7, hidden=5, seed=2):
                             bidirectional=False)
     pcfg = EncoderConfig(input_size, hidden, rnn_layers=layers,
                          bidirectional=False)
-    params = jax.tree_util.tree_map(
-        np.asarray, jax_encoder.encoder_init(jax.random.PRNGKey(seed), jcfg))
+    params = params_to_jax({"encoder": port_encoder.encoder_init(
+        torch.Generator().manual_seed(seed), pcfg), "feature_sampler": {}}
+    )["encoder"]
     return jcfg, pcfg, params
 
 
 @pytest.mark.parametrize("layers", [1, 2])
 def test_unidirectional_encoder_matches_jax(rng, monkeypatch, layers):
     monkeypatch.setenv("SEQ2SEQ_RNN_BACKEND", "scan")
+    one_step_scans(monkeypatch)
     jcfg, pcfg, params = _encoder(layers)
     lens = np.asarray([11, 0, 6, 1], np.int32)
     x = rng.normal(size=(4, 11, 7)).astype(np.float32)
@@ -161,6 +164,7 @@ def test_unidirectional_training_step_matches_jax(rng, monkeypatch):
     momentum, the JAX side on its scan paths with its own noise draws."""
     monkeypatch.setenv("SEQ2SEQ_ENCODER_BACKEND", "scan")
     monkeypatch.setenv("SEQ2SEQ_RNN_BACKEND", "scan")
+    one_step_scans(monkeypatch)
     enc, lat, dec = (F, H), (2 * H, MLP, K, FEAT), (F, H, MLP, FEAT)
     dkw = dict(num_speakers=SPK, speaker_embed_dim=EMB)
     jcfg = jax_vae.ModelConfig(
@@ -179,8 +183,7 @@ def test_unidirectional_training_step_matches_jax(rng, monkeypatch):
     is_offset = (np.arange(tt)[None, :] == lens[:, None] - 1).astype(
         np.float32)
     n_data, temperature, lr, momentum, clip = 40.0, 0.8, 0.5, 0.9, 1.0
-    params = jax.tree_util.tree_map(np.asarray, jax.jit(
-        lambda k: jax_vae.model_init(k, jcfg))(jax.random.PRNGKey(7)))
+    params = port_init_tree(jcfg, 7)
     tx = jax_optim.make_optimizer(lr, momentum, clip)
     batch = {"inputs": jnp.asarray(inputs), "lengths": jnp.asarray(lens),
              "speakers": jnp.asarray(speakers),

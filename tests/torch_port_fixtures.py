@@ -1,8 +1,12 @@
 """Shared inputs for the PyTorch port's parity tests (tests/test_torch_port_*).
 
-Weights come from the JAX package's own initialisers and are handed to
-both packages as numpy arrays; audio is made from a seed with numpy.  The
-helpers touch no global state of either framework.
+Weights are drawn by the port's initialisers (the reference's
+distributions, from a seeded ``torch.Generator``), laid out as the JAX
+package's tree by ``params_to_jax`` and handed to both packages as numpy
+arrays: the JAX initialisers would compile every draw, which costs
+seconds per configuration (the trees' equality with the JAX initialisers'
+is tested on its own).  Audio is made from a seed with numpy.  The helpers
+touch no global state of either framework.
 """
 
 import numpy as np
@@ -20,6 +24,30 @@ EPS = 2.0 ** -15
 NORMALIZER = 11.0
 
 
+def port_init_tree(cfg, seed=0) -> dict:
+    """Fresh weights for the JAX ``ModelConfig`` ``cfg``, drawn by the
+    port's initialisers in ``model_init``'s order, as the JAX package's
+    tree of float32 numpy arrays.  Decoder options that change no shape
+    (the greedy decoder, input dropout) are taken as they are."""
+    import torch
+    from seq2seq_abcd_vae_tpu_torch import configs as port_configs
+    from seq2seq_abcd_vae_tpu_torch.models import abcd, decoder, encoder
+    from seq2seq_abcd_vae_tpu_torch.train.from_jax import params_to_jax
+    gen = torch.Generator().manual_seed(seed)
+    tree = {
+        "encoder": encoder.encoder_init(
+            gen, port_configs.EncoderConfig.from_init_parameters(
+                cfg.encoder.pack_init_parameters())),
+        "feature_sampler": abcd.abcd_init(
+            gen, port_configs.ABCDSamplerConfig.from_init_parameters(
+                cfg.latent.pack_init_parameters())),
+        "decoder": decoder.decoder_init(
+            gen, port_configs.DecoderConfig.from_init_parameters(
+                cfg.decoder.pack_init_parameters())),
+    }
+    return params_to_jax(tree)
+
+
 def small_model(hidden=8, layers=1, k=6, feature_dim=10, mlp_hidden=12,
                 seed=0):
     """A small ABCD model: (ModelConfig, params as numpy arrays)."""
@@ -28,8 +56,7 @@ def small_model(hidden=8, layers=1, k=6, feature_dim=10, mlp_hidden=12,
                             feature_dim)
     dec = DecoderConfig(BINS, hidden, mlp_hidden, feature_dim)
     cfg = vae.ModelConfig(enc, lat, dec)
-    params = vae.model_init(jax.random.PRNGKey(seed), cfg)
-    return cfg, jax_ckpt.tree_to_numpy(params)
+    return cfg, port_init_tree(cfg, seed)
 
 
 def write_jax_checkpoint(save_dir, cfg, params) -> str:
@@ -64,6 +91,14 @@ def padded_batch(rng, frames, bucket):
         jax_audio.center_pad_segment(seg, pad, audio[i])
         num_frames[i] = 1 + n // STEP
     return audio, num_frames
+
+
+def one_step_scans(monkeypatch):
+    """Roll the JAX package's scans one step an iteration (its
+    ``SCAN_UNROLL``, read at call time): the same values, compiled in about
+    half the time of the default unroll of 4."""
+    from seq2seq_abcd_vae_tpu.models import rnn as jax_rnn
+    monkeypatch.setattr(jax_rnn, "SCAN_UNROLL", 1)
 
 
 def few_torch_threads_fixture():
