@@ -49,21 +49,32 @@ run from the repository root.  It
    launches no layer backward, and its tensors in the resumed run's
    checkpoint equal the first run's bit for bit); encodes the corpus from
    both checkpoints (probs CSV, card vs CPU) and serves the ESN one;
-   every main path (4-9) runs with all launch counters set to 0 just
-   before and read just after, and every kernel must have run on one;
-10. holds each kernel against its plain PyTorch twin on the card at the
+10. trains the same three cells with ``--unidirectional_encoder`` (``-R
+    GRU``, ``-R RNN``, ``-R ESN --esn_leak 0.5``), where only the
+    one-direction layer kernels (``gru_layer``, ``rnn_layer``) run for the
+    encoder (no layer backward for the ESN, no bidirectional kernel);
+    encodes the corpus from the three checkpoints (probs CSV, card vs
+    CPU), serves the GRU one, and decodes the validation segments'
+    features from the GRU and ESN ones (``gru_decoder_loop``,
+    ``rnn_decoder_loop``: one launch in sample mode, none in mean mode;
+    card vs twins vs CPU); every main path (4-10) runs with all launch
+    counters set to 0 just before and read just after, and every kernel
+    must have run on one;
+11. holds each kernel against its plain PyTorch twin on the card at the
     main paths' shapes (ragged lengths, one row of length 0), the Elman
-    kernels at leak 1.0 and 0.5, the recurrent kernels also at hidden size
-    1024, and one whole training step (each LSTM encoder, the GRU, RNN and
-    ESN models) on the kernels (card) against the same step on the twins
-    (CPU): loss, every gradient and the parameters after the SGD step;
-11. times each kernel, its twin and one library call computing the same
+    kernels at leak 1.0 and 0.5, the one-direction layers in both span
+    directions, the recurrent kernels also at hidden size 1024, and one
+    whole training step (each LSTM encoder, the GRU, RNN and ESN models
+    with either encoder) on the kernels (card) against the same step on
+    the twins (CPU): loss, every gradient and the parameters after the
+    SGD step;
+12. times each kernel, its twin and one library call computing the same
     function (a yardstick the port never calls) with CUDA events, and
-    prints one ``{"kernels": [...]}`` line (16 kernels) with launches,
+    prints one ``{"kernels": [...]}`` line (22 kernels) with launches,
     times, the bound and the largest error, after the serve latencies,
     the time of one served batch and of one training step by stage, the
     training and encode throughputs;
-12. ends with ``{"ok": true, "device": {...}}`` as its last line.
+13. ends with ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result.  Without a card it exits 2 before doing anything.
@@ -337,6 +348,30 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_ms_by_kernel(fn, iters: int = 3) -> dict:
+    """Device time per call of ``fn`` by CUDA kernel name, from
+    ``torch.profiler`` (CUPTI); "not measured: ..." when the profiler
+    records no device time on this machine."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = getattr(ev, "cuda_time_total", 0.0)
+            if us > 0:
+                times[ev.key[:60]] = us / 1000.0 / iters
+    except Exception as e:  # a diagnostic: the run goes on without it
+        return {"not measured": repr(e)[:200]}
+    return times or {"not measured": "no device time recorded"}
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -1148,7 +1183,13 @@ def all_counters():
                 rnn_decoder_loop_fused_losses_fwd=(
                     decoder_kernel.rnn_decoder_fused_losses_fwd),
                 rnn_decoder_loop_fused_losses_bwd=(
-                    decoder_kernel.rnn_decoder_fused_losses_bwd))
+                    decoder_kernel.rnn_decoder_fused_losses_bwd),
+                gru_layer=gru_kernel.gru_layer,
+                gru_layer_bwd=gru_kernel.gru_layer_bwd,
+                rnn_layer=elman_kernel.rnn_layer,
+                rnn_layer_bwd=elman_kernel.rnn_layer_bwd,
+                gru_decoder_loop=decoder_kernel.gru_decoder_loop,
+                rnn_decoder_loop=decoder_kernel.rnn_decoder_loop)
 
 
 def expected(counters: dict, **launches) -> dict:
@@ -1316,11 +1357,13 @@ def swap_twin(module, name: str, twin):
 
 
 def decode_phase(dev, ckpt_path: str, corpus_dir: str, csv_path: str,
-                 seed: int):
-    """``decode_features`` on the unidirectional checkpoint from the
-    features of the corpus's validation segments at their lengths:
-    ``sample`` mode on the kernel (counted) against the same call on the
-    card's twins and on the CPU with the same noise; ``mean`` likewise."""
+                 seed: int, loop: str = "decoder_loop"):
+    """``decode_features`` on a checkpoint from the features of the
+    corpus's validation segments at their lengths: ``sample`` mode on the
+    decoder cell's loop kernel ``loop`` (``decoder_loop``,
+    ``gru_decoder_loop`` or ``rnn_decoder_loop``), counted: one launch, and
+    none in ``mean`` mode; each mode against the same call on the card's
+    twins (sample) and on the CPU, with the same noise."""
     from seq2seq_abcd_vae_tpu_torch.data.annotations import AnnotationParser
     from seq2seq_abcd_vae_tpu_torch.data.batching import (DataLoader,
                                                           FrontendSpec)
@@ -1353,19 +1396,25 @@ def decode_phase(dev, ckpt_path: str, corpus_dir: str, csv_path: str,
         kw = dict(noise=noise.to(device), speaker=speakers.to(device),
                   emission_mode=mode)
         if twin:
-            with swap_twin(decoder_kernel, "decoder_loop",
-                           decoder_kernel.decoder_loop_plain):
+            with swap_twin(decoder_kernel, loop,
+                           getattr(decoder_kernel, loop + "_plain")):
                 return decode_features(*args, **kw)
         return decode_features(*args, **kw)
 
     counters = zero_counters()
-    card = {mode: run(dev, mode) for mode in ("sample", "mean")}
-    torch.cuda.synchronize()
+    card, by_mode = {}, {}
+    for mode in ("sample", "mean"):
+        before = {k: fn.launches for k, fn in counters.items()}
+        card[mode] = run(dev, mode)
+        torch.cuda.synchronize()
+        by_mode[mode] = {k: fn.launches - before[k]
+                         for k, fn in counters.items()}
     launches = {k: fn.launches for k, fn in counters.items()}
-    if launches["decoder_loop"] != 1:
-        raise AssertionError(f"decoder_loop launched "
-                             f"{launches['decoder_loop']} times for one "
-                             "sample call")
+    for mode, want in (("sample", expected(counters, **{loop: 1})),
+                       ("mean", expected(counters))):
+        if by_mode[mode] != want:
+            raise AssertionError(f"decode ({mode}) launched {by_mode[mode]}, "
+                                 f"expected {want}")
     errs = {}
     for mode, got in card.items():
         refs = {"cpu": run(torch.device("cpu"), mode)}
@@ -1387,8 +1436,8 @@ def decode_phase(dev, ckpt_path: str, corpus_dir: str, csv_path: str,
         raise AssertionError(f"decode_features: {errs}")
     ms = {mode: cuda_ms(lambda m=mode: run(dev, m), iters=3, warmup=1)
           for mode in ("sample", "mean")}
-    return {"launches": launches, "rows": len(lengths), "T": t,
-            "max_abs_err": errs, "ms": ms}
+    return {"launches": launches, "cell": cfg.decoder.rnn_type,
+            "rows": len(lengths), "T": t, "max_abs_err": errs, "ms": ms}
 
 
 def _lstm_weights(rng, dev, h, *shapes):
@@ -1561,29 +1610,32 @@ def decoder_loop_phase(dev, rng, launches):
 # ---------------------------------------------------------------------------
 
 def _reservoir(c: dict) -> list:
-    """The ESN tensors (encoder layers and the decoder's cell) of a loaded
-    checkpoint."""
+    """The ESN tensors (encoder layers, either direction, and the decoder's
+    cell) of a loaded checkpoint."""
     return ([layer[d][k] for layer in c["encoder"]["layers"]
-             for d in ("fwd", "bwd") for k in ("w_ih", "w_hh")]
+             for d in sorted(layer) for k in ("w_ih", "w_hh")]
             + [c["decoder"]["rnn_cell"][k] for k in ("w_ih", "w_hh")])
 
 
 def cell_train_phase(dev, work: str, corpus_dir: str, csv_path: str,
-                     seed: int, cell: str, kernels: dict, extra=()):
-    """The model of another cell (``-R cell``: its bidirectional encoder
-    and, as ``--decoder_rnn_type`` follows ``-R``, its decoder) trained
-    through the CLI on the synthetic corpus (2 epochs, 1 of pretraining,
-    then resumed to 3), counted: each of ``kernels`` ran once per training
-    and evaluation step (``"steps"``) or per training step (``"train"``),
-    no other kernel ran.  For the ESN, the reservoir in the resumed run's
+                     seed: int, cell: str, kernels: dict, extra=(),
+                     unidirectional: bool = False):
+    """The model of another cell (``-R cell``: its bidirectional encoder,
+    or with ``unidirectional`` its one-direction encoder, and, as
+    ``--decoder_rnn_type`` follows ``-R``, its decoder) trained through the
+    CLI on the synthetic corpus (2 epochs, 1 of pretraining, then resumed
+    to 3), counted: each of ``kernels`` ran once per training and
+    evaluation step (``"steps"``) or per training step (``"train"``), no
+    other kernel ran.  For the ESN, the reservoir in the resumed run's
     checkpoint must equal the first run's bit for bit (it is frozen)."""
     from seq2seq_abcd_vae_tpu_torch.cli import learning_main
     from seq2seq_abcd_vae_tpu_torch.train import checkpoint as ckpt
-    job = cell.lower()
+    job = ("uni-" if unidirectional else "") + cell.lower()
     argv = [corpus_dir, csv_path, "-S", work, "-j", job, "-b",
             str(TRAIN_BATCH), "--pretrain_epochs", "1", "--stft_method",
             "pallas", "-d", dev.type, "-N", str(NORMALIZER), "-s", str(seed),
             "-R", cell, *extra,
+            *(("--unidirectional_encoder",) if unidirectional else ()),
             "--encoder_rnn_hidden_size", str(HIDDEN),
             "--decoder_rnn_hidden_size", str(HIDDEN),
             "--mlp_hidden_size", str(MLP_HIDDEN), "-K", str(K),
@@ -1609,7 +1661,7 @@ def cell_train_phase(dev, work: str, corpus_dir: str, csv_path: str,
     want = expected(counters, log_spectrogram=steps, **{
         name: steps if when == "steps" else train_steps
         for name, when in kernels.items()})
-    print(f"{cell} training main path: {train_steps} training + "
+    print(f"{job} training main path: {train_steps} training + "
           f"{eval_steps} evaluation steps in {first_s:.2f} + "
           f"{second_s:.2f} s; launches {launches}", flush=True)
     if launches != want:
@@ -1619,6 +1671,8 @@ def cell_train_phase(dev, work: str, corpus_dir: str, csv_path: str,
              c["decoder_init_parameters"]["rnn_type"])
     if cells != (cell, cell):
         raise AssertionError(f"the {cell} checkpoint holds cells {cells}")
+    if c["encoder_init_parameters"]["bidirectional"] == unidirectional:
+        raise AssertionError(f"the {job} checkpoint's encoder direction")
     frozen = None
     if cell == "ESN":
         pairs = list(zip(_reservoir(before), _reservoir(c), strict=True))
@@ -1938,6 +1992,231 @@ def elman_layer_phase(dev, rng, t_train, launches_fwd, launches_bwd):
     return fwd_entry, bwd_entry
 
 
+# ---------------------------------------------------------------------------
+# the unidirectional GRU / Elman / ESN slice: one-direction layers over a
+# projected input and the GRU and Elman / ESN sampled loops
+# ---------------------------------------------------------------------------
+
+def _one_direction_fns(cell):
+    """(forward, twin, backward, twin, extra arguments by leak) of the
+    one-direction layer of ``cell`` (GRU, or RNN for the Elman / ESN
+    layer)."""
+    from seq2seq_abcd_vae_tpu_torch.ops import elman_kernel as ek
+    from seq2seq_abcd_vae_tpu_torch.ops import gru_kernel as gk
+    if cell == "GRU":
+        return (gk.gru_layer, gk.gru_layer_plain, gk.gru_layer_bwd,
+                gk.gru_layer_bwd_plain, lambda leak: ())
+    return (ek.rnn_layer, ek.rnn_layer_plain, ek.rnn_layer_bwd,
+            ek.rnn_layer_bwd_plain, lambda leak: (leak,))
+
+
+def _library_layer(dev, cell, f, h, w_ih, b_ih, w_hh, b_hh):
+    """The yardstick: cuDNN's unidirectional GRU or tanh RNN with the same
+    weights (it also computes the input projection, which the kernel is
+    handed)."""
+    if cell == "GRU":
+        net = torch.nn.GRU(f, h).to(dev)
+    else:
+        net = torch.nn.RNN(f, h, nonlinearity="tanh").to(dev)
+    with torch.no_grad():
+        net.weight_ih_l0.copy_(w_ih.T)
+        net.bias_ih_l0.copy_(b_ih)
+        net.weight_hh_l0.copy_(w_hh.T)
+        net.bias_hh_l0.copy_(b_hh)
+    return net
+
+
+def one_direction_layer_phase(dev, rng, t_train, cell, launches_fwd,
+                              launches_bwd):
+    """The one-direction GRU or Elman / ESN layer's kernels over a projected
+    input (``gru_layer``, ``rnn_layer``) vs twins at the training shape
+    B=512, T=``t_train`` (ragged lengths, one empty row), in both span
+    directions (xp flipped for ``reverse``, as models/rnn does), the Elman
+    layer at leak 1.0 and 0.5 (zero biases); the backward without an outs
+    cotangent (the main path's single layer) and with one; timed (forward
+    span, leak 1.0, no outs cotangent) beside cuDNN's unidirectional layer
+    on packed sequences (the empty row dropped)."""
+    fwd, fwd_plain, bwd, bwd_plain, extra = _one_direction_fns(cell)
+    f, h, b, t = 129, HIDDEN, TRAIN_BATCH, t_train
+    g = (3 if cell == "GRU" else 1) * h
+    lens = rng.integers(1, t + 1, size=b).astype(np.int32)
+    lens[0], lens[-1] = t, 0
+    lengths = torch.from_numpy(lens).to(dev)
+    x = torch.from_numpy(rng.normal(size=(t, b, f)).astype(np.float32)
+                         ).to(dev)
+    w_ih, b_ih, w_hh, b_hh = _lstm_weights(rng, dev, h, (f, g), (g,), (h, g),
+                                           (g,))
+    checks, timed = {}, None
+    for leak in ((1.0,) if cell == "GRU" else (1.0, 0.5)):
+        bi, bh = ((b_ih, b_hh) if leak == 1.0
+                  else (torch.zeros_like(b_ih), torch.zeros_like(b_hh)))
+        xp = torch.matmul(x, w_ih) + bi      # the hoisted projection
+        for reverse in (False, True):
+            args = (xp.flip(0).contiguous() if reverse else xp.contiguous(),
+                    lengths, w_hh, bh)
+            got = fwd(*args, reverse, *extra(leak))
+            want = fwd_plain(*args, reverse, *extra(leak))
+            torch.cuda.synchronize()
+            key = f"rev{int(reverse)}_leak{leak}"
+            checks["fwd_" + key] = max_err(got, want)
+            if not checks["fwd_" + key] <= LSTM_ATOL:
+                raise AssertionError(f"{cell} one-direction layer vs twin "
+                                     f"{key}: {checks['fwd_' + key]}")
+            outs, h_n = want
+            dh_n = torch.from_numpy(rng.normal(size=(b, h)).astype(
+                np.float32)).to(dev)
+            douts = (torch.from_numpy(rng.normal(size=(t, b, h)).astype(
+                np.float32)).to(dev) if reverse else None)
+            bwd_args = (*args, outs, douts, dh_n, reverse, *extra(leak))
+            g_all = bwd(*bwd_args)
+            r_all = bwd_plain(*bwd_args)
+            torch.cuda.synchronize()
+            rel = {n: rel_err(a, r) for n, a, r in zip(
+                ("dxp", "dw_hh", "db_hh"), g_all, r_all)}
+            checks["bwd_" + key] = max(rel.values())
+            if checks["bwd_" + key] > GRAD_FRACTION:
+                raise AssertionError(f"{cell} one-direction backward vs twin "
+                                     f"{key}: {rel}")
+            if (leak, reverse) == (1.0, False):
+                timed = (args, want, bwd_args, max(
+                    max_err(a, r) for a, r in zip(g_all, r_all)))
+    args, want, bwd_args, bwd_abs = timed
+    fwd_ms = cuda_ms(lambda: fwd(*args), iters=5)
+    fwd_plain_ms = cuda_ms(lambda: fwd_plain(*args), iters=2, warmup=1)
+    bwd_ms = cuda_ms(lambda: bwd(*bwd_args), iters=5)
+    bwd_plain_ms = cuda_ms(lambda: bwd_plain(*bwd_args), iters=2, warmup=1)
+    # where the backward's time goes: the reverse-time kernel vs the
+    # weight-gradient reductions and copies around it
+    bwd_by_kernel = device_ms_by_kernel(lambda: bwd(*bwd_args))
+    net = _library_layer(dev, cell, f, h, w_ih, b_ih, w_hh, b_hh)
+    keep = lens > 0
+    keep_dev = torch.from_numpy(keep).to(dev)
+    x_lib = x[:, keep_dev].contiguous()
+    x_grad = x_lib.clone().requires_grad_(True)
+    lens_lib = torch.from_numpy(lens[keep].astype(np.int64))
+    dh_lib = bwd_args[6][keep_dev][None]
+
+    @torch.no_grad()
+    def library_fwd():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            x_lib, lens_lib, enforce_sorted=False)
+        return net(packed)[1]
+
+    def library_fwd_bwd():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            x_grad, lens_lib, enforce_sorted=False)
+        torch.autograd.backward(net(packed)[1], dh_lib)
+
+    lib_err = max_err(library_fwd()[0], want[1][keep_dev])
+    lib_fwd_ms = cuda_ms(library_fwd, iters=5)
+    lib_bwd_ms = cuda_ms(library_fwd_bwd, iters=5)
+    steps = int(lens.sum())  # active row-steps
+    per = 2.0 * h * g        # h @ W_hh per row-step
+    fwd_bytes = 4.0 * (t * b * g + h * g + g                  # xp, W, b
+                       + t * b * h + b * h) + 4 * b           # outs, h_n
+    bwd_bytes = 4.0 * (t * b * g + h * g + g + t * b * h      # xp, W, b, outs
+                       + b * h                                # dh_n
+                       + t * b * g + h * g + g) + 4 * b       # dxp, dW, db
+    f_bms, f_by = bound_ms(steps * per, fwd_bytes)
+    # gates recomputed, the adjoint's product with W_hh^T and h_prev^T dhg:
+    # three times the forward's products
+    b_bms, b_by = bound_ms(3 * steps * per, bwd_bytes)
+    name = "gru_layer" if cell == "GRU" else "rnn_layer"
+    source, lines = (("gru.cu", (146, 180)) if cell == "GRU"
+                     else ("elman.cu", (111, 146)))
+    pallas = "gru_pallas.py" if cell == "GRU" else "elman_pallas.py"
+    library = "nn.GRU" if cell == "GRU" else "nn.RNN(tanh)"
+    common = {"route": "cuda",
+              "source": f"seq2seq_abcd_vae_tpu_torch/csrc/{source}",
+              "shape": f"T={t} B={b} H={h} (xp given; ragged, one empty "
+                       "row)"}
+    fwd_entry = dict(common, **{
+        "name": name,
+        "replaces": f"seq2seq_abcd_vae_tpu/ops/{pallas}:{lines[0]}",
+        "launches": launches_fwd,
+        "max_abs_err": max(v for k, v in checks.items()
+                           if k.startswith("fwd")),
+        "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": f_bms,
+        "bound_by": f_by, "library_ms": lib_fwd_ms,
+        "library_call": f"{library} (unidirectional) forward, packed",
+        "library_max_abs_err": lib_err,
+        "tolerance": LSTM_ATOL, "checks": checks})
+    bwd_entry = dict(common, **{
+        "name": name + "_bwd",
+        "helper_source": "seq2seq_abcd_vae_tpu_torch/csrc/wgrad.cu",
+        "replaces": f"seq2seq_abcd_vae_tpu/ops/{pallas}:{lines[1]}",
+        "launches": launches_bwd, "max_abs_err": bwd_abs,
+        "max_rel_err": max(v for k, v in checks.items()
+                           if k.startswith("bwd")),
+        "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": b_bms,
+        "bound_by": b_by, "library_ms": lib_bwd_ms,
+        "library_call": f"{library} (unidirectional) forward + backward, "
+                        "packed",
+        "device_ms_by_kernel": bwd_by_kernel,
+        "tolerance": f"{GRAD_FRACTION} of each leaf's max |value|"})
+    return fwd_entry, bwd_entry
+
+
+def _loop_args(full, cell):
+    """The sampled loop's arguments from the fused-loss decoder's (the
+    targets and the offset MLP dropped)."""
+    return full[:10] + full[15:] if cell == "GRU" else full[:9] + full[14:]
+
+
+def cell_loop_phase(dev, rng, cell, launches):
+    """The GRU or Elman / ESN sampled decoder loop (``gru_decoder_loop``,
+    ``rnn_decoder_loop``) vs its twin at the decode shape B=128, T=124
+    (the corpus's validation segments) and B=64, T=512, the Elman loop at
+    leak 1.0 and 0.5 (a zero bias); timed at the decode shape, leak 1.0."""
+    import functools
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    h, m, f = HIDDEN, MLP_HIDDEN, 129
+    name = "gru_decoder_loop" if cell == "GRU" else "rnn_decoder_loop"
+    checks, timed = {}, None
+    for b, t in ((128, 124), (BATCH, 512)):
+        for leak in ((1.0,) if cell == "GRU" else (1.0, 0.5)):
+            full, lens = _decoder_kernel_args(dev, rng, t, b, cell=cell,
+                                              leak=leak)
+            args = _loop_args(full, cell)
+            fwd, plain = getattr(dk, name), getattr(dk, name + "_plain")
+            if cell == "RNN":
+                fwd = functools.partial(fwd, leak=leak)
+                plain = functools.partial(plain, leak=leak)
+            got = fwd(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            key = f"B{b}_T{t}_leak{leak}"
+            checks[key] = max_err(got, want)
+            if not checks[key] <= LSTM_ATOL:
+                raise AssertionError(f"{name} vs twin {key}: {checks[key]}")
+            if timed is None:
+                timed = (b, t, fwd, plain, args)
+    b, t, fwd, plain, args = timed
+    ms = cuda_ms(lambda: fwd(*args), iters=5)
+    plain_ms = cuda_ms(lambda: plain(*args), iters=2, warmup=1)
+    # per row-step: h @ w_cat, the emission's second layer (mean and
+    # logvar) and the fed-back x @ w_ih; every step of every row runs
+    gh = (3 if cell == "GRU" else 1) * h
+    per = 2.0 * (h * (gh + 2 * m) + 2 * m * f + f * gh)
+    weights = (h * (gh + 2 * m) + (2 if cell == "GRU" else 1) * gh + 2 * m
+               + 2 * m * f + 2 * f + f * gh)
+    nbytes = 4.0 * (t * b * f + weights + b * h               # inputs
+                    + t * b * h) + 4 * b                      # outs
+    bms, by = bound_ms(t * b * per, nbytes)
+    line = 582 if cell == "GRU" else 1205
+    return {"name": name, "route": "cuda",
+            "source": "seq2seq_abcd_vae_tpu_torch/csrc/decoder.cu",
+            "replaces": f"seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:{line}",
+            "launches": launches, "max_abs_err": max(checks.values()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None,
+            "library_call": "none: no single PyTorch call runs the sampled "
+                            "loop",
+            "shape": f"T={t} B={b} F={f} H={h} m={m} (ragged, one empty "
+                     "row)",
+            "tolerance": LSTM_ATOL, "checks": checks}
+
+
 def wide_hidden_phase(dev, rng):
     """Hidden size 1024 (the widest the JAX CLI takes) through every
     recurrent kernel with the row tile its shared memory allows, against
@@ -2036,6 +2315,33 @@ def wide_hidden_phase(dev, rng):
                torch.tensor([0.5, 0.5], device=dev))
         errs[f"rnn_decoder_bwd_rel_leak{leak}"] = max(
             rel_err(g, r) for g, r in zip(bwd_d(*bwd), bwd_p(*bwd)))
+        loop = _loop_args(args, "RNN")
+        errs[f"rnn_decoder_loop_leak{leak}"] = max_err(
+            dk.rnn_decoder_loop(*loop, leak=leak),
+            dk.rnn_decoder_loop_plain(*loop, leak=leak))
+    args, _ = _decoder_kernel_args(dev, rng, t, b, h=h, cell="GRU")
+    loop = _loop_args(args, "GRU")
+    errs["gru_decoder_loop"] = max_err(dk.gru_decoder_loop(*loop),
+                                       dk.gru_decoder_loop_plain(*loop))
+    # the one-direction layers over a projected input, both span
+    # directions, the Elman layer at both leaks
+    for cell, leak in (("GRU", 1.0), ("RNN", 1.0), ("RNN", 0.5)):
+        fwd, fwd_p, bwd_d, bwd_p, extra = _one_direction_fns(cell)
+        g = (3 if cell == "GRU" else 1) * h
+        w_hh, b_hh = _lstm_weights(rng, dev, h, (h, g), (g,))
+        if leak < 1.0:
+            b_hh = torch.zeros_like(b_hh)
+        xp = normal(t, b, g)
+        name = "gru_layer" if cell == "GRU" else f"rnn_layer_leak{leak}"
+        for reverse in (False, True):
+            args = (xp, lengths, w_hh, b_hh)
+            got = fwd(*args, reverse, *extra(leak))
+            ref = fwd_p(*args, reverse, *extra(leak))
+            errs[f"{name}_fwd_rev{int(reverse)}"] = max_err(got, ref)
+            bwd = (*args, ref[0], None if reverse else normal(t, b, h),
+                   normal(b, h), reverse, *extra(leak))
+            errs[f"{name}_bwd_rel_rev{int(reverse)}"] = max(
+                rel_err(g_, r_) for g_, r_ in zip(bwd_d(*bwd), bwd_p(*bwd)))
     torch.cuda.synchronize()
     lib = _build.load("lstm")
     glib = _build.load("gru")
@@ -2055,7 +2361,13 @@ def wide_hidden_phase(dev, rng):
             "elman_fwd": elib.abcd_elman_rows(0, f, h),
             "elman_bwd": elib.abcd_elman_rows(1, f, h),
             "rnn_decoder_fused_fwd": dlib.abcd_decoder_rows(5, f, h, m, m),
-            "rnn_decoder_fused_bwd": dlib.abcd_decoder_rows(6, f, h, m, m)}
+            "rnn_decoder_fused_bwd": dlib.abcd_decoder_rows(6, f, h, m, m),
+            "gru_layer_fwd": glib.abcd_gru_rows(2, 0, h),
+            "gru_layer_bwd": glib.abcd_gru_rows(3, 0, h),
+            "rnn_layer_fwd": elib.abcd_elman_rows(2, 0, h),
+            "rnn_layer_bwd": elib.abcd_elman_rows(3, 0, h),
+            "gru_decoder_loop": dlib.abcd_decoder_rows(7, f, h, m, 0),
+            "rnn_decoder_loop": dlib.abcd_decoder_rows(8, f, h, m, 0)}
     limits = {"bidir_fwd": LSTM_ATOL, "uni_fwd": LSTM_ATOL,
               "decoder_fwd_states": LSTM_ATOL, "decoder_loop": LSTM_ATOL,
               "decoder_fwd_loss_rel": LOSS_RTOL,
@@ -2070,7 +2382,13 @@ def wide_hidden_phase(dev, rng):
                        f"elman_bwd_rel_leak{leak}": GRAD_FRACTION,
                        f"rnn_decoder_fwd_loss_rel_leak{leak}": LOSS_RTOL,
                        f"rnn_decoder_fwd_states_leak{leak}": LSTM_ATOL,
-                       f"rnn_decoder_bwd_rel_leak{leak}": GRAD_FRACTION})
+                       f"rnn_decoder_bwd_rel_leak{leak}": GRAD_FRACTION,
+                       f"rnn_decoder_loop_leak{leak}": LSTM_ATOL})
+    limits["gru_decoder_loop"] = LSTM_ATOL
+    for name in ("gru_layer", "rnn_layer_leak1.0", "rnn_layer_leak0.5"):
+        for rev in (0, 1):
+            limits[f"{name}_fwd_rev{rev}"] = LSTM_ATOL
+            limits[f"{name}_bwd_rel_rev{rev}"] = GRAD_FRACTION
     bad = {k: v for k, v in errs.items() if not v <= limits[k]}
     if bad:
         raise AssertionError(f"H=1024 kernels vs twins: {bad}")
@@ -2257,6 +2575,46 @@ def run(args, root, dev, rng, work) -> int:
                                  "rnn_layer_bidir_fused")
     print("ESN serve " + json.dumps(esn_serve), flush=True)
 
+    # ---- the unidirectional GRU / Elman / ESN slice's main paths, each
+    # counted: only the one-direction layer kernels (no layer backward
+    # under the ESN's frozen reservoir), never a bidirectional one
+    elman_dec = {"rnn_decoder_loop_fused_losses_fwd": "steps",
+                 "rnn_decoder_loop_fused_losses_bwd": "train"}
+    uni_cells = {}
+    for cell, kernels_, extra in (
+            ("GRU", {"gru_layer": "steps", "gru_layer_bwd": "train",
+                     "gru_decoder_loop_fused_losses_fwd": "steps",
+                     "gru_decoder_loop_fused_losses_bwd": "train"}, ()),
+            ("RNN", dict(elman_dec, rnn_layer="steps", rnn_layer_bwd="train"),
+             ()),
+            ("ESN", dict(elman_dec, rnn_layer="steps"),
+             ("--esn_leak", "0.5"))):
+        uni_cells[cell] = cell_train_phase(
+            dev, work, corpus_dir, csv_path, args.seed, cell, kernels_,
+            extra=extra, unidirectional=True)
+        print(f"unidirectional {cell} training throughput " + json.dumps(
+            {k: uni_cells[cell][k] for k in (
+                "segments_per_s_after_first_epoch", "epochs",
+                "reservoir_tensors_unchanged")}), flush=True)
+    uni_enc = encode_cli_phase(
+        dev, work, corpus_dir, csv_path,
+        {f"uni_{cell.lower()}": r["checkpoint"]
+         for cell, r in uni_cells.items()},
+        modes=("probs",), formats=("csv",))
+    print("unidirectional GRU / RNN / ESN encode CLI " + json.dumps(uni_enc),
+          flush=True)
+    uni_serve = cell_serve_phase(work, uni_cells["GRU"]["checkpoint"], rng,
+                                 "uni-GRU", "gru_layer")
+    print("unidirectional GRU serve " + json.dumps(uni_serve), flush=True)
+    uni_decode = {cell: decode_phase(dev, uni_cells[cell]["checkpoint"],
+                                     corpus_dir, csv_path, args.seed,
+                                     loop=loop)
+                  for cell, loop in (("GRU", "gru_decoder_loop"),
+                                     ("ESN", "rnn_decoder_loop"))}
+    for cell, result in uni_decode.items():
+        print(f"decode_features ({cell} decoder) " + json.dumps(result),
+              flush=True)
+
     paths = {"serve": launches, "train": train["launches"],
              "uni_train": uni["launches"], "encode_cli": enc_cli["launches"],
              "decode": decode["launches"], "gru_train": gru["launches"],
@@ -2264,7 +2622,14 @@ def run(args, root, dev, rng, work) -> int:
              "gru_serve": gru_serve["launches"],
              "rnn_train": rnn["launches"], "esn_train": esn["launches"],
              "elman_encode_cli": elman_enc["launches"],
-             "esn_serve": esn_serve["launches"]}
+             "esn_serve": esn_serve["launches"],
+             "uni_gru_train": uni_cells["GRU"]["launches"],
+             "uni_rnn_train": uni_cells["RNN"]["launches"],
+             "uni_esn_train": uni_cells["ESN"]["launches"],
+             "uni_cells_encode_cli": uni_enc["launches"],
+             "uni_gru_serve": uni_serve["launches"],
+             "uni_gru_decode": uni_decode["GRU"]["launches"],
+             "uni_esn_decode": uni_decode["ESN"]["launches"]}
 
     def by_path(name):
         return {p: counts.get(name, 0) for p, counts in paths.items()}
@@ -2318,10 +2683,23 @@ def run(args, root, dev, rng, work) -> int:
     rnn_dec_fwd, rnn_dec_bwd = decoder_train_phase(
         dev, rng, t_train, total("rnn_decoder_loop_fused_losses_fwd"),
         total("rnn_decoder_loop_fused_losses_bwd"), cell="RNN")
+    uni_steps = {}
+    for cell, leak in (("GRU", 1.0), ("RNN", 1.0), ("ESN", 0.5)):
+        checks_, inputs_ = whole_step_phase(
+            dev, corpus_dir, csv_path, args.seed, bidirectional=False,
+            rnn_type=cell, esn_leak=leak)
+        uni_steps[cell] = (checks_, *train_step_breakdown(dev, *inputs_))
+    gru_uni_fwd, gru_uni_bwd = one_direction_layer_phase(
+        dev, rng, t_train, "GRU", total("gru_layer"), total("gru_layer_bwd"))
+    rnn_uni_fwd, rnn_uni_bwd = one_direction_layer_phase(
+        dev, rng, t_train, "RNN", total("rnn_layer"), total("rnn_layer_bwd"))
+    gru_loop = cell_loop_phase(dev, rng, "GRU", total("gru_decoder_loop"))
+    rnn_loop = cell_loop_phase(dev, rng, "RNN", total("rnn_decoder_loop"))
     wide = wide_hidden_phase(dev, rng)
     kernels += [lstm_bwd, dec_fwd, dec_bwd, uni_fwd, uni_bwd, loop, gru_fwd,
                 gru_bwd, gru_dec_fwd, gru_dec_bwd, elman_fwd, elman_bwd,
-                rnn_dec_fwd, rnn_dec_bwd]
+                rnn_dec_fwd, rnn_dec_bwd, gru_uni_fwd, gru_uni_bwd,
+                rnn_uni_fwd, rnn_uni_bwd, gru_loop, rnn_loop]
     for entry in kernels:
         key = {"decoder_loop_fused_losses": "decoder_loop_fused_losses_fwd",
                "gru_decoder_loop_fused_losses":
@@ -2336,8 +2714,8 @@ def run(args, root, dev, rng, work) -> int:
         lacking = KERNEL_KEYS - set(entry)
         if lacking:
             raise AssertionError(f"kernel {entry['name']} lacks {lacking}")
-    if len(kernels) != 16:
-        raise AssertionError(f"{len(kernels)} kernel entries, expected 16")
+    if len(kernels) != 22:
+        raise AssertionError(f"{len(kernels)} kernel entries, expected 22")
     print("training step, kernels (card) vs twins (CPU) "
           + json.dumps(checks), flush=True)
     print("unidirectional training step, kernels (card) vs twins (CPU) "
@@ -2358,6 +2736,11 @@ def run(args, root, dev, rng, work) -> int:
         print(f"{cell} training step, kernels (card) vs twins (CPU) "
               + json.dumps(checks_), flush=True)
         print(f"{cell} training step {json.dumps(shape_)}, ms "
+              + json.dumps(stages_), flush=True)
+    for cell, (checks_, stages_, shape_) in uni_steps.items():
+        print(f"unidirectional {cell} training step, kernels (card) vs twins "
+              "(CPU) " + json.dumps(checks_), flush=True)
+        print(f"unidirectional {cell} training step {json.dumps(shape_)}, ms "
               + json.dumps(stages_), flush=True)
     print("hidden size 1024, kernels vs twins " + json.dumps(wide),
           flush=True)

@@ -9,13 +9,13 @@ wrapper takes for CPU tensors.  Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``.
 
 Ported so far: the encode server (``cli/serve_main.py`` ->
-``serve/server.py`` -> ``infer/encode.encode_step``) for the LSTM encoder
-(bidirectional or unidirectional) or the bidirectional GRU encoder with
-the ABCD head; ABCD-VAE training (``cli/learning_main.py`` ->
-``train/learner.py`` -> ``models/vae.py``) with the unidirectional LSTM or
-GRU decoder; the offline encode CLI (``cli/encode_main.py`` ->
+``serve/server.py`` -> ``infer/encode.encode_step``) for the LSTM, GRU,
+Elman RNN or echo-state (ESN) encoder, bidirectional or unidirectional,
+with the ABCD head; ABCD-VAE training (``cli/learning_main.py`` ->
+``train/learner.py`` -> ``models/vae.py``) with the unidirectional LSTM,
+GRU, RNN or ESN decoder; the offline encode CLI (``cli/encode_main.py`` ->
 ``infer/encode.Encoder.encode_dataset``, CSV and npz); generative decoding
-of the LSTM decoder (``infer/decode.decode_features``).
+of those decoders (``infer/decode.decode_features``).
 """
 
 __version__ = "0.1.0"

@@ -3,12 +3,12 @@
 
 Each config is rebuilt from the ``*_init_parameters`` dict stored beside
 its module's weights in ``checkpoint.pt``, which is what makes a
-checkpoint self-describing.  The port serves the LSTM encoder (one or
-both directions) and the bidirectional GRU, Elman RNN and echo-state (ESN)
-encoders with the ABCD head, and trains them with the unidirectional LSTM,
-GRU, RNN or ESN decoder (isotropic-Gaussian emission, sampled
-self-feedback); ``check_served`` and ``check_decoder`` name the
-configurations that wait for later slices.
+checkpoint self-describing.  The port serves the LSTM, GRU, Elman RNN and
+echo-state (ESN) encoders (one or both directions) with the ABCD head,
+trains them with the unidirectional LSTM, GRU, RNN or ESN decoder
+(isotropic-Gaussian emission, sampled self-feedback) and decodes those
+decoders; ``check_served`` and ``check_decoder`` name the configurations
+that wait for later slices.
 """
 
 from __future__ import annotations
@@ -147,19 +147,12 @@ class ABCDSamplerConfig:
 def check_served(encoder: EncoderConfig, latent_type: str = "abcd",
                  decoder: Optional[DecoderConfig] = None) -> None:
     """Raise NotImplementedError for what the port does not serve or train
-    yet: encoders but the LSTM (one or both directions) and the
-    bidirectional GRU, RNN and ESN, the plain VAE, and (with a ``decoder``,
-    the training path) encoder dropout and every decoder ``check_decoder``
-    refuses for training."""
+    yet: encoders of another cell than the LSTM, GRU, RNN and ESN, the
+    plain VAE, and (with a ``decoder``, the training path) encoder dropout
+    and every decoder ``check_decoder`` refuses for training."""
     if encoder.rnn_type not in ("LSTM", "GRU", "RNN", "ESN"):
         raise NotImplementedError(
             f"the {encoder.rnn_type!r} encoder is not ported")
-    if encoder.rnn_type != "LSTM" and not encoder.bidirectional:
-        kernel = "gru_layer" if encoder.rnn_type == "GRU" else "rnn_layer"
-        raise NotImplementedError(
-            f"the unidirectional {encoder.rnn_type} encoder (the {kernel} "
-            "kernel) is not ported yet; it comes with a later slice of the "
-            "port")
     if latent_type != "abcd":
         raise NotImplementedError(
             f"latent type {latent_type!r} (the plain Gaussian VAE and its "
@@ -177,18 +170,13 @@ def check_decoder(decoder: DecoderConfig, training: bool = True) -> None:
     """Raise NotImplementedError for every decoder the port does not run
     yet.  Training takes the unidirectional LSTM, GRU, RNN or ESN decoder
     with isotropic-Gaussian emission and sampled self-feedback, without
-    input dropout.  Generative decoding (``training=False``) is
-    deterministic, as the JAX package's ``decode_features`` is: input
-    dropout and the greedy decoder act only in training, so their
-    checkpoints decode on the sampled loop; it takes the LSTM decoder only
-    (GRU, RNN and ESN decoding, the ``gru_decoder_loop`` and
-    ``rnn_decoder_loop`` kernels, come with a later slice)."""
-    cells = ("LSTM", "GRU", "RNN", "ESN") if training else ("LSTM",)
-    if decoder.rnn_type not in cells:
+    input dropout.  Generative decoding (``training=False``) takes the
+    same four cells and is deterministic, as the JAX package's
+    ``decode_features`` is: input dropout and the greedy decoder act only
+    in training, so their checkpoints decode on the sampled loop."""
+    if decoder.rnn_type not in ("LSTM", "GRU", "RNN", "ESN"):
         raise NotImplementedError(
-            f"{'training' if training else 'decoding'} a "
-            f"{decoder.rnn_type} decoder is not ported yet (it comes with "
-            "a later slice of the port)")
+            f"the {decoder.rnn_type!r} decoder is not ported")
     if decoder.bidirectional:
         raise NotImplementedError(
             "the bidirectional decoder is not ported yet")

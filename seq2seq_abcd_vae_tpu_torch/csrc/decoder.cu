@@ -1,18 +1,19 @@
 // The decoder's sampled time loop, written for Hopper (sm_90a): for the
-// LSTM cell with its two training losses fused (forward and backward) and as
-// the plain loop that writes its streams (forward), and for the GRU and the
-// Elman / ESN cells with the losses fused (forward and backward).
+// LSTM, GRU and Elman / ESN cells with the two training losses fused
+// (forward and backward) and as the plain sampled loop (forward).
 //
 // Replaces seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:
 // decoder_loop_fused_losses (`_fused_fwd_call` / `_fused_fwd_kernel` and
 // `_fused_bwd_call` / `_fused_bwd_kernel`, with_offset=True), the forward
-// of decoder_loop (`_fwd_call` / `_fwd_kernel`) and
+// of decoder_loop (`_fwd_call` / `_fwd_kernel`),
 // gru_decoder_loop_fused_losses (`_gru_floss_fwd_call` /
 // `_gru_floss_fwd_kernel` and `_gru_floss_bwd_call` /
-// `_gru_floss_bwd_kernel`) and rnn_decoder_loop_fused_losses
+// `_gru_floss_bwd_kernel`), rnn_decoder_loop_fused_losses
 // (`_rnn_floss_fwd_call` / `_rnn_floss_fwd_kernel` and `_rnn_floss_bwd_call`
-// / `_rnn_floss_bwd_kernel`).  Step t of the loop, in the order of the scan
-// body (models/decoder.py:341-361):
+// / `_rnn_floss_bwd_kernel`), and the forwards of gru_decoder_loop
+// (`_gru_fwd_call` / `_gru_fwd_kernel`) and rnn_decoder_loop
+// (`_rnn_fwd_call` / `_rnn_fwd_kernel`).  Step t of the loop, in the order
+// of the scan body (models/decoder.py:341-361):
 //
 //   big  = h @ w_cat                         w_cat = [W_hh | emission lin1]
 //   emh  = tanh(big[:, GH:] + b1)            GH = 4H | 3H (GRU) | H (RNN)
@@ -36,7 +37,10 @@
 // and step t's emission to POSITION slot t-1 of the mean / logvar streams,
 // step 0's parked on slot T-1 for the caller to overwrite.  These are
 // exactly the TPU kernels' slot maps and masks (_step_masks, _offset_target,
-// the `pos` output index map of `_fwd_call`).
+// the `pos` output index map of `_fwd_call`).  The GRU and Elman / ESN
+// plain loops (gru_decoder_loop, rnn_decoder_loop) write outs alone: their
+// callers compute the emissions from outs afterwards
+// (models/decoder.py:324-329).
 //
 // Design: rows are independent, so one block owns R batch rows and the
 // whole time loop; no block waits for another.  R (8, 4 or 2) is chosen at
@@ -246,16 +250,17 @@ __device__ __forceinline__ float offset_logit(const float* __restrict__ wo2,
   return warp_sum(s) + bo2;
 }
 
-// kLosses: the fused-loss forward (decoder_loop_fused_losses).  Otherwise
-// the plain sampled loop (decoder_loop): no targets, offset MLP or loss
-// sums; it writes the pre-mask h2 of every step to outs at slot t and the
-// emission parameters computed at step t to mean_s / logvar_s at POSITION
-// slot t - 1, step 0's parked on slot T - 1 (the caller overwrites it).
-// kCell == kGRU: the GRU cell (gru_decoder_loop_fused_losses; with kLosses
-// only): w_cat is (H, 3H + 2M), `bias` is b_ih and `bias_hh` b_hh, there is
-// no c.  kCell == kRNN: the Elman / ESN cell (rnn_decoder_loop_fused_losses;
-// with kLosses only): w_cat is (H, H + 2M), `bias` is b_ih + b_hh (zeros for
-// the ESN), there is no c, and `leak` mixes the carry into the update.
+// kLosses: the fused-loss forward (decoder_loop_fused_losses and its GRU
+// and Elman / ESN variants).  Otherwise the plain sampled loop
+// (decoder_loop, gru_decoder_loop, rnn_decoder_loop): no targets, offset
+// MLP or loss sums; it writes the pre-mask h2 of every step to outs at slot
+// t and, when mean_s is given (the LSTM's loop), the emission parameters
+// computed at step t to mean_s / logvar_s at POSITION slot t - 1, step 0's
+// parked on slot T - 1 (the caller overwrites it).  kCell == kGRU: the GRU
+// cell: w_cat is (H, 3H + 2M), `bias` is b_ih and `bias_hh` b_hh, there is
+// no c.  kCell == kRNN: the Elman / ESN cell: w_cat is (H, H + 2M), `bias`
+// is b_ih + b_hh (zeros for the ESN), there is no c, and `leak` mixes the
+// carry into the update.
 template <int R, bool kLosses, int kCell>
 __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
     const float* __restrict__ noise,    // (T, B, F)
@@ -280,8 +285,8 @@ __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
     float* __restrict__ cs,             // (T, B, H) or nullptr (LSTM only)
     double* __restrict__ partial,       // (blocks, 2) kLosses only
     float* __restrict__ outs,           // (T, B, H)   loop only
-    float* __restrict__ mean_s,         // (T, B, F)   loop only
-    float* __restrict__ logvar_s,       // (T, B, F)   loop only
+    float* __restrict__ mean_s,         // (T, B, F)   LSTM loop or nullptr
+    float* __restrict__ logvar_s,       // (T, B, F)   LSTM loop or nullptr
     int T, int B, int F, int H, int M, int Mo,
     float leak) {                       // RNN only
   extern __shared__ float smem[];
@@ -333,7 +338,7 @@ __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
           }
         }
         s_x[r * F + f] = x;
-        if (!kLosses && r < nrows) {
+        if (!kLosses && mean_s && r < nrows) {
           const int64_t o = ((int64_t)slot * B + r0 + r) * F + f;
           mean_s[o] = mean[r];
           logvar_s[o] = lv[r];
@@ -817,8 +822,9 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
 // kind: 0 fused-loss forward, 1 fused-loss backward, 2 the plain loop's
 // forward (the LSTM cell); 3 fused-loss forward, 4 fused-loss backward (the
 // GRU cell); 5 fused-loss forward, 6 fused-loss backward (the Elman / ESN
-// cell).  Floats of shared memory per row of the tile (the backward adds
-// the offset-logit cotangent).
+// cell); 7 the GRU's and 8 the Elman / ESN's plain loop forward.  Floats of
+// shared memory per row of the tile (the backward adds the offset-logit
+// cotangent).
 long long smem_bytes(int kind, int rows, int F, int H, int M, int Mo) {
   long long per_row;
   switch (kind) {
@@ -828,7 +834,9 @@ long long smem_bytes(int kind, int rows, int F, int H, int M, int Mo) {
     case 3: per_row = 2LL * H + 3LL * H + 2LL * M + F + Mo; break;
     case 4: per_row = 4LL * H + 3LL * H + 2LL * M + 3LL * F + Mo + 1; break;
     case 5: per_row = 2LL * H + 1LL * H + 2LL * M + F + Mo; break;
-    default: per_row = 3LL * H + 1LL * H + 2LL * M + 3LL * F + Mo + 1;
+    case 6: per_row = 3LL * H + 1LL * H + 2LL * M + 3LL * F + Mo + 1; break;
+    case 7: per_row = 1LL * H + 3LL * H + 2LL * M + F; break;
+    default: per_row = 1LL * H + 1LL * H + 2LL * M + F;
   }
   return (long long)rows * per_row * (long long)sizeof(float);
 }
@@ -843,6 +851,8 @@ const void* kernel_of(int kind) {
     case 4: return (const void*)decoder_bwd_kernel<R, kGRU>;
     case 5: return (const void*)decoder_fwd_kernel<R, true, kRNN>;
     case 6: return (const void*)decoder_bwd_kernel<R, kRNN>;
+    case 7: return (const void*)decoder_fwd_kernel<R, false, kGRU>;
+    case 8: return (const void*)decoder_fwd_kernel<R, false, kRNN>;
     default: return nullptr;
   }
 }
@@ -950,6 +960,21 @@ constexpr int fused_fwd_kind(int cell) {
 }
 constexpr int fused_bwd_kind(int cell) {
   return cell == kLSTM ? 1 : cell == kGRU ? 4 : 6;
+}
+
+// The plain sampled loop of any cell (kind 2, 7 or 8): outs, and for the
+// LSTM the emission streams.
+template <int kCell>
+int loop_fwd(const FwdArgs& a, int rows, void* stream) {
+  if (a.T < 1 || a.B < 1 || a.F < 1 || a.H < 1 || a.M < 1)
+    return (int)cudaErrorInvalidValue;
+  const int kind = kCell == kLSTM ? 2 : kCell == kGRU ? 7 : 8;
+  int smem = 0;
+  cudaError_t err = prepare(kind, rows, a.F, a.H, a.M, 0, &smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (a.B + rows - 1) / rows;
+  dispatch_fwd<false, kCell>(rows, blocks, smem, (cudaStream_t)stream, a);
+  return (int)cudaGetLastError();
 }
 
 // A fused-loss forward of any cell, then the block-order sum of the
@@ -1078,18 +1103,46 @@ int abcd_decoder_loop_fwd(const float* noise, const int* lengths,
                           float* logvar_s, float* hs, float* cs, int T,
                           int B, int F, int H, int M, int rows,
                           void* stream) {
-  if (T < 1 || B < 1 || F < 1 || H < 1 || M < 1)
-    return (int)cudaErrorInvalidValue;
-  int smem = 0;
-  cudaError_t err = prepare(2, rows, F, H, M, 0, &smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (B + rows - 1) / rows;
   const FwdArgs a{noise, lengths, w_cat, bias, nullptr, b1, w2m, w2v, b2,
                   w_ih, nullptr, nullptr, nullptr, nullptr, nullptr, h0, c0,
                   nullptr, hs, cs, nullptr, outs, mean_s, logvar_s, T, B, F,
                   H, M, 0};
-  dispatch_fwd<false, kLSTM>(rows, blocks, smem, (cudaStream_t)stream, a);
-  return (int)cudaGetLastError();
+  return loop_fwd<kLSTM>(a, rows, stream);
+}
+
+// The GRU's plain sampled loop (kind 7): outs (T, B, H) = the pre-mask h2
+// of every step; b_ih and b_hh apart, no c0 / cs; hs may be nullptr.
+int abcd_gru_decoder_loop_fwd(const float* noise, const int* lengths,
+                              const float* w_cat, const float* b_ih,
+                              const float* b_hh, const float* b1,
+                              const float* w2m, const float* w2v,
+                              const float* b2, const float* w_ih,
+                              const float* h0, float* outs, float* hs, int T,
+                              int B, int F, int H, int M, int rows,
+                              void* stream) {
+  const FwdArgs a{noise, lengths, w_cat, b_ih, b_hh, b1, w2m, w2v, b2, w_ih,
+                  nullptr, nullptr, nullptr, nullptr, nullptr, h0, nullptr,
+                  nullptr, hs, nullptr, nullptr, outs, nullptr, nullptr, T, B,
+                  F, H, M, 0};
+  return loop_fwd<kGRU>(a, rows, stream);
+}
+
+// The Elman / ESN plain sampled loop (kind 8): outs (T, B, H) = the
+// pre-mask h2 of every step; `bias` = b_ih + b_hh (zeros for the ESN), no
+// c0 / cs, `leak` in (0, 1]; hs may be nullptr.
+int abcd_rnn_decoder_loop_fwd(const float* noise, const int* lengths,
+                              const float* w_cat, const float* bias,
+                              const float* b1, const float* w2m,
+                              const float* w2v, const float* b2,
+                              const float* w_ih, const float* h0,
+                              float* outs, float* hs, int T, int B, int F,
+                              int H, int M, float leak, int rows,
+                              void* stream) {
+  const FwdArgs a{noise, lengths, w_cat, bias, nullptr, b1, w2m, w2v, b2,
+                  w_ih, nullptr, nullptr, nullptr, nullptr, nullptr, h0,
+                  nullptr, nullptr, hs, nullptr, nullptr, outs, nullptr,
+                  nullptr, T, B, F, H, M, 0, leak};
+  return loop_fwd<kRNN>(a, rows, stream);
 }
 
 // LSTM backward (kind 1; see the comment at the top): writes dh0, dc0 and

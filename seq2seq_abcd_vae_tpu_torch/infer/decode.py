@@ -2,14 +2,15 @@
 of seq2seq_abcd_vae_tpu/infer/decode.py).
 
 ``decode_features`` runs the decoder generatively, deterministically, in
-``sample`` mode (the sampled emission is fed back,
-through the hand-written ``decoder_loop`` kernel on the card) or ``mean``
-mode (the reference's ``sampler2mean``: the emission mean is fed back and
+``sample`` mode (the sampled emission is fed back, through the
+hand-written loop kernel of the decoder's cell on the card:
+``decoder_loop`` for the LSTM, ``gru_decoder_loop`` for the GRU,
+``rnn_decoder_loop`` for the Elman RNN and the ESN) or ``mean`` mode (the
+reference's ``sampler2mean``: the emission mean is fed back and
 returned).  Being deterministic, it decodes checkpoints trained with
 decoder input dropout or ``--greedy_decoder`` as the JAX package does: on
-the same sampled loop, since both act only in training.  The LSTM decoder
-decodes so far; a GRU decoder's loop (``gru_decoder_loop``) comes with a
-later slice.  The JAX function draws its noise inside the call from a key;
+the same sampled loop, since both act only in training.  The JAX function
+draws its noise inside the call from a key;
 here the noise is an argument, or drawn from a ``torch.Generator``, so a
 caller (and a parity test) can hand both packages the same draws.
 """

@@ -21,14 +21,18 @@ ESN's reservoir (the cell's ``w_ih`` and ``w_hh``) is frozen: it enters
 the loop detached, so gradients reach only the initial state (the latent)
 and the emission and offset MLPs, as in the JAX package.
 
-Decoding (``decoder_apply``, the LSTM so far) returns the streams, as the
-JAX function's non-``loss_only`` path does: ``sample`` mode runs the
-sampled loop in one hand-written kernel (``ops/decoder_kernel.
-decoder_loop``) and overwrites slot T-1 of its position-indexed emission
-streams from the last step's pre-mask hidden state; ``mean`` mode feeds
-the emission mean back and runs the JAX package's scan body as a loop of
-batched products on the tensors' device (the JAX package takes its kernel
-for ``sample`` only).
+Decoding (``decoder_apply``, every cell) returns the streams, as the JAX
+function's non-``loss_only`` path does: ``sample`` mode runs the sampled
+loop in one hand-written kernel (``ops/decoder_kernel.decoder_loop`` for
+the LSTM, ``gru_decoder_loop`` for the GRU, ``rnn_decoder_loop`` for the
+Elman cell and, with its leak and no biases, the ESN).  The LSTM's kernel
+writes the position-indexed emission streams, whose slot T-1 is
+overwritten from the last step's pre-mask hidden state; the other cells'
+kernels return the pre-mask hidden states alone, and the emission MLP then
+runs over all (B, T) rows, as in the JAX package.  ``mean`` mode feeds the
+emission mean back and runs the JAX package's scan body as a loop of
+batched products on the tensors' device (the JAX package takes its
+kernels for ``sample`` only).
 """
 
 from __future__ import annotations
@@ -172,12 +176,37 @@ def decoder_losses(params: dict, cfg: DecoderConfig, features: torch.Tensor,
     return emission_loss, bce
 
 
-def _mean_loop(params: dict, w: dict, h0, c0, lengths, t: int):
-    """The JAX scan body in mean mode (models/decoder.py:_run_direction):
-    the emission mean of the previous position is fed back.  Returns the
-    pre-mask h2 of every step, (T, B, H)."""
+def _mean_cell(cfg: DecoderConfig, cell: dict, x, big, h, c):
+    """(h2, c2) of one step of the JAX package's ``_gate_activations``
+    from the fed-back input ``x`` and ``big`` = h @ w_cat; c is the LSTM's
+    (passed through by the other cells)."""
+    gh = NUM_GATES[cfg.rnn_type] * cfg.rnn_hidden_size
+    hp = big[:, :gh]
+    if cfg.rnn_type == "ESN":  # no biases
+        u = torch.tanh(x @ cell["w_ih"] + hp)
+        return (1.0 - cfg.esn_leak) * h + cfg.esn_leak * u, c
+    xp = x @ cell["w_ih"] + cell["b_ih"]
+    hp = hp + cell["b_hh"]
+    if cfg.rnn_type == "LSTM":
+        i, f, g, o = (xp + hp).chunk(4, dim=-1)
+        c2 = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return torch.sigmoid(o) * torch.tanh(c2), c2
+    if cfg.rnn_type == "GRU":  # b_hh inside the reset product
+        xr, xz, xn = xp.chunk(3, dim=-1)
+        hr, hz, hn = hp.chunk(3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        return (1.0 - z) * torch.tanh(xn + r * hn) + z * h, c
+    return torch.tanh(xp + hp), c
+
+
+def _mean_loop(params: dict, cfg: DecoderConfig, w: dict, h0, c0, lengths,
+               t: int):
+    """The JAX scan body in mean mode (models/decoder.py:_run_direction)
+    for any cell: the emission mean of the previous position is fed back.
+    Returns the pre-mask h2 of every step, (T, B, H)."""
     cell = params["rnn_cell"]
-    hidden = h0.shape[1]
+    gh = NUM_GATES[cfg.rnn_type] * cfg.rnn_hidden_size
     f_dim = w["w_ih"].shape[0]
     m = w["w2m"].shape[0]
     steps = torch.arange(t, device=h0.device)[:, None]
@@ -188,14 +217,10 @@ def _mean_loop(params: dict, w: dict, h0, c0, lengths, t: int):
     outs = []
     for s in range(t):
         big = h @ w["w_cat"]
-        emh = torch.tanh(big[:, 4 * hidden:] + w["b1"])
+        emh = torch.tanh(big[:, gh:] + w["b1"])
         mean = emh[:, :m] @ w["w2m"] + w["b2"][:f_dim]
         x = torch.where(pmt[s], mean, 0.0)
-        gates = ((x @ cell["w_ih"] + cell["b_ih"])
-                 + (big[:, :4 * hidden] + cell["b_hh"]))
-        i, f, g, o = gates.chunk(4, dim=-1)
-        c2 = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h2 = torch.sigmoid(o) * torch.tanh(c2)
+        h2, c2 = _mean_cell(cfg, cell, x, big, h, c)
         h = torch.where(mt[s], h2, h)
         c = torch.where(mt[s], c2, c)
         outs.append(h2)
@@ -229,24 +254,38 @@ def decoder_apply(params: dict, cfg: DecoderConfig, features: torch.Tensor,
     if emission_mode not in ("sample", "mean"):
         raise ValueError(f"unknown emission mode {emission_mode!r}")
     h0, c0 = _initial_state(params, cfg, features, speaker)
-    w = _loop_weights(params)
+    w = _loop_weights(params, cfg.rnn_type)
     lengths = lengths.to(torch.int32)
     if emission_mode == "sample":
         if noise is None or tuple(noise.shape) != (
                 total_steps, features.shape[0], cfg.output_size):
             raise ValueError("sample mode needs noise of shape (T, B, F)")
-        outs, mean_s, logvar_s = decoder_kernel.decoder_loop(
-            noise.contiguous(), lengths, w["w_cat"], w["bias"], w["b1"],
-            w["w2m"], w["w2v"], w["b2"], w["w_ih"], h0, c0)
-        # slot T-1 holds step 0's parked emission: the final position's
-        # comes from the last step's pre-mask hidden state
-        last = sampler_mod.sampler_apply(params["emission_sampler"],
-                                         outs[-1])
-        em = tuple(torch.cat([p_s[:-1], p_last[None]]).transpose(0, 1)
-                   for p_s, p_last in zip((mean_s, logvar_s), last))
+        noise = noise.contiguous()
+        loop = (w["b1"], w["w2m"], w["w2v"], w["b2"], w["w_ih"], h0)
+        if cfg.rnn_type == "LSTM":
+            outs, mean_s, logvar_s = decoder_kernel.decoder_loop(
+                noise, lengths, w["w_cat"], w["bias"], *loop, c0)
+            # slot T-1 holds step 0's parked emission: the final
+            # position's comes from the last step's pre-mask hidden state
+            last = sampler_mod.sampler_apply(params["emission_sampler"],
+                                             outs[-1])
+            em = tuple(torch.cat([p_s[:-1], p_last[None]]).transpose(0, 1)
+                       for p_s, p_last in zip((mean_s, logvar_s), last))
+        else:
+            if cfg.rnn_type == "GRU":
+                outs = decoder_kernel.gru_decoder_loop(
+                    noise, lengths, w["w_cat"], w["b_ih"], w["b_hh"], *loop)
+            else:
+                outs = decoder_kernel.rnn_decoder_loop(
+                    noise, lengths, w["w_cat"], w["bias"], *loop,
+                    leak=cfg.esn_leak if cfg.rnn_type == "ESN" else 1.0)
+            # the loop returns the hidden states alone: the emission of
+            # every position from them
+            em = sampler_mod.sampler_apply(params["emission_sampler"],
+                                           outs.transpose(0, 1))
         out = dist.gaussian_from_noise(noise.transpose(0, 1), *em)
     else:
-        outs = _mean_loop(params, w, h0, c0, lengths, total_steps)
+        outs = _mean_loop(params, cfg, w, h0, c0, lengths, total_steps)
         em = sampler_mod.sampler_apply(params["emission_sampler"],
                                        outs.transpose(0, 1))
         out = em[0]

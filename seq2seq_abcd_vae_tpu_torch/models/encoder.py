@@ -1,6 +1,6 @@
 """Variational sequence encoder (PyTorch port of
-seq2seq_abcd_vae_tpu/models/encoder.py: the LSTM encoder in one or both
-directions, the GRU, Elman RNN and echo-state (ESN) encoders in both).
+seq2seq_abcd_vae_tpu/models/encoder.py: the LSTM, GRU, Elman RNN and
+echo-state (ESN) encoders in one or both directions).
 
 The output is the flattened final state: for each (layer, direction) the
 LSTM's h and c are concatenated (the other cells have h only), and the
@@ -59,18 +59,22 @@ def encoder_apply(params: list, cfg: EncoderConfig, x: torch.Tensor,
     finals = []
     y = x
     for layer in params:
-        if cfg.rnn_type == "ESN":
+        if cfg.rnn_type == "ESN" and cfg.bidirectional:
             outs_f, outs_b, h_f, h_b = esn_mod.run_esn_layer_bidir(
                 layer, y, lengths, cfg.esn_leak)
             finals.extend([(h_f, None), (h_b, None)])
             y = torch.cat([outs_f, outs_b], dim=-1)
+        elif cfg.rnn_type == "ESN":
+            y, h_f = esn_mod.run_esn_layer(layer, y, lengths, cfg.esn_leak)
+            finals.append((h_f, None))
         elif cfg.bidirectional:
             outs_f, outs_b, both = rnn_mod.run_rnn_layer_bidir(
                 layer, y, lengths, cfg.rnn_type)
             finals.extend(both)
             y = torch.cat([outs_f, outs_b], dim=-1)
         else:
-            y, final = rnn_mod.run_rnn_layer(layer, y, lengths)
+            y, final = rnn_mod.run_rnn_layer(layer, y, lengths,
+                                             rnn_type=cfg.rnn_type)
             finals.append(final)
     return _flatten_final(cfg, finals)
 

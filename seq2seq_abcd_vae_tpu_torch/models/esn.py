@@ -13,7 +13,10 @@ Reference: ABCD-VAE/modules/model.py:336-535 (the ``ESN`` module and
 - update: h' = (1 - leak) h + leak tanh(x W_ih + h W_hh), no biases
   (model.py:444,529-531).
 
-The reservoir is FROZEN (model.py:376,396 ``requires_grad=False``):
+The layers run on the Elman kernels (``ops/elman_kernel``) with zero
+biases and the leak: both directions over the raw input, or one direction
+over the hoisted x @ W_ih.  The reservoir is FROZEN (model.py:376,396
+``requires_grad=False``):
 ``models/vae.set_trainable`` leaves its tensors without gradients, so the
 optimiser neither updates them nor counts them in the global-norm clip,
 which is what the JAX package's zero gradient does.  Matrices keep the
@@ -25,7 +28,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from scipy import stats
 
 from ..ops import elman_kernel
 
@@ -33,6 +35,9 @@ from ..ops import elman_kernel
 def _input_weight(gen: torch.Generator, fan_in: int, hidden: int,
                   q: float) -> torch.Tensor:
     """(fan_in, hidden) matrix of +-3/quantile entries."""
+    # imported here: scipy.stats takes seconds to import, and only a fresh
+    # ESN needs it (not serving, encoding or resuming)
+    from scipy import stats
     quantile = float(stats.binom.ppf(q, fan_in, 0.5))
     bits = torch.randint(0, 2, (fan_in, hidden), generator=gen).float()
     return bits * (6.0 / quantile) - (3.0 / quantile)
@@ -78,3 +83,33 @@ def run_esn_layer_bidir(layer: dict, x: torch.Tensor, lengths: torch.Tensor,
     outs_f = outs[:, 0].transpose(0, 1)
     outs_b = outs[:, 1].flip(0).transpose(0, 1)
     return outs_f, outs_b, h_n[0], h_n[1]
+
+
+def run_esn_layer(params: dict, x: torch.Tensor, lengths: torch.Tensor,
+                  leak: float, reverse: bool = False):
+    """One ESN direction of one layer on the one-direction Elman kernel
+    over the hoisted x @ W_ih (no bias), with a zero bias and the leak (the
+    JAX function's kernel path).
+
+    Args:
+      params: ``{"w_ih" (F, H), "w_hh" (H, H)}``.
+      x: (B, T, F) inputs; lengths: (B,) int32 valid steps per row.
+      reverse: run t = T-1 .. 0.
+
+    Returns (outs (B, T, H), h_n (B, H)).  The reservoir takes no
+    gradient; one flows to ``x`` when it needs one (a lower layer's
+    output), through the backward kernel, so a layer over the raw
+    spectrogram launches no backward.
+    """
+    w_ih, w_hh = params["w_ih"].detach(), params["w_hh"].detach()
+    xp = (x @ w_ih).transpose(0, 1)
+    if reverse:
+        xp = xp.flip(0)
+    args = (xp.contiguous(), lengths, w_hh, w_hh.new_zeros(w_hh.shape[-1]))
+    if torch.is_grad_enabled() and x.requires_grad:
+        outs, h_n = elman_kernel.rnn_layer_train(*args, reverse, leak)
+    else:
+        outs, h_n = elman_kernel.rnn_layer(*args, reverse, leak)
+    if reverse:
+        outs = outs.flip(0)
+    return outs.transpose(0, 1), h_n

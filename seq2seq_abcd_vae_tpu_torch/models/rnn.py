@@ -1,6 +1,6 @@
 """Masked recurrent layers over padded batches (PyTorch port of
-seq2seq_abcd_vae_tpu/models/rnn.py: the LSTM in one or both directions,
-the GRU and the Elman RNN in both).
+seq2seq_abcd_vae_tpu/models/rnn.py: the LSTM, the GRU and the Elman RNN in
+one or both directions).
 
 Variable lengths are padded arrays plus row lengths: a row's carries are
 frozen once it ends, which reproduces the reference's packed-sequence
@@ -8,8 +8,9 @@ frozen once it ends, which reproduces the reference's packed-sequence
 late.  Both directions of a layer run in one call of
 ``ops/lstm_kernel.lstm_layer_bidir_fused``,
 ``ops/gru_kernel.gru_layer_bidir_fused`` or
-``ops/elman_kernel.rnn_layer_bidir_fused``; one LSTM direction runs in
-``ops/lstm_kernel.lstm_layer`` over the hoisted input projection.  Each is
+``ops/elman_kernel.rnn_layer_bidir_fused``; one direction runs in
+``ops/lstm_kernel.lstm_layer``, ``ops/gru_kernel.gru_layer`` or
+``ops/elman_kernel.rnn_layer`` over the hoisted input projection.  Each is
 the CUDA kernel for tensors on the card, its plain twin for tensors on the
 CPU.  When autograd needs a gradient the call goes through the ``_train``
 variant, whose backward is the hand-written reverse-time kernel.  Gates
@@ -74,30 +75,43 @@ def _needs_grad(args) -> bool:
 
 
 def run_rnn_layer(params: dict, x: torch.Tensor, lengths: torch.Tensor,
-                  reverse: bool = False):
-    """One direction of one LSTM layer over a padded batch.
+                  reverse: bool = False, rnn_type: str = "LSTM"):
+    """One direction of one LSTM, GRU or Elman layer over a padded batch.
 
     Args:
-      params: ``{"w_ih" (F, 4H), "b_ih" (4H,), "w_hh" (H, 4H),
-        "b_hh" (4H,)}``.
+      params: ``{"w_ih" (F, gH), "b_ih" (gH,), "w_hh" (H, gH),
+        "b_hh" (gH,)}``, g = 4 (LSTM), 3 (GRU) or 1 (RNN).
       x: (B, T, F) inputs; lengths: (B,) int32 valid steps per row (the
         JAX function takes the equivalent prefix mask).
       reverse: run t = T-1 .. 0 (the right-to-left direction).
+      rnn_type: ``LSTM``, ``GRU`` or ``RNN``.
 
     Returns (outputs (B, T, H), (h_n, c_n)) as the JAX function does: the
     hidden state at each position (frozen after a row ends; zero before it
     joins in reverse) and the state after the row's last processed
-    position.
+    position; the c of the GRU and the Elman cell is zeros.
     """
     # the hoisted input projection: one large product outside the kernel
+    # (b_ih only: the GRU's b_hh sits inside the reset product)
     xp = (x @ params["w_ih"] + params["b_ih"]).transpose(0, 1)
     if reverse:
         xp = xp.flip(0)
     args = (xp.contiguous(), lengths, params["w_hh"], params["b_hh"])
-    if _needs_grad(args):
-        outs, h_n, c_n = lstm_kernel.lstm_layer_train(*args, reverse)
+    grad = _needs_grad(args)
+    if rnn_type == "LSTM":
+        outs, h_n, c_n = (lstm_kernel.lstm_layer_train if grad
+                          else lstm_kernel.lstm_layer)(*args, reverse)
     else:
-        outs, h_n, c_n = lstm_kernel.lstm_layer(*args, reverse)
+        if rnn_type == "GRU":
+            layer_fn = (gru_kernel.gru_layer_train if grad
+                        else gru_kernel.gru_layer)
+        elif rnn_type == "RNN":
+            layer_fn = (elman_kernel.rnn_layer_train if grad
+                        else elman_kernel.rnn_layer)
+        else:
+            raise ValueError(f"no layer for {rnn_type!r}")
+        outs, h_n = layer_fn(*args, reverse)
+        c_n = torch.zeros_like(h_n)
     if reverse:
         outs = outs.flip(0)
     return outs.transpose(0, 1), (h_n, c_n)

@@ -42,17 +42,24 @@ SIGNATURES = {
              "abcd_lstm_smem_bytes": [_I] * 4,
              "abcd_lstm_smem_limit": [_I] * 2},
     "gru": {"abcd_gru_bidir_fwd": [_P] * 8 + [_I] * 5 + [_P],
+            "abcd_gru_fwd": [_P] * 6 + [_I] * 5 + [_P],
             "abcd_gru_bidir_bwd": [_P] * 15 + [_I] * 5 + [_P],
+            "abcd_gru_bwd": [_P] * 11 + [_I] * 5 + [_P],
             "abcd_gru_rows": [_I] * 3,
             "abcd_gru_smem_bytes": [_I] * 4,
             "abcd_gru_smem_limit": [_I] * 2},
     "elman": {"abcd_elman_bidir_fwd": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+              "abcd_elman_fwd": [_P] * 6 + [_I] * 3 + [_F, _I, _I, _P],
               "abcd_elman_bidir_bwd": [_P] * 14 + [_I] * 4 + [_F, _I, _P],
+              "abcd_elman_bwd": [_P] * 10 + [_I] * 3 + [_F, _I, _I, _P],
               "abcd_elman_rows": [_I] * 3,
               "abcd_elman_smem_bytes": [_I] * 4,
               "abcd_elman_smem_limit": [_I] * 2},
     "decoder": {"abcd_decoder_fwd": [_P] * 21 + [_I] * 7 + [_P],
                 "abcd_decoder_loop_fwd": [_P] * 16 + [_I] * 6 + [_P],
+                "abcd_gru_decoder_loop_fwd": [_P] * 13 + [_I] * 6 + [_P],
+                "abcd_rnn_decoder_loop_fwd":
+                    [_P] * 12 + [_I] * 5 + [_F, _I, _P],
                 "abcd_decoder_bwd": [_P] * 36 + [_I] * 7 + [_P],
                 "abcd_gru_decoder_fwd": [_P] * 20 + [_I] * 7 + [_P],
                 "abcd_gru_decoder_bwd": [_P] * 35 + [_I] * 7 + [_P],

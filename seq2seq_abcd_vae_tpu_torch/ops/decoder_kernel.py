@@ -7,9 +7,12 @@ decoder_loop_fused_losses (``_fused_fwd_call`` / ``_fused_fwd_kernel``,
 forward of decoder_loop (``_fwd_call`` / ``_fwd_kernel``), for which see
 :func:`decoder_loop`, gru_decoder_loop_fused_losses
 (``_gru_floss_fwd_call`` / ``_gru_floss_bwd_call``), for which see
-:func:`gru_decoder_loop_fused_losses`, and rnn_decoder_loop_fused_losses
+:func:`gru_decoder_loop_fused_losses`, rnn_decoder_loop_fused_losses
 (``_rnn_floss_fwd_call`` / ``_rnn_floss_bwd_call``), for which see
-:func:`rnn_decoder_loop_fused_losses`.  The fused loop
+:func:`rnn_decoder_loop_fused_losses`, and the forwards of
+gru_decoder_loop (``_gru_fwd_call``) and rnn_decoder_loop
+(``_rnn_fwd_call``), for which see :func:`gru_decoder_loop` and
+:func:`rnn_decoder_loop`.  The fused loop
 samples its own feedback (zero first input, then the sampled emission of
 the previous position with the presampled ``noise``), accumulates the
 Gaussian emission NLL of positions 0..T-2 against ``targets`` and the
@@ -42,7 +45,7 @@ from .elman_kernel import _check_leak
 _LOG_2PI = math.log(2.0 * math.pi)
 # kernel kinds of csrc/decoder.cu (abcd_decoder_rows)
 (_FUSED_FWD, _FUSED_BWD, _LOOP_FWD, _GRU_FUSED_FWD, _GRU_FUSED_BWD,
- _RNN_FUSED_FWD, _RNN_FUSED_BWD) = range(7)
+ _RNN_FUSED_FWD, _RNN_FUSED_BWD, _GRU_LOOP_FWD, _RNN_LOOP_FWD) = range(9)
 
 _NAMES = ("noise", "lengths", "w_cat", "bias", "b1", "w2m", "w2v", "b2",
           "w_ih", "targets", "wo1", "bo1", "wo2", "bo2", "h0", "c0")
@@ -862,25 +865,36 @@ def rnn_decoder_loop_fused_losses(noise, lengths, w_cat, bias, b1, w2m, w2v,
 # the plain sampled loop (decoder_pallas.decoder_loop), forward
 # ---------------------------------------------------------------------------
 
-_LOOP_NAMES = ("noise", "lengths", "w_cat", "bias", "b1", "w2m", "w2v", "b2",
-               "w_ih", "h0", "c0")
+_LOOP_NAMES = {
+    "LSTM": ("noise", "lengths", "w_cat", "bias", "b1", "w2m", "w2v", "b2",
+             "w_ih", "h0", "c0"),
+    "GRU": ("noise", "lengths", "w_cat", "b_ih", "b_hh", "b1", "w2m", "w2v",
+            "b2", "w_ih", "h0"),
+    "RNN": ("noise", "lengths", "w_cat", "bias", "b1", "w2m", "w2v", "b2",
+            "w_ih", "h0")}
 
 
-def _check_loop(args):
-    """Shapes, types and devices of a ``decoder_loop`` call."""
-    if len(args) != len(_LOOP_NAMES):
-        raise TypeError(f"expected {len(_LOOP_NAMES)} arguments")
-    noise, _, w_cat, _, _, w2m = args[:6]
+def _check_loop(args, cell: str = "LSTM"):
+    """Shapes, types and devices of a ``decoder_loop`` call
+    (``gru_decoder_loop``'s for the GRU, ``rnn_decoder_loop``'s for the
+    Elman / ESN cell)."""
+    names, gates = _LOOP_NAMES[cell], _CELLS[cell][1]
+    if len(args) != len(names):
+        raise TypeError(f"expected {len(names)} arguments")
+    by_name = dict(zip(names, args))
+    noise, w_cat, w2m = by_name["noise"], by_name["w_cat"], by_name["w2m"]
     if noise.dim() != 3 or w_cat.dim() != 2 or w2m.dim() != 2:
-        raise ValueError("noise must be (T, B, F), w_cat (H, 4H + 2m) and "
-                         "w2m (m, F)")
+        raise ValueError(f"noise must be (T, B, F), w_cat (H, {gates}H + 2m) "
+                         "and w2m (m, F)")
     t, b, f = noise.shape
     hidden, m = w_cat.shape[0], w2m.shape[0]
+    gh = gates * hidden
     want = {"noise": (t, b, f), "lengths": (b,),
-            "w_cat": (hidden, 4 * hidden + 2 * m), "bias": (4 * hidden,),
-            "b1": (2 * m,), "w2m": (m, f), "w2v": (m, f), "b2": (2 * f,),
-            "w_ih": (f, 4 * hidden), "h0": (b, hidden), "c0": (b, hidden)}
-    for name, tensor in zip(_LOOP_NAMES, args):
+            "w_cat": (hidden, gh + 2 * m), "bias": (gh,), "b_ih": (gh,),
+            "b_hh": (gh,), "b1": (2 * m,), "w2m": (m, f), "w2v": (m, f),
+            "b2": (2 * f,), "w_ih": (f, gh), "h0": (b, hidden),
+            "c0": (b, hidden)}
+    for name, tensor in zip(names, args):
         dtype = torch.int32 if name == "lengths" else torch.float32
         if (tuple(tensor.shape) != want[name] or tensor.dtype != dtype
                 or tensor.device != noise.device
@@ -894,6 +908,15 @@ def _check_loop(args):
     if t < 1 or b < 1:
         raise ValueError("need at least one step and one row")
     return t, b, f, hidden, m
+
+
+def _sampled_input(noise, s, pmt, mean, logvar):
+    """The fed-back input of step ``s``: position s-1's sampled emission
+    (noise[s - 1]), zero on a row's first step and past its end."""
+    if s == 0:
+        return torch.zeros_like(mean)
+    return torch.where(pmt[s], mean + torch.exp(0.5 * logvar) * noise[s - 1],
+                       0.0)
 
 
 def decoder_loop_plain(noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih,
@@ -910,14 +933,12 @@ def decoder_loop_plain(noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih,
                                       w2v, b2, w_ih, h0, c0))
     mt, pmt, _ = _masks(t, lengths, noise.device)
     h, c = h0, c0
-    zero = noise.new_zeros((b, f))
     outs, means, logvars = [], [], []
     for s in range(t):
         big = h @ w_cat
         _, mean, logvar = _emission(big, 4 * hidden, m, b1, w2m, w2v, b2,
                                     f)
-        eps = noise[s - 1] if s > 0 else zero
-        x = torch.where(pmt[s], mean + torch.exp(0.5 * logvar) * eps, 0.0)
+        x = _sampled_input(noise, s, pmt, mean, logvar)
         _, _, _, _, c2, h2 = _cell(big, x, w_ih, bias, c, hidden)
         h = torch.where(mt[s], h2, h)
         c = torch.where(mt[s], c2, c)
@@ -966,3 +987,124 @@ def decoder_loop(noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, h0,
 
 
 decoder_loop.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the GRU and Elman / ESN sampled loops (decoder_pallas.gru_decoder_loop and
+# rnn_decoder_loop), forward
+# ---------------------------------------------------------------------------
+
+def gru_decoder_loop_plain(noise, lengths, w_cat, b_ih, b_hh, b1, w2m, w2v,
+                           b2, w_ih, h0):
+    """Plain PyTorch twin of the ``gru_decoder_loop`` forward kernel: the
+    loop of decoder_pallas._gru_fwd_kernel, step by step.  Returns outs
+    (T, B, H), the PRE-mask h2 of each step."""
+    args = (noise, lengths, w_cat, b_ih, b_hh, b1, w2m, w2v, b2, w_ih, h0)
+    t, b, f, hidden, m = _check_loop(args, "GRU")
+    mt, pmt, _ = _masks(t, lengths, noise.device)
+    h = h0
+    outs = []
+    for s in range(t):
+        big = h @ w_cat
+        _, mean, logvar = _emission(big, 3 * hidden, m, b1, w2m, w2v, b2, f)
+        x = _sampled_input(noise, s, pmt, mean, logvar)
+        h2 = _gru_cell(big, x, w_ih, b_ih, b_hh, h, hidden)[-1]
+        h = torch.where(mt[s], h2, h)
+        outs.append(h2)
+    return torch.stack(outs)
+
+
+def gru_decoder_loop(noise, lengths, w_cat, b_ih, b_hh, b1, w2m, w2v, b2,
+                     w_ih, h0):
+    """The whole sampled GRU decoder loop, forward only.
+
+    Args in the order and layouts of decoder_pallas.gru_decoder_loop: noise
+    (T, B, F) UNSHIFTED (step t consumes noise[t - 1]), lengths (B,) int32,
+    w_cat (H, 3H + 2m), b_ih and b_hh (3H,) apart (b_hh sits inside the
+    reset product), b1 (2m,), w2m / w2v (m, F), b2 (2F,), w_ih (F, 3H),
+    h0 (B, H).
+
+    Returns outs (T, B, H), the pre-mask h2 of each step, as the JAX
+    function does (the caller computes the emissions from them).  CUDA
+    tensors launch the kernel (one count); CPU tensors take
+    ``gru_decoder_loop_plain``.  The kernel writes no carry trajectory:
+    nothing differentiates through this loop in the port (its backward is
+    not ported).
+    """
+    args = (noise, lengths, w_cat, b_ih, b_hh, b1, w2m, w2v, b2, w_ih, h0)
+    t, b, f, hidden, m = _check_loop(args, "GRU")
+    if noise.device.type == "cpu":
+        return gru_decoder_loop_plain(*args)
+    lib = _build.load("decoder")
+    rows = _build.row_tile(lib, "decoder", _GRU_LOOP_FWD, (f, hidden, m, 0),
+                           "gru_decoder_loop")
+    outs = torch.empty((t, b, hidden), dtype=torch.float32,
+                       device=noise.device)
+    with torch.cuda.device(noise.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.abcd_gru_decoder_loop_fwd(
+            *[a.data_ptr() for a in args], outs.data_ptr(), None, t, b, f,
+            hidden, m, rows, stream)
+    _build.check(lib, err, "gru_decoder_loop")
+    gru_decoder_loop.launches += 1
+    return outs
+
+
+gru_decoder_loop.launches = 0
+
+
+def rnn_decoder_loop_plain(noise, lengths, w_cat, bias, b1, w2m, w2v, b2,
+                           w_ih, h0, leak=1.0):
+    """Plain PyTorch twin of the ``rnn_decoder_loop`` forward kernel: the
+    loop of decoder_pallas._rnn_fwd_kernel, step by step.  Returns outs
+    (T, B, H), the PRE-mask h2 of each step."""
+    args = (noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, h0)
+    t, b, f, hidden, m = _check_loop(args, "RNN")
+    mt, pmt, _ = _masks(t, lengths, noise.device)
+    h = h0
+    outs = []
+    for s in range(t):
+        big = h @ w_cat
+        _, mean, logvar = _emission(big, hidden, m, b1, w2m, w2v, b2, f)
+        x = _sampled_input(noise, s, pmt, mean, logvar)
+        h2 = _rnn_cell(big, x, w_ih, bias, h, hidden, leak)[1]
+        h = torch.where(mt[s], h2, h)
+        outs.append(h2)
+    return torch.stack(outs)
+
+
+def rnn_decoder_loop(noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, h0,
+                     leak=1.0):
+    """The whole sampled Elman / ESN decoder loop, forward only.
+
+    Args in the order and layouts of decoder_pallas.rnn_decoder_loop: noise
+    (T, B, F) UNSHIFTED, lengths (B,) int32, w_cat (H, H + 2m), bias (H,)
+    = b_ih + b_hh (zeros for the ESN), b1 (2m,), w2m / w2v (m, F), b2
+    (2F,), w_ih (F, H), h0 (B, H); ``leak`` in (0, 1] (below 1 the ESN's).
+
+    Returns outs (T, B, H), the pre-mask h2 of each step.  CUDA tensors
+    launch the kernel (one count); CPU tensors take
+    ``rnn_decoder_loop_plain``.  No carry trajectory is written (its
+    backward is not ported).
+    """
+    args = (noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, h0)
+    t, b, f, hidden, m = _check_loop(args, "RNN")
+    leak = _check_leak(leak)
+    if noise.device.type == "cpu":
+        return rnn_decoder_loop_plain(*args, leak=leak)
+    lib = _build.load("decoder")
+    rows = _build.row_tile(lib, "decoder", _RNN_LOOP_FWD, (f, hidden, m, 0),
+                           "rnn_decoder_loop")
+    outs = torch.empty((t, b, hidden), dtype=torch.float32,
+                       device=noise.device)
+    with torch.cuda.device(noise.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.abcd_rnn_decoder_loop_fwd(
+            *[a.data_ptr() for a in args], outs.data_ptr(), None, t, b, f,
+            hidden, m, leak, rows, stream)
+    _build.check(lib, err, "rnn_decoder_loop")
+    rnn_decoder_loop.launches += 1
+    return outs
+
+
+rnn_decoder_loop.launches = 0

@@ -350,15 +350,18 @@ def lstm_layer_plain(xp, lengths, w_hh, b_hh, reverse: bool = False,
     return torch.stack(outs), h, c
 
 
-def _check_layer(xp, lengths, w_hh, b_hh, **state):
-    """Shapes, types and devices of a one-direction call (and of the
-    backward's saved states and cotangents, passed by name; None skips)."""
+def _check_layer(xp, lengths, w_hh, b_hh, gates: int = 4, **state):
+    """Shapes, types and devices of a one-direction call with ``gates``
+    gate blocks (4 for the LSTM, 3 for the GRU, 1 for the Elman cell), and
+    of the backward's saved states and cotangents, passed by name (None
+    skips)."""
     if xp.dim() != 3 or w_hh.dim() != 2:
-        raise ValueError("xp must be (T, B, 4H) and w_hh (H, 4H), got "
-                         f"{tuple(xp.shape)} and {tuple(w_hh.shape)}")
+        raise ValueError(f"xp must be (T, B, {gates}H) and w_hh (H, "
+                         f"{gates}H), got {tuple(xp.shape)} and "
+                         f"{tuple(w_hh.shape)}")
     t, b, g = xp.shape
     hidden = w_hh.shape[0]
-    if t < 1 or hidden < 1 or g != 4 * hidden:
+    if t < 1 or hidden < 1 or g != gates * hidden:
         raise ValueError(f"xp {tuple(xp.shape)} does not match w_hh "
                          f"{tuple(w_hh.shape)}")
     want = {"xp": (xp, (t, b, g)), "w_hh": (w_hh, (hidden, g)),

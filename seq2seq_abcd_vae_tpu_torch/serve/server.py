@@ -59,8 +59,8 @@ class EncodeService:
 
     Args:
       model_path: a ``checkpoint.pt`` (self-describing, either package;
-        a bidirectional or unidirectional LSTM encoder, or a bidirectional
-        GRU encoder).
+        an LSTM, GRU, Elman RNN or ESN encoder, bidirectional or
+        unidirectional).
       data_normalizer: the log-amplitude divisor ``N`` used in training.
       sample_freq: the service's fixed sampling rate; requests carrying a
         different ``fs`` are rejected, not resampled.

@@ -27,7 +27,8 @@ from seq2seq_abcd_vae_tpu_torch.models import vae as port_vae
 from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel
 from seq2seq_abcd_vae_tpu_torch.train.from_jax import params_from_jax
 from torch_port_fixtures import (few_torch_threads_fixture, one_step_scans,
-                                 port_init_tree, write_jax_checkpoint)
+                                 port_init_tree, reference_jit,
+                                 write_jax_checkpoint)
 
 few_torch_threads = pytest.fixture(autouse=True)(few_torch_threads_fixture)
 
@@ -53,9 +54,9 @@ def test_decoder_loop_twin_matches_pallas_interpret(rng):
             u(0.4, m, f), u(0.4, m, f), u(0.4, 2 * f), u(0.4, f, 4 * h),
             rng.normal(size=(b, h)).astype(np.float32) * 0.5,
             rng.normal(size=(b, h)).astype(np.float32) * 0.5]
-    want = decoder_pallas.decoder_loop(
-        *[jnp.asarray(a) for a in args], interpret=True,
-        precision=jax.lax.Precision.HIGHEST)
+    want = reference_jit(lambda *a: decoder_pallas.decoder_loop(
+        *a, interpret=True, precision=jax.lax.Precision.HIGHEST))(
+            *[jnp.asarray(a) for a in args])
     got = decoder_kernel.decoder_loop(
         *[torch.from_numpy(a) for a in args])
     for name, g, w in zip(("outs", "mean_s", "logvar_s"), got, want):
@@ -111,12 +112,13 @@ def test_decode_features_matches_jax(rng, monkeypatch, model, mode):
         np.float32)
     key = jax.random.PRNGKey(9)
     with jax.default_matmul_precision("highest"):
-        want = jax_decoder.decoder_apply(
-            params["decoder"], jcfg.decoder, jnp.asarray(feats),
-            jnp.asarray(lens), tt, speaker=jnp.asarray(speaker), key=key,
-            deterministic=True, emission_mode=mode,
-            ground_truth_out=jnp.asarray(gt_out),
-            ground_truth_offset=jnp.asarray(gt_offset))
+        want = reference_jit(
+            lambda p, *a: jax_decoder.decoder_apply(
+                p, jcfg.decoder, a[0], a[1], tt, speaker=a[2], key=key,
+                deterministic=True, emission_mode=mode,
+                ground_truth_out=a[3], ground_truth_offset=a[4]))(
+                    params["decoder"], *(jnp.asarray(a) for a in (
+                        feats, lens, speaker, gt_out, gt_offset)))
     # the call's own draw: fold_in(key, 0), then split, then (T, B, F)
     k_noise, _ = jax.random.split(jax.random.fold_in(key, 0))
     noise = np.asarray(jax.random.normal(k_noise, (tt, b, F)))
@@ -161,8 +163,7 @@ def test_decode_features_draws_from_a_generator(model, tmp_path):
     with pytest.raises(ValueError, match="noise or a generator"):
         decode_features(port, pcfg, feats, lens, 4, speaker=speaker)
     # decoding is deterministic: a greedy decoder's checkpoint decodes on
-    # the same sampled loop (its option acts only in training); a GRU
-    # decoder's loop is not ported yet
+    # the same sampled loop (its option acts only in training)
     noise = torch.randn(4, 3, F, generator=torch.Generator().manual_seed(6))
     greedy = port_vae.ModelConfig(
         pcfg.encoder, pcfg.latent,
@@ -173,8 +174,21 @@ def test_decode_features_draws_from_a_generator(model, tmp_path):
                         speaker=speaker).out,
         decode_features(port, pcfg, feats, lens, 4, noise=noise,
                         speaker=speaker).out, rtol=0, atol=0)
+    # a GRU decoder decodes on its own loop (gru_decoder_loop): the
+    # generator's draw is the noise its seed gives, and the sample is the
+    # reparameterised draw from the emission it returns
     gru = port_vae.ModelConfig(
         pcfg.encoder, pcfg.latent,
         DecoderConfig(F, H, MLP, FEAT, rnn_type="GRU"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        decode_features(port, gru, feats, lens, 4, noise=noise)
+    gru_port = dict(port, decoder=dec_mod.decoder_init(
+        torch.Generator().manual_seed(7), gru.decoder))
+    noise = torch.randn(4, 3, F, generator=torch.Generator().manual_seed(5))
+    drawn = decode_features(gru_port, gru, feats, lens, 4,
+                            generator=torch.Generator().manual_seed(5))
+    given = decode_features(gru_port, gru, feats, lens, 4, noise=noise)
+    torch.testing.assert_close(drawn.out, given.out, rtol=0, atol=0)
+    mean, logvar = drawn.emission_params
+    torch.testing.assert_close(
+        drawn.out, mean + torch.exp(0.5 * logvar) * noise.transpose(0, 1),
+        rtol=0, atol=0)
+    assert torch.isfinite(drawn.out).all() and drawn.out.shape == (3, 4, F)

@@ -33,7 +33,8 @@ from seq2seq_abcd_vae_tpu_torch.models import rnn as port_rnn
 from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel, elman_kernel
 from seq2seq_abcd_vae_tpu_torch.train.from_jax import _to_np
 from seq2seq_abcd_vae_tpu_torch.tree import tree_map
-from torch_port_fixtures import few_torch_threads_fixture, one_step_scans
+from torch_port_fixtures import (few_torch_threads_fixture, one_step_scans,
+                                 reference_jit)
 
 few_torch_threads = pytest.fixture(autouse=True)(few_torch_threads_fixture)
 
@@ -87,10 +88,10 @@ def test_elman_layer_twin_matches_pallas_interpret_and_scan(rng, scan_paths,
     models/esn (leak 0.5) against the JAX function's scan path; a ragged
     batch with an empty row."""
     x, lens, w = _layer(rng, leak)
-    want = elman_pallas.rnn_layer_bidir_fused(
-        jnp.asarray(x), jnp.asarray(lens), *(jnp.asarray(w[k])
-                                             for k in NAMES),
-        interpret=True, precision=HIGHEST, leak=leak)
+    want = reference_jit(lambda *a: elman_pallas.rnn_layer_bidir_fused(
+        *a, interpret=True, precision=HIGHEST, leak=leak))(
+            jnp.asarray(x), jnp.asarray(lens),
+            *(jnp.asarray(w[k]) for k in NAMES))
     got = elman_kernel.rnn_layer_bidir_fused(
         torch.from_numpy(x), torch.from_numpy(lens),
         *(torch.from_numpy(w[k]) for k in NAMES), leak)
@@ -106,14 +107,16 @@ def test_elman_layer_twin_matches_pallas_interpret_and_scan(rng, scan_paths,
     port_layer = {k: torch.from_numpy(v) for k, v in w.items()}
     with jax.default_matmul_precision("highest"):
         if leak == 1.0:
-            want_f, want_b, want_fin = jax_rnn.run_rnn_layer_bidir(
-                "RNN", *per_dir, jnp.asarray(xb), mask)
+            want_f, want_b, want_fin = reference_jit(
+                lambda *a: jax_rnn.run_rnn_layer_bidir("RNN", *a))(
+                    *per_dir, jnp.asarray(xb), mask)
             want_h = [h for h, _ in want_fin]
         else:
             reservoirs = [{k: p[k] for k in ("w_ih", "w_hh")}
                           for p in per_dir]
-            want_f, want_b, *want_h = jax_esn.run_esn_layer_bidir(
-                *reservoirs, jnp.asarray(xb), mask, leak)
+            want_f, want_b, *want_h = reference_jit(
+                lambda *a: jax_esn.run_esn_layer_bidir(*a, leak))(
+                    *reservoirs, jnp.asarray(xb), mask)
     if leak == 1.0:
         got_f, got_b, got_fin = port_rnn.run_rnn_layer_bidir(
             port_layer, torch.from_numpy(xb), torch.from_numpy(lens), "RNN")
@@ -153,8 +156,8 @@ def test_elman_layer_backward_twin_matches_jax_grad(rng, leak, with_douts):
             leak=leak)
         return total(outs, h_n, jnp)
 
-    want_val, want_grads = jax.value_and_grad(
-        jax_loss, argnums=tuple(range(5)))(
+    want_val, want_grads = reference_jit(jax.value_and_grad(
+        jax_loss, argnums=tuple(range(5))))(
             jnp.asarray(x), *(jnp.asarray(w[k]) for k in NAMES))
     leaves = [torch.from_numpy(x).requires_grad_(True)] + [
         torch.from_numpy(w[k]).requires_grad_(True) for k in NAMES]
@@ -219,8 +222,9 @@ def test_rnn_decoder_forward_twin_matches_pallas_interpret(rng, leak):
     for i in (11, 12):                                   # bo1, wo2 (1, Mo)
         jargs[i] = jargs[i].reshape(1, -1)
     jargs[13] = jargs[13].reshape(1, 1)                  # bo2
-    want = decoder_pallas.rnn_decoder_loop_fused_losses(
-        *jargs, interpret=True, precision=HIGHEST, leak=leak)
+    want = reference_jit(
+        lambda *a: decoder_pallas.rnn_decoder_loop_fused_losses(
+            *a, interpret=True, precision=HIGHEST, leak=leak))(*jargs)
     got = decoder_kernel.rnn_decoder_loop_fused_losses(
         *(torch.from_numpy(a) for a in args), leak=leak)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
@@ -263,7 +267,7 @@ def test_rnn_decoder_twins_match_jax_scan_and_grad(rng, scan_paths, cell):
                 (out.emission_loss, out.offset_loss))
 
     with jax.default_matmul_precision("highest"):
-        (_, (want_em, want_off)), (g_p, g_feat) = jax.jit(
+        (_, (want_em, want_off)), (g_p, g_feat) = reference_jit(
             jax.value_and_grad(jax_loss, argnums=(0, 1), has_aux=True))(
                 params, jnp.asarray(features))
     # the scan path's noise: fold_in(key, 0), split, normal (T, B, F)

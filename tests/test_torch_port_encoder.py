@@ -11,11 +11,13 @@ import jax.numpy as jnp
 
 from seq2seq_abcd_vae_tpu.models import abcd as jax_abcd
 from seq2seq_abcd_vae_tpu.models import encoder as jax_encoder
-from seq2seq_abcd_vae_tpu_torch.configs import EncoderConfig
+from seq2seq_abcd_vae_tpu_torch.configs import (DecoderConfig, EncoderConfig,
+                                                check_served)
 from seq2seq_abcd_vae_tpu_torch.models import abcd as port_abcd
 from seq2seq_abcd_vae_tpu_torch.models import encoder as port_encoder
 from seq2seq_abcd_vae_tpu_torch.train.from_jax import params_from_jax
-from torch_port_fixtures import BINS, one_step_scans, small_model
+from torch_port_fixtures import (BINS, one_step_scans, reference_jit,
+                                 small_model)
 
 # float32 products in another order through <= 2 layers of <= 11 steps
 # and a two-layer MLP
@@ -35,8 +37,10 @@ def test_encoder_matches_jax(rng, monkeypatch, layers):
     x = rng.normal(size=(4, 11, BINS)).astype(np.float32)
     lengths = np.asarray([11, 4, 0, 9], np.int32)
     with jax.default_matmul_precision("highest"):
-        want = jax_encoder.encoder_apply(params["encoder"], cfg.encoder,
-                                         jnp.asarray(x), jnp.asarray(lengths))
+        want = reference_jit(
+            lambda p, xx, n: jax_encoder.encoder_apply(p, cfg.encoder, xx,
+                                                       n))(
+                params["encoder"], jnp.asarray(x), jnp.asarray(lengths))
     port = params_from_jax(params, _port_cfg(cfg))
     got = port_encoder.encoder_apply(port["encoder"], _port_cfg(cfg),
                                      torch.from_numpy(x),
@@ -80,14 +84,17 @@ def test_params_from_jax_layout():
         params_from_jax(params, wrong)
 
 
-@pytest.mark.parametrize("kwargs", [dict(rnn_type="GRU",
-                                         bidirectional=False),
-                                    dict(rnn_type="ESN",
-                                         bidirectional=False),
-                                    dict(rnn_type="RNN",
-                                         bidirectional=False)])
+@pytest.mark.parametrize("kwargs", [
+    dict(latent_type="gaussian", match="Gaussian VAE"),
+    dict(hidden_dropout=0.5, match="dropout"),
+    dict(decoder_bidirectional=True, match="bidirectional decoder")])
 def test_later_slices_raise(kwargs):
-    cfg = EncoderConfig(BINS, 8, **kwargs)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        port_encoder.encoder_apply([], cfg, torch.zeros(1, 2, BINS),
-                                   torch.ones(1, dtype=torch.int32))
+    """What waits for a later slice: the plain Gaussian VAE, encoder
+    inter-layer dropout in training and the bidirectional decoder (every
+    cell's encoder, in either direction, is ported)."""
+    cfg = EncoderConfig(BINS, 8, rnn_layers=2,
+                        hidden_dropout=kwargs.get("hidden_dropout", 0.0))
+    decoder = DecoderConfig(BINS, 8, 8, 4, bidirectional=kwargs.get(
+        "decoder_bidirectional", False))
+    with pytest.raises(NotImplementedError, match=kwargs["match"]):
+        check_served(cfg, kwargs.get("latent_type", "abcd"), decoder)

@@ -29,7 +29,8 @@ from seq2seq_abcd_vae_tpu.train import optim as jax_optim
 from seq2seq_abcd_vae_tpu_torch.cli import encode_main, learning_main
 from seq2seq_abcd_vae_tpu_torch.configs import (ABCDSamplerConfig,
                                                 DecoderConfig, EncoderConfig)
-from seq2seq_abcd_vae_tpu_torch.infer.decode import load_model
+from seq2seq_abcd_vae_tpu_torch.infer.decode import (decode_features,
+                                                     load_model)
 from seq2seq_abcd_vae_tpu_torch.models import encoder as port_encoder
 from seq2seq_abcd_vae_tpu_torch.models import vae as port_vae
 from seq2seq_abcd_vae_tpu_torch.train import checkpoint as port_ckpt
@@ -38,7 +39,8 @@ from seq2seq_abcd_vae_tpu_torch.train.from_jax import (params_from_jax,
                                                        params_to_jax)
 from seq2seq_abcd_vae_tpu_torch.train.learner import Learner
 from seq2seq_abcd_vae_tpu_torch.tree import tree_leaves, tree_map
-from torch_port_fixtures import few_torch_threads_fixture, one_step_scans
+from torch_port_fixtures import (few_torch_threads_fixture, one_step_scans,
+                                 reference_jit)
 
 few_torch_threads = pytest.fixture(autouse=True)(few_torch_threads_fixture)
 
@@ -106,8 +108,9 @@ def test_encoder_and_trees_match_jax(rng, scan_paths, cell):
     lens = np.asarray([11, 0, 6, 1], np.int32)
     x = rng.normal(size=(4, 11, 7)).astype(np.float32)
     with jax.default_matmul_precision("highest"):
-        want = jax_encoder.encoder_apply(params, jcfg, jnp.asarray(x),
-                                         jnp.asarray(lens))
+        want = reference_jit(
+            lambda p, xx, n: jax_encoder.encoder_apply(p, jcfg, xx, n))(
+                params, jnp.asarray(x), jnp.asarray(lens))
     port = params_from_jax({"encoder": params, "feature_sampler": {}}, pcfg)
     assert tuple(port["encoder"][1]["w_ih"].shape) == (2, 10, 5)
     got = port_encoder.encoder_apply(port["encoder"], pcfg, t(x),
@@ -177,7 +180,7 @@ def test_training_steps_match_jax(rng, scan_paths, cell):
              "speakers": jnp.asarray(speakers),
              "is_offset": jnp.asarray(is_offset)}
 
-    @jax.jit
+    @reference_jit
     def jax_step(p, state, key):
         (loss, aux), grads = jax.value_and_grad(
             lambda q: jax_vae.training_loss(q, jcfg, batch, key, n_data,
@@ -273,8 +276,8 @@ def test_cli_trains_resumes_and_encodes_esn(tmp_path):
     CPU: the reservoir in the resumed run's checkpoint equals the first
     run's bit for bit, the checkpoint's momentum traces have the JAX
     optimiser's layout with zeros for the reservoir, a checkpoint the JAX
-    package writes resumes in the port, and decoding the model is refused
-    until its loop is ported."""
+    package writes resumes in the port, and the model decodes in both
+    modes."""
     argv = [TOY, CSV, "-S", str(tmp_path), "-j", "esn", "-b", "4",
             "--pretrain_epochs", "1", "-d", "cpu", "-R", "ESN",
             "--esn_leak", "0.5", "-M", "0.9", "--stft_method", "pallas",
@@ -329,9 +332,23 @@ def test_cli_trains_resumes_and_encodes_esn(tmp_path):
             row["prob"])
     assert len(rows) == 5 * len(sums) and len(sums) == 8
     np.testing.assert_allclose(list(sums.values()), 1.0, atol=1e-5)
-    # decoding an ESN decoder waits for the rnn_decoder_loop kernel
-    with pytest.raises(NotImplementedError, match="later slice"):
-        load_model(ckpt, device="cpu")
+    # the ESN decoder decodes (rnn_decoder_loop at its leak), in both modes
+    params, mcfg = load_model(ckpt, device="cpu")
+    assert mcfg.decoder.rnn_type == "ESN"
+    feats = torch.randn(3, 6, generator=torch.Generator().manual_seed(1))
+    lens = torch.tensor([5, 0, 3], dtype=torch.int32)
+    speaker = torch.tensor([0, 1, 1], dtype=torch.int32)
+    noise = torch.randn(5, 3, mcfg.decoder.output_size,
+                        generator=torch.Generator().manual_seed(2))
+    for mode in ("sample", "mean"):
+        got = decode_features(params, mcfg, feats, lens, 5, noise=noise,
+                              speaker=speaker, emission_mode=mode)
+        mean, logvar = got.emission_params
+        assert torch.isfinite(got.out).all()
+        torch.testing.assert_close(
+            got.out, mean if mode == "mean" else
+            mean + torch.exp(0.5 * logvar) * noise.transpose(0, 1),
+            rtol=0, atol=0)
 
     # the same checkpoint as the JAX package writes it resumes in the port
     jax_dir = tmp_path / "jax"

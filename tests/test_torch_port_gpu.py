@@ -532,3 +532,98 @@ def test_rnn_decoder_kernels_match_twins(cuda, shape, leak):
         assert g.shape == r.shape, name
         assert _rel_max_err(g, r) <= 1e-4, name
 
+
+
+def _one_direction_args(rng, cuda, t, b, h, gates, leak=1.0):
+    """xp, lengths, w_hh and b_hh of a one-direction layer (zero b_hh at an
+    ESN's leak), ragged lengths with a full and an empty row."""
+    lengths = rng.integers(1, t + 1, size=b).astype(np.int32)
+    lengths[:2] = (t, 0)
+    xp = torch.from_numpy(rng.normal(size=(t, b, gates * h)).astype(
+        np.float32)).to(cuda)
+    w_hh = _uniform(rng, cuda, 1 / np.sqrt(h), h, gates * h)
+    b_hh = _uniform(rng, cuda, 1 / np.sqrt(h), gates * h)
+    if leak < 1.0:
+        b_hh.zero_()
+    return [xp, torch.from_numpy(lengths).to(cuda), w_hh, b_hh]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("cell,leak", [("GRU", 1.0), ("RNN", 1.0),
+                                       ("RNN", 0.5)])
+@pytest.mark.parametrize("shape", [(125, 512, 256), (7, 5, 40),
+                                   (9, 11, 1024)])
+def test_one_direction_layer_kernels_match_twins(cuda, shape, cell, leak,
+                                                 reverse):
+    """The one-direction GRU and Elman / ESN layers over a projected input
+    (``gru_layer``, ``rnn_layer``), forward and backward, against their
+    twins in both span directions: the training shape, a partial row tile
+    with a hidden size that is not a multiple of 32, and H=1024."""
+    from seq2seq_abcd_vae_tpu_torch.ops import elman_kernel as ek
+    from seq2seq_abcd_vae_tpu_torch.ops import gru_kernel as gk
+    rng = np.random.default_rng(111)
+    t, b, h = shape
+    args = _one_direction_args(rng, cuda, t, b, h, 3 if cell == "GRU" else 1,
+                               leak)
+    if cell == "GRU":
+        fwd, fwd_plain, bwd, bwd_plain, extra = (
+            gk.gru_layer, gk.gru_layer_plain, gk.gru_layer_bwd,
+            gk.gru_layer_bwd_plain, (reverse,))
+    else:
+        fwd, fwd_plain, bwd, bwd_plain, extra = (
+            ek.rnn_layer, ek.rnn_layer_plain, ek.rnn_layer_bwd,
+            ek.rnn_layer_bwd_plain, (reverse, leak))
+    before = fwd.launches
+    got = fwd(*args, *extra)
+    want = fwd_plain(*args, *extra)
+    torch.cuda.synchronize()
+    assert fwd.launches == before + 1
+    # float32 dot products of H terms in another order through T steps
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
+    outs, h_n = want
+    for douts in (None, torch.from_numpy(rng.normal(size=outs.shape).astype(
+            np.float32)).to(cuda)):
+        dh_n = torch.from_numpy(rng.normal(size=h_n.shape).astype(
+            np.float32)).to(cuda)
+        before = bwd.launches
+        g_all = bwd(*args, outs, douts, dh_n, *extra)
+        r_all = bwd_plain(*args, outs, douts, dh_n, *extra)
+        torch.cuda.synchronize()
+        assert bwd.launches == before + 1
+        for name, g, r in zip(("dxp", "dw_hh", "db_hh"), g_all, r_all):
+            assert g.shape == r.shape, name
+            assert _rel_max_err(g, r) <= 1e-4, name
+
+
+@pytest.mark.parametrize("cell,leak", [("GRU", 1.0), ("RNN", 1.0),
+                                       ("RNN", 0.5)])
+@pytest.mark.parametrize("shape", [(124, 128, 129, 256, 256),
+                                   (7, 5, 9, 40, 12),
+                                   (6, 11, 129, 1024, 256)])
+def test_cell_decoder_loop_kernels_match_twins(cuda, shape, cell, leak):
+    """The GRU and Elman / ESN sampled loops (generative decode): the
+    pre-mask outs of every step, with ragged lengths and an empty row, at
+    the decode shape, a small one and H=1024."""
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    rng = np.random.default_rng(121)
+    t, b, f, h, m = shape
+    lengths = rng.integers(1, t + 1, size=b)
+    lengths[:2] = (t, 0)
+    if cell == "GRU":
+        full = _gru_decoder_args(rng, cuda, t, b, f, h, m, m, lengths)
+        args = full[:10] + full[15:]
+        fwd, plain, extra = dk.gru_decoder_loop, dk.gru_decoder_loop_plain, {}
+    else:
+        full = _rnn_decoder_args(rng, cuda, t, b, f, h, m, m, lengths, leak)
+        args = full[:9] + full[14:]
+        fwd, plain = dk.rnn_decoder_loop, dk.rnn_decoder_loop_plain
+        extra = {"leak": leak}
+    before = fwd.launches
+    got = fwd(*args, **extra)
+    want = plain(*args, **extra)
+    torch.cuda.synchronize()
+    assert fwd.launches == before + 1
+    assert got.shape == want.shape == (t, b, h)
+    # float32 products in another order through T sampled steps
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)

@@ -26,7 +26,8 @@ from seq2seq_abcd_vae_tpu_torch.models import decoder as port_decoder
 from seq2seq_abcd_vae_tpu_torch.models import rnn as port_rnn
 from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel, gru_kernel
 from seq2seq_abcd_vae_tpu_torch.tree import tree_map
-from torch_port_fixtures import few_torch_threads_fixture, one_step_scans
+from torch_port_fixtures import (few_torch_threads_fixture, one_step_scans,
+                                 reference_jit)
 
 few_torch_threads = pytest.fixture(autouse=True)(few_torch_threads_fixture)
 
@@ -64,10 +65,10 @@ def test_gru_layer_twin_matches_pallas_interpret_and_scan(rng, monkeypatch):
     function's scan path; a ragged batch with an empty row."""
     x, lens, w, per_dir = _layer(rng)
     names = ("w_ih", "b_ih", "w_hh", "b_hh")
-    want = gru_pallas.gru_layer_bidir_fused(
-        jnp.asarray(x), jnp.asarray(lens), *(jnp.asarray(w[k])
-                                             for k in names),
-        interpret=True, precision=HIGHEST)
+    want = reference_jit(lambda *a: gru_pallas.gru_layer_bidir_fused(
+        *a, interpret=True, precision=HIGHEST))(
+            jnp.asarray(x), jnp.asarray(lens),
+            *(jnp.asarray(w[k]) for k in names))
     got = gru_kernel.gru_layer_bidir_fused(
         torch.from_numpy(x), torch.from_numpy(lens),
         *(torch.from_numpy(w[k]) for k in names))
@@ -81,8 +82,9 @@ def test_gru_layer_twin_matches_pallas_interpret_and_scan(rng, monkeypatch):
     xb = np.ascontiguousarray(x.transpose(1, 0, 2))
     mask = jax_rnn.lengths_to_mask(jnp.asarray(lens), x.shape[0])
     with jax.default_matmul_precision("highest"):
-        want_f, want_b, want_fin = jax_rnn.run_rnn_layer_bidir(
-            "GRU", *per_dir, jnp.asarray(xb), mask)
+        want_f, want_b, want_fin = reference_jit(
+            lambda *a: jax_rnn.run_rnn_layer_bidir("GRU", *a))(
+                *per_dir, jnp.asarray(xb), mask)
     got_f, got_b, got_fin = port_rnn.run_rnn_layer_bidir(
         {k: torch.from_numpy(v) for k, v in w.items()},
         torch.from_numpy(xb), torch.from_numpy(lens), "GRU")
@@ -116,8 +118,8 @@ def test_gru_layer_backward_twin_matches_jax_grad(rng, with_douts):
             xx, jnp.asarray(lens), *ws, interpret=True, precision=HIGHEST)
         return total(outs, h_n, jnp)
 
-    want_val, want_grads = jax.value_and_grad(
-        jax_loss, argnums=tuple(range(5)))(
+    want_val, want_grads = reference_jit(jax.value_and_grad(
+        jax_loss, argnums=tuple(range(5))))(
             jnp.asarray(x), *(jnp.asarray(w[k]) for k in names))
     leaves = [torch.from_numpy(x).requires_grad_(True)] + [
         torch.from_numpy(w[k]).requires_grad_(True) for k in names]
@@ -189,7 +191,7 @@ def test_gru_decoder_twins_match_jax_scan_and_grad(rng, monkeypatch):
                 (out.emission_loss, out.offset_loss))
 
     with jax.default_matmul_precision("highest"):
-        (_, (want_em, want_off)), (g_p, g_feat) = jax.jit(
+        (_, (want_em, want_off)), (g_p, g_feat) = reference_jit(
             jax.value_and_grad(jax_loss, argnums=(0, 1), has_aux=True))(
                 params, jnp.asarray(features))
     # the scan path's noise: fold_in(key, 0), split, normal (T, B, F)
@@ -233,8 +235,9 @@ def test_gru_decoder_forward_twin_matches_pallas_interpret(rng):
     for i in (12, 13):                                   # bo1, wo2 (1, Mo)
         jargs[i] = jargs[i].reshape(1, -1)
     jargs[14] = jargs[14].reshape(1, 1)                  # bo2
-    want = decoder_pallas.gru_decoder_loop_fused_losses(
-        *jargs, interpret=True, precision=HIGHEST)
+    want = reference_jit(
+        lambda *a: decoder_pallas.gru_decoder_loop_fused_losses(
+            *a, interpret=True, precision=HIGHEST))(*jargs)
     got = decoder_kernel.gru_decoder_loop_fused_losses(
         *(torch.from_numpy(a) for a in args))
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),

@@ -37,7 +37,8 @@ from seq2seq_abcd_vae_tpu_torch.train.from_jax import (params_from_jax,
                                                        params_to_jax)
 from seq2seq_abcd_vae_tpu_torch.tree import tree_leaves, tree_map
 from torch_port_fixtures import (few_torch_threads_fixture, one_step_scans,
-                                 port_init_tree, write_jax_checkpoint)
+                                 port_init_tree, reference_jit,
+                                 write_jax_checkpoint)
 
 few_torch_threads = pytest.fixture(autouse=True)(few_torch_threads_fixture)
 
@@ -80,8 +81,9 @@ def test_gru_encoder_and_trees_match_jax(rng, monkeypatch):
     lens = np.asarray([11, 0, 6, 1], np.int32)
     x = rng.normal(size=(4, 11, 7)).astype(np.float32)
     with jax.default_matmul_precision("highest"):
-        want = jax_encoder.encoder_apply(params, jcfg, jnp.asarray(x),
-                                         jnp.asarray(lens))
+        want = reference_jit(
+            lambda p, xx, n: jax_encoder.encoder_apply(p, jcfg, xx, n))(
+                params, jnp.asarray(x), jnp.asarray(lens))
     port = params_from_jax({"encoder": params, "feature_sampler": {}}, pcfg)
     assert tuple(port["encoder"][1]["w_ih"].shape) == (2, 10, 15)
     got = port_encoder.encoder_apply(port["encoder"], pcfg, t(x),
@@ -151,7 +153,7 @@ def test_gru_model_tree_and_training_steps_match_jax(rng, monkeypatch):
              "speakers": jnp.asarray(speakers),
              "is_offset": jnp.asarray(is_offset)}
 
-    @jax.jit
+    @reference_jit
     def jax_step(p, state, key):
         (loss, aux), grads = jax.value_and_grad(
             lambda q: jax_vae.training_loss(q, jcfg, batch, key, n_data,
@@ -206,8 +208,8 @@ def test_gru_model_tree_and_training_steps_match_jax(rng, monkeypatch):
 
 def test_cli_trains_resumes_and_encodes_gru(tmp_path):
     """``-R GRU`` trains (the decoder follows the encoder's cell), resumes
-    and encodes through the encode CLI on the CPU; decoding a GRU decoder
-    is refused until its loop is ported."""
+    and encodes through the encode CLI on the CPU; its checkpoint decodes
+    in both modes."""
     argv = [TOY, CSV, "-S", str(tmp_path), "-j", "gru", "-b", "4",
             "--pretrain_epochs", "1", "-d", "cpu", "-R", "GRU",
             "--stft_method", "pallas", "-K", "5", "-f", "6",
@@ -241,8 +243,23 @@ def test_cli_trains_resumes_and_encodes_gru(tmp_path):
             row["prob"])
     assert len(rows) == 5 * len(sums) and len(sums) == 8
     np.testing.assert_allclose(list(sums.values()), 1.0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        load_model(ckpt, device="cpu")
+    # the GRU decoder decodes (gru_decoder_loop), in both modes
+    params, mcfg = load_model(ckpt, device="cpu")
+    assert mcfg.decoder.rnn_type == "GRU"
+    feats = torch.randn(3, 6, generator=torch.Generator().manual_seed(1))
+    lens = torch.tensor([5, 0, 3], dtype=torch.int32)
+    speaker = torch.tensor([0, 1, 1], dtype=torch.int32)
+    noise = torch.randn(5, 3, mcfg.decoder.output_size,
+                        generator=torch.Generator().manual_seed(2))
+    for mode in ("sample", "mean"):
+        got = decode_features(params, mcfg, feats, lens, 5, noise=noise,
+                              speaker=speaker, emission_mode=mode)
+        mean, logvar = got.emission_params
+        assert torch.isfinite(got.out).all()
+        torch.testing.assert_close(
+            got.out, mean if mode == "mean" else
+            mean + torch.exp(0.5 * logvar) * noise.transpose(0, 1),
+            rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("kind,mode", [("greedy", "sample"),
@@ -274,9 +291,11 @@ def test_decode_admits_training_only_decoder_options(rng, monkeypatch,
     speaker = np.asarray([1, 0, 1, 1, 0], np.int32)
     key = jax.random.PRNGKey(9)
     with jax.default_matmul_precision("highest"):
-        want = jax_decode.decode_features(
-            params, jcfg, jnp.asarray(feats), jnp.asarray(lens), tt, key,
-            speaker=jnp.asarray(speaker), emission_mode=mode)
+        want = reference_jit(
+            lambda p, f, n, s: jax_decode.decode_features(
+                p, jcfg, f, n, tt, key, speaker=s, emission_mode=mode))(
+                    params, jnp.asarray(feats), jnp.asarray(lens),
+                    jnp.asarray(speaker))
     # the call's own draw: fold_in(key, 0), then split, then (T, B, F)
     k_noise, _ = jax.random.split(jax.random.fold_in(key, 0))
     noise = np.asarray(jax.random.normal(k_noise, (tt, b, F)))

@@ -15,7 +15,7 @@ from seq2seq_abcd_vae_tpu.models import rnn as jax_rnn
 from seq2seq_abcd_vae_tpu.ops import lstm_pallas
 from seq2seq_abcd_vae_tpu_torch.models import rnn as port_rnn
 from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel
-from torch_port_fixtures import one_step_scans
+from torch_port_fixtures import one_step_scans, reference_jit
 
 # float32 dot products of F + H terms per gate summed in another order,
 # carried through at most 13 recurrent steps (the JAX package holds its
@@ -49,11 +49,12 @@ def test_twin_matches_pallas_kernel_interpret(rng, case):
     w = _stacked(p_fwd, p_bwd)
     x_t = np.ascontiguousarray(np.swapaxes(x, 0, 1))
     with jax.default_matmul_precision("highest"):
-        want = lstm_pallas.lstm_layer_bidir_fused(
-            jnp.asarray(x_t), jnp.asarray(lens),
-            *(jnp.asarray(w[k].numpy()) for k in ("w_ih", "b_ih", "w_hh",
-                                                  "b_hh")),
-            interpret=True, precision=jax.lax.Precision.HIGHEST)
+        want = reference_jit(
+            lambda *a: lstm_pallas.lstm_layer_bidir_fused(
+                *a, interpret=True, precision=jax.lax.Precision.HIGHEST))(
+                    jnp.asarray(x_t), jnp.asarray(lens),
+                    *(jnp.asarray(w[k].numpy())
+                      for k in ("w_ih", "b_ih", "w_hh", "b_hh")))
     got = lstm_kernel.lstm_layer_bidir_fused(
         torch.from_numpy(x_t), torch.from_numpy(lens), w["w_ih"], w["b_ih"],
         w["w_hh"], w["b_hh"])
@@ -73,8 +74,9 @@ def test_layer_matches_jax_scan(rng, monkeypatch, case):
     p_fwd, p_bwd, x, lens = _layer(rng, t, f, h, lengths, seed=1)
     with jax.default_matmul_precision("highest"):
         mask = jax_rnn.lengths_to_mask(jnp.asarray(lens), t)
-        want_f, want_b, want_fin = jax_rnn.run_rnn_layer_bidir(
-            "LSTM", p_fwd, p_bwd, jnp.asarray(x), mask)
+        want_f, want_b, want_fin = reference_jit(
+            lambda *a: jax_rnn.run_rnn_layer_bidir("LSTM", *a))(
+                p_fwd, p_bwd, jnp.asarray(x), mask)
     port_mask = port_rnn.lengths_to_mask(torch.from_numpy(lens), t)
     np.testing.assert_array_equal(port_mask.numpy(), np.asarray(mask))
     got_f, got_b, got_fin = port_rnn.run_rnn_layer_bidir(

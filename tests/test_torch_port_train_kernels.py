@@ -23,7 +23,8 @@ from seq2seq_abcd_vae_tpu_torch.models import decoder as port_decoder
 from seq2seq_abcd_vae_tpu_torch.models import rnn as port_rnn
 from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel, lstm_kernel
 from seq2seq_abcd_vae_tpu_torch.tree import tree_map
-from torch_port_fixtures import few_torch_threads_fixture, one_step_scans
+from torch_port_fixtures import (few_torch_threads_fixture, one_step_scans,
+                                 reference_jit)
 
 few_torch_threads = pytest.fixture(few_torch_threads_fixture)
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
@@ -73,7 +74,7 @@ def test_lstm_backward_twin_matches_jax_grad(rng, monkeypatch, with_douts):
         return total(outs_f, outs_b, fin, jnp)
 
     with jax.default_matmul_precision("highest"):
-        want_val, (g_f, g_b, g_x) = jax.jit(jax.value_and_grad(
+        want_val, (g_f, g_b, g_x) = reference_jit(jax.value_and_grad(
             jax_loss, argnums=(0, 1, 2)))(p_fwd, p_bwd, jnp.asarray(x))
 
     w = {k: torch.from_numpy(np.stack([np.asarray(p_fwd[k]),
@@ -147,7 +148,7 @@ def test_decoder_twins_match_jax_scan_and_grad(rng, monkeypatch):
                 (out.emission_loss, out.offset_loss))
 
     with jax.default_matmul_precision("highest"):
-        (_, (want_em, want_off)), (g_p, g_feat) = jax.jit(
+        (_, (want_em, want_off)), (g_p, g_feat) = reference_jit(
             jax.value_and_grad(jax_loss, argnums=(0, 1), has_aux=True))(
                 params, jnp.asarray(features))
     # the scan path's noise: fold_in(key, 0), split, normal (T, B, F)
@@ -189,12 +190,16 @@ def test_decoder_forward_twin_matches_pallas_interpret(rng):
     (noise, lens, w_cat, bias, b1, w2m, w2v, b2, w_ih, targets, wo1, bo1,
      wo2, bo2, h0, c0) = args
     with jax.default_matmul_precision("highest"):
-        want = decoder_pallas.decoder_loop_fused_losses(
-            *(jnp.asarray(a) for a in (noise, lens, w_cat, bias, b1, w2m,
-                                       w2v, b2, w_ih, targets, wo1)),
-            jnp.asarray(bo1.reshape(1, -1)), jnp.asarray(wo2.reshape(1, -1)),
-            jnp.asarray(bo2.reshape(1, 1)), jnp.asarray(h0), jnp.asarray(c0),
-            interpret=True, precision=jax.lax.Precision.HIGHEST)
+        want = reference_jit(
+            lambda *a: decoder_pallas.decoder_loop_fused_losses(
+                *a, interpret=True, precision=jax.lax.Precision.HIGHEST))(
+                    *(jnp.asarray(a) for a in (noise, lens, w_cat, bias, b1,
+                                               w2m, w2v, b2, w_ih, targets,
+                                               wo1)),
+                    jnp.asarray(bo1.reshape(1, -1)),
+                    jnp.asarray(wo2.reshape(1, -1)),
+                    jnp.asarray(bo2.reshape(1, 1)), jnp.asarray(h0),
+                    jnp.asarray(c0))
     got = decoder_kernel.decoder_fused_losses_fwd(
         *(torch.from_numpy(a) for a in args))
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),

@@ -35,7 +35,7 @@ from seq2seq_abcd_vae_tpu_torch.train.from_jax import (params_from_jax,
                                                        params_to_jax)
 from seq2seq_abcd_vae_tpu_torch.tree import tree_leaves, tree_map
 from torch_port_fixtures import (few_torch_threads_fixture, one_step_scans,
-                                 port_init_tree)
+                                 port_init_tree, reference_jit)
 
 few_torch_threads = pytest.fixture(few_torch_threads_fixture)
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
@@ -80,10 +80,13 @@ def test_gaussian_noise_model_matches_jax(rng):
 
 def test_emission_sampler_matches_jax(rng):
     cfg = GaussianSamplerConfig(6, 5, 4)
-    params = jax_sampler.sampler_init(jax.random.PRNGKey(1), cfg)
+    # the JAX initialiser's draws, compiled once (jit keeps them)
+    params = reference_jit(lambda k: jax_sampler.sampler_init(k, cfg))(
+        jax.random.PRNGKey(1))
     x = rng.normal(size=(3, 7, 6)).astype(np.float32)
     with jax.default_matmul_precision("highest"):
-        want = jax_sampler.sampler_apply(params, jnp.asarray(x))
+        want = reference_jit(jax_sampler.sampler_apply)(params,
+                                                        jnp.asarray(x))
     got = port_sampler.sampler_apply(tree_map(t, params), t(x))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
@@ -96,7 +99,8 @@ def test_emission_sampler_matches_jax(rng):
 def _abcd(prior=1.0):
     jcfg = JaxABCDConfig(12, 9, 7, 11, prior_concentration=prior)
     pcfg = ABCDSamplerConfig(12, 9, 7, 11, prior_concentration=prior)
-    params = jax_abcd.abcd_init(jax.random.PRNGKey(0), jcfg)
+    params = reference_jit(lambda k: jax_abcd.abcd_init(k, jcfg))(
+        jax.random.PRNGKey(0))
     return jcfg, pcfg, params, tree_map(t, params)
 
 
@@ -169,8 +173,8 @@ def test_fresh_parameters_have_the_jax_tree():
     fresh = port_vae.model_init(torch.Generator().manual_seed(0), pcfg)
     got = tree_map(lambda a: a.shape, params_to_jax(fresh))
     assert got == want
-    with pytest.raises(NotImplementedError, match="RNN"):
-        check_decoder(DecoderConfig(F, H, MLP, FEAT, rnn_type="RNN"),
+    with pytest.raises(NotImplementedError, match="bidirectional"):
+        check_decoder(DecoderConfig(F, H, MLP, FEAT, bidirectional=True),
                       training=False)
     with pytest.raises(NotImplementedError, match="greedy"):
         port_vae.ModelConfig(
@@ -215,7 +219,7 @@ def test_training_loss_and_sgd_steps_match_jax(rng, monkeypatch):
                  jax.random.normal(k_noise, (tt, b, F)))
         return loss, aux, grads, new, state, noise
 
-    jax_step = jax.jit(jax_step)  # one compile for both steps
+    jax_step = reference_jit(jax_step)  # one compile for both steps
     port_params = tree_map(lambda a: a.requires_grad_(True),
                            params_from_jax(params, pcfg.encoder,
                                            decoder_cfg=pcfg.decoder))

@@ -36,7 +36,7 @@ from seq2seq_abcd_vae_tpu_torch.train.from_jax import (params_from_jax,
                                                        params_to_jax)
 from seq2seq_abcd_vae_tpu_torch.tree import tree_leaves, tree_map
 from torch_port_fixtures import (few_torch_threads_fixture, one_step_scans,
-                                 port_init_tree)
+                                 port_init_tree, reference_jit)
 
 few_torch_threads = pytest.fixture(autouse=True)(few_torch_threads_fixture)
 
@@ -81,15 +81,12 @@ def test_lstm_layer_twin_matches_pallas_interpret(rng, reverse, with_outs):
         outs, h_n, c_n = lstm_pallas.lstm_layer(
             xp_, jnp.asarray(lens), w_, b_, interpret=True, reverse=reverse)
         return loss_of(outs, h_n, c_n, jnp.asarray(w_out), jnp.tanh, jnp.sin,
-                       jnp.sum)
+                       jnp.sum), (outs, h_n, c_n)
 
     with jax.default_matmul_precision("highest"):
-        want = lstm_pallas.lstm_layer(jnp.asarray(xp), jnp.asarray(lens),
-                                      jnp.asarray(w_hh), jnp.asarray(b_hh),
-                                      interpret=True, reverse=reverse)
-        want_loss, want_grads = jax.value_and_grad(
-            jax_loss, argnums=(0, 1, 2))(jnp.asarray(xp), jnp.asarray(w_hh),
-                                         jnp.asarray(b_hh))
+        (want_loss, want), want_grads = reference_jit(jax.value_and_grad(
+            jax_loss, argnums=(0, 1, 2), has_aux=True))(
+                jnp.asarray(xp), jnp.asarray(w_hh), jnp.asarray(b_hh))
     got = lstm_kernel.lstm_layer(t(xp), torch.from_numpy(lens), t(w_hh),
                                  t(b_hh), reverse)
     for g, w in zip(got, want):
@@ -135,8 +132,9 @@ def test_unidirectional_encoder_matches_jax(rng, monkeypatch, layers):
     lens = np.asarray([11, 0, 6, 1], np.int32)
     x = rng.normal(size=(4, 11, 7)).astype(np.float32)
     with jax.default_matmul_precision("highest"):
-        want = jax_encoder.encoder_apply(params, jcfg, jnp.asarray(x),
-                                         jnp.asarray(lens))
+        want = reference_jit(
+            lambda p, xx, n: jax_encoder.encoder_apply(p, jcfg, xx, n))(
+                params, jnp.asarray(x), jnp.asarray(lens))
     tree = {"encoder": params, "feature_sampler": {}}
     port = params_from_jax(tree, pcfg)
     got = port_encoder.encoder_apply(port["encoder"], pcfg, t(x),
@@ -190,24 +188,25 @@ def test_unidirectional_training_step_matches_jax(rng, monkeypatch):
              "is_offset": jnp.asarray(is_offset)}
     key = jax.random.PRNGKey(100)
 
-    @jax.jit
+    @reference_jit
     def jax_step(p):
         (loss, aux), grads = jax.value_and_grad(
             lambda q: jax_vae.training_loss(q, jcfg, batch, key, n_data,
                                             temperature=temperature),
             has_aux=True)(p)
-        return loss, aux, grads, tx.update(grads, tx.init(p), p)[0]
+        # forward_losses' key flow: (encoder, latent, decoder) keys; the
+        # Gumbel draw of the latent key; the decoder's fold_in(., 0) split
+        _, k_lat, k_dec = jax.random.split(key, 3)
+        k_noise, _ = jax.random.split(jax.random.fold_in(k_dec, 0))
+        noise = (jax.random.gumbel(k_lat, (b, K)),
+                 jax.random.normal(k_noise, (tt, b, F)))
+        return loss, aux, grads, tx.update(grads, tx.init(p), p)[0], noise
 
     with jax.default_matmul_precision("highest"):
-        want_loss, aux, grads, updates = jax_step(params)
+        want_loss, aux, grads, updates, noise = jax_step(params)
     new = jax.tree_util.tree_map(lambda a, u: np.asarray(a + u), params,
                                  updates)
-    # forward_losses' key flow: (encoder, latent, decoder) keys; the
-    # Gumbel draw of the latent key; the decoder's fold_in(., 0) split
-    _, k_lat, k_dec = jax.random.split(key, 3)
-    k_noise, _ = jax.random.split(jax.random.fold_in(k_dec, 0))
-    gumbel = np.asarray(jax.random.gumbel(k_lat, (b, K)))
-    dec_noise = np.asarray(jax.random.normal(k_noise, (tt, b, F)))
+    gumbel, dec_noise = (np.asarray(a) for a in noise)
 
     port_params = tree_map(lambda a: a.requires_grad_(True),
                            params_from_jax(params, pcfg.encoder,

@@ -6,7 +6,8 @@ package's tree by ``params_to_jax`` and handed to both packages as numpy
 arrays: the JAX initialisers would compile every draw, which costs
 seconds per configuration (the trees' equality with the JAX initialisers'
 is tested on its own).  Audio is made from a seed with numpy.  The helpers
-touch no global state of either framework.
+touch no global state of either framework; ``reference_jit`` compiles a
+JAX reference computation once, with options of that compilation alone.
 """
 
 import numpy as np
@@ -91,6 +92,21 @@ def padded_batch(rng, frames, bucket):
         jax_audio.center_pad_segment(seg, pad, audio[i])
         num_frames[i] = 1 + n // STEP
     return audio, num_frames
+
+
+# The XLA CPU backend's lowest LLVM optimisation level: the JAX reference
+# programs of these tests are tiny and run once, and compile in about half
+# the time; their values agree with the default compilation's to float32
+# rounding, far inside the tests' tolerances.
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
+
+
+def reference_jit(fn, **kwargs):
+    """``jax.jit(fn)`` compiled with ``FAST_COMPILE``: one compilation of a
+    JAX reference computation (an eager call compiles each operation and
+    each scan on its own, and an interpret-mode Pallas kernel runs its grid
+    step by step in Python)."""
+    return jax.jit(fn, compiler_options=FAST_COMPILE, **kwargs)
 
 
 def one_step_scans(monkeypatch):
