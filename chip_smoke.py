@@ -57,24 +57,36 @@ run from the repository root.  It
     CPU), serves the GRU one, and decodes the validation segments'
     features from the GRU and ESN ones (``gru_decoder_loop``,
     ``rnn_decoder_loop``: one launch in sample mode, none in mean mode;
-    card vs twins vs CPU); every main path (4-10) runs with all launch
-    counters set to 0 just before and read just after, and every kernel
-    must have run on one;
-11. holds each kernel against its plain PyTorch twin on the card at the
+    card vs twins vs CPU);
+11. trains the decoder's stream path through the same CLI (2 epochs, 1 of
+    pretraining) with the JAX package's switch in the environment:
+    ``SEQ2SEQ_NLL_FUSION=0 -R LSTM``, ``SEQ2SEQ_FUSED_CELLS= -R GRU`` and
+    ``SEQ2SEQ_FUSED_CELLS=GRU,RNN -R ESN --esn_leak 0.5``, where the
+    cell's sampled loop runs once per step and its backward once per
+    training step, and no fused-loss kernel; and runs the LSTM decoder's
+    loss-only call without offset targets (``decoder_losses(...,
+    with_offset=False)``, the fused-NLL loop forward and backward) on the
+    trained checkpoint's validation segments, against the fused-losses
+    call on the card and the same call on the CPU's twins; every main
+    path (4-11) runs with all launch counters set to 0 just before and
+    read just after, and every kernel must have run on one;
+12. holds each kernel against its plain PyTorch twin on the card at the
     main paths' shapes (ragged lengths, one row of length 0), the Elman
     kernels at leak 1.0 and 0.5, the one-direction layers in both span
     directions, the recurrent kernels also at hidden size 1024, and one
     whole training step (each LSTM encoder, the GRU, RNN and ESN models
-    with either encoder) on the kernels (card) against the same step on
-    the twins (CPU): loss, every gradient and the parameters after the
-    SGD step;
-12. times each kernel, its twin and one library call computing the same
+    with either encoder; the LSTM, GRU and ESN models on the decoder's
+    stream path, also against the fused path's step on the card) on the
+    kernels (card) against the same step on the twins (CPU): loss, every
+    gradient and the parameters after the SGD step;
+13. times each kernel, its twin and one library call computing the same
     function (a yardstick the port never calls) with CUDA events, and
-    prints one ``{"kernels": [...]}`` line (22 kernels) with launches,
+    prints one ``{"kernels": [...]}`` line (27 kernels) with launches,
     times, the bound and the largest error, after the serve latencies,
-    the time of one served batch and of one training step by stage, the
-    training and encode throughputs;
-13. ends with ``{"ok": true, "device": {...}}`` as its last line.
+    the time of one served batch and of one training step by stage (the
+    stream path's beside the fused path's), the training and encode
+    throughputs;
+14. ends with ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result.  Without a card it exits 2 before doing anything.
@@ -1014,11 +1026,13 @@ def decoder_train_phase(dev, rng, t, launches_fwd, launches_bwd,
     return fwd_entry, bwd_entry
 
 
-def step_on(device, params0, cfg, batch, spec, noise, n_data):
+def step_on(device, params0, cfg, batch, spec, noise, n_data,
+            fused_cells=None):
     """One training step (loss, gradients, SGD with clip 1.0, lr 1.0) on
-    ``device`` from copies of ``params0``; the gradients of the trainable
-    leaves (all but a frozen ESN reservoir) and every leaf after the
-    step."""
+    ``device`` from copies of ``params0``, the decoder on the fused-loss
+    kernels unless ``fused_cells`` leaves its cell out; the gradients of
+    the trainable leaves (all but a frozen ESN reservoir) and every leaf
+    after the step."""
     from seq2seq_abcd_vae_tpu_torch.models import vae
     from seq2seq_abcd_vae_tpu_torch.train import learner as L
     from seq2seq_abcd_vae_tpu_torch.train import optim
@@ -1026,7 +1040,8 @@ def step_on(device, params0, cfg, batch, spec, noise, n_data):
     params = vae.set_trainable(tree_map(
         lambda p: p.detach().to(device).clone(), params0), cfg)
     statics = L.StepStatics(cfg, spec.frame_length, spec.step_size,
-                            spec.window, EPSILON, NORMALIZER, "pallas")
+                            spec.window, EPSILON, NORMALIZER, "pallas",
+                            *(() if fused_cells is None else (fused_cells,)))
     noise = {k: v.to(device) for k, v in noise.items()}
     loss, metrics = L.losses_and_metrics(
         params, statics, torch.from_numpy(batch.audio).to(device),
@@ -1043,12 +1058,15 @@ def step_on(device, params0, cfg, batch, spec, noise, n_data):
 
 
 def whole_step_phase(dev, corpus_dir, csv_path, seed, bidirectional=True,
-                     rnn_type="LSTM", esn_leak=1.0):
+                     rnn_type="LSTM", esn_leak=1.0, fused_cells=None):
     """One training step on the kernels (card) against the same step on
     the twins (CPU), with the bidirectional or the unidirectional LSTM
     encoder, or the model of another cell (``rnn_type`` GRU, RNN or ESN:
     its bidirectional encoder and its decoder; the ESN's reservoir frozen,
-    unchanged bit for bit); returns the checks and the step's inputs."""
+    unchanged bit for bit); with ``fused_cells`` leaving the cell out, the
+    decoder on its stream path, also held on the card to the fused path's
+    step on the same weights and noise.  Returns the checks and the step's
+    inputs."""
     from seq2seq_abcd_vae_tpu_torch.configs import (ABCDSamplerConfig,
                                                     DecoderConfig,
                                                     EncoderConfig)
@@ -1070,9 +1088,9 @@ def whole_step_phase(dev, corpus_dir, csv_path, seed, bidirectional=True,
     noise = {k: v.cpu() for k, v in L.draw_noise(
         gen, cfg, len(batch.num_frames), batch.bucket_frames, dev).items()}
     n_data = float(len(ds))
-    card = step_on(dev, params0, cfg, batch, spec, noise, n_data)
+    card = step_on(dev, params0, cfg, batch, spec, noise, n_data, fused_cells)
     cpu = step_on(torch.device("cpu"), params0, cfg, batch, spec, noise,
-                  n_data)
+                  n_data, fused_cells)
     loss_err = abs(card[0].item() - cpu[0].item()) / abs(cpu[0].item())
     grad_err = max(rel_err(g, r) for g, r in zip(card[2], cpu[2]))
     p0 = tree_leaves(params0)
@@ -1099,11 +1117,26 @@ def whole_step_phase(dev, corpus_dir, csv_path, seed, bidirectional=True,
     checks = {"loss_rel_err": loss_err, "grad_max_rel_err": grad_err,
               "param_err_over_allowed": upd_err, "loss": card[0].item(),
               "leaves": len(p0), "frozen_leaves_unchanged": len(still)}
+    if fused_cells is not None and rnn_type not in fused_cells:
+        # the stream path against the fused path, both on the card
+        fused = step_on(dev, params0, cfg, batch, spec, noise, n_data)
+        vs_loss = abs(card[0].item() - fused[0].item()) / abs(
+            fused[0].item())
+        vs_grad = max(rel_err(g, r) for g, r in zip(card[2], fused[2]))
+        if not (vs_loss <= LOSS_RTOL and vs_grad <= GRAD_FRACTION):
+            raise AssertionError(f"training step, stream vs fused path on "
+                                 f"the card: loss {vs_loss}, gradients "
+                                 f"{vs_grad}")
+        checks.update(vs_fused_loss_rel_err=vs_loss,
+                      vs_fused_grad_max_rel_err=vs_grad)
     return checks, (params0, cfg, batch, spec, noise, n_data)
 
 
-def train_step_breakdown(dev, params0, cfg, batch, spec, noise, n_data):
-    """The card's training step by stage, CUDA events around each."""
+def train_step_breakdown(dev, params0, cfg, batch, spec, noise, n_data,
+                         fused_cells=None):
+    """The card's training step by stage, CUDA events around each (the
+    decoder on its stream path when ``fused_cells`` leaves its cell
+    out)."""
     from seq2seq_abcd_vae_tpu_torch.models import abcd as abcd_mod
     from seq2seq_abcd_vae_tpu_torch.models import decoder as dec_mod
     from seq2seq_abcd_vae_tpu_torch.models import encoder as enc_mod
@@ -1139,9 +1172,10 @@ def train_step_breakdown(dev, params0, cfg, batch, spec, noise, n_data):
         kl = abcd_mod.abcd_kl(head, cfg.latent, logits, n_data,
                               row_mask=(frames > 0).float())
         ev[3].record()
-        em, off = dec_mod.decoder_losses(params["decoder"], cfg.decoder,
-                                         feats, frames, inputs,
-                                         noise_d["decoder"], speakers)
+        em, off = dec_mod.decoder_losses(
+            params["decoder"], cfg.decoder, feats, frames, inputs,
+            noise_d["decoder"], speakers,
+            **({} if fused_cells is None else {"fused_cells": fused_cells}))
         loss = (em + off + kl) / (frames > 0).sum()
         ev[4].record()
         opt.zero_grad(set_to_none=True)
@@ -1189,7 +1223,14 @@ def all_counters():
                 rnn_layer=elman_kernel.rnn_layer,
                 rnn_layer_bwd=elman_kernel.rnn_layer_bwd,
                 gru_decoder_loop=decoder_kernel.gru_decoder_loop,
-                rnn_decoder_loop=decoder_kernel.rnn_decoder_loop)
+                rnn_decoder_loop=decoder_kernel.rnn_decoder_loop,
+                decoder_loop_bwd=decoder_kernel.decoder_loop_bwd,
+                gru_decoder_loop_bwd=decoder_kernel.gru_decoder_loop_bwd,
+                rnn_decoder_loop_bwd=decoder_kernel.rnn_decoder_loop_bwd,
+                decoder_loop_fused_nll_fwd=(
+                    decoder_kernel.decoder_fused_nll_fwd),
+                decoder_loop_fused_nll_bwd=(
+                    decoder_kernel.decoder_fused_nll_bwd))
 
 
 def expected(counters: dict, **launches) -> dict:
@@ -2217,6 +2258,351 @@ def cell_loop_phase(dev, rng, cell, launches):
             "tolerance": LSTM_ATOL, "checks": checks}
 
 
+# ---------------------------------------------------------------------------
+# the stream slice: the decoder's unfused training path, the sampled loops'
+# backwards and the fused-NLL LSTM loop
+# ---------------------------------------------------------------------------
+
+# the CLI runs of the stream path: the cell, the JAX package's switch in the
+# environment, the extra flags
+STREAM_RUNS = (("LSTM", {"SEQ2SEQ_NLL_FUSION": "0"}, ()),
+               ("GRU", {"SEQ2SEQ_FUSED_CELLS": ""}, ()),
+               ("ESN", {"SEQ2SEQ_FUSED_CELLS": "GRU,RNN"},
+                ("--esn_leak", "0.5")))
+# each cell's bidirectional encoder layer and sampled decoder loop
+LAYER_OF = {"LSTM": "lstm_layer_bidir_fused", "GRU": "gru_layer_bidir_fused",
+            "RNN": "rnn_layer_bidir_fused", "ESN": "rnn_layer_bidir_fused"}
+LOOP_OF = {"LSTM": "decoder_loop", "GRU": "gru_decoder_loop",
+           "RNN": "rnn_decoder_loop", "ESN": "rnn_decoder_loop"}
+
+
+def environment(env: dict):
+    """Context: ``os.environ`` holds ``env`` inside, restored after."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def scoped():
+        before = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            yield
+        finally:
+            for k, v in before.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    return scoped()
+
+
+def stream_train_phase(dev, work: str, corpus_dir: str, csv_path: str,
+                       seed: int, cell: str, env: dict, extra=()):
+    """The training CLI with the JAX package's switch ``env`` in the
+    environment (``-R cell``: its bidirectional encoder and decoder; 2
+    epochs, 1 of pretraining), counted: the frontend and the encoder layer
+    once per step (its backward per training step, none under the ESN's
+    frozen reservoir), the cell's sampled loop once per step and its
+    backward once per training step; no fused-loss kernel."""
+    from seq2seq_abcd_vae_tpu_torch.cli import learning_main
+    job = f"stream-{cell.lower()}"
+    argv = [corpus_dir, csv_path, "-S", work, "-j", job, "-b",
+            str(TRAIN_BATCH), "--pretrain_epochs", "1", "--stft_method",
+            "pallas", "-d", dev.type, "-N", str(NORMALIZER), "-s", str(seed),
+            "-R", cell, *extra, "-e", "2",
+            "--encoder_rnn_hidden_size", str(HIDDEN),
+            "--decoder_rnn_hidden_size", str(HIDDEN),
+            "--mlp_hidden_size", str(MLP_HIDDEN), "-K", str(K),
+            "-f", str(FEATURE_DIM), "--speaker_embed_dim", str(SPEAKER_EMBED)]
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    with environment(env):
+        run = learning_main.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_history(os.path.join(work, job, "history.log"), False)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    train_steps, eval_steps = run.steps["train"], run.steps["eval"]
+    steps = train_steps + eval_steps
+    layer, loop = LAYER_OF[cell], LOOP_OF[cell]
+    want = expected(counters, log_spectrogram=steps, **{
+        layer: steps, loop: steps, loop + "_bwd": train_steps},
+        **({} if cell == "ESN" else {layer + "_bwd": train_steps}))
+    print(f"{job} training main path ({env}): {train_steps} training + "
+          f"{eval_steps} evaluation steps in {wall:.2f} s; launches "
+          f"{launches}", flush=True)
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    later = [n / sec for _, sec, n in run.epoch_seconds[1:]]
+    return {"launches": launches, "env": env, "train_steps": train_steps,
+            "eval_steps": eval_steps,
+            "segments_per_s_after_first_epoch":
+                sum(later) / len(later) if later else None,
+            "epochs": [{"epoch": e, "train_s": sec, "segments": n}
+                       for e, sec, n in run.epoch_seconds]}
+
+
+def nll_phase(dev, ckpt_path: str, corpus_dir: str, csv_path: str,
+              seed: int):
+    """The LSTM decoder's loss-only call without offset targets (the JAX
+    package's ``decoder_apply(loss_only=True, ground_truth_offset=None)``:
+    ``models/decoder.decoder_losses(..., with_offset=False)``) on a trained
+    checkpoint, over the corpus's validation segments (their features from
+    the encoder, their spectrograms as targets), with the gradient of the
+    emission NLL plus the caller's offset BCE of the returned logits;
+    counted: one fused-NLL forward and one backward launch, nothing else.
+    Held on the card to the fused-losses call (the offset BCE in-kernel) on
+    the same weights and noise, and to the same call on the CPU's twins."""
+    from seq2seq_abcd_vae_tpu_torch.data.annotations import AnnotationParser
+    from seq2seq_abcd_vae_tpu_torch.data.batching import (DataLoader,
+                                                          FrontendSpec)
+    from seq2seq_abcd_vae_tpu_torch.infer.decode import load_model
+    from seq2seq_abcd_vae_tpu_torch.infer.encode import Encoder, encode_step
+    from seq2seq_abcd_vae_tpu_torch.models import decoder as dec_mod
+    from seq2seq_abcd_vae_tpu_torch.train import learner as L
+    from seq2seq_abcd_vae_tpu_torch.tree import tree_leaves, tree_map
+    spec = FrontendSpec(int(0.008 * TRAIN_FS), int(0.004 * TRAIN_FS))
+    valid = AnnotationParser(corpus_dir, csv_path).get_data("valid")
+    batch = next(iter(DataLoader(valid, spec, batch_size=len(valid))))
+    enc = Encoder(ckpt_path, device=dev.type, stft_method="pallas")
+    statics = enc.statics(spec, EPSILON, NORMALIZER)
+    audio = torch.from_numpy(batch.audio).to(dev)
+    lengths = torch.from_numpy(batch.num_frames).to(dev)
+    t = batch.bucket_frames
+    feats = encode_step(enc.params, audio, lengths, statics, t, "features")
+    inputs = L.frontend(statics, audio, t)
+    params, cfg = load_model(ckpt_path, dev.type)
+    speakers = torch.from_numpy(batch.speakers).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    noise = torch.randn((t, len(lengths), cfg.decoder.output_size),
+                        generator=gen, device=dev)
+    steps = torch.arange(t, device=dev)[None, :]
+    mask = (steps < lengths[:, None]).float()
+    y = (steps == lengths[:, None] - 1).float()
+
+    def run(device, with_offset):
+        dec = tree_map(lambda p: p.detach().to(device).clone()
+                       .requires_grad_(True), params["decoder"])
+        em, z = dec_mod.decoder_losses(
+            dec, cfg.decoder, feats.to(device), lengths.to(device),
+            inputs.to(device), noise.to(device), speakers.to(device),
+            with_offset=with_offset)
+        if not with_offset:  # the caller's BCE of the offset logits
+            per = (torch.clamp(z, min=0.0) - z * y.to(device)
+                   + torch.log1p(torch.exp(-torch.abs(z))))
+            z = (per * mask.to(device)).sum()
+        loss = em + z
+        loss.backward()
+        return loss.detach(), [p.grad for p in tree_leaves(dec)]
+
+    counters = zero_counters()
+    card = run(dev, False)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = expected(counters, decoder_loop_fused_nll_fwd=1,
+                    decoder_loop_fused_nll_bwd=1)
+    if launches != want:
+        raise AssertionError(f"loss-only call launched {launches}, expected "
+                             f"{want}")
+    errs = {}
+    for where, (loss, grads) in (("fused_losses_card", run(dev, True)),
+                                 ("cpu_twins", run(torch.device("cpu"),
+                                                   False))):
+        errs[f"loss_rel_vs_{where}"] = abs(
+            card[0].item() - loss.item()) / abs(loss.item())
+        errs[f"grad_max_rel_vs_{where}"] = max(
+            rel_err(g, r) for g, r in zip(card[1], grads))
+    bad = {k: v for k, v in errs.items()
+           if v > (LOSS_RTOL if k.startswith("loss") else GRAD_FRACTION)}
+    if bad or not math.isfinite(card[0].item()):
+        raise AssertionError(f"loss-only call without offsets: {errs}")
+    ms = cuda_ms(lambda: run(dev, False), iters=3, warmup=1)
+    return {"launches": launches, "rows": len(lengths), "T": t,
+            "loss": card[0].item(), "errors": errs,
+            "ms_forward_and_backward": ms}
+
+
+def _loop_fns(cell):
+    """(forward with saved carries, its twin, backward, its twin) of the
+    sampled loop of ``cell`` (LSTM, GRU or the Elman loop)."""
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    loop = LOOP_OF[cell]
+    return (getattr(dk, loop + "_fwd"), getattr(dk, loop + "_plain"),
+            getattr(dk, loop + "_bwd"), getattr(dk, loop + "_bwd_plain"))
+
+
+def _loop_backward_check(dev, rng, t, b, cell, leak=1.0, h=HIDDEN):
+    """A sampled loop's forward kernel (saving the carries) and backward
+    kernel against their twins, with ragged lengths and one empty row:
+    (backward arguments, lengths, carries' error, gradients' errors, the
+    gradients of both); raises past the tolerances."""
+    fwd, fwd_plain, bwd, bwd_plain = _loop_fns(cell)
+    full, lens = _decoder_kernel_args(dev, rng, t, b, h=h, cell=cell,
+                                      leak=leak)
+    args = _loop_args(full, cell)
+    kw = {"leak": leak} if cell == "RNN" else {}
+    got = fwd(*args, **kw)
+    want = fwd_plain(*args, **kw, return_carries=True)
+    if cell == "LSTM":
+        got = got[:1] + got[3:]  # outs, hs, cs (the streams are checked
+        want = want[:1] + want[3:]  # by decoder_loop_phase)
+    carry_err = max_err(tuple(got), tuple(want))
+    normal = lambda *s: torch.from_numpy(rng.normal(size=s).astype(
+        np.float32)).to(dev)
+    f = args[0].shape[2]
+    cots = [normal(t, b, h)] + ([normal(t, b, f), normal(t, b, f)]
+                                if cell == "LSTM" else [])
+    bwd_args = (*args, *want[1:], *cots)
+    g_all = bwd(*bwd_args, **kw)
+    r_all = bwd_plain(*bwd_args, **kw)
+    torch.cuda.synchronize()
+    errs = [rel_err(g, r) for g, r in zip(g_all, r_all)]
+    if not (carry_err <= LSTM_ATOL and max(errs) <= GRAD_FRACTION):
+        raise AssertionError(f"{cell} loop backward (leak {leak}) vs twin: "
+                             f"carries {carry_err}, gradients {errs}")
+    return bwd_args, lens, carry_err, errs, g_all, r_all
+
+
+def loop_backward_phase(dev, rng, t, cell, launches):
+    """The sampled loop's backward of ``cell`` (LSTM, GRU, or the Elman
+    loop, also checked at the ESN's leak 0.5) vs its twin at the training
+    shape, from the forward kernel's saved carries (held to the twin's),
+    with its time and bound (no single library call runs the loop's
+    adjoint: each step's input is the sample the step before fed back)."""
+    import functools
+    b, h, m, f = TRAIN_BATCH, HIDDEN, MLP_HIDDEN, 129
+    bwd_args, lens, carry_err, errs, g_all, r_all = _loop_backward_check(
+        dev, rng, t, b, cell)
+    checks = {"saved_carries_max_abs_err": carry_err}
+    if cell == "RNN":
+        esn = _loop_backward_check(dev, rng, t, b, cell, leak=0.5)
+        checks["esn_leak_0.5"] = {"saved_carries_max_abs_err": esn[2],
+                                  "grad_max_rel_err": max(esn[3])}
+    _, _, bwd, bwd_plain = _loop_fns(cell)
+    if cell == "RNN":
+        bwd = functools.partial(bwd, leak=1.0)
+        bwd_plain = functools.partial(bwd_plain, leak=1.0)
+    ms = cuda_ms(lambda: bwd(*bwd_args), iters=3)
+    plain_ms = cuda_ms(lambda: bwd_plain(*bwd_args), iters=2, warmup=1)
+    by_kernel = device_ms_by_kernel(lambda: bwd(*bwd_args))
+    # per row-step: h @ w_cat, the emission's second layer and the fed-back
+    # x @ w_ih, recomputed, then their adjoint products and the weight
+    # gradients (three times the forward's products)
+    gh = {"LSTM": 4, "GRU": 3, "RNN": 1}[cell] * h
+    n_state = 2 if cell == "LSTM" else 1
+    per = 2.0 * (h * (gh + 2 * m) + 2 * m * f + f * gh)
+    weights = (h * (gh + 2 * m) + (2 if cell == "GRU" else 1) * gh + 2 * m
+               + 2 * m * f + 2 * f + f * gh)
+    nbytes = 4.0 * (t * b * f + weights + n_state * b * h     # inputs
+                    + n_state * t * b * h + t * b * h         # carries, douts
+                    + (2 * t * b * f if cell == "LSTM" else 0)
+                    + weights + n_state * b * h) + 4 * b      # gradients
+    bms, by = bound_ms(3 * int(lens.sum()) * per, nbytes)
+    line = {"LSTM": 337, "GRU": 606, "RNN": 1229}[cell]
+    return {"name": LOOP_OF[cell] + "_bwd", "route": "cuda",
+            "source": "seq2seq_abcd_vae_tpu_torch/csrc/decoder.cu",
+            "helper_source": "seq2seq_abcd_vae_tpu_torch/csrc/wgrad.cu",
+            "replaces": f"seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:{line}",
+            "launches": launches,
+            "max_abs_err": max(max_err(g, r) for g, r in zip(g_all, r_all)),
+            "max_rel_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "library_call": "none: no single PyTorch call runs the sampled "
+                            "loop's adjoint",
+            "shape": f"T={t} B={b} F={f} H={h} m={m} (ragged, one empty "
+                     "row)",
+            "tolerance": f"{GRAD_FRACTION} of each leaf's max |value|; "
+                         f"carries {LSTM_ATOL}", "checks": checks,
+            "device_ms_by_kernel": by_kernel}
+
+
+def _fused_nll_check(dev, rng, t, b, h=HIDDEN):
+    """The fused-NLL forward and backward kernels against their twins:
+    (forward args, backward args, lengths, forward errors, gradient
+    errors, the gradients of both); raises past the tolerances or when
+    the forward's nll does not repeat bit for bit."""
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    full, lens = _decoder_kernel_args(dev, rng, t, b, h=h)
+    args = full[:10] + full[14:]  # no offset MLP
+    got = dk.decoder_fused_nll_fwd(*args)
+    want = dk.decoder_fused_nll_fwd_plain(*args)
+    again = dk.decoder_fused_nll_fwd(*args)
+    torch.cuda.synchronize()
+    fwd_errs = {"nll_rel_err": abs(got[1].item() - want[1].item())
+                / abs(want[1].item()),
+                "outs_carries_max_abs_err": max_err(
+                    (got[0],) + got[2:], (want[0],) + want[2:])}
+    if not (fwd_errs["nll_rel_err"] <= LOSS_RTOL
+            and fwd_errs["outs_carries_max_abs_err"] <= LSTM_ATOL
+            and again[1].item() == got[1].item()):
+        raise AssertionError(f"fused-NLL forward vs twin: {fwd_errs}, "
+                             f"repeat {again[1].item()} vs {got[1].item()}")
+    douts = torch.from_numpy(rng.normal(size=(t, b, h)).astype(
+        np.float32)).to(dev)
+    bwd_args = (*args, want[2], want[3], douts,
+                torch.tensor([1.0 / 511], device=dev))
+    g_all = dk.decoder_fused_nll_bwd(*bwd_args)
+    r_all = dk.decoder_fused_nll_bwd_plain(*bwd_args)
+    torch.cuda.synchronize()
+    errs = [rel_err(g, r) for g, r in zip(g_all, r_all)]
+    if max(errs) > GRAD_FRACTION:
+        raise AssertionError(f"fused-NLL backward vs twin: {errs}")
+    return args, bwd_args, lens, fwd_errs, errs, g_all, r_all, got, want
+
+
+def fused_nll_kernel_phase(dev, rng, t, launches_fwd, launches_bwd):
+    """The LSTM loop with the emission NLL fused (decoder_loop_fused_nll)
+    vs its twins at the training shape, forward and backward, with their
+    times and bounds."""
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    b, h, m, f = TRAIN_BATCH, HIDDEN, MLP_HIDDEN, 129
+    args, bwd_args, lens, fwd_errs, errs, g_all, r_all, got, want = (
+        _fused_nll_check(dev, rng, t, b))
+    fwd_ms = cuda_ms(lambda: dk.decoder_fused_nll_fwd(*args), iters=5)
+    fwd_plain_ms = cuda_ms(lambda: dk.decoder_fused_nll_fwd_plain(*args),
+                           iters=2, warmup=1)
+    bwd_ms = cuda_ms(lambda: dk.decoder_fused_nll_bwd(*bwd_args), iters=3)
+    bwd_plain_ms = cuda_ms(lambda: dk.decoder_fused_nll_bwd_plain(
+        *bwd_args), iters=2, warmup=1)
+    by_kernel = device_ms_by_kernel(lambda: dk.decoder_fused_nll_bwd(
+        *bwd_args))
+    gh = 4 * h
+    per = 2.0 * (h * (gh + 2 * m) + 2 * m * f + f * gh)
+    steps = int(lens.sum())
+    weights = (h * (gh + 2 * m) + gh + 2 * m + 2 * m * f + 2 * f + f * gh)
+    fwd_bytes = 4.0 * (2 * t * b * f + weights + 2 * b * h      # inputs
+                       + 3 * t * b * h + 1) + 4 * b             # outs, carries
+    bwd_bytes = 4.0 * (2 * t * b * f + weights + 2 * b * h + 3 * t * b * h
+                       + 1 + weights + 2 * b * h) + 4 * b
+    f_bms, f_by = bound_ms(steps * per, fwd_bytes)
+    b_bms, b_by = bound_ms(3 * steps * per, bwd_bytes)
+    common = {"route": "cuda",
+              "source": "seq2seq_abcd_vae_tpu_torch/csrc/decoder.cu",
+              "library_ms": None,
+              "library_call": "none: no single PyTorch call runs this loop",
+              "shape": f"T={t} B={b} F={f} H={h} m={m} (ragged, one empty "
+                       "row)"}
+    fwd_entry = dict(common, **{
+        "name": "decoder_loop_fused_nll",
+        "replaces": "seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:2129",
+        "launches": launches_fwd,
+        "max_abs_err": max(fwd_errs["outs_carries_max_abs_err"],
+                           abs(got[1].item() - want[1].item())),
+        "checks": fwd_errs, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+        "bound_ms": f_bms, "bound_by": f_by,
+        "tolerance": f"nll {LOSS_RTOL} relative, outs and carries "
+                     f"{LSTM_ATOL}"})
+    bwd_entry = dict(common, **{
+        "name": "decoder_loop_fused_nll_bwd",
+        "helper_source": "seq2seq_abcd_vae_tpu_torch/csrc/wgrad.cu",
+        "replaces": "seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:2147",
+        "launches": launches_bwd,
+        "max_abs_err": max(max_err(g, r) for g, r in zip(g_all, r_all)),
+        "max_rel_err": max(errs), "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+        "bound_ms": b_bms, "bound_by": b_by, "device_ms_by_kernel": by_kernel,
+        "tolerance": f"{GRAD_FRACTION} of each leaf's max |value|"})
+    return fwd_entry, bwd_entry
+
+
 def wide_hidden_phase(dev, rng):
     """Hidden size 1024 (the widest the JAX CLI takes) through every
     recurrent kernel with the row tile its shared memory allows, against
@@ -2342,6 +2728,17 @@ def wide_hidden_phase(dev, rng):
                    normal(b, h), reverse, *extra(leak))
             errs[f"{name}_bwd_rel_rev{int(reverse)}"] = max(
                 rel_err(g_, r_) for g_, r_ in zip(bwd_d(*bwd), bwd_p(*bwd)))
+    # the stream slice: the sampled loops' backwards (the Elman loop at both
+    # leaks) and the fused-NLL loop
+    for cell, leak in (("LSTM", 1.0), ("GRU", 1.0), ("RNN", 1.0),
+                       ("RNN", 0.5)):
+        out = _loop_backward_check(dev, rng, t, b, cell, leak=leak, h=h)
+        errs[f"{LOOP_OF[cell]}_carries_leak{leak}"] = out[2]
+        errs[f"{LOOP_OF[cell]}_bwd_rel_leak{leak}"] = max(out[3])
+    out = _fused_nll_check(dev, rng, t, b, h=h)
+    errs["decoder_fused_nll_fwd_nll_rel"] = out[3]["nll_rel_err"]
+    errs["decoder_fused_nll_fwd_states"] = out[3]["outs_carries_max_abs_err"]
+    errs["decoder_fused_nll_bwd_rel"] = max(out[4])
     torch.cuda.synchronize()
     lib = _build.load("lstm")
     glib = _build.load("gru")
@@ -2367,7 +2764,12 @@ def wide_hidden_phase(dev, rng):
             "rnn_layer_fwd": elib.abcd_elman_rows(2, 0, h),
             "rnn_layer_bwd": elib.abcd_elman_rows(3, 0, h),
             "gru_decoder_loop": dlib.abcd_decoder_rows(7, f, h, m, 0),
-            "rnn_decoder_loop": dlib.abcd_decoder_rows(8, f, h, m, 0)}
+            "rnn_decoder_loop": dlib.abcd_decoder_rows(8, f, h, m, 0),
+            "decoder_loop_bwd": dlib.abcd_decoder_rows(9, f, h, m, 0),
+            "gru_decoder_loop_bwd": dlib.abcd_decoder_rows(10, f, h, m, 0),
+            "rnn_decoder_loop_bwd": dlib.abcd_decoder_rows(11, f, h, m, 0),
+            "decoder_fused_nll_fwd": dlib.abcd_decoder_rows(12, f, h, m, 0),
+            "decoder_fused_nll_bwd": dlib.abcd_decoder_rows(13, f, h, m, 0)}
     limits = {"bidir_fwd": LSTM_ATOL, "uni_fwd": LSTM_ATOL,
               "decoder_fwd_states": LSTM_ATOL, "decoder_loop": LSTM_ATOL,
               "decoder_fwd_loss_rel": LOSS_RTOL,
@@ -2389,6 +2791,12 @@ def wide_hidden_phase(dev, rng):
         for rev in (0, 1):
             limits[f"{name}_fwd_rev{rev}"] = LSTM_ATOL
             limits[f"{name}_bwd_rel_rev{rev}"] = GRAD_FRACTION
+    for name in errs:
+        if name.startswith(tuple(LOOP_OF.values())):
+            limits[name] = GRAD_FRACTION if "_bwd_rel" in name else LSTM_ATOL
+    limits.update(decoder_fused_nll_fwd_nll_rel=LOSS_RTOL,
+                  decoder_fused_nll_fwd_states=LSTM_ATOL,
+                  decoder_fused_nll_bwd_rel=GRAD_FRACTION)
     bad = {k: v for k, v in errs.items() if not v <= limits[k]}
     if bad:
         raise AssertionError(f"H=1024 kernels vs twins: {bad}")
@@ -2615,6 +3023,23 @@ def run(args, root, dev, rng, work) -> int:
         print(f"decode_features ({cell} decoder) " + json.dumps(result),
               flush=True)
 
+    # ---- the stream slice's main paths, each counted: the training CLI
+    # with the JAX package's switch (the sampled loops and their
+    # backwards, no fused-loss kernel), and the LSTM's loss-only call
+    # without offset targets (the fused-NLL loop)
+    stream = {}
+    for cell, env, extra in STREAM_RUNS:
+        stream[cell] = stream_train_phase(dev, work, corpus_dir, csv_path,
+                                          args.seed, cell, env, extra)
+        print(f"stream-path {cell} training throughput " + json.dumps(
+            {k: stream[cell][k] for k in (
+                "env", "segments_per_s_after_first_epoch", "epochs")}),
+              flush=True)
+    nll = nll_phase(dev, os.path.join(work, "train", "checkpoint.pt"),
+                    corpus_dir, csv_path, args.seed)
+    print("loss-only call without offset targets (LSTM) " + json.dumps(nll),
+          flush=True)
+
     paths = {"serve": launches, "train": train["launches"],
              "uni_train": uni["launches"], "encode_cli": enc_cli["launches"],
              "decode": decode["launches"], "gru_train": gru["launches"],
@@ -2629,7 +3054,11 @@ def run(args, root, dev, rng, work) -> int:
              "uni_cells_encode_cli": uni_enc["launches"],
              "uni_gru_serve": uni_serve["launches"],
              "uni_gru_decode": uni_decode["GRU"]["launches"],
-             "uni_esn_decode": uni_decode["ESN"]["launches"]}
+             "uni_esn_decode": uni_decode["ESN"]["launches"],
+             "stream_lstm_train": stream["LSTM"]["launches"],
+             "stream_gru_train": stream["GRU"]["launches"],
+             "stream_esn_train": stream["ESN"]["launches"],
+             "nll_loss_only": nll["launches"]}
 
     def by_path(name):
         return {p: counts.get(name, 0) for p, counts in paths.items()}
@@ -2695,17 +3124,32 @@ def run(args, root, dev, rng, work) -> int:
         dev, rng, t_train, "RNN", total("rnn_layer"), total("rnn_layer_bwd"))
     gru_loop = cell_loop_phase(dev, rng, "GRU", total("gru_decoder_loop"))
     rnn_loop = cell_loop_phase(dev, rng, "RNN", total("rnn_decoder_loop"))
+    loop_bwds = [loop_backward_phase(dev, rng, t_train, cell,
+                                     total(LOOP_OF[cell] + "_bwd"))
+                 for cell in ("LSTM", "GRU", "RNN")]
+    nll_fwd, nll_bwd = fused_nll_kernel_phase(
+        dev, rng, t_train, total("decoder_loop_fused_nll_fwd"),
+        total("decoder_loop_fused_nll_bwd"))
+    stream_steps = {}
+    for cell, leak in (("LSTM", 1.0), ("GRU", 1.0), ("ESN", 0.5)):
+        checks_, inputs_ = whole_step_phase(
+            dev, corpus_dir, csv_path, args.seed, rnn_type=cell,
+            esn_leak=leak, fused_cells=())
+        stream_steps[cell] = (checks_, *train_step_breakdown(
+            dev, *inputs_, fused_cells=()))
     wide = wide_hidden_phase(dev, rng)
     kernels += [lstm_bwd, dec_fwd, dec_bwd, uni_fwd, uni_bwd, loop, gru_fwd,
                 gru_bwd, gru_dec_fwd, gru_dec_bwd, elman_fwd, elman_bwd,
                 rnn_dec_fwd, rnn_dec_bwd, gru_uni_fwd, gru_uni_bwd,
-                rnn_uni_fwd, rnn_uni_bwd, gru_loop, rnn_loop]
+                rnn_uni_fwd, rnn_uni_bwd, gru_loop, rnn_loop, *loop_bwds,
+                nll_fwd, nll_bwd]
     for entry in kernels:
         key = {"decoder_loop_fused_losses": "decoder_loop_fused_losses_fwd",
                "gru_decoder_loop_fused_losses":
                    "gru_decoder_loop_fused_losses_fwd",
                "rnn_decoder_loop_fused_losses":
                    "rnn_decoder_loop_fused_losses_fwd",
+               "decoder_loop_fused_nll": "decoder_loop_fused_nll_fwd",
                }.get(entry["name"], entry["name"])
         entry["launches_by_path"] = by_path(key)
         if entry["launches"] <= 0:
@@ -2714,8 +3158,8 @@ def run(args, root, dev, rng, work) -> int:
         lacking = KERNEL_KEYS - set(entry)
         if lacking:
             raise AssertionError(f"kernel {entry['name']} lacks {lacking}")
-    if len(kernels) != 22:
-        raise AssertionError(f"{len(kernels)} kernel entries, expected 22")
+    if len(kernels) != 27:
+        raise AssertionError(f"{len(kernels)} kernel entries, expected 27")
     print("training step, kernels (card) vs twins (CPU) "
           + json.dumps(checks), flush=True)
     print("unidirectional training step, kernels (card) vs twins (CPU) "
@@ -2742,6 +3186,15 @@ def run(args, root, dev, rng, work) -> int:
               "(CPU) " + json.dumps(checks_), flush=True)
         print(f"unidirectional {cell} training step {json.dumps(shape_)}, ms "
               + json.dumps(stages_), flush=True)
+    fused_steps = {"LSTM": (shape, stages), "GRU": (gru_shape, gru_stages),
+                   "ESN": (esn_shape, esn_stages)}
+    for cell, (checks_, stages_, shape_) in stream_steps.items():
+        print(f"stream-path {cell} training step, kernels (card) vs twins "
+              "(CPU) and vs the fused path (card) " + json.dumps(checks_),
+              flush=True)
+        print(f"stream-path {cell} training step {json.dumps(shape_)}, ms "
+              + json.dumps(stages_) + "; fused path, ms "
+              + json.dumps(fused_steps[cell][1]), flush=True)
     print("hidden size 1024, kernels vs twins " + json.dumps(wide),
           flush=True)
 

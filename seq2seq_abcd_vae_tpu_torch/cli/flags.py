@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import argparse
 
+from ..models.decoder import CELLS
+
 EPSILON_DEFAULT = 2.0 ** -15
 
 
@@ -140,6 +142,25 @@ def build_learning_parser() -> argparse.ArgumentParser:
            "of the discrete feature.")
     _extras(p)
     return p
+
+
+def fused_loss_cells(environ) -> tuple:
+    """The decoder cells that train on the fused-loss kernels, from the JAX
+    package's two variables as its ``models/decoder.py`` reads them:
+    ``SEQ2SEQ_NLL_FUSION=0`` sends every cell to the stream path (the
+    sampled loop and its backward, the losses over its streams); otherwise
+    the LSTM is fused and so are the cells that ``SEQ2SEQ_FUSED_CELLS``
+    lists (comma separated, default ``GRU,RNN,ESN``; empty for none).  A
+    listed name that is not a cell is refused."""
+    if environ.get("SEQ2SEQ_NLL_FUSION", "1") == "0":
+        return ()
+    raw = environ.get("SEQ2SEQ_FUSED_CELLS", "GRU,RNN,ESN")
+    listed = tuple(c.strip() for c in raw.split(",") if c.strip())
+    unknown = [c for c in listed if c not in CELLS]
+    if unknown:
+        raise ValueError(f"SEQ2SEQ_FUSED_CELLS lists {unknown}, which are "
+                         f"not decoder cells (the cells: {', '.join(CELLS)})")
+    return ("LSTM",) + tuple(c for c in CELLS[1:] if c in listed)
 
 
 def refuse_unported(parameters) -> None:

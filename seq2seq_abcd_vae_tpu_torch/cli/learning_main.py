@@ -7,7 +7,10 @@ The flow of seq2seq_abcd_vae_tpu/cli/learning_main.py: save-dir layout,
 speaker_coding.json persistence, STFT geometry derived from the first
 wav's sampling rate, the decoder's cell defaulting to the encoder's, the
 validation batch defaulting to the training batch.  Runs on the card
-unless ``-d cpu``.
+unless ``-d cpu``.  ``SEQ2SEQ_NLL_FUSION=0`` (every decoder cell) or
+``SEQ2SEQ_FUSED_CELLS`` (the GRU, RNN and ESN cells it does not list)
+trains the decoder on its stream path instead of the fused-loss kernels,
+as in the JAX package (``cli/flags.fused_loss_cells``).
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ def get_save_dir(save_root: str, job_id_str: str) -> str:
 def main(argv=None) -> Learner:
     parameters = flags.build_learning_parser().parse_args(argv)
     flags.refuse_unported(parameters)
+    # the JAX package's switch of the decoder's training path, read once
+    fused_cells = flags.fused_loss_cells(os.environ)
     if torch.device(parameters.device).type == "cuda":
         # float32 products outside the kernels, unless asked otherwise
         torch.backends.cuda.matmul.allow_tf32 = (
@@ -91,7 +96,7 @@ def main(argv=None) -> Learner:
         speaker_embed_dim=parameters.speaker_embed_dim,
         prior_concentration=parameters.prior_concentration,
         stft_method=parameters.stft_method,
-        batching_mode=batching_mode)
+        batching_mode=batching_mode, fused_cells=fused_cells)
 
     frontend = FrontendSpec(fft_frame_length, fft_step_size,
                             centering=not parameters.fft_no_centering,

@@ -1,19 +1,23 @@
 // The decoder's sampled time loop, written for Hopper (sm_90a): for the
 // LSTM, GRU and Elman / ESN cells with the two training losses fused
-// (forward and backward) and as the plain sampled loop (forward).
+// (forward and backward), as the plain sampled loop (forward and backward)
+// and, for the LSTM, with the emission NLL alone fused (forward and
+// backward).
 //
 // Replaces seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:
 // decoder_loop_fused_losses (`_fused_fwd_call` / `_fused_fwd_kernel` and
-// `_fused_bwd_call` / `_fused_bwd_kernel`, with_offset=True), the forward
-// of decoder_loop (`_fwd_call` / `_fwd_kernel`),
-// gru_decoder_loop_fused_losses (`_gru_floss_fwd_call` /
-// `_gru_floss_fwd_kernel` and `_gru_floss_bwd_call` /
-// `_gru_floss_bwd_kernel`), rnn_decoder_loop_fused_losses
+// `_fused_bwd_call` / `_fused_bwd_kernel`, with_offset=True),
+// decoder_loop_fused_nll (the same kernels with with_offset=False,
+// `_fused_loop_cvjp`), decoder_loop (`_fwd_call` / `_fwd_kernel` and
+// `_bwd_call` / `_bwd_kernel`), gru_decoder_loop_fused_losses
+// (`_gru_floss_fwd_call` / `_gru_floss_fwd_kernel` and `_gru_floss_bwd_call`
+// / `_gru_floss_bwd_kernel`), rnn_decoder_loop_fused_losses
 // (`_rnn_floss_fwd_call` / `_rnn_floss_fwd_kernel` and `_rnn_floss_bwd_call`
-// / `_rnn_floss_bwd_kernel`), and the forwards of gru_decoder_loop
-// (`_gru_fwd_call` / `_gru_fwd_kernel`) and rnn_decoder_loop
-// (`_rnn_fwd_call` / `_rnn_fwd_kernel`).  Step t of the loop, in the order
-// of the scan body (models/decoder.py:341-361):
+// / `_rnn_floss_bwd_kernel`), gru_decoder_loop (`_gru_fwd_call` /
+// `_gru_fwd_kernel` and `_gru_bwd_call` / `_gru_bwd_kernel`) and
+// rnn_decoder_loop (`_rnn_fwd_call` / `_rnn_fwd_kernel` and `_rnn_bwd_call`
+// / `_rnn_bwd_kernel`).  Step t of the loop, in the order of the scan body
+// (models/decoder.py:341-361):
 //
 //   big  = h @ w_cat                         w_cat = [W_hh | emission lin1]
 //   emh  = tanh(big[:, GH:] + b1)            GH = 4H | 3H (GRU) | H (RNN)
@@ -28,19 +32,21 @@
 //                                             zero bias; leak == 1 gives u)
 //   h, c  = (h2, c2) while t < len, else frozen
 //
-// The emission at step t is position t-1's.  The fused-loss mode adds
+// The emission at step t is position t-1's.  The fused-loss modes add
 // position t-1's Gaussian NLL against targets[t-1] (gated by pmt = 1 <= t
-// <= len); the caller adds position T-1's term from out_last (the last
-// step's pre-mask h2).  Its offset MLP runs on the pre-mask h2 of every step
-// and adds its BCE against (t == len - 1) while t < len.  The plain loop
-// (decoder_loop) instead writes the pre-mask h2 of step t to slot t of outs
-// and step t's emission to POSITION slot t-1 of the mean / logvar streams,
-// step 0's parked on slot T-1 for the caller to overwrite.  These are
-// exactly the TPU kernels' slot maps and masks (_step_masks, _offset_target,
-// the `pos` output index map of `_fwd_call`).  The GRU and Elman / ESN
-// plain loops (gru_decoder_loop, rnn_decoder_loop) write outs alone: their
-// callers compute the emissions from outs afterwards
-// (models/decoder.py:324-329).
+// <= len); the caller adds position T-1's term from the last step's
+// pre-mask h2.  With both losses fused, the offset MLP runs on the pre-mask
+// h2 of every step and adds its BCE against (t == len - 1) while t < len,
+// and only the last step's h2 is written (out_last); with the NLL alone
+// (decoder_loop_fused_nll) the pre-mask h2 of step t goes to slot t of
+// outs, for the caller's offset MLP.  The plain loop (decoder_loop)
+// writes the pre-mask h2 of step t to slot t of outs and step t's emission
+// to POSITION slot t-1 of the mean / logvar streams, step 0's parked on
+// slot T-1 for the caller to overwrite.  These are exactly the TPU kernels'
+// slot maps and masks (_step_masks, _offset_target, the `pos` output index
+// map of `_fwd_call`).  The GRU and Elman / ESN plain loops
+// (gru_decoder_loop, rnn_decoder_loop) write outs alone: their callers
+// compute the emissions from outs afterwards (models/decoder.py:324-329).
 //
 // Design: rows are independent, so one block owns R batch rows and the
 // whole time loop; no block waits for another.  R (8, 4 or 2) is chosen at
@@ -57,12 +63,18 @@
 // and the per-block partials are added in block order by a second one-block
 // kernel: no atomics, so a run repeats exactly.
 //
-// The backward runs the reverse-time adjoint of the fused-loss step for the
-// same tile of rows, recomputing the step from the saved h_{t-1}, c_{t-1}
-// (h0, c0 at t == 0), scaled by the loss cotangents (dnll, dbce) plus the
-// cotangent of out_last.  Weight gradients are sums over every (t, b): the
-// kernel writes each step's operands and cotangents as streams, and
-// csrc/wgrad.cu reduces them in a fixed order.
+// The backward runs the reverse-time adjoint of the step for the same tile
+// of rows, recomputing the step from the saved h_{t-1}, c_{t-1} (h0, c0 at
+// t == 0).  Its cotangents come in three ways, one template mode each:
+// both fused losses (the loss cotangents dnll, dbce, in-register from the
+// targets and the recomputed offset MLP, plus the cotangent of out_last);
+// the NLL alone (dnll in-register from the targets, plus the douts stream,
+// the cotangent of each step's pre-mask h2); or the plain loop's streams
+// (douts and, for the LSTM, the position-indexed dmean_s / dlogvar_s: step
+// t's emission reads slot t-1, nothing at t == 0; slot T-1 belongs to the
+// caller's overwrite and is never read).  Weight gradients are sums over
+// every (t, b): the kernel writes each step's operands and cotangents as
+// streams, and csrc/wgrad.cu reduces them in a fixed order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,6 +86,12 @@ constexpr double kLog2Pi = 1.8378770664093453;
 
 // the recurrent cell of a kernel instance
 constexpr int kLSTM = 0, kGRU = 1, kRNN = 2;
+
+// what a kernel instance computes around the loop: both training losses
+// (decoder_loop_fused_losses and its GRU and Elman / ESN variants), the
+// emission NLL alone (decoder_loop_fused_nll, the LSTM's), or no loss (the
+// plain sampled loops, whose backward takes its outputs' cotangents)
+constexpr int kFusedLosses = 0, kFusedNll = 1, kStream = 2;
 
 __host__ __device__ constexpr int num_gates(int cell) {
   return cell == kLSTM ? 4 : cell == kGRU ? 3 : 1;
@@ -250,18 +268,20 @@ __device__ __forceinline__ float offset_logit(const float* __restrict__ wo2,
   return warp_sum(s) + bo2;
 }
 
-// kLosses: the fused-loss forward (decoder_loop_fused_losses and its GRU
-// and Elman / ESN variants).  Otherwise the plain sampled loop
-// (decoder_loop, gru_decoder_loop, rnn_decoder_loop): no targets, offset
-// MLP or loss sums; it writes the pre-mask h2 of every step to outs at slot
-// t and, when mean_s is given (the LSTM's loop), the emission parameters
-// computed at step t to mean_s / logvar_s at POSITION slot t - 1, step 0's
-// parked on slot T - 1 (the caller overwrites it).  kCell == kGRU: the GRU
+// kMode == kFusedLosses: the fused-loss forward (decoder_loop_fused_losses
+// and its GRU and Elman / ESN variants).  kFusedNll: the LSTM's emission
+// NLL alone (decoder_loop_fused_nll): no offset MLP, outs written as in the
+// plain loop, no out_last.  kStream: the plain sampled loop (decoder_loop,
+// gru_decoder_loop, rnn_decoder_loop): no targets, offset MLP or loss sums;
+// it writes the pre-mask h2 of every step to outs at slot t and, when
+// mean_s is given (the LSTM's loop), the emission parameters computed at
+// step t to mean_s / logvar_s at POSITION slot t - 1, step 0's parked on
+// slot T - 1 (the caller overwrites it).  kCell == kGRU: the GRU
 // cell: w_cat is (H, 3H + 2M), `bias` is b_ih and `bias_hh` b_hh, there is
 // no c.  kCell == kRNN: the Elman / ESN cell: w_cat is (H, H + 2M), `bias`
 // is b_ih + b_hh (zeros for the ESN), there is no c, and `leak` mixes the
 // carry into the update.
-template <int R, bool kLosses, int kCell>
+template <int R, int kMode, int kCell>
 __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
     const float* __restrict__ noise,    // (T, B, F)
     const int* __restrict__ lengths,    // (B,)
@@ -274,21 +294,23 @@ __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
     const float* __restrict__ b2,       // (2F,)
     const float* __restrict__ w_ih,     // (F, GH)
     const float* __restrict__ targets,  // (T, B, F)   kLosses only
-    const float* __restrict__ wo1,      // (H, Mo)     kLosses only
-    const float* __restrict__ bo1,      // (Mo,)       kLosses only
-    const float* __restrict__ wo2,      // (Mo,)       kLosses only
-    const float* __restrict__ bo2,      // (1,)        kLosses only
+    const float* __restrict__ wo1,      // (H, Mo)     kOffset only
+    const float* __restrict__ bo1,      // (Mo,)       kOffset only
+    const float* __restrict__ wo2,      // (Mo,)       kOffset only
+    const float* __restrict__ bo2,      // (1,)        kOffset only
     const float* __restrict__ h0,       // (B, H)
     const float* __restrict__ c0,       // (B, H)      LSTM only
-    float* __restrict__ out_last,       // (B, H)      kLosses only
+    float* __restrict__ out_last,       // (B, H)      kOffset only
     float* __restrict__ hs,             // (T, B, H) or nullptr
     float* __restrict__ cs,             // (T, B, H) or nullptr (LSTM only)
     double* __restrict__ partial,       // (blocks, 2) kLosses only
-    float* __restrict__ outs,           // (T, B, H)   loop only
+    float* __restrict__ outs,           // (T, B, H)   unless kOffset
     float* __restrict__ mean_s,         // (T, B, F)   LSTM loop or nullptr
     float* __restrict__ logvar_s,       // (T, B, F)   LSTM loop or nullptr
     int T, int B, int F, int H, int M, int Mo,
     float leak) {                       // RNN only
+  constexpr bool kLosses = kMode != kStream;       // the NLL sum
+  constexpr bool kOffset = kMode == kFusedLosses;  // the offset MLP, BCE
   extern __shared__ float smem[];
   __shared__ double s_red[kLosses ? kThreads : 1];
   const int GH = num_gates(kCell) * H, G = GH + 2 * M;
@@ -297,8 +319,8 @@ __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
   float* s_c = s_h + R * H;      // [R][HC]  carry c
   float* s_big = s_c + R * HC;   // [R][G]
   float* s_x = s_big + R * G;    // [R][F]
-  float* s_h2 = s_x + R * F;     // [R][H]   pre-mask h2 (kLosses only)
-  float* s_oh = s_h2 + R * H;    // [R][Mo]  (kLosses only)
+  float* s_h2 = s_x + R * F;     // [R][H]   pre-mask h2 (kOffset only)
+  float* s_oh = s_h2 + R * H;    // [R][Mo]  (kOffset only)
 
   const int r0 = blockIdx.x * R;
   const int nrows = min(R, B - r0);
@@ -312,7 +334,7 @@ __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
     s_h[i] = r < nrows ? h0[(int64_t)r0 * H + i] : 0.f;
     if (kCell == kLSTM) s_c[i] = r < nrows ? c0[(int64_t)r0 * H + i] : 0.f;
   }
-  const float bo2v = kLosses ? bo2[0] : 0.f;
+  const float bo2v = kOffset ? bo2[0] : 0.f;
   double nll_acc = 0.0, bce_acc = 0.0;
   __syncthreads();
 
@@ -386,7 +408,7 @@ __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
       for (int r = 0; r < R; ++r) {
         const int i = r * H + u;
         const float h2 = h2v[r];
-        if (kLosses) s_h2[i] = h2;
+        if (kOffset) s_h2[i] = h2;
         if (t < len[r]) {
           s_h[i] = h2;
           if (kCell == kLSTM) s_c[i] = c2v[r];
@@ -395,14 +417,14 @@ __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
           const int64_t o = ((int64_t)t * B + r0 + r) * H + u;
           if (hs) hs[o] = s_h[i];
           if (kCell == kLSTM && cs) cs[o] = s_c[i];
-          if (!kLosses) outs[o] = h2;
-          if (kLosses && t == T - 1) out_last[(int64_t)(r0 + r) * H + u] = h2;
+          if (!kOffset) outs[o] = h2;
+          if (kOffset && t == T - 1) out_last[(int64_t)(r0 + r) * H + u] = h2;
         }
       }
     }
     __syncthreads();
 
-    if (kLosses) {
+    if (kOffset) {
       offset_hidden<R>(wo1, bo1, s_h2, s_oh, H, Mo);
       __syncthreads();
 
@@ -461,7 +483,18 @@ __global__ void loss_sum_kernel(const double* __restrict__ partial,
 // part of dbig is dpre = leak * dh2 * (1 - u^2) (the cotangent of the
 // pre-activation, hence of bias, x @ w_ih and h @ W_hh alike) and dh_{t-1}
 // gains (1 - leak) * dh2.
-template <int R, int kCell>
+//
+// kMode == kFusedLosses: the cotangent of each step's h2 is that of the
+// recomputed offset MLP's BCE (scaled by dbce) plus, at the last step,
+// dlast; the emission's is that of the NLL (scaled by dnll, from the
+// targets) plus the fed-back sample's.  kFusedNll (the LSTM's): h2's
+// cotangent is douts[t], the emission's as in kFusedLosses; no offset MLP.
+// kStream (the plain loops' adjoints, decoder_pallas.py:_bwd_kernel,
+// _gru_bwd_kernel, _rnn_bwd_kernel): h2's cotangent is douts[t]; the
+// emission's is the fed-back sample's plus, for the LSTM, the caller's
+// position-indexed dmean_s / dlogvar_s at slot t - 1 (none at t == 0).
+// Only kFusedLosses writes the offset streams (h2_s, doh_s, oh_s, dzo_s).
+template <int R, int kCell, int kMode>
 __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
     const float* __restrict__ noise, const int* __restrict__ lengths,
     const float* __restrict__ w_cat, const float* __restrict__ bias,
@@ -479,8 +512,11 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
     const float* __restrict__ wo1T,     // (Mo, H)
     const float* __restrict__ hs,       // (T, B, H)
     const float* __restrict__ cs,       // (T, B, H)   LSTM only
-    const float* __restrict__ dlast,    // (B, H)
-    const float* __restrict__ gscale,   // (2,)  dnll, dbce
+    const float* __restrict__ dlast,    // (B, H)      kFusedLosses only
+    const float* __restrict__ gscale,   // dnll, dbce (kFusedLosses), dnll
+    const float* __restrict__ douts,    // (T, B, H)   unless kFusedLosses
+    const float* __restrict__ dmean_up,   // (T, B, F) LSTM kStream only
+    const float* __restrict__ dlogvar_up, // (T, B, F) LSTM kStream only
     float* __restrict__ dh0,            // (B, H)
     float* __restrict__ dc0,            // (B, H)      LSTM only
     float* __restrict__ hp_s,           // (T, B, H)   h_{t-1}
@@ -495,6 +531,8 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
     float* __restrict__ dnp_s,          // (T, B, H)   GRU only: dnpre
     int T, int B, int F, int H, int M, int Mo,
     float leak) {                       // RNN only
+  constexpr bool kOffset = kMode == kFusedLosses;  // the offset MLP, BCE
+  constexpr bool kTargets = kMode != kStream;      // the NLL's cotangents
   extern __shared__ float smem[];
   const int GH = num_gates(kCell) * H, G = GH + 2 * M;
   const int HC = kCell == kLSTM ? H : 0;   // the LSTM's dc
@@ -517,8 +555,9 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
   int len[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) len[r] = r < nrows ? lengths[r0 + r] : 0;
-  const float gnll = gscale[0], gbce = gscale[1];
-  const float bo2v = bo2[0];
+  const float gnll = kTargets ? gscale[0] : 0.f;
+  const float gbce = kOffset ? gscale[1] : 0.f;
+  const float bo2v = kOffset ? bo2[0] : 0.f;
   for (int i = tid; i < R * H; i += nth) {
     s_dh[i] = 0.f;
     if (kCell == kLSTM) s_dc[i] = 0.f;
@@ -574,8 +613,10 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
           s_big[r * G + H + u] = zg;
           s_big[r * G + 2 * H + u] = ng;
           s_c2[i] = hg[2][r];
-          s_h2[i] = h2;
-          if (r < nrows) h2_s[((int64_t)t * B + r0 + r) * H + u] = h2;
+          if (kOffset) {
+            s_h2[i] = h2;
+            if (r < nrows) h2_s[((int64_t)t * B + r0 + r) * H + u] = h2;
+          }
         }
       } else if constexpr (kCell == kRNN) {
         float z[1][R];
@@ -586,8 +627,10 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
           const float ug = tanhf(z[0][r]);
           const float h2 = (1.f - leak) * s_hp[i] + leak * ug;
           s_big[r * G + u] = ug;
-          s_h2[i] = h2;
-          if (r < nrows) h2_s[((int64_t)t * B + r0 + r) * H + u] = h2;
+          if (kOffset) {
+            s_h2[i] = h2;
+            if (r < nrows) h2_s[((int64_t)t * B + r0 + r) * H + u] = h2;
+          }
         }
       } else {
         float z[4][R];
@@ -610,62 +653,73 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
           s_big[r * G + 2 * H + u] = gg;
           s_big[r * G + 3 * H + u] = og;
           s_c2[i] = c2;
-          s_h2[i] = h2;
-          if (r < nrows) h2_s[((int64_t)t * B + r0 + r) * H + u] = h2;
+          if (kOffset) {
+            s_h2[i] = h2;
+            if (r < nrows) h2_s[((int64_t)t * B + r0 + r) * H + u] = h2;
+          }
         }
       }
     }
     __syncthreads();
 
-    offset_hidden<R>(wo1, bo1, s_h2, s_oh, H, Mo);
-    __syncthreads();
+    if constexpr (kOffset) {  // the offset MLP and its BCE adjoint
+      offset_hidden<R>(wo1, bo1, s_h2, s_oh, H, Mo);
+      __syncthreads();
 
-    // ---- adjoint: offset BCE
-    for (int r = warp; r < R; r += nwarps) {
-      const float z = offset_logit(wo2, s_oh, r, Mo, bo2v);
-      if (tid % 32 == 0) {
-        const bool mt = t < len[r];
-        const float y = t == len[r] - 1 ? 1.f : 0.f;
-        const float dzo = mt ? gbce * (sigmoid(z) - y) : 0.f;
-        s_zo[r] = dzo;
-        if (r < nrows) dzo_s[(int64_t)t * B + r0 + r] = dzo;
+      // ---- adjoint: offset BCE
+      for (int r = warp; r < R; r += nwarps) {
+        const float z = offset_logit(wo2, s_oh, r, Mo, bo2v);
+        if (tid % 32 == 0) {
+          const bool mt = t < len[r];
+          const float y = t == len[r] - 1 ? 1.f : 0.f;
+          const float dzo = mt ? gbce * (sigmoid(z) - y) : 0.f;
+          s_zo[r] = dzo;
+          if (r < nrows) dzo_s[(int64_t)t * B + r0 + r] = dzo;
+        }
       }
-    }
-    __syncthreads();
+      __syncthreads();
 
-    for (int j = tid; j < Mo; j += nth) {
-      const float w = wo2[j];
+      for (int j = tid; j < Mo; j += nth) {
+        const float w = wo2[j];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float oh = s_oh[r * Mo + j];
-        const float doh = (s_zo[r] * w) * (1.f - oh * oh);
-        s_oh[r * Mo + j] = doh;
-        if (r < nrows) {
-          const int64_t o = ((int64_t)t * B + r0 + r) * Mo + j;
-          oh_s[o] = oh;
-          doh_s[o] = doh;
+        for (int r = 0; r < R; ++r) {
+          const float oh = s_oh[r * Mo + j];
+          const float doh = (s_zo[r] * w) * (1.f - oh * oh);
+          s_oh[r * Mo + j] = doh;
+          if (r < nrows) {
+            const int64_t o = ((int64_t)t * B + r0 + r) * Mo + j;
+            oh_s[o] = oh;
+            doh_s[o] = doh;
+          }
         }
       }
+      __syncthreads();
     }
-    __syncthreads();
 
     // ---- adjoint: the cell
     for (int u = tid; u < H; u += nth) {
       float acc[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] = 0.f;
+      if constexpr (kOffset) {
 #pragma unroll 4
-      for (int j = 0; j < Mo; ++j) {
-        const float w = __ldg(wo1T + (int64_t)j * H + u);
+        for (int j = 0; j < Mo; ++j) {
+          const float w = __ldg(wo1T + (int64_t)j * H + u);
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(s_oh[r * Mo + j], w, acc[r]);
+          for (int r = 0; r < R; ++r)
+            acc[r] = fmaf(s_oh[r * Mo + j], w, acc[r]);
+        }
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int i = r * H + u;
         const bool mt = t < len[r];
+        // the last step's dlast, or every step's douts
         float dl = 0.f;
-        if (t == T - 1 && r < nrows) dl = dlast[(int64_t)(r0 + r) * H + u];
+        if (kOffset && t == T - 1 && r < nrows)
+          dl = dlast[(int64_t)(r0 + r) * H + u];
+        if (!kOffset && r < nrows)
+          dl = douts[((int64_t)t * B + r0 + r) * H + u];
         const float dh_carry = s_dh[i];
         const float dh2 = (acc[r] + dl) + (mt ? dh_carry : 0.f);
         if constexpr (kCell == kRNN) {
@@ -747,11 +801,23 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
           const float lv = s_ml[r * 2 * F + F + f];
           const float dx = acc[r];
           const float eps = noise[o];
-          const float inv_var = expf(-lv);
-          const float diff = targets[o] - mean;
-          dmean = dx - gnll * diff * inv_var;
-          dlv = dx * 0.5f * expf(0.5f * lv) * eps
-                + gnll * 0.5f * (1.f - diff * inv_var * diff);
+          if constexpr (kTargets) {
+            const float inv_var = expf(-lv);
+            const float diff = targets[o] - mean;
+            dmean = dx - gnll * diff * inv_var;
+            dlv = dx * 0.5f * expf(0.5f * lv) * eps
+                  + gnll * 0.5f * (1.f - diff * inv_var * diff);
+          } else {
+            (void)mean;
+            dmean = dx;
+            dlv = dx * 0.5f * expf(0.5f * lv) * eps;
+          }
+        }
+        if (kMode == kStream && kCell == kLSTM && t >= 1 && r < nrows) {
+          // the caller's cotangents of the emitted position t - 1
+          const int64_t o = ((int64_t)(t - 1) * B + r0 + r) * F + f;
+          dmean += dmean_up[o];
+          dlv += dlogvar_up[o];
         }
         s_ml[r * 2 * F + f] = dmean;
         s_ml[r * 2 * F + F + f] = dlv;
@@ -822,19 +888,24 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
 // kind: 0 fused-loss forward, 1 fused-loss backward, 2 the plain loop's
 // forward (the LSTM cell); 3 fused-loss forward, 4 fused-loss backward (the
 // GRU cell); 5 fused-loss forward, 6 fused-loss backward (the Elman / ESN
-// cell); 7 the GRU's and 8 the Elman / ESN's plain loop forward.  Floats of
-// shared memory per row of the tile (the backward adds the offset-logit
-// cotangent).
+// cell); 7 the GRU's and 8 the Elman / ESN's plain loop forward; 9, 10, 11
+// the plain loop's backward (LSTM, GRU, Elman / ESN cell); 12 the fused-NLL
+// forward, 13 its backward (the LSTM cell).  Floats of shared memory per row
+// of the tile (the backward adds the offset-logit cotangent); the kinds
+// without the offset MLP are asked with Mo = 0.
 long long smem_bytes(int kind, int rows, int F, int H, int M, int Mo) {
   long long per_row;
   switch (kind) {
     case 0: per_row = 3LL * H + 4LL * H + 2LL * M + F + Mo; break;
-    case 1: per_row = 5LL * H + 4LL * H + 2LL * M + 3LL * F + Mo + 1; break;
-    case 2: per_row = 2LL * H + 4LL * H + 2LL * M + F; break;
+    case 1: case 9: case 13:
+      per_row = 5LL * H + 4LL * H + 2LL * M + 3LL * F + Mo + 1; break;
+    case 2: case 12: per_row = 2LL * H + 4LL * H + 2LL * M + F; break;
     case 3: per_row = 2LL * H + 3LL * H + 2LL * M + F + Mo; break;
-    case 4: per_row = 4LL * H + 3LL * H + 2LL * M + 3LL * F + Mo + 1; break;
+    case 4: case 10:
+      per_row = 4LL * H + 3LL * H + 2LL * M + 3LL * F + Mo + 1; break;
     case 5: per_row = 2LL * H + 1LL * H + 2LL * M + F + Mo; break;
-    case 6: per_row = 3LL * H + 1LL * H + 2LL * M + 3LL * F + Mo + 1; break;
+    case 6: case 11:
+      per_row = 3LL * H + 1LL * H + 2LL * M + 3LL * F + Mo + 1; break;
     case 7: per_row = 1LL * H + 3LL * H + 2LL * M + F; break;
     default: per_row = 1LL * H + 1LL * H + 2LL * M + F;
   }
@@ -844,15 +915,20 @@ long long smem_bytes(int kind, int rows, int F, int H, int M, int Mo) {
 template <int R>
 const void* kernel_of(int kind) {
   switch (kind) {
-    case 0: return (const void*)decoder_fwd_kernel<R, true, kLSTM>;
-    case 1: return (const void*)decoder_bwd_kernel<R, kLSTM>;
-    case 2: return (const void*)decoder_fwd_kernel<R, false, kLSTM>;
-    case 3: return (const void*)decoder_fwd_kernel<R, true, kGRU>;
-    case 4: return (const void*)decoder_bwd_kernel<R, kGRU>;
-    case 5: return (const void*)decoder_fwd_kernel<R, true, kRNN>;
-    case 6: return (const void*)decoder_bwd_kernel<R, kRNN>;
-    case 7: return (const void*)decoder_fwd_kernel<R, false, kGRU>;
-    case 8: return (const void*)decoder_fwd_kernel<R, false, kRNN>;
+    case 0: return (const void*)decoder_fwd_kernel<R, kFusedLosses, kLSTM>;
+    case 1: return (const void*)decoder_bwd_kernel<R, kLSTM, kFusedLosses>;
+    case 2: return (const void*)decoder_fwd_kernel<R, kStream, kLSTM>;
+    case 3: return (const void*)decoder_fwd_kernel<R, kFusedLosses, kGRU>;
+    case 4: return (const void*)decoder_bwd_kernel<R, kGRU, kFusedLosses>;
+    case 5: return (const void*)decoder_fwd_kernel<R, kFusedLosses, kRNN>;
+    case 6: return (const void*)decoder_bwd_kernel<R, kRNN, kFusedLosses>;
+    case 7: return (const void*)decoder_fwd_kernel<R, kStream, kGRU>;
+    case 8: return (const void*)decoder_fwd_kernel<R, kStream, kRNN>;
+    case 9: return (const void*)decoder_bwd_kernel<R, kLSTM, kStream>;
+    case 10: return (const void*)decoder_bwd_kernel<R, kGRU, kStream>;
+    case 11: return (const void*)decoder_bwd_kernel<R, kRNN, kStream>;
+    case 12: return (const void*)decoder_fwd_kernel<R, kFusedNll, kLSTM>;
+    case 13: return (const void*)decoder_bwd_kernel<R, kLSTM, kFusedNll>;
     default: return nullptr;
   }
 }
@@ -892,6 +968,19 @@ cudaError_t prepare(int kind, int rows, int F, int H, int M, int Mo,
                               (int)smem);
 }
 
+// The kernel kinds (see smem_bytes) of a cell's forward and backward in a
+// mode.
+constexpr int fwd_kind(int cell, int mode) {
+  return mode == kFusedNll ? 12
+         : mode == kStream ? (cell == kLSTM ? 2 : cell == kGRU ? 7 : 8)
+                           : (cell == kLSTM ? 0 : cell == kGRU ? 3 : 5);
+}
+constexpr int bwd_kind(int cell, int mode) {
+  return mode == kFusedNll ? 13
+         : mode == kStream ? (cell == kLSTM ? 9 : cell == kGRU ? 10 : 11)
+                           : (cell == kLSTM ? 1 : cell == kGRU ? 4 : 6);
+}
+
 // The forward's operands, in decoder_fwd_kernel's order.
 struct FwdArgs {
   const float *noise; const int* lengths;
@@ -904,22 +993,13 @@ struct FwdArgs {
   float leak = 1.f;
 };
 
-template <int R, bool kLosses, int kCell>
+template <int R, int kMode, int kCell>
 void launch_fwd(int blocks, int smem, cudaStream_t s, const FwdArgs& a) {
-  decoder_fwd_kernel<R, kLosses, kCell><<<blocks, kThreads, smem, s>>>(
+  decoder_fwd_kernel<R, kMode, kCell><<<blocks, kThreads, smem, s>>>(
       a.noise, a.lengths, a.w_cat, a.bias, a.bias_hh, a.b1, a.w2m, a.w2v,
       a.b2, a.w_ih, a.targets, a.wo1, a.bo1, a.wo2, a.bo2, a.h0, a.c0,
       a.out_last, a.hs, a.cs, a.partial, a.outs, a.mean_s, a.logvar_s, a.T,
       a.B, a.F, a.H, a.M, a.Mo, a.leak);
-}
-
-template <bool kLosses, int kCell>
-void dispatch_fwd(int rows, int blocks, int smem, cudaStream_t s,
-                  const FwdArgs& a) {
-  auto go = rows == 8   ? &launch_fwd<8, kLosses, kCell>
-            : rows == 4 ? &launch_fwd<4, kLosses, kCell>
-                        : &launch_fwd<2, kLosses, kCell>;
-  go(blocks, smem, s, a);
 }
 
 // The backward's operands, in decoder_bwd_kernel's order.
@@ -927,85 +1007,63 @@ struct BwdArgs {
   const float *noise; const int* lengths;
   const float *w_cat, *bias, *bias_hh, *b1, *w2m, *w2v, *b2, *w_ih, *targets,
       *wo1, *bo1, *wo2, *bo2, *h0, *c0, *w_catT, *w_ihT, *w2mT, *w2vT, *wo1T,
-      *hs, *cs, *dlast, *gscale;
+      *hs, *cs, *dlast, *gscale, *douts, *dmean_up, *dlogvar_up;
   float *dh0, *dc0, *hp_s, *dbig_s, *x_s, *emh_s, *dem_s, *h2_s, *doh_s,
       *oh_s, *dzo_s, *dnp_s;
   int T, B, F, H, M, Mo;
   float leak = 1.f;
 };
 
-template <int R, int kCell>
+template <int R, int kCell, int kMode>
 void launch_bwd(int blocks, int smem, cudaStream_t s, const BwdArgs& a) {
-  decoder_bwd_kernel<R, kCell><<<blocks, kThreads, smem, s>>>(
+  decoder_bwd_kernel<R, kCell, kMode><<<blocks, kThreads, smem, s>>>(
       a.noise, a.lengths, a.w_cat, a.bias, a.bias_hh, a.b1, a.w2m, a.w2v,
       a.b2, a.w_ih, a.targets, a.wo1, a.bo1, a.wo2, a.bo2, a.h0, a.c0,
       a.w_catT, a.w_ihT, a.w2mT, a.w2vT, a.wo1T, a.hs, a.cs, a.dlast,
-      a.gscale, a.dh0, a.dc0, a.hp_s, a.dbig_s, a.x_s, a.emh_s, a.dem_s,
-      a.h2_s, a.doh_s, a.oh_s, a.dzo_s, a.dnp_s, a.T, a.B, a.F, a.H, a.M,
-      a.Mo, a.leak);
+      a.gscale, a.douts, a.dmean_up, a.dlogvar_up, a.dh0, a.dc0, a.hp_s,
+      a.dbig_s, a.x_s, a.emh_s, a.dem_s, a.h2_s, a.doh_s, a.oh_s, a.dzo_s,
+      a.dnp_s, a.T, a.B, a.F, a.H, a.M, a.Mo, a.leak);
 }
 
-template <int kCell>
-void dispatch_bwd(int rows, int blocks, int smem, cudaStream_t s,
-                  const BwdArgs& a) {
-  auto go = rows == 8   ? &launch_bwd<8, kCell>
-            : rows == 4 ? &launch_bwd<4, kCell>
-                        : &launch_bwd<2, kCell>;
-  go(blocks, smem, s, a);
+bool bad_dims(int T, int B, int F, int H, int M, int Mo, bool offset) {
+  return T < 1 || B < 1 || F < 1 || H < 1 || M < 1 || (offset && Mo < 1);
 }
 
-// The kernel kinds (see smem_bytes) of a cell's fused-loss pair.
-constexpr int fused_fwd_kind(int cell) {
-  return cell == kLSTM ? 0 : cell == kGRU ? 3 : 5;
-}
-constexpr int fused_bwd_kind(int cell) {
-  return cell == kLSTM ? 1 : cell == kGRU ? 4 : 6;
-}
-
-// The plain sampled loop of any cell (kind 2, 7 or 8): outs, and for the
-// LSTM the emission streams.
-template <int kCell>
-int loop_fwd(const FwdArgs& a, int rows, void* stream) {
-  if (a.T < 1 || a.B < 1 || a.F < 1 || a.H < 1 || a.M < 1)
-    return (int)cudaErrorInvalidValue;
-  const int kind = kCell == kLSTM ? 2 : kCell == kGRU ? 7 : 8;
-  int smem = 0;
-  cudaError_t err = prepare(kind, rows, a.F, a.H, a.M, 0, &smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (a.B + rows - 1) / rows;
-  dispatch_fwd<false, kCell>(rows, blocks, smem, (cudaStream_t)stream, a);
-  return (int)cudaGetLastError();
-}
-
-// A fused-loss forward of any cell, then the block-order sum of the
-// per-block loss partials into `losses`.
-template <int kCell>
-int fused_fwd(const FwdArgs& a, float* losses, int rows, void* stream) {
-  if (a.T < 1 || a.B < 1 || a.F < 1 || a.H < 1 || a.M < 1 || a.Mo < 1)
+// A forward of any cell and mode; with a loss (kFusedLosses, kFusedNll),
+// then the block-order sum of the per-block loss partials into `losses`.
+template <int kCell, int kMode>
+int fwd(const FwdArgs& a, float* losses, int rows, void* stream) {
+  if (bad_dims(a.T, a.B, a.F, a.H, a.M, a.Mo, kMode == kFusedLosses))
     return (int)cudaErrorInvalidValue;
   int smem = 0;
-  cudaError_t err = prepare(fused_fwd_kind(kCell), rows, a.F, a.H, a.M, a.Mo,
-                            &smem);
+  cudaError_t err = prepare(fwd_kind(kCell, kMode), rows, a.F, a.H, a.M,
+                            a.Mo, &smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (a.B + rows - 1) / rows;
   cudaStream_t s = (cudaStream_t)stream;
-  dispatch_fwd<true, kCell>(rows, blocks, smem, s, a);
+  auto go = rows == 8   ? &launch_fwd<8, kMode, kCell>
+            : rows == 4 ? &launch_fwd<4, kMode, kCell>
+                        : &launch_fwd<2, kMode, kCell>;
+  go(blocks, smem, s, a);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || kMode == kStream) return (int)err;
   loss_sum_kernel<<<1, 32, 0, s>>>(a.partial, blocks, losses);
   return (int)cudaGetLastError();
 }
 
-template <int kCell>
-int fused_bwd(const BwdArgs& a, int rows, void* stream) {
-  if (a.T < 1 || a.B < 1 || a.F < 1 || a.H < 1 || a.M < 1 || a.Mo < 1)
+template <int kCell, int kMode>
+int bwd(const BwdArgs& a, int rows, void* stream) {
+  if (bad_dims(a.T, a.B, a.F, a.H, a.M, a.Mo, kMode == kFusedLosses))
     return (int)cudaErrorInvalidValue;
   int smem = 0;
-  cudaError_t err = prepare(fused_bwd_kind(kCell), rows, a.F, a.H, a.M, a.Mo,
-                            &smem);
+  cudaError_t err = prepare(bwd_kind(kCell, kMode), rows, a.F, a.H, a.M,
+                            a.Mo, &smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (a.B + rows - 1) / rows;
-  dispatch_bwd<kCell>(rows, blocks, smem, (cudaStream_t)stream, a);
+  auto go = rows == 8   ? &launch_bwd<8, kCell, kMode>
+            : rows == 4 ? &launch_bwd<4, kCell, kMode>
+                        : &launch_bwd<2, kCell, kMode>;
+  go(blocks, smem, (cudaStream_t)stream, a);
   return (int)cudaGetLastError();
 }
 
@@ -1050,7 +1108,25 @@ int abcd_decoder_fwd(const float* noise, const int* lengths,
   const FwdArgs a{noise, lengths, w_cat, bias, nullptr, b1, w2m, w2v, b2,
                   w_ih, targets, wo1, bo1, wo2, bo2, h0, c0, out_last, hs,
                   cs, partial, nullptr, nullptr, nullptr, T, B, F, H, M, Mo};
-  return fused_fwd<kLSTM>(a, losses, rows, stream);
+  return fwd<kLSTM, kFusedLosses>(a, losses, rows, stream);
+}
+
+// LSTM fused-NLL forward (kind 12): outs (T, B, H) = the pre-mask h2 of
+// every step; `losses` receives (nll over positions 0..T-2, 0).  hs / cs
+// may be nullptr.
+int abcd_decoder_nll_fwd(const float* noise, const int* lengths,
+                         const float* w_cat, const float* bias,
+                         const float* b1, const float* w2m, const float* w2v,
+                         const float* b2, const float* w_ih,
+                         const float* targets, const float* h0,
+                         const float* c0, float* outs, float* hs, float* cs,
+                         double* partial, float* losses, int T, int B,
+                         int F, int H, int M, int rows, void* stream) {
+  const FwdArgs a{noise, lengths, w_cat, bias, nullptr, b1, w2m, w2v, b2,
+                  w_ih, targets, nullptr, nullptr, nullptr, nullptr, h0, c0,
+                  nullptr, hs, cs, partial, outs, nullptr, nullptr, T, B, F,
+                  H, M, 0};
+  return fwd<kLSTM, kFusedNll>(a, losses, rows, stream);
 }
 
 // GRU fused-loss forward (kind 3): b_ih and b_hh apart, no c0 / cs; hs may
@@ -1069,7 +1145,7 @@ int abcd_gru_decoder_fwd(const float* noise, const int* lengths,
                   targets, wo1, bo1, wo2, bo2, h0, nullptr, out_last, hs,
                   nullptr, partial, nullptr, nullptr, nullptr, T, B, F, H, M,
                   Mo};
-  return fused_fwd<kGRU>(a, losses, rows, stream);
+  return fwd<kGRU, kFusedLosses>(a, losses, rows, stream);
 }
 
 // Elman / ESN fused-loss forward (kind 5): `bias` = b_ih + b_hh (zeros for
@@ -1088,12 +1164,12 @@ int abcd_rnn_decoder_fwd(const float* noise, const int* lengths,
                   w_ih, targets, wo1, bo1, wo2, bo2, h0, nullptr, out_last,
                   hs, nullptr, partial, nullptr, nullptr, nullptr, T, B, F,
                   H, M, Mo, leak};
-  return fused_fwd<kRNN>(a, losses, rows, stream);
+  return fwd<kRNN, kFusedLosses>(a, losses, rows, stream);
 }
 
 // The plain sampled loop's forward (kind 2): outs (T, B, H) = the pre-mask
 // h2 of every step, mean_s / logvar_s (T, B, F) position-indexed (slot T - 1
-// holds step 0's emission).  hs / cs may be nullptr.
+// holds step 0's emission).  hs / cs may be nullptr (no backward to follow).
 int abcd_decoder_loop_fwd(const float* noise, const int* lengths,
                           const float* w_cat, const float* bias,
                           const float* b1, const float* w2m,
@@ -1107,7 +1183,7 @@ int abcd_decoder_loop_fwd(const float* noise, const int* lengths,
                   w_ih, nullptr, nullptr, nullptr, nullptr, nullptr, h0, c0,
                   nullptr, hs, cs, nullptr, outs, mean_s, logvar_s, T, B, F,
                   H, M, 0};
-  return loop_fwd<kLSTM>(a, rows, stream);
+  return fwd<kLSTM, kStream>(a, nullptr, rows, stream);
 }
 
 // The GRU's plain sampled loop (kind 7): outs (T, B, H) = the pre-mask h2
@@ -1124,7 +1200,7 @@ int abcd_gru_decoder_loop_fwd(const float* noise, const int* lengths,
                   nullptr, nullptr, nullptr, nullptr, nullptr, h0, nullptr,
                   nullptr, hs, nullptr, nullptr, outs, nullptr, nullptr, T, B,
                   F, H, M, 0};
-  return loop_fwd<kGRU>(a, rows, stream);
+  return fwd<kGRU, kStream>(a, nullptr, rows, stream);
 }
 
 // The Elman / ESN plain sampled loop (kind 8): outs (T, B, H) = the
@@ -1142,7 +1218,7 @@ int abcd_rnn_decoder_loop_fwd(const float* noise, const int* lengths,
                   w_ih, nullptr, nullptr, nullptr, nullptr, nullptr, h0,
                   nullptr, nullptr, hs, nullptr, nullptr, outs, nullptr,
                   nullptr, T, B, F, H, M, 0, leak};
-  return loop_fwd<kRNN>(a, rows, stream);
+  return fwd<kRNN, kStream>(a, nullptr, rows, stream);
 }
 
 // LSTM backward (kind 1; see the comment at the top): writes dh0, dc0 and
@@ -1163,10 +1239,10 @@ int abcd_decoder_bwd(const float* noise, const int* lengths,
                      int rows, void* stream) {
   const BwdArgs a{noise, lengths, w_cat, bias, nullptr, b1, w2m, w2v, b2,
                   w_ih, targets, wo1, bo1, wo2, bo2, h0, c0, w_catT, w_ihT,
-                  w2mT, w2vT, wo1T, hs, cs, dlast, gscale, dh0, dc0, hp_s,
-                  dbig_s, x_s, emh_s, dem_s, h2_s, doh_s, oh_s, dzo_s,
-                  nullptr, T, B, F, H, M, Mo};
-  return fused_bwd<kLSTM>(a, rows, stream);
+                  w2mT, w2vT, wo1T, hs, cs, dlast, gscale, nullptr, nullptr,
+                  nullptr, dh0, dc0, hp_s, dbig_s, x_s, emh_s, dem_s, h2_s,
+                  doh_s, oh_s, dzo_s, nullptr, T, B, F, H, M, Mo};
+  return bwd<kLSTM, kFusedLosses>(a, rows, stream);
 }
 
 // GRU backward (kind 4): writes dh0 and the LSTM's streams (dbig's gate
@@ -1189,10 +1265,10 @@ int abcd_gru_decoder_bwd(const float* noise, const int* lengths,
                          int Mo, int rows, void* stream) {
   const BwdArgs a{noise, lengths, w_cat, b_ih, b_hh, b1, w2m, w2v, b2, w_ih,
                   targets, wo1, bo1, wo2, bo2, h0, nullptr, w_catT, w_ihT,
-                  w2mT, w2vT, wo1T, hs, nullptr, dlast, gscale, dh0, nullptr,
-                  hp_s, dbig_s, x_s, emh_s, dem_s, h2_s, doh_s, oh_s, dzo_s,
-                  dnp_s, T, B, F, H, M, Mo};
-  return fused_bwd<kGRU>(a, rows, stream);
+                  w2mT, w2vT, wo1T, hs, nullptr, dlast, gscale, nullptr,
+                  nullptr, nullptr, dh0, nullptr, hp_s, dbig_s, x_s, emh_s,
+                  dem_s, h2_s, doh_s, oh_s, dzo_s, dnp_s, T, B, F, H, M, Mo};
+  return bwd<kGRU, kFusedLosses>(a, rows, stream);
 }
 
 // Elman / ESN backward (kind 6): writes dh0 and the LSTM's streams, the
@@ -1215,10 +1291,110 @@ int abcd_rnn_decoder_bwd(const float* noise, const int* lengths,
                          int rows, void* stream) {
   const BwdArgs a{noise, lengths, w_cat, bias, nullptr, b1, w2m, w2v, b2,
                   w_ih, targets, wo1, bo1, wo2, bo2, h0, nullptr, w_catT,
-                  w_ihT, w2mT, w2vT, wo1T, hs, nullptr, dlast, gscale, dh0,
-                  nullptr, hp_s, dbig_s, x_s, emh_s, dem_s, h2_s, doh_s, oh_s,
-                  dzo_s, nullptr, T, B, F, H, M, Mo, leak};
-  return fused_bwd<kRNN>(a, rows, stream);
+                  w_ihT, w2mT, w2vT, wo1T, hs, nullptr, dlast, gscale,
+                  nullptr, nullptr, nullptr, dh0, nullptr, hp_s, dbig_s, x_s,
+                  emh_s, dem_s, h2_s, doh_s, oh_s, dzo_s, nullptr, T, B, F, H,
+                  M, Mo, leak};
+  return bwd<kRNN, kFusedLosses>(a, rows, stream);
+}
+
+// LSTM fused-NLL backward (kind 13): `gscale` holds dnll, `douts` (T, B, H)
+// the cotangent of outs; writes dh0, dc0 and the streams hp_s, dbig_s, x_s,
+// emh_s, dem_s.
+int abcd_decoder_nll_bwd(const float* noise, const int* lengths,
+                         const float* w_cat, const float* bias,
+                         const float* b1, const float* w2m, const float* w2v,
+                         const float* b2, const float* w_ih,
+                         const float* targets, const float* h0,
+                         const float* c0, const float* w_catT,
+                         const float* w_ihT, const float* w2mT,
+                         const float* w2vT, const float* hs, const float* cs,
+                         const float* douts, const float* gscale, float* dh0,
+                         float* dc0, float* hp_s, float* dbig_s, float* x_s,
+                         float* emh_s, float* dem_s, int T, int B, int F,
+                         int H, int M, int rows, void* stream) {
+  const BwdArgs a{noise, lengths, w_cat, bias, nullptr, b1, w2m, w2v, b2,
+                  w_ih, targets, nullptr, nullptr, nullptr, nullptr, h0, c0,
+                  w_catT, w_ihT, w2mT, w2vT, nullptr, hs, cs, nullptr,
+                  gscale, douts, nullptr, nullptr, dh0, dc0, hp_s, dbig_s,
+                  x_s, emh_s, dem_s, nullptr, nullptr, nullptr, nullptr,
+                  nullptr, T, B, F, H, M, 0};
+  return bwd<kLSTM, kFusedNll>(a, rows, stream);
+}
+
+// The plain LSTM loop's backward (kind 9, decoder_pallas.py:_bwd_kernel):
+// `douts` (T, B, H) the cotangent of outs, dmean_s / dlogvar_s (T, B, F)
+// those of the position-indexed emission streams (slot T - 1 unread);
+// writes dh0, dc0 and the streams hp_s, dbig_s, x_s, emh_s, dem_s.
+int abcd_decoder_loop_bwd(const float* noise, const int* lengths,
+                          const float* w_cat, const float* bias,
+                          const float* b1, const float* w2m,
+                          const float* w2v, const float* b2,
+                          const float* w_ih, const float* h0,
+                          const float* c0, const float* w_catT,
+                          const float* w_ihT, const float* w2mT,
+                          const float* w2vT, const float* hs,
+                          const float* cs, const float* douts,
+                          const float* dmean_s, const float* dlogvar_s,
+                          float* dh0, float* dc0, float* hp_s,
+                          float* dbig_s, float* x_s, float* emh_s,
+                          float* dem_s, int T, int B, int F, int H, int M,
+                          int rows, void* stream) {
+  const BwdArgs a{noise, lengths, w_cat, bias, nullptr, b1, w2m, w2v, b2,
+                  w_ih, nullptr, nullptr, nullptr, nullptr, nullptr, h0, c0,
+                  w_catT, w_ihT, w2mT, w2vT, nullptr, hs, cs, nullptr,
+                  nullptr, douts, dmean_s, dlogvar_s, dh0, dc0, hp_s, dbig_s,
+                  x_s, emh_s, dem_s, nullptr, nullptr, nullptr, nullptr,
+                  nullptr, T, B, F, H, M, 0};
+  return bwd<kLSTM, kStream>(a, rows, stream);
+}
+
+// The GRU loop's backward (kind 10, decoder_pallas.py:_gru_bwd_kernel):
+// `douts` (T, B, H); writes dh0, the streams of abcd_decoder_loop_bwd (dbig's
+// gate part being dhp) and dnp_s (T, B, H), the candidate third of dxp.
+int abcd_gru_decoder_loop_bwd(const float* noise, const int* lengths,
+                              const float* w_cat, const float* b_ih,
+                              const float* b_hh, const float* b1,
+                              const float* w2m, const float* w2v,
+                              const float* b2, const float* w_ih,
+                              const float* h0, const float* w_catT,
+                              const float* w_ihT, const float* w2mT,
+                              const float* w2vT, const float* hs,
+                              const float* douts, float* dh0, float* hp_s,
+                              float* dbig_s, float* x_s, float* emh_s,
+                              float* dem_s, float* dnp_s, int T, int B,
+                              int F, int H, int M, int rows, void* stream) {
+  const BwdArgs a{noise, lengths, w_cat, b_ih, b_hh, b1, w2m, w2v, b2, w_ih,
+                  nullptr, nullptr, nullptr, nullptr, nullptr, h0, nullptr,
+                  w_catT, w_ihT, w2mT, w2vT, nullptr, hs, nullptr, nullptr,
+                  nullptr, douts, nullptr, nullptr, dh0, nullptr, hp_s,
+                  dbig_s, x_s, emh_s, dem_s, nullptr, nullptr, nullptr,
+                  nullptr, dnp_s, T, B, F, H, M, 0};
+  return bwd<kGRU, kStream>(a, rows, stream);
+}
+
+// The Elman / ESN loop's backward (kind 11, decoder_pallas.py:
+// _rnn_bwd_kernel): `douts` (T, B, H), `leak` in (0, 1]; writes dh0 and the
+// streams of abcd_decoder_loop_bwd (dbig's gate part being dpre).
+int abcd_rnn_decoder_loop_bwd(const float* noise, const int* lengths,
+                              const float* w_cat, const float* bias,
+                              const float* b1, const float* w2m,
+                              const float* w2v, const float* b2,
+                              const float* w_ih, const float* h0,
+                              const float* w_catT, const float* w_ihT,
+                              const float* w2mT, const float* w2vT,
+                              const float* hs, const float* douts,
+                              float* dh0, float* hp_s, float* dbig_s,
+                              float* x_s, float* emh_s, float* dem_s, int T,
+                              int B, int F, int H, int M, float leak,
+                              int rows, void* stream) {
+  const BwdArgs a{noise, lengths, w_cat, bias, nullptr, b1, w2m, w2v, b2,
+                  w_ih, nullptr, nullptr, nullptr, nullptr, nullptr, h0,
+                  nullptr, w_catT, w_ihT, w2mT, w2vT, nullptr, hs, nullptr,
+                  nullptr, nullptr, douts, nullptr, nullptr, dh0, nullptr,
+                  hp_s, dbig_s, x_s, emh_s, dem_s, nullptr, nullptr, nullptr,
+                  nullptr, nullptr, T, B, F, H, M, 0, leak};
+  return bwd<kRNN, kStream>(a, rows, stream);
 }
 
 const char* abcd_cuda_error_string(int err) {

@@ -10,13 +10,23 @@ Elman RNN and echo-state (ESN) cells).
 - losses are unnormalised sums over valid steps: the Gaussian emission
   NLL and the offset BCE against (t == len - 1).
 
-Training (``decoder_losses``) runs the JAX package's ``loss_only`` fast
-path: the whole loop with both losses in one hand-written kernel
+Training (``decoder_losses``) runs the JAX package's ``loss_only`` paths.
+A cell in ``fused_cells`` (by default all four) takes the fast path: the
+whole loop with both losses in one hand-written kernel
 (``ops/decoder_kernel.decoder_loop_fused_losses`` for the LSTM,
 ``gru_decoder_loop_fused_losses`` for the GRU,
 ``rnn_decoder_loop_fused_losses`` for the Elman cell and, with its leak
 and no biases, the ESN; their plain twins on the CPU), and position T-1's
-emission term recomputed here from the last step's hidden state.  The
+emission term recomputed here from the last step's hidden state.  Any
+other cell takes the stream path (the JAX package's
+``SEQ2SEQ_NLL_FUSION=0`` / ``SEQ2SEQ_FUSED_CELLS``, which the training CLI
+reads once into that argument): the sampled loop with its hand-written
+backward (``decoder_loop``, ``gru_decoder_loop``, ``rnn_decoder_loop``),
+then the emission NLL and the offset BCE over its streams.  Both paths
+draw on the same noise, so their losses agree up to summation order.
+Without offset targets (the JAX ``decoder_apply(loss_only=True,
+ground_truth_offset=None)``), the fused LSTM takes
+``decoder_loop_fused_nll`` and the offset logits are returned.  The
 ESN's reservoir (the cell's ``w_ih`` and ``w_hh``) is frozen: it enters
 the loop detached, so gradients reach only the initial state (the latent)
 and the emission and offset MLPs, as in the JAX package.
@@ -49,6 +59,9 @@ from . import initializers as init
 from . import mlp as mlp_mod
 from . import sampler as sampler_mod
 from .encoder import NUM_GATES
+
+# the decoder cells; by default each trains on its fused-loss kernels
+CELLS = ("LSTM", "GRU", "RNN", "ESN")
 
 
 class DecoderOutput(NamedTuple):
@@ -134,10 +147,56 @@ def _loop_weights(params: dict, rnn_type: str = "LSTM") -> dict:
     return w
 
 
+def _sampled(params: dict, cfg: DecoderConfig, w: dict, h0, c0, lengths,
+             noise):
+    """The sampled loop's pre-mask hidden states (T, B, H) and the
+    emission (mean, logvar) of every position (B, T, F), as the kernel
+    branch of the JAX package's ``_run_direction``: the LSTM's kernel
+    writes the position-indexed emission streams, whose slot T-1 is
+    overwritten from the last step's pre-mask hidden state; the other
+    cells' return the hidden states alone, and the emission MLP runs over
+    all (B, T) rows."""
+    loop = (w["b1"], w["w2m"], w["w2v"], w["b2"], w["w_ih"], h0)
+    if cfg.rnn_type == "LSTM":
+        outs, mean_s, logvar_s = decoder_kernel.decoder_loop(
+            noise, lengths, w["w_cat"], w["bias"], *loop, c0)
+        # slot T-1 holds step 0's parked emission: the final position's
+        # comes from the last step's pre-mask hidden state
+        last = sampler_mod.sampler_apply(params["emission_sampler"], outs[-1])
+        return outs, tuple(
+            torch.cat([p_s[:-1], p_last[None]]).transpose(0, 1)
+            for p_s, p_last in zip((mean_s, logvar_s), last))
+    if cfg.rnn_type == "GRU":
+        outs = decoder_kernel.gru_decoder_loop(
+            noise, lengths, w["w_cat"], w["b_ih"], w["b_hh"], *loop)
+    else:
+        outs = decoder_kernel.rnn_decoder_loop(
+            noise, lengths, w["w_cat"], w["bias"], *loop,
+            leak=cfg.esn_leak if cfg.rnn_type == "ESN" else 1.0)
+    return outs, sampler_mod.sampler_apply(params["emission_sampler"],
+                                           outs.transpose(0, 1))
+
+
+def _bce_sum(z, y, mask):
+    """The offset BCE of logits ``z`` against ``y``, summed where
+    ``mask``."""
+    per = (torch.clamp(z, min=0.0) - z * y
+           + torch.log1p(torch.exp(-torch.abs(z))))
+    return (per * mask).sum()
+
+
+def _step_mask(lengths, t: int, dtype):
+    return (torch.arange(t, device=lengths.device)[None, :]
+            < lengths[:, None]).to(dtype)
+
+
 def decoder_losses(params: dict, cfg: DecoderConfig, features: torch.Tensor,
                    lengths: torch.Tensor, ground_truth_out: torch.Tensor,
-                   noise: torch.Tensor, speaker: torch.Tensor | None = None):
-    """(emission_loss, offset_loss) of a batch, unnormalised sums.
+                   noise: torch.Tensor, speaker: torch.Tensor | None = None,
+                   *, fused_cells=CELLS, with_offset: bool = True):
+    """(emission_loss, offset_loss) of a batch, unnormalised sums: the JAX
+    package's ``decoder_apply(loss_only=True)`` with the training offset
+    target (t == len - 1).
 
     Args:
       features: (B, feature_size) latents.
@@ -146,34 +205,60 @@ def decoder_losses(params: dict, cfg: DecoderConfig, features: torch.Tensor,
       noise: (T, B, F) standard normals; position p's sample uses
         ``noise[p]``.
       speaker: (B,) int ids when the config embeds speakers.
+      fused_cells: the cells that take the fused-loss kernels; any other
+        takes the stream path (the sampled loop, then the losses over its
+        streams).
+      with_offset: False is ``decoder_apply(loss_only=True,
+        ground_truth_offset=None)``: returns (emission_loss, offset_logits
+        (B, T)), the fused LSTM on ``decoder_loop_fused_nll``.
     """
     h0, c0 = _initial_state(params, cfg, features, speaker)
     w = _loop_weights(params, cfg.rnn_type)
     off = params["offset_predictor"]
     t = ground_truth_out.shape[1]
     lengths = lengths.to(torch.int32)
-    emission = (w["b1"], w["w2m"], w["w2v"], w["b2"], w["w_ih"],
-                ground_truth_out.transpose(0, 1).contiguous(),
-                off["lin1"]["w"], off["lin1"]["b"],
-                off["lin2"]["w"].reshape(-1), off["lin2"]["b"])
-    if cfg.rnn_type == "GRU":
-        out_last, nll, bce = decoder_kernel.gru_decoder_loop_fused_losses(
-            noise.contiguous(), lengths, w["w_cat"], w["b_ih"], w["b_hh"],
-            *emission, h0)
-    elif cfg.rnn_type in ("RNN", "ESN"):
-        out_last, nll, bce = decoder_kernel.rnn_decoder_loop_fused_losses(
-            noise.contiguous(), lengths, w["w_cat"], w["bias"], *emission,
-            h0, leak=cfg.esn_leak if cfg.rnn_type == "ESN" else 1.0)
-    else:
-        out_last, nll, bce = decoder_kernel.decoder_loop_fused_losses(
-            noise.contiguous(), lengths, w["w_cat"], w["bias"], *emission,
-            h0, c0)
-    # position T-1's emission term, from the last step's hidden state
-    last = sampler_mod.sampler_apply(params["emission_sampler"], out_last)
-    mask_last = (lengths > t - 1).to(out_last.dtype)[:, None]
-    emission_loss = nll - dist.log_pdf_isotropic_gaussian(
-        ground_truth_out[:, -1], *last, mask=mask_last)
-    return emission_loss, bce
+    noise = noise.contiguous()
+    if cfg.rnn_type in fused_cells and (with_offset
+                                        or cfg.rnn_type == "LSTM"):
+        emission = (w["b1"], w["w2m"], w["w2v"], w["b2"], w["w_ih"],
+                    ground_truth_out.transpose(0, 1).contiguous())
+        offset = (off["lin1"]["w"], off["lin1"]["b"],
+                  off["lin2"]["w"].reshape(-1), off["lin2"]["b"])
+        if not with_offset:
+            outs, nll = decoder_kernel.decoder_loop_fused_nll(
+                noise, lengths, w["w_cat"], w["bias"], *emission, h0, c0)
+            out_last = outs[-1]
+        elif cfg.rnn_type == "GRU":
+            out_last, nll, bce = decoder_kernel.gru_decoder_loop_fused_losses(
+                noise, lengths, w["w_cat"], w["b_ih"], w["b_hh"], *emission,
+                *offset, h0)
+        elif cfg.rnn_type in ("RNN", "ESN"):
+            out_last, nll, bce = decoder_kernel.rnn_decoder_loop_fused_losses(
+                noise, lengths, w["w_cat"], w["bias"], *emission, *offset,
+                h0, leak=cfg.esn_leak if cfg.rnn_type == "ESN" else 1.0)
+        else:
+            out_last, nll, bce = decoder_kernel.decoder_loop_fused_losses(
+                noise, lengths, w["w_cat"], w["bias"], *emission, *offset,
+                h0, c0)
+        # position T-1's emission term, from the last step's hidden state
+        last = sampler_mod.sampler_apply(params["emission_sampler"], out_last)
+        mask_last = (lengths > t - 1).to(out_last.dtype)[:, None]
+        emission_loss = nll - dist.log_pdf_isotropic_gaussian(
+            ground_truth_out[:, -1], *last, mask=mask_last)
+        if with_offset:
+            return emission_loss, bce
+        return emission_loss, mlp_mod.mlp_apply(
+            off, outs.transpose(0, 1)).squeeze(-1)
+    outs, em = _sampled(params, cfg, w, h0, c0, lengths, noise)
+    mask = _step_mask(lengths, t, outs.dtype)
+    emission_loss = -dist.log_pdf_isotropic_gaussian(
+        ground_truth_out, *em, mask=mask[..., None])
+    offset_logits = mlp_mod.mlp_apply(off, outs.transpose(0, 1)).squeeze(-1)
+    if not with_offset:
+        return emission_loss, offset_logits
+    y = (torch.arange(t, device=lengths.device)[None, :]
+         == lengths.long()[:, None] - 1).to(offset_logits.dtype)
+    return emission_loss, _bce_sum(offset_logits, y, mask)
 
 
 def _mean_cell(cfg: DecoderConfig, cell: dict, x, big, h, c):
@@ -261,28 +346,7 @@ def decoder_apply(params: dict, cfg: DecoderConfig, features: torch.Tensor,
                 total_steps, features.shape[0], cfg.output_size):
             raise ValueError("sample mode needs noise of shape (T, B, F)")
         noise = noise.contiguous()
-        loop = (w["b1"], w["w2m"], w["w2v"], w["b2"], w["w_ih"], h0)
-        if cfg.rnn_type == "LSTM":
-            outs, mean_s, logvar_s = decoder_kernel.decoder_loop(
-                noise, lengths, w["w_cat"], w["bias"], *loop, c0)
-            # slot T-1 holds step 0's parked emission: the final
-            # position's comes from the last step's pre-mask hidden state
-            last = sampler_mod.sampler_apply(params["emission_sampler"],
-                                             outs[-1])
-            em = tuple(torch.cat([p_s[:-1], p_last[None]]).transpose(0, 1)
-                       for p_s, p_last in zip((mean_s, logvar_s), last))
-        else:
-            if cfg.rnn_type == "GRU":
-                outs = decoder_kernel.gru_decoder_loop(
-                    noise, lengths, w["w_cat"], w["b_ih"], w["b_hh"], *loop)
-            else:
-                outs = decoder_kernel.rnn_decoder_loop(
-                    noise, lengths, w["w_cat"], w["bias"], *loop,
-                    leak=cfg.esn_leak if cfg.rnn_type == "ESN" else 1.0)
-            # the loop returns the hidden states alone: the emission of
-            # every position from them
-            em = sampler_mod.sampler_apply(params["emission_sampler"],
-                                           outs.transpose(0, 1))
+        outs, em = _sampled(params, cfg, w, h0, c0, lengths, noise)
         out = dist.gaussian_from_noise(noise.transpose(0, 1), *em)
     else:
         outs = _mean_loop(params, cfg, w, h0, c0, lengths, total_steps)
@@ -292,15 +356,11 @@ def decoder_apply(params: dict, cfg: DecoderConfig, features: torch.Tensor,
     rnn_out = outs.transpose(0, 1)                         # (B, T, H)
     offset_logits = mlp_mod.mlp_apply(params["offset_predictor"],
                                       rnn_out).squeeze(-1)
-    mask = (torch.arange(total_steps, device=lengths.device)[None, :]
-            < lengths[:, None]).to(rnn_out.dtype)
+    mask = _step_mask(lengths, total_steps, rnn_out.dtype)
     emission_loss = offset_loss = None
     if ground_truth_out is not None:
         emission_loss = -dist.log_pdf_isotropic_gaussian(
             ground_truth_out, *em, mask=mask[..., None])
     if ground_truth_offset is not None:
-        z, y = offset_logits, ground_truth_offset
-        per = (torch.clamp(z, min=0.0) - z * y
-               + torch.log1p(torch.exp(-torch.abs(z))))
-        offset_loss = (per * mask).sum()
+        offset_loss = _bce_sum(offset_logits, ground_truth_offset, mask)
     return DecoderOutput(emission_loss, offset_loss, out, em, offset_logits)

@@ -67,12 +67,14 @@ def set_trainable(params: dict, cfg: ModelConfig) -> dict:
 
 def forward_losses(params: dict, cfg: ModelConfig, *, inputs, lengths,
                    speakers, gumbel_noise, decoder_noise, entire_data_size,
-                   temperature=1.0, no_sample: bool = False) -> dict:
+                   temperature=1.0, no_sample: bool = False,
+                   fused_cells=dec_mod.CELLS) -> dict:
     """One forward pass: the three unnormalised loss sums and the logits.
 
     inputs: (B, T, F) padded log-spectrograms; lengths: (B,) frame counts
     (0 marks batch-padding rows); gumbel_noise (B, K) (unused when
-    ``no_sample``); decoder_noise (T, B, F).
+    ``no_sample``); decoder_noise (T, B, F); fused_cells: the decoder cells
+    that train on the fused-loss kernels (``decoder_losses``).
     """
     row_mask = (lengths > 0).to(inputs.dtype)
     last_hidden = enc_mod.encoder_apply(params["encoder"], cfg.encoder,
@@ -85,14 +87,15 @@ def forward_losses(params: dict, cfg: ModelConfig, *, inputs, lengths,
                           row_mask=row_mask)
     emission_loss, offset_loss = dec_mod.decoder_losses(
         params["decoder"], cfg.decoder, features, lengths, inputs,
-        decoder_noise, speaker=speakers)
+        decoder_noise, speaker=speakers, fused_cells=fused_cells)
     return {"emission_loss": emission_loss, "offset_loss": offset_loss,
             "kl_loss": kl, "num_rows": row_mask.sum(),
             "category_logits": logits}
 
 
 def training_loss(params: dict, cfg: ModelConfig, batch: dict, noise: dict,
-                  entire_data_size, temperature=1.0, no_sample: bool = False):
+                  entire_data_size, temperature=1.0, no_sample: bool = False,
+                  fused_cells=dec_mod.CELLS):
     """Scalar loss = (emission + offset + KL) / real rows, and the aux
     dict.  ``batch`` holds inputs, lengths, speakers; ``noise`` holds
     ``gumbel`` and ``decoder``."""
@@ -102,6 +105,7 @@ def training_loss(params: dict, cfg: ModelConfig, batch: dict, noise: dict,
                          gumbel_noise=noise.get("gumbel"),
                          decoder_noise=noise["decoder"],
                          entire_data_size=entire_data_size,
-                         temperature=temperature, no_sample=no_sample)
+                         temperature=temperature, no_sample=no_sample,
+                         fused_cells=fused_cells)
     total = out["emission_loss"] + out["offset_loss"] + out["kl_loss"]
     return total / out["num_rows"], out

@@ -65,6 +65,12 @@ SIGNATURES = {
                 "abcd_gru_decoder_bwd": [_P] * 35 + [_I] * 7 + [_P],
                 "abcd_rnn_decoder_fwd": [_P] * 19 + [_I] * 6 + [_F, _I, _P],
                 "abcd_rnn_decoder_bwd": [_P] * 33 + [_I] * 6 + [_F, _I, _P],
+                "abcd_decoder_loop_bwd": [_P] * 27 + [_I] * 6 + [_P],
+                "abcd_gru_decoder_loop_bwd": [_P] * 24 + [_I] * 6 + [_P],
+                "abcd_rnn_decoder_loop_bwd":
+                    [_P] * 22 + [_I] * 5 + [_F, _I, _P],
+                "abcd_decoder_nll_fwd": [_P] * 17 + [_I] * 6 + [_P],
+                "abcd_decoder_nll_bwd": [_P] * 27 + [_I] * 6 + [_P],
                 "abcd_decoder_rows": [_I] * 5,
                 "abcd_decoder_smem_bytes": [_I] * 6,
                 "abcd_decoder_smem_limit": [_I] * 2},

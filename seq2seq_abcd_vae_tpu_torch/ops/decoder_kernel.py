@@ -3,24 +3,28 @@
 
 Replaces seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:
 decoder_loop_fused_losses (``_fused_fwd_call`` / ``_fused_fwd_kernel``,
-``_fused_bwd_call`` / ``_fused_bwd_kernel``, with_offset=True), the
-forward of decoder_loop (``_fwd_call`` / ``_fwd_kernel``), for which see
-:func:`decoder_loop`, gru_decoder_loop_fused_losses
-(``_gru_floss_fwd_call`` / ``_gru_floss_bwd_call``), for which see
+``_fused_bwd_call`` / ``_fused_bwd_kernel``, with_offset=True),
+gru_decoder_loop_fused_losses (``_gru_floss_fwd_call`` /
+``_gru_floss_bwd_call``), for which see
 :func:`gru_decoder_loop_fused_losses`, rnn_decoder_loop_fused_losses
 (``_rnn_floss_fwd_call`` / ``_rnn_floss_bwd_call``), for which see
-:func:`rnn_decoder_loop_fused_losses`, and the forwards of
-gru_decoder_loop (``_gru_fwd_call``) and rnn_decoder_loop
-(``_rnn_fwd_call``), for which see :func:`gru_decoder_loop` and
-:func:`rnn_decoder_loop`.  The fused loop
+:func:`rnn_decoder_loop_fused_losses`; the plain sampled loops
+decoder_loop (``_fwd_call`` / ``_bwd_call``), gru_decoder_loop
+(``_gru_fwd_call`` / ``_gru_bwd_call``) and rnn_decoder_loop
+(``_rnn_fwd_call`` / ``_rnn_bwd_call``), forward and backward, for which
+see :func:`decoder_loop`, :func:`gru_decoder_loop` and
+:func:`rnn_decoder_loop`; and decoder_loop_fused_nll (the fused-loss
+calls with with_offset=False, ``_fused_loop_cvjp``), for which see
+:func:`decoder_loop_fused_nll`.  The fused loop
 samples its own feedback (zero first input, then the sampled emission of
 the previous position with the presampled ``noise``), accumulates the
 Gaussian emission NLL of positions 0..T-2 against ``targets`` and the
 offset MLP's BCE against (t == len - 1), and returns the last step's
 pre-mask h2, from which the caller adds position T-1's emission term.
 :func:`decoder_loop_fused_losses` wires both kernels into
-``torch.autograd``; each wrapper launches its kernel for CUDA tensors and
-takes its twin only for CPU tensors.
+``torch.autograd``, as do the sampled loops and the fused-NLL loop theirs;
+each wrapper launches its kernel for CUDA tensors and takes its twin only
+for CPU tensors.
 
 Arguments, in the JAX function's order and layouts ((in, out) matrices):
 noise and targets (T, B, F) position-major; lengths (B,) int32; w_cat
@@ -45,7 +49,8 @@ from .elman_kernel import _check_leak
 _LOG_2PI = math.log(2.0 * math.pi)
 # kernel kinds of csrc/decoder.cu (abcd_decoder_rows)
 (_FUSED_FWD, _FUSED_BWD, _LOOP_FWD, _GRU_FUSED_FWD, _GRU_FUSED_BWD,
- _RNN_FUSED_FWD, _RNN_FUSED_BWD, _GRU_LOOP_FWD, _RNN_LOOP_FWD) = range(9)
+ _RNN_FUSED_FWD, _RNN_FUSED_BWD, _GRU_LOOP_FWD, _RNN_LOOP_FWD, _LOOP_BWD,
+ _GRU_LOOP_BWD, _RNN_LOOP_BWD, _NLL_FWD, _NLL_BWD) = range(14)
 
 _NAMES = ("noise", "lengths", "w_cat", "bias", "b1", "w2m", "w2v", "b2",
           "w_ih", "targets", "wo1", "bo1", "wo2", "bo2", "h0", "c0")
@@ -98,6 +103,16 @@ def _check(args, cell: str = "LSTM"):
         raise ValueError(f"unsupported device {device}")
     if t < 1 or b < 1:
         raise ValueError("need at least one step and one row")
+
+
+def _check_more(device, named):
+    """The backward's extra operands: each ``(name, tensor, shape)`` a
+    contiguous float32 tensor of that shape on ``device``."""
+    for name, tensor, shape in named:
+        if (tuple(tensor.shape) != shape or tensor.dtype != torch.float32
+                or tensor.device != device or not tensor.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 {shape} on "
+                             f"{device}")
 
 
 def _masks(t, lengths, device):
@@ -277,7 +292,8 @@ def _weight_grads(st, hidden, m, f, at_b, cell: str = "LSTM"):
     the Elman cell (dw_cat, dbias, db1, ...), for the GRU (dw_cat, db_ih,
     db_hh, db1, ...), whose dbig stream holds dhp, the cotangent of
     h @ W_hh + b_hh, and whose ``dnp`` stream the candidate third of dxp,
-    that of x @ W_ih + b_ih."""
+    that of x @ W_ih + b_ih; the offset MLP's (dwo1, dbo1, dwo2, dbo2)
+    last, where the streams hold them (the fused-loss backwards)."""
     gru = cell == "GRU"
     gh = _CELLS[cell][1] * hidden
     dbig = st["dbig"]
@@ -296,12 +312,14 @@ def _weight_grads(st, hidden, m, f, at_b, cell: str = "LSTM"):
     dw2m = at_b(st["emh"][:, :m], st["dem"][:, :f])
     dw2v = at_b(st["emh"][:, m:], st["dem"][:, f:])
     db2 = at_b(None, st["dem"]).reshape(-1)
+    grads = (dw_cat, *biases, dbig_sum[gh:], dw2m, dw2v, db2, dw_ih)
+    if "doh" not in st:
+        return grads
     dwo1 = at_b(st["h2"], st["doh"])
     dbo1 = at_b(None, st["doh"]).reshape(-1)
     dwo2 = at_b(st["oh"], st["dzo"]).reshape(-1)
     dbo2 = at_b(None, st["dzo"]).reshape(-1)
-    return (dw_cat, *biases, dbig_sum[gh:], dw2m, dw2v, db2, dw_ih, dwo1,
-            dbo1, dwo2, dbo2)
+    return grads + (dwo1, dbo1, dwo2, dbo2)
 
 
 def decoder_fused_losses_bwd(*args):
@@ -314,14 +332,8 @@ def decoder_fused_losses_bwd(*args):
     _check(fwd_args)
     t, b, f, hidden, m, mo = _shapes(fwd_args)
     dev = fwd_args[0].device
-    for name, tensor, shape in (("hs", hs, (t, b, hidden)),
-                                ("cs", cs, (t, b, hidden)),
-                                ("dlast", dlast, (b, hidden)),
-                                ("gscale", gscale, (2,))):
-        if (tuple(tensor.shape) != shape or tensor.dtype != torch.float32
-                or tensor.device != dev or not tensor.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous float32 {shape} on "
-                             f"{dev}")
+    _check_more(dev, (("hs", hs, (t, b, hidden)), ("cs", cs, (t, b, hidden)),
+                      ("dlast", dlast, (b, hidden)), ("gscale", gscale, (2,))))
     if dev.type == "cpu":
         return decoder_fused_losses_bwd_plain(*args)
     lib = _build.load("decoder")
@@ -554,13 +566,8 @@ def gru_decoder_fused_losses_bwd(*args):
     _check(fwd_args, "GRU")
     t, b, f, hidden, m, mo = _shapes(fwd_args, "GRU")
     dev = fwd_args[0].device
-    for name, tensor, shape in (("hs", hs, (t, b, hidden)),
-                                ("dlast", dlast, (b, hidden)),
-                                ("gscale", gscale, (2,))):
-        if (tuple(tensor.shape) != shape or tensor.dtype != torch.float32
-                or tensor.device != dev or not tensor.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous float32 {shape} on "
-                             f"{dev}")
+    _check_more(dev, (("hs", hs, (t, b, hidden)),
+                      ("dlast", dlast, (b, hidden)), ("gscale", gscale, (2,))))
     if dev.type == "cpu":
         return gru_decoder_fused_losses_bwd_plain(*args)
     lib = _build.load("decoder")
@@ -781,13 +788,8 @@ def rnn_decoder_fused_losses_bwd(*args, leak=1.0):
     leak = _check_leak(leak)
     t, b, f, hidden, m, mo = _shapes(fwd_args, "RNN")
     dev = fwd_args[0].device
-    for name, tensor, shape in (("hs", hs, (t, b, hidden)),
-                                ("dlast", dlast, (b, hidden)),
-                                ("gscale", gscale, (2,))):
-        if (tuple(tensor.shape) != shape or tensor.dtype != torch.float32
-                or tensor.device != dev or not tensor.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous float32 {shape} on "
-                             f"{dev}")
+    _check_more(dev, (("hs", hs, (t, b, hidden)),
+                      ("dlast", dlast, (b, hidden)), ("gscale", gscale, (2,))))
     if dev.type == "cpu":
         return rnn_decoder_fused_losses_bwd_plain(*args, leak=leak)
     lib = _build.load("decoder")
@@ -862,7 +864,8 @@ def rnn_decoder_loop_fused_losses(noise, lengths, w_cat, bias, b1, w2m, w2v,
 
 
 # ---------------------------------------------------------------------------
-# the plain sampled loop (decoder_pallas.decoder_loop), forward
+# the plain sampled loops (decoder_pallas.decoder_loop, gru_decoder_loop and
+# rnn_decoder_loop), forward and backward
 # ---------------------------------------------------------------------------
 
 _LOOP_NAMES = {
@@ -910,6 +913,7 @@ def _check_loop(args, cell: str = "LSTM"):
     return t, b, f, hidden, m
 
 
+
 def _sampled_input(noise, s, pmt, mean, logvar):
     """The fed-back input of step ``s``: position s-1's sampled emission
     (noise[s - 1]), zero on a row's first step and past its end."""
@@ -920,20 +924,22 @@ def _sampled_input(noise, s, pmt, mean, logvar):
 
 
 def decoder_loop_plain(noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih,
-                       h0, c0):
+                       h0, c0, return_carries: bool = False):
     """Plain PyTorch twin of the ``decoder_loop`` forward kernel: the scan
     body of models/decoder.py:_run_direction in sample mode, with the
     output slot map of decoder_pallas._fwd_call.
 
     Returns (outs (T, B, H) the PRE-mask h2 of each step, mean_s and
     logvar_s (T, B, F) position-indexed: slot p holds the emission computed
-    at step p + 1, slot T - 1 step 0's).
+    at step p + 1, slot T - 1 step 0's), and with ``return_carries`` the
+    masked carries hs, cs (T, B, H) after each step (the backward's
+    residuals).
     """
     t, b, f, hidden, m = _check_loop((noise, lengths, w_cat, bias, b1, w2m,
                                       w2v, b2, w_ih, h0, c0))
     mt, pmt, _ = _masks(t, lengths, noise.device)
     h, c = h0, c0
-    outs, means, logvars = [], [], []
+    outs, means, logvars, hs, cs = [], [], [], [], []
     for s in range(t):
         big = h @ w_cat
         _, mean, logvar = _emission(big, 4 * hidden, m, b1, w2m, w2v, b2,
@@ -945,14 +951,224 @@ def decoder_loop_plain(noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih,
         outs.append(h2)
         means.append(mean)
         logvars.append(logvar)
+        hs.append(h)
+        cs.append(c)
     # step s's emission belongs to position s - 1; step 0's parks on T - 1
     shift = lambda xs: torch.stack(xs[1:] + xs[:1])
-    return torch.stack(outs), shift(means), shift(logvars)
+    out = (torch.stack(outs), shift(means), shift(logvars))
+    return out + (torch.stack(hs), torch.stack(cs)) if return_carries else out
+
+
+def decoder_loop_fwd(*args, save: bool = True):
+    """The forward of ``decoder_loop``: (outs, mean_s, logvar_s, hs, cs);
+    hs / cs are None when ``save`` is False (no backward follows, so the
+    kernel writes neither).  CUDA tensors launch the kernel (one count on
+    ``decoder_loop``); CPU tensors take the twin."""
+    t, b, f, hidden, m = _check_loop(args)
+    if args[0].device.type == "cpu":
+        out = decoder_loop_plain(*args, return_carries=True)
+        return out if save else out[:3] + (None, None)
+    lib = _build.load("decoder")
+    rows = _build.row_tile(lib, "decoder", _LOOP_FWD, (f, hidden, m, 0),
+                           "decoder_loop")
+    dev = args[0].device
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                       device=dev)
+    outs, mean_s, logvar_s = empty(t, b, hidden), empty(t, b, f), empty(t, b,
+                                                                        f)
+    hs, cs = (empty(t, b, hidden), empty(t, b, hidden)) if save else (None,
+                                                                      None)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.abcd_decoder_loop_fwd(
+            *[a.data_ptr() for a in args], outs.data_ptr(),
+            mean_s.data_ptr(), logvar_s.data_ptr(), ptr(hs), ptr(cs), t, b,
+            f, hidden, m, rows, stream)
+    _build.check(lib, err, "decoder_loop")
+    decoder_loop.launches += 1
+    return outs, mean_s, logvar_s, hs, cs
+
+
+def _loop_adjoint_plain(cell, noise, lengths, w_cat, biases, b1, w2m, w2v,
+                        b2, w_ih, h0, c0, hs, cs, douts, dmean_s=None,
+                        dlogvar_s=None, targets=None, gnll=None, leak=1.0):
+    """The explicit reverse-time adjoint of a sampled loop without the
+    offset MLP (not autograd through it), in the order of operations of
+    decoder_pallas._bwd_kernel (the LSTM loop, with the position-indexed
+    ``dmean_s`` / ``dlogvar_s``: step t's emission reads slot t - 1, none at
+    t == 0), _gru_bwd_kernel, _rnn_bwd_kernel (``douts`` alone) and
+    _fused_bwd_kernel with_offset=False (the LSTM's fused NLL: the
+    emission's cotangents from ``targets`` and ``gnll``).  ``douts`` is the
+    cotangent of each step's pre-mask h2; ``biases`` the cell's (bias,) or
+    the GRU's (b_ih, b_hh).  Returns the weight gradients in the arguments'
+    layouts, then dh0 (and the LSTM's dc0)."""
+    t, b, f = noise.shape
+    hidden, m = w_cat.shape[0], w2m.shape[0]
+    gh = _CELLS[cell][1] * hidden
+    mt, pmt, _ = _masks(t, lengths, noise.device)
+    zero_f = noise.new_zeros((b, f))
+    dh = h0.new_zeros((b, hidden))
+    dc = h0.new_zeros((b, hidden))
+    names = ("hp", "dbig", "x", "emh", "dem") + (("dnp",) if cell == "GRU"
+                                                 else ())
+    streams = {k: [None] * t for k in names}
+    for s in reversed(range(t)):
+        h_prev = hs[s - 1] if s > 0 else h0
+        eps = noise[s - 1] if s > 0 else zero_f
+        big = h_prev @ w_cat
+        emh, mean, logvar = _emission(big, gh, m, b1, w2m, w2v, b2, f)
+        std = torch.exp(0.5 * logvar)
+        x = torch.where(pmt[s], mean + std * eps, 0.0)
+        dh2 = douts[s] + torch.where(mt[s], dh, 0.0)
+        dh_pass = torch.where(mt[s], 0.0, dh)
+        if cell == "LSTM":
+            c_prev = cs[s - 1] if s > 0 else c0
+            i, fg, g, o, c2, _ = _cell(big, x, w_ih, biases[0], c_prev,
+                                       hidden)
+            tc = torch.tanh(c2)
+            do = dh2 * tc
+            dc2 = torch.where(mt[s], dc, 0.0) + dh2 * o * (1.0 - tc * tc)
+            df, di, dg = dc2 * c_prev, dc2 * g, dc2 * i
+            dgate = dxp = torch.cat([di * i * (1.0 - i), df * fg * (1.0 - fg),
+                                     dg * (1.0 - g * g), do * o * (1.0 - o)],
+                                    dim=-1)
+            dc = torch.where(mt[s], 0.0, dc) + dc2 * fg
+        elif cell == "GRU":
+            r, z, n, hn, _ = _gru_cell(big, x, w_ih, *biases, h_prev, hidden)
+            dn = dh2 * (1.0 - z)
+            dz = dh2 * (h_prev - n)
+            dh_pass = dh_pass + dh2 * z
+            dnpre = dn * (1.0 - n * n)
+            drpre = dnpre * hn * r * (1.0 - r)
+            dzpre = dz * z * (1.0 - z)
+            dxp = torch.cat([drpre, dzpre, dnpre], dim=-1)
+            dgate = torch.cat([drpre, dzpre, dnpre * r], dim=-1)
+            streams["dnp"][s] = dnpre
+        else:
+            u, _ = _rnn_cell(big, x, w_ih, biases[0], h_prev, hidden, leak)
+            dgate = dxp = (leak * dh2) * (1.0 - u * u)
+            dh_pass = dh_pass + (1.0 - leak) * dh2
+        dx = torch.where(pmt[s], dxp @ w_ih.T, 0.0)
+        if targets is not None:
+            inv_var = torch.exp(-logvar)
+            diff = (targets[s - 1] if s > 0 else zero_f) - mean
+            gm = torch.where(pmt[s], gnll, 0.0)
+            dmean = dx - gm * diff * inv_var
+            dlogvar = dx * 0.5 * std * eps + gm * 0.5 * (1.0 - diff * inv_var
+                                                         * diff)
+        else:
+            dmean, dlogvar = dx, dx * 0.5 * std * eps
+        if dmean_s is not None and s > 0:
+            dmean = dmean + dmean_s[s - 1]
+            dlogvar = dlogvar + dlogvar_s[s - 1]
+        demh = torch.cat([dmean @ w2m.T, dlogvar @ w2v.T], dim=-1)
+        dbig = torch.cat([dgate, demh * (1.0 - emh * emh)], dim=-1)
+        dh = dh_pass + dbig @ w_cat.T
+        for k, v in (("hp", h_prev), ("dbig", dbig), ("x", x), ("emh", emh),
+                     ("dem", torch.cat([dmean, dlogvar], -1))):
+            streams[k][s] = v
+    st = {k: torch.cat(v) for k, v in streams.items()}  # (T * B, .)
+    grads = _weight_grads(st, hidden, m, f, wgrad.at_b_plain, cell)
+    return grads + ((dh, dc) if cell == "LSTM" else (dh,))
+
+
+def _loop_streams(t, b, f, hidden, m, g, dev, cell):
+    """The (T, B, .) streams a loop backward kernel writes, in the order
+    of its arguments."""
+    widths = {"hp": hidden, "dbig": g, "x": f, "emh": 2 * m, "dem": 2 * f,
+              "dnp": hidden}
+    order = ("hp", "dbig", "x", "emh", "dem") + (("dnp",) if cell == "GRU"
+                                                 else ())
+    return {k: torch.empty((t, b, widths[k]), dtype=torch.float32,
+                           device=dev) for k in order}
+
+
+def _loop_bwd_launch(entry, what, kind, cell, fwd_args, w_idx, extra,
+                     n_state, dims, scalars=()):
+    """Launch a loop backward kernel (``lib.<entry>``): the forward's
+    arguments, the transposes of the weights at ``w_idx`` (w_cat, w_ih,
+    w2m, w2v), the ``extra`` tensors, the n_state initial-state cotangents
+    and the streams, then ``dims`` (T, B, F, H, m), ``scalars`` and the row
+    tile; then the weight gradients from the streams.  Returns the
+    gradients and the initial-state cotangents."""
+    t, b, f, hidden, m = dims
+    dev = fwd_args[0].device
+    lib = _build.load("decoder")
+    rows = _build.row_tile(lib, "decoder", kind, (f, hidden, m, 0), what)
+    transposed = [fwd_args[i].transpose(0, 1).contiguous() for i in w_idx]
+    g = fwd_args[2].shape[1]
+    st = _loop_streams(t, b, f, hidden, m, g, dev, cell)
+    states = [torch.empty((b, hidden), dtype=torch.float32, device=dev)
+              for _ in range(n_state)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(
+            *[a.data_ptr() for a in fwd_args],
+            *[w.data_ptr() for w in transposed],
+            *[x.data_ptr() for x in extra], *[x.data_ptr() for x in states],
+            *[v.data_ptr() for v in st.values()], t, b, f, hidden, m,
+            *scalars, rows, stream)
+        _build.check(lib, err, what)
+        flat = {k: v.view(t * b, v.shape[-1]) for k, v in st.items()}
+        grads = _weight_grads(flat, hidden, m, f, wgrad.at_b, cell)
+    return grads + tuple(states)
+
+
+def decoder_loop_bwd_plain(noise, lengths, w_cat, bias, b1, w2m, w2v, b2,
+                           w_ih, h0, c0, hs, cs, douts, dmean_s, dlogvar_s):
+    """Plain PyTorch twin of the ``decoder_loop`` backward kernel: the
+    reverse-time adjoint of decoder_pallas._bwd_kernel.  ``douts`` (T, B, H)
+    is the cotangent of outs, ``dmean_s`` / ``dlogvar_s`` (T, B, F) those of
+    the position-indexed emission streams (slot T - 1, the caller's
+    overwrite, is never read).  Returns (dw_cat, dbias, db1, dw2m, dw2v,
+    db2, dw_ih, dh0, dc0)."""
+    return _loop_adjoint_plain("LSTM", noise, lengths, w_cat, (bias,), b1,
+                               w2m, w2v, b2, w_ih, h0, c0, hs, cs, douts,
+                               dmean_s=dmean_s, dlogvar_s=dlogvar_s)
+
+
+def decoder_loop_bwd(*args):
+    """The backward of ``decoder_loop``: the forward's arguments, then hs,
+    cs (the saved carries), douts, dmean_s and dlogvar_s.  Returns the 9
+    gradients of ``decoder_loop_bwd_plain``.  CUDA tensors launch the
+    reverse-time kernel, then ``ops/wgrad.py``'s reductions of its streams
+    (one count); CPU tensors take the twin."""
+    fwd_args, more = args[:11], args[11:]
+    t, b, f, hidden, m = _check_loop(fwd_args)
+    dev = fwd_args[0].device
+    _check_more(dev, zip(("hs", "cs", "douts", "dmean_s", "dlogvar_s"), more,
+                         ((t, b, hidden),) * 3 + ((t, b, f),) * 2))
+    if dev.type == "cpu":
+        return decoder_loop_bwd_plain(*args)
+    grads = _loop_bwd_launch("abcd_decoder_loop_bwd", "decoder_loop backward",
+                             _LOOP_BWD, "LSTM", fwd_args, (2, 8, 5, 6), more,
+                             2, (t, b, f, hidden, m))
+    decoder_loop_bwd.launches += 1
+    return grads
+
+
+decoder_loop_bwd.launches = 0
+
+
+class _DecoderLoop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *args):
+        outs, mean_s, logvar_s, hs, cs = decoder_loop_fwd(*args)
+        ctx.save_for_backward(*args, hs, cs)
+        return outs, mean_s, logvar_s
+
+    @staticmethod
+    def backward(ctx, douts, dmean_s, dlogvar_s):
+        grads = decoder_loop_bwd(*ctx.saved_tensors, douts.contiguous(),
+                                 dmean_s.contiguous(), dlogvar_s.contiguous())
+        return (None, None) + grads
 
 
 def decoder_loop(noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, h0,
                  c0):
-    """The whole sampled decoder loop, forward only.
+    """The whole sampled decoder loop, differentiable in every weight and
+    in h0 / c0.
 
     Args in the order and layouts of decoder_pallas.decoder_loop: noise
     (T, B, F) UNSHIFTED (step t consumes noise[t - 1]), lengths (B,) int32,
@@ -960,50 +1176,30 @@ def decoder_loop(noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, h0,
     (m, F), b2 (2F,), w_ih (F, 4H), h0 / c0 (B, H).
 
     Returns (outs, mean_s, logvar_s) as :func:`decoder_loop_plain`.  CUDA
-    tensors launch the kernel (one count); CPU tensors take the twin.  The
-    kernel writes no carry trajectories: nothing differentiates through
-    this loop in the port (its backward is not ported).
+    tensors launch the kernel (one count); CPU tensors take the twin.
+    Without autograd only the forward runs, and it saves no carries; with
+    it, the backward is :func:`decoder_loop_bwd`.
     """
     args = (noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, h0, c0)
-    t, b, f, hidden, m = _check_loop(args)
-    if noise.device.type == "cpu":
-        return decoder_loop_plain(*args)
-    lib = _build.load("decoder")
-    rows = _build.row_tile(lib, "decoder", _LOOP_FWD, (f, hidden, m, 0),
-                           "decoder_loop")
-    dev = noise.device
-    outs = torch.empty((t, b, hidden), dtype=torch.float32, device=dev)
-    mean_s = torch.empty((t, b, f), dtype=torch.float32, device=dev)
-    logvar_s = torch.empty_like(mean_s)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.abcd_decoder_loop_fwd(
-            *[a.data_ptr() for a in args], outs.data_ptr(),
-            mean_s.data_ptr(), logvar_s.data_ptr(), None, None, t, b, f,
-            hidden, m, rows, stream)
-    _build.check(lib, err, "decoder_loop")
-    decoder_loop.launches += 1
-    return outs, mean_s, logvar_s
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _DecoderLoop.apply(*args)
+    return decoder_loop_fwd(*args, save=False)[:3]
 
 
 decoder_loop.launches = 0
 
 
-# ---------------------------------------------------------------------------
-# the GRU and Elman / ESN sampled loops (decoder_pallas.gru_decoder_loop and
-# rnn_decoder_loop), forward
-# ---------------------------------------------------------------------------
-
 def gru_decoder_loop_plain(noise, lengths, w_cat, b_ih, b_hh, b1, w2m, w2v,
-                           b2, w_ih, h0):
+                           b2, w_ih, h0, return_carries: bool = False):
     """Plain PyTorch twin of the ``gru_decoder_loop`` forward kernel: the
     loop of decoder_pallas._gru_fwd_kernel, step by step.  Returns outs
-    (T, B, H), the PRE-mask h2 of each step."""
+    (T, B, H), the PRE-mask h2 of each step, and with ``return_carries``
+    also hs (T, B, H), the masked carries."""
     args = (noise, lengths, w_cat, b_ih, b_hh, b1, w2m, w2v, b2, w_ih, h0)
     t, b, f, hidden, m = _check_loop(args, "GRU")
     mt, pmt, _ = _masks(t, lengths, noise.device)
     h = h0
-    outs = []
+    outs, hs = [], []
     for s in range(t):
         big = h @ w_cat
         _, mean, logvar = _emission(big, 3 * hidden, m, b1, w2m, w2v, b2, f)
@@ -1011,12 +1207,88 @@ def gru_decoder_loop_plain(noise, lengths, w_cat, b_ih, b_hh, b1, w2m, w2v,
         h2 = _gru_cell(big, x, w_ih, b_ih, b_hh, h, hidden)[-1]
         h = torch.where(mt[s], h2, h)
         outs.append(h2)
+        hs.append(h)
+    if return_carries:
+        return torch.stack(outs), torch.stack(hs)
     return torch.stack(outs)
+
+
+def gru_decoder_loop_fwd(*args, save: bool = True):
+    """The forward of ``gru_decoder_loop``: (outs, hs); hs is None when
+    ``save`` is False.  CUDA tensors launch the kernel (one count on
+    ``gru_decoder_loop``); CPU tensors take the twin."""
+    t, b, f, hidden, m = _check_loop(args, "GRU")
+    if args[0].device.type == "cpu":
+        outs, hs = gru_decoder_loop_plain(*args, return_carries=True)
+        return outs, hs if save else None
+    lib = _build.load("decoder")
+    rows = _build.row_tile(lib, "decoder", _GRU_LOOP_FWD, (f, hidden, m, 0),
+                           "gru_decoder_loop")
+    dev = args[0].device
+    outs = torch.empty((t, b, hidden), dtype=torch.float32, device=dev)
+    hs = torch.empty_like(outs) if save else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.abcd_gru_decoder_loop_fwd(
+            *[a.data_ptr() for a in args], outs.data_ptr(),
+            None if hs is None else hs.data_ptr(), t, b, f, hidden, m, rows,
+            stream)
+    _build.check(lib, err, "gru_decoder_loop")
+    gru_decoder_loop.launches += 1
+    return outs, hs
+
+
+def gru_decoder_loop_bwd_plain(noise, lengths, w_cat, b_ih, b_hh, b1, w2m,
+                               w2v, b2, w_ih, h0, hs, douts):
+    """Plain PyTorch twin of the ``gru_decoder_loop`` backward kernel: the
+    reverse-time adjoint of decoder_pallas._gru_bwd_kernel; ``douts``
+    (T, B, H) is the cotangent of outs.  Returns (dw_cat, db_ih, db_hh,
+    db1, dw2m, dw2v, db2, dw_ih, dh0)."""
+    return _loop_adjoint_plain("GRU", noise, lengths, w_cat, (b_ih, b_hh),
+                               b1, w2m, w2v, b2, w_ih, h0, None, hs, None,
+                               douts)
+
+
+def gru_decoder_loop_bwd(*args):
+    """The backward of ``gru_decoder_loop``: the forward's arguments, then
+    hs (the saved carries) and douts.  Returns the 9 gradients of
+    ``gru_decoder_loop_bwd_plain``.  CUDA tensors launch the reverse-time
+    kernel, then ``ops/wgrad.py``'s reductions of its streams (one count);
+    CPU tensors take the twin."""
+    fwd_args, more = args[:11], args[11:]
+    t, b, f, hidden, m = _check_loop(fwd_args, "GRU")
+    dev = fwd_args[0].device
+    _check_more(dev, zip(("hs", "douts"), more, ((t, b, hidden),) * 2))
+    if dev.type == "cpu":
+        return gru_decoder_loop_bwd_plain(*args)
+    grads = _loop_bwd_launch("abcd_gru_decoder_loop_bwd",
+                             "gru_decoder_loop backward", _GRU_LOOP_BWD,
+                             "GRU", fwd_args, (2, 9, 6, 7), more, 1,
+                             (t, b, f, hidden, m))
+    gru_decoder_loop_bwd.launches += 1
+    return grads
+
+
+gru_decoder_loop_bwd.launches = 0
+
+
+class _GRUDecoderLoop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *args):
+        outs, hs = gru_decoder_loop_fwd(*args)
+        ctx.save_for_backward(*args, hs)
+        return outs
+
+    @staticmethod
+    def backward(ctx, douts):
+        return (None, None) + gru_decoder_loop_bwd(*ctx.saved_tensors,
+                                                   douts.contiguous())
 
 
 def gru_decoder_loop(noise, lengths, w_cat, b_ih, b_hh, b1, w2m, w2v, b2,
                      w_ih, h0):
-    """The whole sampled GRU decoder loop, forward only.
+    """The whole sampled GRU decoder loop, differentiable in every weight
+    and in h0.
 
     Args in the order and layouts of decoder_pallas.gru_decoder_loop: noise
     (T, B, F) UNSHIFTED (step t consumes noise[t - 1]), lengths (B,) int32,
@@ -1027,42 +1299,30 @@ def gru_decoder_loop(noise, lengths, w_cat, b_ih, b_hh, b1, w2m, w2v, b2,
     Returns outs (T, B, H), the pre-mask h2 of each step, as the JAX
     function does (the caller computes the emissions from them).  CUDA
     tensors launch the kernel (one count); CPU tensors take
-    ``gru_decoder_loop_plain``.  The kernel writes no carry trajectory:
-    nothing differentiates through this loop in the port (its backward is
-    not ported).
+    ``gru_decoder_loop_plain``.  Without autograd only the forward runs,
+    and it saves no carries; with it, the backward is
+    :func:`gru_decoder_loop_bwd`.
     """
     args = (noise, lengths, w_cat, b_ih, b_hh, b1, w2m, w2v, b2, w_ih, h0)
-    t, b, f, hidden, m = _check_loop(args, "GRU")
-    if noise.device.type == "cpu":
-        return gru_decoder_loop_plain(*args)
-    lib = _build.load("decoder")
-    rows = _build.row_tile(lib, "decoder", _GRU_LOOP_FWD, (f, hidden, m, 0),
-                           "gru_decoder_loop")
-    outs = torch.empty((t, b, hidden), dtype=torch.float32,
-                       device=noise.device)
-    with torch.cuda.device(noise.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.abcd_gru_decoder_loop_fwd(
-            *[a.data_ptr() for a in args], outs.data_ptr(), None, t, b, f,
-            hidden, m, rows, stream)
-    _build.check(lib, err, "gru_decoder_loop")
-    gru_decoder_loop.launches += 1
-    return outs
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _GRUDecoderLoop.apply(*args)
+    return gru_decoder_loop_fwd(*args, save=False)[0]
 
 
 gru_decoder_loop.launches = 0
 
 
 def rnn_decoder_loop_plain(noise, lengths, w_cat, bias, b1, w2m, w2v, b2,
-                           w_ih, h0, leak=1.0):
+                           w_ih, h0, leak=1.0, return_carries: bool = False):
     """Plain PyTorch twin of the ``rnn_decoder_loop`` forward kernel: the
     loop of decoder_pallas._rnn_fwd_kernel, step by step.  Returns outs
-    (T, B, H), the PRE-mask h2 of each step."""
+    (T, B, H), the PRE-mask h2 of each step, and with ``return_carries``
+    also hs (T, B, H), the masked carries."""
     args = (noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, h0)
     t, b, f, hidden, m = _check_loop(args, "RNN")
     mt, pmt, _ = _masks(t, lengths, noise.device)
     h = h0
-    outs = []
+    outs, hs = [], []
     for s in range(t):
         big = h @ w_cat
         _, mean, logvar = _emission(big, hidden, m, b1, w2m, w2v, b2, f)
@@ -1070,12 +1330,92 @@ def rnn_decoder_loop_plain(noise, lengths, w_cat, bias, b1, w2m, w2v, b2,
         h2 = _rnn_cell(big, x, w_ih, bias, h, hidden, leak)[1]
         h = torch.where(mt[s], h2, h)
         outs.append(h2)
+        hs.append(h)
+    if return_carries:
+        return torch.stack(outs), torch.stack(hs)
     return torch.stack(outs)
+
+
+def rnn_decoder_loop_fwd(*args, leak=1.0, save: bool = True):
+    """The forward of ``rnn_decoder_loop``: (outs, hs); hs is None when
+    ``save`` is False.  CUDA tensors launch the kernel (one count on
+    ``rnn_decoder_loop``); CPU tensors take the twin."""
+    t, b, f, hidden, m = _check_loop(args, "RNN")
+    leak = _check_leak(leak)
+    if args[0].device.type == "cpu":
+        outs, hs = rnn_decoder_loop_plain(*args, leak=leak,
+                                          return_carries=True)
+        return outs, hs if save else None
+    lib = _build.load("decoder")
+    rows = _build.row_tile(lib, "decoder", _RNN_LOOP_FWD, (f, hidden, m, 0),
+                           "rnn_decoder_loop")
+    dev = args[0].device
+    outs = torch.empty((t, b, hidden), dtype=torch.float32, device=dev)
+    hs = torch.empty_like(outs) if save else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.abcd_rnn_decoder_loop_fwd(
+            *[a.data_ptr() for a in args], outs.data_ptr(),
+            None if hs is None else hs.data_ptr(), t, b, f, hidden, m, leak,
+            rows, stream)
+    _build.check(lib, err, "rnn_decoder_loop")
+    rnn_decoder_loop.launches += 1
+    return outs, hs
+
+
+def rnn_decoder_loop_bwd_plain(noise, lengths, w_cat, bias, b1, w2m, w2v,
+                               b2, w_ih, h0, hs, douts, leak=1.0):
+    """Plain PyTorch twin of the ``rnn_decoder_loop`` backward kernel: the
+    reverse-time adjoint of decoder_pallas._rnn_bwd_kernel; ``douts``
+    (T, B, H) is the cotangent of outs.  Returns (dw_cat, dbias, db1, dw2m,
+    dw2v, db2, dw_ih, dh0)."""
+    return _loop_adjoint_plain("RNN", noise, lengths, w_cat, (bias,), b1,
+                               w2m, w2v, b2, w_ih, h0, None, hs, None, douts,
+                               leak=leak)
+
+
+def rnn_decoder_loop_bwd(*args, leak=1.0):
+    """The backward of ``rnn_decoder_loop``: the forward's arguments, then
+    hs (the saved carries) and douts.  Returns the 8 gradients of
+    ``rnn_decoder_loop_bwd_plain``.  CUDA tensors launch the reverse-time
+    kernel, then ``ops/wgrad.py``'s reductions of its streams (one count);
+    CPU tensors take the twin."""
+    fwd_args, more = args[:10], args[10:]
+    t, b, f, hidden, m = _check_loop(fwd_args, "RNN")
+    leak = _check_leak(leak)
+    dev = fwd_args[0].device
+    _check_more(dev, zip(("hs", "douts"), more, ((t, b, hidden),) * 2))
+    if dev.type == "cpu":
+        return rnn_decoder_loop_bwd_plain(*args, leak=leak)
+    grads = _loop_bwd_launch("abcd_rnn_decoder_loop_bwd",
+                             "rnn_decoder_loop backward", _RNN_LOOP_BWD,
+                             "RNN", fwd_args, (2, 8, 5, 6), more, 1,
+                             (t, b, f, hidden, m), (leak,))
+    rnn_decoder_loop_bwd.launches += 1
+    return grads
+
+
+rnn_decoder_loop_bwd.launches = 0
+
+
+class _RNNDecoderLoop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, leak, *args):
+        outs, hs = rnn_decoder_loop_fwd(*args, leak=leak)
+        ctx.save_for_backward(*args, hs)
+        ctx.leak = leak
+        return outs
+
+    @staticmethod
+    def backward(ctx, douts):
+        return (None, None, None) + rnn_decoder_loop_bwd(
+            *ctx.saved_tensors, douts.contiguous(), leak=ctx.leak)
 
 
 def rnn_decoder_loop(noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, h0,
                      leak=1.0):
-    """The whole sampled Elman / ESN decoder loop, forward only.
+    """The whole sampled Elman / ESN decoder loop, differentiable in every
+    weight and in h0.
 
     Args in the order and layouts of decoder_pallas.rnn_decoder_loop: noise
     (T, B, F) UNSHIFTED, lengths (B,) int32, w_cat (H, H + 2m), bias (H,)
@@ -1084,27 +1424,159 @@ def rnn_decoder_loop(noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, h0,
 
     Returns outs (T, B, H), the pre-mask h2 of each step.  CUDA tensors
     launch the kernel (one count); CPU tensors take
-    ``rnn_decoder_loop_plain``.  No carry trajectory is written (its
-    backward is not ported).
+    ``rnn_decoder_loop_plain``.  Without autograd only the forward runs,
+    and it saves no carries; with it, the backward is
+    :func:`rnn_decoder_loop_bwd`.
     """
     args = (noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, h0)
-    t, b, f, hidden, m = _check_loop(args, "RNN")
     leak = _check_leak(leak)
-    if noise.device.type == "cpu":
-        return rnn_decoder_loop_plain(*args, leak=leak)
-    lib = _build.load("decoder")
-    rows = _build.row_tile(lib, "decoder", _RNN_LOOP_FWD, (f, hidden, m, 0),
-                           "rnn_decoder_loop")
-    outs = torch.empty((t, b, hidden), dtype=torch.float32,
-                       device=noise.device)
-    with torch.cuda.device(noise.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.abcd_rnn_decoder_loop_fwd(
-            *[a.data_ptr() for a in args], outs.data_ptr(), None, t, b, f,
-            hidden, m, leak, rows, stream)
-    _build.check(lib, err, "rnn_decoder_loop")
-    rnn_decoder_loop.launches += 1
-    return outs
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _RNNDecoderLoop.apply(leak, *args)
+    return rnn_decoder_loop_fwd(*args, leak=leak, save=False)[0]
 
 
 rnn_decoder_loop.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the LSTM loop with the emission NLL fused (decoder_pallas.
+# decoder_loop_fused_nll: the fused-loss kernels with with_offset=False)
+# ---------------------------------------------------------------------------
+
+_NLL_NAMES = ("noise", "lengths", "w_cat", "bias", "b1", "w2m", "w2v", "b2",
+              "w_ih", "targets", "h0", "c0")
+
+
+def _check_nll(args):
+    """Shapes, types and devices of a ``decoder_loop_fused_nll`` call: the
+    ``decoder_loop`` arguments and targets (T, B, F)."""
+    if len(args) != len(_NLL_NAMES):
+        raise TypeError(f"expected {len(_NLL_NAMES)} arguments")
+    dims = _check_loop(args[:9] + args[10:])
+    targets = args[9]
+    _check_more(args[0].device, (("targets", targets, tuple(args[0].shape)),))
+    return dims
+
+
+def decoder_fused_nll_fwd_plain(noise, lengths, w_cat, bias, b1, w2m, w2v,
+                                b2, w_ih, targets, h0, c0):
+    """Plain PyTorch twin of the fused-NLL forward kernel
+    (decoder_pallas._fused_fwd_kernel with with_offset=False): the sampled
+    loop, and the Gaussian NLL of positions 0..T-2 of its position-indexed
+    emissions against ``targets`` where the position is valid.
+
+    Returns (outs (T, B, H) the pre-mask h2 of each step, nll (), hs, cs
+    (T, B, H) the masked carries).
+    """
+    outs, mean_s, logvar_s, hs, cs = decoder_loop_plain(
+        noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, h0, c0,
+        return_carries=True)
+    t = noise.shape[0]
+    valid = (torch.arange(t - 1, device=noise.device)[:, None]
+             < lengths.long()[None, :]).unsqueeze(-1)
+    mean, logvar = mean_s[:-1], logvar_s[:-1]
+    diff = targets[:-1] - mean
+    nll_s = 0.5 * (_LOG_2PI + logvar + diff * torch.exp(-logvar) * diff)
+    return outs, torch.where(valid, nll_s, 0.0).sum(), hs, cs
+
+
+def decoder_fused_nll_fwd(*args, save: bool = True):
+    """The fused-NLL forward: (outs, nll, hs, cs); hs / cs are None when
+    ``save`` is False (no backward follows, so the kernel writes neither).
+    CUDA tensors launch the kernel (one count); CPU tensors take
+    ``decoder_fused_nll_fwd_plain``."""
+    t, b, f, hidden, m = _check_nll(args)
+    dev = args[0].device
+    if dev.type == "cpu":
+        out = decoder_fused_nll_fwd_plain(*args)
+        return out if save else out[:2] + (None, None)
+    lib = _build.load("decoder")
+    rows = _build.row_tile(lib, "decoder", _NLL_FWD, (f, hidden, m, 0),
+                           "decoder_loop_fused_nll")
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                       device=dev)
+    outs = empty(t, b, hidden)
+    hs, cs = (empty(t, b, hidden), empty(t, b, hidden)) if save else (None,
+                                                                      None)
+    blocks = -(-b // rows)
+    partial = torch.empty((blocks, 2), dtype=torch.float64, device=dev)
+    losses = empty(2)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.abcd_decoder_nll_fwd(
+            *[a.data_ptr() for a in args], outs.data_ptr(), ptr(hs), ptr(cs),
+            partial.data_ptr(), losses.data_ptr(), t, b, f, hidden, m, rows,
+            stream)
+    _build.check(lib, err, "decoder_loop_fused_nll")
+    decoder_fused_nll_fwd.launches += 1
+    return outs, losses[0].clone(), hs, cs
+
+
+decoder_fused_nll_fwd.launches = 0
+
+
+def decoder_fused_nll_bwd_plain(noise, lengths, w_cat, bias, b1, w2m, w2v,
+                                b2, w_ih, targets, h0, c0, hs, cs, douts,
+                                gscale):
+    """Plain PyTorch twin of the fused-NLL backward kernel: the reverse-time
+    adjoint of decoder_pallas._fused_bwd_kernel with with_offset=False.
+    ``douts`` (T, B, H) is the cotangent of outs, ``gscale`` (1,) that of
+    nll; the emission's cotangents come from the targets.  Returns (dw_cat,
+    dbias, db1, dw2m, dw2v, db2, dw_ih, dh0, dc0)."""
+    return _loop_adjoint_plain("LSTM", noise, lengths, w_cat, (bias,), b1,
+                               w2m, w2v, b2, w_ih, h0, c0, hs, cs, douts,
+                               targets=targets, gnll=gscale[0])
+
+
+def decoder_fused_nll_bwd(*args):
+    """The fused-NLL backward: the forward's arguments, then hs, cs (the
+    saved carries), douts (T, B, H) and gscale (1,) = the cotangent of nll.
+    Returns the 9 gradients of ``decoder_fused_nll_bwd_plain``.  CUDA
+    tensors launch the reverse-time kernel, then ``ops/wgrad.py``'s
+    reductions of its streams (one count); CPU tensors take the twin."""
+    fwd_args, more = args[:12], args[12:]
+    t, b, f, hidden, m = _check_nll(fwd_args)
+    dev = fwd_args[0].device
+    _check_more(dev, zip(("hs", "cs", "douts", "gscale"), more,
+                         ((t, b, hidden),) * 3 + ((1,),)))
+    if dev.type == "cpu":
+        return decoder_fused_nll_bwd_plain(*args)
+    grads = _loop_bwd_launch("abcd_decoder_nll_bwd",
+                             "decoder_loop_fused_nll backward", _NLL_BWD,
+                             "LSTM", fwd_args, (2, 8, 5, 6), more, 2,
+                             (t, b, f, hidden, m))
+    decoder_fused_nll_bwd.launches += 1
+    return grads
+
+
+decoder_fused_nll_bwd.launches = 0
+
+
+class _DecoderFusedNll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *args):
+        outs, nll, hs, cs = decoder_fused_nll_fwd(*args)
+        ctx.save_for_backward(*args, hs, cs)
+        return outs, nll
+
+    @staticmethod
+    def backward(ctx, douts, dnll):
+        grads = decoder_fused_nll_bwd(*ctx.saved_tensors, douts.contiguous(),
+                                      dnll.reshape(1).float().contiguous())
+        return (None, None) + grads[:7] + (None,) + grads[7:]
+
+
+def decoder_loop_fused_nll(noise, lengths, w_cat, bias, b1, w2m, w2v, b2,
+                           w_ih, targets, h0, c0):
+    """The LSTM decoder loop with the Gaussian emission NLL fused, as
+    decoder_pallas.decoder_loop_fused_nll: (outs (T, B, H) the pre-mask h2
+    of each step, nll ()), differentiable in every weight and in h0 / c0.
+    nll covers positions 0..T-2 (the caller adds T-1's term from outs[-1]);
+    targets are (T, B, F) position-major.  Without autograd only the
+    forward runs, and it saves no carries."""
+    args = (noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, targets,
+            h0, c0)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _DecoderFusedNll.apply(*args)
+    return decoder_fused_nll_fwd(*args, save=False)[:2]

@@ -21,7 +21,9 @@ frontend, the encoder (the LSTM's two directions in one kernel or one
 direction over the hoisted input projection, or the two directions of the
 GRU, the Elman RNN or the echo-state network in one kernel; forward and
 backward, the frozen ESN reservoir forward only), the fused-loss LSTM,
-GRU or Elman / ESN decoder loop (forward and backward).  Per-batch
+GRU or Elman / ESN decoder loop (forward and backward), or, for the cells
+left out of ``fused_cells``, the sampled decoder loop (forward and
+backward) with the losses over its streams.  Per-batch
 metrics stay on the device and are read once per epoch.  The random
 draws (Gumbel noise, the decoder's sampling noise) come from a
 ``torch.Generator`` on the device, seeded per (epoch, phase) from the
@@ -44,6 +46,7 @@ from ..data.batching import DataLoader, FrontendSpec, RawBatch
 from ..infer.encode import STFT_METHODS, resolve_device
 from ..models import abcd as abcd_mod
 from ..models import vae
+from ..models.decoder import CELLS
 from ..ops import stft as stft_ops
 from ..tree import tree_leaves, tree_map, tree_unflatten
 from . import checkpoint as ckpt
@@ -61,6 +64,9 @@ class StepStatics:
     epsilon: float
     normalizer: float
     stft_method: str = "fft"
+    # the decoder cells that train on the fused-loss kernels; the others
+    # take the stream path (cli/flags.fused_loss_cells)
+    fused_cells: tuple = CELLS
 
 
 def frontend(statics: StepStatics, audio: torch.Tensor,
@@ -91,7 +97,8 @@ def losses_and_metrics(params, statics: StepStatics, audio, num_frames,
     batch = {"inputs": inputs, "lengths": num_frames, "speakers": speakers}
     loss, aux = vae.training_loss(params, statics.model, batch, noise,
                                   entire_n, temperature=temperature,
-                                  no_sample=no_sample)
+                                  no_sample=no_sample,
+                                  fused_cells=statics.fused_cells)
     metrics = {k: aux[k].detach() for k in ("emission_loss", "offset_loss",
                                             "kl_loss", "num_rows")}
     metrics["loss"] = loss.detach()
@@ -151,10 +158,12 @@ class Learner:
                  speaker_embed_dim: Optional[int] = None,
                  prior_concentration: float = 1.0,
                  stft_method: str = "fft",
-                 batching_mode: Optional[str] = None):
+                 batching_mode: Optional[str] = None,
+                 fused_cells: tuple = CELLS):
         if stft_method not in STFT_METHODS:
             raise ValueError(f"unknown stft method: {stft_method}")
         self.device = resolve_device(device)
+        self.fused_cells = tuple(fused_cells)
         self.retrieval, self.log_file_path = update_log_handler(save_dir)
         self.save_dir = save_dir
         self.stft_method = stft_method
@@ -389,7 +398,8 @@ class Learner:
             "length_sorted")
         statics = StepStatics(self.model_cfg, frontend.frame_length,
                               frontend.step_size, frontend.window, epsilon,
-                              data_normalizer, self.stft_method)
+                              data_normalizer, self.stft_method,
+                              self.fused_cells)
 
         if self.retrieval:
             initial_epoch = self.last_epoch + 1

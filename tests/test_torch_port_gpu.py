@@ -627,3 +627,118 @@ def test_cell_decoder_loop_kernels_match_twins(cuda, shape, cell, leak):
     assert got.shape == want.shape == (t, b, h)
     # float32 products in another order through T sampled steps
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def _loop_case(rng, cuda, cell, leak, shape):
+    """A sampled loop's forward arguments (``decoder_loop``'s for the LSTM,
+    ``gru_decoder_loop``'s, ``rnn_decoder_loop``'s) with ragged lengths and
+    an empty row, and (forward, twin, backward, twin, keyword arguments)."""
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    t, b, f, h, m = shape
+    lengths = rng.integers(1, t + 1, size=b)
+    lengths[:2] = (t, 0)
+    if cell == "LSTM":
+        full = _decoder_args(rng, cuda, t, b, f, h, m, m, lengths)
+        args, prefix, kw = full[:9] + full[14:], "", {}
+    elif cell == "GRU":
+        full = _gru_decoder_args(rng, cuda, t, b, f, h, m, m, lengths)
+        args, prefix, kw = full[:10] + full[15:], "gru_", {}
+    else:
+        full = _rnn_decoder_args(rng, cuda, t, b, f, h, m, m, lengths, leak)
+        args, prefix, kw = full[:9] + full[14:], "rnn_", {"leak": leak}
+    fns = [getattr(dk, prefix + "decoder_loop" + part)
+           for part in ("", "_plain", "_bwd", "_bwd_plain")]
+    return args, fns, kw
+
+
+@pytest.mark.parametrize("cell,leak", [("LSTM", 1.0), ("GRU", 1.0),
+                                       ("RNN", 1.0), ("RNN", 0.5)])
+@pytest.mark.parametrize("shape", [(33, 21, 129, 256, 256),
+                                   (7, 5, 9, 40, 12),
+                                   (6, 11, 129, 1024, 256)])
+def test_decoder_loop_backward_kernels_match_twins(cuda, shape, cell, leak):
+    """The sampled loops' backwards (the decoder's stream training path):
+    every weight gradient and the initial state's against the twins, from
+    the forward kernel's saved carries (themselves against the twin's),
+    with the outs' cotangent and, for the LSTM, those of the emission
+    streams (slot T-1 never read), at the training shape, a small one and
+    H=1024 (its row tile picked at launch)."""
+    rng = np.random.default_rng(131)
+    args, (fwd, fwd_plain, bwd, bwd_plain), kw = _loop_case(
+        rng, cuda, cell, leak, shape)
+    t, b, f = args[0].shape
+    h = args[2].shape[0]
+    params = [a.clone().requires_grad_(True) if i >= 2 else a
+              for i, a in enumerate(args)]
+    if cell == "LSTM":
+        carries = fwd_plain(*args, return_carries=True)[3:]
+    else:
+        carries = fwd_plain(*args, **kw, return_carries=True)[1:]
+    normal = lambda *s: torch.from_numpy(rng.normal(size=s).astype(
+        np.float32)).to(cuda)
+    cots = [normal(t, b, h)] + ([normal(t, b, f), normal(t, b, f)]
+                                if cell == "LSTM" else [])
+    before = (fwd.launches, bwd.launches)
+    out = fwd(*params, **kw)
+    outs = out if cell == "LSTM" else (out,)
+    grads = torch.autograd.grad(sum((o * c).sum() for o, c in
+                                    zip(outs, cots)), params[2:])
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = bwd_plain(*args, *carries, *cots, **kw)
+    for i, (g, r) in enumerate(zip(grads, want)):
+        assert g.shape == r.shape, i
+        # sums over T * B rows in another order: 1e-4 of the leaf's max
+        assert _rel_max_err(g, r) <= 1e-4, i
+    direct = bwd(*args, *carries, *cots, **kw)
+    assert all(_rel_max_err(g, r) <= 1e-4 for g, r in zip(direct, want))
+
+
+@pytest.mark.parametrize("shape", [(33, 21, 129, 256, 256),
+                                   (7, 5, 9, 40, 12),
+                                   (6, 11, 129, 1024, 256)])
+def test_decoder_fused_nll_kernels_match_twins(cuda, shape):
+    """The LSTM loop with the emission NLL fused (decoder_loop_fused_nll):
+    outs, nll and the saved carries, then every gradient, against the
+    twins; two forward runs give the same bits."""
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    rng = np.random.default_rng(141)
+    t, b, f, h, m = shape
+    lengths = rng.integers(1, t + 1, size=b)
+    lengths[:2] = (t, 0)
+    full = _decoder_args(rng, cuda, t, b, f, h, m, m, lengths)
+    args = full[:10] + full[14:]
+    before = dk.decoder_fused_nll_fwd.launches
+    got = dk.decoder_fused_nll_fwd(*args)
+    want = dk.decoder_fused_nll_fwd_plain(*args)
+    again = dk.decoder_fused_nll_fwd(*args)
+    torch.cuda.synchronize()
+    assert dk.decoder_fused_nll_fwd.launches == before + 2
+    assert again[1].item() == got[1].item()
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+    for g, r in zip((got[0],) + got[2:], (want[0],) + want[2:]):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
+    douts = torch.from_numpy(rng.normal(size=(t, b, h)).astype(
+        np.float32)).to(cuda)
+    gscale = torch.tensor([0.7], device=cuda)
+    before = dk.decoder_fused_nll_bwd.launches
+    g_all = dk.decoder_fused_nll_bwd(*args, want[2], want[3], douts, gscale)
+    r_all = dk.decoder_fused_nll_bwd_plain(*args, want[2], want[3], douts,
+                                           gscale)
+    torch.cuda.synchronize()
+    assert dk.decoder_fused_nll_bwd.launches == before + 1
+    for i, (g, r) in enumerate(zip(g_all, r_all)):
+        assert g.shape == r.shape, i
+        assert _rel_max_err(g, r) <= 1e-4, i
+
+
+def test_stream_kernels_take_their_row_tiles_at_hidden_1024(cuda):
+    """The new kinds' shared memory at F=129, H=1024, m=256 fits a block
+    of this card at the row tile picked: 4 rows for the LSTM and GRU loop
+    backwards and the fused-NLL backward, 8 for the rest."""
+    from seq2seq_abcd_vae_tpu_torch.ops import _build
+    lib = _build.load("decoder")
+    for kind, rows in ((9, 4), (10, 4), (11, 8), (12, 8), (13, 4)):
+        assert lib.abcd_decoder_rows(kind, 129, 1024, 256, 0) == rows, kind
+        assert (lib.abcd_decoder_smem_bytes(kind, rows, 129, 1024, 256, 0)
+                <= min(232448, lib.abcd_decoder_smem_limit(kind, rows)))
