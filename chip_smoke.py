@@ -79,14 +79,27 @@ run from the repository root.  It
     stream path, also against the fused path's step on the card) on the
     kernels (card) against the same step on the twins (CPU): loss, every
     gradient and the parameters after the SGD step;
-13. times each kernel, its twin and one library call computing the same
+13. drives this slice's paths: (a) holds the launch-cost probe kernel
+    (``csrc/probe.cu``) to its twin, prints the marginal cost of a launch
+    and checks that a selector on the card chooses the kernels; (c) trains
+    through the CLI with ``SEQ2SEQ_KERNEL_RNG=1 -R LSTM`` (2 epochs, 1 of
+    pretraining), where the decoder's fused-loss kernels run in seed mode
+    only and the probe twice, with one ``Kernel backend:`` and one ``Kernel
+    backend decision:`` line in history.log; (b) runs the JAX package's
+    kernel-RNG check on the LSTM, GRU, RNN and ESN checkpoints
+    (``decoder_losses`` with a seed equals it fed the seed's dump, and the
+    CPU's twins), holds the dump kernel to its twin at the training shape
+    (the uniforms' integers exactly, the normals' moments) and each
+    fused-loss kernel's seed mode to the same kernel fed the dump and to
+    the twins, at hidden 256 and 1024;
+14. times each kernel, its twin and one library call computing the same
     function (a yardstick the port never calls) with CUDA events, and
-    prints one ``{"kernels": [...]}`` line (27 kernels) with launches,
+    prints one ``{"kernels": [...]}`` line (35 kernels) with launches,
     times, the bound and the largest error, after the serve latencies,
     the time of one served batch and of one training step by stage (the
     stream path's beside the fused path's), the training and encode
     throughputs;
-14. ends with ``{"ok": true, "device": {...}}`` as its last line.
+15. ends with ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result.  Without a card it exits 2 before doing anything.
@@ -1198,7 +1211,10 @@ def train_step_breakdown(dev, params0, cfg, batch, spec, noise, n_data,
 # ---------------------------------------------------------------------------
 
 def all_counters():
-    """Every kernel wrapper's counter, by the name in the kernels line."""
+    """Every kernel wrapper's counter, by the name in the kernels line (the
+    fused-loss kernels' seed mode on counters of their own).  The
+    launch-cost probe is counted apart (``probe_kernel.add_one``): every
+    Learner, Encoder and server on the card probes when it starts."""
     from seq2seq_abcd_vae_tpu_torch.ops import (decoder_kernel, elman_kernel,
                                                 gru_kernel, lstm_kernel)
     return dict(training_counters(),
@@ -1230,7 +1246,20 @@ def all_counters():
                 decoder_loop_fused_nll_fwd=(
                     decoder_kernel.decoder_fused_nll_fwd),
                 decoder_loop_fused_nll_bwd=(
-                    decoder_kernel.decoder_fused_nll_bwd))
+                    decoder_kernel.decoder_fused_nll_bwd),
+                decoder_noise_dump=decoder_kernel.decoder_noise_dump,
+                decoder_loop_fused_losses_seed_fwd=(
+                    decoder_kernel.decoder_fused_losses_fwd.seed),
+                decoder_loop_fused_losses_seed_bwd=(
+                    decoder_kernel.decoder_fused_losses_bwd.seed),
+                gru_decoder_loop_fused_losses_seed_fwd=(
+                    decoder_kernel.gru_decoder_fused_losses_fwd.seed),
+                gru_decoder_loop_fused_losses_seed_bwd=(
+                    decoder_kernel.gru_decoder_fused_losses_bwd.seed),
+                rnn_decoder_loop_fused_losses_seed_fwd=(
+                    decoder_kernel.rnn_decoder_fused_losses_fwd.seed),
+                rnn_decoder_loop_fused_losses_seed_bwd=(
+                    decoder_kernel.rnn_decoder_fused_losses_bwd.seed))
 
 
 def expected(counters: dict, **launches) -> dict:
@@ -2804,6 +2833,409 @@ def wide_hidden_phase(dev, rng):
 
 
 # ---------------------------------------------------------------------------
+# the training CLI's accelerator-only switches: the launch-cost probe and
+# backend selector, and the decoder's in-kernel noise (SEQ2SEQ_KERNEL_RNG)
+# ---------------------------------------------------------------------------
+
+# - the noise dump's normals vs the twin's: the same 24-bit integers (held
+#   exactly) through the card's logf / cosf against torch's log / cos, a
+#   few float32 ulps of |eps| <= 5.9.
+NOISE_ATOL = 2e-6
+# - a seed-mode kernel vs the same kernel fed the dump of its seed: the
+#   same draws, so the same arithmetic; expected bit for bit, held to 1e-6
+#   (the losses relative, each output and gradient of its largest value).
+SEED_RTOL = 1e-6
+# Operations of one in-kernel draw: Philox4x32-10's 10 rounds of 2
+# multiply-high, 2 multiply-low and 4 xor plus 9 key bumps of 2 adds (98
+# integer operations), then 2 shifts, 2 conversions, 5 multiplies and adds
+# and the log, cos and sqrt of Box-Muller (about 22).  The bound counts them
+# at the float32 rate of the card's table, which lists no integer rate.
+NOISE_OPS = 120.0
+KERNEL_RNG_ENV = {"SEQ2SEQ_KERNEL_RNG": "1"}
+
+
+def probe_phase(dev):
+    """(a) The launch-cost probe kernel against its twin on the probe's
+    (8, 128) float32 tensor, the marginal cost of one launch, and a fresh
+    selector on the card, which must choose the kernels (``pallas``)."""
+    from seq2seq_abcd_vae_tpu_torch.ops import probe_kernel as pk
+    from seq2seq_abcd_vae_tpu_torch.utils import backend_select
+    x = torch.arange(8 * 128, dtype=torch.float32, device=dev).reshape(
+        pk.PROBE_SHAPE) * 0.25
+    err = max_err(pk.add_one(x), pk.add_one_plain(x))
+    if err != 0.0:
+        raise AssertionError(f"probe kernel vs twin: {err}")
+    marginal = pk.marginal_launch_ms(dev)
+    selector = backend_select.for_device(dev)
+    choice = selector.current()
+    print(f"launch-cost probe: marginal launch {marginal:.6f} ms; selector "
+          f"decisions {selector.decisions}", flush=True)
+    if choice != "pallas":
+        raise AssertionError(f"the selector chose {choice!r} on the card: "
+                             f"{selector.report()}")
+    return {"max_abs_err": err, "marginal_launch_ms": marginal,
+            "report": selector.report()}
+
+
+def probe_entry(dev, launches, probe):
+    """The probe's kernels-line entry: its time, its twin's and torch's own
+    ``x + 1`` (the library call) on (8, 128), and its byte bound."""
+    from seq2seq_abcd_vae_tpu_torch.ops import probe_kernel as pk
+    x = torch.zeros(pk.PROBE_SHAPE, dtype=torch.float32, device=dev)
+    ms = cuda_ms(lambda: pk.add_one(x), iters=200, warmup=5)
+    plain_ms = cuda_ms(lambda: pk.add_one_plain(x), iters=200, warmup=5)
+    library_ms = cuda_ms(lambda: torch.add(x, 1.0), iters=200, warmup=5)
+    n = x.numel()
+    bms, by = bound_ms(n, 8.0 * n)
+    return {"name": "launch_cost_probe", "route": "cuda",
+            "source": "seq2seq_abcd_vae_tpu_torch/csrc/probe.cu",
+            "replaces": "seq2seq_abcd_vae_tpu/utils/backend_select.py:74",
+            "launches": launches, "max_abs_err": probe["max_abs_err"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms, "library_call": "torch.add(x, 1.0)",
+            "marginal_launch_ms": probe["marginal_launch_ms"],
+            "shape": "(8, 128) float32", "tolerance": "exact"}
+
+
+def noise_dump_phase(dev, launches, t=125, b=TRAIN_BATCH, f=129):
+    """(b) The dump kernel against its twin at the training shape: the
+    uniforms' 24-bit integers exactly, the normals within NOISE_ATOL, their
+    mean and variance within 5 standard errors of 0 and 1, two seeds and
+    two slots different; its time, its twin's, torch.randn's (the same
+    work, other bits) and its bound."""
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    seed = torch.tensor([[123457.0]], device=dev)
+    out, bits = dk.decoder_noise_dump(seed, t, b, f, with_bits=True)
+    want, want_bits = dk.decoder_noise_dump_plain(seed, t, b, f,
+                                                  with_bits=True)
+    torch.cuda.synchronize()
+    err = max_err(out, want)
+    n = out.numel()
+    mean, var = out.double().mean().item(), out.double().var().item()
+    other_seed = dk.decoder_noise_dump(seed + 1.0, t, b, f)
+    checks = {"bits_equal": bool(torch.equal(bits, want_bits)),
+              "max_abs_err": err,
+              "mean_in_5_se": abs(mean) <= 5.0 / math.sqrt(n),
+              "var_in_5_se": abs(var - 1.0) <= 5.0 * math.sqrt(2.0 / n),
+              "seeds_differ": not torch.equal(out, other_seed),
+              "slots_differ": not torch.equal(out[0], out[1])}
+    print(f"noise dump vs twin at T={t} B={b} F={f}: {checks}, mean {mean}, "
+          f"variance {var}", flush=True)
+    if not (all(v for k, v in checks.items() if k != "max_abs_err")
+            and err <= NOISE_ATOL):
+        raise AssertionError(f"noise dump vs twin: {checks}")
+    ms = cuda_ms(lambda: dk.decoder_noise_dump(seed, t, b, f), iters=20)
+    plain_ms = cuda_ms(lambda: dk.decoder_noise_dump_plain(seed, t, b, f),
+                       iters=3, warmup=1)
+    library_ms = cuda_ms(lambda: torch.randn((t, b, f), device=dev),
+                         iters=20)
+    bms, by = bound_ms(NOISE_OPS * n, 4.0 * n + 4)
+    return {"name": "decoder_noise_dump", "route": "cuda",
+            "source": "seq2seq_abcd_vae_tpu_torch/csrc/decoder.cu",
+            "replaces": "seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:1729",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms,
+            "library_call": "torch.randn((T, B, F)) (the same work, other "
+                            "bits)",
+            "checks": checks, "shape": f"T={t} B={b} F={f}",
+            "tolerance": f"integers exact, normals {NOISE_ATOL}"}
+
+
+SEED_COUNTERS = {"LSTM": "decoder_loop_fused_losses_seed",
+                 "GRU": "gru_decoder_loop_fused_losses_seed",
+                 "RNN": "rnn_decoder_loop_fused_losses_seed"}
+
+
+def _seed_check(dev, rng, t, b, cell, leak=1.0, h=HIDDEN):
+    """One fused-loss decoder's seed mode: the kernels with a (1, 1) seed
+    against the same kernels fed the dump of that seed (SEED_RTOL) and
+    against the twins in seed mode, the dump's twin then the stream twin
+    (the fused kernels' tolerances).  Returns (seeded args, dump-fed args,
+    backward's extra args, errors)."""
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    fwd, fwd_plain, bwd, bwd_plain = _decoder_pair(cell, leak)
+    args, lens = _decoder_kernel_args(dev, rng, t, b, h=h, cell=cell,
+                                      leak=leak)
+    f = args[0].shape[2]
+    seed = torch.tensor([[float(rng.integers(0, 1 << 24))]], device=dev)
+    seeded = [seed] + args[1:]
+    fed = [dk.decoder_noise_dump(seed, t, b, f)] + args[1:]
+    twin = [dk.decoder_noise_dump_plain(seed, t, b, f)] + args[1:]
+    n_state = 2 if cell == "LSTM" else 1
+    got, same, want = fwd(*seeded), fwd(*fed), fwd_plain(*twin)
+    torch.cuda.synchronize()
+    states = (0,) + tuple(range(3, 3 + n_state))
+    errs = {"fwd_loss_rel_vs_dump_fed": max(
+                abs(g.item() - s.item()) / abs(s.item())
+                for g, s in zip(got[1:3], same[1:3])),
+            "fwd_states_rel_vs_dump_fed": max(
+                rel_err(got[i], same[i]) for i in states),
+            "fwd_loss_rel_vs_twin": max(
+                abs(g.item() - r.item()) / abs(r.item())
+                for g, r in zip(got[1:3], want[1:3])),
+            "fwd_states_vs_twin": max_err(tuple(got[i] for i in states),
+                                          tuple(want[i] for i in states))}
+    dlast = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)
+                             ).to(dev)
+    gscale = torch.tensor([1.0 / 511, 1.0 / 511], device=dev)
+    extra = (*want[3:3 + n_state], dlast, gscale)
+    g_all, s_all = bwd(*seeded, *extra), bwd(*fed, *extra)
+    r_all = bwd_plain(*twin, *extra)
+    torch.cuda.synchronize()
+    errs["bwd_rel_vs_dump_fed"] = max(rel_err(g, s)
+                                      for g, s in zip(g_all, s_all))
+    errs["bwd_rel_vs_twin"] = max(rel_err(g, r) for g, r in zip(g_all, r_all))
+    limits = {"fwd_loss_rel_vs_dump_fed": SEED_RTOL,
+              "fwd_states_rel_vs_dump_fed": SEED_RTOL,
+              "bwd_rel_vs_dump_fed": SEED_RTOL,
+              "fwd_loss_rel_vs_twin": LOSS_RTOL,
+              "fwd_states_vs_twin": LSTM_ATOL,
+              "bwd_rel_vs_twin": GRAD_FRACTION}
+    bad = {k: v for k, v in errs.items() if not v <= limits[k]}
+    if bad:
+        raise AssertionError(f"{cell} decoder seed mode (leak {leak}, H={h}):"
+                             f" {errs}")
+    return seeded, fed, extra, lens, errs
+
+
+def seed_kernel_phase(dev, rng, t, cell, launches_fwd, launches_bwd):
+    """(b) The seed mode of a fused-loss decoder (the LSTM, GRU, or the
+    Elman loop also at the ESN's leak 0.5) at the training shape and at
+    hidden size 1024 (its row tiles equal the stream mode's), with the
+    seed-mode times beside the same kernels' stream-mode times."""
+    from seq2seq_abcd_vae_tpu_torch.ops import _build
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    b, h, m, f = TRAIN_BATCH, HIDDEN, MLP_HIDDEN, 129
+    fwd, _, bwd, bwd_plain = _decoder_pair(cell)
+    seeded, fed, extra, lens, errs = _seed_check(dev, rng, t, b, cell)
+    checks = {"H256": errs}
+    if cell == "RNN":
+        checks["H256_esn_leak_0.5"] = _seed_check(dev, rng, t, b, cell,
+                                                  leak=0.5)[4]
+    for leak in ((1.0, 0.5) if cell == "RNN" else (1.0,)):
+        checks[f"H1024_leak{leak}"] = _seed_check(dev, rng, 16, 24, cell,
+                                                  leak=leak, h=1024)[4]
+    lib = _build.load("decoder")
+    base = {"LSTM": (0, 1), "GRU": (3, 4), "RNN": (5, 6)}[cell]
+    rows = {}
+    for kind in base:
+        for hh in (h, 1024):
+            pair = (lib.abcd_decoder_rows(dk._SEED_KIND[kind], f, hh, m, m),
+                    lib.abcd_decoder_rows(kind, f, hh, m, m))
+            if pair[0] != pair[1]:
+                raise AssertionError(f"seed kind of {kind} at H={hh} takes "
+                                     f"{pair[0]} rows, stream kind {pair[1]}")
+            rows[f"kind{kind}_H{hh}"] = pair[0]
+    fwd_plain_seed = _decoder_pair(cell)[1]
+    twin_fwd = lambda: fwd_plain_seed(
+        dk.decoder_noise_dump_plain(seeded[0], t, b, f), *seeded[1:])
+    fwd_ms = cuda_ms(lambda: fwd(*seeded), iters=5)
+    stream_fwd_ms = cuda_ms(lambda: fwd(*fed), iters=5)
+    bwd_ms = cuda_ms(lambda: bwd(*seeded, *extra), iters=3)
+    stream_bwd_ms = cuda_ms(lambda: bwd(*fed, *extra), iters=3)
+    plain_fwd_ms = cuda_ms(twin_fwd, iters=2, warmup=1)
+    plain_bwd_ms = cuda_ms(lambda: bwd_plain(
+        dk.decoder_noise_dump_plain(seeded[0], t, b, f), *seeded[1:],
+        *extra), iters=2, warmup=1)
+    gh = {"LSTM": 4, "GRU": 3, "RNN": 1}[cell] * h
+    n_state = 2 if cell == "LSTM" else 1
+    per = 2.0 * (h * (gh + 2 * m) + 2 * m * f + f * gh + h * m)
+    steps = int(lens.sum())
+    draws = steps * f  # position t-1's noise at every step it is fed back
+    weights = (h * (gh + 2 * m) + (2 if cell == "GRU" else 1) * gh + 2 * m
+               + 2 * m * f + 2 * f + f * gh + h * m + 2 * m + 1)
+    fwd_bytes = 4.0 * (1 + t * b * f + weights + n_state * b * h
+                       + b * h + 2 + n_state * t * b * h) + 4 * b
+    bwd_bytes = 4.0 * (1 + t * b * f + weights + n_state * b * h
+                       + n_state * t * b * h + b * h + 2 + weights
+                       + n_state * b * h) + 4 * b
+    f_bms, f_by = bound_ms(steps * per + NOISE_OPS * draws, fwd_bytes)
+    b_bms, b_by = bound_ms(3 * steps * per + NOISE_OPS * draws, bwd_bytes)
+    lines = {"LSTM": (1983, 2042), "GRU": (898, 937),
+             "RNN": (1503, 1543)}[cell]
+    name = SEED_COUNTERS[cell]
+    common = {"route": "cuda",
+              "source": "seq2seq_abcd_vae_tpu_torch/csrc/decoder.cu",
+              "library_ms": None,
+              "library_call": "none: no single PyTorch call runs this loop",
+              "shape": f"T={t} B={b} F={f} H={h} m={m} Mo={m}, (1, 1) seed",
+              "checks": checks, "row_tiles": rows}
+    fwd_entry = dict(common, **{
+        "name": name,
+        "replaces": f"seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:{lines[0]}",
+        "launches": launches_fwd, "max_abs_err": errs["fwd_states_vs_twin"],
+        "ms": fwd_ms, "stream_mode_ms": stream_fwd_ms,
+        "plain_ms": plain_fwd_ms, "bound_ms": f_bms, "bound_by": f_by,
+        "tolerance": f"vs the dump-fed kernel {SEED_RTOL}; vs the twins "
+                     f"losses {LOSS_RTOL} relative, states {LSTM_ATOL}"})
+    bwd_entry = dict(common, **{
+        "name": name + "_bwd",
+        "helper_source": "seq2seq_abcd_vae_tpu_torch/csrc/wgrad.cu",
+        "replaces": f"seq2seq_abcd_vae_tpu/ops/decoder_pallas.py:{lines[1]}",
+        "launches": launches_bwd, "max_abs_err": max(
+            max_err(g, r) for g, r in zip(bwd(*seeded, *extra),
+                                          bwd(*fed, *extra))),
+        "max_rel_err": errs["bwd_rel_vs_twin"], "ms": bwd_ms,
+        "stream_mode_ms": stream_bwd_ms, "plain_ms": plain_bwd_ms,
+        "bound_ms": b_bms, "bound_by": b_by,
+        "tolerance": f"vs the dump-fed kernel {SEED_RTOL} of each leaf's "
+                     f"max; vs the twins {GRAD_FRACTION}"})
+    return fwd_entry, bwd_entry
+
+
+def kernel_rng_train_phase(dev, work: str, corpus_dir: str, csv_path: str,
+                           seed: int):
+    """(c) The training CLI with ``SEQ2SEQ_KERNEL_RNG=1 -R LSTM`` (2
+    epochs, 1 of pretraining), counted: the LSTM decoder's fused-loss
+    kernels in seed mode once per step (the backward per training step),
+    in stream mode never; the launch-cost probe at the start and at the
+    second epoch (1 + 3 x 8 launches each); history.log with finite losses,
+    one ``Kernel backend:`` line and one ``Kernel backend decision:``
+    line for the kernels."""
+    from seq2seq_abcd_vae_tpu_torch.cli import learning_main
+    from seq2seq_abcd_vae_tpu_torch.ops import probe_kernel as pk
+    job = "kernel-rng"
+    argv = [corpus_dir, csv_path, "-S", work, "-j", job, "-b",
+            str(TRAIN_BATCH), "--pretrain_epochs", "1", "--stft_method",
+            "pallas", "-d", dev.type, "-N", str(NORMALIZER), "-s", str(seed),
+            "-R", "LSTM", "-e", "2",
+            "--encoder_rnn_hidden_size", str(HIDDEN),
+            "--decoder_rnn_hidden_size", str(HIDDEN),
+            "--mlp_hidden_size", str(MLP_HIDDEN), "-K", str(K),
+            "-f", str(FEATURE_DIM), "--speaker_embed_dim", str(SPEAKER_EMBED)]
+    counters = zero_counters()
+    pk.add_one.launches = 0
+    t0 = time.perf_counter()
+    with environment(KERNEL_RNG_ENV):
+        run_ = learning_main.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    probes = pk.add_one.launches
+    log_path = os.path.join(work, job, "history.log")
+    check_history(log_path, False)
+    with open(log_path) as f_:
+        log = f_.read().splitlines()
+    start = [line for line in log if "Kernel backend: " in line]
+    decisions = [line for line in log if "Kernel backend decision: " in line]
+    train_steps, eval_steps = run_.steps["train"], run_.steps["eval"]
+    steps = train_steps + eval_steps
+    want = expected(counters, log_spectrogram=steps,
+                    lstm_layer_bidir_fused=steps,
+                    lstm_layer_bidir_fused_bwd=train_steps,
+                    decoder_loop_fused_losses_seed_fwd=steps,
+                    decoder_loop_fused_losses_seed_bwd=train_steps)
+    print(f"{job} training main path ({KERNEL_RNG_ENV}): {train_steps} "
+          f"training + {eval_steps} evaluation steps in {wall:.2f} s; "
+          f"launches {launches}, probe launches {probes}; "
+          f"{start + decisions}", flush=True)
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    if probes != 2 * (1 + 3 * 8):
+        raise AssertionError(f"{probes} probe launches, expected 2 probes "
+                             "of 25")
+    if (len(start) != 1 or len(decisions) != 1
+            or "'rnn_backend': 'pallas'" not in start[0]
+            or "decision: pallas" not in decisions[0]):
+        raise AssertionError(f"history.log's backend lines: {start} "
+                             f"{decisions}")
+    later = [n / sec for _, sec, n in run_.epoch_seconds[1:]]
+    return {"launches": dict(launches, launch_cost_probe=probes),
+            "train_steps": train_steps, "eval_steps": eval_steps,
+            "backend_lines": start + decisions,
+            "segments_per_s_after_first_epoch":
+                sum(later) / len(later) if later else None,
+            "epochs": [{"epoch": e, "train_s": sec, "segments": n}
+                       for e, sec, n in run_.epoch_seconds]}
+
+
+def kernel_rng_parity_phase(dev, checkpoints: dict, corpus_dir: str,
+                            csv_path: str, seed: int):
+    """(b) The JAX package's kernel-RNG check (scripts/decoder_kernel_
+    parity.py:kernel_rng_check) through ``models/decoder.decoder_losses``
+    on each trained checkpoint's validation segments: the loss and its
+    gradients with a (1, 1) seed equal those with the seed's dump as the
+    noise stream (SEED_RTOL) and the same call on the CPU's twins (the
+    training tolerances); counted per cell: the seed-mode forward and
+    backward once, the dump once, the stream-mode forward and backward
+    once (the dump-fed call), nothing else."""
+    from seq2seq_abcd_vae_tpu_torch.data.annotations import AnnotationParser
+    from seq2seq_abcd_vae_tpu_torch.data.batching import (DataLoader,
+                                                          FrontendSpec)
+    from seq2seq_abcd_vae_tpu_torch.infer.decode import load_model
+    from seq2seq_abcd_vae_tpu_torch.infer.encode import Encoder, encode_step
+    from seq2seq_abcd_vae_tpu_torch.models import decoder as dec_mod
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    from seq2seq_abcd_vae_tpu_torch.train import learner as L
+    from seq2seq_abcd_vae_tpu_torch.tree import tree_leaves, tree_map
+    spec = FrontendSpec(int(0.008 * TRAIN_FS), int(0.004 * TRAIN_FS))
+    valid = AnnotationParser(corpus_dir, csv_path).get_data("valid")
+    batch = next(iter(DataLoader(valid, spec, batch_size=len(valid))))
+    audio = torch.from_numpy(batch.audio).to(dev)
+    lengths = torch.from_numpy(batch.num_frames).to(dev)
+    speakers = torch.from_numpy(batch.speakers).to(dev)
+    t = batch.bucket_frames
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for cell, path in checkpoints.items():
+        enc = Encoder(path, device=dev.type, stft_method="pallas")
+        statics = enc.statics(spec, EPSILON, NORMALIZER)
+        feats = encode_step(enc.params, audio, lengths, statics, t,
+                            "features")
+        inputs = L.frontend(statics, audio, t)
+        params, cfg = load_model(path, dev.type)
+        key = torch.randint(0, 1 << 24, (1, 1), generator=gen, device=dev,
+                            dtype=torch.int64).to(torch.float32)
+
+        def run(device, noise):
+            dec = tree_map(lambda p: p.detach().to(device).clone()
+                           .requires_grad_(True), params["decoder"])
+            em, bce = dec_mod.decoder_losses(
+                dec, cfg.decoder, feats.to(device), lengths.to(device),
+                inputs.to(device), noise.to(device), speakers.to(device))
+            loss = em + bce
+            loss.backward()
+            return loss.detach(), [p.grad for p in tree_leaves(dec)]
+
+        counters = zero_counters()
+        card = run(dev, key)
+        dumped = run(dev, dk.decoder_noise_dump(key, t, len(lengths),
+                                                cfg.decoder.output_size))
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        name = SEED_COUNTERS["RNN" if cell == "ESN" else cell]
+        stream = name.replace("_seed", "")
+        want = expected(counters, decoder_noise_dump=1,
+                        **{name + "_fwd": 1, name + "_bwd": 1,
+                           stream + "_fwd": 1, stream + "_bwd": 1})
+        if launches != want:
+            raise AssertionError(f"{cell} kernel-RNG check launched "
+                                 f"{launches}, expected {want}")
+        errs = {}
+        for where, (loss, grads) in (("dump_fed", dumped),
+                                     ("cpu_twins", run(torch.device("cpu"),
+                                                       key))):
+            errs[f"loss_rel_vs_{where}"] = abs(
+                card[0].item() - loss.item()) / abs(loss.item())
+            errs[f"grad_max_rel_vs_{where}"] = max(
+                rel_err(g, r) for g, r in zip(card[1], grads)
+                if r is not None)
+        limits = {"loss_rel_vs_dump_fed": SEED_RTOL,
+                  "grad_max_rel_vs_dump_fed": SEED_RTOL,
+                  "loss_rel_vs_cpu_twins": LOSS_RTOL,
+                  "grad_max_rel_vs_cpu_twins": GRAD_FRACTION}
+        bad = {k: v for k, v in errs.items() if not v <= limits[k]}
+        if bad or not math.isfinite(card[0].item()):
+            raise AssertionError(f"{cell} kernel-RNG check: {errs}")
+        out[cell] = {"launches": launches, "loss": card[0].item(),
+                     "errors": errs}
+    print(f"kernel-RNG check on the trained checkpoints (B={len(lengths)}, "
+          f"T={t}): " + json.dumps(out), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3040,6 +3472,24 @@ def run(args, root, dev, rng, work) -> int:
     print("loss-only call without offset targets (LSTM) " + json.dumps(nll),
           flush=True)
 
+    # ---- this slice's main paths, each counted: the launch-cost probe and
+    # selector (checked first), training with SEQ2SEQ_KERNEL_RNG=1, and the
+    # kernel-RNG check on the trained checkpoints of every cell
+    probe = probe_phase(dev)
+    rng_train = kernel_rng_train_phase(dev, work, corpus_dir, csv_path,
+                                       args.seed)
+    print("kernel-RNG training throughput " + json.dumps(
+        {k: rng_train[k] for k in ("segments_per_s_after_first_epoch",
+                                   "epochs")}), flush=True)
+    rng_check = kernel_rng_parity_phase(
+        dev, {"LSTM": os.path.join(work, "train", "checkpoint.pt"),
+              "GRU": gru["checkpoint"], "RNN": rnn["checkpoint"],
+              "ESN": esn["checkpoint"]}, corpus_dir, csv_path, args.seed)
+    rng_check_launches = {}
+    for result in rng_check.values():
+        for k, n in result["launches"].items():
+            rng_check_launches[k] = rng_check_launches.get(k, 0) + n
+
     paths = {"serve": launches, "train": train["launches"],
              "uni_train": uni["launches"], "encode_cli": enc_cli["launches"],
              "decode": decode["launches"], "gru_train": gru["launches"],
@@ -3058,7 +3508,9 @@ def run(args, root, dev, rng, work) -> int:
              "stream_lstm_train": stream["LSTM"]["launches"],
              "stream_gru_train": stream["GRU"]["launches"],
              "stream_esn_train": stream["ESN"]["launches"],
-             "nll_loss_only": nll["launches"]}
+             "nll_loss_only": nll["launches"],
+             "kernel_rng_train": rng_train["launches"],
+             "kernel_rng_check": rng_check_launches}
 
     def by_path(name):
         return {p: counts.get(name, 0) for p, counts in paths.items()}
@@ -3138,19 +3590,25 @@ def run(args, root, dev, rng, work) -> int:
         stream_steps[cell] = (checks_, *train_step_breakdown(
             dev, *inputs_, fused_cells=()))
     wide = wide_hidden_phase(dev, rng)
+    seed_entries = []
+    for cell in ("LSTM", "GRU", "RNN"):
+        name = SEED_COUNTERS[cell]
+        seed_entries += seed_kernel_phase(dev, rng, t_train, cell,
+                                          total(name + "_fwd"),
+                                          total(name + "_bwd"))
     kernels += [lstm_bwd, dec_fwd, dec_bwd, uni_fwd, uni_bwd, loop, gru_fwd,
                 gru_bwd, gru_dec_fwd, gru_dec_bwd, elman_fwd, elman_bwd,
                 rnn_dec_fwd, rnn_dec_bwd, gru_uni_fwd, gru_uni_bwd,
                 rnn_uni_fwd, rnn_uni_bwd, gru_loop, rnn_loop, *loop_bwds,
-                nll_fwd, nll_bwd]
+                nll_fwd, nll_bwd,
+                probe_entry(dev, total("launch_cost_probe"), probe),
+                noise_dump_phase(dev, total("decoder_noise_dump"), t=t_train),
+                *seed_entries]
+    counter_names = set(all_counters()) | {"launch_cost_probe"}
     for entry in kernels:
-        key = {"decoder_loop_fused_losses": "decoder_loop_fused_losses_fwd",
-               "gru_decoder_loop_fused_losses":
-                   "gru_decoder_loop_fused_losses_fwd",
-               "rnn_decoder_loop_fused_losses":
-                   "rnn_decoder_loop_fused_losses_fwd",
-               "decoder_loop_fused_nll": "decoder_loop_fused_nll_fwd",
-               }.get(entry["name"], entry["name"])
+        key = entry["name"]
+        if key not in counter_names:  # a forward's counter
+            key += "_fwd"
         entry["launches_by_path"] = by_path(key)
         if entry["launches"] <= 0:
             raise AssertionError(f"kernel {entry['name']} was launched on "
@@ -3158,8 +3616,8 @@ def run(args, root, dev, rng, work) -> int:
         lacking = KERNEL_KEYS - set(entry)
         if lacking:
             raise AssertionError(f"kernel {entry['name']} lacks {lacking}")
-    if len(kernels) != 27:
-        raise AssertionError(f"{len(kernels)} kernel entries, expected 27")
+    if len(kernels) != 35:
+        raise AssertionError(f"{len(kernels)} kernel entries, expected 35")
     print("training step, kernels (card) vs twins (CPU) "
           + json.dumps(checks), flush=True)
     print("unidirectional training step, kernels (card) vs twins (CPU) "
@@ -3197,6 +3655,7 @@ def run(args, root, dev, rng, work) -> int:
               + json.dumps(fused_steps[cell][1]), flush=True)
     print("hidden size 1024, kernels vs twins " + json.dumps(wide),
           flush=True)
+    print("launch-cost probe and selector " + json.dumps(probe), flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

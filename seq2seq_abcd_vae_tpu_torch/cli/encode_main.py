@@ -20,7 +20,6 @@ import os
 import sys
 
 import numpy as np
-import torch
 
 from ..data.annotations import AnnotationParser
 from ..data.batching import FrontendSpec
@@ -31,11 +30,8 @@ from . import flags
 def main(mode: str, argv=None) -> None:
     check_mode(mode)
     parameters = flags.build_encode_parser().parse_args(argv)
-    flags.refuse_unported(parameters)
-    if torch.device(parameters.device).type == "cuda":
-        # float32 products outside the kernels, unless asked otherwise
-        torch.backends.cuda.matmul.allow_tf32 = (
-            parameters.matmul_precision not in ("highest", "float32"))
+    flags.refuse_unported(parameters, os.environ, "encode")
+    flags.apply_matmul_precision(parameters)
 
     save_path = parameters.save_path
     if save_path is None:

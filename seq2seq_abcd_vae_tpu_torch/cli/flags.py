@@ -4,27 +4,68 @@ of seq2seq_abcd_vae_tpu/cli/flags.py, ABCD variant).
 Flag names, defaults and help strings match the JAX package's, but for
 ``-d/--device``: the port's entry points run on the card (``cuda``)
 unless the caller asks for the CPU.  Options of the JAX CLI that the port
-does not run yet are accepted and refused with NotImplementedError where
-they would change the result (see ``refuse_unported``).
+does not run yet, and the JAX package's ``SEQ2SEQ_*`` switches that would
+change the result, are refused with NotImplementedError (see
+``refuse_unported``).  ``--matmul_precision`` means the same in the
+training, encode and serve CLIs (``MATMUL_PRECISION``,
+``apply_matmul_precision``).
 """
 
 from __future__ import annotations
 
 import argparse
 
+import torch
+
 from ..models.decoder import CELLS
 
 EPSILON_DEFAULT = 2.0 ** -15
 
+# --matmul_precision keeps the JAX CLI's names; each maps onto the float32
+# matmul precision PyTorch offers on the card ("high" allows TF32,
+# "medium" bf16 where cuBLAS has it).  The hand-written kernels always
+# compute in float32 FMA, and on the CPU every product stays float32.
+MATMUL_PRECISION = {"highest": "highest", "float32": "highest",
+                    "bfloat16_3x": "high", "default": "high",
+                    "bfloat16": "medium"}
+MATMUL_PRECISION_HELP = (
+    "Matmul precision of the plain PyTorch products outside the kernels, "
+    "on the card: 'highest' and 'float32' keep full float32 (torch "
+    "'highest', TF32 off; for reference parity), 'bfloat16_3x' and "
+    "'default' become torch 'high' (TF32), 'bfloat16' torch 'medium'. "
+    "The kernels compute in float32 whatever the flag; on the CPU every "
+    "product is float32.")
+
+
+ENVIRONMENT_HELP = (
+    "Environment: SEQ2SEQ_RNN_BACKEND / SEQ2SEQ_ENCODER_BACKEND = auto "
+    "(default: on the card a launch-cost probe must find the kernels' "
+    "launches under SEQ2SEQ_PALLAS_DISPATCH_MS_MAX ms, default 20, or the "
+    "run stops; the port never falls back to its CPU twins) | pallas (the "
+    "kernels, no probe) | scan (refused on the card: the twins run on the "
+    "CPU only). SEQ2SEQ_KERNEL_MXU=bf16 (with a --matmul_precision other "
+    "than highest/float32), SEQ2SEQ_STREAM_DTYPE=bf16 and "
+    "SEQ2SEQ_ENCODE_FETCH_DTYPE=bf16 are not ported yet: each is refused "
+    "by the CLIs whose results it changes in the JAX package.")
+
+
+def add_matmul_precision(group) -> None:
+    group.add_argument("--matmul_precision", type=str, default="highest",
+                       choices=sorted(MATMUL_PRECISION),
+                       help=MATMUL_PRECISION_HELP)
+
+
+def apply_matmul_precision(parameters) -> None:
+    """Set torch's float32 matmul precision from ``--matmul_precision``
+    when the entry point runs on the card (``-d cuda``)."""
+    if torch.device(parameters.device).type == "cuda":
+        torch.set_float32_matmul_precision(
+            MATMUL_PRECISION[parameters.matmul_precision])
+
 
 def _extras(p: argparse.ArgumentParser) -> None:
     g = p.add_argument_group("Options beyond the reference")
-    g.add_argument("--matmul_precision", type=str, default="highest",
-                   choices=["highest", "float32", "bfloat16_3x", "default",
-                            "bfloat16"],
-                   help="Matmul precision outside the kernels. 'highest' "
-                        "and 'float32' keep full float32 (TF32 off); the "
-                        "others allow TF32 on the card.")
+    add_matmul_precision(g)
     g.add_argument("--stft_method", type=str, default="fft",
                    choices=["fft", "matmul", "pallas"],
                    help="STFT frontend implementation: rfft, windowed DFT "
@@ -50,7 +91,10 @@ def _extras(p: argparse.ArgumentParser) -> None:
 
 
 def build_learning_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser()
+    p = argparse.ArgumentParser(epilog=ENVIRONMENT_HELP + (
+        " SEQ2SEQ_NLL_FUSION=0 / SEQ2SEQ_FUSED_CELLS send decoder cells to "
+        "the stream path; SEQ2SEQ_KERNEL_RNG=1 (on the card only) draws "
+        "the fused-loss kernels' noise in-kernel from a seed."))
     a = p.add_argument
     a("input_root", type=str,
       help="Path to the root directory under which inputs are located.")
@@ -163,9 +207,61 @@ def fused_loss_cells(environ) -> tuple:
     return ("LSTM",) + tuple(c for c in CELLS[1:] if c in listed)
 
 
-def refuse_unported(parameters) -> None:
-    """Raise NotImplementedError for a JAX CLI option the port does not
-    run yet."""
+def kernel_rng(environ, device) -> bool:
+    """Whether the fused-loss decoder kernels draw their noise in-kernel
+    from a seed (the JAX package's ``SEQ2SEQ_KERNEL_RNG=1``).  The JAX
+    package honours it on its accelerator only (models/decoder.py:439-440),
+    so the port honours it on the card (``-d cuda``) and ignores it on the
+    CPU."""
+    return (environ.get("SEQ2SEQ_KERNEL_RNG", "0") == "1"
+            and torch.device(device).type == "cuda")
+
+
+# the JAX package's precision switches the port does not run yet, with the
+# CLIs whose results they change there
+_BF16_SWITCHES = (
+    ("SEQ2SEQ_KERNEL_MXU", ("learning", "encode", "serve"),
+     "bf16 operands in the recurrent kernels (JAX models/rnn.py:57)"),
+    ("SEQ2SEQ_STREAM_DTYPE", ("learning",),
+     "bf16 saved carry streams in the decoder kernels (JAX "
+     "ops/decoder_pallas.py:72-74)"),
+    ("SEQ2SEQ_ENCODE_FETCH_DTYPE", ("encode", "serve"),
+     "bf16 encode results (JAX infer/encode.py:249-251)"),
+)
+
+
+def refuse_unported(parameters, environ, cli: str) -> None:
+    """Raise NotImplementedError for a JAX CLI option, or a switch of the
+    JAX package's environment that the CLI ``cli`` (``learning``,
+    ``encode`` or ``serve``) would read there, that the port does not run:
+
+    - ``SEQ2SEQ_KERNEL_MXU=bf16`` with ``--matmul_precision`` other than
+      ``highest`` / ``float32`` (where the JAX package takes bf16 kernel
+      operands), ``SEQ2SEQ_STREAM_DTYPE=bf16`` (training) and
+      ``SEQ2SEQ_ENCODE_FETCH_DTYPE=bf16`` (encode, serve);
+    - on the card, ``SEQ2SEQ_RNN_BACKEND=scan`` or
+      ``SEQ2SEQ_ENCODER_BACKEND=scan``: the plain twins run on the CPU
+      only (utils/backend_select.py);
+    - for the training and encode CLIs, data-parallel training, the
+      device-resident corpus cache and ``--profile_dir``.
+
+    Reads only ``parameters`` and ``environ``: nothing touches a device."""
+    for name, clis, what in _BF16_SWITCHES:
+        if cli not in clis or environ.get(name) != "bf16":
+            continue
+        if (name == "SEQ2SEQ_KERNEL_MXU" and parameters.matmul_precision
+                in ("highest", "float32")):
+            continue  # the JAX package keeps float32 operands then
+        raise NotImplementedError(f"{name}=bf16 ({what}) is not ported yet")
+    if torch.device(parameters.device).type == "cuda":
+        for name in ("SEQ2SEQ_RNN_BACKEND", "SEQ2SEQ_ENCODER_BACKEND"):
+            if environ.get(name) == "scan":
+                raise NotImplementedError(
+                    f"{name}=scan: the port's scan path is its plain "
+                    "PyTorch twins, which run on the CPU only (-d cpu); "
+                    "on the card use 'auto' or 'pallas' (the kernels)")
+    if cli == "serve":
+        return  # the server accepts the options below and reads none
     if parameters.num_data_partitions not in (None, 1):
         raise NotImplementedError(
             "data-parallel training is not ported yet")
@@ -179,7 +275,7 @@ def refuse_unported(parameters) -> None:
 def build_encode_parser() -> argparse.ArgumentParser:
     """The encode CLIs' parser (abcd variant; the plain VAE's ``-p`` waits
     for its port)."""
-    p = argparse.ArgumentParser()
+    p = argparse.ArgumentParser(epilog=ENVIRONMENT_HELP)
     a = p.add_argument
     a("model_path", type=str,
       help="Path to the configuration file of a trained model.")

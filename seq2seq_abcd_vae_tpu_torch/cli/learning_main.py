@@ -10,7 +10,11 @@ validation batch defaulting to the training batch.  Runs on the card
 unless ``-d cpu``.  ``SEQ2SEQ_NLL_FUSION=0`` (every decoder cell) or
 ``SEQ2SEQ_FUSED_CELLS`` (the GRU, RNN and ESN cells it does not list)
 trains the decoder on its stream path instead of the fused-loss kernels,
-as in the JAX package (``cli/flags.fused_loss_cells``).
+as in the JAX package (``cli/flags.fused_loss_cells``).  On the card,
+``SEQ2SEQ_KERNEL_RNG=1`` makes the fused-loss kernels draw the decoder's
+sampling noise in-kernel from a seed (``cli/flags.kernel_rng``), and the
+Learner probes the launch cost and logs its ``Kernel backend`` decisions
+(``utils/backend_select.py``).
 """
 
 from __future__ import annotations
@@ -20,7 +24,6 @@ import os
 import sys
 
 import numpy as np
-import torch
 
 from ..data.annotations import AnnotationParser
 from ..data.batching import FrontendSpec
@@ -37,13 +40,11 @@ def get_save_dir(save_root: str, job_id_str: str) -> str:
 
 def main(argv=None) -> Learner:
     parameters = flags.build_learning_parser().parse_args(argv)
-    flags.refuse_unported(parameters)
-    # the JAX package's switch of the decoder's training path, read once
+    flags.refuse_unported(parameters, os.environ, "learning")
+    # the JAX package's switches of the decoder's training path, read once
     fused_cells = flags.fused_loss_cells(os.environ)
-    if torch.device(parameters.device).type == "cuda":
-        # float32 products outside the kernels, unless asked otherwise
-        torch.backends.cuda.matmul.allow_tf32 = (
-            parameters.matmul_precision not in ("highest", "float32"))
+    kernel_rng = flags.kernel_rng(os.environ, parameters.device)
+    flags.apply_matmul_precision(parameters)
 
     save_root = parameters.save_root
     if save_root is None:
@@ -96,7 +97,8 @@ def main(argv=None) -> Learner:
         speaker_embed_dim=parameters.speaker_embed_dim,
         prior_concentration=parameters.prior_concentration,
         stft_method=parameters.stft_method,
-        batching_mode=batching_mode, fused_cells=fused_cells)
+        batching_mode=batching_mode, fused_cells=fused_cells,
+        kernel_rng=kernel_rng)
 
     frontend = FrontendSpec(fft_frame_length, fft_step_size,
                             centering=not parameters.fft_no_centering,

@@ -16,25 +16,18 @@ from __future__ import annotations
 
 import argparse
 import logging
-
-import torch
+import os
 
 from ..serve import EncodeService, serve_forever
+from . import flags
 
 EPSILON_DEFAULT = 2.0 ** -15
-
-# --matmul_precision keeps the JAX CLI's names; each maps onto the float32
-# matmul precision PyTorch offers ("high" allows TF32, "medium" bf16).
-# The port's CUDA kernels always compute in float32 FMA.
-MATMUL_PRECISION = {"highest": "highest", "float32": "highest",
-                    "bfloat16_3x": "high", "default": "high",
-                    "bfloat16": "medium"}
 
 logger = logging.getLogger(__name__)
 
 
 def build_serve_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser()
+    p = argparse.ArgumentParser(epilog=flags.ENVIRONMENT_HELP)
     a = p.add_argument
     a("model_path", type=str,
       help="Path to the configuration file of a trained model.")
@@ -71,11 +64,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
     a("--no_warmup", action="store_true",
       help="Skip running every bucket shape once at startup.")
     g = p.add_argument_group("Options of the JAX CLI")
-    g.add_argument("--matmul_precision", type=str, default="highest",
-                   choices=sorted(MATMUL_PRECISION),
-                   help="float32 matmul precision of the plain PyTorch "
-                        "operations: 'highest' keeps full float32 for "
-                        "reference parity.")
+    flags.add_matmul_precision(g)
     g.add_argument("--stft_method", type=str, default="fft",
                    choices=["fft", "matmul", "pallas"],
                    help="STFT frontend: torch.fft.rfft, windowed DFT "
@@ -94,8 +83,8 @@ def build_serve_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     parameters = build_serve_parser().parse_args(argv)
-    torch.set_float32_matmul_precision(
-        MATMUL_PRECISION[parameters.matmul_precision])
+    flags.refuse_unported(parameters, os.environ, "serve")
+    flags.apply_matmul_precision(parameters)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
 

@@ -75,6 +75,29 @@
 // caller's overwrite and is never read).  Weight gradients are sums over
 // every (t, b): the kernel writes each step's operands and cotangents as
 // streams, and csrc/wgrad.cu reduces them in a fixed order.
+//
+// In-kernel noise (the JAX package's SEQ2SEQ_KERNEL_RNG=1; replaces
+// decoder_pallas.py:decoder_noise_dump / `_noise_dump_kernel` and the
+// kernel_rng branch of the fused-loss kernels, `_kernel_noise`): with the
+// kSeed template flag the fused-loss forward and backward of every cell
+// take a (1, 1) float32 seed (below 2^24) in place of the (T, B, F) noise
+// stream and draw position t - 1's noise of row b, column f at step t as
+//
+//   (w0, w1, -, -) = Philox4x32-10(counter = (t - 1, b, f, 0),
+//                                  key = (seed, 0))
+//   u1 = (w0 >> 8) * 2^-24 + 2^-25,   u2 = (w1 >> 8) * 2^-24
+//   eps = sqrt(-2 log u1) * cos(2 pi u2)
+//
+// (the TPU kernel's Box-Muller over two 24-bit uniforms, on a generator a
+// GPU has; the TPU's own bits cannot be had here), with IEEE logf / cosf /
+// sqrtf and every product rounded on its own (no contraction), so the
+// backward regenerates the forward's draws bit for bit.  Each draw depends
+// on (seed, t, b, f) alone, never on the row tile, and noise_dump_kernel
+// writes the same numbers out as a (T, B, F) stream, one thread per
+// element.  The dump is bounded by its operations (Philox's ten rounds of
+// two 32-bit multiplies each, then log, cos and sqrt), not by the bytes it
+// writes; the loop kernels trade B * F loads of noise a step for as many
+// draws.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,6 +118,59 @@ constexpr int kFusedLosses = 0, kFusedNll = 1, kStream = 2;
 
 __host__ __device__ constexpr int num_gates(int cell) {
   return cell == kLSTM ? 4 : cell == kGRU ? 3 : 1;
+}
+
+constexpr float kTwoPi = 6.283185307179586f;
+
+// Philox4x32-10 (Salmon et al., SC'11; Random123's philox4x32 with 10
+// rounds) of counter (c0, c1, c2, c3) and key (k0, k1); the four words
+// go back in c.
+__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0,
+                                              uint32_t k1) {
+#pragma unroll
+  for (int round = 0; round < 10; ++round) {
+    if (round > 0) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c[0]), lo0 = 0xD2511F53u * c[0];
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c[2]), lo1 = 0xCD9E8D57u * c[2];
+    const uint32_t c1 = c[1], c3 = c[3];
+    c[0] = hi1 ^ c1 ^ k0;
+    c[1] = lo1;
+    c[2] = hi0 ^ c3 ^ k1;
+    c[3] = lo0;
+  }
+}
+
+// The two 24-bit integers of (seed, slot t, row b, column f) whose
+// uniforms feed the Box-Muller transform: the top 24 bits of Philox's
+// first two words.
+__device__ __forceinline__ void noise_bits(uint32_t seed, int t, int b,
+                                           int f, uint32_t* i1,
+                                           uint32_t* i2) {
+  uint32_t c[4] = {(uint32_t)t, (uint32_t)b, (uint32_t)f, 0u};
+  philox4x32_10(c, seed, 0u);
+  *i1 = c[0] >> 8;
+  *i2 = c[1] >> 8;
+}
+
+// Box-Muller of the two 24-bit integers.  The _rn intrinsics keep each
+// product rounded on its own.
+__device__ __forceinline__ float box_muller(uint32_t i1, uint32_t i2) {
+  const float u1 = __fadd_rn(__fmul_rn((float)i1, 0x1p-24f), 0x1p-25f);
+  const float u2 = __fmul_rn((float)i2, 0x1p-24f);
+  return __fmul_rn(sqrtf(__fmul_rn(-2.f, logf(u1))),
+                   cosf(__fmul_rn(kTwoPi, u2)));
+}
+
+// The standard normal of (seed, slot t, row b, column f): see the comment
+// at the top.
+__device__ __forceinline__ float kernel_noise(uint32_t seed, int t, int b,
+                                              int f) {
+  uint32_t i1, i2;
+  noise_bits(seed, t, b, f, &i1, &i2);
+  return box_muller(i1, i2);
 }
 
 __device__ __forceinline__ float sigmoid(float x) {
@@ -280,10 +356,11 @@ __device__ __forceinline__ float offset_logit(const float* __restrict__ wo2,
 // cell: w_cat is (H, 3H + 2M), `bias` is b_ih and `bias_hh` b_hh, there is
 // no c.  kCell == kRNN: the Elman / ESN cell: w_cat is (H, H + 2M), `bias`
 // is b_ih + b_hh (zeros for the ESN), there is no c, and `leak` mixes the
-// carry into the update.
-template <int R, int kMode, int kCell>
+// carry into the update.  kSeed (kFusedLosses only): `noise` is the (1, 1)
+// seed, and each step draws its noise in-kernel (kernel_noise).
+template <int R, int kMode, int kCell, bool kSeed = false>
 __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
-    const float* __restrict__ noise,    // (T, B, F)
+    const float* __restrict__ noise,    // (T, B, F), or kSeed's (1, 1)
     const int* __restrict__ lengths,    // (B,)
     const float* __restrict__ w_cat,    // (H, GH + 2M), GH = 4H | 3H | H
     const float* __restrict__ bias,     // LSTM / RNN b_ih + b_hh | GRU b_ih
@@ -335,6 +412,7 @@ __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
     if (kCell == kLSTM) s_c[i] = r < nrows ? c0[(int64_t)r0 * H + i] : 0.f;
   }
   const float bo2v = kOffset ? bo2[0] : 0.f;
+  const uint32_t seed = kSeed ? (uint32_t)noise[0] : 0u;
   double nll_acc = 0.0, bce_acc = 0.0;
   __syncthreads();
 
@@ -352,7 +430,9 @@ __global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(
         float x = 0.f;
         if (pmt) {
           const int64_t o = ((int64_t)(t - 1) * B + r0 + r) * F + f;
-          x = mean[r] + expf(0.5f * lv[r]) * noise[o];
+          const float eps =
+              kSeed ? kernel_noise(seed, t - 1, r0 + r, f) : noise[o];
+          x = mean[r] + expf(0.5f * lv[r]) * eps;
           if (kLosses) {
             const float diff = targets[o] - mean[r];
             nll_acc += (double)(0.5f * ((float)kLog2Pi + lv[r]
@@ -473,6 +553,27 @@ __global__ void loss_sum_kernel(const double* __restrict__ partial,
   losses[1] = (float)bce;
 }
 
+// out (T, B, F) = the draws of the kSeed kernels, one thread per element;
+// with `bits` (T, B, F, 2), also the two 24-bit integers of each draw (a
+// check of the generator's bits; nullptr on the main path).
+__global__ void noise_dump_kernel(const float* __restrict__ seed,
+                                  float* __restrict__ out,
+                                  int* __restrict__ bits, int T, int B,
+                                  int F) {
+  const int64_t n = (int64_t)T * B * F;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int f = (int)(i % F);
+  const int64_t tb = i / F;
+  uint32_t i1, i2;
+  noise_bits((uint32_t)seed[0], (int)(tb / B), (int)(tb % B), f, &i1, &i2);
+  out[i] = box_muller(i1, i2);
+  if (bits != nullptr) {
+    bits[2 * i] = (int)i1;
+    bits[2 * i + 1] = (int)i2;
+  }
+}
+
 // kCell == kGRU: the GRU cell's adjoint
 // (decoder_pallas.py:_gru_floss_bwd_kernel): `bias` is b_ih, `bias_hh` b_hh,
 // there is no c (c0, cs, dc0 unused); the gate part of the dbig stream is
@@ -494,7 +595,9 @@ __global__ void loss_sum_kernel(const double* __restrict__ partial,
 // emission's is the fed-back sample's plus, for the LSTM, the caller's
 // position-indexed dmean_s / dlogvar_s at slot t - 1 (none at t == 0).
 // Only kFusedLosses writes the offset streams (h2_s, doh_s, oh_s, dzo_s).
-template <int R, int kCell, int kMode>
+// kSeed (kFusedLosses only): `noise` is the (1, 1) seed, and each step
+// regenerates the forward's draws (kernel_noise).
+template <int R, int kCell, int kMode, bool kSeed = false>
 __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
     const float* __restrict__ noise, const int* __restrict__ lengths,
     const float* __restrict__ w_cat, const float* __restrict__ bias,
@@ -558,6 +661,7 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
   const float gnll = kTargets ? gscale[0] : 0.f;
   const float gbce = kOffset ? gscale[1] : 0.f;
   const float bo2v = kOffset ? bo2[0] : 0.f;
+  const uint32_t seed = kSeed ? (uint32_t)noise[0] : 0u;
   for (int i = tid; i < R * H; i += nth) {
     s_dh[i] = 0.f;
     if (kCell == kLSTM) s_dc[i] = 0.f;
@@ -587,7 +691,9 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
         float x = 0.f;
         if (pmt) {
           const int64_t o = ((int64_t)(t - 1) * B + r0 + r) * F + f;
-          x = mean[r] + expf(0.5f * lv[r]) * noise[o];
+          const float eps =
+              kSeed ? kernel_noise(seed, t - 1, r0 + r, f) : noise[o];
+          x = mean[r] + expf(0.5f * lv[r]) * eps;
         }
         s_ml[r * 2 * F + f] = mean[r];
         s_ml[r * 2 * F + F + f] = lv[r];
@@ -800,7 +906,8 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
           const float mean = s_ml[r * 2 * F + f];
           const float lv = s_ml[r * 2 * F + F + f];
           const float dx = acc[r];
-          const float eps = noise[o];
+          const float eps =
+              kSeed ? kernel_noise(seed, t - 1, r0 + r, f) : noise[o];
           if constexpr (kTargets) {
             const float inv_var = expf(-lv);
             const float diff = targets[o] - mean;
@@ -890,11 +997,15 @@ __global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(
 // GRU cell); 5 fused-loss forward, 6 fused-loss backward (the Elman / ESN
 // cell); 7 the GRU's and 8 the Elman / ESN's plain loop forward; 9, 10, 11
 // the plain loop's backward (LSTM, GRU, Elman / ESN cell); 12 the fused-NLL
-// forward, 13 its backward (the LSTM cell).  Floats of shared memory per row
-// of the tile (the backward adds the offset-logit cotangent); the kinds
-// without the offset MLP are asked with Mo = 0.
+// forward, 13 its backward (the LSTM cell); 14-19 kinds 0, 1, 3, 4, 5 and
+// 6 in seed mode (kSeed).  Floats of shared memory per row of the tile (the
+// backward adds the offset-logit cotangent); the kinds without the offset
+// MLP are asked with Mo = 0.
+constexpr int kSeedKinds[6] = {0, 1, 3, 4, 5, 6};
+
 long long smem_bytes(int kind, int rows, int F, int H, int M, int Mo) {
   long long per_row;
+  if (kind >= 14 && kind < 20) kind = kSeedKinds[kind - 14];
   switch (kind) {
     case 0: per_row = 3LL * H + 4LL * H + 2LL * M + F + Mo; break;
     case 1: case 9: case 13:
@@ -929,6 +1040,18 @@ const void* kernel_of(int kind) {
     case 11: return (const void*)decoder_bwd_kernel<R, kRNN, kStream>;
     case 12: return (const void*)decoder_fwd_kernel<R, kFusedNll, kLSTM>;
     case 13: return (const void*)decoder_bwd_kernel<R, kLSTM, kFusedNll>;
+    case 14:
+      return (const void*)decoder_fwd_kernel<R, kFusedLosses, kLSTM, true>;
+    case 15:
+      return (const void*)decoder_bwd_kernel<R, kLSTM, kFusedLosses, true>;
+    case 16:
+      return (const void*)decoder_fwd_kernel<R, kFusedLosses, kGRU, true>;
+    case 17:
+      return (const void*)decoder_bwd_kernel<R, kGRU, kFusedLosses, true>;
+    case 18:
+      return (const void*)decoder_fwd_kernel<R, kFusedLosses, kRNN, true>;
+    case 19:
+      return (const void*)decoder_bwd_kernel<R, kRNN, kFusedLosses, true>;
     default: return nullptr;
   }
 }
@@ -969,15 +1092,17 @@ cudaError_t prepare(int kind, int rows, int F, int H, int M, int Mo,
 }
 
 // The kernel kinds (see smem_bytes) of a cell's forward and backward in a
-// mode.
-constexpr int fwd_kind(int cell, int mode) {
+// mode, with or without the seed.
+constexpr int fwd_kind(int cell, int mode, bool seed) {
   return mode == kFusedNll ? 12
          : mode == kStream ? (cell == kLSTM ? 2 : cell == kGRU ? 7 : 8)
+         : seed            ? (cell == kLSTM ? 14 : cell == kGRU ? 16 : 18)
                            : (cell == kLSTM ? 0 : cell == kGRU ? 3 : 5);
 }
-constexpr int bwd_kind(int cell, int mode) {
+constexpr int bwd_kind(int cell, int mode, bool seed) {
   return mode == kFusedNll ? 13
          : mode == kStream ? (cell == kLSTM ? 9 : cell == kGRU ? 10 : 11)
+         : seed            ? (cell == kLSTM ? 15 : cell == kGRU ? 17 : 19)
                            : (cell == kLSTM ? 1 : cell == kGRU ? 4 : 6);
 }
 
@@ -993,9 +1118,9 @@ struct FwdArgs {
   float leak = 1.f;
 };
 
-template <int R, int kMode, int kCell>
+template <int R, int kMode, int kCell, bool kSeed>
 void launch_fwd(int blocks, int smem, cudaStream_t s, const FwdArgs& a) {
-  decoder_fwd_kernel<R, kMode, kCell><<<blocks, kThreads, smem, s>>>(
+  decoder_fwd_kernel<R, kMode, kCell, kSeed><<<blocks, kThreads, smem, s>>>(
       a.noise, a.lengths, a.w_cat, a.bias, a.bias_hh, a.b1, a.w2m, a.w2v,
       a.b2, a.w_ih, a.targets, a.wo1, a.bo1, a.wo2, a.bo2, a.h0, a.c0,
       a.out_last, a.hs, a.cs, a.partial, a.outs, a.mean_s, a.logvar_s, a.T,
@@ -1014,9 +1139,9 @@ struct BwdArgs {
   float leak = 1.f;
 };
 
-template <int R, int kCell, int kMode>
+template <int R, int kCell, int kMode, bool kSeed>
 void launch_bwd(int blocks, int smem, cudaStream_t s, const BwdArgs& a) {
-  decoder_bwd_kernel<R, kCell, kMode><<<blocks, kThreads, smem, s>>>(
+  decoder_bwd_kernel<R, kCell, kMode, kSeed><<<blocks, kThreads, smem, s>>>(
       a.noise, a.lengths, a.w_cat, a.bias, a.bias_hh, a.b1, a.w2m, a.w2v,
       a.b2, a.w_ih, a.targets, a.wo1, a.bo1, a.wo2, a.bo2, a.h0, a.c0,
       a.w_catT, a.w_ihT, a.w2mT, a.w2vT, a.wo1T, a.hs, a.cs, a.dlast,
@@ -1031,19 +1156,19 @@ bool bad_dims(int T, int B, int F, int H, int M, int Mo, bool offset) {
 
 // A forward of any cell and mode; with a loss (kFusedLosses, kFusedNll),
 // then the block-order sum of the per-block loss partials into `losses`.
-template <int kCell, int kMode>
+template <int kCell, int kMode, bool kSeed = false>
 int fwd(const FwdArgs& a, float* losses, int rows, void* stream) {
   if (bad_dims(a.T, a.B, a.F, a.H, a.M, a.Mo, kMode == kFusedLosses))
     return (int)cudaErrorInvalidValue;
   int smem = 0;
-  cudaError_t err = prepare(fwd_kind(kCell, kMode), rows, a.F, a.H, a.M,
-                            a.Mo, &smem);
+  cudaError_t err = prepare(fwd_kind(kCell, kMode, kSeed), rows, a.F, a.H,
+                            a.M, a.Mo, &smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (a.B + rows - 1) / rows;
   cudaStream_t s = (cudaStream_t)stream;
-  auto go = rows == 8   ? &launch_fwd<8, kMode, kCell>
-            : rows == 4 ? &launch_fwd<4, kMode, kCell>
-                        : &launch_fwd<2, kMode, kCell>;
+  auto go = rows == 8   ? &launch_fwd<8, kMode, kCell, kSeed>
+            : rows == 4 ? &launch_fwd<4, kMode, kCell, kSeed>
+                        : &launch_fwd<2, kMode, kCell, kSeed>;
   go(blocks, smem, s, a);
   err = cudaGetLastError();
   if (err != cudaSuccess || kMode == kStream) return (int)err;
@@ -1051,18 +1176,18 @@ int fwd(const FwdArgs& a, float* losses, int rows, void* stream) {
   return (int)cudaGetLastError();
 }
 
-template <int kCell, int kMode>
+template <int kCell, int kMode, bool kSeed = false>
 int bwd(const BwdArgs& a, int rows, void* stream) {
   if (bad_dims(a.T, a.B, a.F, a.H, a.M, a.Mo, kMode == kFusedLosses))
     return (int)cudaErrorInvalidValue;
   int smem = 0;
-  cudaError_t err = prepare(bwd_kind(kCell, kMode), rows, a.F, a.H, a.M,
-                            a.Mo, &smem);
+  cudaError_t err = prepare(bwd_kind(kCell, kMode, kSeed), rows, a.F, a.H,
+                            a.M, a.Mo, &smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (a.B + rows - 1) / rows;
-  auto go = rows == 8   ? &launch_bwd<8, kCell, kMode>
-            : rows == 4 ? &launch_bwd<4, kCell, kMode>
-                        : &launch_bwd<2, kCell, kMode>;
+  auto go = rows == 8   ? &launch_bwd<8, kCell, kMode, kSeed>
+            : rows == 4 ? &launch_bwd<4, kCell, kMode, kSeed>
+                        : &launch_bwd<2, kCell, kMode, kSeed>;
   go(blocks, smem, (cudaStream_t)stream, a);
   return (int)cudaGetLastError();
 }
@@ -1092,10 +1217,12 @@ long long abcd_decoder_smem_limit(int kind, int rows) {
   return fn == nullptr ? 0 : smem_limit(fn);
 }
 
-// LSTM fused-loss forward (kind 0; see the comment at the top).  hs / cs
-// may be nullptr (no backward to follow).  `partial` holds
-// 2 * ceil(B / rows) doubles; `losses` receives (nll over positions
-// 0..T-2, bce over all positions).
+// LSTM fused-loss forward (kind 0, or 14 with seed_mode; see the comment at
+// the top).  hs / cs may be nullptr (no backward to follow).  `partial`
+// holds 2 * ceil(B / rows) doubles; `losses` receives (nll over positions
+// 0..T-2, bce over all positions).  seed_mode != 0: `noise` is the (1, 1)
+// seed.  The same seed_mode argument selects the seed kinds of the GRU and
+// Elman / ESN forwards and of the three backwards below.
 int abcd_decoder_fwd(const float* noise, const int* lengths,
                      const float* w_cat, const float* bias, const float* b1,
                      const float* w2m, const float* w2v, const float* b2,
@@ -1104,11 +1231,12 @@ int abcd_decoder_fwd(const float* noise, const int* lengths,
                      const float* bo2, const float* h0, const float* c0,
                      float* out_last, float* hs, float* cs, double* partial,
                      float* losses, int T, int B, int F, int H, int M,
-                     int Mo, int rows, void* stream) {
+                     int Mo, int seed_mode, int rows, void* stream) {
   const FwdArgs a{noise, lengths, w_cat, bias, nullptr, b1, w2m, w2v, b2,
                   w_ih, targets, wo1, bo1, wo2, bo2, h0, c0, out_last, hs,
                   cs, partial, nullptr, nullptr, nullptr, T, B, F, H, M, Mo};
-  return fwd<kLSTM, kFusedLosses>(a, losses, rows, stream);
+  return seed_mode ? fwd<kLSTM, kFusedLosses, true>(a, losses, rows, stream)
+                   : fwd<kLSTM, kFusedLosses>(a, losses, rows, stream);
 }
 
 // LSTM fused-NLL forward (kind 12): outs (T, B, H) = the pre-mask h2 of
@@ -1139,13 +1267,14 @@ int abcd_gru_decoder_fwd(const float* noise, const int* lengths,
                          const float* wo1, const float* bo1, const float* wo2,
                          const float* bo2, const float* h0, float* out_last,
                          float* hs, double* partial, float* losses, int T,
-                         int B, int F, int H, int M, int Mo, int rows,
-                         void* stream) {
+                         int B, int F, int H, int M, int Mo, int seed_mode,
+                         int rows, void* stream) {
   const FwdArgs a{noise, lengths, w_cat, b_ih, b_hh, b1, w2m, w2v, b2, w_ih,
                   targets, wo1, bo1, wo2, bo2, h0, nullptr, out_last, hs,
                   nullptr, partial, nullptr, nullptr, nullptr, T, B, F, H, M,
                   Mo};
-  return fwd<kGRU, kFusedLosses>(a, losses, rows, stream);
+  return seed_mode ? fwd<kGRU, kFusedLosses, true>(a, losses, rows, stream)
+                   : fwd<kGRU, kFusedLosses>(a, losses, rows, stream);
 }
 
 // Elman / ESN fused-loss forward (kind 5): `bias` = b_ih + b_hh (zeros for
@@ -1159,12 +1288,13 @@ int abcd_rnn_decoder_fwd(const float* noise, const int* lengths,
                          const float* bo2, const float* h0, float* out_last,
                          float* hs, double* partial, float* losses, int T,
                          int B, int F, int H, int M, int Mo, float leak,
-                         int rows, void* stream) {
+                         int seed_mode, int rows, void* stream) {
   const FwdArgs a{noise, lengths, w_cat, bias, nullptr, b1, w2m, w2v, b2,
                   w_ih, targets, wo1, bo1, wo2, bo2, h0, nullptr, out_last,
                   hs, nullptr, partial, nullptr, nullptr, nullptr, T, B, F,
                   H, M, Mo, leak};
-  return fwd<kRNN, kFusedLosses>(a, losses, rows, stream);
+  return seed_mode ? fwd<kRNN, kFusedLosses, true>(a, losses, rows, stream)
+                   : fwd<kRNN, kFusedLosses>(a, losses, rows, stream);
 }
 
 // The plain sampled loop's forward (kind 2): outs (T, B, H) = the pre-mask
@@ -1236,13 +1366,14 @@ int abcd_decoder_bwd(const float* noise, const int* lengths,
                      float* hp_s, float* dbig_s, float* x_s, float* emh_s,
                      float* dem_s, float* h2_s, float* doh_s, float* oh_s,
                      float* dzo_s, int T, int B, int F, int H, int M, int Mo,
-                     int rows, void* stream) {
+                     int seed_mode, int rows, void* stream) {
   const BwdArgs a{noise, lengths, w_cat, bias, nullptr, b1, w2m, w2v, b2,
                   w_ih, targets, wo1, bo1, wo2, bo2, h0, c0, w_catT, w_ihT,
                   w2mT, w2vT, wo1T, hs, cs, dlast, gscale, nullptr, nullptr,
                   nullptr, dh0, dc0, hp_s, dbig_s, x_s, emh_s, dem_s, h2_s,
                   doh_s, oh_s, dzo_s, nullptr, T, B, F, H, M, Mo};
-  return bwd<kLSTM, kFusedLosses>(a, rows, stream);
+  return seed_mode ? bwd<kLSTM, kFusedLosses, true>(a, rows, stream)
+                   : bwd<kLSTM, kFusedLosses>(a, rows, stream);
 }
 
 // GRU backward (kind 4): writes dh0 and the LSTM's streams (dbig's gate
@@ -1262,13 +1393,14 @@ int abcd_gru_decoder_bwd(const float* noise, const int* lengths,
                          float* emh_s, float* dem_s, float* h2_s,
                          float* doh_s, float* oh_s, float* dzo_s,
                          float* dnp_s, int T, int B, int F, int H, int M,
-                         int Mo, int rows, void* stream) {
+                         int Mo, int seed_mode, int rows, void* stream) {
   const BwdArgs a{noise, lengths, w_cat, b_ih, b_hh, b1, w2m, w2v, b2, w_ih,
                   targets, wo1, bo1, wo2, bo2, h0, nullptr, w_catT, w_ihT,
                   w2mT, w2vT, wo1T, hs, nullptr, dlast, gscale, nullptr,
                   nullptr, nullptr, dh0, nullptr, hp_s, dbig_s, x_s, emh_s,
                   dem_s, h2_s, doh_s, oh_s, dzo_s, dnp_s, T, B, F, H, M, Mo};
-  return bwd<kGRU, kFusedLosses>(a, rows, stream);
+  return seed_mode ? bwd<kGRU, kFusedLosses, true>(a, rows, stream)
+                   : bwd<kGRU, kFusedLosses>(a, rows, stream);
 }
 
 // Elman / ESN backward (kind 6): writes dh0 and the LSTM's streams, the
@@ -1288,14 +1420,15 @@ int abcd_rnn_decoder_bwd(const float* noise, const int* lengths,
                          float* emh_s, float* dem_s, float* h2_s,
                          float* doh_s, float* oh_s, float* dzo_s, int T,
                          int B, int F, int H, int M, int Mo, float leak,
-                         int rows, void* stream) {
+                         int seed_mode, int rows, void* stream) {
   const BwdArgs a{noise, lengths, w_cat, bias, nullptr, b1, w2m, w2v, b2,
                   w_ih, targets, wo1, bo1, wo2, bo2, h0, nullptr, w_catT,
                   w_ihT, w2mT, w2vT, wo1T, hs, nullptr, dlast, gscale,
                   nullptr, nullptr, nullptr, dh0, nullptr, hp_s, dbig_s, x_s,
                   emh_s, dem_s, h2_s, doh_s, oh_s, dzo_s, nullptr, T, B, F, H,
                   M, Mo, leak};
-  return bwd<kRNN, kFusedLosses>(a, rows, stream);
+  return seed_mode ? bwd<kRNN, kFusedLosses, true>(a, rows, stream)
+                   : bwd<kRNN, kFusedLosses>(a, rows, stream);
 }
 
 // LSTM fused-NLL backward (kind 13): `gscale` holds dnll, `douts` (T, B, H)
@@ -1395,6 +1528,20 @@ int abcd_rnn_decoder_loop_bwd(const float* noise, const int* lengths,
                   hp_s, dbig_s, x_s, emh_s, dem_s, nullptr, nullptr, nullptr,
                   nullptr, nullptr, T, B, F, H, M, 0, leak};
   return bwd<kRNN, kStream>(a, rows, stream);
+}
+
+// The (T, B, F) draws of the seed kinds for the (1, 1) float32 `seed`
+// (decoder_pallas.decoder_noise_dump), into `out`; `bits` (T, B, F, 2) int32
+// or nullptr receives the 24-bit integers of the uniforms.
+int abcd_decoder_noise_dump(const float* seed, float* out, int* bits, int T,
+                            int B, int F, void* stream) {
+  if (T < 1 || B < 1 || F < 1) return (int)cudaErrorInvalidValue;
+  const int64_t n = (int64_t)T * B * F;
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  noise_dump_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      seed, out, bits, T, B, F);
+  return (int)cudaGetLastError();
 }
 
 const char* abcd_cuda_error_string(int err) {

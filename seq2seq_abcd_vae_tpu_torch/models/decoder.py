@@ -24,6 +24,10 @@ reads once into that argument): the sampled loop with its hand-written
 backward (``decoder_loop``, ``gru_decoder_loop``, ``rnn_decoder_loop``),
 then the emission NLL and the offset BCE over its streams.  Both paths
 draw on the same noise, so their losses agree up to summation order.
+With the JAX package's ``SEQ2SEQ_KERNEL_RNG=1`` (the training CLI's
+``kernel_rng``) the noise of a fused cell is a (1, 1) seed, from which the
+fused-loss kernels draw each step's noise themselves
+(``ops/decoder_kernel.decoder_noise_dump``); only that path takes a seed.
 Without offset targets (the JAX ``decoder_apply(loss_only=True,
 ground_truth_offset=None)``), the fused LSTM takes
 ``decoder_loop_fused_nll`` and the offset logits are returned.  The
@@ -203,7 +207,9 @@ def decoder_losses(params: dict, cfg: DecoderConfig, features: torch.Tensor,
       lengths: (B,) valid steps (0 for batch-padding rows).
       ground_truth_out: (B, T, F) padded targets; T is the bucket.
       noise: (T, B, F) standard normals; position p's sample uses
-        ``noise[p]``.
+        ``noise[p]``.  Or, for a cell in ``fused_cells`` with offset
+        targets, a (1, 1) float32 seed: the fused-loss kernels' seed mode;
+        any other path raises ValueError for it.
       speaker: (B,) int ids when the config embeds speakers.
       fused_cells: the cells that take the fused-loss kernels; any other
         takes the stream path (the sampled loop, then the losses over its
@@ -218,6 +224,13 @@ def decoder_losses(params: dict, cfg: DecoderConfig, features: torch.Tensor,
     t = ground_truth_out.shape[1]
     lengths = lengths.to(torch.int32)
     noise = noise.contiguous()
+    fused_losses = cfg.rnn_type in fused_cells and with_offset
+    if noise.dim() == 2 and not fused_losses:
+        raise ValueError(
+            "a (1, 1) noise seed is the fused-loss kernels' seed mode; the "
+            f"{cfg.rnn_type} decoder here takes the "
+            + ("fused-NLL loop" if cfg.rnn_type in fused_cells
+               else "stream path") + ", which needs the (T, B, F) noise")
     if cfg.rnn_type in fused_cells and (with_offset
                                         or cfg.rnn_type == "LSTM"):
         emission = (w["b1"], w["w2m"], w["w2v"], w["b2"], w["w_ih"],

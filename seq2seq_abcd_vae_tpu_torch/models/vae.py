@@ -73,8 +73,9 @@ def forward_losses(params: dict, cfg: ModelConfig, *, inputs, lengths,
 
     inputs: (B, T, F) padded log-spectrograms; lengths: (B,) frame counts
     (0 marks batch-padding rows); gumbel_noise (B, K) (unused when
-    ``no_sample``); decoder_noise (T, B, F); fused_cells: the decoder cells
-    that train on the fused-loss kernels (``decoder_losses``).
+    ``no_sample``); decoder_noise (T, B, F), or the fused-loss kernels'
+    (1, 1) seed; fused_cells: the decoder cells that train on the
+    fused-loss kernels (``decoder_losses``).
     """
     row_mask = (lengths > 0).to(inputs.dtype)
     last_hidden = enc_mod.encoder_apply(params["encoder"], cfg.encoder,
@@ -98,7 +99,8 @@ def training_loss(params: dict, cfg: ModelConfig, batch: dict, noise: dict,
                   fused_cells=dec_mod.CELLS):
     """Scalar loss = (emission + offset + KL) / real rows, and the aux
     dict.  ``batch`` holds inputs, lengths, speakers; ``noise`` holds
-    ``gumbel`` and ``decoder``."""
+    ``gumbel`` and ``decoder`` (the (T, B, F) stream, or the fused-loss
+    kernels' (1, 1) seed: ``models/decoder.decoder_losses``)."""
     out = forward_losses(params, cfg, inputs=batch["inputs"],
                          lengths=batch["lengths"],
                          speakers=batch.get("speakers"),

@@ -25,7 +25,8 @@ SOURCES = {"stft": _PKG / "csrc" / "stft.cu",
            "gru": _PKG / "csrc" / "gru.cu",
            "elman": _PKG / "csrc" / "elman.cu",
            "decoder": _PKG / "csrc" / "decoder.cu",
-           "wgrad": _PKG / "csrc" / "wgrad.cu"}
+           "wgrad": _PKG / "csrc" / "wgrad.cu",
+           "probe": _PKG / "csrc" / "probe.cu"}
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
@@ -55,28 +56,32 @@ SIGNATURES = {
               "abcd_elman_rows": [_I] * 3,
               "abcd_elman_smem_bytes": [_I] * 4,
               "abcd_elman_smem_limit": [_I] * 2},
-    "decoder": {"abcd_decoder_fwd": [_P] * 21 + [_I] * 7 + [_P],
+    "decoder": {"abcd_decoder_fwd": [_P] * 21 + [_I] * 8 + [_P],
                 "abcd_decoder_loop_fwd": [_P] * 16 + [_I] * 6 + [_P],
                 "abcd_gru_decoder_loop_fwd": [_P] * 13 + [_I] * 6 + [_P],
                 "abcd_rnn_decoder_loop_fwd":
                     [_P] * 12 + [_I] * 5 + [_F, _I, _P],
-                "abcd_decoder_bwd": [_P] * 36 + [_I] * 7 + [_P],
-                "abcd_gru_decoder_fwd": [_P] * 20 + [_I] * 7 + [_P],
-                "abcd_gru_decoder_bwd": [_P] * 35 + [_I] * 7 + [_P],
-                "abcd_rnn_decoder_fwd": [_P] * 19 + [_I] * 6 + [_F, _I, _P],
-                "abcd_rnn_decoder_bwd": [_P] * 33 + [_I] * 6 + [_F, _I, _P],
+                "abcd_decoder_bwd": [_P] * 36 + [_I] * 8 + [_P],
+                "abcd_gru_decoder_fwd": [_P] * 20 + [_I] * 8 + [_P],
+                "abcd_gru_decoder_bwd": [_P] * 35 + [_I] * 8 + [_P],
+                "abcd_rnn_decoder_fwd":
+                    [_P] * 19 + [_I] * 6 + [_F, _I, _I, _P],
+                "abcd_rnn_decoder_bwd":
+                    [_P] * 33 + [_I] * 6 + [_F, _I, _I, _P],
                 "abcd_decoder_loop_bwd": [_P] * 27 + [_I] * 6 + [_P],
                 "abcd_gru_decoder_loop_bwd": [_P] * 24 + [_I] * 6 + [_P],
                 "abcd_rnn_decoder_loop_bwd":
                     [_P] * 22 + [_I] * 5 + [_F, _I, _P],
                 "abcd_decoder_nll_fwd": [_P] * 17 + [_I] * 6 + [_P],
                 "abcd_decoder_nll_bwd": [_P] * 27 + [_I] * 6 + [_P],
+                "abcd_decoder_noise_dump": [_P, _P, _P, _I, _I, _I, _P],
                 "abcd_decoder_rows": [_I] * 5,
                 "abcd_decoder_smem_bytes": [_I] * 6,
                 "abcd_decoder_smem_limit": [_I] * 2},
     "wgrad": {"abcd_wgrad": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P],
               "abcd_wgrad_splits": [_I, _I, _I],
               "abcd_add2": [_P, _P, _P, _L, _P]},
+    "probe": {"abcd_probe_add_one": [_P, _P, _L, _P]},
 }
 # entry points that return a byte count; every other one returns an int
 _LONG_RESULTS = {"abcd_lstm_smem_bytes", "abcd_lstm_smem_limit",

@@ -35,6 +35,23 @@ w_cat (H, 3H + 2m), b_ih and b_hh (3H,) apart (b_hh sits inside the reset
 product), w_ih (F, 3H) and h0 alone.  The Elman / ESN loop takes w_cat
 (H, H + 2m), bias (H,) = b_ih + b_hh (zeros for the ESN), w_ih (F, H), h0
 alone and the leak.
+
+Seed mode (the JAX package's ``SEQ2SEQ_KERNEL_RNG=1``): the three
+fused-loss loops also take a (1, 1) float32 seed below 2^24 in place of
+the (T, B, F) noise, as the TPU kernels do (``noise.ndim == 2``).  The
+kernels then draw each step's noise in-kernel and draw it again, the
+same, in the backward; :func:`decoder_noise_dump` (replacing
+decoder_pallas.decoder_noise_dump) writes the stream they draw:
+
+    (w0, w1, -, -) = Philox4x32-10(counter = (t, b, f, 0), key = (seed, 0))
+    noise[t, b, f] = sqrt(-2 log u1) * cos(2 pi u2),
+    u1 = (w0 >> 8) 2^-24 + 2^-25,   u2 = (w1 >> 8) 2^-24
+
+(:func:`philox4x32` is the plain twin of the generator, in int64
+arithmetic kept to 32 bits).  This is the port's own stream: the TPU's
+bits cannot be had on a GPU.  On CPU tensors the seed mode runs the dump's
+twin, then the stream-mode twin; the seed's cotangent is zero.  Seed-mode
+launches are counted apart, on each wrapper's ``seed`` counter.
 """
 
 from __future__ import annotations
@@ -51,6 +68,9 @@ _LOG_2PI = math.log(2.0 * math.pi)
 (_FUSED_FWD, _FUSED_BWD, _LOOP_FWD, _GRU_FUSED_FWD, _GRU_FUSED_BWD,
  _RNN_FUSED_FWD, _RNN_FUSED_BWD, _GRU_LOOP_FWD, _RNN_LOOP_FWD, _LOOP_BWD,
  _GRU_LOOP_BWD, _RNN_LOOP_BWD, _NLL_FWD, _NLL_BWD) = range(14)
+# the fused-loss kinds in seed mode (kinds 14-19 of csrc/decoder.cu)
+_SEED_KIND = {_FUSED_FWD: 14, _FUSED_BWD: 15, _GRU_FUSED_FWD: 16,
+              _GRU_FUSED_BWD: 17, _RNN_FUSED_FWD: 18, _RNN_FUSED_BWD: 19}
 
 _NAMES = ("noise", "lengths", "w_cat", "bias", "b1", "w2m", "w2v", "b2",
           "w_ih", "targets", "wo1", "bo1", "wo2", "bo2", "h0", "c0")
@@ -65,7 +85,7 @@ _CELLS = {"LSTM": (_NAMES, 4), "GRU": (_GRU_NAMES, 3), "RNN": (_RNN_NAMES, 1)}
 def _shapes(args, cell: str = "LSTM"):
     """(T, B, F, H, m, Mo) of an LSTM, GRU or Elman argument list."""
     by_name = dict(zip(_CELLS[cell][0], args))
-    t, b, f = by_name["noise"].shape
+    t, b, f = by_name["targets"].shape
     hidden = by_name["w_cat"].shape[0]
     m = by_name["w2m"].shape[0]
     mo = by_name["wo1"].shape[1]
@@ -76,11 +96,12 @@ def _check(args, cell: str = "LSTM"):
     names, gates = _CELLS[cell]
     if len(args) != len(names):
         raise TypeError(f"expected {len(names)} arguments")
-    if args[0].dim() != 3:
-        raise ValueError("noise must be (T, B, F)")
+    if args[0].dim() not in (2, 3):
+        raise ValueError("noise must be (T, B, F), or a (1, 1) seed")
     t, b, f, hidden, m, mo = _shapes(args, cell)
     gh = gates * hidden
-    want = {"noise": (t, b, f), "lengths": (b,),
+    want = {"noise": (t, b, f) if args[0].dim() == 3 else (1, 1),
+            "lengths": (b,),
             "w_cat": (hidden, gh + 2 * m), "bias": (gh,), "b_ih": (gh,),
             "b_hh": (gh,), "b1": (2 * m,), "w2m": (m, f), "w2v": (m, f),
             "b2": (2 * f,), "w_ih": (f, gh), "targets": (t, b, f),
@@ -103,6 +124,121 @@ def _check(args, cell: str = "LSTM"):
         raise ValueError(f"unsupported device {device}")
     if t < 1 or b < 1:
         raise ValueError("need at least one step and one row")
+
+
+# ---------------------------------------------------------------------------
+# in-kernel noise (decoder_pallas._kernel_noise, decoder_noise_dump)
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_TWO_PI = 2.0 * math.pi
+
+
+class _Launches:
+    """A launch count kept apart from its wrapper's: the seed mode's."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """The high and low 32-bit words of ``a * b`` for a 32-bit constant
+    ``a`` and an int64 tensor of 32-bit words ``b``, without overflowing
+    int64 (b is split into 16-bit halves)."""
+    p_hi, p_lo = a * (b >> 16), a * (b & 0xFFFF)        # each < 2^48
+    hi = (p_hi + (p_lo >> 16)) >> 16
+    lo = (((p_hi & 0xFFFF) << 16) + p_lo) & _MASK32
+    return hi, lo
+
+
+def philox4x32(counter, key):
+    """Philox4x32-10 (Random123's philox4x32, 10 rounds): ``counter`` four
+    and ``key`` two int64 tensors (or ints) of 32-bit words, broadcast
+    together; returns the four output words as int64 tensors.  The plain
+    twin of ``philox4x32_10`` in csrc/decoder.cu."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for round_ in range(10):
+        if round_:
+            k0 = (k0 + _PHILOX_W[0]) & _MASK32
+            k1 = (k1 + _PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def box_muller(i1: torch.Tensor, i2: torch.Tensor) -> torch.Tensor:
+    """Standard normals from two 24-bit integers, in float32 with each
+    operation rounded on its own (the kernel's ``box_muller``)."""
+    u1 = i1.to(torch.float32) * 2.0 ** -24 + 2.0 ** -25
+    u2 = i2.to(torch.float32) * 2.0 ** -24
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
+
+
+def decoder_noise_dump_plain(seed: torch.Tensor, t: int, b: int, f: int,
+                             with_bits: bool = False):
+    """Plain PyTorch twin of the dump kernel: (T, B, F) float32 standard
+    normals, element (t, b, f) from Philox4x32-10 of counter (t, b, f, 0)
+    and key (seed, 0); with ``with_bits`` also the (T, B, F, 2) int32
+    24-bit integers of the uniforms."""
+    idx = lambda n: torch.arange(n, dtype=torch.int64, device=seed.device)
+    tt, bb, ff = torch.broadcast_tensors(idx(t)[:, None, None],
+                                         idx(b)[None, :, None],
+                                         idx(f)[None, None, :])
+    key = seed.reshape(()).to(torch.int64)
+    w0, w1, _, _ = philox4x32((tt, bb, ff, torch.zeros_like(tt)), (key, 0))
+    i1, i2 = w0 >> 8, w1 >> 8
+    out = box_muller(i1, i2)
+    if not with_bits:
+        return out
+    return out, torch.stack([i1, i2], dim=-1).to(torch.int32)
+
+
+def decoder_noise_dump(seed: torch.Tensor, t: int, b: int, f: int,
+                       with_bits: bool = False):
+    """The (T, B, F) noise stream the seed mode draws for the (1, 1)
+    float32 ``seed`` (below 2^24), as decoder_pallas.decoder_noise_dump;
+    with ``with_bits``, also the (T, B, F, 2) int32 24-bit integers whose
+    uniforms it transforms (a check of the generator).  CUDA tensors
+    launch the dump kernel (one count); CPU tensors take
+    ``decoder_noise_dump_plain``."""
+    if (tuple(seed.shape) != (1, 1) or seed.dtype != torch.float32
+            or seed.device.type not in ("cpu", "cuda")):
+        raise ValueError("the seed must be a (1, 1) float32 tensor on the "
+                         f"CPU or a card, got {seed.dtype} "
+                         f"{tuple(seed.shape)} on {seed.device}")
+    if min(t, b, f) < 1:
+        raise ValueError(f"need a positive (T, B, F), got {(t, b, f)}")
+    if seed.device.type == "cpu":
+        return decoder_noise_dump_plain(seed, t, b, f, with_bits)
+    lib = _build.load("decoder")
+    out = torch.empty((t, b, f), dtype=torch.float32, device=seed.device)
+    bits = (torch.empty((t, b, f, 2), dtype=torch.int32, device=seed.device)
+            if with_bits else None)
+    with torch.cuda.device(seed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.abcd_decoder_noise_dump(
+            seed.data_ptr(), out.data_ptr(),
+            None if bits is None else bits.data_ptr(), t, b, f, stream)
+    _build.check(lib, err, "decoder_noise_dump")
+    decoder_noise_dump.launches += 1
+    return (out, bits) if with_bits else out
+
+
+decoder_noise_dump.launches = 0
+
+
+def _stream_args(args, cell: str = "LSTM"):
+    """A fused-loss argument list with a (1, 1) seed in place of the noise
+    turned into stream mode: the seed becomes the (T, B, F) stream it
+    stands for (the dump's twin); the CPU path of the seed mode."""
+    if args[0].dim() == 3:
+        return args
+    t, b, f = args[_CELLS[cell][0].index("targets")].shape
+    return (decoder_noise_dump_plain(args[0], t, b, f),) + tuple(args[1:])
 
 
 def _check_more(device, named):
@@ -191,16 +327,19 @@ def decoder_fused_losses_fwd_plain(noise, lengths, w_cat, bias, b1, w2m,
 def decoder_fused_losses_fwd(*args, save: bool = True):
     """The forward: (out_last, nll, bce, hs, cs); hs / cs are None when
     ``save`` is False (no backward follows, so the kernel writes neither).
-    CUDA tensors launch the kernel (one count); CPU tensors take
+    CUDA tensors launch the kernel (one count; a (1, 1) seed in place of
+    the noise, the seed mode's, on ``.seed``); CPU tensors take
     ``decoder_fused_losses_fwd_plain``."""
     _check(args)
     noise = args[0]
     if noise.device.type == "cpu":
-        out = decoder_fused_losses_fwd_plain(*args)
+        out = decoder_fused_losses_fwd_plain(*_stream_args(args))
         return out if save else out[:3] + (None, None)
     t, b, f, hidden, m, mo = _shapes(args)
+    seed = noise.dim() == 2
     lib = _build.load("decoder")
-    rows = _build.row_tile(lib, "decoder", _FUSED_FWD, (f, hidden, m, mo),
+    kind = _SEED_KIND[_FUSED_FWD] if seed else _FUSED_FWD
+    rows = _build.row_tile(lib, "decoder", kind, (f, hidden, m, mo),
                            "decoder_loop_fused_losses")
     dev = noise.device
     out_last = torch.empty((b, hidden), dtype=torch.float32, device=dev)
@@ -216,13 +355,16 @@ def decoder_fused_losses_fwd(*args, save: bool = True):
         err = lib.abcd_decoder_fwd(*[a.data_ptr() for a in args],
                                    out_last.data_ptr(), ptr(hs), ptr(cs),
                                    partial.data_ptr(), losses.data_ptr(),
-                                   t, b, f, hidden, m, mo, rows, stream)
+                                   t, b, f, hidden, m, mo, int(seed), rows,
+                                   stream)
     _build.check(lib, err, "decoder_loop_fused_losses")
-    decoder_fused_losses_fwd.launches += 1
+    (decoder_fused_losses_fwd.seed if seed
+     else decoder_fused_losses_fwd).launches += 1
     return out_last, losses[0].clone(), losses[1].clone(), hs, cs
 
 
 decoder_fused_losses_fwd.launches = 0
+decoder_fused_losses_fwd.seed = _Launches()
 
 
 def decoder_fused_losses_bwd_plain(noise, lengths, w_cat, bias, b1, w2m,
@@ -327,7 +469,8 @@ def decoder_fused_losses_bwd(*args):
     gscale (2,) = the cotangents of (nll, bce).  Returns the 13 gradients
     of ``decoder_fused_losses_bwd_plain``.  CUDA tensors launch the
     reverse-time kernel, then ``ops/wgrad.py``'s reductions of its streams
-    (one count); CPU tensors take the twin."""
+    (one count; the seed mode's on ``.seed``); CPU tensors take the
+    twin."""
     fwd_args, (hs, cs, dlast, gscale) = args[:16], args[16:]
     _check(fwd_args)
     t, b, f, hidden, m, mo = _shapes(fwd_args)
@@ -335,9 +478,12 @@ def decoder_fused_losses_bwd(*args):
     _check_more(dev, (("hs", hs, (t, b, hidden)), ("cs", cs, (t, b, hidden)),
                       ("dlast", dlast, (b, hidden)), ("gscale", gscale, (2,))))
     if dev.type == "cpu":
-        return decoder_fused_losses_bwd_plain(*args)
+        return decoder_fused_losses_bwd_plain(*_stream_args(fwd_args),
+                                              *args[16:])
+    seed = fwd_args[0].dim() == 2
     lib = _build.load("decoder")
-    rows = _build.row_tile(lib, "decoder", _FUSED_BWD, (f, hidden, m, mo),
+    kind = _SEED_KIND[_FUSED_BWD] if seed else _FUSED_BWD
+    rows = _build.row_tile(lib, "decoder", kind, (f, hidden, m, mo),
                            "decoder_loop_fused_losses backward")
     w_cat, w2m, w2v, w_ih, wo1 = (fwd_args[i] for i in (2, 5, 6, 8, 10))
     g = w_cat.shape[1]
@@ -360,15 +506,17 @@ def decoder_fused_losses_bwd(*args):
             hs.data_ptr(), cs.data_ptr(), dlast.data_ptr(),
             gscale.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
             *[st[k].data_ptr() for k in order], t, b, f, hidden, m, mo,
-            rows, stream)
+            int(seed), rows, stream)
         _build.check(lib, err, "decoder_loop_fused_losses backward")
         rows = {k: v.view(t * b, v.shape[-1]) for k, v in st.items()}
         grads = _weight_grads(rows, hidden, m, f, wgrad.at_b)
-    decoder_fused_losses_bwd.launches += 1
+    (decoder_fused_losses_bwd.seed if seed
+     else decoder_fused_losses_bwd).launches += 1
     return grads + (dh0, dc0)
 
 
 decoder_fused_losses_bwd.launches = 0
+decoder_fused_losses_bwd.seed = _Launches()
 
 
 class _DecoderFusedLosses(torch.autograd.Function):
@@ -394,8 +542,9 @@ def decoder_loop_fused_losses(noise, lengths, w_cat, bias, b1, w2m, w2v, b2,
                               w_ih, targets, wo1, bo1, wo2, bo2, h0, c0):
     """(out_last (B, H), nll (), bce ()), differentiable in every weight and
     in h0 / c0: nll covers positions 0..T-2 (the caller adds T-1's term
-    from out_last), bce every position.  Without autograd only the forward
-    runs, and it saves no trajectories."""
+    from out_last), bce every position.  ``noise`` is the (T, B, F) stream
+    or a (1, 1) float32 seed (the seed mode).  Without autograd only the
+    forward runs, and it saves no trajectories."""
     args = (noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, targets,
             wo1, bo1, wo2, bo2, h0, c0)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
@@ -459,17 +608,18 @@ def gru_decoder_fused_losses_fwd_plain(noise, lengths, w_cat, b_ih, b_hh, b1,
 def gru_decoder_fused_losses_fwd(*args, save: bool = True):
     """The GRU forward: (out_last, nll, bce, hs); hs is None when ``save``
     is False (no backward follows, so the kernel writes none).  CUDA
-    tensors launch the kernel (one count); CPU tensors take
-    ``gru_decoder_fused_losses_fwd_plain``."""
+    tensors launch the kernel (one count; the seed mode's on ``.seed``);
+    CPU tensors take ``gru_decoder_fused_losses_fwd_plain``."""
     _check(args, "GRU")
     noise = args[0]
     if noise.device.type == "cpu":
-        out = gru_decoder_fused_losses_fwd_plain(*args)
+        out = gru_decoder_fused_losses_fwd_plain(*_stream_args(args, "GRU"))
         return out if save else out[:3] + (None,)
     t, b, f, hidden, m, mo = _shapes(args, "GRU")
+    seed = noise.dim() == 2
     lib = _build.load("decoder")
-    rows = _build.row_tile(lib, "decoder", _GRU_FUSED_FWD,
-                           (f, hidden, m, mo),
+    kind = _SEED_KIND[_GRU_FUSED_FWD] if seed else _GRU_FUSED_FWD
+    rows = _build.row_tile(lib, "decoder", kind, (f, hidden, m, mo),
                            "gru_decoder_loop_fused_losses")
     dev = noise.device
     out_last = torch.empty((b, hidden), dtype=torch.float32, device=dev)
@@ -483,13 +633,16 @@ def gru_decoder_fused_losses_fwd(*args, save: bool = True):
         err = lib.abcd_gru_decoder_fwd(
             *[a.data_ptr() for a in args], out_last.data_ptr(),
             None if hs is None else hs.data_ptr(), partial.data_ptr(),
-            losses.data_ptr(), t, b, f, hidden, m, mo, rows, stream)
+            losses.data_ptr(), t, b, f, hidden, m, mo, int(seed), rows,
+            stream)
     _build.check(lib, err, "gru_decoder_loop_fused_losses")
-    gru_decoder_fused_losses_fwd.launches += 1
+    (gru_decoder_fused_losses_fwd.seed if seed
+     else gru_decoder_fused_losses_fwd).launches += 1
     return out_last, losses[0].clone(), losses[1].clone(), hs
 
 
 gru_decoder_fused_losses_fwd.launches = 0
+gru_decoder_fused_losses_fwd.seed = _Launches()
 
 
 def gru_decoder_fused_losses_bwd_plain(noise, lengths, w_cat, b_ih, b_hh, b1,
@@ -561,7 +714,8 @@ def gru_decoder_fused_losses_bwd(*args):
     gscale (2,) = the cotangents of (nll, bce).  Returns the 13 gradients
     of ``gru_decoder_fused_losses_bwd_plain``.  CUDA tensors launch the
     reverse-time kernel, then ``ops/wgrad.py``'s reductions of its streams
-    (one count); CPU tensors take the twin."""
+    (one count; the seed mode's on ``.seed``); CPU tensors take the
+    twin."""
     fwd_args, (hs, dlast, gscale) = args[:16], args[16:]
     _check(fwd_args, "GRU")
     t, b, f, hidden, m, mo = _shapes(fwd_args, "GRU")
@@ -569,10 +723,12 @@ def gru_decoder_fused_losses_bwd(*args):
     _check_more(dev, (("hs", hs, (t, b, hidden)),
                       ("dlast", dlast, (b, hidden)), ("gscale", gscale, (2,))))
     if dev.type == "cpu":
-        return gru_decoder_fused_losses_bwd_plain(*args)
+        return gru_decoder_fused_losses_bwd_plain(
+            *_stream_args(fwd_args, "GRU"), *args[16:])
+    seed = fwd_args[0].dim() == 2
     lib = _build.load("decoder")
-    rows = _build.row_tile(lib, "decoder", _GRU_FUSED_BWD,
-                           (f, hidden, m, mo),
+    kind = _SEED_KIND[_GRU_FUSED_BWD] if seed else _GRU_FUSED_BWD
+    rows = _build.row_tile(lib, "decoder", kind, (f, hidden, m, mo),
                            "gru_decoder_loop_fused_losses backward")
     w_cat, w2m, w2v, w_ih, wo1 = (fwd_args[i] for i in (2, 6, 7, 9, 11))
     g = w_cat.shape[1]
@@ -593,15 +749,17 @@ def gru_decoder_fused_losses_bwd(*args):
             *[w.data_ptr() for w in transposed], hs.data_ptr(),
             dlast.data_ptr(), gscale.data_ptr(), dh0.data_ptr(),
             *[st[k].data_ptr() for k in order], t, b, f, hidden, m, mo,
-            rows, stream)
+            int(seed), rows, stream)
         _build.check(lib, err, "gru_decoder_loop_fused_losses backward")
         rows = {k: v.view(t * b, v.shape[-1]) for k, v in st.items()}
         grads = _weight_grads(rows, hidden, m, f, wgrad.at_b, "GRU")
-    gru_decoder_fused_losses_bwd.launches += 1
+    (gru_decoder_fused_losses_bwd.seed if seed
+     else gru_decoder_fused_losses_bwd).launches += 1
     return grads + (dh0,)
 
 
 gru_decoder_fused_losses_bwd.launches = 0
+gru_decoder_fused_losses_bwd.seed = _Launches()
 
 
 class _GRUDecoderFusedLosses(torch.autograd.Function):
@@ -629,7 +787,8 @@ def gru_decoder_loop_fused_losses(noise, lengths, w_cat, b_ih, b_hh, b1, w2m,
     bce ()), differentiable in every weight and in h0, as
     decoder_pallas.gru_decoder_loop_fused_losses: nll covers positions
     0..T-2 (the caller adds T-1's term from out_last), bce every position.
-    Without autograd only the forward runs, and it saves no trajectory."""
+    ``noise`` is the (T, B, F) stream or a (1, 1) float32 seed.  Without
+    autograd only the forward runs, and it saves no trajectory."""
     args = (noise, lengths, w_cat, b_ih, b_hh, b1, w2m, w2v, b2, w_ih,
             targets, wo1, bo1, wo2, bo2, h0)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
@@ -688,18 +847,20 @@ def rnn_decoder_fused_losses_fwd_plain(noise, lengths, w_cat, bias, b1, w2m,
 def rnn_decoder_fused_losses_fwd(*args, leak=1.0, save: bool = True):
     """The Elman / ESN forward: (out_last, nll, bce, hs); hs is None when
     ``save`` is False (no backward follows, so the kernel writes none).
-    CUDA tensors launch the kernel (one count); CPU tensors take
-    ``rnn_decoder_fused_losses_fwd_plain``."""
+    CUDA tensors launch the kernel (one count; the seed mode's on
+    ``.seed``); CPU tensors take ``rnn_decoder_fused_losses_fwd_plain``."""
     _check(args, "RNN")
     leak = _check_leak(leak)
     noise = args[0]
     if noise.device.type == "cpu":
-        out = rnn_decoder_fused_losses_fwd_plain(*args, leak=leak)
+        out = rnn_decoder_fused_losses_fwd_plain(*_stream_args(args, "RNN"),
+                                                 leak=leak)
         return out if save else out[:3] + (None,)
     t, b, f, hidden, m, mo = _shapes(args, "RNN")
+    seed = noise.dim() == 2
     lib = _build.load("decoder")
-    rows = _build.row_tile(lib, "decoder", _RNN_FUSED_FWD,
-                           (f, hidden, m, mo),
+    kind = _SEED_KIND[_RNN_FUSED_FWD] if seed else _RNN_FUSED_FWD
+    rows = _build.row_tile(lib, "decoder", kind, (f, hidden, m, mo),
                            "rnn_decoder_loop_fused_losses")
     dev = noise.device
     out_last = torch.empty((b, hidden), dtype=torch.float32, device=dev)
@@ -713,13 +874,16 @@ def rnn_decoder_fused_losses_fwd(*args, leak=1.0, save: bool = True):
         err = lib.abcd_rnn_decoder_fwd(
             *[a.data_ptr() for a in args], out_last.data_ptr(),
             None if hs is None else hs.data_ptr(), partial.data_ptr(),
-            losses.data_ptr(), t, b, f, hidden, m, mo, leak, rows, stream)
+            losses.data_ptr(), t, b, f, hidden, m, mo, leak, int(seed), rows,
+            stream)
     _build.check(lib, err, "rnn_decoder_loop_fused_losses")
-    rnn_decoder_fused_losses_fwd.launches += 1
+    (rnn_decoder_fused_losses_fwd.seed if seed
+     else rnn_decoder_fused_losses_fwd).launches += 1
     return out_last, losses[0].clone(), losses[1].clone(), hs
 
 
 rnn_decoder_fused_losses_fwd.launches = 0
+rnn_decoder_fused_losses_fwd.seed = _Launches()
 
 
 def rnn_decoder_fused_losses_bwd_plain(noise, lengths, w_cat, bias, b1, w2m,
@@ -782,7 +946,8 @@ def rnn_decoder_fused_losses_bwd(*args, leak=1.0):
     (B, H) and gscale (2,) = the cotangents of (nll, bce).  Returns the 12
     gradients of ``rnn_decoder_fused_losses_bwd_plain``.  CUDA tensors
     launch the reverse-time kernel, then ``ops/wgrad.py``'s reductions of
-    its streams (one count); CPU tensors take the twin."""
+    its streams (one count; the seed mode's on ``.seed``); CPU tensors take
+    the twin."""
     fwd_args, (hs, dlast, gscale) = args[:15], args[15:]
     _check(fwd_args, "RNN")
     leak = _check_leak(leak)
@@ -791,10 +956,12 @@ def rnn_decoder_fused_losses_bwd(*args, leak=1.0):
     _check_more(dev, (("hs", hs, (t, b, hidden)),
                       ("dlast", dlast, (b, hidden)), ("gscale", gscale, (2,))))
     if dev.type == "cpu":
-        return rnn_decoder_fused_losses_bwd_plain(*args, leak=leak)
+        return rnn_decoder_fused_losses_bwd_plain(
+            *_stream_args(fwd_args, "RNN"), *args[15:], leak=leak)
+    seed = fwd_args[0].dim() == 2
     lib = _build.load("decoder")
-    rows = _build.row_tile(lib, "decoder", _RNN_FUSED_BWD,
-                           (f, hidden, m, mo),
+    kind = _SEED_KIND[_RNN_FUSED_BWD] if seed else _RNN_FUSED_BWD
+    rows = _build.row_tile(lib, "decoder", kind, (f, hidden, m, mo),
                            "rnn_decoder_loop_fused_losses backward")
     w_cat, w2m, w2v, w_ih, wo1 = (fwd_args[i] for i in (2, 5, 6, 8, 10))
     g = w_cat.shape[1]
@@ -814,15 +981,17 @@ def rnn_decoder_fused_losses_bwd(*args, leak=1.0):
             *[w.data_ptr() for w in transposed], hs.data_ptr(),
             dlast.data_ptr(), gscale.data_ptr(), dh0.data_ptr(),
             *[st[k].data_ptr() for k in order], t, b, f, hidden, m, mo,
-            leak, rows, stream)
+            leak, int(seed), rows, stream)
         _build.check(lib, err, "rnn_decoder_loop_fused_losses backward")
         rows = {k: v.view(t * b, v.shape[-1]) for k, v in st.items()}
         grads = _weight_grads(rows, hidden, m, f, wgrad.at_b, "RNN")
-    rnn_decoder_fused_losses_bwd.launches += 1
+    (rnn_decoder_fused_losses_bwd.seed if seed
+     else rnn_decoder_fused_losses_bwd).launches += 1
     return grads + (dh0,)
 
 
 rnn_decoder_fused_losses_bwd.launches = 0
+rnn_decoder_fused_losses_bwd.seed = _Launches()
 
 
 class _RNNDecoderFusedLosses(torch.autograd.Function):
@@ -853,7 +1022,8 @@ def rnn_decoder_loop_fused_losses(noise, lengths, w_cat, bias, b1, w2m, w2v,
     decoder_pallas.rnn_decoder_loop_fused_losses: nll covers positions
     0..T-2 (the caller adds T-1's term from out_last), bce every position.
     ``leak`` below 1.0 selects the ESN cell (pass a zero ``bias``; the
-    ESN has none).  Without autograd only the forward runs, and it saves no
+    ESN has none).  ``noise`` is the (T, B, F) stream or a (1, 1) float32
+    seed.  Without autograd only the forward runs, and it saves no
     trajectory."""
     args = (noise, lengths, w_cat, bias, b1, w2m, w2v, b2, w_ih, targets,
             wo1, bo1, wo2, bo2, h0)

@@ -94,6 +94,8 @@ class EncodeService:
         self.max_wait_s = float(max_wait_ms) / 1e3
         self._encoder = Encoder(model_path, device=device,
                                 stft_method=stft_method)
+        # the kernel backend was resolved once by the encoder's own
+        # selector (utils/backend_select.py)
         self.device = self._encoder.device
         self.frontend = FrontendSpec(
             int(np.floor(fft_frame_length * self.fs)),

@@ -27,7 +27,19 @@ backward) with the losses over its streams.  Per-batch
 metrics stay on the device and are read once per epoch.  The random
 draws (Gumbel noise, the decoder's sampling noise) come from a
 ``torch.Generator`` on the device, seeded per (epoch, phase) from the
-run's key, so a resumed run draws what an uninterrupted one would.
+run's key, so a resumed run draws what an uninterrupted one would.  With
+``kernel_rng`` (the JAX package's ``SEQ2SEQ_KERNEL_RNG=1``, which the
+training CLI honours on the card only) a decoder cell on the fused-loss
+path draws a (1, 1) seed below 2^24 in place of its (T, B, F) noise, and
+its kernels draw each step's noise from it (``ops/decoder_kernel.
+decoder_noise_dump``), in training and validation steps alike.
+
+On the card the Learner owns a ``utils/backend_select.BackendSelector``:
+it probes the launch cost when it starts and logs ``Kernel backend:
+{report}``, and at each epoch boundary after the first probes again and
+logs ``Kernel backend decision: ...``, in the JAX package's formats.  A
+decision for ``scan`` stops the run (the port has no scan path on the
+card).
 """
 
 from __future__ import annotations
@@ -49,6 +61,7 @@ from ..models import vae
 from ..models.decoder import CELLS
 from ..ops import stft as stft_ops
 from ..tree import tree_leaves, tree_map, tree_unflatten
+from ..utils import backend_select
 from . import checkpoint as ckpt
 from . import optim
 from .from_jax import params_from_jax, params_to_jax
@@ -67,6 +80,19 @@ class StepStatics:
     # the decoder cells that train on the fused-loss kernels; the others
     # take the stream path (cli/flags.fused_loss_cells)
     fused_cells: tuple = CELLS
+    # the selector's backend (utils/backend_select.py); "scan" on the CPU
+    rnn_backend: str = "scan"
+    # a fused-loss decoder draws its noise in-kernel from a seed
+    # (cli/flags.kernel_rng)
+    kernel_rng: bool = False
+
+    @property
+    def decoder_seed(self) -> bool:
+        """Whether a step draws the decoder's (1, 1) seed in place of its
+        (T, B, F) noise: kernel_rng on, the decoder on the fused-loss
+        path (the only one that takes a seed, as in the JAX package)."""
+        return self.kernel_rng and self.model.decoder.rnn_type in \
+            self.fused_cells
 
 
 def frontend(statics: StepStatics, audio: torch.Tensor,
@@ -79,13 +105,19 @@ def frontend(statics: StepStatics, audio: torch.Tensor,
 
 
 def draw_noise(gen: torch.Generator, cfg: vae.ModelConfig, rows: int,
-               bucket_frames: int, device) -> dict:
-    """The step's random draws: Gumbel (B, K) and decoder noise (T, B, F)."""
-    return {"gumbel": abcd_mod.gumbel_noise(
-                gen, (rows, cfg.latent.num_categories), device),
-            "decoder": dist.gaussian_noise(
-                gen, (bucket_frames, rows, cfg.decoder.output_size),
-                device)}
+               bucket_frames: int, device, seed: bool = False) -> dict:
+    """The step's random draws, Gumbel first: Gumbel (B, K), then the
+    decoder's noise (T, B, F) or, with ``seed``, its (1, 1) float32 seed
+    below 2^24 (the JAX package's ``SEQ2SEQ_KERNEL_RNG`` draw)."""
+    gumbel = abcd_mod.gumbel_noise(gen, (rows, cfg.latent.num_categories),
+                                   device)
+    if seed:
+        decoder = torch.randint(0, 1 << 24, (1, 1), generator=gen,
+                                device=device).to(torch.float32)
+    else:
+        decoder = dist.gaussian_noise(
+            gen, (bucket_frames, rows, cfg.decoder.output_size), device)
+    return {"gumbel": gumbel, "decoder": decoder}
 
 
 def losses_and_metrics(params, statics: StepStatics, audio, num_frames,
@@ -159,11 +191,13 @@ class Learner:
                  prior_concentration: float = 1.0,
                  stft_method: str = "fft",
                  batching_mode: Optional[str] = None,
-                 fused_cells: tuple = CELLS):
+                 fused_cells: tuple = CELLS,
+                 kernel_rng: bool = False):
         if stft_method not in STFT_METHODS:
             raise ValueError(f"unknown stft method: {stft_method}")
         self.device = resolve_device(device)
         self.fused_cells = tuple(fused_cells)
+        self.kernel_rng = kernel_rng
         self.retrieval, self.log_file_path = update_log_handler(save_dir)
         self.save_dir = save_dir
         self.stft_method = stft_method
@@ -171,6 +205,15 @@ class Learner:
         self.steps = {"train": 0, "eval": 0}
         self.epoch_seconds: list[tuple[int, float, int]] = []
         logger.info("Device: {device}".format(device=self.device))
+        # the launch-cost probe and backend decision, once, before the
+        # model
+        self.selector = backend_select.for_device(self.device)
+        self.rnn_backend = "scan"
+        if self.selector.platform != "cpu":
+            logger.info("Kernel backend: {r}".format(
+                r=self.selector.report()))
+            self.rnn_backend = backend_select.require_kernels(
+                self.selector, self.selector.current())
 
         if self.retrieval:
             self.last_epoch = self.retrieve_model()
@@ -286,7 +329,8 @@ class Learner:
                    no_sample: bool) -> dict:
         audio, num_frames, speakers = self._place(batch)
         noise = draw_noise(gen, self.model_cfg, len(batch.num_frames),
-                           batch.bucket_frames, self.device)
+                           batch.bucket_frames, self.device,
+                           seed=statics.decoder_seed)
         loss, metrics = losses_and_metrics(
             self.params, statics, audio, num_frames, speakers, noise,
             entire_n, self._temperature(), no_sample, batch.bucket_frames)
@@ -304,7 +348,8 @@ class Learner:
                   no_sample: bool) -> dict:
         audio, num_frames, speakers = self._place(batch)
         noise = draw_noise(gen, self.model_cfg, len(batch.num_frames),
-                           batch.bucket_frames, self.device)
+                           batch.bucket_frames, self.device,
+                           seed=statics.decoder_seed)
         _, metrics = losses_and_metrics(
             self.params, statics, audio, num_frames, speakers, noise,
             entire_n, self._temperature(), no_sample, batch.bucket_frames)
@@ -399,7 +444,8 @@ class Learner:
         statics = StepStatics(self.model_cfg, frontend.frame_length,
                               frontend.step_size, frontend.window, epsilon,
                               data_normalizer, self.stft_method,
-                              self.fused_cells)
+                              self.fused_cells, self.rnn_backend,
+                              self.kernel_rng)
 
         if self.retrieval:
             initial_epoch = self.last_epoch + 1
@@ -438,6 +484,8 @@ class Learner:
         self._momentum = momentum
 
         for epoch in range(initial_epoch, num_epochs + 1):
+            if epoch > initial_epoch and self.selector.platform != "cpu":
+                self._reprobe(epoch)
             logger.info("START OF EPOCH: {:3d}".format(epoch))
             logger.info("current learning rate: {lr}".format(
                 lr=optim.get_learning_rate(self.optimizer)))
@@ -460,6 +508,22 @@ class Learner:
             logger.info("END OF EPOCH: {:3d}".format(epoch))
         logger.info("END OF TRAINING")
         close_log_handlers()
+
+    def _reprobe(self, epoch: int) -> None:
+        """The epoch boundary's probe and its history.log line, in the
+        JAX package's format (train/learner.py:686-705); a decision for
+        ``scan`` raises (require_kernels)."""
+        prev = self.rnn_backend
+        choice = self.selector.maybe_reprobe(context=f"epoch {epoch}")
+        if self.selector.decisions:
+            d = self.selector.decisions[-1]
+            logger.info("Kernel backend decision: {b} (dispatch {ms} ms)"
+                        "{sw}".format(
+                            b=d["backend"], ms=d["dispatch_ms"],
+                            sw=(" -- SWITCHED from %s" % prev)
+                            if d["switched"] else ""))
+        self.rnn_backend = backend_select.require_kernels(self.selector,
+                                                          choice)
 
     # ------------------------------------------------------------------
     def _optimizer_leaves(self) -> list:

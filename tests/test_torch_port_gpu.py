@@ -742,3 +742,104 @@ def test_stream_kernels_take_their_row_tiles_at_hidden_1024(cuda):
         assert lib.abcd_decoder_rows(kind, 129, 1024, 256, 0) == rows, kind
         assert (lib.abcd_decoder_smem_bytes(kind, rows, 129, 1024, 256, 0)
                 <= min(232448, lib.abcd_decoder_smem_limit(kind, rows)))
+
+
+# ---------------------------------------------------------------------------
+# in-kernel decoder noise (the JAX package's SEQ2SEQ_KERNEL_RNG): the dump
+# kernel, and the fused-loss kernels' seed mode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(125, 512, 129), (7, 5, 9)])
+def test_noise_dump_kernel_matches_twin(cuda, shape):
+    """The dump kernel's 24-bit integers equal the twin's, its normals are
+    within 2e-6 (logf / cosf against torch's, a few float32 ulps of |eps|
+    <= 5.9), their mean and variance within 5 standard errors of 0 and 1;
+    two seeds and two slots differ."""
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    t, b, f = shape
+    seed = torch.tensor([[4242.0]], device=cuda)
+    before = dk.decoder_noise_dump.launches
+    out, bits = dk.decoder_noise_dump(seed, t, b, f, with_bits=True)
+    want, want_bits = dk.decoder_noise_dump_plain(seed, t, b, f,
+                                                  with_bits=True)
+    torch.cuda.synchronize()
+    assert dk.decoder_noise_dump.launches == before + 1
+    assert torch.equal(bits, want_bits)
+    assert (out - want).abs().max().item() <= 2e-6
+    n = out.numel()
+    assert abs(out.double().mean().item()) <= 5.0 / np.sqrt(n)
+    assert abs(out.double().var().item() - 1.0) <= 5.0 * np.sqrt(2.0 / n)
+    assert not torch.equal(out, dk.decoder_noise_dump(seed + 1.0, t, b, f))
+    assert not torch.equal(out[0], out[1])
+
+
+_SEED_FNS = {"LSTM": ("decoder_fused_losses_fwd", "decoder_fused_losses_bwd"),
+             "GRU": ("gru_decoder_fused_losses_fwd",
+                     "gru_decoder_fused_losses_bwd"),
+             "RNN": ("rnn_decoder_fused_losses_fwd",
+                     "rnn_decoder_fused_losses_bwd")}
+
+
+@pytest.mark.parametrize("cell,leak", [("LSTM", 1.0), ("GRU", 1.0),
+                                       ("RNN", 1.0), ("RNN", 0.5)])
+@pytest.mark.parametrize("shape", [(33, 21, 129, 256, 256, 256),
+                                   (6, 11, 129, 1024, 256, 256)])
+def test_seed_mode_kernels_match_dump_fed_kernels(cuda, shape, cell, leak):
+    """Each fused-loss kernel in seed mode (a (1, 1) seed in place of the
+    noise) draws what the dump holds: forward and backward equal the same
+    kernels fed the dump (expected bit for bit; held to 1e-6), and the
+    twins fed the dump within the fused kernels' 1e-4; the seed-mode
+    launches count on the ``seed`` counters only; each seed kind takes its
+    stream kind's row tile (at H=1024 too)."""
+    from seq2seq_abcd_vae_tpu_torch.ops import decoder_kernel as dk
+    rng = np.random.default_rng(151)
+    t, b, f, h, m, mo = shape
+    lengths = rng.integers(1, t + 1, size=b)
+    lengths[:2] = (t, 0)
+    if cell == "LSTM":
+        args = _decoder_args(rng, cuda, t, b, f, h, m, mo, lengths)
+    elif cell == "GRU":
+        args = _gru_decoder_args(rng, cuda, t, b, f, h, m, mo, lengths)
+    else:
+        args = _rnn_decoder_args(rng, cuda, t, b, f, h, m, mo, lengths,
+                                 leak)
+    kw = {"leak": leak} if cell == "RNN" else {}
+    fwd, bwd = (getattr(dk, name) for name in _SEED_FNS[cell])
+    seed = torch.tensor([[float(rng.integers(0, 1 << 24))]], device=cuda)
+    dump = dk.decoder_noise_dump(seed, t, b, f)
+    seeded, fed = [seed] + args[1:], [dump] + args[1:]
+    counts = (fwd.launches, fwd.seed.launches)
+    got = fwd(*seeded, **kw)
+    torch.cuda.synchronize()
+    assert (fwd.launches, fwd.seed.launches) == (counts[0], counts[1] + 1)
+    same = fwd(*fed, **kw)
+    plain = getattr(dk, _SEED_FNS[cell][0] + "_plain")(*fed, **kw)
+    for g, s_, p in zip(got[1:3], same[1:3], plain[1:3]):
+        torch.testing.assert_close(g, s_, rtol=1e-6, atol=0)
+        torch.testing.assert_close(g, p, rtol=1e-5, atol=0)
+    for g, s_, p in zip((got[0],) + got[3:], (same[0],) + same[3:],
+                        (plain[0],) + plain[3:]):
+        assert _rel_max_err(g, s_) <= 1e-6
+        torch.testing.assert_close(g, p, rtol=0, atol=1e-4)
+    saved = list(plain[3:])
+    dlast = torch.from_numpy(rng.normal(size=(b, h)).astype(
+        np.float32)).to(cuda)
+    gscale = torch.tensor([0.7, 1.3], device=cuda)
+    counts = (bwd.launches, bwd.seed.launches)
+    g_all = bwd(*seeded, *saved, dlast, gscale, **kw)
+    torch.cuda.synchronize()
+    assert (bwd.launches, bwd.seed.launches) == (counts[0], counts[1] + 1)
+    s_all = bwd(*fed, *saved, dlast, gscale, **kw)
+    p_all = getattr(dk, _SEED_FNS[cell][1] + "_plain")(*fed, *saved, dlast,
+                                                       gscale, **kw)
+    for i, (g, s_, p) in enumerate(zip(g_all, s_all, p_all)):
+        assert _rel_max_err(g, s_) <= 1e-6, i
+        assert _rel_max_err(g, p) <= 1e-4, i
+    # the seed kinds (14-19) take their stream kinds' row tiles
+    from seq2seq_abcd_vae_tpu_torch.ops import _build
+    lib = _build.load("decoder")
+    pairs = {"LSTM": ((14, 0), (15, 1)), "GRU": ((16, 3), (17, 4)),
+             "RNN": ((18, 5), (19, 6))}[cell]
+    for seed_kind, kind in pairs:
+        assert (lib.abcd_decoder_rows(seed_kind, f, h, m, mo)
+                == lib.abcd_decoder_rows(kind, f, h, m, mo))

@@ -32,6 +32,9 @@ def test_importing_the_port_loads_no_jax_and_no_pandas():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
     assert len(modules) > 20
+    assert {"seq2seq_abcd_vae_tpu_torch.utils.backend_select",
+            "seq2seq_abcd_vae_tpu_torch.utils.sync",
+            "seq2seq_abcd_vae_tpu_torch.ops.probe_kernel"} <= set(modules)
 
 
 def test_no_source_file_imports_jax():

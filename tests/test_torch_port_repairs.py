@@ -2,9 +2,11 @@
 held here: the annotation's column typing and speaker keys (as pandas
 types them for the JAX parser), the tolerant encoder load and round-1
 pickle checkpoints (as the JAX ``retrieve_model`` / ``load_checkpoint``
-read them), and the bucket-policy environment overrides, which the port
-refuses instead of ignoring.  pandas is used here as the reference only;
-the port does not import it."""
+read them), the bucket-policy environment overrides and the JAX package's
+three bf16 precision switches, which the port refuses instead of
+ignoring, and ``--matmul_precision``, which means the same in the
+training, encode and serve CLIs.  pandas is used here as the reference
+only; the port does not import it."""
 
 import io
 import json
@@ -28,6 +30,8 @@ from seq2seq_abcd_vae_tpu_torch.infer.encode import Encoder
 from seq2seq_abcd_vae_tpu_torch.train import checkpoint as port_ckpt
 from seq2seq_abcd_vae_tpu_torch.train.from_jax import params_from_jax
 from seq2seq_abcd_vae_tpu_torch.configs import EncoderConfig
+from seq2seq_abcd_vae_tpu_torch.cli import (encode_main, learning_main,
+                                            serve_main)
 from torch_port_fixtures import (few_torch_threads_fixture, small_model,
                                  write_jax_checkpoint)
 
@@ -221,3 +225,94 @@ def test_bucket_overrides_are_refused(monkeypatch, name, value):
     monkeypatch.setenv(name, value)
     with pytest.raises(NotImplementedError, match=name):
         DataLoader(ds, FrontendSpec(128, 64), batch_size=4)
+
+
+# ---- the precision switches and --matmul_precision in the three CLIs
+
+class _Built(Exception):
+    """Raised by a stand-in for the model a CLI builds once its flags and
+    environment have been read."""
+
+
+def _run_cli(monkeypatch, cli, device, extra=()):
+    """Run CLI ``cli`` with ``-d device`` up to the model it builds (a
+    stand-in that records torch's float32 matmul precision and raises)."""
+    seen = {}
+
+    def built(*args, **kwargs):
+        seen["precision"] = torch.get_float32_matmul_precision()
+        raise _Built
+
+    for module, name in ((learning_main, "Learner"),
+                         (encode_main, "Encoder"),
+                         (serve_main, "EncodeService")):
+        monkeypatch.setattr(module, name, built)
+    ann = os.path.join(TOY, "annotation_20170806-080002_89.2-94.22.csv")
+    argv = {"learning": [TOY, ann, "-S", os.getcwd(), "-j", "r"],
+            "encode": ["ckpt.pt", TOY, ann, "11.0"],
+            "serve": ["ckpt.pt", "11.0", "16000"]}[cli]
+    main = {"learning": learning_main.main,
+            "encode": lambda a: encode_main.main("probs", a),
+            "serve": serve_main.main}[cli]
+    with pytest.raises(_Built):
+        main(argv + ["-d", device, *extra])
+    return seen["precision"]
+
+
+@pytest.fixture
+def matmul_precision_kept():
+    """torch's float32 matmul precision, restored after the test."""
+    before = torch.get_float32_matmul_precision()
+    yield
+    torch.set_float32_matmul_precision(before)
+
+
+# (variable, the CLIs whose results it changes in the JAX package)
+BF16_SWITCHES = [("SEQ2SEQ_KERNEL_MXU", ("learning", "encode", "serve")),
+                 ("SEQ2SEQ_STREAM_DTYPE", ("learning",)),
+                 ("SEQ2SEQ_ENCODE_FETCH_DTYPE", ("encode", "serve"))]
+
+
+@pytest.mark.parametrize("cli", ["learning", "encode", "serve"])
+@pytest.mark.parametrize("name,clis", BF16_SWITCHES)
+def test_bf16_switches_are_refused(monkeypatch, tmp_path, cli, name, clis,
+                                   matmul_precision_kept):
+    """Fault 6: each bf16 switch of the JAX package is refused, naming the
+    variable, by each CLI whose result it changes there, and ignored by
+    the others, as there.  SEQ2SEQ_KERNEL_MXU=bf16 acts only with a
+    --matmul_precision other than highest / float32 (JAX
+    models/rnn.py:57)."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv(name, "bf16")
+    mxu = name == "SEQ2SEQ_KERNEL_MXU"
+    refused = ["--matmul_precision", "bfloat16"] if mxu else []
+    if cli in clis:
+        with pytest.raises(NotImplementedError, match=name):
+            _run_cli(monkeypatch, cli, "cpu", refused)
+    else:
+        _run_cli(monkeypatch, cli, "cpu", refused)
+    if mxu:
+        _run_cli(monkeypatch, cli, "cpu", ["--matmul_precision", "highest"])
+    monkeypatch.setenv(name, "f32")
+    _run_cli(monkeypatch, cli, "cpu", refused)
+
+
+# the JAX CLI's names and the torch precision each becomes on the card
+MATMUL_PRECISION = {"highest": "highest", "float32": "highest",
+                    "bfloat16_3x": "high", "default": "high",
+                    "bfloat16": "medium"}
+
+
+@pytest.mark.parametrize("cli", ["learning", "encode", "serve"])
+@pytest.mark.parametrize("name", sorted(MATMUL_PRECISION))
+def test_matmul_precision_means_the_same_in_every_cli(
+        monkeypatch, tmp_path, cli, name, matmul_precision_kept):
+    """Fault 7: one mapping of --matmul_precision, applied by all three
+    CLIs on the card; on the CPU no CLI changes torch's precision."""
+    monkeypatch.chdir(tmp_path)
+    torch.set_float32_matmul_precision("highest")
+    got = _run_cli(monkeypatch, cli, "cuda", ["--matmul_precision", name])
+    assert got == MATMUL_PRECISION[name]
+    torch.set_float32_matmul_precision("highest")
+    assert _run_cli(monkeypatch, cli, "cpu",
+                    ["--matmul_precision", name]) == "highest"
