@@ -68,8 +68,8 @@ run from the repository root.  It
     with_offset=False)``, the fused-NLL loop forward and backward) on the
     trained checkpoint's validation segments, against the fused-losses
     call on the card and the same call on the CPU's twins; every main
-    path (4-11) runs with all launch counters set to 0 just before and
-    read just after, and every kernel must have run on one;
+    path (4-11, 13-14) runs with all launch counters set to 0 just before
+    and read just after, and every kernel must have run on one;
 12. holds each kernel against its plain PyTorch twin on the card at the
     main paths' shapes (ragged lengths, one row of length 0), the Elman
     kernels at leak 1.0 and 0.5, the one-direction layers in both span
@@ -92,14 +92,27 @@ run from the repository root.  It
     (the uniforms' integers exactly, the normals' moments) and each
     fused-loss kernel's seed mode to the same kernel fed the dump and to
     the twins, at hidden 256 and 1024;
-14. times each kernel, its twin and one library call computing the same
+14. drives the plain Gaussian VAE through the port's entry points: trains
+    it with the training CLI's plain variant (``-f 16``, 2 epochs, then
+    resumed to 3; no pretraining, no speaker_coding.json; the LSTM encoder
+    and fused-loss decoder kernels only), encodes the corpus in ``params``
+    mode (``-p mean,log_variance``; CSV and npz on the card, CSV on the
+    CPU's twins: equal outside the values), serves it (``serve_main --mode
+    params``, 32 requests from 4 clients) and decodes the validation
+    segments' posterior means (sample and mean modes); holds one plain-VAE
+    training step on the kernels (card) to the twins (CPU); and reaches
+    ``lstm_layer_bidir`` (both directions over xp in one launch, the TPU
+    kernel no path calls) by a direct call of its differentiable public
+    function, counted, then holds it forward and backward to its twins at
+    B=512, T=125, H=256 and at H=1024;
+15. times each kernel, its twin and one library call computing the same
     function (a yardstick the port never calls) with CUDA events, and
-    prints one ``{"kernels": [...]}`` line (35 kernels) with launches,
+    prints one ``{"kernels": [...]}`` line (37 kernels) with launches,
     times, the bound and the largest error, after the serve latencies,
     the time of one served batch and of one training step by stage (the
     stream path's beside the fused path's), the training and encode
     throughputs;
-15. ends with ``{"ok": true, "device": {...}}`` as its last line.
+16. ends with ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result.  Without a card it exits 2 before doing anything.
@@ -176,6 +189,7 @@ TRAIN_FS = 32000
 TRAIN_SEGMENTS = 1024
 TRAIN_BATCH = 512
 SPEAKER_EMBED = 256
+PLAIN_FEATURE = 16    # the plain VAE's -f/--feature_size default
 
 
 def smi_line() -> str:
@@ -679,15 +693,22 @@ def training_counters():
                 decoder_kernel.decoder_fused_losses_bwd}
 
 
-def check_history(path: str, resumed: bool):
+def check_history(path: str, resumed: bool, pretraining: bool = True):
+    """history.log's end, resume and (for the ABCD-VAE) pretraining lines,
+    finite losses; without ``pretraining`` (the plain VAE) no pretraining
+    line at all."""
     with open(path) as f:
         log = f.read()
-    for needle in ("END OF PRETRAINING.", "END OF TRAINING") + (
+    for needle in (("END OF PRETRAINING.",) if pretraining else ()) + (
+            "END OF TRAINING",) + (
             ("LEARNING RETRIEVED.",
              "To be restarted from the beginning of epoch #: 3")
             if resumed else ()):
         if needle not in log:
             raise AssertionError(f"history.log lacks {needle!r}")
+    if not pretraining and "PRETRAINING" in log.upper():
+        raise AssertionError("the plain VAE's history.log mentions "
+                             "pretraining")
     values = [float(v) for v in re.findall(
         r"(?:mean loss|\(per string\)): (-?[0-9]+\.[0-9]+|-?nan|-?inf)",
         log)]
@@ -1071,18 +1092,21 @@ def step_on(device, params0, cfg, batch, spec, noise, n_data,
 
 
 def whole_step_phase(dev, corpus_dir, csv_path, seed, bidirectional=True,
-                     rnn_type="LSTM", esn_leak=1.0, fused_cells=None):
+                     rnn_type="LSTM", esn_leak=1.0, fused_cells=None,
+                     latent="abcd"):
     """One training step on the kernels (card) against the same step on
     the twins (CPU), with the bidirectional or the unidirectional LSTM
     encoder, or the model of another cell (``rnn_type`` GRU, RNN or ESN:
     its bidirectional encoder and its decoder; the ESN's reservoir frozen,
     unchanged bit for bit); with ``fused_cells`` leaving the cell out, the
     decoder on its stream path, also held on the card to the fused path's
-    step on the same weights and noise.  Returns the checks and the step's
-    inputs."""
+    step on the same weights and noise; with ``latent="gaussian"`` the
+    plain VAE (its Gaussian head, feature size ``PLAIN_FEATURE``).  Returns
+    the checks and the step's inputs."""
     from seq2seq_abcd_vae_tpu_torch.configs import (ABCDSamplerConfig,
                                                     DecoderConfig,
-                                                    EncoderConfig)
+                                                    EncoderConfig,
+                                                    GaussianSamplerConfig)
     from seq2seq_abcd_vae_tpu_torch.models import vae
     from seq2seq_abcd_vae_tpu_torch.train import learner as L
     from seq2seq_abcd_vae_tpu_torch.tree import tree_leaves, tree_map
@@ -1090,10 +1114,15 @@ def whole_step_phase(dev, corpus_dir, csv_path, seed, bidirectional=True,
     f = spec.num_bins
     enc = EncoderConfig(f, HIDDEN, rnn_type=rnn_type,
                         bidirectional=bidirectional, esn_leak=esn_leak)
+    if latent == "abcd":
+        head, width = ABCDSamplerConfig(enc.hidden_size_total, MLP_HIDDEN,
+                                        K, FEATURE_DIM), FEATURE_DIM
+    else:
+        head, width = GaussianSamplerConfig(
+            enc.hidden_size_total, MLP_HIDDEN, PLAIN_FEATURE), PLAIN_FEATURE
     cfg = vae.ModelConfig(
-        enc, ABCDSamplerConfig(enc.hidden_size_total, MLP_HIDDEN, K,
-                               FEATURE_DIM),
-        DecoderConfig(f, HIDDEN, MLP_HIDDEN, FEATURE_DIM, rnn_type=rnn_type,
+        enc, head,
+        DecoderConfig(f, HIDDEN, MLP_HIDDEN, width, rnn_type=rnn_type,
                       esn_leak=esn_leak, num_speakers=2,
                       speaker_embed_dim=SPEAKER_EMBED))
     params0 = vae.model_init(torch.Generator().manual_seed(seed), cfg)
@@ -1153,6 +1182,7 @@ def train_step_breakdown(dev, params0, cfg, batch, spec, noise, n_data,
     from seq2seq_abcd_vae_tpu_torch.models import abcd as abcd_mod
     from seq2seq_abcd_vae_tpu_torch.models import decoder as dec_mod
     from seq2seq_abcd_vae_tpu_torch.models import encoder as enc_mod
+    from seq2seq_abcd_vae_tpu_torch.models import sampler as sampler_mod
     from seq2seq_abcd_vae_tpu_torch.models import vae
     from seq2seq_abcd_vae_tpu_torch.train import learner as L
     from seq2seq_abcd_vae_tpu_torch.train import optim
@@ -1180,10 +1210,19 @@ def train_step_breakdown(dev, params0, cfg, batch, spec, noise, n_data,
                                        inputs, frames)
         ev[2].record()
         head = params["feature_sampler"]
-        logits = abcd_mod.abcd_logits(head, hidden)
-        feats = abcd_mod.abcd_sample(head, logits, 1.0, noise_d["gumbel"])
-        kl = abcd_mod.abcd_kl(head, cfg.latent, logits, n_data,
-                              row_mask=(frames > 0).float())
+        row_mask = (frames > 0).float()
+        if cfg.latent_type == "abcd":
+            logits = abcd_mod.abcd_logits(head, hidden)
+            feats = abcd_mod.abcd_sample(head, logits, 1.0,
+                                         noise_d["gumbel"])
+            kl = abcd_mod.abcd_kl(head, cfg.latent, logits, n_data,
+                                  row_mask=row_mask)
+        else:
+            name = cfg.latent.distribution_name
+            pair = tuple(p * row_mask[:, None] for p in
+                         sampler_mod.sampler_apply(head, hidden))
+            feats = sampler_mod.sampler_sample(noise_d["normal"], pair, name)
+            kl = sampler_mod.sampler_kl(pair, name, mask=row_mask[:, None])
         ev[3].record()
         em, off = dec_mod.decoder_losses(
             params["decoder"], cfg.decoder, feats, frames, inputs,
@@ -1220,6 +1259,8 @@ def all_counters():
     return dict(training_counters(),
                 lstm_layer=lstm_kernel.lstm_layer,
                 lstm_layer_bwd=lstm_kernel.lstm_layer_bwd,
+                lstm_layer_bidir=lstm_kernel.lstm_layer_bidir,
+                lstm_layer_bidir_bwd=lstm_kernel.lstm_layer_bidir_bwd,
                 decoder_loop=decoder_kernel.decoder_loop,
                 gru_layer_bidir_fused=gru_kernel.gru_layer_bidir_fused,
                 gru_layer_bidir_fused_bwd=gru_kernel.gru_layer_bidir_fused_bwd,
@@ -1429,7 +1470,8 @@ def swap_twin(module, name: str, twin):
 def decode_phase(dev, ckpt_path: str, corpus_dir: str, csv_path: str,
                  seed: int, loop: str = "decoder_loop"):
     """``decode_features`` on a checkpoint from the features of the
-    corpus's validation segments at their lengths: ``sample`` mode on the
+    corpus's validation segments at their lengths (an ABCD head's codes,
+    or a plain VAE's Gaussian means): ``sample`` mode on the
     decoder cell's loop kernel ``loop`` (``decoder_loop``,
     ``gru_decoder_loop`` or ``rnn_decoder_loop``), counted: one launch, and
     none in ``mean`` mode; each mode against the same call on the card's
@@ -1446,10 +1488,14 @@ def decode_phase(dev, ckpt_path: str, corpus_dir: str, csv_path: str,
     valid = parser.get_data("valid")
     batch = next(iter(DataLoader(valid, spec, batch_size=len(valid))))
     enc = Encoder(ckpt_path, device=dev.type, stft_method="pallas")
+    gaussian = enc.latent_type == "gaussian"
     feats = encode_step(enc.params, torch.from_numpy(batch.audio).to(dev),
                         torch.from_numpy(batch.num_frames).to(dev),
                         enc.statics(spec, EPSILON, NORMALIZER),
-                        batch.bucket_frames, "features")
+                        batch.bucket_frames,
+                        "params" if gaussian else "features")
+    if gaussian:
+        feats = feats[0]  # the posterior means
     models = {d: load_model(ckpt_path, d.type)
               for d in (dev, torch.device("cpu"))}
     lengths = torch.from_numpy(batch.num_frames)
@@ -1507,7 +1553,8 @@ def decode_phase(dev, ckpt_path: str, corpus_dir: str, csv_path: str,
     ms = {mode: cuda_ms(lambda m=mode: run(dev, m), iters=3, warmup=1)
           for mode in ("sample", "mean")}
     return {"launches": launches, "cell": cfg.decoder.rnn_type,
-            "rows": len(lengths), "T": t, "max_abs_err": errs, "ms": ms}
+            "latent": cfg.latent_type, "rows": len(lengths), "T": t,
+            "max_abs_err": errs, "ms": ms}
 
 
 def _lstm_weights(rng, dev, h, *shapes):
@@ -3237,6 +3284,347 @@ def kernel_rng_parity_phase(dev, checkpoints: dict, corpus_dir: str,
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# the plain Gaussian VAE slice, and the two-direction LSTM layer over xp
+# (lstm_pallas.lstm_layer_bidir, which no path of either package calls)
+# ---------------------------------------------------------------------------
+
+PARAMS_ATOL = 1e-4    # encoder + Gaussian head, card vs CPU: O(1) sums
+
+
+def plain_train_phase(dev, work: str, corpus_dir: str, csv_path: str,
+                      seed: int):
+    """The plain VAE trained through the training CLI's plain variant
+    (``learning_main.main(argv, variant="plain")``, what
+    ``python -m seq2seq_abcd_vae_tpu_torch.cli.plain_learning`` runs) on
+    the synthetic corpus at ``-b 512 --speaker_embed_dim 256 -f 16``, 2
+    epochs then resumed to 3, counted: the bidirectional LSTM encoder's
+    and the fused-loss decoder's kernels run once per step (backwards once
+    per training step), nothing else; no pretraining and no
+    speaker_coding.json, a Gaussian checkpoint."""
+    from seq2seq_abcd_vae_tpu_torch.cli import learning_main
+    from seq2seq_abcd_vae_tpu_torch.train import checkpoint as ckpt
+    argv = [corpus_dir, csv_path, "-S", work, "-j", "plain", "-b",
+            str(TRAIN_BATCH), "--stft_method", "pallas", "-d", dev.type,
+            "-N", str(NORMALIZER), "-s", str(seed),
+            "-f", str(PLAIN_FEATURE),
+            "--encoder_rnn_hidden_size", str(HIDDEN),
+            "--decoder_rnn_hidden_size", str(HIDDEN),
+            "--mlp_hidden_size", str(MLP_HIDDEN),
+            "--speaker_embed_dim", str(SPEAKER_EMBED)]
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    first = learning_main.main(argv + ["-e", "2"], variant="plain")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    run_dir = os.path.join(work, "plain")
+    path = os.path.join(run_dir, "checkpoint.pt")
+    check_history(os.path.join(run_dir, "history.log"), False, False)
+    t0 = time.perf_counter()
+    second = learning_main.main(argv + ["-e", "3"], variant="plain")
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    lines = check_history(os.path.join(run_dir, "history.log"), True, False)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    train_steps = first.steps["train"] + second.steps["train"]
+    eval_steps = first.steps["eval"] + second.steps["eval"]
+    steps = train_steps + eval_steps
+    want = expected(counters, log_spectrogram=steps,
+                    lstm_layer_bidir_fused=steps,
+                    lstm_layer_bidir_fused_bwd=train_steps,
+                    decoder_loop_fused_losses_fwd=steps,
+                    decoder_loop_fused_losses_bwd=train_steps)
+    print(f"plain VAE training main path: {train_steps} training + "
+          f"{eval_steps} evaluation steps in {first_s:.2f} + "
+          f"{second_s:.2f} s; launches {launches}", flush=True)
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    if os.path.exists(os.path.join(run_dir, "speaker_coding.json")):
+        raise AssertionError("the plain VAE wrote speaker_coding.json")
+    c = ckpt.load_checkpoint(path)
+    head = c["feature_sampler_init_parameters"]
+    if (c["latent_type"] != "gaussian"
+            or head["output_size"] != PLAIN_FEATURE
+            or set(c["feature_sampler"]) != {"to_parameters"}):
+        raise AssertionError(f"the plain checkpoint holds {c['latent_type']}"
+                             f" {head}")
+    epochs = first.epoch_seconds + second.epoch_seconds
+    later = [n / sec for _, sec, n in epochs[1:]]
+    return {"launches": launches, "train_steps": train_steps,
+            "eval_steps": eval_steps, "checkpoint": path,
+            "history_loss_values": lines,
+            "segments_per_s_after_first_epoch":
+                sum(later) / len(later) if later else None,
+            "epochs": [{"epoch": e, "train_s": sec, "segments": n}
+                       for e, sec, n in epochs]}
+
+
+def plain_encode_phase(dev, work: str, corpus_dir: str, csv_path: str,
+                       ckpt_path: str):
+    """The encode CLI in ``params`` mode (``-p mean,log_variance``) on the
+    plain checkpoint, to CSV and npz on the card (counted) and to CSV on
+    the CPU's twins: segments x 2 x f rows sorted by (data_ix, name,
+    dimension), the npz's ``mean`` / ``log_variance`` = the CSV's values
+    bit for bit, the card's CSV = the CPU's outside the values, and the
+    values within ``PARAMS_ATOL``."""
+    from seq2seq_abcd_vae_tpu_torch.cli import encode_main
+    names = ("mean", "log_variance")
+    common = [ckpt_path, corpus_dir, csv_path, str(NORMALIZER), "-b",
+              str(TRAIN_BATCH), "--stft_method", "pallas", "-p",
+              ",".join(names)]
+    out_dir = os.path.join(work, "encoded")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {fmt: os.path.join(out_dir, f"plain-params.{fmt}")
+             for fmt in ("csv", "npz")}
+    counters = zero_counters()
+    secs = {}
+    for fmt, path in paths.items():
+        t0 = time.perf_counter()
+        encode_main.main("params", common + ["-S", path, "-d", dev.type,
+                                             "--save_format", fmt])
+        torch.cuda.synchronize()
+        secs[fmt] = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    ran = {k for k, n in launches.items() if n}
+    if ran != {"log_spectrogram", "lstm_layer_bidir_fused"}:
+        raise AssertionError(f"params encoding launched {launches}")
+
+    def rows(path):
+        with open(path) as f:
+            lines = f.read().splitlines()
+        cells = [line.split(",", 4) for line in lines[1:]]
+        return lines[0], [(c[0], c[1], c[2], c[4]) for c in cells], [
+            c[3] for c in cells]
+
+    head, keys, texts = rows(paths["csv"])
+    vals = np.asarray(texts, np.float32)
+    segments = len(dict.fromkeys(k[0] for k in keys))
+    order = [(int(ix), name, int(dim)) for ix, name, dim, _ in keys]
+    if (len(keys) != segments * 2 * PLAIN_FEATURE or order != sorted(order)
+            or not np.all(np.isfinite(vals))):
+        raise AssertionError(f"params CSV: {len(keys)} rows for {segments} "
+                             "segments, or unsorted, or non-finite")
+    with np.load(paths["npz"]) as z:
+        ixs, arrays = z["data_ix"], {n: z[n] for n in names}
+        if str(z["mode"]) != "params":
+            raise AssertionError("params npz mode")
+    parsed = {(int(ix), name, int(dim)): v
+              for (ix, name, dim, _), v in zip(keys, vals)}
+    for name in names:
+        back = np.asarray([[parsed[(int(ix), name, j)]
+                            for j in range(PLAIN_FEATURE)] for ix in ixs],
+                          np.float32)
+        if back.tobytes() != arrays[name].tobytes():
+            raise AssertionError(f"params npz {name} differs from the CSV")
+    cpu_path = os.path.join(out_dir, "plain-params-cpu.csv")
+    encode_main.main("params", common + ["-S", cpu_path, "-d", "cpu"])
+    c_head, c_keys, c_texts = rows(cpu_path)
+    if c_head != head or c_keys != keys:
+        raise AssertionError("params CSV: card and CPU differ outside the "
+                             "values")
+    err = float(np.abs(vals.astype(np.float64)
+                       - np.asarray(c_texts, np.float64)).max())
+    if not err <= PARAMS_ATOL:
+        raise AssertionError(f"params CSV card vs CPU {err} > {PARAMS_ATOL}")
+    return {"launches": launches, "segments": segments, "rows": len(keys),
+            "card_vs_cpu_max_abs_err": err,
+            "segments_per_s": {f"params_{fmt}": segments / sec
+                               for fmt, sec in secs.items()}}
+
+
+def plain_serve_phase(work: str, ckpt_path: str, rng):
+    """The plain checkpoint served through ``serve_main --mode params``
+    (fs=32000, frame counts up to 512, 32 requests from 4 clients),
+    counted: the frontend and the bidirectional LSTM encoder run, nothing
+    else; every answer is ``{"id", "params": [mean, log_variance]}`` of
+    finite values, ``PLAIN_FEATURE`` each."""
+    counters = zero_counters()
+    reqs = random_requests(rng, 32000, 32)
+    (answers, latency), ping = run_service(
+        [ckpt_path, str(NORMALIZER), "32000", "--mode", "params", "-b",
+         str(BATCH), "--stft_method", "pallas", "-d", "cuda"],
+        os.path.join(work, "plain.sock"),
+        lambda path: concurrent_clients(path, reqs, 32000))
+    for a in answers:
+        if "error" in a or set(a) != {"id", "params"}:
+            raise RuntimeError(f"params request failed: {a}")
+        v = np.asarray(a["params"], np.float64)
+        if v.shape != (2, PLAIN_FEATURE) or not np.all(np.isfinite(v)):
+            raise RuntimeError(f"bad params answer shape {v.shape}")
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    ran = {k for k, n in launches.items() if n}
+    if ran != {"log_spectrogram", "lstm_layer_bidir_fused"}:
+        raise AssertionError(f"params serving launched {launches}")
+    lat = np.asarray(latency)
+    return {"launches": launches, "requests": len(lat),
+            "batches": ping["stats"]["batches"],
+            "latency_ms_p50": float(np.percentile(lat, 50)),
+            "latency_ms_p90": float(np.percentile(lat, 90)),
+            "latency_ms_max": float(lat.max())}
+
+
+def lstm_pair_path(dev, rng):
+    """The two-direction layer over xp reached by a direct call of its
+    public differentiable function (``lstm_layer_bidir_train``, forward
+    and backward through autograd) at B=512, T=125, H=256, counted: one
+    launch of each kernel and nothing else."""
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    args = _pair_inputs(dev, rng, TRAIN_BATCH, 125, HIDDEN)
+    counters = zero_counters()
+    leaves = [a.clone().requires_grad_(True)
+              for a in (args["xp"], args["w_hh"], args["b_hh"])]
+    outs, h_n, c_n = lk.lstm_layer_bidir_train(leaves[0], args["lengths"],
+                                               *leaves[1:])
+    (outs.sum() + h_n.square().sum() + c_n.sin().sum()).backward()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = expected(counters, lstm_layer_bidir=1, lstm_layer_bidir_bwd=1)
+    if launches != want or not all(torch.isfinite(a.grad).all()
+                                   for a in leaves):
+        raise AssertionError(f"lstm_layer_bidir direct call launched "
+                             f"{launches}, expected {want}")
+    return {"launches": launches}
+
+
+def _pair_inputs(dev, rng, b, t, h):
+    """xp (T, 2, B, 4H), lengths (a full row, a short one, an empty one,
+    the rest ragged), w_hh, b_hh and the backward's cotangents."""
+    lens = rng.integers(1, t + 1, size=b).astype(np.int32)
+    lens[0], lens[1], lens[-1] = t, 1, 0
+    normal = lambda *s: torch.from_numpy(rng.normal(size=s).astype(
+        np.float32)).to(dev)
+    w_hh, b_hh = _lstm_weights(rng, dev, h, (2, h, 4 * h), (2, 4 * h))
+    return {"xp": normal(t, 2, b, 4 * h), "lens": lens,
+            "lengths": torch.from_numpy(lens).to(dev), "w_hh": w_hh,
+            "b_hh": b_hh, "douts": normal(t, 2, b, h),
+            "dh_n": normal(2, b, h), "dc_n": normal(2, b, h)}
+
+
+def lstm_pair_phase(dev, rng, launches_fwd, launches_bwd):
+    """Row 4 (lstm_pallas.lstm_layer_bidir, both directions over xp in one
+    launch), forward with the saved cs and backward (with and without an
+    outs cotangent), against the twins at B=512, T=125, H=256 and at
+    H=1024 (B=24, T=16, a smaller row tile); timed at the first beside
+    cuDNN's bidirectional LSTM on a packed sequence, whose final states it
+    must match given xp = x @ W_ih + b_ih (direction 1 flipped in
+    time)."""
+    from seq2seq_abcd_vae_tpu_torch.ops import _build
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    checks, rows = {}, {}
+    for b, t, h in ((TRAIN_BATCH, 125, HIDDEN), (24, 16, 1024)):
+        a = _pair_inputs(dev, rng, b, t, h)
+        fwd = (a["xp"], a["lengths"], a["w_hh"], a["b_hh"])
+        got = lk.lstm_layer_bidir(*fwd, return_cs=True)
+        ref = lk.lstm_layer_bidir_plain(*fwd, return_cs=True)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        checks[f"fwd_B{b}_T{t}_H{h}"] = err
+        if not err <= LSTM_ATOL:
+            raise AssertionError(f"lstm_layer_bidir vs twin B={b} T={t} "
+                                 f"H={h}: {err}")
+        for douts in (None, a["douts"]):  # the timed one last
+            bwd = (*fwd, ref[0], ref[3], douts, a["dh_n"], a["dc_n"])
+            g_all = lk.lstm_layer_bidir_bwd(*bwd)
+            r_all = lk.lstm_layer_bidir_bwd_plain(*bwd)
+            torch.cuda.synchronize()
+            rel = max(rel_err(g, r) for g, r in zip(g_all, r_all))
+            key = f"bwd_B{b}_T{t}_H{h}_douts{int(douts is not None)}"
+            checks[key] = rel
+            if rel > GRAD_FRACTION:
+                raise AssertionError(f"lstm_layer_bidir backward vs twin "
+                                     f"{key}: {rel}")
+        lib = _build.load("lstm")
+        rows[f"H{h}"] = {"fwd": lib.abcd_lstm_rows(4, 0, h),
+                         "bwd": lib.abcd_lstm_rows(5, 0, h)}
+        if h == HIDDEN:
+            timed = (b, t, h, a, fwd, bwd, max_err(g_all, r_all))
+    b, t, h, a, fwd, bwd, bwd_abs = timed
+    fwd_ms = cuda_ms(lambda: lk.lstm_layer_bidir(*fwd), 5)
+    fwd_plain_ms = cuda_ms(lambda: lk.lstm_layer_bidir_plain(*fwd), 2, 1)
+    bwd_ms = cuda_ms(lambda: lk.lstm_layer_bidir_bwd(*bwd), 5)
+    bwd_plain_ms = cuda_ms(lambda: lk.lstm_layer_bidir_bwd_plain(*bwd), 2, 1)
+    # the yardstick: cuDNN's bidirectional LSTM over packed sequences (the
+    # empty row dropped) of raw x; it also computes the input projection,
+    # which the kernel is handed
+    f = 129
+    lstm = torch.nn.LSTM(f, h, bidirectional=True).to(dev)
+    x = torch.from_numpy(rng.normal(size=(t, b, f)).astype(np.float32)
+                         ).to(dev)
+    with torch.no_grad():
+        for d, sfx in enumerate(("", "_reverse")):
+            getattr(lstm, "weight_hh_l0" + sfx).copy_(a["w_hh"][d].T)
+            getattr(lstm, "bias_hh_l0" + sfx).copy_(a["b_hh"][d])
+        w_ih = torch.stack([lstm.weight_ih_l0.T, lstm.weight_ih_l0_reverse.T])
+        b_ih = torch.stack([lstm.bias_ih_l0, lstm.bias_ih_l0_reverse])
+        xs = torch.stack([x, x.flip(0)], dim=1)               # (T, 2, B, F)
+        xp = (torch.matmul(xs, w_ih[None]) + b_ih[None, :, None]
+              ).contiguous()
+    lens = a["lens"]
+    keep = torch.from_numpy(lens > 0).to(dev)
+    x_lib = x[:, keep].clone().requires_grad_(True)
+    lens_lib = torch.from_numpy(lens[lens > 0].astype(np.int64))
+    dh_lib = a["dh_n"][:, keep]
+
+    def library_fwd():
+        with torch.no_grad():
+            packed = torch.nn.utils.rnn.pack_padded_sequence(
+                x_lib, lens_lib, enforce_sorted=False)
+            return lstm(packed)[1]
+
+    def library_fwd_bwd():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            x_lib, lens_lib, enforce_sorted=False)
+        _, (hh, cc) = lstm(packed)
+        torch.autograd.backward((hh, cc), (dh_lib, dh_lib))
+
+    lib_h, lib_c = library_fwd()
+    _, k_h, k_c = lk.lstm_layer_bidir(xp, a["lengths"], a["w_hh"],
+                                      a["b_hh"])
+    lib_err = max(max_err(lib_h, k_h[:, keep]), max_err(lib_c, k_c[:, keep]))
+    lib_fwd_ms = cuda_ms(library_fwd, 5)
+    lib_bwd_ms = cuda_ms(library_fwd_bwd, 5)
+    steps = 2 * int(lens.sum())   # active row-steps of both directions
+    per = 2.0 * h * 4 * h         # h @ W_hh per row-step
+    fwd_bytes = 4.0 * (t * 2 * b * 4 * h + 2 * h * 4 * h + 2 * 4 * h
+                       + t * 2 * b * h + 2 * 2 * b * h) + 4 * b
+    bwd_bytes = 4.0 * (2 * t * 2 * b * 4 * h + 2 * (2 * h * 4 * h + 2 * 4 * h)
+                       + 3 * t * 2 * b * h + 2 * 2 * b * h) + 4 * b
+    f_bms, f_by = bound_ms(steps * per, fwd_bytes)
+    # gates recomputed, dz @ W_hh^T and h_prev^T dz: three times the
+    # forward's products
+    b_bms, b_by = bound_ms(3 * steps * per, bwd_bytes)
+    common = {"route": "cuda",
+              "source": "seq2seq_abcd_vae_tpu_torch/csrc/lstm.cu",
+              "shape": f"T={t} B={b} H={h} (xp given, both directions in "
+                       "one launch; ragged, one empty row)",
+              "row_tiles": rows}
+    fwd_entry = dict(common, **{
+        "name": "lstm_layer_bidir",
+        "replaces": "seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:406",
+        "launches": launches_fwd,
+        "max_abs_err": max(v for k, v in checks.items()
+                           if k.startswith("fwd")),
+        "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": f_bms,
+        "bound_by": f_by, "library_ms": lib_fwd_ms,
+        "library_call": "nn.LSTM (bidirectional) forward, packed",
+        "library_max_abs_err": lib_err,
+        "tolerance": LSTM_ATOL, "checks": checks})
+    bwd_entry = dict(common, **{
+        "name": "lstm_layer_bidir_bwd",
+        "helper_source": "seq2seq_abcd_vae_tpu_torch/csrc/wgrad.cu",
+        "replaces": "seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:435",
+        "launches": launches_bwd, "max_abs_err": bwd_abs,
+        "max_rel_err": max(v for k, v in checks.items()
+                           if k.startswith("bwd")),
+        "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": b_bms,
+        "bound_by": b_by, "library_ms": lib_bwd_ms,
+        "library_call": "nn.LSTM (bidirectional) forward + backward, "
+                        "packed",
+        "tolerance": f"{GRAD_FRACTION} of each leaf's max |value|"})
+    return fwd_entry, bwd_entry
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3490,6 +3878,27 @@ def run(args, root, dev, rng, work) -> int:
         for k, n in result["launches"].items():
             rng_check_launches[k] = rng_check_launches.get(k, 0) + n
 
+    # ---- this slice's main paths, each counted: the plain Gaussian VAE
+    # trained, encoded in params mode, served and decoded through the
+    # port's entry points, and the two-direction layer over xp (row 4) by
+    # a direct call of its public function
+    plain = plain_train_phase(dev, work, corpus_dir, csv_path, args.seed)
+    print("plain VAE training throughput " + json.dumps(
+        {k: plain[k] for k in ("segments_per_s_after_first_epoch",
+                               "epochs")}), flush=True)
+    plain_enc = plain_encode_phase(dev, work, corpus_dir, csv_path,
+                                   plain["checkpoint"])
+    print("plain VAE encode CLI (params) " + json.dumps(plain_enc),
+          flush=True)
+    plain_serve = plain_serve_phase(work, plain["checkpoint"], rng)
+    print("plain VAE serve (params) " + json.dumps(plain_serve), flush=True)
+    plain_decode = decode_phase(dev, plain["checkpoint"], corpus_dir,
+                                csv_path, args.seed)
+    print("decode_features (plain VAE) " + json.dumps(plain_decode),
+          flush=True)
+    pair = lstm_pair_path(dev, rng)
+    print("lstm_layer_bidir direct call " + json.dumps(pair), flush=True)
+
     paths = {"serve": launches, "train": train["launches"],
              "uni_train": uni["launches"], "encode_cli": enc_cli["launches"],
              "decode": decode["launches"], "gru_train": gru["launches"],
@@ -3510,7 +3919,12 @@ def run(args, root, dev, rng, work) -> int:
              "stream_esn_train": stream["ESN"]["launches"],
              "nll_loss_only": nll["launches"],
              "kernel_rng_train": rng_train["launches"],
-             "kernel_rng_check": rng_check_launches}
+             "kernel_rng_check": rng_check_launches,
+             "plain_train": plain["launches"],
+             "plain_encode_cli": plain_enc["launches"],
+             "plain_serve": plain_serve["launches"],
+             "plain_decode": plain_decode["launches"],
+             "lstm_layer_bidir_direct_call": pair["launches"]}
 
     def by_path(name):
         return {p: counts.get(name, 0) for p, counts in paths.items()}
@@ -3590,6 +4004,11 @@ def run(args, root, dev, rng, work) -> int:
         stream_steps[cell] = (checks_, *train_step_breakdown(
             dev, *inputs_, fused_cells=()))
     wide = wide_hidden_phase(dev, rng)
+    plain_checks, plain_inputs = whole_step_phase(
+        dev, corpus_dir, csv_path, args.seed, latent="gaussian")
+    plain_stages, plain_shape = train_step_breakdown(dev, *plain_inputs)
+    pair_entries = lstm_pair_phase(dev, rng, total("lstm_layer_bidir"),
+                                   total("lstm_layer_bidir_bwd"))
     seed_entries = []
     for cell in ("LSTM", "GRU", "RNN"):
         name = SEED_COUNTERS[cell]
@@ -3603,7 +4022,7 @@ def run(args, root, dev, rng, work) -> int:
                 nll_fwd, nll_bwd,
                 probe_entry(dev, total("launch_cost_probe"), probe),
                 noise_dump_phase(dev, total("decoder_noise_dump"), t=t_train),
-                *seed_entries]
+                *seed_entries, *pair_entries]
     counter_names = set(all_counters()) | {"launch_cost_probe"}
     for entry in kernels:
         key = entry["name"]
@@ -3616,8 +4035,8 @@ def run(args, root, dev, rng, work) -> int:
         lacking = KERNEL_KEYS - set(entry)
         if lacking:
             raise AssertionError(f"kernel {entry['name']} lacks {lacking}")
-    if len(kernels) != 35:
-        raise AssertionError(f"{len(kernels)} kernel entries, expected 35")
+    if len(kernels) != 37:
+        raise AssertionError(f"{len(kernels)} kernel entries, expected 37")
     print("training step, kernels (card) vs twins (CPU) "
           + json.dumps(checks), flush=True)
     print("unidirectional training step, kernels (card) vs twins (CPU) "
@@ -3655,6 +4074,10 @@ def run(args, root, dev, rng, work) -> int:
               + json.dumps(fused_steps[cell][1]), flush=True)
     print("hidden size 1024, kernels vs twins " + json.dumps(wide),
           flush=True)
+    print("plain VAE training step, kernels (card) vs twins (CPU) "
+          + json.dumps(plain_checks), flush=True)
+    print(f"plain VAE training step {json.dumps(plain_shape)}, ms "
+          + json.dumps(plain_stages), flush=True)
     print("launch-cost probe and selector " + json.dumps(probe), flush=True)
 
     print(json.dumps({"kernels": kernels}))

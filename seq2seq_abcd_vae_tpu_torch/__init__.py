@@ -11,11 +11,14 @@ caller passes ``device="cpu"``.
 Ported so far: the encode server (``cli/serve_main.py`` ->
 ``serve/server.py`` -> ``infer/encode.encode_step``) for the LSTM, GRU,
 Elman RNN or echo-state (ESN) encoder, bidirectional or unidirectional,
-with the ABCD head; ABCD-VAE training (``cli/learning_main.py`` ->
-``train/learner.py`` -> ``models/vae.py``) with the unidirectional LSTM,
-GRU, RNN or ESN decoder; the offline encode CLI (``cli/encode_main.py`` ->
-``infer/encode.Encoder.encode_dataset``, CSV and npz); generative decoding
-of those decoders (``infer/decode.decode_features``).
+with the ABCD head or the plain VAE's Gaussian head; ABCD-VAE and plain
+Gaussian VAE training (``cli/learning_main.py``, ``cli/plain_learning.py``
+-> ``train/learner.py`` -> ``models/vae.py``) with the unidirectional
+LSTM, GRU, RNN or ESN decoder; the offline encode CLI
+(``cli/encode_main.py`` -> ``infer/encode.Encoder``, CSV and npz, every
+mode); generative decoding of those decoders
+(``infer/decode.decode_features``); and ``ops/lstm_kernel.
+lstm_layer_bidir``, the one TPU kernel no path calls.
 """
 
 __version__ = "0.1.0"

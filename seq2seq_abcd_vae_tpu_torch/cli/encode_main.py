@@ -1,17 +1,18 @@
-"""Encode entry point of the port, shared by the abcd encode CLIs:
+"""Encode entry point of the port, shared by the four encode CLIs:
 
     python -m seq2seq_abcd_vae_tpu_torch.cli.encode_main MODE MODEL_PATH \\
         INPUT_ROOT ANNOTATION.csv NORMALIZER [-S OUT] [-b B] \\
-        [-d cuda|cpu] [--save_format csv|npz] [options]
+        [-d cuda|cpu] [--save_format csv|npz] [-p NAMES] [options]
 
 MODE is ``probs`` (the reference's ABCD-VAE/encode.py), ``logits``
-(encode_logit.py) or ``features`` (encode_features.py); the flow is
+(encode_logit.py), ``features`` (encode_features.py) or ``params``
+(plain/encode.py: the plain Gaussian VAE's (mean, log_variance), named by
+``-p/--parameter_names``, the plain parser's option); the flow is
 seq2seq_abcd_vae_tpu/cli/encode_main.py's: the result goes to ``-S`` or
 ``INPUT_ROOT/autoencoded.csv``, the STFT geometry follows the first wav's
 sampling rate, every annotation row is encoded and, when the annotation
 has a ``label`` column, the CSV carries the annotation's columns.  Runs on
-the card unless ``-d cpu``.  ``params`` mode (the plain Gaussian VAE) is
-not ported yet.
+the card unless ``-d cpu``.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from . import flags
 
 def main(mode: str, argv=None) -> None:
     check_mode(mode)
-    parameters = flags.build_encode_parser().parse_args(argv)
+    variant = "plain" if mode == "params" else "abcd"
+    parameters = flags.build_encode_parser(variant).parse_args(argv)
     flags.refuse_unported(parameters, os.environ, "encode")
     flags.apply_matmul_precision(parameters)
 
@@ -49,6 +51,7 @@ def main(mode: str, argv=None) -> None:
 
     encoder = Encoder(parameters.model_path, device=parameters.device,
                       stft_method=parameters.stft_method)
+    encoder.check_mode(mode)
     frontend = FrontendSpec(fft_frame_length, fft_step_size,
                             centering=not parameters.fft_no_centering,
                             window=parameters.fft_window_type)
@@ -60,16 +63,26 @@ def main(mode: str, argv=None) -> None:
                                    parameters.data_normalizer, **common)
         return
     labelled = "label" in data_parser.columns
+    annotation = dict(
+        suffixes=data_parser.csv_suffixes() if labelled else None,
+        columns=data_parser.columns if labelled else None)
+    if mode == "params":
+        names = parameters.parameter_names
+        encoder.encode_dataset_params(
+            dataset, save_path, frontend, parameters.epsilon,
+            parameters.data_normalizer,
+            parameter_ix2name=dict(enumerate(names.split(",")))
+            if names is not None else {},
+            batch_size=parameters.batch_size, **annotation)
+        return
     encoder.encode_dataset(
         dataset, save_path, frontend, parameters.epsilon,
-        parameters.data_normalizer,
-        suffixes=data_parser.csv_suffixes() if labelled else None,
-        columns=data_parser.columns if labelled else None, **common)
+        parameters.data_normalizer, **annotation, **common)
 
 
 if __name__ == "__main__":
     if len(sys.argv) < 2:
         sys.exit("usage: python -m seq2seq_abcd_vae_tpu_torch.cli.encode_main "
-                 "{probs,logits,features} MODEL_PATH INPUT_ROOT "
+                 "{probs,logits,features,params} MODEL_PATH INPUT_ROOT "
                  "ANNOTATION_FILE DATA_NORMALIZER [options]")
     main(sys.argv[1], sys.argv[2:])

@@ -1,5 +1,6 @@
 """The argparse parsers of the training and encode CLIs (the port's own copy
-of seq2seq_abcd_vae_tpu/cli/flags.py, ABCD variant).
+of seq2seq_abcd_vae_tpu/cli/flags.py), in the ABCD-VAE's variant
+(``abcd``) and the plain Gaussian VAE's (``plain``).
 
 Flag names, defaults and help strings match the JAX package's, but for
 ``-d/--device``: the port's entry points run on the card (``cuda``)
@@ -90,7 +91,20 @@ def _extras(p: argparse.ArgumentParser) -> None:
                         "'auto' and 'off' keep it off, 'on' is refused).")
 
 
-def build_learning_parser() -> argparse.ArgumentParser:
+VARIANTS = ("abcd", "plain")
+
+
+def _check_variant(variant: str) -> None:
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r} (known: "
+                         f"{', '.join(VARIANTS)})")
+
+
+def build_learning_parser(variant: str = "abcd") -> argparse.ArgumentParser:
+    """The training CLI's parser: ``abcd`` (the reference's
+    ABCD-VAE/learning.py) or ``plain`` (plain/learning.py: ``-f`` is the
+    feature size, and no pretraining, ``-K`` or Dirichlet prior)."""
+    _check_variant(variant)
     p = argparse.ArgumentParser(epilog=ENVIRONMENT_HELP + (
         " SEQ2SEQ_NLL_FUSION=0 / SEQ2SEQ_FUSED_CELLS send decoder cells to "
         "the stream path; SEQ2SEQ_KERNEL_RNG=1 (on the card only) draws "
@@ -111,9 +125,10 @@ def build_learning_parser() -> argparse.ArgumentParser:
     a("-d", "--device", type=str, default="cuda", help="Computing device.")
     a("-e", "--epochs", type=int, default=20,
       help="# of epochs to train the model.")
-    a("--pretrain_epochs", type=int, default=5,
-      help="# of initial epochs to pretrain the model w/o "
-           "gumbel-softmax sampling.")
+    if variant == "abcd":
+        a("--pretrain_epochs", type=int, default=5,
+          help="# of initial epochs to pretrain the model w/o "
+               "gumbel-softmax sampling.")
     a("-b", "--batch_size", type=int, default=512,
       help="Batch size for training.")
     a("--validation_batch_size", type=int, default=None,
@@ -130,12 +145,16 @@ def build_learning_parser() -> argparse.ArgumentParser:
     a("--decoder_rnn_type", type=str, default=None,
       help="Name of RNN to be used for the decoder. Same as the encoder "
            "by default.")
-    a("-K", "--num_feature_categories", type=int, default=128,
-      help="# of possible discrete values token on by latent features "
-           "into which data are encoded.")
-    a("-f", "--feature_dim", type=int, default=256,
-      help="# of dimensions of features into which the discrete "
-           "feature are linear-transformed.")
+    if variant == "abcd":
+        a("-K", "--num_feature_categories", type=int, default=128,
+          help="# of possible discrete values token on by latent features "
+               "into which data are encoded.")
+        a("-f", "--feature_dim", type=int, default=256,
+          help="# of dimensions of features into which the discrete "
+               "feature are linear-transformed.")
+    else:
+        a("-f", "--feature_size", type=int, default=16,
+          help="# of dimensions of features into which data are encoded.")
     a("--encoder_rnn_layers", type=int, default=1,
       help="# of hidden layers in the encoder RNN.")
     a("--encoder_rnn_hidden_size", type=int, default=256,
@@ -181,9 +200,10 @@ def build_learning_parser() -> argparse.ArgumentParser:
       help="Normalizing constant to devide the data.")
     a("-E", "--epsilon", type=float, default=EPSILON_DEFAULT,
       help="Small positive real number to add to avoid log(0).")
-    a("--prior_concentration", type=float, default=1.0,
-      help="Concentration of the Dirichlet prior on the probability "
-           "of the discrete feature.")
+    if variant == "abcd":
+        a("--prior_concentration", type=float, default=1.0,
+          help="Concentration of the Dirichlet prior on the probability "
+               "of the discrete feature.")
     _extras(p)
     return p
 
@@ -272,9 +292,10 @@ def refuse_unported(parameters, environ, cli: str) -> None:
         raise NotImplementedError("--profile_dir is not ported yet")
 
 
-def build_encode_parser() -> argparse.ArgumentParser:
-    """The encode CLIs' parser (abcd variant; the plain VAE's ``-p`` waits
-    for its port)."""
+def build_encode_parser(variant: str = "abcd") -> argparse.ArgumentParser:
+    """The encode CLIs' parser: ``abcd`` (probs, logits, features) or
+    ``plain`` (params mode, with ``-p/--parameter_names``)."""
+    _check_variant(variant)
     p = argparse.ArgumentParser(epilog=ENVIRONMENT_HELP)
     a = p.add_argument
     a("model_path", type=str,
@@ -302,6 +323,9 @@ def build_encode_parser() -> argparse.ArgumentParser:
     a("--channel", type=int, default=0,
       help="Channel ID # (starting from 0) of multichannel recordings "
            "to use.")
+    if variant == "plain":
+        a("-p", "--parameter_names", type=str, default=None,
+          help="Comma-separated parameter names.")
     a("-E", "--epsilon", type=float, default=EPSILON_DEFAULT,
       help="Small positive real number to add to avoid log(0).")
     a("-b", "--batch_size", type=int, default=1, help="Batch size.")

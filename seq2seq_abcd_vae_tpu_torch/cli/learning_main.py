@@ -1,11 +1,17 @@
-"""Training entry point of the port (ABCD-VAE):
+"""Training entry point of the port, the ABCD-VAE:
 
     python -m seq2seq_abcd_vae_tpu_torch.cli.learning_main INPUT_ROOT \\
         ANNOTATION.csv -S SAVE_ROOT -j JOB [-d cuda|cpu] [options]
 
+and the plain Gaussian VAE (the reference's plain/learning.py; ``-f`` is
+the feature size, default 16):
+
+    python -m seq2seq_abcd_vae_tpu_torch.cli.plain_learning INPUT_ROOT \\
+        ANNOTATION.csv -S SAVE_ROOT -j JOB [-f 16] [-d cuda|cpu] [options]
+
 The flow of seq2seq_abcd_vae_tpu/cli/learning_main.py: save-dir layout,
-speaker_coding.json persistence, STFT geometry derived from the first
-wav's sampling rate, the decoder's cell defaulting to the encoder's, the
+speaker_coding.json persistence (the ABCD-VAE's only), STFT geometry
+derived from the first wav's sampling rate, the decoder's cell defaulting to the encoder's, the
 validation batch defaulting to the training batch.  Runs on the card
 unless ``-d cpu``.  ``SEQ2SEQ_NLL_FUSION=0`` (every decoder cell) or
 ``SEQ2SEQ_FUSED_CELLS`` (the GRU, RNN and ESN cells it does not list)
@@ -38,8 +44,10 @@ def get_save_dir(save_root: str, job_id_str: str) -> str:
     return save_dir
 
 
-def main(argv=None) -> Learner:
-    parameters = flags.build_learning_parser().parse_args(argv)
+def main(argv=None, variant: str = "abcd") -> Learner:
+    """Train the ``abcd`` or the ``plain`` variant from the command line
+    ``argv``; returns the Learner."""
+    parameters = flags.build_learning_parser(variant).parse_args(argv)
     flags.refuse_unported(parameters, os.environ, "learning")
     # the JAX package's switches of the decoder's training path, read once
     fused_cells = flags.fused_loss_cells(os.environ)
@@ -53,7 +61,7 @@ def main(argv=None) -> Learner:
 
     speaker2ix = None
     speaker_coding_path = os.path.join(save_dir, "speaker_coding.json")
-    if os.path.isfile(speaker_coding_path):
+    if variant == "abcd" and os.path.isfile(speaker_coding_path):
         with open(speaker_coding_path, "r") as f:
             speaker2ix = json.load(f)
     data_parser = AnnotationParser(parameters.input_root,
@@ -62,7 +70,7 @@ def main(argv=None) -> Learner:
                                    speaker2ix=speaker2ix)
     fs = data_parser.get_sample_freq()
     num_speakers = data_parser.get_num_speakers()
-    if num_speakers > 0 and speaker2ix is None:
+    if variant == "abcd" and num_speakers > 0 and speaker2ix is None:
         with open(speaker_coding_path, "w") as f:
             json.dump(data_parser.speaker2ix, f)
 
@@ -73,13 +81,19 @@ def main(argv=None) -> Learner:
     batching_mode = parameters.batching_mode or (
         "length_sorted" if parameters.length_sorted_batches else None)
 
+    if variant == "abcd":
+        latent = dict(
+            num_feature_categories=parameters.num_feature_categories,
+            feature_dim=parameters.feature_dim,
+            prior_concentration=parameters.prior_concentration)
+    else:
+        latent = dict(latent_type="gaussian",
+                      feature_size=parameters.feature_size)
     learner = Learner(
         input_size=int(fft_frame_length / 2 + 1),
         encoder_rnn_hidden_size=parameters.encoder_rnn_hidden_size,
         decoder_rnn_hidden_size=parameters.decoder_rnn_hidden_size,
         mlp_hidden_size=parameters.mlp_hidden_size,
-        num_feature_categories=parameters.num_feature_categories,
-        feature_dim=parameters.feature_dim,
         save_dir=save_dir,
         encoder_rnn_type=parameters.encoder_rnn_type,
         decoder_rnn_type=parameters.decoder_rnn_type,
@@ -95,10 +109,9 @@ def main(argv=None) -> Learner:
         esn_leak=parameters.esn_leak,
         num_speakers=num_speakers if num_speakers > 0 else None,
         speaker_embed_dim=parameters.speaker_embed_dim,
-        prior_concentration=parameters.prior_concentration,
         stft_method=parameters.stft_method,
         batching_mode=batching_mode, fused_cells=fused_cells,
-        kernel_rng=kernel_rng)
+        kernel_rng=kernel_rng, **latent)
 
     frontend = FrontendSpec(fft_frame_length, fft_step_size,
                             centering=not parameters.fft_no_centering,
@@ -124,7 +137,7 @@ def main(argv=None) -> Learner:
                   parameters.batch_size, parameters.validation_batch_size,
                   frontend=frontend, epsilon=parameters.epsilon,
                   data_normalizer=parameters.data_normalizer,
-                  pretrain_epochs=parameters.pretrain_epochs,
+                  pretrain_epochs=getattr(parameters, "pretrain_epochs", 0),
                   learning_rate=parameters.learning_rate,
                   momentum=parameters.momentum,
                   gradient_clip=parameters.clip,

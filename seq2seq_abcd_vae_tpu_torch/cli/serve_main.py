@@ -40,8 +40,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
       help="Unix domain socket path to listen on.")
     a("--mode", type=str, default="probs",
       choices=["probs", "logits", "features", "params"],
-      help="Which encode head to serve ('params', the plain VAE's, is "
-           "not ported yet).")
+      help="Which encode head to serve (the four encode CLIs).")
     a("-d", "--device", type=str, default="cuda", help="Computing device.")
     a("--fft_frame_length", type=float, default=0.008,
       help="FFT frame length in sec.")

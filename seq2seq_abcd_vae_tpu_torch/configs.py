@@ -4,11 +4,11 @@
 Each config is rebuilt from the ``*_init_parameters`` dict stored beside
 its module's weights in ``checkpoint.pt``, which is what makes a
 checkpoint self-describing.  The port serves the LSTM, GRU, Elman RNN and
-echo-state (ESN) encoders (one or both directions) with the ABCD head,
-trains them with the unidirectional LSTM, GRU, RNN or ESN decoder
-(isotropic-Gaussian emission, sampled self-feedback) and decodes those
-decoders; ``check_served`` and ``check_decoder`` name the configurations
-that wait for later slices.
+echo-state (ESN) encoders (one or both directions) with the ABCD head or
+the plain VAE's Gaussian head, trains them with the unidirectional LSTM,
+GRU, RNN or ESN decoder (isotropic-Gaussian emission, sampled
+self-feedback) and decodes those decoders; ``check_served`` and
+``check_decoder`` name the configurations that wait for later slices.
 """
 
 from __future__ import annotations
@@ -144,19 +144,51 @@ class ABCDSamplerConfig:
         return cls(**p)
 
 
+@dataclass(frozen=True)
+class GaussianSamplerConfig:
+    """The plain VAE's latent head (the reference's generic Sampler): an
+    MLP_To_k_Vecs giving the parameters of ``distribution_name``."""
+    input_size: int
+    mlp_hidden_size: int
+    output_size: int
+    distribution_name: str = "isotropic_gaussian"
+
+    def pack_init_parameters(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_init_parameters(cls, p: dict[str, Any]) -> "GaussianSamplerConfig":
+        return cls(**p)
+
+
+LATENT_CONFIGS = {"abcd": ABCDSamplerConfig,
+                  "gaussian": GaussianSamplerConfig}
+
+
+def latent_config(latent_type: str, init_parameters: dict):
+    """The latent head's config of a checkpoint's ``latent_type`` from its
+    ``feature_sampler_init_parameters``."""
+    if latent_type not in LATENT_CONFIGS:
+        raise ValueError(f"unknown latent type {latent_type!r} (known: "
+                         f"{', '.join(LATENT_CONFIGS)})")
+    return LATENT_CONFIGS[latent_type].from_init_parameters(
+        dict(init_parameters))
+
+
 def check_served(encoder: EncoderConfig, latent_type: str = "abcd",
                  decoder: Optional[DecoderConfig] = None) -> None:
     """Raise NotImplementedError for what the port does not serve or train
-    yet: encoders of another cell than the LSTM, GRU, RNN and ESN, the
-    plain VAE, and (with a ``decoder``, the training path) encoder dropout
-    and every decoder ``check_decoder`` refuses for training."""
+    yet: encoders of another cell than the LSTM, GRU, RNN and ESN, a latent
+    head other than the ABCD head and the plain VAE's Gaussian, and (with a
+    ``decoder``, the training path) encoder dropout and every decoder
+    ``check_decoder`` refuses for training."""
     if encoder.rnn_type not in ("LSTM", "GRU", "RNN", "ESN"):
         raise NotImplementedError(
             f"the {encoder.rnn_type!r} encoder is not ported")
-    if latent_type != "abcd":
+    if latent_type not in LATENT_CONFIGS:
         raise NotImplementedError(
-            f"latent type {latent_type!r} (the plain Gaussian VAE and its "
-            "'params' mode) is not ported yet; it comes with a later slice")
+            f"latent type {latent_type!r} is not a latent of the port (the "
+            f"JAX package's: {', '.join(LATENT_CONFIGS)})")
     if decoder is None:
         return
     if encoder.hidden_dropout > 0.0:

@@ -11,12 +11,19 @@
 //   reversed time and is active on [T - len, T) of its own flipped step
 //   axis (seq2seq_abcd_vae_tpu/ops/_mask_utils.py:span_mask), so its outs
 //   are in flipped time, as the TPU kernel writes them.
-// - projected input (kProj = true): one direction over a precomputed
-//   xp = x @ W_ih + b_ih (T, B, 4H).  Replaces
-//   seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:lstm_layer, forward (`_fwd_call`
-//   / `_fwd_kernel`) and backward (`_bwd_call` / `_bwd_kernel`).  `reverse`
-//   selects the span [T - len, T) (the caller flips xp in time, as
-//   models/rnn.py:run_rnn_layer does); the backward's dxp is its dz stream.
+// - projected input (kProj = true): a precomputed xp = x @ W_ih + b_ih.
+//   One direction over xp (T, B, 4H) (kinds 2 and 3) replaces
+//   seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:lstm_layer, forward
+//   (`_fwd_call` / `_fwd_kernel`) and backward (`_bwd_call` /
+//   `_bwd_kernel`); `reverse` selects the span [T - len, T) (the caller
+//   flips xp in time, as models/rnn.py:run_rnn_layer does).  Both
+//   directions over xp (T, 2, B, 4H) in one launch (kPair = true, kinds 4
+//   and 5) replace lstm_pallas.py:lstm_layer_bidir, forward (`_fwd2_call` /
+//   `_fwd2_kernel`) and backward (`_bwd2_call` / `_bwd2_kernel`): the TPU
+//   kernel steps both directions' time loops in one grid, and here the two
+//   directions are the y blocks of one launch; direction 1's xp is already
+//   flipped in time and active on [T - len, T), as in the raw mode.  The
+//   backward's dxp is its dz stream (direction-major, (D, T, B, 4H)).
 //
 // In both modes outs holds the MASKED carry h after each step (a row's
 // carries are frozen outside its span), gates are in torch order
@@ -59,9 +66,9 @@ __device__ __forceinline__ bool span_active(int t, int T, int len, bool rev) {
   return rev ? t >= T - len : t < len;
 }
 
-template <int R, bool kProj>
+template <int R, bool kProj, bool kPair = false>
 __global__ void __launch_bounds__(kMaxThreads) lstm_fwd_kernel(
-    const float* __restrict__ x,        // raw (T, B, F) | projected (T, B, 4H)
+    const float* __restrict__ x,        // raw (T, B, F) | xp (T[, 2], B, 4H)
     const int* __restrict__ lengths,    // (B,)
     const float* __restrict__ w_ih,     // raw (D, F, 4H) | unused
     const float* __restrict__ b_ih,     // raw (D, 4H) | unused
@@ -79,7 +86,9 @@ __global__ void __launch_bounds__(kMaxThreads) lstm_fwd_kernel(
 
   const int D = gridDim.y;
   const int d = blockIdx.y;
-  const bool rev = kProj ? reverse != 0 : d == 1;
+  // the flipped span: direction 1 of a pair, or the one direction when
+  // the caller asks for it
+  const bool rev = (kProj && !kPair) ? reverse != 0 : d == 1;
   const int r0 = blockIdx.x * R;
   const int nrows = min(R, B - r0);
   const int tid = threadIdx.x, nth = blockDim.x;
@@ -124,7 +133,9 @@ __global__ void __launch_bounds__(kMaxThreads) lstm_fwd_kernel(
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           if (r < nrows) {
-            const float* xp = x + ((int64_t)t * B + r0 + r) * G + u;
+            const float* xp =
+                x + (kPair ? ((int64_t)t * 2 + d) * B + r0 + r
+                           : (int64_t)t * B + r0 + r) * G + u;
 #pragma unroll
             for (int g = 0; g < 4; ++g) ax[g][r] = xp[g * H];
           }
@@ -223,10 +234,10 @@ __global__ void __launch_bounds__(kMaxThreads) lstm_fwd_kernel(
 // streams, and csrc/wgrad.cu reduces them (dW_ih = x^T dz, dW_hh =
 // h_prev^T dz, db = sum dz).  Raw mode writes the streams and each
 // direction's dx in original time (the wrapper adds the two dx); projected
-// mode writes them in xp's own time order.
-template <int R, bool kProj>
+// mode writes them in xp's own time order, (D, T, B, .) direction-major.
+template <int R, bool kProj, bool kPair = false>
 __global__ void __launch_bounds__(kBwdThreads) lstm_bwd_kernel(
-    const float* __restrict__ x,        // raw (T, B, F) | projected (T, B, 4H)
+    const float* __restrict__ x,        // raw (T, B, F) | xp (T[, 2], B, 4H)
     const int* __restrict__ lengths,    // (B,)
     const float* __restrict__ w_ih,     // raw (D, F, 4H) | unused
     const float* __restrict__ b_ih,     // raw (D, 4H) | unused
@@ -254,7 +265,7 @@ __global__ void __launch_bounds__(kBwdThreads) lstm_bwd_kernel(
 
   const int D = gridDim.y;
   const int d = blockIdx.y;
-  const bool rev = kProj ? reverse != 0 : d == 1;
+  const bool rev = (kProj && !kPair) ? reverse != 0 : d == 1;
   const int r0 = blockIdx.x * R;
   const int nrows = min(R, B - r0);
   const int tid = threadIdx.x;
@@ -305,7 +316,9 @@ __global__ void __launch_bounds__(kBwdThreads) lstm_bwd_kernel(
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           if (r < nrows) {
-            const float* xp = x + ((int64_t)t * B + r0 + r) * G + u;
+            const float* xp =
+                x + (kPair ? ((int64_t)t * 2 + d) * B + r0 + r
+                           : (int64_t)t * B + r0 + r) * G + u;
 #pragma unroll
             for (int g = 0; g < 4; ++g) ax[g][r] = xp[g * H];
           }
@@ -425,7 +438,8 @@ __global__ void __launch_bounds__(kBwdThreads) lstm_bwd_kernel(
 }
 
 // kind: 0 raw forward, 1 raw backward, 2 projected forward, 3 projected
-// backward.
+// backward (one direction), 4 projected forward, 5 projected backward (both
+// directions in one launch: the kPair kernels, on a grid two blocks high).
 long long smem_bytes(int kind, int rows, int F, int H) {
   const bool proj = kind >= 2;
   const long long per_row = (kind % 2 == 0)
@@ -440,7 +454,10 @@ const void* kernel_of(int kind) {
     case 0: return (const void*)lstm_fwd_kernel<R, false>;
     case 1: return (const void*)lstm_bwd_kernel<R, false>;
     case 2: return (const void*)lstm_fwd_kernel<R, true>;
-    default: return (const void*)lstm_bwd_kernel<R, true>;
+    case 3: return (const void*)lstm_bwd_kernel<R, true>;
+    case 4: return (const void*)lstm_fwd_kernel<R, true, true>;
+    case 5: return (const void*)lstm_bwd_kernel<R, true, true>;
+    default: return nullptr;
   }
 }
 
@@ -483,31 +500,31 @@ int fwd_threads(int H) {
   return t < kMaxThreads ? t : kMaxThreads;
 }
 
-template <int R, bool kProj>
+template <int R, bool kProj, bool kPair>
 void launch_fwd(dim3 grid, int smem, cudaStream_t s, const float* x,
                 const int* lengths, const float* w_ih, const float* b_ih,
                 const float* w_hh, const float* b_hh, float* outs, float* cs,
                 float* h_n, float* c_n, int T, int B, int F, int H,
                 int reverse) {
-  lstm_fwd_kernel<R, kProj><<<grid, fwd_threads(H), smem, s>>>(
+  lstm_fwd_kernel<R, kProj, kPair><<<grid, fwd_threads(H), smem, s>>>(
       x, lengths, w_ih, b_ih, w_hh, b_hh, outs, cs, h_n, c_n, T, B, F, H,
       reverse);
 }
 
-template <bool kProj>
+template <bool kProj, bool kPair = false>
 void dispatch_fwd(int rows, dim3 grid, int smem, cudaStream_t s,
                   const float* x, const int* lengths, const float* w_ih,
                   const float* b_ih, const float* w_hh, const float* b_hh,
                   float* outs, float* cs, float* h_n, float* c_n, int T,
                   int B, int F, int H, int reverse) {
-  auto go = rows == 8   ? &launch_fwd<8, kProj>
-            : rows == 4 ? &launch_fwd<4, kProj>
-                        : &launch_fwd<2, kProj>;
+  auto go = rows == 8   ? &launch_fwd<8, kProj, kPair>
+            : rows == 4 ? &launch_fwd<4, kProj, kPair>
+                        : &launch_fwd<2, kProj, kPair>;
   go(grid, smem, s, x, lengths, w_ih, b_ih, w_hh, b_hh, outs, cs, h_n, c_n,
      T, B, F, H, reverse);
 }
 
-template <int R, bool kProj>
+template <int R, bool kProj, bool kPair>
 void launch_bwd(dim3 grid, int smem, cudaStream_t s, const float* x,
                 const int* lengths, const float* w_ih, const float* b_ih,
                 const float* w_hh, const float* b_hh, const float* w_ihT,
@@ -515,12 +532,12 @@ void launch_bwd(dim3 grid, int smem, cudaStream_t s, const float* x,
                 const float* douts, const float* dh_n, const float* dc_n,
                 float* dz_s, float* hp_s, float* dx_s, int T, int B, int F,
                 int H, int reverse) {
-  lstm_bwd_kernel<R, kProj><<<grid, kBwdThreads, smem, s>>>(
+  lstm_bwd_kernel<R, kProj, kPair><<<grid, kBwdThreads, smem, s>>>(
       x, lengths, w_ih, b_ih, w_hh, b_hh, w_ihT, w_hhT, outs, cs, douts,
       dh_n, dc_n, dz_s, hp_s, dx_s, T, B, F, H, reverse);
 }
 
-template <bool kProj>
+template <bool kProj, bool kPair = false>
 void dispatch_bwd(int rows, dim3 grid, int smem, cudaStream_t s,
                   const float* x, const int* lengths, const float* w_ih,
                   const float* b_ih, const float* w_hh, const float* b_hh,
@@ -528,9 +545,9 @@ void dispatch_bwd(int rows, dim3 grid, int smem, cudaStream_t s,
                   const float* cs, const float* douts, const float* dh_n,
                   const float* dc_n, float* dz_s, float* hp_s, float* dx_s,
                   int T, int B, int F, int H, int reverse) {
-  auto go = rows == 8   ? &launch_bwd<8, kProj>
-            : rows == 4 ? &launch_bwd<4, kProj>
-                        : &launch_bwd<2, kProj>;
+  auto go = rows == 8   ? &launch_bwd<8, kProj, kPair>
+            : rows == 4 ? &launch_bwd<4, kProj, kPair>
+                        : &launch_bwd<2, kProj, kPair>;
   go(grid, smem, s, x, lengths, w_ih, b_ih, w_hh, b_hh, w_ihT, w_hhT, outs,
      cs, douts, dh_n, dc_n, dz_s, hp_s, dx_s, T, B, F, H, reverse);
 }
@@ -540,8 +557,8 @@ void dispatch_bwd(int rows, dim3 grid, int smem, cudaStream_t s,
 extern "C" {
 
 // The largest row tile (8, 4 or 2) whose shared memory fits the card for
-// kernel `kind` (0 raw forward, 1 raw backward, 2 projected forward, 3
-// projected backward); 0 when none does.
+// kernel `kind` (0 raw forward, 1 raw backward, 2 / 4 projected forward of
+// one / both directions, 3 / 5 their backwards); 0 when none does.
 int abcd_lstm_rows(int kind, int F, int H) {
   for (int rows = 8; rows >= 2; rows /= 2) {
     const void* fn = kernel_for(kind, rows);
@@ -636,6 +653,46 @@ int abcd_lstm_bwd(const float* xp, const int* lengths, const float* w_hh,
                      nullptr, nullptr, w_hh, b_hh, nullptr, w_hhT, outs, cs,
                      douts, dh_n, dc_n, dxp, hp_s, nullptr, T, B, 0, H,
                      reverse);
+  return (int)cudaGetLastError();
+}
+
+// Both directions over xp (T, 2, B, 4H) in one launch (kind 4): direction
+// 1's xp already flipped in time, active on [T - len, T).  outs / cs
+// (T, 2, B, H), h_n / c_n (2, B, H); cs may be nullptr.
+int abcd_lstm_bidir_proj_fwd(const float* xp, const int* lengths,
+                             const float* w_hh, const float* b_hh,
+                             float* outs, float* cs, float* h_n, float* c_n,
+                             int T, int B, int H, int rows, void* stream) {
+  if (T < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  int smem = 0;
+  cudaError_t err = prepare(4, rows, 0, H, &smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + rows - 1) / rows, 2);
+  dispatch_fwd<true, true>(rows, grid, smem, (cudaStream_t)stream, xp,
+                           lengths, nullptr, nullptr, w_hh, b_hh, outs, cs,
+                           h_n, c_n, T, B, 0, H, 0);
+  return (int)cudaGetLastError();
+}
+
+// Its backward (kind 5), one launch for both directions: writes the dz
+// stream (2, T, B, 4H), which is dxp direction-major, and the h_prev
+// stream (2, T, B, H) for each direction's dW_hh.
+int abcd_lstm_bidir_proj_bwd(const float* xp, const int* lengths,
+                             const float* w_hh, const float* b_hh,
+                             const float* w_hhT, const float* outs,
+                             const float* cs, const float* douts,
+                             const float* dh_n, const float* dc_n,
+                             float* dz_s, float* hp_s, int T, int B, int H,
+                             int rows, void* stream) {
+  if (H < 1 || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  int smem = 0;
+  cudaError_t err = prepare(5, rows, 0, H, &smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + rows - 1) / rows, 2);
+  dispatch_bwd<true, true>(rows, grid, smem, (cudaStream_t)stream, xp,
+                           lengths, nullptr, nullptr, w_hh, b_hh, nullptr,
+                           w_hhT, outs, cs, douts, dh_n, dc_n, dz_s, hp_s,
+                           nullptr, T, B, 0, H, 0);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,9 @@
 """Post-training decoding: generate spectrograms from latents (PyTorch port
 of seq2seq_abcd_vae_tpu/infer/decode.py).
 
-``decode_features`` runs the decoder generatively, deterministically, in
+``decode_features`` runs the decoder generatively, deterministically,
+from latent features of either head (the ABCD head's codes or the plain
+VAE's Gaussian features), in
 ``sample`` mode (the sampled emission is fed back, through the
 hand-written loop kernel of the decoder's cell on the card:
 ``decoder_loop`` for the LSTM, ``gru_decoder_loop`` for the GRU,
@@ -20,8 +22,8 @@ from __future__ import annotations
 import torch
 
 from .. import distributions as dist
-from ..configs import (ABCDSamplerConfig, DecoderConfig, EncoderConfig,
-                       check_decoder)
+from ..configs import (DecoderConfig, EncoderConfig, check_decoder,
+                       latent_config)
 from ..models import decoder as dec_mod
 from ..models import vae
 from ..train import checkpoint as ckpt
@@ -30,15 +32,14 @@ from .encode import resolve_device
 
 
 def load_model(model_path: str, device: str = "cuda"):
-    """(params, cfg) of a ``checkpoint.pt`` written by either package, on
-    ``device`` (the card unless the CPU is asked for)."""
+    """(params, cfg) of a ``checkpoint.pt`` written by either package (an
+    ABCD-VAE or a plain Gaussian VAE), on ``device`` (the card unless the
+    CPU is asked for)."""
     c = ckpt.load_checkpoint(model_path)
-    if c.get("latent_type", "abcd") != "abcd":
-        raise NotImplementedError("the plain Gaussian VAE is not ported yet")
     cfg = vae.ModelConfig(
         EncoderConfig.from_init_parameters(c["encoder_init_parameters"]),
-        ABCDSamplerConfig.from_init_parameters(
-            c["feature_sampler_init_parameters"]),
+        latent_config(c.get("latent_type", "abcd"),
+                      c["feature_sampler_init_parameters"]),
         DecoderConfig.from_init_parameters(c["decoder_init_parameters"]))
     check_decoder(cfg.decoder, training=False)
     params = params_from_jax(c, cfg.encoder, resolve_device(device),

@@ -39,6 +39,8 @@ SIGNATURES = {
              "abcd_lstm_fwd": [_P] * 8 + [_I] * 5 + [_P],
              "abcd_lstm_bidir_bwd": [_P] * 16 + [_I] * 5 + [_P],
              "abcd_lstm_bwd": [_P] * 12 + [_I] * 5 + [_P],
+             "abcd_lstm_bidir_proj_fwd": [_P] * 8 + [_I] * 4 + [_P],
+             "abcd_lstm_bidir_proj_bwd": [_P] * 12 + [_I] * 4 + [_P],
              "abcd_lstm_rows": [_I] * 3,
              "abcd_lstm_smem_bytes": [_I] * 4,
              "abcd_lstm_smem_limit": [_I] * 2},

@@ -11,20 +11,27 @@
   forward (``_fwd_call`` / ``_fwd_kernel``) and backward (``_bwd_call`` /
   ``_bwd_kernel``): one direction over a precomputed xp = x @ W_ih + b_ih,
   with ``reverse`` selecting the flipped span [T - len, T).
+- ``lstm_layer_bidir`` replaces
+  seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:lstm_layer_bidir, forward
+  (``_fwd2_call`` / ``_fwd2_kernel``) and backward (``_bwd2_call`` /
+  ``_bwd2_kernel``): both directions over a precomputed xp (T, 2, B, 4H),
+  direction 1 already flipped in time, in one launch.  Nothing in either
+  package calls it; it is a public function of its own.
 
 A row's carries are frozen outside its span and ``outs`` holds the masked
 carry.  The kernels' time loops are sequential and re-read the weights
 from L2 every step, which bounds them (see the source).  The backwards
 recompute the gates from the saved h/c trajectories and leave the
-weight-gradient sums to ``ops/wgrad.py``; ``lstm_layer_bidir_fused_train``
-and ``lstm_layer_train`` wire them into ``torch.autograd``.  Each wrapper
+weight-gradient sums to ``ops/wgrad.py``; ``lstm_layer_bidir_fused_train``,
+``lstm_layer_train`` and ``lstm_layer_bidir_train`` wire them into
+``torch.autograd``.  Each wrapper
 launches its kernel for CUDA tensors and takes its twin only for CPU
 tensors.  The kernels pick their row tile (8, 4 or 2 rows a block) at
 launch so that shared memory fits the card; the widest hidden size is what
 shared memory admits (``_build.row_tile`` says so when it does not).
 
 Layouts are the JAX package's: w_ih (2, F, 4H), w_hh (2, H, 4H) and
-b_ih / b_hh (2, 4H) for the pair, w_hh (H, 4H) and b_hh (4H,) for one
+b_ih / b_hh (2, 4H) for a pair, w_hh (H, 4H) and b_hh (4H,) for one
 direction, gates in torch order (i, f, g, o).
 """
 
@@ -35,7 +42,7 @@ import torch
 from . import _build, wgrad
 
 # kernel kinds of csrc/lstm.cu (abcd_lstm_rows)
-_BIDIR_FWD, _BIDIR_BWD, _FWD, _BWD = 0, 1, 2, 3
+_BIDIR_FWD, _BIDIR_BWD, _FWD, _BWD, _PAIR_FWD, _PAIR_BWD = 0, 1, 2, 3, 4, 5
 
 
 def lstm_step(w_hh: torch.Tensor, b_hh: torch.Tensor, x_proj: torch.Tensor,
@@ -548,3 +555,235 @@ def lstm_layer_train(xp, lengths, w_hh, b_hh, reverse: bool = False):
     """``lstm_layer`` with gradients to xp, w_hh and b_hh, through the
     backward kernel (or its twin on the CPU)."""
     return _LSTMLayer.apply(xp, lengths, w_hh, b_hh, reverse)
+
+
+# ---------------------------------------------------------------------------
+# both directions over a precomputed input projection, in one launch
+# (lstm_pallas.lstm_layer_bidir)
+# ---------------------------------------------------------------------------
+
+def lstm_layer_bidir_plain(xp, lengths, w_hh, b_hh, return_cs: bool = False):
+    """Plain PyTorch twin of the two-direction forward kernel over xp: same
+    signature, same result.
+
+    Returns (outs (T, 2, B, H), h_n (2, B, H), c_n (2, B, H)), outs the
+    masked carry after each step (direction 1 in its own flipped time), and
+    the saved cell states ``cs`` (T, 2, B, H) after them when
+    ``return_cs``.
+    """
+    t, _, b, _ = xp.shape
+    hidden = w_hh.shape[1]
+    active = _active(t, lengths, xp.device)                  # (T, 2, B, 1)
+    h = xp.new_zeros((2, b, hidden))
+    c = xp.new_zeros((2, b, hidden))
+    outs, cs = [], []
+    for s in range(t):
+        h2, c2 = lstm_step(w_hh, b_hh, xp[s], h, c)
+        h = torch.where(active[s], h2, h)
+        c = torch.where(active[s], c2, c)
+        outs.append(h)
+        cs.append(c)
+    if return_cs:
+        return torch.stack(outs), h, c, torch.stack(cs)
+    return torch.stack(outs), h, c
+
+
+def _check_pair(xp, lengths, w_hh, b_hh, **state):
+    """Shapes, types and devices of a two-direction call over xp, and of the
+    backward's saved states and cotangents, passed by name (None skips)."""
+    if xp.dim() != 4 or w_hh.dim() != 3:
+        raise ValueError(f"xp must be (T, 2, B, 4H) and w_hh (2, H, 4H), "
+                         f"got {tuple(xp.shape)} and {tuple(w_hh.shape)}")
+    t, two, b, g = xp.shape
+    hidden = w_hh.shape[1]
+    if t < 1 or hidden < 1 or two != 2 or g != 4 * hidden:
+        raise ValueError(f"xp {tuple(xp.shape)} does not match w_hh "
+                         f"{tuple(w_hh.shape)}")
+    want = {"xp": (xp, (t, 2, b, g)), "w_hh": (w_hh, (2, hidden, g)),
+            "b_hh": (b_hh, (2, g))}
+    for name, tensor in state.items():
+        if tensor is not None:
+            want[name] = (tensor, (t, 2, b, hidden) if name in (
+                "outs", "cs", "douts") else (2, b, hidden))
+    for name, (tensor, shape) in want.items():
+        if (tuple(tensor.shape) != shape or tensor.dtype != torch.float32
+                or tensor.device != xp.device
+                or not tensor.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 {shape} on "
+                             f"{xp.device}, got {tensor.dtype} "
+                             f"{tuple(tensor.shape)} on {tensor.device}")
+    if (tuple(lengths.shape) != (b,) or lengths.dtype != torch.int32
+            or lengths.device != xp.device):
+        raise ValueError(f"lengths must be int32 of shape ({b},) on "
+                         f"{xp.device}")
+    if xp.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {xp.device}")
+
+
+def lstm_layer_bidir(xp, lengths, w_hh, b_hh, return_cs: bool = False):
+    """Both directions of a masked LSTM layer over a projected input, in one
+    launch.
+
+    Args:
+      xp: (T, 2, B, 4H) float32, x @ W_ih + b_ih per direction, direction 1
+        already flipped in time (models/rnn.run_rnn_layer_bidir's layout).
+      lengths: (B,) int32 valid steps per row.
+      w_hh (2, H, 4H), b_hh (2, 4H).
+
+    Returns (outs (T, 2, B, H), h_n (2, B, H), c_n (2, B, H)), as
+    ``lstm_pallas.lstm_layer_bidir``, and with ``return_cs`` the saved cell
+    states (T, 2, B, H) for the backward.  CUDA tensors launch the kernel on
+    the current stream (and count one launch); CPU tensors take
+    ``lstm_layer_bidir_plain``.
+    """
+    _check_pair(xp, lengths, w_hh, b_hh)
+    if xp.device.type == "cpu":
+        return lstm_layer_bidir_plain(xp, lengths, w_hh, b_hh, return_cs)
+    t, _, b, _ = xp.shape
+    hidden = w_hh.shape[1]
+    lib = _build.load("lstm")
+    rows = _build.row_tile(lib, "lstm", _PAIR_FWD, (0, hidden),
+                           "lstm_layer_bidir")
+    outs = torch.empty((t, 2, b, hidden), dtype=xp.dtype, device=xp.device)
+    cs = torch.empty_like(outs) if return_cs else None
+    h_n = torch.empty((2, b, hidden), dtype=xp.dtype, device=xp.device)
+    c_n = torch.empty_like(h_n)
+    result = (outs, h_n, c_n, cs) if return_cs else (outs, h_n, c_n)
+    if b == 0:
+        return result
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.abcd_lstm_bidir_proj_fwd(
+            xp.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
+            b_hh.data_ptr(), outs.data_ptr(),
+            None if cs is None else cs.data_ptr(), h_n.data_ptr(),
+            c_n.data_ptr(), t, b, hidden, rows, stream)
+    _build.check(lib, err, "lstm_layer_bidir")
+    lstm_layer_bidir.launches += 1
+    return result
+
+
+lstm_layer_bidir.launches = 0
+
+
+def lstm_layer_bidir_bwd_plain(xp, lengths, w_hh, b_hh, outs, cs, douts,
+                               dh_n, dc_n):
+    """Plain PyTorch twin of the two-direction backward kernel: the explicit
+    reverse-time adjoint of ``lstm_layer_bidir_plain`` (not autograd through
+    it), in the order of operations of lstm_pallas._bwd2_kernel: ``douts``
+    adds at every step, inactive ones too, and dh passes through an
+    inactive step unchanged.
+
+    Args as the forward's, plus its saved ``outs`` and ``cs``
+    (T, 2, B, H), ``douts`` (T, 2, B, H) or None for a zero cotangent, and
+    ``dh_n`` / ``dc_n`` (2, B, H).  Returns (dxp (T, 2, B, 4H),
+    dw_hh (2, H, 4H), db_hh (2, 4H)).
+    """
+    t, _, b, _ = xp.shape
+    hidden = w_hh.shape[1]
+    active = _active(t, lengths, xp.device)
+    zero = xp.new_zeros((2, b, hidden))
+    w_hh_t = w_hh.transpose(1, 2)
+    dh, dc = dh_n, dc_n
+    dzs, hps = [None] * t, [None] * t
+    for s in reversed(range(t)):
+        h_prev = outs[s - 1] if s > 0 else zero
+        c_prev = cs[s - 1] if s > 0 else zero
+        act = active[s]
+        gates = (xp[s] + torch.matmul(h_prev, w_hh)) + b_hh.unsqueeze(-2)
+        i, f, g, o = gates.chunk(4, dim=-1)
+        i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                      torch.sigmoid(o))
+        c2 = torch.where(act, cs[s], f * c_prev + i * g)
+        tc = torch.tanh(c2)
+        dh_t = dh if douts is None else dh + douts[s]
+        dh_step = torch.where(act, dh_t, 0.0)
+        dc_step = torch.where(act, dc, 0.0)
+        do = dh_step * tc
+        dc2 = dc_step + dh_step * o * (1.0 - tc * tc)
+        df, di, dg = dc2 * c_prev, dc2 * g, dc2 * i
+        dz = torch.cat([di * i * (1.0 - i), df * f * (1.0 - f),
+                        dg * (1.0 - g * g), do * o * (1.0 - o)], dim=-1)
+        dh = torch.where(act, 0.0, dh_t) + torch.matmul(dz, w_hh_t)
+        dc = torch.where(act, dc2 * f, dc)
+        dzs[s], hps[s] = dz, h_prev
+    dxp, hp = torch.stack(dzs), torch.stack(hps)
+    dw_hh = torch.einsum("tdbh,tdbg->dhg", hp, dxp)
+    return dxp, dw_hh, dxp.sum(dim=(0, 2))
+
+
+def lstm_layer_bidir_bwd(xp, lengths, w_hh, b_hh, outs, cs, douts, dh_n,
+                         dc_n):
+    """The two-direction layer's backward: (dxp, dw_hh, db_hh).
+
+    CUDA tensors launch the reverse-time kernel once for both directions,
+    then ``ops/wgrad.py``'s reductions of its streams per direction, in a
+    fixed order (counted as one launch of this wrapper); dxp comes back as
+    a (T, 2, B, 4H) view of the kernel's direction-major dz stream.  CPU
+    tensors take ``lstm_layer_bidir_bwd_plain``.  ``douts`` may be None
+    (a zero cotangent): the kernel then reads no (T, 2, B, H) zero stream.
+    """
+    _check_pair(xp, lengths, w_hh, b_hh, outs=outs, cs=cs, douts=douts,
+                dh_n=dh_n, dc_n=dc_n)
+    if xp.device.type == "cpu":
+        return lstm_layer_bidir_bwd_plain(xp, lengths, w_hh, b_hh, outs, cs,
+                                          douts, dh_n, dc_n)
+    t, _, b, g = xp.shape
+    hidden = w_hh.shape[1]
+    lib = _build.load("lstm")
+    rows = _build.row_tile(lib, "lstm", _PAIR_BWD, (0, hidden),
+                           "lstm_layer_bidir backward")
+    w_hh_t = w_hh.transpose(1, 2).contiguous()
+    dz = torch.empty((2, t, b, g), dtype=xp.dtype, device=xp.device)
+    hp = torch.empty((2, t, b, hidden), dtype=xp.dtype, device=xp.device)
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.abcd_lstm_bidir_proj_bwd(
+            xp.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
+            b_hh.data_ptr(), w_hh_t.data_ptr(), outs.data_ptr(),
+            cs.data_ptr(), None if douts is None else douts.data_ptr(),
+            dh_n.data_ptr(), dc_n.data_ptr(), dz.data_ptr(), hp.data_ptr(),
+            t, b, hidden, rows, stream)
+        _build.check(lib, err, "lstm_layer_bidir backward")
+        dw_hh = torch.stack([wgrad.at_b(hp[d].view(t * b, hidden),
+                                        dz[d].view(t * b, g))
+                             for d in range(2)])
+        db_hh = torch.cat([wgrad.at_b(None, dz[d].view(t * b, g))
+                           for d in range(2)])
+    lstm_layer_bidir_bwd.launches += 1
+    return dz.transpose(0, 1), dw_hh, db_hh
+
+
+lstm_layer_bidir_bwd.launches = 0
+
+
+class _LSTMBidir(torch.autograd.Function):
+    """Two-direction forward kernel over xp (saving ``cs``) and its backward
+    kernel as one differentiable op; ``lengths`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, xp, lengths, w_hh, b_hh):
+        outs, h_n, c_n, cs = lstm_layer_bidir(xp, lengths, w_hh, b_hh,
+                                              return_cs=True)
+        ctx.save_for_backward(xp, lengths, w_hh, b_hh, outs, cs)
+        # an unused output arrives as None, and the backward kernel then
+        # reads no zero stream
+        ctx.set_materialize_grads(False)
+        return outs, h_n, c_n
+
+    @staticmethod
+    def backward(ctx, douts, dh_n, dc_n):
+        xp, lengths, w_hh, b_hh, outs, cs = ctx.saved_tensors
+        zero = outs.new_zeros(outs.shape[1:])
+        dh_n = zero if dh_n is None else dh_n.contiguous()
+        dc_n = zero if dc_n is None else dc_n.contiguous()
+        douts = None if douts is None else douts.contiguous()
+        dxp, dw_hh, db_hh = lstm_layer_bidir_bwd(xp, lengths, w_hh, b_hh,
+                                                 outs, cs, douts, dh_n, dc_n)
+        return dxp, None, dw_hh, db_hh
+
+
+def lstm_layer_bidir_train(xp, lengths, w_hh, b_hh):
+    """``lstm_layer_bidir`` with gradients to xp, w_hh and b_hh, through
+    the backward kernel (or its twin on the CPU)."""
+    return _LSTMBidir.apply(xp, lengths, w_hh, b_hh)

@@ -66,7 +66,8 @@ class EncodeService:
         different ``fs`` are rejected, not resampled.
       device: ``"cuda"`` (default) or ``"cpu"``.
       fft_frame_length / fft_step_size: seconds.
-      mode: probs | logits | features.
+      mode: probs | logits | features (an ABCD checkpoint) or params (a
+        plain Gaussian VAE's: the (mean, log_variance) pair).
       buckets: ascending frame-count buckets; longer requests are
         rejected.
       batch_size: fixed batch size per bucket.
@@ -94,6 +95,7 @@ class EncodeService:
         self.max_wait_s = float(max_wait_ms) / 1e3
         self._encoder = Encoder(model_path, device=device,
                                 stft_method=stft_method)
+        self._encoder.check_mode(mode)
         # the kernel backend was resolved once by the encoder's own
         # selector (utils/backend_select.py)
         self.device = self._encoder.device
@@ -127,7 +129,8 @@ class EncodeService:
 
     def submit(self, samples: np.ndarray) -> Future:
         """Queue one raw segment; resolves to the mode's value array
-        (probs: (K,) summing to 1; logits (K,); features (f,))."""
+        (probs: (K,) summing to 1; logits (K,); features (f,)), or in
+        params mode to the pair (mean (f,), log_variance (f,))."""
         fut: Future = Future()
         try:
             req = self._admit(samples, fut)
@@ -245,15 +248,20 @@ class EncodeService:
                               torch.from_numpy(audio).to(self.device),
                               torch.from_numpy(num_frames).to(self.device),
                               self._statics, bucket, self.mode)
-            host = out.cpu().numpy()
+            if self.mode == "params":
+                host = tuple(p.cpu().numpy() for p in out)
+                results = [tuple(p[i] for p in host) for i in range(n)]
+            else:
+                host = out.cpu().numpy()
+                results = [host[i] for i in range(n)]
         except Exception as e:  # the batcher keeps serving; callers see it
             for r in reqs:
                 r.future.set_exception(e)
             with self._stats_lock:
                 self.stats.errors += n
             return
-        for i, r in enumerate(reqs):
-            r.future.set_result(host[i])
+        for r, val in zip(reqs, results):
+            r.future.set_result(val)
         with self._stats_lock:
             self.stats.requests += n
             self.stats.batches += 1
@@ -272,7 +280,7 @@ class EncodeService:
 #   {"cmd": "ping"} -> {"ok": true, "mode": ..., "fs": ..., "stats": {...}}
 #   {"cmd": "shutdown"} -> server exits after responding {"ok": true}
 # Response lines:
-#   {"id": any, "values": [...]}
+#   {"id": any, "values": [...]} (params mode: {"id", "params": [[...]...]})
 #   {"id": any, "error": "message"}
 
 def _handle_line(service: EncodeService, line: bytes, shutdown) -> bytes:
@@ -303,7 +311,11 @@ def _handle_line(service: EncodeService, line: bytes, shutdown) -> bytes:
                                  fs=msg.get("fs"))
         else:
             raise ValueError("request needs 'samples' or 'wav'")
-        body = {"id": rid, "values": np.asarray(val).tolist()}
+        if service.mode == "params":
+            body = {"id": rid, "params": [np.asarray(p).tolist()
+                                          for p in val]}
+        else:
+            body = {"id": rid, "values": np.asarray(val).tolist()}
     except Exception as e:  # per-request isolation
         body = {"id": rid, "error": str(e)}
     return json.dumps(body).encode() + b"\n"

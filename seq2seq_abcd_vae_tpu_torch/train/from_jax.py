@@ -6,7 +6,9 @@ b_ih (gH,), b_hh (gH,)}`` with g = 4 gates for the LSTM, 3 for the GRU
 and 1 for the Elman RNN, and the echo-state (ESN) reservoir's
 ``{w_ih (F, H), w_hh (H, H)}`` without biases (the decoder's ESN cell
 likewise); the ABCD head as ``feature_sampler.{to_code_like.{lin1,lin2}.{w, b},
-codebook (f, K), posterior_shape_logits (K,)}``; and the decoder as
+codebook (f, K), posterior_shape_logits (K,)}``, the plain VAE's Gaussian
+head as ``feature_sampler.to_parameters.{lin1,lin2}.{w, b}`` (k-stacked);
+and the decoder as
 ``decoder.
 {feature2hidden, rnn_cell, emission_sampler.to_parameters (k-stacked),
 offset_predictor[, embed_speaker]}``.  The port keeps every layout but
@@ -31,7 +33,9 @@ from ..models.encoder import NUM_GATES, encoder_init
 from ..tree import tree_map
 from .logging_utils import logger
 
-_HEAD_KEYS = ("to_code_like", "codebook", "posterior_shape_logits")
+# the ABCD head's keys, and the plain VAE's Gaussian head's
+_HEAD_KEYS = ("to_code_like", "codebook", "posterior_shape_logits",
+              "to_parameters")
 
 
 def _tensor(a, device) -> torch.Tensor:

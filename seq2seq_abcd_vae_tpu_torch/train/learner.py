@@ -1,5 +1,8 @@
 """Learner: the training and validation runtime (PyTorch port of
-seq2seq_abcd_vae_tpu/train/learner.py, the ABCD-VAE on one device).
+seq2seq_abcd_vae_tpu/train/learner.py on one device): the ABCD-VAE, or with
+``latent_type="gaussian"`` the plain Gaussian VAE (the reference's
+plain/learning.py), which has no pretraining, no temperature and no
+clustering metrics.
 
 Contract kept from the JAX package:
 
@@ -25,7 +28,8 @@ GRU or Elman / ESN decoder loop (forward and backward), or, for the cells
 left out of ``fused_cells``, the sampled decoder loop (forward and
 backward) with the losses over its streams.  Per-batch
 metrics stay on the device and are read once per epoch.  The random
-draws (Gumbel noise, the decoder's sampling noise) come from a
+draws (the Gumbel noise or the Gaussian head's standard normals, then the
+decoder's sampling noise) come from a
 ``torch.Generator`` on the device, seeded per (epoch, phase) from the
 run's key, so a resumed run draws what an uninterrupted one would.  With
 ``kernel_rng`` (the JAX package's ``SEQ2SEQ_KERNEL_RNG=1``, which the
@@ -53,7 +57,8 @@ import numpy as np
 import torch
 
 from .. import distributions as dist
-from ..configs import ABCDSamplerConfig, DecoderConfig, EncoderConfig
+from ..configs import (ABCDSamplerConfig, DecoderConfig, EncoderConfig,
+                       GaussianSamplerConfig, latent_config)
 from ..data.batching import DataLoader, FrontendSpec, RawBatch
 from ..infer.encode import STFT_METHODS, resolve_device
 from ..models import abcd as abcd_mod
@@ -106,25 +111,32 @@ def frontend(statics: StepStatics, audio: torch.Tensor,
 
 def draw_noise(gen: torch.Generator, cfg: vae.ModelConfig, rows: int,
                bucket_frames: int, device, seed: bool = False) -> dict:
-    """The step's random draws, Gumbel first: Gumbel (B, K), then the
-    decoder's noise (T, B, F) or, with ``seed``, its (1, 1) float32 seed
-    below 2^24 (the JAX package's ``SEQ2SEQ_KERNEL_RNG`` draw)."""
-    gumbel = abcd_mod.gumbel_noise(gen, (rows, cfg.latent.num_categories),
-                                   device)
+    """The step's random draws, the head's first: Gumbel (B, K) for the
+    ABCD head (``gumbel``) or standard normals (B, f) for the Gaussian
+    (``normal``), then the decoder's noise (T, B, F) or, with ``seed``, its
+    (1, 1) float32 seed below 2^24 (the JAX package's
+    ``SEQ2SEQ_KERNEL_RNG`` draw)."""
+    if cfg.latent_type == "abcd":
+        head = {"gumbel": abcd_mod.gumbel_noise(
+            gen, (rows, cfg.latent.num_categories), device)}
+    else:
+        head = {"normal": dist.gaussian_noise(
+            gen, (rows, cfg.latent.output_size), device)}
     if seed:
         decoder = torch.randint(0, 1 << 24, (1, 1), generator=gen,
                                 device=device).to(torch.float32)
     else:
         decoder = dist.gaussian_noise(
             gen, (bucket_frames, rows, cfg.decoder.output_size), device)
-    return {"gumbel": gumbel, "decoder": decoder}
+    return dict(head, decoder=decoder)
 
 
 def losses_and_metrics(params, statics: StepStatics, audio, num_frames,
                        speakers, noise, entire_n, temperature, no_sample,
                        bucket_frames):
     """The scalar loss and the batch's metrics (detached device scalars:
-    the three loss sums, the row count and the three perplexities)."""
+    the three loss sums, the row count and, for the ABCD head, the three
+    perplexities)."""
     inputs = frontend(statics, audio, bucket_frames)
     batch = {"inputs": inputs, "lengths": num_frames, "speakers": speakers}
     loss, aux = vae.training_loss(params, statics.model, batch, noise,
@@ -134,6 +146,8 @@ def losses_and_metrics(params, statics: StepStatics, audio, num_frames,
     metrics = {k: aux[k].detach() for k in ("emission_loss", "offset_loss",
                                             "kl_loss", "num_rows")}
     metrics["loss"] = loss.detach()
+    if statics.model.latent_type != "abcd":
+        return loss, metrics
     with torch.no_grad():
         row_mask = (num_frames > 0).to(inputs.dtype)
         probs = torch.softmax(aux["category_logits"], -1)
@@ -170,9 +184,12 @@ class Learner:
                  encoder_rnn_hidden_size: int = 256,
                  decoder_rnn_hidden_size: int = 256,
                  mlp_hidden_size: int = 256,
-                 num_feature_categories: int = 128,
-                 feature_dim: int = 256,
+                 num_feature_categories: int = 128,  # abcd
+                 feature_dim: int = 256,             # abcd
+                 feature_size: Optional[int] = None,  # gaussian
                  save_dir: str = ".",
+                 latent_type: str = "abcd",
+                 feature_distribution: str = "isotropic_gaussian",
                  encoder_rnn_type: str = "LSTM",
                  decoder_rnn_type: str = "LSTM",
                  encoder_rnn_layers: int = 1,
@@ -234,13 +251,24 @@ class Learner:
             rnn_layers=encoder_rnn_layers,
             hidden_dropout=encoder_hidden_dropout,
             bidirectional=bidirectional_encoder, esn_leak=esn_leak)
-        latent_cfg = ABCDSamplerConfig(
-            enc_cfg.hidden_size_total, mlp_hidden_size,
-            num_feature_categories, feature_dim,
-            prior_concentration=prior_concentration)
+        if latent_type == "abcd":
+            latent_cfg = ABCDSamplerConfig(
+                enc_cfg.hidden_size_total, mlp_hidden_size,
+                num_feature_categories, feature_dim,
+                prior_concentration=prior_concentration)
+            latent_width = feature_dim
+        elif latent_type == "gaussian":
+            if feature_size is None:
+                raise ValueError("the plain VAE needs a feature_size")
+            latent_cfg = GaussianSamplerConfig(
+                enc_cfg.hidden_size_total, mlp_hidden_size, feature_size,
+                distribution_name=feature_distribution)
+            latent_width = feature_size
+        else:
+            raise ValueError(f"unknown latent type {latent_type!r}")
         dec_cfg = DecoderConfig(
             input_size, decoder_rnn_hidden_size, mlp_hidden_size,
-            feature_dim, emission_distr_name=emission_distribution,
+            latent_width, emission_distr_name=emission_distribution,
             rnn_type=decoder_rnn_type, input_dropout=decoder_input_dropout,
             self_feedback=decoder_self_feedback,
             bidirectional=bidirectional_decoder,
@@ -255,17 +283,28 @@ class Learner:
         self.epoch_init_iter_counts = 0
         self.step_count = 0
 
-        logger.info("Data are encoded into one of {num_cat} possible "
-                    "{feature_dim}-dim feature vectors.".format(
-                        num_cat=num_feature_categories,
-                        feature_dim=feature_dim))
-        logger.info("Discrete categories are assumed to be distributed "
-                    "according to Categorical(pi), with Dirichlet({}) "
-                    "prior on pi.".format(prior_concentration))
-        logger.info("Conditioned on the RNN-transformed features, data "
-                    "are assumed to be distributed according to "
-                    "{emission_distribution}".format(
-                        emission_distribution=emission_distribution))
+        if latent_type == "abcd":
+            logger.info("Data are encoded into one of {num_cat} possible "
+                        "{feature_dim}-dim feature vectors.".format(
+                            num_cat=num_feature_categories,
+                            feature_dim=feature_dim))
+            logger.info("Discrete categories are assumed to be distributed "
+                        "according to Categorical(pi), with Dirichlet({}) "
+                        "prior on pi.".format(prior_concentration))
+            logger.info("Conditioned on the RNN-transformed features, data "
+                        "are assumed to be distributed according to "
+                        "{emission_distribution}".format(
+                            emission_distribution=emission_distribution))
+        else:
+            logger.info("Data to be encoded into {feature_size}-dim "
+                        "features.".format(feature_size=feature_size))
+            logger.info("Features are assumed to be distributed according "
+                        "to {feature_distribution}.".format(
+                            feature_distribution=feature_distribution))
+            logger.info("Conditioned on the features, data are assumed to "
+                        "be distributed according to "
+                        "{emission_distribution}".format(
+                            emission_distribution=emission_distribution))
         logger.info("Random seed: {seed}".format(seed=seed))
         logger.info("Type of RNN used for the encoder: {rnn_type}".format(
             rnn_type=encoder_rnn_type))
@@ -279,8 +318,17 @@ class Learner:
             hs=decoder_rnn_hidden_size))
         logger.info("# of hidden units in the MLPs: {hs}".format(
             hs=mlp_hidden_size))
-        if bidirectional_encoder:
-            logger.info("Encoder is bidirectional.")
+        if latent_type == "abcd":
+            if bidirectional_encoder:
+                logger.info("Encoder is bidirectional.")
+        else:
+            # the reference's plain/learning.py:102-103
+            logger.info("Encoder is bidirectional: "
+                        "{bidirectional_encoder}".format(
+                            bidirectional_encoder=bidirectional_encoder))
+            logger.info("Decoder is bidirectional: "
+                        "{bidirectional_decoder}".format(
+                            bidirectional_decoder=bidirectional_decoder))
         logger.info("Dropout rate in the non-top layers of the encoder "
                     "RNN: {do}".format(do=encoder_hidden_dropout))
         logger.info("Self-feedback to the decoder: "
@@ -313,7 +361,13 @@ class Learner:
         seed = ((k0 << 32 | k1) * 1000003 + epoch * 2 + phase) % (2 ** 63)
         return torch.Generator(device=self.device).manual_seed(seed)
 
+    @property
+    def latent_type(self) -> str:
+        return self.model_cfg.latent_type
+
     def _temperature(self) -> float:
+        if self.latent_type != "abcd":
+            return 1.0
         return abcd_mod.temperature_for_iter(self.model_cfg.latent,
                                              self.iter_counts)
 
@@ -361,6 +415,7 @@ class Learner:
         """One training epoch."""
         num_batches = dataloader.get_num_batches()
         num_strings = len(dataloader.dataset)
+        abcd = self.latent_type == "abcd"
         gen = self._generator(epoch, 0)
         t0 = time.perf_counter()
         pending = []
@@ -368,7 +423,7 @@ class Learner:
             pending.append(self.train_step(batch, statics, gen,
                                            float(num_strings),
                                            is_pretraining))
-            if not is_pretraining:
+            if abcd and not is_pretraining:
                 self.iter_counts += 1
         fetched = _fetch(pending)  # waits for the epoch's last step
         self.epoch_seconds.append((epoch, time.perf_counter() - t0,
@@ -377,6 +432,12 @@ class Learner:
         for batch_ix, m in enumerate(fetched, 1):
             for k in sums:
                 sums[k] += m[k]
+            if not abcd:
+                logger.info("{batch_ix}/{num_batches} training batches "
+                            "complete. mean loss: {loss:5.4f}".format(
+                                batch_ix=batch_ix, num_batches=num_batches,
+                                loss=m["loss"]))
+                continue
             logger.info(
                 "{batch_ix}/{num_batches} training batches complete. "
                 "mean loss: {loss:5.4f}. Perplexity of the posterior "
@@ -468,8 +529,10 @@ class Learner:
             self.lr_scheduler = optim.ReduceLROnPlateau(patience=patience)
             logger.info("START LEARNING.")
             logger.info("max # of epochs: {ep}".format(ep=num_epochs))
-            logger.info("first {} epochs are for pretraining w/o "
-                        "gumbel-softmax sampling.".format(pretrain_epochs))
+            if self.latent_type == "abcd":
+                logger.info("first {} epochs are for pretraining w/o "
+                            "gumbel-softmax sampling.".format(
+                                pretrain_epochs))
             logger.info("batch size for training data: {size}".format(
                 size=batch_size_train))
             logger.info("batch size for validation data: {size}".format(
@@ -489,7 +552,8 @@ class Learner:
             logger.info("START OF EPOCH: {:3d}".format(epoch))
             logger.info("current learning rate: {lr}".format(
                 lr=optim.get_learning_rate(self.optimizer)))
-            is_pretrain = epoch <= pretrain_epochs
+            is_pretrain = (self.latent_type == "abcd"
+                           and epoch <= pretrain_epochs)
             logger.info("start of TRAINING phase.")
             self.train(train_dataloader, statics, epoch, is_pretrain)
             logger.info("end of TRAINING phase.")
@@ -501,7 +565,7 @@ class Learner:
             new_lr = self.lr_scheduler.step(
                 mean_valid_loss, optim.get_learning_rate(self.optimizer))
             optim.set_learning_rate(self.optimizer, new_lr)
-            if epoch == pretrain_epochs:
+            if self.latent_type == "abcd" and epoch == pretrain_epochs:
                 self.lr_scheduler.reset_best()
                 logger.info("END OF PRETRAINING.")
             self.save_model(epoch)
@@ -559,11 +623,13 @@ class Learner:
     def save_model(self, epoch: int) -> None:
         cfg = self.model_cfg
         latent_init = cfg.latent.pack_init_parameters()
-        latent_init["epoch_init_iter_counts"] = self.epoch_init_iter_counts
+        if self.latent_type == "abcd":
+            latent_init["epoch_init_iter_counts"] = (
+                self.epoch_init_iter_counts)
         tree = params_to_jax(self.params)
         payload = {
             "epoch": epoch,
-            "latent_type": "abcd",
+            "latent_type": self.latent_type,
             "encoder": tree["encoder"],
             "encoder_init_parameters": cfg.encoder.pack_init_parameters(),
             "feature_sampler": tree["feature_sampler"],
@@ -586,19 +652,16 @@ class Learner:
             checkpoint_path = os.path.join(self.save_dir,
                                            ckpt.CHECKPOINT_NAME)
         self.checkpoint = c = ckpt.load_checkpoint(checkpoint_path)
-        if c.get("latent_type", "abcd") != "abcd":
-            raise NotImplementedError(
-                "the plain Gaussian VAE is not ported yet")
         enc_cfg = EncoderConfig.from_init_parameters(
             c["encoder_init_parameters"])
-        latent_cfg = ABCDSamplerConfig.from_init_parameters(
-            dict(c["feature_sampler_init_parameters"]))
+        latent_cfg = latent_config(c.get("latent_type", "abcd"),
+                                   c["feature_sampler_init_parameters"])
         dec_cfg = DecoderConfig.from_init_parameters(
             c["decoder_init_parameters"])
         self.model_cfg = vae.ModelConfig(enc_cfg, latent_cfg, dec_cfg)
         self.model_cfg.check()
-        self.iter_counts = latent_cfg.epoch_init_iter_counts
-        self.epoch_init_iter_counts = latent_cfg.epoch_init_iter_counts
+        counts = getattr(latent_cfg, "epoch_init_iter_counts", 0)
+        self.iter_counts = self.epoch_init_iter_counts = counts
         self.params = vae.set_trainable(
             params_from_jax(c, enc_cfg, self.device, decoder_cfg=dec_cfg),
             self.model_cfg)

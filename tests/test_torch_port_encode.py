@@ -96,19 +96,23 @@ def test_checkpoint_format_round_trips_between_packages(tmp_path,
 
 def test_device_and_mode_contract(monkeypatch, jax_checkpoint):
     """Entry points run on the card unless the CPU is asked for; without a
-    card they raise rather than fall back.  Unported modes say so."""
+    card they raise rather than fall back.  A mode the checkpoint's head
+    cannot answer, or an unknown latent type, says so."""
     _, _, path = jax_checkpoint
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_encode.Encoder(path)
     assert port_encode.resolve_device("cpu") == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        port_encode.check_mode("params")
+    port_encode.check_mode("params")
+    with pytest.raises(ValueError, match="needs a 'gaussian' model"):
+        port_encode.check_mode("params", "abcd")
     with pytest.raises(ValueError, match="unknown mode"):
         port_encode.check_mode("sample")
     with pytest.raises(ValueError, match="stft method"):
         port_encode.Encoder(path, device="cpu", stft_method="custom:x")
     cfg, _, _ = jax_checkpoint
-    with pytest.raises(NotImplementedError, match="later slice"):
-        check_served(EncoderConfig.from_init_parameters(
-            cfg.encoder.pack_init_parameters()), "gaussian")
+    enc_cfg = EncoderConfig.from_init_parameters(
+        cfg.encoder.pack_init_parameters())
+    check_served(enc_cfg, "gaussian")
+    with pytest.raises(NotImplementedError, match="latent type"):
+        check_served(enc_cfg, "vq")

@@ -195,8 +195,9 @@ def test_existing_results_are_kept_as_prev_chain(tmp_path, checkpoints):
 
 
 def test_unported_modes_and_options_are_refused(tmp_path, checkpoints):
+    """params mode is the plain VAE's: an ABCD checkpoint is refused."""
     _, _, path = checkpoints["bidir"]
-    with pytest.raises(NotImplementedError, match="params"):
+    with pytest.raises(ValueError, match="'params' needs a 'gaussian'"):
         _port_cli("params", path, tmp_path / "p.csv")
     with pytest.raises(NotImplementedError, match="corpus cache"):
         _port_cli("probs", path, tmp_path / "p.csv", "--device_corpus_cache",

@@ -85,13 +85,14 @@ def test_params_from_jax_layout():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(latent_type="gaussian", match="Gaussian VAE"),
+    dict(latent_type="vq", match="latent type"),
     dict(hidden_dropout=0.5, match="dropout"),
     dict(decoder_bidirectional=True, match="bidirectional decoder")])
 def test_later_slices_raise(kwargs):
-    """What waits for a later slice: the plain Gaussian VAE, encoder
-    inter-layer dropout in training and the bidirectional decoder (every
-    cell's encoder, in either direction, is ported)."""
+    """What the port refuses: a latent type the JAX package does not have,
+    and what waits for a later slice: encoder inter-layer dropout in
+    training and the bidirectional decoder (every cell's encoder, in either
+    direction, and both latent heads are ported)."""
     cfg = EncoderConfig(BINS, 8, rnn_layers=2,
                         hidden_dropout=kwargs.get("hidden_dropout", 0.0))
     decoder = DecoderConfig(BINS, 8, 8, 4, bidirectional=kwargs.get(

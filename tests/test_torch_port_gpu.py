@@ -843,3 +843,103 @@ def test_seed_mode_kernels_match_dump_fed_kernels(cuda, shape, cell, leak):
     for seed_kind, kind in pairs:
         assert (lib.abcd_decoder_rows(seed_kind, f, h, m, mo)
                 == lib.abcd_decoder_rows(kind, f, h, m, mo))
+
+
+@pytest.mark.parametrize("h,with_douts", [(256, False), (256, True),
+                                          (1024, False)])
+def test_lstm_layer_bidir_kernels_match_twins(cuda, h, with_douts):
+    """Both directions over xp in one launch (lstm_pallas.lstm_layer_bidir):
+    forward with the saved cell states and backward, against the twins,
+    with ragged lengths and an empty row, and through the autograd
+    Function; H=1024 takes a smaller row tile."""
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    rng = np.random.default_rng(h + 4 * with_douts)
+    t, b = (37, 21) if h == 256 else (5, 6)
+    xp = torch.from_numpy(rng.normal(size=(t, 2, b, 4 * h)).astype(
+        np.float32)).to(cuda)
+    lengths = rng.integers(1, t + 1, size=b).astype(np.int32)
+    lengths[:2] = (t, 0)
+    lengths = torch.from_numpy(lengths).to(cuda)
+    w_hh = _uniform(rng, cuda, 1 / np.sqrt(h), 2, h, 4 * h)
+    b_hh = _uniform(rng, cuda, 1 / np.sqrt(h), 2, 4 * h)
+    before = lk.lstm_layer_bidir.launches
+    got = lk.lstm_layer_bidir(xp, lengths, w_hh, b_hh, return_cs=True)
+    want = lk.lstm_layer_bidir_plain(xp, lengths, w_hh, b_hh,
+                                     return_cs=True)
+    torch.cuda.synchronize()
+    assert lk.lstm_layer_bidir.launches == before + 1
+    # float32 dot products of H terms in another order through T steps
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
+    outs, h_n, c_n, cs = want
+    normal = lambda shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(cuda)
+    douts = normal(outs.shape) if with_douts else None
+    bwd = (xp, lengths, w_hh, b_hh, outs, cs, douts, normal(h_n.shape),
+           normal(c_n.shape))
+    before = lk.lstm_layer_bidir_bwd.launches
+    g_all = lk.lstm_layer_bidir_bwd(*bwd)
+    r_all = lk.lstm_layer_bidir_bwd_plain(*bwd)
+    torch.cuda.synchronize()
+    assert lk.lstm_layer_bidir_bwd.launches == before + 1
+    for name, g, r in zip(("dxp", "dw_hh", "db_hh"), g_all, r_all):
+        assert g.shape == r.shape, name
+        assert _rel_max_err(g, r) <= 1e-4, name
+    # the autograd Function: one forward and one backward launch
+    args = [a.clone().requires_grad_(True) for a in (xp, w_hh, b_hh)]
+    before = (lk.lstm_layer_bidir.launches, lk.lstm_layer_bidir_bwd.launches)
+    o, hn, cn = lk.lstm_layer_bidir_train(args[0], lengths, *args[1:])
+    (hn.square().sum() + cn.sin().sum()
+     + (o.sum() if with_douts else 0.0)).backward()
+    torch.cuda.synchronize()
+    assert (lk.lstm_layer_bidir.launches,
+            lk.lstm_layer_bidir_bwd.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    assert all(torch.isfinite(a.grad).all() for a in args)
+
+
+def test_plain_vae_step_on_the_card_matches_cpu_twins(cuda):
+    """One training loss of the plain Gaussian VAE (bidirectional LSTM
+    encoder, Gaussian head, fused-loss LSTM decoder) and every gradient,
+    on the kernels (card) against the twins (CPU), same weights, inputs,
+    normals and decoder noise."""
+    from seq2seq_abcd_vae_tpu_torch.configs import (DecoderConfig,
+                                                    EncoderConfig,
+                                                    GaussianSamplerConfig)
+    from seq2seq_abcd_vae_tpu_torch.models import vae
+    from seq2seq_abcd_vae_tpu_torch.tree import tree_leaves, tree_map
+    rng = np.random.default_rng(16)
+    t, f, h, feat = 37, 129, 256, 16
+    lens = rng.integers(1, t + 1, size=21).astype(np.int32)
+    lens[:2] = (t, 0)
+    b = len(lens)
+    enc = EncoderConfig(f, h)
+    cfg = vae.ModelConfig(
+        enc, GaussianSamplerConfig(enc.hidden_size_total, 256, feat),
+        DecoderConfig(f, h, 256, feat, num_speakers=2, speaker_embed_dim=8))
+    params0 = vae.model_init(torch.Generator().manual_seed(3), cfg)
+    valid = np.arange(t)[None, :] < lens[:, None]
+    inputs = torch.from_numpy((rng.normal(size=(b, t, f))
+                               * valid[..., None]).astype(np.float32))
+    speakers = torch.from_numpy(rng.integers(0, 2, size=b).astype(np.int32))
+    noise = {"normal": torch.from_numpy(rng.normal(size=(b, feat)).astype(
+                 np.float32)),
+             "decoder": torch.from_numpy(rng.normal(size=(t, b, f)).astype(
+                 np.float32))}
+
+    def step(device):
+        params = vae.set_trainable(tree_map(
+            lambda p: p.detach().to(device).clone(), params0), cfg)
+        batch = {"inputs": inputs.to(device),
+                 "lengths": torch.from_numpy(lens).to(device),
+                 "speakers": speakers.to(device)}
+        loss, _ = vae.training_loss(
+            params, cfg, batch, {k: v.to(device) for k, v in noise.items()},
+            float(b))
+        loss.backward()
+        return loss.item(), [p.grad.cpu() for p in tree_leaves(params)]
+
+    card, cpu = step(cuda), step(torch.device("cpu"))
+    assert abs(card[0] - cpu[0]) <= 1e-5 * abs(cpu[0])
+    for g, r in zip(card[1], cpu[1]):
+        assert _rel_max_err(g, r) <= 1e-4

@@ -26,22 +26,31 @@ NORMALIZER = 11.0
 
 
 def port_init_tree(cfg, seed=0) -> dict:
-    """Fresh weights for the JAX ``ModelConfig`` ``cfg``, drawn by the
+    """Fresh weights for the JAX ``ModelConfig`` ``cfg`` (the ABCD head or
+    the plain VAE's Gaussian), drawn by the
     port's initialisers in ``model_init``'s order, as the JAX package's
     tree of float32 numpy arrays.  Decoder options that change no shape
     (the greedy decoder, input dropout) are taken as they are."""
     import torch
     from seq2seq_abcd_vae_tpu_torch import configs as port_configs
-    from seq2seq_abcd_vae_tpu_torch.models import abcd, decoder, encoder
+    from seq2seq_abcd_vae_tpu_torch.models import (abcd, decoder, encoder,
+                                                   sampler)
     from seq2seq_abcd_vae_tpu_torch.train.from_jax import params_to_jax
     gen = torch.Generator().manual_seed(seed)
-    tree = {
-        "encoder": encoder.encoder_init(
-            gen, port_configs.EncoderConfig.from_init_parameters(
-                cfg.encoder.pack_init_parameters())),
-        "feature_sampler": abcd.abcd_init(
+    encoder_params = encoder.encoder_init(
+        gen, port_configs.EncoderConfig.from_init_parameters(
+            cfg.encoder.pack_init_parameters()))
+    if cfg.latent_type == "abcd":
+        head = abcd.abcd_init(
             gen, port_configs.ABCDSamplerConfig.from_init_parameters(
-                cfg.latent.pack_init_parameters())),
+                cfg.latent.pack_init_parameters()))
+    else:
+        lat = cfg.latent
+        head = sampler.sampler_init(gen, lat.input_size, lat.mlp_hidden_size,
+                                    lat.output_size, lat.distribution_name)
+    tree = {
+        "encoder": encoder_params,
+        "feature_sampler": head,
         "decoder": decoder.decoder_init(
             gen, port_configs.DecoderConfig.from_init_parameters(
                 cfg.decoder.pack_init_parameters())),
@@ -61,11 +70,12 @@ def small_model(hidden=8, layers=1, k=6, feature_dim=10, mlp_hidden=12,
 
 
 def write_jax_checkpoint(save_dir, cfg, params) -> str:
-    """checkpoint.pt written by the JAX package's writer."""
+    """checkpoint.pt written by the JAX package's writer (either latent
+    head)."""
     latent_init = dict(cfg.latent.pack_init_parameters())
     payload = {
         "epoch": 1,
-        "latent_type": "abcd",
+        "latent_type": cfg.latent_type,
         "encoder": params["encoder"],
         "encoder_init_parameters": cfg.encoder.pack_init_parameters(),
         "feature_sampler": params["feature_sampler"],
