@@ -15,8 +15,10 @@ run from the repository root.  It
 4. drives the serving path: ``serve_main`` on Unix sockets at ``-b 64``
    with ``--stft_method pallas``, answering requests of varied lengths
    across the buckets at fs=32000 (probs), the fixture's wav spans at
-   fs=16000 (logits) and a few requests in features mode, from concurrent
-   clients;
+   fs=16000 (logits), a few requests in features mode and a few at
+   fs=44100 (probs; frame 352, 177 bins: the STFT's DFT route and the
+   LSTM's per-tile kernel, where 32 and 16 kHz take the FFT route and the
+   cluster kernel), from concurrent clients;
 5. trains: writes a synthetic corpus (1024 segments of 8 classes, 0.10 to
    0.50 s, fs=32000, two speakers, in four wav files) and runs the
    training CLI ``seq2seq_abcd_vae_tpu_torch.cli.learning_main`` at the
@@ -107,8 +109,10 @@ run from the repository root.  It
     B=512, T=125, H=256 and at H=1024;
 15. times each kernel, its twin and one library call computing the same
     function (a yardstick the port never calls) with CUDA events, and
-    prints one ``{"kernels": [...]}`` line (37 kernels) with launches,
-    times, the bound and the largest error, after the serve latencies,
+    prints one ``{"kernels": [...]}`` line (39 entries: each route of the
+    STFT, FFT and DFT, and of the LSTM forward, cluster and per-tile, on
+    its own, with the launches the shape gave it) with launches, times,
+    the bound and the largest error, after the serve latencies,
     the time of one served batch and of one training step by stage (the
     stream path's beside the fused path's), the training and encode
     throughputs;
@@ -426,29 +430,38 @@ def max_err(a, b) -> float:
     return (a.float().cpu() - b.float().cpu()).abs().max().item()
 
 
-def stft_phase(dev, rng, launches):
+def stft_phase(dev, rng, launches_fft, launches_dft):
+    """The STFT's two routes against the twin: the FFT route at fs=32000
+    and 16000 (B=64 and 512), the DFT route at fs=44100 (frame 352), silent
+    rows included; each timed at its main path's served shape (B=64,
+    T=512) beside the twin and torch.stft + abs + log."""
     from seq2seq_abcd_vae_tpu_torch.ops import stft, stft_kernel
-    checks = {}
-    entry = None
+    checks = {"fft": {}, "dft": {}}
+    entries = []
     for fs, b, t in ((32000, BATCH, 512), (16000, BATCH, 512),
-                     (32000, 512, 512)):
+                     (32000, 512, 512), (44100, BATCH, 512)):
         frame = int(0.008 * fs)
         step = frame // 2
+        route = "fft" if stft_kernel.fft_route(frame) else "dft"
+        counter = getattr(stft_kernel.log_spectrogram_kernel, route)
         row = t * step + frame
         audio = torch.from_numpy(rng.integers(
             -3000, 3000, size=(b, row)).astype(np.float32)).to(dev)
         audio[-2:] = 0.0  # silent padding rows, as a served batch has
         cos_b, sin_b = stft.basis_tensors(frame, "hann_window", dev)
         args = (audio, cos_b, sin_b, frame, step, t, EPSILON, NORMALIZER)
+        before = counter.launches
         got = stft_kernel.log_spectrogram_kernel(*args)
         want = stft_kernel.log_spectrogram_plain(*args)
         torch.cuda.synchronize()
+        if counter.launches != before + 1:
+            raise AssertionError(f"fs={fs} did not take the {route} route")
         err = max_err(got, want)
-        checks[f"fs{fs}_B{b}_T{t}"] = err
+        checks[route][f"fs{fs}_B{b}_T{t}"] = err
         if not err <= STFT_ATOL:
-            raise AssertionError(f"STFT kernel vs twin at fs={fs} B={b} "
-                                 f"T={t}: {err} > {STFT_ATOL}")
-        if (fs, b) != (32000, BATCH):
+            raise AssertionError(f"STFT {route} route vs twin at fs={fs} "
+                                 f"B={b} T={t}: {err} > {STFT_ATOL}")
+        if b != BATCH or fs == 16000:
             continue
         bins = frame // 2 + 1
         used = audio[:, :(t - 1) * step + frame].contiguous()
@@ -459,105 +472,156 @@ def stft_phase(dev, rng, launches):
                               center=False, return_complex=True)
             return torch.log(spec.abs() + EPSILON) / NORMALIZER
 
-        lib_err = max_err(library().transpose(1, 2), want)
+        lib_out = library().transpose(1, 2)
         kernel_ms = cuda_ms(lambda: stft_kernel.log_spectrogram_kernel(*args))
         plain_ms = cuda_ms(lambda: stft_kernel.log_spectrogram_plain(*args))
         library_ms = cuda_ms(library)
-        # the least work of the function, not of this kernel's direct DFT:
-        # per frame the window (frame multiplies) and a real FFT (about
-        # 2.5 * frame * log2(frame) operations), then per bin the
-        # magnitude (2 multiplies, an add, a sqrt) and the log (an add of
-        # eps, a log, a multiply by 1/N)
+        # the least work of the function, whatever the route: per frame the
+        # window (frame multiplies) and a real FFT (about 2.5 * frame *
+        # log2(frame) operations), then per bin the magnitude (2
+        # multiplies, an add, a sqrt) and the log (an add of eps, a log, a
+        # multiply by 1/N)
         flops = b * t * (frame + 2.5 * frame * math.log2(frame)
                          + 7.0 * bins)
         nbytes = 4.0 * (b * ((t - 1) * step + frame) + b * t * bins
                         + 2 * frame * bins)
         bms, by = bound_ms(flops, nbytes)
-        entry = {
-            "name": "log_spectrogram",
+        entries.append({
+            "name": f"log_spectrogram_{route}",
             "route": "cuda",
             "source": "seq2seq_abcd_vae_tpu_torch/csrc/stft.cu",
             "replaces": "seq2seq_abcd_vae_tpu/ops/stft_pallas.py:78",
-            "launches": launches,
-            "max_abs_err": max(checks.values()),
+            "launches": launches_fft if route == "fft" else launches_dft,
+            "max_abs_err": max(checks[route].values()),
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": library_ms,
             "library_call": "torch.stft + abs + log",
-            "library_max_abs_err": lib_err,
+            "library_max_abs_err": max_err(lib_out, want),
+            "kernel_vs_library_max_abs_err": max_err(got, lib_out),
             "shape": f"B={b} T={t} frame={frame} bins={bins} (fs={fs})",
-            "tolerance": STFT_ATOL, "checks": checks,
-        }
-    return entry
+            "tolerance": STFT_ATOL, "checks": checks[route],
+        })
+    return entries
 
 
-def lstm_phase(dev, rng, launches):
-    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel
-    checks = {}
-    entry = None
+def _bidir_inputs(dev, rng, f, b, t, h=HIDDEN):
+    x = torch.from_numpy(rng.normal(size=(t, b, f)).astype(
+        np.float32)).to(dev)
+    lens = rng.integers(1, t + 1, size=b).astype(np.int32)
+    bound = 1.0 / np.sqrt(h)
+    w = [torch.from_numpy(rng.uniform(-bound, bound, size=s).astype(
+        np.float32)).to(dev)
+        for s in ((2, f, 4 * h), (2, 4 * h), (2, h, 4 * h), (2, 4 * h))]
+    return (x, torch.from_numpy(lens).to(dev), *w)
+
+
+def _nn_lstm_module(w_ih, b_ih, w_hh, b_hh):
+    """cuDNN's bidirectional LSTM (the yardstick the port never calls)
+    holding the layer's weights, given in the port's layout."""
+    f, h = w_ih.shape[1], w_hh.shape[1]
+    lstm = torch.nn.LSTM(f, h, bidirectional=True).to(w_ih.device)
+    with torch.no_grad():
+        for d, sfx in enumerate(("", "_reverse")):
+            getattr(lstm, "weight_ih_l0" + sfx).copy_(w_ih[d].T)
+            getattr(lstm, "bias_ih_l0" + sfx).copy_(b_ih[d])
+            getattr(lstm, "weight_hh_l0" + sfx).copy_(w_hh[d].T)
+            getattr(lstm, "bias_hh_l0" + sfx).copy_(b_hh[d])
+    return lstm
+
+
+def _nn_lstm(args):
+    """The yardstick's forward on a packed sequence of the layer's inputs;
+    returns its call."""
+    x, lengths, *w = args
+    lstm = _nn_lstm_module(*w)
+    lengths_cpu = lengths.cpu()
+
+    @torch.no_grad()
+    def library():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            x, lengths_cpu, enforce_sorted=False)
+        return lstm(packed)[1]
+
+    return library
+
+
+def lstm_phase(dev, rng, launches_cluster, launches_tile):
+    """Row 2's forward, both designs, against the twin at the served shapes
+    (F=129 and 65 at B=64, T=512; F=177 at fs=44100, which the shape rule
+    sends to the per-tile kernel), at B=512, T=512 and at the training
+    shape (B=512, T=125); each design timed at the served and training
+    shapes beside the twin and cuDNN, the per-tile kernel also at its main
+    path's F=177."""
+    from seq2seq_abcd_vae_tpu_torch.ops import _build, lstm_kernel as lk
     h = HIDDEN
-    for f, b, t in ((129, BATCH, 512), (65, BATCH, 512), (129, 512, 512)):
-        x = torch.from_numpy(rng.normal(size=(t, b, f)).astype(
-            np.float32)).to(dev)
-        lengths = torch.from_numpy(rng.integers(
-            1, t + 1, size=b).astype(np.int32)).to(dev)
-        bound = 1.0 / np.sqrt(h)
-        w = [torch.from_numpy(rng.uniform(-bound, bound, size=s).astype(
-            np.float32)).to(dev)
-            for s in ((2, f, 4 * h), (2, 4 * h), (2, h, 4 * h), (2, 4 * h))]
-        args = (x, lengths, *w)
-        got = lstm_kernel.lstm_layer_bidir_fused(*args)
-        want = lstm_kernel.lstm_layer_bidir_fused_plain(*args)
+    checks = {"cluster": {}, "tile": {}}
+    times = {}
+    lib = _build.load("lstm")
+    active = lib.abcd_lstm_cluster_max_active(129, h)
+    lib_errs = {}
+    for f, b, t in ((129, BATCH, 512), (65, BATCH, 512), (129, 512, 512),
+                    (129, 512, 125), (177, BATCH, 512)):
+        args = _bidir_inputs(dev, rng, f, b, t)
+        before = {d: getattr(lk.lstm_layer_bidir_fused, d).launches
+                  for d in ("cluster", "tile")}
+        got = lk.lstm_layer_bidir_fused(*args)
+        picked = [d for d in before if getattr(
+            lk.lstm_layer_bidir_fused, d).launches == before[d] + 1]
+        want = lk.lstm_layer_bidir_fused_plain(*args)
+        fits = lib.abcd_lstm_cluster_max_active(f, h) > 0
+        designs = ("cluster", "tile") if fits else ("tile",)
+        outs = {d: (got if d == picked[0]
+                    else lk.lstm_layer_bidir_fused_on(d, *args))
+                for d in designs}
         torch.cuda.synchronize()
-        err = max_err(got, want)
-        checks[f"F{f}_B{b}_T{t}"] = err
-        if not err <= LSTM_ATOL:
-            raise AssertionError(f"LSTM kernel vs twin at F={f} B={b} "
-                                 f"T={t}: {err} > {LSTM_ATOL}")
-        if (f, b) != (129, BATCH):
+        shape = f"F{f}_B{b}_T{t}"
+        for d, out in outs.items():
+            err = max_err(out, want)
+            checks[d][shape] = err
+            if not err <= LSTM_ATOL:
+                raise AssertionError(f"LSTM {d} design vs twin at {shape}: "
+                                     f"{err} > {LSTM_ATOL}")
+        checks.setdefault("rule", {})[shape] = picked[0]
+        if (f, b, t) not in ((129, BATCH, 512), (129, 512, 125),
+                             (177, BATCH, 512)):
             continue
-        lstm = torch.nn.LSTM(f, h, bidirectional=True).to(dev)
-        with torch.no_grad():
-            for d, sfx in enumerate(("", "_reverse")):
-                getattr(lstm, "weight_ih_l0" + sfx).copy_(w[0][d].T)
-                getattr(lstm, "bias_ih_l0" + sfx).copy_(w[1][d])
-                getattr(lstm, "weight_hh_l0" + sfx).copy_(w[2][d].T)
-                getattr(lstm, "bias_hh_l0" + sfx).copy_(w[3][d])
-        lengths_cpu = lengths.cpu()
-
-        @torch.no_grad()
-        def library():
-            packed = torch.nn.utils.rnn.pack_padded_sequence(
-                x, lengths_cpu, enforce_sorted=False)
-            return lstm(packed)[1]
-
+        library = _nn_lstm(args)
         lib_h, lib_c = library()
-        lib_err = max(max_err(lib_h, want[1]), max_err(lib_c, want[2]))
-        kernel_ms = cuda_ms(
-            lambda: lstm_kernel.lstm_layer_bidir_fused(*args), iters=5)
-        plain_ms = cuda_ms(
-            lambda: lstm_kernel.lstm_layer_bidir_fused_plain(*args),
-            iters=2, warmup=1)
-        library_ms = cuda_ms(library, iters=5)
-        steps = int(lengths.sum().item())  # active row-steps per direction
+        lib_errs[shape] = max(max_err(lib_h, want[1]),
+                              max_err(lib_c, want[2]))
+        times[shape] = {d: cuda_ms(lambda: lk.lstm_layer_bidir_fused_on(
+            d, *args), iters=5) for d in designs}
+        times[shape]["plain"] = cuda_ms(
+            lambda: lk.lstm_layer_bidir_fused_plain(*args), iters=2,
+            warmup=1)
+        times[shape]["library"] = cuda_ms(library, iters=5)
+        steps = int(args[1].sum().item())  # active row-steps a direction
         flops = 2 * steps * 2.0 * (f + h) * 4 * h
         nbytes = 4.0 * (t * b * f + 2 * (f + h + 2) * 4 * h
                         + t * 2 * b * h + 2 * 2 * b * h) + 4 * b
-        bms, by = bound_ms(flops, nbytes)
-        entry = {
-            "name": "lstm_layer_bidir_fused",
+        times[shape]["bound"] = bound_ms(flops, nbytes)
+    entries = []
+    for design, shape, launches in (
+            ("cluster", f"F129_B{BATCH}_T512", launches_cluster),
+            ("tile", f"F177_B{BATCH}_T512", launches_tile)):
+        at = times[shape]
+        entries.append({
+            "name": f"lstm_layer_bidir_fused_{design}",
             "route": "cuda",
             "source": "seq2seq_abcd_vae_tpu_torch/csrc/lstm.cu",
             "replaces": "seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:776",
             "launches": launches,
-            "max_abs_err": max(checks.values()),
-            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": library_ms,
+            "max_abs_err": max(checks[design].values()),
+            "ms": at[design], "plain_ms": at["plain"],
+            "bound_ms": at["bound"][0], "bound_by": at["bound"][1],
+            "library_ms": at["library"],
             "library_call": "nn.LSTM(bidirectional) on a packed sequence",
-            "library_max_abs_err": lib_err,
-            "shape": f"T={t} B={b} F={f} H={h}",
+            "library_max_abs_err": lib_errs[shape],
+            "shape": shape.replace("_", " "),
+            "ms_by_shape": times, "max_active_clusters": active,
             "tolerance": LSTM_ATOL, "checks": checks,
-        }
-    return entry
+        })
+    return entries
 
 
 def step_phase(dev, ckpt_path, rng):
@@ -680,17 +744,36 @@ def write_corpus(root: str, seed: int) -> str:
     return path
 
 
+# The two routes of a wrapper with two hand-written kernels, each counted
+# on its own (the wrapper's count is their sum).  The shape picks the route,
+# so a path's check takes the split as the run made it and holds its sum
+# to the wrapper's count (``expected``).
+ROUTES = {"log_spectrogram_fft": ("log_spectrogram", "fft"),
+          "log_spectrogram_dft": ("log_spectrogram", "dft"),
+          "lstm_layer_bidir_fused_cluster": ("lstm_layer_bidir_fused",
+                                             "cluster"),
+          "lstm_layer_bidir_fused_tile": ("lstm_layer_bidir_fused", "tile")}
+
+
 def training_counters():
     from seq2seq_abcd_vae_tpu_torch.ops import (decoder_kernel, lstm_kernel,
                                                 stft_kernel)
-    return {"log_spectrogram": stft_kernel.log_spectrogram_kernel,
-            "lstm_layer_bidir_fused": lstm_kernel.lstm_layer_bidir_fused,
-            "lstm_layer_bidir_fused_bwd":
-                lstm_kernel.lstm_layer_bidir_fused_bwd,
-            "decoder_loop_fused_losses_fwd":
-                decoder_kernel.decoder_fused_losses_fwd,
-            "decoder_loop_fused_losses_bwd":
-                decoder_kernel.decoder_fused_losses_bwd}
+    counters = {"log_spectrogram": stft_kernel.log_spectrogram_kernel,
+                "lstm_layer_bidir_fused": lstm_kernel.lstm_layer_bidir_fused,
+                "lstm_layer_bidir_fused_bwd":
+                    lstm_kernel.lstm_layer_bidir_fused_bwd,
+                "decoder_loop_fused_losses_fwd":
+                    decoder_kernel.decoder_fused_losses_fwd,
+                "decoder_loop_fused_losses_bwd":
+                    decoder_kernel.decoder_fused_losses_bwd}
+    for name, (total, route) in ROUTES.items():
+        counters[name] = getattr(counters[total], route)
+    return counters
+
+
+def ran(launches: dict) -> set:
+    """The wrappers that launched (their routes aside)."""
+    return {k for k, n in launches.items() if n and k not in ROUTES}
 
 
 def check_history(path: str, resumed: bool, pretraining: bool = True):
@@ -854,13 +937,7 @@ def lstm_train_phase(dev, rng, t, launches):
                      iters=5)
     # the yardstick: cuDNN's bidirectional LSTM, forward and backward, on
     # packed sequences of the same shape (the zero-length row dropped)
-    lstm = torch.nn.LSTM(f, h, bidirectional=True).to(dev)
-    with torch.no_grad():
-        for d, sfx in enumerate(("", "_reverse")):
-            getattr(lstm, "weight_ih_l0" + sfx).copy_(w[0][d].T)
-            getattr(lstm, "bias_ih_l0" + sfx).copy_(w[1][d])
-            getattr(lstm, "weight_hh_l0" + sfx).copy_(w[2][d].T)
-            getattr(lstm, "bias_hh_l0" + sfx).copy_(w[3][d])
+    lstm = _nn_lstm_module(*w)
     keep = lens > 0
     x_lib = x[:, torch.from_numpy(keep).to(dev)].clone().requires_grad_(True)
     lens_lib = torch.from_numpy(lens[keep].astype(np.int64))
@@ -1304,8 +1381,17 @@ def all_counters():
 
 
 def expected(counters: dict, **launches) -> dict:
-    """Every counter 0 but the ones named."""
-    return dict({name: 0 for name in counters}, **launches)
+    """Every counter 0 but the ones named, and each route as the run split
+    it, after checking that the routes of a wrapper sum to its count."""
+    want = dict({name: 0 for name in counters}, **launches)
+    for total in {t for t, _ in ROUTES.values()}:
+        split = {n: counters[n].launches for n, (t, _) in ROUTES.items()
+                 if t == total}
+        if sum(split.values()) != counters[total].launches:
+            raise AssertionError(f"{total}: routes {split} do not sum to "
+                                 f"{counters[total].launches}")
+        want.update(split)
+    return want
 
 
 def zero_counters() -> dict:
@@ -1823,8 +1909,7 @@ def cell_serve_phase(work: str, ckpt_path: str, rng, cell: str,
     check_answers(answers, "probs", K)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    ran = {k for k, n in launches.items() if n}
-    if ran != {"log_spectrogram", layer_kernel}:
+    if ran(launches) != {"log_spectrogram", layer_kernel}:
         raise AssertionError(f"{cell} serving launched {launches}")
     lat = np.asarray(latency)
     return {"launches": launches, "requests": len(lat),
@@ -3385,8 +3470,7 @@ def plain_encode_phase(dev, work: str, corpus_dir: str, csv_path: str,
         torch.cuda.synchronize()
         secs[fmt] = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
-    ran = {k for k, n in launches.items() if n}
-    if ran != {"log_spectrogram", "lstm_layer_bidir_fused"}:
+    if ran(launches) != {"log_spectrogram", "lstm_layer_bidir_fused"}:
         raise AssertionError(f"params encoding launched {launches}")
 
     def rows(path):
@@ -3453,8 +3537,7 @@ def plain_serve_phase(work: str, ckpt_path: str, rng):
             raise RuntimeError(f"bad params answer shape {v.shape}")
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    ran = {k for k, n in launches.items() if n}
-    if ran != {"log_spectrogram", "lstm_layer_bidir_fused"}:
+    if ran(launches) != {"log_spectrogram", "lstm_layer_bidir_fused"}:
         raise AssertionError(f"params serving launched {launches}")
     lat = np.asarray(latency)
     return {"launches": launches, "requests": len(lat),
@@ -3673,6 +3756,10 @@ def run(args, root, dev, rng, work) -> int:
     ckpt32 = make_checkpoint(os.path.join(work, "fs32000"), 129, args.seed)
     ckpt16 = make_checkpoint(os.path.join(work, "fs16000"), 65,
                              args.seed + 1)
+    # fs=44100: frame 352, 177 bins, which take the STFT's DFT route and,
+    # too wide for the cluster's shared memory, the LSTM's per-tile kernel
+    ckpt44 = make_checkpoint(os.path.join(work, "fs44100"), 177,
+                             args.seed + 2)
     common = ["-b", str(BATCH), "--stft_method", "pallas", "-d", "cuda"]
 
     # ---- the main path, counted -------------------------------------
@@ -3715,18 +3802,26 @@ def run(args, root, dev, rng, work) -> int:
         lambda path: concurrent_clients(path, reqs_feat, 32000, clients=2))
     check_answers(feat_answers, "features", FEATURE_DIM)
 
+    reqs44 = random_requests(rng, 44100, 16)
+    (answers44, _), ping44 = run_service(
+        [ckpt44, str(NORMALIZER), "44100", "--mode", "probs"] + common,
+        os.path.join(work, "probs44.sock"),
+        lambda path: concurrent_clients(path, reqs44, 44100, clients=2))
+    check_answers(answers44, "probs", K)
+
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t_serve
-    launches = {"log_spectrogram":
-                stft_kernel.log_spectrogram_kernel.launches,
-                "lstm_layer_bidir_fused":
-                lstm_kernel.lstm_layer_bidir_fused.launches}
+    launches = {name: fn.launches for name, fn in training_counters().items()
+                if name.startswith(("log_spectrogram",
+                                    "lstm_layer_bidir_fused"))
+                and not name.endswith("_bwd")}
+    expected(training_counters())  # each wrapper's routes sum to its count
     batches = sum(p["stats"]["batches"]
-                  for p in (ping_probs, ping_logits, ping_feat))
+                  for p in (ping_probs, ping_logits, ping_feat, ping44))
     print(f"main path: {len(reqs32)} probs + {len(spans)} wav logits + "
-          f"{len(reqs_feat)} features requests, {batches} batches "
-          f"(warm-up included) in {serve_s:.2f} s; launches {launches}",
-          flush=True)
+          f"{len(reqs_feat)} features requests + {len(reqs44)} probs at "
+          f"fs=44100, {batches} batches (warm-up included) in "
+          f"{serve_s:.2f} s; launches {launches}", flush=True)
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
@@ -3933,8 +4028,10 @@ def run(args, root, dev, rng, work) -> int:
         return sum(by_path(name).values())
 
     # ---- kernels vs twins, times ------------------------------------
-    kernels = [stft_phase(dev, rng, total("log_spectrogram")),
-               lstm_phase(dev, rng, total("lstm_layer_bidir_fused"))]
+    kernels = [*stft_phase(dev, rng, total("log_spectrogram_fft"),
+                           total("log_spectrogram_dft")),
+               *lstm_phase(dev, rng, total("lstm_layer_bidir_fused_cluster"),
+                           total("lstm_layer_bidir_fused_tile"))]
     step_errs, breakdown = step_phase(dev, ckpt32, rng)
     print("encode_step kernels vs twins " + json.dumps(step_errs),
           flush=True)
@@ -4035,8 +4132,8 @@ def run(args, root, dev, rng, work) -> int:
         lacking = KERNEL_KEYS - set(entry)
         if lacking:
             raise AssertionError(f"kernel {entry['name']} lacks {lacking}")
-    if len(kernels) != 37:
-        raise AssertionError(f"{len(kernels)} kernel entries, expected 37")
+    if len(kernels) != 39:
+        raise AssertionError(f"{len(kernels)} kernel entries, expected 39")
     print("training step, kernels (card) vs twins (CPU) "
           + json.dumps(checks), flush=True)
     print("unidirectional training step, kernels (card) vs twins (CPU) "

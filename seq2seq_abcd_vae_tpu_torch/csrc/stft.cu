@@ -2,28 +2,48 @@
 //
 // Replaces seq2seq_abcd_vae_tpu/ops/stft_pallas.py:log_spectrogram_pallas
 // (its `_kernel`): frames -> windowed real DFT -> |.| -> log(x + eps) / N,
-// one (B, T, bins) float32 result.
+// one (B, T, bins) float32 result.  Two hand-written routes, chosen by the
+// wrapper (ops/stft_kernel.py) from the frame length before the launch:
 //
-// What bounds it on the H100: the function itself needs only the bytes of
-// audio in and spectrogram out, since an FFT takes O(frame * log frame)
-// operations per frame (about 0.01 ms at B=64, T=512, fs=32 kHz against
-// 3.35 TB/s).  This kernel is a direct DFT instead: 4 * frame floating-point
-// operations per output (a cos and a sin multiply-add for each sample),
-// about 20x an FFT's count at frame 256, so it is bound by its own float32
-// arithmetic and runs far above the function's byte bound.  An FFT in shared
-// memory is the way down to that bound; it is later work.  It stays in
-// float32 FMA on purpose: no TF32 and no tensor cores, because quiet bins
-// cancel catastrophically in fewer mantissa bits (stft_pallas.py:56-58).
+// - FFT route (log_spectrogram_fft_kernel), for a power-of-two frame N from
+//   16 to 1024 (256 at 32 kHz, the publication config; 128 at 16 kHz).
+//   What bounds it: the function needs only the bytes of audio in and
+//   spectrogram out (about 0.01 ms at B=64, T=512, fs=32 kHz against
+//   3.35 TB/s); an FFT's O(N log N) operations per frame sit far below
+//   that, so what is left is shared-memory traffic and the log.  Design:
+//   a block owns 32 consecutive frames of one row.  It stages, coalesced,
+//   the audio span of its frames once (neighbours overlap by half, since
+//   frame == 2 * step), the window (column 0 of the windowed basis: cos 0 =
+//   1, so it is the window exactly) and the twiddle table W_N^j =
+//   exp(-2 pi i j / N), j < N (float64 on the host, rounded once,
+//   ops/stft_kernel.fft_twiddles).  Each warp then takes whole frames in
+//   turn: the windowed frame packed as M = N / 2 complex points z[n] =
+//   x[2n] + i x[2n+1], a Stockham FFT of z in the warp's two shared buffers
+//   (radix-4 passes while two bits are left, then one radix-2 pass; pass
+//   (R, p), butterfly i, k = i mod p: inputs z[i + r M / R] times
+//   W_{pR}^{r k}, an R-point DFT, outputs at (i - k) R + k + q p), the
+//   first pass reading the audio span directly; then the real-split step
+//   X[k] = (E - i W_N^k O) / 2, E / O = Z[k] +/- conj(Z[M - k]), and
+//   log(|X[k]| + eps) / N written coalesced, for 0 < k < M.  The buffers
+//   are padded by one complex per 16 (index + index / 16), which keeps
+//   every pass's reads and all but the p = 4 pass's writes free of bank
+//   conflicts.  The two real bins, DC and Nyquist (k = 0, M), are sums of
+//   +/- w[n] x[n] whose values near zero are a one-dimensional Gaussian's,
+//   far likelier than a complex bin's: their log is where float32 rounding
+//   shows.  Warps 0 and 1 sum them directly, as the DFT route does (the
+//   basis columns 0 and M, one FMA chain over n in order), lane f for frame
+//   f, each lane's chain started one step after its left neighbour's so
+//   that the lanes' shared-memory reads fall in distinct banks.
+// - DFT route (log_spectrogram_kernel), for every other frame (352 at
+//   44.1 kHz, 384 at 48 kHz): the direct DFT of PR 3, 4 * N float32
+//   operations per output, so it is bound by its own arithmetic, far above
+//   the byte bound.  One block computes a tile of 32 bins x 32 frames of one
+//   row with the windowed basis tile and the audio span staged in shared
+//   memory; each warp owns 4 frames and lane j bin j of the tile.
 //
-// Design: one block computes a tile of 32 bins x 32 frames of one row.  The
-// windowed basis tile for its 32 bins (2 x frame x 32 floats: 32 KB at
-// 16 kHz, 64 KB at 32 kHz) and the audio span of its 32 frames are staged
-// once in dynamic shared memory, so the whole basis (66.5 KB at 16 kHz,
-// 264 KB at 32 kHz) never has to fit one block: the grid tiles over bins.
-// Overlapping frames cost nothing on a GPU, so there is no chunk/roll
-// split as on the TPU; each warp owns 4 frames and reuses every basis value
-// it loads for all 4, lane j owning bin j of the tile (conflict-free basis
-// reads; the audio sample is one broadcast per warp).
+// Both stay in float32 FMA on purpose: no TF32 and no tensor cores, because
+// quiet bins cancel catastrophically in fewer mantissa bits
+// (stft_pallas.py:56-58).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,6 +54,9 @@ constexpr int kBins = 32;           // bins per block (threadIdx.x)
 constexpr int kWarps = 8;           // warps per block (threadIdx.y)
 constexpr int kFramesPerWarp = 4;   // frames each warp accumulates
 constexpr int kFrames = kWarps * kFramesPerWarp;
+
+constexpr int kFftMinFrame = 16;
+constexpr int kFftMaxFrame = 1024;
 
 __global__ void __launch_bounds__(kBins * kWarps)
 log_spectrogram_kernel(const float* __restrict__ audio, int64_t row_len,
@@ -104,19 +127,195 @@ log_spectrogram_kernel(const float* __restrict__ audio, int64_t row_len,
   }
 }
 
+// ---------------------------------------------------------------------------
+// FFT route
+// ---------------------------------------------------------------------------
+
+// Padded index of complex point i in a warp's buffer: one pad per 16.
+__device__ __forceinline__ int pad16(int i) { return i + (i >> 4); }
+
+__host__ __device__ inline int padded_points(int m) { return m + (m >> 4); }
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
+  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+}
+
+// Samples of the span of a block's frames, rounded up to whole float4s.
+__host__ __device__ inline int fft_span_floats(int frame, int step) {
+  return ((kFrames - 1) * step + frame + 3) & ~3;
+}
+
+__global__ void __launch_bounds__(32 * kWarps)
+log_spectrogram_fft_kernel(const float* __restrict__ audio, int64_t row_len,
+                           const float* __restrict__ cos_b,
+                           const float* __restrict__ sin_b,
+                           const float2* __restrict__ twiddle,
+                           float* __restrict__ out, int frame, int step,
+                           int num_frames, int bins, int log2m,
+                           float epsilon, float inv_normalizer) {
+  extern __shared__ float4 smem4[];
+  const int N = frame;
+  const int M = N >> 1;
+  const int PM = padded_points(M);
+  float2* s_tw = reinterpret_cast<float2*>(smem4);           // [N]
+  // basis columns 0 and M: [0] cos 0 (the window), [1] sin 0, [2] cos M,
+  // [3] sin M, N each
+  float* s_edge = reinterpret_cast<float*>(s_tw + N);        // [4][N]
+  const float* s_win = s_edge;
+  float* s_audio = s_edge + 4 * N;                           // span
+  float2* s_buf = reinterpret_cast<float2*>(
+      s_audio + fft_span_floats(frame, step));               // [warps][2][PM]
+
+  const int t0 = blockIdx.x * kFrames;
+  const int64_t row = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  for (int i = tid; i < N; i += nthreads) {
+    s_tw[i] = twiddle[i];
+    s_edge[i] = cos_b[(int64_t)i * bins];
+    s_edge[N + i] = sin_b[(int64_t)i * bins];
+    s_edge[2 * N + i] = cos_b[(int64_t)i * bins + M];
+    s_edge[3 * N + i] = sin_b[(int64_t)i * bins + M];
+  }
+  const int last = min(num_frames, t0 + kFrames) - 1;
+  const int span = (last - t0) * step + frame;
+  const int full = fft_span_floats(frame, step);
+  const float* src = audio + row * row_len + (int64_t)t0 * step;
+  for (int i = tid; i < full; i += nthreads) {
+    s_audio[i] = i < span ? src[i] : 0.f;
+  }
+  __syncthreads();
+
+  if (warp < 2) {
+    // the real bins: warp 0 DC, warp 1 Nyquist; lane f frame f, its chain
+    // over n in order, run at steps i = n + f
+    const float* cb = s_edge + warp * 2 * N;
+    const float* sb = cb + N;
+    const float* xs = s_audio + lane * step;
+    float re = 0.f, im = 0.f;
+    for (int i = 0; i < N + 31; ++i) {
+      const int n = i - lane;
+      if (n >= 0 && n < N) {
+        const float x = xs[n];
+        re = fmaf(x, cb[n], re);
+        im = fmaf(x, sb[n], im);
+      }
+    }
+    const int t = t0 + lane;
+    if (t < num_frames) {
+      const float amp = sqrtf(re * re + im * im);
+      out[(row * num_frames + t) * bins + (warp == 0 ? 0 : M)] =
+          logf(amp + epsilon) * inv_normalizer;
+    }
+  }
+
+  float2* buf0 = s_buf + warp * 2 * PM;
+  float2* buf1 = buf0 + PM;
+  for (int q = 0; q < kFramesPerWarp; ++q) {
+    const int tl = warp * kFramesPerWarp + q;
+    const int t = t0 + tl;
+    if (t >= num_frames) break;  // warp-uniform
+    const float* xs = s_audio + tl * step;
+
+    const float2* in = nullptr;   // nullptr: the first pass reads xs
+    float2* outb = buf0;
+    int p = 1;
+    for (int rem = log2m; rem > 0;) {
+      const int R = rem >= 2 ? 4 : 2;
+      const int nb = M / R;                 // butterflies, also the stride
+      const int tw_step = 2 * (M / (p * R));
+      for (int i = lane; i < nb; i += 32) {
+        const int k = i & (p - 1);
+        float2 v[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (r < R) {
+            const int n = i + r * nb;
+            if (in == nullptr) {
+              const float2 a = *reinterpret_cast<const float2*>(xs + 2 * n);
+              v[r] = make_float2(a.x * s_win[2 * n], a.y * s_win[2 * n + 1]);
+            } else {
+              v[r] = in[pad16(n)];
+            }
+            if (r > 0) v[r] = cmul(v[r], s_tw[r * k * tw_step]);
+          }
+        }
+        const int j = (i - k) * R + k;
+        if (R == 4) {
+          const float2 a = make_float2(v[0].x + v[2].x, v[0].y + v[2].y);
+          const float2 b = make_float2(v[0].x - v[2].x, v[0].y - v[2].y);
+          const float2 c = make_float2(v[1].x + v[3].x, v[1].y + v[3].y);
+          const float2 e = make_float2(v[1].x - v[3].x, v[1].y - v[3].y);
+          outb[pad16(j)] = make_float2(a.x + c.x, a.y + c.y);
+          outb[pad16(j + p)] = make_float2(b.x + e.y, b.y - e.x);
+          outb[pad16(j + 2 * p)] = make_float2(a.x - c.x, a.y - c.y);
+          outb[pad16(j + 3 * p)] = make_float2(b.x - e.y, b.y + e.x);
+        } else {
+          outb[pad16(j)] = make_float2(v[0].x + v[1].x, v[0].y + v[1].y);
+          outb[pad16(j + p)] = make_float2(v[0].x - v[1].x, v[0].y - v[1].y);
+        }
+      }
+      __syncwarp();
+      in = outb;
+      outb = outb == buf0 ? buf1 : buf0;
+      p *= R;
+      rem -= R == 4 ? 2 : 1;
+    }
+
+    // real split: X[k] = (E - i W_N^k O) / 2 for 0 < k < M
+    float* dst = out + (row * num_frames + t) * bins;
+    for (int k = lane + 1; k < M; k += 32) {
+      const float2 a = in[pad16(k)];
+      const float2 zb = in[pad16(M - k)];
+      const float2 e = make_float2(a.x + zb.x, a.y - zb.y);
+      const float2 o = make_float2(a.x - zb.x, a.y + zb.y);
+      const float2 w = s_tw[k];
+      const float2 wo = cmul(o, w);
+      const float xr = 0.5f * (e.x + wo.y);
+      const float xi = 0.5f * (e.y - wo.x);
+      const float amp = sqrtf(xr * xr + xi * xi);
+      dst[k] = logf(amp + epsilon) * inv_normalizer;
+    }
+    __syncwarp();  // the next frame's passes overwrite both buffers
+  }
+}
+
+int ilog2(int n) {
+  int l = 0;
+  while ((1 << l) < n) ++l;
+  return l;
+}
+
+// Bytes of dynamic shared memory one block of the FFT route needs.
+long long fft_smem_bytes(int frame, int step) {
+  return (long long)frame * 24 +
+         (long long)fft_span_floats(frame, step) * 4 +
+         (long long)kWarps * 2 * padded_points(frame / 2) * 8;
+}
+
+// The frames the FFT route takes (ops/stft_kernel.fft_route): a power of
+// two from 16 to 1024.
+bool fft_frame_ok(int frame) {
+  return frame >= kFftMinFrame && frame <= kFftMaxFrame &&
+         (frame & (frame - 1)) == 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs for this geometry.
+// Bytes of dynamic shared memory one block of the DFT route needs.
 long long abcd_log_spectrogram_smem_bytes(int frame, int step) {
   return (long long)(2 * frame * kBins + (kFrames - 1) * step + frame) *
          (long long)sizeof(float);
 }
 
-// audio (batch, row_len) f32, cos_b/sin_b (frame, bins) f32 with the window
-// folded in, out (batch, num_frames, bins) f32.  Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
+// DFT route.  audio (batch, row_len) f32, cos_b/sin_b (frame, bins) f32
+// with the window folded in, out (batch, num_frames, bins) f32.  Launches
+// on `stream` and returns cudaGetLastError() (0 on success).
 int abcd_log_spectrogram(const float* audio, long long row_len,
                          const float* cos_b, const float* sin_b, float* out,
                          int batch, int frame, int step, int num_frames,
@@ -133,6 +332,33 @@ int abcd_log_spectrogram(const float* audio, long long row_len,
   log_spectrogram_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       audio, row_len, cos_b, sin_b, out, frame, step, num_frames, bins,
       epsilon, inv_normalizer);
+  return (int)cudaGetLastError();
+}
+
+// FFT route: the same arguments and twiddle (frame,) complex64 W_N^j (the
+// window is read from column 0 of cos_b; columns 0 and M of the basis give
+// the real bins).  cudaErrorInvalidValue for a frame the route does not
+// take.
+int abcd_log_spectrogram_fft(const float* audio, long long row_len,
+                             const float* cos_b, const float* sin_b,
+                             const float* twiddle, float* out, int batch,
+                             int frame, int step,
+                             int num_frames, int bins, float epsilon,
+                             float inv_normalizer, void* stream) {
+  if (!fft_frame_ok(frame) || bins != frame / 2 + 1)
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)fft_smem_bytes(frame, step);
+  cudaError_t err = cudaFuncSetAttribute(
+      log_spectrogram_fft_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((num_frames + kFrames - 1) / kFrames, batch);
+  log_spectrogram_fft_kernel<<<grid, 32 * kWarps, smem,
+                               (cudaStream_t)stream>>>(
+      audio, row_len, cos_b, sin_b, reinterpret_cast<const float2*>(twiddle),
+      out,
+      frame, step, num_frames, bins, ilog2(frame / 2), epsilon,
+      inv_normalizer);
   return (int)cudaGetLastError();
 }
 

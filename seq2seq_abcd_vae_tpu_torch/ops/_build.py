@@ -34,8 +34,12 @@ _L = ctypes.c_longlong
 # as c_void_p so that ctypes never cuts them to 32 bits
 SIGNATURES = {
     "stft": {"abcd_log_spectrogram":
-             [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]},
+             [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+             "abcd_log_spectrogram_fft":
+             [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]},
     "lstm": {"abcd_lstm_bidir_fwd": [_P] * 10 + [_I] * 5 + [_P],
+             "abcd_lstm_bidir_fwd_cluster": [_P] * 10 + [_I] * 4 + [_P],
+             "abcd_lstm_cluster_max_active": [_I] * 2,
              "abcd_lstm_fwd": [_P] * 8 + [_I] * 5 + [_P],
              "abcd_lstm_bidir_bwd": [_P] * 16 + [_I] * 5 + [_P],
              "abcd_lstm_bwd": [_P] * 12 + [_I] * 5 + [_P],
@@ -92,6 +96,15 @@ _LONG_RESULTS = {"abcd_lstm_smem_bytes", "abcd_lstm_smem_limit",
                  "abcd_decoder_smem_bytes", "abcd_decoder_smem_limit"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class Launches:
+    """A launch count beside a wrapper's own: the decoder kernels' seed
+    mode (counted here only), or one route of a wrapper with two kernels
+    (counted here and on the wrapper)."""
+
+    def __init__(self):
+        self.launches = 0
 
 
 def _nvcc() -> str:

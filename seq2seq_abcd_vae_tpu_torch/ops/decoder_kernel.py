@@ -136,13 +136,6 @@ _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 _TWO_PI = 2.0 * math.pi
 
 
-class _Launches:
-    """A launch count kept apart from its wrapper's: the seed mode's."""
-
-    def __init__(self):
-        self.launches = 0
-
-
 def _mulhilo(a: int, b: torch.Tensor):
     """The high and low 32-bit words of ``a * b`` for a 32-bit constant
     ``a`` and an int64 tensor of 32-bit words ``b``, without overflowing
@@ -364,7 +357,7 @@ def decoder_fused_losses_fwd(*args, save: bool = True):
 
 
 decoder_fused_losses_fwd.launches = 0
-decoder_fused_losses_fwd.seed = _Launches()
+decoder_fused_losses_fwd.seed = _build.Launches()
 
 
 def decoder_fused_losses_bwd_plain(noise, lengths, w_cat, bias, b1, w2m,
@@ -516,7 +509,7 @@ def decoder_fused_losses_bwd(*args):
 
 
 decoder_fused_losses_bwd.launches = 0
-decoder_fused_losses_bwd.seed = _Launches()
+decoder_fused_losses_bwd.seed = _build.Launches()
 
 
 class _DecoderFusedLosses(torch.autograd.Function):
@@ -642,7 +635,7 @@ def gru_decoder_fused_losses_fwd(*args, save: bool = True):
 
 
 gru_decoder_fused_losses_fwd.launches = 0
-gru_decoder_fused_losses_fwd.seed = _Launches()
+gru_decoder_fused_losses_fwd.seed = _build.Launches()
 
 
 def gru_decoder_fused_losses_bwd_plain(noise, lengths, w_cat, b_ih, b_hh, b1,
@@ -759,7 +752,7 @@ def gru_decoder_fused_losses_bwd(*args):
 
 
 gru_decoder_fused_losses_bwd.launches = 0
-gru_decoder_fused_losses_bwd.seed = _Launches()
+gru_decoder_fused_losses_bwd.seed = _build.Launches()
 
 
 class _GRUDecoderFusedLosses(torch.autograd.Function):
@@ -883,7 +876,7 @@ def rnn_decoder_fused_losses_fwd(*args, leak=1.0, save: bool = True):
 
 
 rnn_decoder_fused_losses_fwd.launches = 0
-rnn_decoder_fused_losses_fwd.seed = _Launches()
+rnn_decoder_fused_losses_fwd.seed = _build.Launches()
 
 
 def rnn_decoder_fused_losses_bwd_plain(noise, lengths, w_cat, bias, b1, w2m,
@@ -991,7 +984,7 @@ def rnn_decoder_fused_losses_bwd(*args, leak=1.0):
 
 
 rnn_decoder_fused_losses_bwd.launches = 0
-rnn_decoder_fused_losses_bwd.seed = _Launches()
+rnn_decoder_fused_losses_bwd.seed = _build.Launches()
 
 
 class _RNNDecoderFusedLosses(torch.autograd.Function):

@@ -19,8 +19,11 @@
   package calls it; it is a public function of its own.
 
 A row's carries are frozen outside its span and ``outs`` holds the masked
-carry.  The kernels' time loops are sequential and re-read the weights
-from L2 every step, which bounds them (see the source).  The backwards
+carry.  The kernels' time loops are sequential.  The raw forward has two
+designs, chosen by ``forward_design`` before the launch: the weights split
+across a thread-block cluster and held in its shared memory for the whole
+sequence, or one block per row tile re-reading them from L2 every step
+(which bounds every other kernel here; see the source).  The backwards
 recompute the gates from the saved h/c trajectories and leave the
 weight-gradient sums to ``ops/wgrad.py``; ``lstm_layer_bidir_fused_train``,
 ``lstm_layer_train`` and ``lstm_layer_bidir_train`` wire them into
@@ -37,12 +40,24 @@ direction, gates in torch order (i, f, g, o).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build, wgrad
 
 # kernel kinds of csrc/lstm.cu (abcd_lstm_rows)
 _BIDIR_FWD, _BIDIR_BWD, _FWD, _BWD, _PAIR_FWD, _PAIR_BWD = 0, 1, 2, 3, 4, 5
+
+# The raw forward's cluster design (csrc/lstm.cu, lstm_fwd_cluster_kernel):
+# batch rows a cluster's tile (kClusterRows there), and the most waves of
+# resident clusters the shape rule lets it take (``forward_design``).  On
+# an H100 (700 W) a wave of cluster steps takes ~6.2 us a step and the
+# per-tile kernel ~47 us a step at any batch up to 1,056 rows, so seven
+# waves (B <= 520 with 15 resident clusters) is where the cluster design
+# stops winning (PERF.md).
+CLUSTER_ROWS = 10
+CLUSTER_MAX_WAVES = 7
 
 
 def lstm_step(w_hh: torch.Tensor, b_hh: torch.Tensor, x_proj: torch.Tensor,
@@ -137,6 +152,28 @@ def _check(x, lengths, w_ih, b_ih, w_hh, b_hh, gates: int = 4):
         raise ValueError(f"unsupported device {x.device}")
 
 
+def forward_design(max_active: int, batch: int) -> str:
+    """The shape rule of the raw forward: ``"cluster"`` when the cluster
+    design fits these widths (``max_active`` > 0, the card's
+    ``cudaOccupancyMaxActiveClusters`` for it) and its 2 * ceil(B / R)
+    clusters run in at most ``CLUSTER_MAX_WAVES`` waves, else ``"tile"``
+    (the per-tile kernel: H=1024, a second layer's F = 2H, or a batch too
+    large for the card's resident clusters)."""
+    if max_active <= 0:
+        return "tile"
+    clusters = 2 * -(-batch // CLUSTER_ROWS)
+    waves = -(-clusters // max_active)
+    return "cluster" if waves <= CLUSTER_MAX_WAVES else "tile"
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_active(lib, device_index: int, f: int, hidden: int) -> int:
+    """Resident clusters of the cluster design on this card (0: it does
+    not fit), queried once per card and widths."""
+    with torch.cuda.device(device_index):
+        return lib.abcd_lstm_cluster_max_active(f, hidden)
+
+
 def lstm_layer_bidir_fused(x, lengths, w_ih, b_ih, w_hh, b_hh,
                            return_cs: bool = False):
     """Both directions of one masked LSTM layer over raw inputs.
@@ -149,19 +186,36 @@ def lstm_layer_bidir_fused(x, lengths, w_ih, b_ih, w_hh, b_hh,
     Returns (outs (T, 2, B, H), h_n (2, B, H), c_n (2, B, H)), as
     ``lstm_pallas.lstm_layer_bidir_fused``, and with ``return_cs`` the
     saved cell states (T, 2, B, H) for the backward (serving asks for
-    none, so it writes no extra bytes).  CUDA tensors launch the kernel on
-    the current stream (and count one launch); CPU tensors take
-    ``lstm_layer_bidir_fused_plain``.
+    none, so it writes no extra bytes).  CUDA tensors launch the design
+    that ``forward_design`` picks for the shape on the current stream (and
+    count one launch, on the wrapper and on ``.cluster`` or ``.tile``); CPU
+    tensors take ``lstm_layer_bidir_fused_plain``.
     """
     _check(x, lengths, w_ih, b_ih, w_hh, b_hh)
     if x.device.type == "cpu":
         return lstm_layer_bidir_fused_plain(x, lengths, w_ih, b_ih, w_hh,
                                             b_hh, return_cs)
+    lib = _build.load("lstm")
+    active = _cluster_active(lib, x.device.index, x.shape[2],
+                             w_hh.shape[1])
+    return lstm_layer_bidir_fused_on(forward_design(active, x.shape[1]),
+                                     x, lengths, w_ih, b_ih, w_hh, b_hh,
+                                     return_cs)
+
+
+def lstm_layer_bidir_fused_on(design: str, x, lengths, w_ih, b_ih, w_hh,
+                              b_hh, return_cs: bool = False):
+    """``lstm_layer_bidir_fused`` on CUDA tensors through the named design,
+    ``"cluster"`` or ``"tile"``, whatever the shape rule says: for timing
+    one design against the other.  Raises when the design does not take
+    the shape or its launch fails."""
+    _check(x, lengths, w_ih, b_ih, w_hh, b_hh)
+    if x.device.type != "cuda" or design not in ("cluster", "tile"):
+        raise ValueError(f"design {design!r} on {x.device}: a CUDA tensor "
+                         "and 'cluster' or 'tile' are needed")
     t, b, f = x.shape
     hidden = w_hh.shape[1]
     lib = _build.load("lstm")
-    rows = _build.row_tile(lib, "lstm", _BIDIR_FWD, (f, hidden),
-                           "lstm_layer_bidir_fused")
     outs = torch.empty((t, 2, b, hidden), dtype=x.dtype, device=x.device)
     cs = torch.empty_like(outs) if return_cs else None
     h_n = torch.empty((2, b, hidden), dtype=x.dtype, device=x.device)
@@ -169,19 +223,28 @@ def lstm_layer_bidir_fused(x, lengths, w_ih, b_ih, w_hh, b_hh,
     result = (outs, h_n, c_n, cs) if return_cs else (outs, h_n, c_n)
     if b == 0:
         return result
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.abcd_lstm_bidir_fwd(
-            x.data_ptr(), lengths.data_ptr(), w_ih.data_ptr(),
+    ptrs = (x.data_ptr(), lengths.data_ptr(), w_ih.data_ptr(),
             b_ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
             outs.data_ptr(), None if cs is None else cs.data_ptr(),
-            h_n.data_ptr(), c_n.data_ptr(), t, b, f, hidden, rows, stream)
-    _build.check(lib, err, "lstm_layer_bidir_fused")
+            h_n.data_ptr(), c_n.data_ptr(), t, b, f, hidden)
+    if design == "tile":
+        rows = _build.row_tile(lib, "lstm", _BIDIR_FWD, (f, hidden),
+                               "lstm_layer_bidir_fused")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if design == "tile":
+            err = lib.abcd_lstm_bidir_fwd(*ptrs, rows, stream)
+        else:
+            err = lib.abcd_lstm_bidir_fwd_cluster(*ptrs, stream)
+    _build.check(lib, err, f"lstm_layer_bidir_fused ({design})")
     lstm_layer_bidir_fused.launches += 1
+    getattr(lstm_layer_bidir_fused, design).launches += 1
     return result
 
 
 lstm_layer_bidir_fused.launches = 0
+lstm_layer_bidir_fused.cluster = _build.Launches()
+lstm_layer_bidir_fused.tile = _build.Launches()
 
 
 def lstm_layer_bidir_fused_bwd_plain(x, lengths, w_ih, b_ih, w_hh, b_hh,

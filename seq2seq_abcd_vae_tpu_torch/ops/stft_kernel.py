@@ -1,25 +1,56 @@
-"""Fused log-spectrogram frontend: the CUDA kernel ``csrc/stft.cu`` and
-its plain PyTorch twin.
+"""Fused log-spectrogram frontend: the CUDA kernels ``csrc/stft.cu`` and
+their plain PyTorch twin.
 
 Replaces seq2seq_abcd_vae_tpu/ops/stft_pallas.py:log_spectrogram_pallas.
-The kernel computes, for centred audio rows and the windowed DFT basis of
+The kernels compute, for centred audio rows and the windowed DFT basis of
 ``ops/stft.dft_basis``, ``log(|frames @ (cos - i sin)| + eps) / N`` in one
-pass in float32 FMA.  As a direct DFT it is bound by its own float32
-operations, well above the function's byte bound (an FFT needs far
-fewer); see the source for its design.  The wrapper launches the kernel
-for CUDA tensors and takes the twin only for CPU tensors.
+pass in float32.  Two routes, chosen by ``fft_route`` from the frame
+length before the launch: a shared-memory FFT for a power-of-two frame
+(the publication config's 256 at 32 kHz, 128 at 16 kHz) and a direct DFT
+for any other (352 at 44.1 kHz); see the source for both designs.  The
+wrapper launches a kernel for CUDA tensors and takes the twin only for CPU
+tensors.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from . import _build
+
+FFT_MIN_FRAME, FFT_MAX_FRAME = 16, 1024
 
 
 def supports(frame_length: int, step_size: int) -> bool:
     """Geometry the kernel takes: frame == 2 * step, as the TPU kernel."""
     return frame_length == 2 * step_size
+
+
+def fft_route(frame_length: int) -> bool:
+    """Whether the FFT route takes this frame: a power of two from 16 to
+    1024 (csrc/stft.cu:fft_frame_ok refuses any other); the DFT route
+    takes every other."""
+    return (FFT_MIN_FRAME <= frame_length <= FFT_MAX_FRAME
+            and frame_length & (frame_length - 1) == 0)
+
+
+def fft_twiddle_table(frame_length: int) -> np.ndarray:
+    """(N, 2) float32 W_N^j = exp(-2 pi i j / N) as (cos, -sin), j < N:
+    computed in float64 and rounded once, as ``ops/stft.dft_basis`` rounds
+    the basis.  The FFT route's passes read W_M^a = W_N^(2a) from it and
+    its real-split step W_N^k."""
+    ang = 2.0 * np.pi * np.arange(frame_length, dtype=np.float64) / (
+        frame_length)
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def fft_twiddles(frame_length: int, device: torch.device) -> torch.Tensor:
+    """``fft_twiddle_table`` on ``device``, made once per frame length."""
+    return torch.from_numpy(fft_twiddle_table(frame_length)).to(device)
 
 
 def log_spectrogram_plain(audio: torch.Tensor, cos_b: torch.Tensor,
@@ -70,8 +101,12 @@ def log_spectrogram_kernel(audio: torch.Tensor, cos_b: torch.Tensor,
                            normalizer: float) -> torch.Tensor:
     """(B, L) centred float32 audio -> (B, num_frames, bins) float32.
 
-    CUDA tensors launch the kernel on the current stream (and count one
-    launch); CPU tensors take ``log_spectrogram_plain``.
+    CUDA tensors launch the FFT route's kernel when ``fft_route`` takes the
+    frame, else the DFT route's, on the current stream (and count one
+    launch, on the wrapper and on ``.fft`` or ``.dft``); CPU tensors take
+    ``log_spectrogram_plain``.  The FFT route reads the window from column
+    0 of ``cos_b`` (cos 0 = 1) and sums the real bins (DC and Nyquist) from
+    the basis's columns 0 and N / 2, as the DFT route does.
     """
     _check(audio, cos_b, sin_b, frame_length, step_size, num_frames)
     if audio.device.type == "cpu":
@@ -87,15 +122,24 @@ def log_spectrogram_kernel(audio: torch.Tensor, cos_b: torch.Tensor,
                       device=audio.device)
     if batch == 0:
         return out
+    route = "fft" if fft_route(frame_length) else "dft"
+    tables = (audio.data_ptr(), row_len, cos_b.data_ptr(), sin_b.data_ptr())
+    if route == "fft":
+        launch = lib.abcd_log_spectrogram_fft
+        tables += (fft_twiddles(frame_length, audio.device).data_ptr(),)
+    else:
+        launch = lib.abcd_log_spectrogram
     with torch.cuda.device(audio.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.abcd_log_spectrogram(
-            audio.data_ptr(), row_len, cos_b.data_ptr(), sin_b.data_ptr(),
-            out.data_ptr(), batch, frame_length, step_size, num_frames,
-            bins, float(epsilon), 1.0 / float(normalizer), stream)
-    _build.check(lib, err, "log_spectrogram")
+        err = launch(*tables, out.data_ptr(), batch, frame_length, step_size,
+                     num_frames, bins, float(epsilon),
+                     1.0 / float(normalizer), stream)
+    _build.check(lib, err, f"log_spectrogram ({route})")
     log_spectrogram_kernel.launches += 1
+    getattr(log_spectrogram_kernel, route).launches += 1
     return out
 
 
 log_spectrogram_kernel.launches = 0
+log_spectrogram_kernel.fft = _build.Launches()
+log_spectrogram_kernel.dft = _build.Launches()

@@ -943,3 +943,159 @@ def test_plain_vae_step_on_the_card_matches_cpu_twins(cuda):
     assert abs(card[0] - cpu[0]) <= 1e-5 * abs(cpu[0])
     for g, r in zip(card[1], cpu[1]):
         assert _rel_max_err(g, r) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the redesigned kernels: the LSTM forward's cluster design and shape rule,
+# the STFT's FFT route and its DFT route
+# ---------------------------------------------------------------------------
+
+def _bidir_args(rng, cuda, t, b, f, h, lens=None):
+    x = torch.from_numpy(rng.normal(size=(t, b, f)).astype(np.float32))
+    if lens is None:
+        lens = rng.integers(1, t + 1, size=b).astype(np.int32)
+        lens[:2] = (t, 0)[:b]
+    w = [_uniform(rng, cuda, 1 / np.sqrt(h), *s)
+         for s in ((2, f, 4 * h), (2, 4 * h), (2, h, 4 * h), (2, 4 * h))]
+    return (x.to(cuda), torch.from_numpy(np.asarray(lens, np.int32)).to(cuda),
+            *w)
+
+
+@pytest.mark.parametrize("shape", [(512, 64, 129), (125, 512, 129),
+                                   (37, 21, 129), (64, 13, 65)])
+def test_lstm_cluster_forward_matches_twin(cuda, shape):
+    """The cluster design at the served (B=64, T=512) and training (B=512,
+    T=125) shapes, with ragged lengths, a row of length 0 and B not a
+    multiple of the tile's 8 rows: outs, the final states and the saved
+    cell states against the twin, and against the per-tile kernel on the
+    same inputs; the public function launches the design the shape rule
+    names, once."""
+    from seq2seq_abcd_vae_tpu_torch.ops import _build
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    t, b, f = shape
+    rng = np.random.default_rng(t + b)
+    args = _bidir_args(rng, cuda, t, b, f, 256)
+    active = _build.load("lstm").abcd_lstm_cluster_max_active(f, 256)
+    design = getattr(lk.lstm_layer_bidir_fused,
+                     lk.forward_design(active, b))
+    before = (lk.lstm_layer_bidir_fused.launches, design.launches)
+    lk.lstm_layer_bidir_fused(*args)
+    torch.cuda.synchronize()
+    assert (lk.lstm_layer_bidir_fused.launches,
+            design.launches) == (before[0] + 1, before[1] + 1)
+    got = lk.lstm_layer_bidir_fused_on("cluster", *args, return_cs=True)
+    want = lk.lstm_layer_bidir_fused_plain(*args, return_cs=True)
+    tile = lk.lstm_layer_bidir_fused_on("tile", *args, return_cs=True)
+    torch.cuda.synchronize()
+    # float32 dot products of F + H terms in another order through T steps
+    # against the twin; the per-tile kernel's own order of operations
+    for g, r, p in zip(got, want, tile):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
+        torch.testing.assert_close(g, p, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(7, 5, 9, 40), (3, 1, 9, 40),
+                                   (6, 9, 33, 64), (1, 8, 129, 256)])
+def test_lstm_cluster_forward_edge_shapes(cuda, shape):
+    """Edges of the cluster design, forced: a batch smaller than one tile,
+    the only row of length 0 (every CTA still reaches every cluster
+    barrier), a slice that leaves idle lanes (H / 8 units not filling a
+    warp), one step."""
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    t, b, f, h = shape
+    rng = np.random.default_rng(sum(shape))
+    lens = [0] if b == 1 else None
+    args = _bidir_args(rng, cuda, t, b, f, h, lens)
+    got = lk.lstm_layer_bidir_fused_on("cluster", *args, return_cs=True)
+    want = lk.lstm_layer_bidir_fused_plain(*args, return_cs=True)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-5)
+
+
+def test_lstm_cluster_cs_feeds_the_backward(cuda):
+    """The cluster forward's saved cell states are what the unchanged
+    backward kernel (kind 1) needs: the backward run on them gives the
+    backward twin's gradients on the twin's states."""
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    rng = np.random.default_rng(31)
+    t, b, f, h = 125, 64, 129, 256
+    args = _bidir_args(rng, cuda, t, b, f, h)
+    outs, h_n, c_n, cs = lk.lstm_layer_bidir_fused_on("cluster", *args,
+                                                      return_cs=True)
+    want = lk.lstm_layer_bidir_fused_plain(*args, return_cs=True)
+    normal = lambda shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(cuda)
+    cot = (normal(outs.shape), normal(h_n.shape), normal(c_n.shape))
+    got = lk.lstm_layer_bidir_fused_bwd(*args, outs, cs, *cot)
+    ref = lk.lstm_layer_bidir_fused_bwd_plain(*args, want[0], want[3], *cot)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("dx", "dw_ih", "db_ih", "dw_hh", "db_hh"), got,
+                          ref):
+        assert _rel_max_err(g, r) <= 1e-4, name
+
+
+@pytest.mark.parametrize("f,h", [(129, 1024), (512, 256)])
+def test_lstm_forward_rule_keeps_wide_shapes_per_tile(cuda, f, h):
+    """H=1024 and a second layer's F = 2H: the cluster's slices do not fit,
+    the card reports no resident cluster, and the shape rule sends the
+    call to the per-tile kernel, which still matches its twin."""
+    from seq2seq_abcd_vae_tpu_torch.ops import _build
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    lib = _build.load("lstm")
+    assert lib.abcd_lstm_cluster_max_active(f, h) == 0
+    assert lib.abcd_lstm_cluster_max_active(129, 256) > 0
+    rng = np.random.default_rng(f + h)
+    args = _bidir_args(rng, cuda, 5, 6, f, h)
+    before = lk.lstm_layer_bidir_fused.tile.launches
+    got = lk.lstm_layer_bidir_fused(*args)
+    want = lk.lstm_layer_bidir_fused_plain(*args)
+    torch.cuda.synchronize()
+    assert lk.lstm_layer_bidir_fused.tile.launches == before + 1
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-5)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        lk.lstm_layer_bidir_fused_on("cluster", *args)
+
+
+def _stft_case(cuda, fs, b=64, t=512, seed=0):
+    rng = np.random.default_rng(seed + fs)
+    frame = int(0.008 * fs)
+    step = frame // 2
+    audio = torch.from_numpy(rng.integers(
+        -3000, 3000, size=(b, t * step + frame)).astype(np.float32)).to(cuda)
+    audio[-2:] = 0.0  # silent padding rows
+    cos_b, sin_b = stft.basis_tensors(frame, "hann_window", cuda)
+    return (audio, cos_b, sin_b, frame, step, t, 2.0 ** -15, 11.0)
+
+
+@pytest.mark.parametrize("fs", [16000, 32000])
+def test_stft_fft_route_matches_twin_and_rfft(cuda, fs):
+    """The FFT route at the publication's rates against the twin (the DFT
+    by products) and against torch.fft.rfft (the ``fft`` method), silent
+    rows included."""
+    args = _stft_case(cuda, fs)
+    before = stft_kernel.log_spectrogram_kernel.fft.launches
+    got = stft_kernel.log_spectrogram_kernel(*args)
+    torch.cuda.synchronize()
+    assert stft_kernel.log_spectrogram_kernel.fft.launches == before + 1
+    want = stft_kernel.log_spectrogram_plain(*args)
+    audio, _, _, frame, step, t, eps, norm = args
+    rfft = stft.log_spectrogram(audio, frame, step, t, eps, norm,
+                                method="fft")
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+    torch.testing.assert_close(got, rfft, rtol=0, atol=1e-3)
+    torch.testing.assert_close(got[-2:], want[-2:], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("fs", [44100, 48000])
+def test_stft_dft_route_at_other_frames(cuda, fs):
+    """A frame that is not a power of two (352 at 44.1 kHz, 384 at 48 kHz)
+    reaches the DFT route."""
+    args = _stft_case(cuda, fs, t=64)
+    before = stft_kernel.log_spectrogram_kernel.dft.launches
+    got = stft_kernel.log_spectrogram_kernel(*args)
+    torch.cuda.synchronize()
+    assert stft_kernel.log_spectrogram_kernel.dft.launches == before + 1
+    torch.testing.assert_close(got, stft_kernel.log_spectrogram_plain(*args),
+                               rtol=0, atol=1e-3)
