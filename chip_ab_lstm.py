@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time the LSTM and STFT kernels of a checkout on one NVIDIA card.
 
-    PYTHONPATH=CHECKOUT python3 chip_ab_lstm.py LABEL
+    python3 chip_ab_lstm.py LABEL
 
-run from the checkout's root (``PYTHONPATH`` names it, because Python
-puts this script's own directory on the path).  Builds ``csrc/lstm.cu``,
+with this file copied into the checkout's root and run from there: Python
+puts the script's own directory first on the path, so the checkout it
+sits in is the one it times.  Builds ``csrc/lstm.cu``,
 ``csrc/wgrad.cu`` and ``csrc/stft.cu``, then times with CUDA events, three
 times each:
 
@@ -20,10 +21,16 @@ times each:
   the checkout has it, ``lstm_layer_bidir`` forward and backward (both
   directions in one launch, held to its twins first), at B=512, T=125,
   H=256;
+- ``lstm_layer_bidir_fused_bwd`` (row 2b) and ``lstm_layer`` forward (row
+  3) at the training shape (B=512, T=125) and the served shape (B=64,
+  T=512), held to their twins, beside cuDNN (forward + backward for row
+  2b, forward for row 3); where the checkout has both designs
+  (``lstm_layer_bidir_fused_bwd_on``, ``lstm_layer_on``), each design
+  forced, and row 2b's cluster route split into its four parts;
 
 all with ragged lengths (row 2 with no empty row, which cuDNN's packed
-sequence refuses; the others with one).  Prints one JSON line and
-ptxas's register report.  To compare two checkouts, run both in one call
+sequence refuses; the others with one).  Prints one JSON line (with the
+path of the ``lstm_kernel`` module it timed) and ptxas's register report.  To compare two checkouts, run both in one call
 on one card, in turns (A, B, B, A).
 """
 
@@ -176,6 +183,113 @@ def projected(out, rng, dev, b=512, t=125, h=256):
             for _ in range(3)]
 
 
+def _ragged(rng, dev, b, t):
+    lens = rng.integers(1, t + 1, size=b).astype(np.int32)
+    lens[0] = t
+    return lens, torch.from_numpy(lens).to(dev)
+
+
+def row2b(out, rng, dev, name, b, t, f=129, h=256):
+    """Row 2b (the raw backward) at one shape: error, times, cuDNN's
+    forward + backward."""
+    lens, lengths = _ragged(rng, dev, b, t)
+    bound = 1 / np.sqrt(h)
+    x = torch.from_numpy(rng.normal(size=(t, b, f)).astype(np.float32)
+                         ).to(dev)
+    w = [torch.from_numpy(rng.uniform(-bound, bound, size=s).astype(
+        np.float32)).to(dev)
+        for s in ((2, f, 4 * h), (2, 4 * h), (2, h, 4 * h), (2, 4 * h))]
+    outs, _, _, cs = lk.lstm_layer_bidir_fused_plain(x, lengths, *w,
+                                                     return_cs=True)
+    dh_n, dc_n = (torch.from_numpy(rng.normal(size=(2, b, h)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    args = (x, lengths, *w, outs, cs, None, dh_n, dc_n)
+    want = lk.lstm_layer_bidir_fused_bwd_plain(*args)
+
+    def rel(got):
+        return max(((g - r).abs().max() / r.abs().max()).item()
+                   for g, r in zip(got, want))
+
+    out[f"row2b_{name}_rel"] = rel(lk.lstm_layer_bidir_fused_bwd(*args))
+    out[f"row2b_{name}_ms"] = [
+        cuda_ms(lambda: lk.lstm_layer_bidir_fused_bwd(*args), iters=3)
+        for _ in range(3)]
+    lstm = torch.nn.LSTM(f, h, bidirectional=True).to(dev)
+    with torch.no_grad():
+        for d, sfx in enumerate(("", "_reverse")):
+            getattr(lstm, "weight_ih_l0" + sfx).copy_(w[0][d].T)
+            getattr(lstm, "bias_ih_l0" + sfx).copy_(w[1][d])
+            getattr(lstm, "weight_hh_l0" + sfx).copy_(w[2][d].T)
+            getattr(lstm, "bias_hh_l0" + sfx).copy_(w[3][d])
+    x_lib = x.clone().requires_grad_(True)
+
+    def library():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            x_lib, torch.from_numpy(lens), enforce_sorted=False)
+        _, (hh, cc) = lstm(packed)
+        torch.autograd.backward((hh, cc), (dh_n, dc_n))
+
+    out[f"row2b_{name}_nn_lstm_ms"] = [cuda_ms(library, iters=3)
+                                       for _ in range(3)]
+    if not hasattr(lk, "lstm_layer_bidir_fused_bwd_on"):
+        return
+    for design in ("cluster", "tile"):
+        out[f"row2b_{name}_{design}_rel"] = rel(
+            lk.lstm_layer_bidir_fused_bwd_on(design, *args))
+        out[f"row2b_{name}_{design}_ms"] = [
+            cuda_ms(lambda: lk.lstm_layer_bidir_fused_bwd_on(design, *args),
+                    iters=3) for _ in range(3)]
+    splits = []
+    for _ in range(3):
+        marks = []
+        lk.lstm_layer_bidir_fused_bwd_on("cluster", *args, marks=marks)
+        torch.cuda.synchronize()
+        splits.append([marks[i].elapsed_time(marks[i + 1])
+                       for i in range(4)])
+    out[f"row2b_{name}_cluster_split_ms"] = splits
+
+
+def row3(out, rng, dev, name, b, t, h=256):
+    """Row 3 (the one-direction forward over xp) at one shape: error,
+    times, cuDNN's forward."""
+    lens, lengths = _ragged(rng, dev, b, t)
+    bound = 1 / np.sqrt(h)
+    xp = torch.from_numpy(rng.normal(size=(t, b, 4 * h)).astype(np.float32)
+                          ).to(dev)
+    w_hh, b_hh = (torch.from_numpy(rng.uniform(-bound, bound, size=s).astype(
+        np.float32)).to(dev) for s in ((h, 4 * h), (4 * h,)))
+    want = lk.lstm_layer_plain(xp, lengths, w_hh, b_hh)
+    out[f"row3_{name}_err"] = max_err(lk.lstm_layer(xp, lengths, w_hh, b_hh),
+                                      want)
+    out[f"row3_{name}_ms"] = [
+        cuda_ms(lambda: lk.lstm_layer(xp, lengths, w_hh, b_hh), iters=5)
+        for _ in range(3)]
+    lstm = torch.nn.LSTM(129, h).to(dev)
+    with torch.no_grad():
+        lstm.weight_hh_l0.copy_(w_hh.T)
+        lstm.bias_hh_l0.copy_(b_hh)
+    x = torch.from_numpy(rng.normal(size=(t, b, 129)).astype(np.float32)
+                         ).to(dev)
+
+    @torch.no_grad()
+    def library():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            x, torch.from_numpy(lens), enforce_sorted=False)
+        return lstm(packed)[1]
+
+    out[f"row3_{name}_nn_lstm_ms"] = [cuda_ms(library, iters=5)
+                                      for _ in range(3)]
+    if not hasattr(lk, "lstm_layer_on"):
+        return
+    for design in ("cluster", "tile"):
+        out[f"row3_{name}_{design}_err"] = max_err(
+            lk.lstm_layer_on(design, xp, lengths, w_hh, b_hh), want)
+        out[f"row3_{name}_{design}_ms"] = [
+            cuda_ms(lambda: lk.lstm_layer_on(design, xp, lengths, w_hh,
+                                             b_hh), iters=5)
+            for _ in range(3)]
+
+
 def main(label: str) -> int:
     if not torch.cuda.is_available():
         print("chip_ab_lstm: no CUDA device", file=sys.stderr)
@@ -184,7 +298,8 @@ def main(label: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     report = _build.build(("lstm", "wgrad", "stft"))
-    out = {"label": label, "build_s": time.perf_counter() - t0}
+    out = {"label": label, "module": lk.__file__,
+           "build_s": time.perf_counter() - t0}
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     row2(out, rng, dev, "serve", 64, 512)
@@ -192,6 +307,9 @@ def main(label: str) -> int:
     for fs in (32000, 16000):
         row1(out, rng, dev, fs)
     projected(out, rng, dev)
+    for name, b, t in (("train", 512, 125), ("serve", 64, 512)):
+        row2b(out, rng, dev, name, b, t)
+        row3(out, rng, dev, name, b, t)
     print(json.dumps(out))
     for name in ("lstm", "stft"):
         for line in report.get(name, "").splitlines():

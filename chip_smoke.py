@@ -28,7 +28,10 @@ run from the repository root.  It
    once with ``--unidirectional_encoder``; checks history.log and that
    each kernel ran exactly for the steps that use it (forwards once per
    training and evaluation step, backwards once per training step, the
-   other encoder's kernels never);
+   other encoder's kernels never; at B=512 the LSTM backward and the
+   one-direction forward by their cluster routes); the LSTM model with
+   encoder hidden size 1024, bidirectional and unidirectional, one epoch
+   each, where the LSTM kernels take their per-tile routes;
 6. encodes the corpus with the encode CLI (``cli/encode_main.main``) in
    probs, logits and features modes, as CSV and as npz, from both trained
    checkpoints, on the card and on the CPU's twins: rows = segments x
@@ -38,7 +41,9 @@ run from the repository root.  It
 7. decodes the validation segments' features generatively with
    ``infer/decode.decode_features`` on the unidirectional checkpoint, in
    sample mode (one ``decoder_loop`` launch) and mean mode, against the
-   same calls on the card's twins and on the CPU with the same noise;
+   same calls on the card's twins and on the CPU with the same noise, and
+   serves that checkpoint (32 requests, 4 clients; the one-direction LSTM
+   forward by its cluster route);
 8. trains the GRU model (``-R GRU``: bidirectional GRU encoder, GRU
    decoder) through the same CLI at the same config, 2 epochs then
    resumed to 3, where no LSTM kernel may run; encodes the corpus from
@@ -75,8 +80,9 @@ run from the repository root.  It
 12. holds each kernel against its plain PyTorch twin on the card at the
     main paths' shapes (ragged lengths, one row of length 0), the Elman
     kernels at leak 1.0 and 0.5, the one-direction layers in both span
-    directions, the recurrent kernels also at hidden size 1024, and one
-    whole training step (each LSTM encoder, the GRU, RNN and ESN models
+    directions, the recurrent kernels also at hidden size 1024 (the LSTM
+    encoder's per-tile routes, forward and backward, at their wide
+    training paths' B=512, T=125), and one whole training step (each LSTM encoder, the GRU, RNN and ESN models
     with either encoder; the LSTM, GRU and ESN models on the decoder's
     stream path, also against the fused path's step on the card) on the
     kernels (card) against the same step on the twins (CPU): loss, every
@@ -109,9 +115,12 @@ run from the repository root.  It
     B=512, T=125, H=256 and at H=1024;
 15. times each kernel, its twin and one library call computing the same
     function (a yardstick the port never calls) with CUDA events, and
-    prints one ``{"kernels": [...]}`` line (39 entries: each route of the
-    STFT, FFT and DFT, and of the LSTM forward, cluster and per-tile, on
-    its own, with the launches the shape gave it) with launches, times,
+    prints one ``{"kernels": [...]}`` line (41 entries: each route of the
+    STFT, FFT and DFT, of the LSTM's raw forward and backward and of its
+    one-direction forward, cluster and per-tile, on its own, with the
+    launches the shape gave it; the raw backward's cluster route with its
+    time split into the gate recompute, the recurrence, dx and the weight
+    gradients, also printed on a line of its own) with launches, times,
     the bound and the largest error, after the serve latencies,
     the time of one served batch and of one training step by stage (the
     stream path's beside the fused path's), the training and encode
@@ -147,6 +156,7 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 HIDDEN = 256          # encoder_rnn_hidden_size (publication config)
+WIDE_HIDDEN = 1024    # the widest encoder the JAX CLI takes
 MLP_HIDDEN = 256      # mlp_hidden_size
 K = 128               # num_feature_categories
 FEATURE_DIM = 256     # feature_dim
@@ -752,23 +762,34 @@ ROUTES = {"log_spectrogram_fft": ("log_spectrogram", "fft"),
           "log_spectrogram_dft": ("log_spectrogram", "dft"),
           "lstm_layer_bidir_fused_cluster": ("lstm_layer_bidir_fused",
                                              "cluster"),
-          "lstm_layer_bidir_fused_tile": ("lstm_layer_bidir_fused", "tile")}
+          "lstm_layer_bidir_fused_tile": ("lstm_layer_bidir_fused", "tile"),
+          "lstm_layer_bidir_fused_bwd_cluster": (
+              "lstm_layer_bidir_fused_bwd", "cluster"),
+          "lstm_layer_bidir_fused_bwd_tile": ("lstm_layer_bidir_fused_bwd",
+                                              "tile"),
+          "lstm_layer_cluster": ("lstm_layer", "cluster"),
+          "lstm_layer_tile": ("lstm_layer", "tile")}
+
+
+def with_routes(counters: dict) -> dict:
+    """``counters`` and the route counters of the wrappers among them."""
+    for name, (total, route) in ROUTES.items():
+        if total in counters:
+            counters[name] = getattr(counters[total], route)
+    return counters
 
 
 def training_counters():
     from seq2seq_abcd_vae_tpu_torch.ops import (decoder_kernel, lstm_kernel,
                                                 stft_kernel)
-    counters = {"log_spectrogram": stft_kernel.log_spectrogram_kernel,
-                "lstm_layer_bidir_fused": lstm_kernel.lstm_layer_bidir_fused,
-                "lstm_layer_bidir_fused_bwd":
-                    lstm_kernel.lstm_layer_bidir_fused_bwd,
-                "decoder_loop_fused_losses_fwd":
-                    decoder_kernel.decoder_fused_losses_fwd,
-                "decoder_loop_fused_losses_bwd":
-                    decoder_kernel.decoder_fused_losses_bwd}
-    for name, (total, route) in ROUTES.items():
-        counters[name] = getattr(counters[total], route)
-    return counters
+    return with_routes({
+        "log_spectrogram": stft_kernel.log_spectrogram_kernel,
+        "lstm_layer_bidir_fused": lstm_kernel.lstm_layer_bidir_fused,
+        "lstm_layer_bidir_fused_bwd": lstm_kernel.lstm_layer_bidir_fused_bwd,
+        "decoder_loop_fused_losses_fwd":
+            decoder_kernel.decoder_fused_losses_fwd,
+        "decoder_loop_fused_losses_bwd":
+            decoder_kernel.decoder_fused_losses_bwd})
 
 
 def ran(launches: dict) -> set:
@@ -842,6 +863,9 @@ def train_phase(dev, work: str, seed: int):
           f"written in {corpus_s:.2f} s); launches {launches}", flush=True)
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
+    if launches["lstm_layer_bidir_fused_bwd_cluster"] != train_steps:
+        raise AssertionError("the LSTM backward at B=512 did not take its "
+                             f"cluster route every step: {launches}")
 
     # the trained checkpoint encodes on the card
     from seq2seq_abcd_vae_tpu_torch.data.annotations import AnnotationParser
@@ -895,48 +919,143 @@ def rel_err(got, want) -> float:
             ).item()
 
 
-def lstm_train_phase(dev, rng, t, launches):
-    """LSTM forward (saving cs) and backward kernels vs twins at the
-    training shape; their times, bounds and the cuDNN yardstick."""
+def _ragged(rng, dev, b, t):
+    """(numpy, device) lengths: ragged, the first row full, the last empty
+    (when there are two)."""
+    lens = rng.integers(1, t + 1, size=b).astype(np.int32)
+    lens[0] = t
+    if b > 1:
+        lens[-1] = 0
+    return lens, torch.from_numpy(lens).to(dev)
+
+
+def _bwd_case(dev, rng, t, b, f, h, with_douts):
+    """A raw backward's arguments from the forward twin's saved states (a
+    zero-length row included)."""
     from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
-    b, f, h = TRAIN_BATCH, 129, HIDDEN
+    lens, lengths = _ragged(rng, dev, b, t)
     x = torch.from_numpy(rng.normal(size=(t, b, f)).astype(np.float32)
                          ).to(dev)
-    lens = rng.integers(1, t + 1, size=b).astype(np.int32)
-    lens[0], lens[-1] = t, 0
-    lengths = torch.from_numpy(lens).to(dev)
-    bound_w = 1.0 / np.sqrt(h)
-    w = [torch.from_numpy(rng.uniform(-bound_w, bound_w, size=s).astype(
+    w = _lstm_weights(rng, dev, h, (2, f, 4 * h), (2, 4 * h), (2, h, 4 * h),
+                      (2, 4 * h))
+    outs, _, _, cs = lk.lstm_layer_bidir_fused_plain(x, lengths, *w,
+                                                     return_cs=True)
+    normal = lambda *s: torch.from_numpy(rng.normal(size=s).astype(
         np.float32)).to(dev)
-        for s in ((2, f, 4 * h), (2, 4 * h), (2, h, 4 * h), (2, 4 * h))]
+    douts = normal(t, 2, b, h) if with_douts else None
+    return lens, (x, lengths, *w, outs, cs, douts, normal(2, b, h),
+                  normal(2, b, h))
+
+
+def _bwd_bound(lens, t, b, f, h):
+    """Row 2b's bound: the gates recomputed (its inputs hold no gates),
+    dz @ [W_ih | W_hh]^T and the weight gradients, three times the
+    forward's products over the active row-steps; each input read and
+    each output written once."""
+    steps = int(lens.sum())  # active row-steps per direction
+    flops = 2 * steps * 3 * 2.0 * (f + h) * 4 * h
+    nbytes = 4.0 * (t * b * f + 2 * (f + h + 2) * 4 * h      # x, weights
+                    + 2 * t * 2 * b * h + 2 * 2 * b * h       # outs, cs, dh, dc
+                    + t * b * f + 2 * (f + h + 2) * 4 * h) + 4 * b  # outputs
+    return bound_ms(flops, nbytes)
+
+
+def lstm_train_phase(dev, rng, t, launches_cluster, launches_tile):
+    """Row 2b, the LSTM layer's raw backward, by both routes against the
+    twin and against each other: at the training shape (B=512, T=125,
+    F=129), at B=13 and 21, at a second layer's F = 2H (which the cluster
+    route takes), each with and without douts, ragged with a row of length
+    0; the public wrapper takes the route its rule names; H=1024 and H=200
+    (not a multiple of 32), forced to the cluster route, raise.  Each route
+    timed at the training shape beside the twin and cuDNN's forward +
+    backward, the cluster route's time split into (a) the gate recompute,
+    (b) the recurrence, (c) dx, (d) the weight gradients; the per-tile
+    routes of row 2b and of row 2's forward (saving cs) also held to the
+    twins and timed at their main path's H=1024.  The forward with saved
+    cs is held to its twin and timed too."""
+    from seq2seq_abcd_vae_tpu_torch.ops import _build
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    b, f, h = TRAIN_BATCH, 129, HIDDEN
+    checks = {"cluster": {}, "tile": {}, "cluster_vs_tile": {}}
+    abs_errs = {"cluster": 0.0, "tile": 0.0}
+    rel = {}
+    lib = _build.load("lstm")
+    active = lib.abcd_lstm_bwd_cluster_max_active(h, lk.BWD_CLUSTER_ROWS)
+    timed = None
+    for tt, bb, ff in ((t, b, f), (t, 13, f), (t, 21, f), (37, 21, 2 * h)):
+        for with_douts in (False, True):
+            lens, args = _bwd_case(dev, rng, tt, bb, ff, h, with_douts)
+            design = lk.backward_design(active)
+            route = getattr(lk.lstm_layer_bidir_fused_bwd, design)
+            before = route.launches
+            picked = lk.lstm_layer_bidir_fused_bwd(*args)
+            if route.launches != before + 1:
+                raise AssertionError(f"row 2b at B={bb} did not take the "
+                                     f"{design} route")
+            want = lk.lstm_layer_bidir_fused_bwd_plain(*args)
+            got = {d: lk.lstm_layer_bidir_fused_bwd_on(d, *args)
+                   for d in ("cluster", "tile")}
+            torch.cuda.synchronize()
+            shape = f"T{tt}_B{bb}_F{ff}_douts{int(with_douts)}"
+            for d, out in got.items():
+                errs = {n: rel_err(g, r) for n, g, r in zip(
+                    ("dx", "dw_ih", "db_ih", "dw_hh", "db_hh"), out, want)}
+                checks[d][shape] = max(errs.values())
+                abs_errs[d] = max(abs_errs[d], max_err(out, want))
+                if d == design:
+                    rel[shape] = errs
+                    if max_err(picked, out) != 0.0:
+                        raise AssertionError(f"row 2b {d} route differs "
+                                             f"between calls at {shape}")
+                if max(errs.values()) > GRAD_FRACTION:
+                    raise AssertionError(f"row 2b {d} route vs twin at "
+                                         f"{shape}: {errs}")
+            across = max(rel_err(g, r) for g, r in zip(got["cluster"],
+                                                       got["tile"]))
+            checks["cluster_vs_tile"][shape] = across
+            if across > GRAD_FRACTION:
+                raise AssertionError(f"row 2b cluster vs per-tile at {shape}:"
+                                     f" {across}")
+            if (tt, bb, ff, with_douts) == (t, b, f, False):
+                timed = (lens, args)
+    refused = {}
+    for hh in (WIDE_HIDDEN, 200):
+        _, args = _bwd_case(dev, rng, 5, 6, 9, hh, False)
+        try:
+            lk.lstm_layer_bidir_fused_bwd_on("cluster", *args)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            refused[f"H{hh}"] = str(e)[:100]
+        else:
+            raise AssertionError(f"row 2b's cluster route took H={hh}")
+    lens, args = timed
+    times = {d: cuda_ms(lambda: lk.lstm_layer_bidir_fused_bwd_on(d, *args),
+                        iters=5) for d in ("cluster", "tile")}
+    split = []
+    for _ in range(3):
+        marks = []
+        lk.lstm_layer_bidir_fused_bwd_on("cluster", *args, marks=marks)
+        torch.cuda.synchronize()
+        split.append([marks[i].elapsed_time(marks[i + 1]) for i in range(4)])
+    split_ms = dict(zip(("a_gates", "b_recurrence", "c_dx", "d_wgrad"),
+                        np.median(np.asarray(split), axis=0).tolist()))
+    print("row 2b cluster route at the training shape, ms by part "
+          + json.dumps(split_ms), flush=True)
+    plain_ms = cuda_ms(lambda: lk.lstm_layer_bidir_fused_bwd_plain(*args),
+                       iters=2, warmup=1)
+    x, lengths, *w = args[:6]
     fwd = lk.lstm_layer_bidir_fused(x, lengths, *w, return_cs=True)
     fwd_ref = lk.lstm_layer_bidir_fused_plain(x, lengths, *w,
                                               return_cs=True)
     fwd_err = max_err(fwd, fwd_ref)
     if not fwd_err <= LSTM_ATOL:
         raise AssertionError(f"LSTM forward (with cs) vs twin: {fwd_err}")
-    outs, h_n, c_n, cs = fwd
-    dh_n = torch.from_numpy(rng.normal(size=h_n.shape).astype(
-        np.float32)).to(dev)
-    dc_n = torch.from_numpy(rng.normal(size=c_n.shape).astype(
-        np.float32)).to(dev)
-    args = (x, lengths, *w, outs, cs, None, dh_n, dc_n)
-    got = lk.lstm_layer_bidir_fused_bwd(*args)
-    want = lk.lstm_layer_bidir_fused_bwd_plain(*args)
-    torch.cuda.synchronize()
-    errs = {n: rel_err(g, r) for n, g, r in zip(
-        ("dx", "dw_ih", "db_ih", "dw_hh", "db_hh"), got, want)}
-    if max(errs.values()) > GRAD_FRACTION:
-        raise AssertionError(f"LSTM backward vs twin: {errs}")
-    kernel_ms = cuda_ms(lambda: lk.lstm_layer_bidir_fused_bwd(*args),
-                        iters=5)
-    plain_ms = cuda_ms(lambda: lk.lstm_layer_bidir_fused_bwd_plain(*args),
-                       iters=2, warmup=1)
     fwd_ms = cuda_ms(lambda: lk.lstm_layer_bidir_fused(x, lengths, *w,
                                                        return_cs=True),
                      iters=5)
     # the yardstick: cuDNN's bidirectional LSTM, forward and backward, on
     # packed sequences of the same shape (the zero-length row dropped)
+    dh_n, dc_n = args[-2], args[-1]
     lstm = _nn_lstm_module(*w)
     keep = lens > 0
     x_lib = x[:, torch.from_numpy(keep).to(dev)].clone().requires_grad_(True)
@@ -950,32 +1069,73 @@ def lstm_train_phase(dev, rng, t, launches):
                                            dc_n[:, keep.nonzero()[0]]))
 
     library_ms = cuda_ms(library, iters=5)
-    steps = int(lens.sum())  # active row-steps per direction
-    per = 2.0 * (f + h) * 4 * h  # one direction's gate products per row-step
-    # gates recomputed (its inputs hold no gates), dz @ [W_ih | W_hh]^T and
-    # the weight gradients: three times the forward's products
-    flops = 2 * steps * 3 * per
-    nbytes = 4.0 * (t * b * f + 2 * (f + h + 2) * 4 * h      # x, weights
-                    + 2 * t * 2 * b * h + 2 * 2 * b * h       # outs, cs, dh, dc
-                    + t * b * f + 2 * (f + h + 2) * 4 * h) + 4 * b  # outputs
-    bms, by = bound_ms(flops, nbytes)
-    entry = {
-        "name": "lstm_layer_bidir_fused_bwd",
+    bms, by = _bwd_bound(lens, t, b, f, h)
+    # the per-tile routes at their main path's width (the wide training
+    # path): row 2's forward, saving cs, and row 2b
+    wlens, wargs = _bwd_case(dev, rng, t, b, f, WIDE_HIDDEN, False)
+    wx, wlengths, *ww = wargs[:6]
+    wouts, wcs = wargs[6], wargs[7]
+    before = lk.lstm_layer_bidir_fused.tile.launches
+    wide_fwd = lk.lstm_layer_bidir_fused(wx, wlengths, *ww, return_cs=True)
+    torch.cuda.synchronize()
+    if lk.lstm_layer_bidir_fused.tile.launches != before + 1:
+        raise AssertionError(f"row 2 at H={WIDE_HIDDEN} did not take the "
+                             "per-tile route")
+    # the twin's outs hold the carry after each step: h_n, c_n are the last
+    wide_fwd_err = max_err(wide_fwd, (wouts, wouts[-1], wcs[-1], wcs))
+    if not wide_fwd_err <= LSTM_ATOL:
+        raise AssertionError(f"row 2 per-tile route at H={WIDE_HIDDEN}: "
+                             f"{wide_fwd_err}")
+    wide_fwd_ms = cuda_ms(lambda: lk.lstm_layer_bidir_fused(
+        wx, wlengths, *ww, return_cs=True), iters=2, warmup=1)
+    steps = int(wlens.sum())  # active row-steps a direction
+    hh = WIDE_HIDDEN
+    wide_fwd_bound = bound_ms(
+        2 * steps * 2.0 * (f + hh) * 4 * hh,
+        4.0 * (t * b * f + 2 * (f + hh + 2) * 4 * hh      # x, weights
+               + 2 * t * 2 * b * hh + 2 * 2 * b * hh) + 4 * b)  # outs, cs
+    wide_got = lk.lstm_layer_bidir_fused_bwd(*wargs)
+    wide_want = lk.lstm_layer_bidir_fused_bwd_plain(*wargs)
+    torch.cuda.synchronize()
+    wide_rel = max(rel_err(g, r) for g, r in zip(wide_got, wide_want))
+    checks["tile"][f"T{t}_B{b}_F{f}_H{WIDE_HIDDEN}"] = wide_rel
+    if wide_rel > GRAD_FRACTION:
+        raise AssertionError(f"row 2b per-tile route at H={WIDE_HIDDEN}: "
+                             f"{wide_rel}")
+    wide_ms = cuda_ms(lambda: lk.lstm_layer_bidir_fused_bwd(*wargs), iters=1,
+                      warmup=0)
+    common = {
         "route": "cuda",
         "source": "seq2seq_abcd_vae_tpu_torch/csrc/lstm.cu",
         "helper_source": "seq2seq_abcd_vae_tpu_torch/csrc/wgrad.cu",
         "replaces": "seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:682",
-        "launches": launches,
-        "max_abs_err": max(max_err(g, r) for g, r in zip(got, want)),
-        "max_rel_err": max(errs.values()), "rel_errs": errs,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bms,
-        "bound_by": by, "library_ms": library_ms,
+        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+        "library_ms": library_ms,
         "library_call": "nn.LSTM(bidirectional) forward + backward, packed",
         "shape": f"T={t} B={b} F={f} H={h} (douts zero)",
         "tolerance": f"{GRAD_FRACTION} of each leaf's max |value|",
-    }
-    return entry, {"forward_with_cs_ms": fwd_ms, "forward_with_cs_err":
-                   fwd_err}
+        "checks": checks, "refused_by_the_cluster_route": refused,
+        "max_active_clusters": active}
+    entries = [
+        dict(common, name="lstm_layer_bidir_fused_bwd_cluster",
+             launches=launches_cluster, max_abs_err=abs_errs["cluster"],
+             max_rel_err=max(checks["cluster"].values()),
+             rel_errs_by_leaf=rel, ms=times["cluster"], split_ms=split_ms),
+        dict(common, name="lstm_layer_bidir_fused_bwd_tile",
+             launches=launches_tile, max_abs_err=abs_errs["tile"],
+             max_rel_err=max(checks["tile"].values()), ms=times["tile"],
+             main_path_shape=f"T={t} B={b} F={f} H={WIDE_HIDDEN}",
+             main_path_shape_ms=wide_ms,
+             main_path_shape_bound_ms=_bwd_bound(wlens, t, b, f,
+                                                 WIDE_HIDDEN)[0])]
+    wide_forward = {"main_path_shape": f"T={t} B={b} F={f} H={hh} "
+                                       "(return_cs)",
+                    "main_path_shape_ms": wide_fwd_ms,
+                    "main_path_shape_bound_ms": wide_fwd_bound[0],
+                    "main_path_shape_max_abs_err": wide_fwd_err}
+    return entries, {"forward_with_cs_ms": fwd_ms,
+                     "forward_with_cs_err": fwd_err,
+                     "per_tile_forward_at_h1024": wide_forward}
 
 
 def _decoder_kernel_args(dev, rng, t, b, h=HIDDEN, cell="LSTM", leak=1.0):
@@ -1333,7 +1493,8 @@ def all_counters():
     Learner, Encoder and server on the card probes when it starts."""
     from seq2seq_abcd_vae_tpu_torch.ops import (decoder_kernel, elman_kernel,
                                                 gru_kernel, lstm_kernel)
-    return dict(training_counters(),
+    return with_routes(dict(
+                training_counters(),
                 lstm_layer=lstm_kernel.lstm_layer,
                 lstm_layer_bwd=lstm_kernel.lstm_layer_bwd,
                 lstm_layer_bidir=lstm_kernel.lstm_layer_bidir,
@@ -1377,14 +1538,14 @@ def all_counters():
                 rnn_decoder_loop_fused_losses_seed_fwd=(
                     decoder_kernel.rnn_decoder_fused_losses_fwd.seed),
                 rnn_decoder_loop_fused_losses_seed_bwd=(
-                    decoder_kernel.rnn_decoder_fused_losses_bwd.seed))
+                    decoder_kernel.rnn_decoder_fused_losses_bwd.seed)))
 
 
 def expected(counters: dict, **launches) -> dict:
     """Every counter 0 but the ones named, and each route as the run split
     it, after checking that the routes of a wrapper sum to its count."""
     want = dict({name: 0 for name in counters}, **launches)
-    for total in {t for t, _ in ROUTES.values()}:
+    for total in {t for t, _ in ROUTES.values()} & set(counters):
         split = {n: counters[n].launches for n, (t, _) in ROUTES.items()
                  if t == total}
         if sum(split.values()) != counters[total].launches:
@@ -1436,6 +1597,9 @@ def uni_train_phase(dev, work: str, corpus_dir: str, csv_path: str,
           f"{launches}", flush=True)
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
+    if launches["lstm_layer_cluster"] != steps:
+        raise AssertionError("the one-direction LSTM forward at B=512 did "
+                             f"not take its cluster route: {launches}")
     epochs = first.epoch_seconds + second.epoch_seconds
     later = [n / sec for _, sec, n in epochs[1:]]
     return {"launches": launches, "train_steps": train_steps,
@@ -1445,6 +1609,61 @@ def uni_train_phase(dev, work: str, corpus_dir: str, csv_path: str,
                 sum(later) / len(later) if later else None,
             "epochs": [{"epoch": e, "train_s": sec, "segments": n}
                        for e, sec, n in epochs]}
+
+
+def wide_train_phase(dev, work: str, corpus_dir: str, csv_path: str,
+                     seed: int, unidirectional: bool):
+    """The LSTM model at encoder hidden size 1024 (the widest the JAX CLI
+    takes), bidirectional or with ``--unidirectional_encoder``, trained
+    through the CLI for one epoch (no pretraining, no resume: depth cut),
+    counted: the cluster designs do not take H=1024, so the LSTM encoder's
+    kernels run by their per-tile routes, the forward once per step and
+    the backward once per training step."""
+    from seq2seq_abcd_vae_tpu_torch.cli import learning_main
+    job = "wide-uni" if unidirectional else "wide"
+    argv = [corpus_dir, csv_path, "-S", work, "-j", job, "-b",
+            str(TRAIN_BATCH), "--pretrain_epochs", "0", "--stft_method",
+            "pallas", "-d", dev.type, "-N", str(NORMALIZER), "-s", str(seed),
+            *(("--unidirectional_encoder",) if unidirectional else ()),
+            "--encoder_rnn_hidden_size", str(WIDE_HIDDEN),
+            "--decoder_rnn_hidden_size", str(HIDDEN),
+            "--mlp_hidden_size", str(MLP_HIDDEN), "-K", str(K),
+            "-f", str(FEATURE_DIM), "--speaker_embed_dim", str(SPEAKER_EMBED),
+            "-e", "1"]
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    run = learning_main.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(work, job, "history.log")) as f:
+        log = f.read()
+    losses = [float(v) for v in re.findall(
+        r"(?:mean loss|\(per string\)): (-?[0-9]+\.[0-9]+|-?nan|-?inf)",
+        log)]
+    if ("END OF TRAINING" not in log or not losses
+            or not all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"{job}: history.log lacks the end of training "
+                             "or has a non-finite loss")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    train, steps = run.steps["train"], run.steps["train"] + run.steps["eval"]
+    layer = "lstm_layer" if unidirectional else "lstm_layer_bidir_fused"
+    want = expected(counters, log_spectrogram=steps,
+                    decoder_loop_fused_losses_fwd=steps,
+                    decoder_loop_fused_losses_bwd=train,
+                    **{layer: steps, layer + "_bwd": train})
+    print(f"{job} training main path (encoder hidden {WIDE_HIDDEN}): "
+          f"{train} training + {run.steps['eval']} evaluation steps in "
+          f"{wall:.2f} s; launches {launches}", flush=True)
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    tiles = {layer + "_tile": steps}
+    if not unidirectional:
+        tiles[layer + "_bwd_tile"] = train
+    if any(launches[k] != n for k, n in tiles.items()):
+        raise AssertionError(f"{job}: the per-tile routes did not run: "
+                             f"{launches}")
+    return {"launches": launches, "train_steps": train,
+            "eval_steps": run.steps["eval"], "wall_s": wall}
 
 
 def read_long_csv(path: str):
@@ -1649,121 +1868,226 @@ def _lstm_weights(rng, dev, h, *shapes):
         np.float32)).to(dev) for s in shapes]
 
 
-def lstm_layer_phase(dev, rng, launches_fwd, launches_bwd):
-    """The one-direction LSTM kernels vs twins (ragged lengths, one empty
-    row, both span directions) at the training shape B=512, T=125 and at
-    B=64, T=512, timed at the training shape beside cuDNN's LSTM."""
+def lstm_layer_phase(dev, rng, launches_cluster, launches_tile,
+                     launches_bwd):
+    """Row 3, the one-direction LSTM forward, by both routes against the
+    twin and against each other (ragged lengths, one empty row, both span
+    directions) at the training shape B=512, T=125, at the served B=64,
+    T=512 and at B=13; the public wrapper takes the route its rule names;
+    H=1024 and H=36 (not a multiple of 8), forced to the cluster route,
+    raise.  Each route timed at both shapes beside the twin and cuDNN's
+    LSTM, the per-tile route also at its main path's H=1024.  Row 3b, the
+    backward (one kernel), vs its twin at the same shapes and at H=1024
+    (its wide main path's width, with and without douts), and timed at
+    both."""
+    from seq2seq_abcd_vae_tpu_torch.ops import _build
     from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
     h, f = HIDDEN, 129
-    checks = {}
-    timed = None
-    for b, t in ((TRAIN_BATCH, 125), (BATCH, 512)):
-        lens = rng.integers(1, t + 1, size=b).astype(np.int32)
-        lens[0], lens[-1] = t, 0
-        lengths = torch.from_numpy(lens).to(dev)
+    lib = _build.load("lstm")
+    active = {rows: lib.abcd_lstm_fwd_cluster_max_active(h, rows)
+              for rows in lk.PROJ_CLUSTER_TILES}
+    checks = {"cluster": {}, "tile": {}, "cluster_vs_tile": {}, "bwd": {}}
+    picked_rows = {}
+    inputs = {}
+    bwd_abs = 0.0
+    for b, t in ((TRAIN_BATCH, 125), (BATCH, 512), (13, 37)):
+        lens, lengths = _ragged(rng, dev, b, t)
         xp = torch.from_numpy(rng.normal(size=(t, b, 4 * h)).astype(
             np.float32)).to(dev)
         w_hh, b_hh = _lstm_weights(rng, dev, h, (h, 4 * h), (4 * h,))
+        design, rows = lk.layer_design(active, b)
+        picked_rows[f"B{b}"] = (design, rows)
         for reverse in (False, True):
-            fwd = lk.lstm_layer(xp, lengths, w_hh, b_hh, reverse, True)
+            route = getattr(lk.lstm_layer, design)
+            before = route.launches
+            lk.lstm_layer(xp, lengths, w_hh, b_hh, reverse, True)
+            if route.launches != before + 1:
+                raise AssertionError(f"row 3 at B={b} did not take the "
+                                     f"{design} route")
             ref = lk.lstm_layer_plain(xp, lengths, w_hh, b_hh, reverse, True)
+            got = {d: lk.lstm_layer_on(d, xp, lengths, w_hh, b_hh, reverse,
+                                       True) for d in ("cluster", "tile")}
             torch.cuda.synchronize()
-            err = max_err(fwd, ref)
-            checks[f"fwd_B{b}_T{t}_rev{int(reverse)}"] = err
-            if not err <= LSTM_ATOL:
-                raise AssertionError(f"lstm_layer vs twin B={b} T={t} "
-                                     f"reverse={reverse}: {err}")
+            shape = f"B{b}_T{t}_rev{int(reverse)}"
+            for d, out in got.items():
+                err = max_err(out, ref)
+                checks[d][shape] = err
+                if not err <= LSTM_ATOL:
+                    raise AssertionError(f"row 3 {d} route vs twin at "
+                                         f"{shape}: {err}")
+            checks["cluster_vs_tile"][shape] = max_err(got["cluster"],
+                                                       got["tile"])
             outs, h_n, c_n, cs = ref
-            dh_n = torch.from_numpy(rng.normal(size=(b, h)).astype(
+            normal = lambda *s: torch.from_numpy(rng.normal(size=s).astype(
                 np.float32)).to(dev)
-            dc_n = torch.from_numpy(rng.normal(size=(b, h)).astype(
-                np.float32)).to(dev)
-            bwd = (xp, lengths, w_hh, b_hh, outs, cs, None, dh_n, dc_n,
-                   reverse)
-            got = lk.lstm_layer_bwd(*bwd)
-            want = lk.lstm_layer_bwd_plain(*bwd)
+            bwd = (xp, lengths, w_hh, b_hh, outs, cs, None, normal(b, h),
+                   normal(b, h), reverse)
+            got_b = lk.lstm_layer_bwd(*bwd)
+            want_b = lk.lstm_layer_bwd_plain(*bwd)
             torch.cuda.synchronize()
-            rel = {n: rel_err(g, r) for n, g, r in zip(
-                ("dxp", "dw_hh", "db_hh"), got, want)}
-            checks[f"bwd_B{b}_T{t}_rev{int(reverse)}"] = max(rel.values())
-            if max(rel.values()) > GRAD_FRACTION:
-                raise AssertionError(f"lstm_layer backward vs twin B={b} "
-                                     f"T={t} reverse={reverse}: {rel}")
-            if (b, reverse) == (TRAIN_BATCH, False):
-                timed = (b, t, lens, xp, lengths, w_hh, b_hh, bwd,
-                         max_err(got, want))
-    b, t, lens, xp, lengths, w_hh, b_hh, bwd, bwd_abs = timed
-    x = torch.from_numpy(rng.normal(size=(t, b, f)).astype(np.float32)
-                         ).to(dev)
-    fwd_ms = cuda_ms(lambda: lk.lstm_layer(xp, lengths, w_hh, b_hh), 5)
-    fwd_plain_ms = cuda_ms(
-        lambda: lk.lstm_layer_plain(xp, lengths, w_hh, b_hh), 2, 1)
-    bwd_ms = cuda_ms(lambda: lk.lstm_layer_bwd(*bwd), 5)
-    bwd_plain_ms = cuda_ms(lambda: lk.lstm_layer_bwd_plain(*bwd), 2, 1)
-    # the yardstick: cuDNN's unidirectional LSTM on the same recurrent
-    # weights over packed sequences (the zero-length row dropped); it also
-    # computes the input projection, which the kernel is handed
-    lstm = torch.nn.LSTM(f, h).to(dev)
-    with torch.no_grad():
-        lstm.weight_hh_l0.copy_(w_hh.T)
-        lstm.bias_hh_l0.copy_(b_hh)
-    keep = torch.from_numpy(lens > 0).to(dev)
-    x_lib = x[:, keep].clone().requires_grad_(True)
-    lens_lib = torch.from_numpy(lens[lens > 0].astype(np.int64))
-    dh_lib = bwd[7][keep][None]
+            relb = {n: rel_err(g, r) for n, g, r in zip(
+                ("dxp", "dw_hh", "db_hh"), got_b, want_b)}
+            checks["bwd"][shape] = max(relb.values())
+            bwd_abs = max(bwd_abs, max_err(got_b, want_b))
+            if max(relb.values()) > GRAD_FRACTION:
+                raise AssertionError(f"lstm_layer backward vs twin at "
+                                     f"{shape}: {relb}")
+            if not reverse:
+                inputs[(b, t)] = (lens, xp, lengths, w_hh, b_hh, bwd)
+    refused = {}
+    for hh in (WIDE_HIDDEN, 36):
+        lens_r, lengths_r = _ragged(rng, dev, 6, 5)
+        w_hh, b_hh = _lstm_weights(rng, dev, hh, (hh, 4 * hh), (4 * hh,))
+        xp = torch.from_numpy(rng.normal(size=(5, 6, 4 * hh)).astype(
+            np.float32)).to(dev)
+        try:
+            lk.lstm_layer_on("cluster", xp, lengths_r, w_hh, b_hh)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            refused[f"H{hh}"] = str(e)[:100]
+        else:
+            raise AssertionError(f"row 3's cluster route took H={hh}")
 
-    def library_fwd():
+    def library_for(lens, w_hh, b_hh, t, b):
+        # cuDNN's unidirectional LSTM on the same recurrent weights over
+        # packed sequences (the zero-length row dropped); it also computes
+        # the input projection, which the kernel is handed
+        lstm = torch.nn.LSTM(f, h).to(dev)
         with torch.no_grad():
+            lstm.weight_hh_l0.copy_(w_hh.T)
+            lstm.bias_hh_l0.copy_(b_hh)
+        keep = torch.from_numpy(lens > 0).to(dev)
+        x = torch.from_numpy(rng.normal(size=(t, b, f)).astype(np.float32)
+                             ).to(dev)
+        x_lib = x[:, keep].clone().requires_grad_(True)
+        lens_lib = torch.from_numpy(lens[lens > 0].astype(np.int64))
+        dh_lib = torch.from_numpy(rng.normal(size=(1, len(lens_lib), h))
+                                  .astype(np.float32)).to(dev)
+
+        def fwd():
+            with torch.no_grad():
+                packed = torch.nn.utils.rnn.pack_padded_sequence(
+                    x_lib, lens_lib, enforce_sorted=False)
+                return lstm(packed)[1]
+
+        def fwd_bwd():
             packed = torch.nn.utils.rnn.pack_padded_sequence(
                 x_lib, lens_lib, enforce_sorted=False)
-            return lstm(packed)[1]
+            _, (hh, cc) = lstm(packed)
+            torch.autograd.backward((hh, cc), (dh_lib, dh_lib))
 
-    def library_fwd_bwd():
-        packed = torch.nn.utils.rnn.pack_padded_sequence(
-            x_lib, lens_lib, enforce_sorted=False)
-        _, (hh, cc) = lstm(packed)
-        torch.autograd.backward((hh, cc), (dh_lib, dh_lib))
+        return fwd, fwd_bwd
 
-    lib_fwd_ms = cuda_ms(library_fwd, 5)
-    lib_bwd_ms = cuda_ms(library_fwd_bwd, 5)
-    steps = int(lens.sum())  # active row-steps
-    per = 2.0 * h * 4 * h    # h @ W_hh per row-step
-    fwd_bytes = 4.0 * (t * b * 4 * h + h * 4 * h + 4 * h      # xp, W, b
-                       + t * b * h + 2 * b * h) + 4 * b       # outs, h_n, c_n
-    bwd_bytes = 4.0 * (t * b * 4 * h + h * 4 * h + 4 * h      # xp, W, b
-                       + 2 * t * b * h + 2 * b * h            # outs, cs, dh, dc
-                       + t * b * 4 * h + h * 4 * h + 4 * h) + 4 * b
-    f_bms, f_by = bound_ms(steps * per, fwd_bytes)
-    # gates recomputed, dz @ W_hh^T and h_prev^T dz: three times the
-    # forward's products
-    b_bms, b_by = bound_ms(3 * steps * per, bwd_bytes)
+    def fwd_bytes(t, b, hh):
+        return 4.0 * (t * b * 4 * hh + hh * 4 * hh + 4 * hh       # xp, W, b
+                      + t * b * hh + 2 * b * hh) + 4 * b       # outs, h_n, c_n
+
+    def bwd_bytes(t, b, hh):
+        return 4.0 * (t * b * 4 * hh + hh * 4 * hh + 4 * hh      # xp, W, b
+                      + 2 * t * b * hh + 2 * b * hh        # outs, cs, dh, dc
+                      + t * b * 4 * hh + hh * 4 * hh + 4 * hh) + 4 * b
+
+    times = {}
+    for (b, t), (lens, xp, lengths, w_hh, b_hh, bwd) in inputs.items():
+        if b == 13:
+            continue
+        at = {d: cuda_ms(lambda: lk.lstm_layer_on(d, xp, lengths, w_hh,
+                                                  b_hh), 5)
+              for d in ("cluster", "tile")}
+        at["plain"] = cuda_ms(lambda: lk.lstm_layer_plain(xp, lengths, w_hh,
+                                                          b_hh), 2, 1)
+        lib_fwd, lib_fwd_bwd = library_for(lens, w_hh, b_hh, t, b)
+        at["library"] = cuda_ms(lib_fwd, 5)
+        at["bound"] = bound_ms(int(lens.sum()) * 2.0 * h * 4 * h,
+                               fwd_bytes(t, b, h))
+        if b == TRAIN_BATCH:
+            at["bwd"] = cuda_ms(lambda: lk.lstm_layer_bwd(*bwd), 5)
+            at["bwd_plain"] = cuda_ms(lambda: lk.lstm_layer_bwd_plain(*bwd),
+                                      2, 1)
+            at["bwd_library"] = cuda_ms(lib_fwd_bwd, 5)
+            # gates recomputed, dz @ W_hh^T and h_prev^T dz: three times the
+            # forward's products
+            at["bwd_bound"] = bound_ms(3 * int(lens.sum()) * 2.0 * h * 4 * h,
+                                       bwd_bytes(t, b, h))
+        times[f"B{b}_T{t}"] = at
+    # the per-tile routes at their main path's width (the wide
+    # unidirectional training path): the forward, saving cs, and row 3b
+    t, b, hh = 125, TRAIN_BATCH, WIDE_HIDDEN
+    wlens, wlengths = _ragged(rng, dev, b, t)
+    w_hh, b_hh = _lstm_weights(rng, dev, hh, (hh, 4 * hh), (4 * hh,))
+    xp = torch.from_numpy(rng.normal(size=(t, b, 4 * hh)).astype(
+        np.float32)).to(dev)
+    ref = lk.lstm_layer_plain(xp, wlengths, w_hh, b_hh, False, True)
+    wide_err = max_err(lk.lstm_layer(xp, wlengths, w_hh, b_hh, False, True),
+                       ref)
+    checks["tile"][f"B{b}_T{t}_H{hh}"] = wide_err
+    if not wide_err <= LSTM_ATOL:
+        raise AssertionError(f"row 3 per-tile route at H={hh}: {wide_err}")
+    wide_ms = cuda_ms(lambda: lk.lstm_layer(xp, wlengths, w_hh, b_hh, False,
+                                            True), 2, 1)
+    wide_bound = bound_ms(int(wlens.sum()) * 2.0 * hh * 4 * hh,
+                          fwd_bytes(t, b, hh))[0]
+    outs, _, _, cs = ref
+    normal = lambda *s: torch.from_numpy(rng.normal(size=s).astype(
+        np.float32)).to(dev)
+    for douts in (None, normal(t, b, hh)):
+        wide_bwd = (xp, wlengths, w_hh, b_hh, outs, cs, douts,
+                    normal(b, hh), normal(b, hh), False)
+        got_b = lk.lstm_layer_bwd(*wide_bwd)
+        want_b = lk.lstm_layer_bwd_plain(*wide_bwd)
+        torch.cuda.synchronize()
+        relb = {n: rel_err(g, r) for n, g, r in zip(
+            ("dxp", "dw_hh", "db_hh"), got_b, want_b)}
+        shape = f"B{b}_T{t}_H{hh}_douts{int(douts is not None)}"
+        checks["bwd"][shape] = max(relb.values())
+        bwd_abs = max(bwd_abs, max_err(got_b, want_b))
+        if max(relb.values()) > GRAD_FRACTION:
+            raise AssertionError(f"lstm_layer backward vs twin at {shape}: "
+                                 f"{relb}")
+    wide_bwd_ms = cuda_ms(lambda: lk.lstm_layer_bwd(*wide_bwd), 1, 1)
+    wide_bwd_bound = bound_ms(3 * int(wlens.sum()) * 2.0 * hh * 4 * hh,
+                              bwd_bytes(t, b, hh))[0]
+    train = times[f"B{TRAIN_BATCH}_T125"]
+    served = times[f"B{BATCH}_T512"]
     common = {"route": "cuda",
               "source": "seq2seq_abcd_vae_tpu_torch/csrc/lstm.cu",
-              "shape": f"T={t} B={b} H={h} (xp given; ragged, one empty "
-                       "row)"}
-    fwd_entry = dict(common, **{
-        "name": "lstm_layer",
-        "replaces": "seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:149",
-        "launches": launches_fwd,
-        "max_abs_err": max(v for k, v in checks.items()
-                           if k.startswith("fwd")),
-        "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": f_bms,
-        "bound_by": f_by, "library_ms": lib_fwd_ms,
-        "library_call": "nn.LSTM (unidirectional) forward, packed",
-        "tolerance": LSTM_ATOL, "checks": checks})
-    bwd_entry = dict(common, **{
-        "name": "lstm_layer_bwd",
+              "replaces": "seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:149",
+              "plain_ms": train["plain"], "bound_ms": train["bound"][0],
+              "bound_by": train["bound"][1], "library_ms": train["library"],
+              "library_call": "nn.LSTM (unidirectional) forward, packed",
+              "shape": f"T=125 B={TRAIN_BATCH} H={h} (xp given; ragged, "
+                       "one empty row)",
+              "ms_by_shape": times, "tolerance": LSTM_ATOL,
+              "checks": checks, "refused_by_the_cluster_route": refused,
+              "max_active_clusters": active, "rule": picked_rows}
+    fwd_entries = [
+        dict(common, name="lstm_layer_cluster", launches=launches_cluster,
+             max_abs_err=max(checks["cluster"].values()),
+             ms=train["cluster"], served_shape_ms=served["cluster"]),
+        dict(common, name="lstm_layer_tile", launches=launches_tile,
+             max_abs_err=max(checks["tile"].values()), ms=train["tile"],
+             served_shape_ms=served["tile"],
+             main_path_shape=f"T=125 B={TRAIN_BATCH} H={WIDE_HIDDEN}",
+             main_path_shape_ms=wide_ms,
+             main_path_shape_bound_ms=wide_bound)]
+    bwd_entry = {
+        "name": "lstm_layer_bwd", "route": "cuda",
+        "source": "seq2seq_abcd_vae_tpu_torch/csrc/lstm.cu",
         "helper_source": "seq2seq_abcd_vae_tpu_torch/csrc/wgrad.cu",
         "replaces": "seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:192",
         "launches": launches_bwd, "max_abs_err": bwd_abs,
-        "max_rel_err": max(v for k, v in checks.items()
-                           if k.startswith("bwd")),
-        "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": b_bms,
-        "bound_by": b_by, "library_ms": lib_bwd_ms,
+        "max_rel_err": max(checks["bwd"].values()),
+        "ms": train["bwd"], "plain_ms": train["bwd_plain"],
+        "bound_ms": train["bwd_bound"][0], "bound_by": train["bwd_bound"][1],
+        "library_ms": train["bwd_library"],
         "library_call": "nn.LSTM (unidirectional) forward + backward, "
                         "packed",
-        "tolerance": f"{GRAD_FRACTION} of each leaf's max |value|"})
-    return fwd_entry, bwd_entry
+        "shape": common["shape"],
+        "main_path_shape": f"T=125 B={TRAIN_BATCH} H={WIDE_HIDDEN}",
+        "main_path_shape_ms": wide_bwd_ms,
+        "main_path_shape_bound_ms": wide_bwd_bound,
+        "tolerance": f"{GRAD_FRACTION} of each leaf's max |value|"}
+    return fwd_entries, bwd_entry
 
 
 def decoder_loop_phase(dev, rng, launches):
@@ -3814,7 +4138,7 @@ def run(args, root, dev, rng, work) -> int:
     launches = {name: fn.launches for name, fn in training_counters().items()
                 if name.startswith(("log_spectrogram",
                                     "lstm_layer_bidir_fused"))
-                and not name.endswith("_bwd")}
+                and "_bwd" not in name}
     expected(training_counters())  # each wrapper's routes sum to its count
     batches = sum(p["stats"]["batches"]
                   for p in (ping_probs, ping_logits, ping_feat, ping44))
@@ -3855,6 +4179,17 @@ def run(args, root, dev, rng, work) -> int:
     decode = decode_phase(dev, uni["checkpoint"], corpus_dir, csv_path,
                           args.seed)
     print("decode_features " + json.dumps(decode), flush=True)
+    uni_lstm_serve = cell_serve_phase(work, uni["checkpoint"], rng,
+                                      "uni-LSTM", "lstm_layer")
+    if uni_lstm_serve["launches"]["lstm_layer_cluster"] <= 0:
+        raise AssertionError("serving the unidirectional LSTM did not take "
+                             "row 3's cluster route")
+    print("unidirectional LSTM serve " + json.dumps(uni_lstm_serve),
+          flush=True)
+    # the per-tile routes of the LSTM encoder's kernels, on their main
+    # paths: the widest encoder, which the cluster designs do not take
+    wide = {u: wide_train_phase(dev, work, corpus_dir, csv_path, args.seed,
+                                u) for u in (False, True)}
 
     # ---- the GRU slice's main paths, each counted ---------------------
     gru = cell_train_phase(dev, work, corpus_dir, csv_path, args.seed, "GRU",
@@ -3996,7 +4331,11 @@ def run(args, root, dev, rng, work) -> int:
 
     paths = {"serve": launches, "train": train["launches"],
              "uni_train": uni["launches"], "encode_cli": enc_cli["launches"],
-             "decode": decode["launches"], "gru_train": gru["launches"],
+             "decode": decode["launches"],
+             "uni_lstm_serve": uni_lstm_serve["launches"],
+             "wide_lstm_train": wide[False]["launches"],
+             "wide_uni_lstm_train": wide[True]["launches"],
+             "gru_train": gru["launches"],
              "gru_encode_cli": gru_enc["launches"],
              "gru_serve": gru_serve["launches"],
              "rnn_train": rnn["launches"], "esn_train": esn["launches"],
@@ -4045,13 +4384,23 @@ def run(args, root, dev, rng, work) -> int:
                                               args.seed, bidirectional=False)
     uni_stages, uni_shape = train_step_breakdown(dev, *uni_inputs)
     t_train = shape["T"]
-    lstm_bwd, lstm_fwd_cs = lstm_train_phase(
-        dev, rng, t_train, total("lstm_layer_bidir_fused_bwd"))
+    lstm_bwds, lstm_fwd_cs = lstm_train_phase(
+        dev, rng, t_train, total("lstm_layer_bidir_fused_bwd_cluster"),
+        total("lstm_layer_bidir_fused_bwd_tile"))
+    # row 2's per-tile route at its training path's width, beside its
+    # served shape
+    row2_tile = next(e for e in kernels
+                     if e["name"] == "lstm_layer_bidir_fused_tile")
+    wide_fwd = lstm_fwd_cs.pop("per_tile_forward_at_h1024")
+    row2_tile.update(wide_fwd, max_abs_err=max(
+        row2_tile["max_abs_err"], wide_fwd["main_path_shape_max_abs_err"]))
     dec_fwd, dec_bwd = decoder_train_phase(
         dev, rng, t_train, total("decoder_loop_fused_losses_fwd"),
         total("decoder_loop_fused_losses_bwd"))
-    uni_fwd, uni_bwd = lstm_layer_phase(dev, rng, total("lstm_layer"),
-                                        total("lstm_layer_bwd"))
+    uni_fwds, uni_bwd = lstm_layer_phase(dev, rng,
+                                         total("lstm_layer_cluster"),
+                                         total("lstm_layer_tile"),
+                                         total("lstm_layer_bwd"))
     loop = decoder_loop_phase(dev, rng, total("decoder_loop"))
     gru_checks, gru_inputs = whole_step_phase(dev, corpus_dir, csv_path,
                                               args.seed, rnn_type="GRU")
@@ -4112,7 +4461,8 @@ def run(args, root, dev, rng, work) -> int:
         seed_entries += seed_kernel_phase(dev, rng, t_train, cell,
                                           total(name + "_fwd"),
                                           total(name + "_bwd"))
-    kernels += [lstm_bwd, dec_fwd, dec_bwd, uni_fwd, uni_bwd, loop, gru_fwd,
+    kernels += [*lstm_bwds, dec_fwd, dec_bwd, *uni_fwds, uni_bwd, loop,
+                gru_fwd,
                 gru_bwd, gru_dec_fwd, gru_dec_bwd, elman_fwd, elman_bwd,
                 rnn_dec_fwd, rnn_dec_bwd, gru_uni_fwd, gru_uni_bwd,
                 rnn_uni_fwd, rnn_uni_bwd, gru_loop, rnn_loop, *loop_bwds,
@@ -4132,8 +4482,8 @@ def run(args, root, dev, rng, work) -> int:
         lacking = KERNEL_KEYS - set(entry)
         if lacking:
             raise AssertionError(f"kernel {entry['name']} lacks {lacking}")
-    if len(kernels) != 39:
-        raise AssertionError(f"{len(kernels)} kernel entries, expected 39")
+    if len(kernels) != 41:
+        raise AssertionError(f"{len(kernels)} kernel entries, expected 41")
     print("training step, kernels (card) vs twins (CPU) "
           + json.dumps(checks), flush=True)
     print("unidirectional training step, kernels (card) vs twins (CPU) "

@@ -48,44 +48,89 @@
 // a step costs ~47 us at any grid size: at the serve shape (B=64: 16
 // blocks) 12% of the SMs do all the work.
 //
-// Cluster design (lstm_fwd_cluster_kernel; the raw forward, kind 0): the
-// weights live in shared memory for the whole sequence, split across a
-// thread-block cluster of C = 8 CTAs (the portable maximum) per (direction,
-// tile of R = 10 rows).  CTA c owns hidden units [c H / C, (c + 1) H / C):
-// all four gates of them, as W_ih and W_hh column slices loaded once with
-// cp.async ((F + H) * 4H / C floats: 197,120 bytes at F=129, H=256; with h
-// double-buffered and one step's x rows and x-half sums, 232,000 of the
-// 232,448 a block may have).  A thread owns one unit's four gate columns
-// for four of the tile's rows (h kept 12 rows a k), so a warp reads a
-// weight row as one conflict-free LDS.128 and h of its four rows as one
-// broadcast LDS.128, and keeps the unit's c and h in registers; the loads
-// run one group of four rows ahead of the FMAs.  Two roles of 3 x 32
-// threads at H=256: the h warps run step t (ax(t) into registers, a wait
-// on an mbarrier for the peers' slices of h_t, the h half of the gate
-// sums, the gates, c and h, which each thread writes into the next-h
-// buffer of its own CTA and, with st.async counted on the peer's mbarrier,
-// of every peer); the x warps meanwhile compute the x half of step t + 1,
-// which needs no h, stage x_{t+2} with cp.async, and write ax(t+1) once
-// the h warps have taken ax(t).  A CTA barrier ends a step; no cluster-wide
-// barrier runs between the first step and the last.  Each dot product
-// stays in one thread in the per-tile kernel's order (x over F, then h
-// over H, then ((ax + bx) + ah) + bh), so the sums stay at the per-tile
-// kernel's; the gates use the hardware reciprocal with one Newton step and
-// tanh x = 2 sigmoid(2x) - 1 (within 1e-7 of expf / tanhf), without the
-// branches that made them a fifth of a step.  Every CTA runs every step,
-// also when its rows are past the batch.  What bounds it: a step's h half
-// (256 weight rows of two LDS.128 and 16 FMAs for each h warp, one warp a
-// scheduler, sharing shared-memory bandwidth with the x warps), then the
-// gates and the exchange.  The card holds 15 such clusters at once
-// (cudaOccupancyMaxActiveClusters on the H100): R = 10 puts B=64 in 14,
-// one wave.
+// Cluster design of the forward (lstm_fwd_cluster_kernel; the raw forward,
+// kind 0, replacing lstm_pallas.py:646 `_fwdf_call`; and, as its projected
+// mode, the one-direction forward of kind 2, replacing lstm_pallas.py:149
+// `_fwd_call`): the weights live in shared memory for the whole sequence,
+// split across a thread-block cluster of C = 8 CTAs (the portable maximum)
+// per (direction, tile of R rows).  CTA c owns hidden units
+// [c H / C, (c + 1) H / C): all four gates of them, as W_ih and W_hh column
+// slices loaded once with cp.async ((F + H) * 4H / C floats: 197,120 bytes
+// at F=129, H=256; with h double-buffered and one step's x rows and x-half
+// sums, 232,000 of the 232,448 a block may have, at R = 10).  A thread owns
+// one unit's four gate columns for four of the tile's rows (h kept R
+// rounded to 4 rows a k), so a warp reads a weight row as one
+// conflict-free LDS.128 and h of its four rows as one broadcast LDS.128, and
+// keeps the unit's c and h in registers; the loads run one group of four
+// rows ahead of the FMAs.  Raw mode: two roles of 3 x 32 threads at H=256:
+// the h warps run step t (ax(t) into registers, a wait on an mbarrier for
+// the peers' slices of h_t, the h half of the gate sums, the gates, c and
+// h, which each thread writes into the next-h buffer of its own CTA and,
+// with st.async counted on the peer's mbarrier, of every peer); the x warps
+// meanwhile compute the x half of step t + 1, which needs no h, stage
+// x_{t+2} with cp.async, and write ax(t+1) once the h warps have taken
+// ax(t).  Projected mode: no W_ih slice and no x warps (the slice is W_hh
+// alone, 131,072 bytes, which leaves room for R = 36 rows); each h thread
+// loads its unit's four xp values for the next step into registers while
+// the step runs.  A CTA barrier ends a step; no cluster-wide barrier runs
+// between the first step and the last.  Each dot product stays in one
+// thread in the per-tile kernel's order (x over F, then h over H, then
+// ((ax + bx) + ah) + bh, or (xp + ah) + bh), so the sums stay at the
+// per-tile kernel's; the gates use the hardware reciprocal with one Newton
+// step and tanh x = 2 sigmoid(2x) - 1 (within 1e-7 of expf / tanhf),
+// without the branches that made them a fifth of a step.  Every CTA runs
+// every step, also when its rows are past the batch.  What bounds it: a
+// step's h half (256 weight rows of two LDS.128 and 16 FMAs for each h
+// warp, a broadcast LDS.128 costing four shared-memory wavefronts), then
+// the gates and the exchange: ~6.2 us a step at R = 10 (raw), ~5.1 us at
+// R = 12 and ~11.6 us at R = 36 (projected).  The card holds 15 such
+// clusters at once (cudaOccupancyMaxActiveClusters on the H100): R = 10
+// puts B=64 in 14 (raw, one wave), and the projected mode's R = 36 puts
+// B=512 in 15, R = 12 B=64 in 6.
 //
-// Shape rule (ops/lstm_kernel.py:forward_design, decided before the launch
-// from abcd_lstm_cluster_max_active): the cluster kernel when H is a
-// multiple of C, its shared memory fits the card (F <= 129 at H=256: not
-// H=1024, not a second layer's F = 2H) and its grid of 2 * ceil(B / R)
-// clusters runs in few enough waves of the resident clusters; the per-tile
-// kernel otherwise.
+// Shape rules (ops/lstm_kernel.py, decided before the launch from the
+// cudaOccupancyMaxActiveClusters queries abcd_lstm_cluster_max_active and
+// abcd_lstm_fwd_cluster_max_active): forward_design takes the raw cluster
+// kernel when H is a multiple of C, its shared memory fits the card (F <=
+// 129 at H=256: not H=1024, not a second layer's F = 2H) and its grid of
+// 2 * ceil(B / R) clusters runs in few enough waves of the resident
+// clusters; layer_design takes the projected mode (H a multiple of C up
+// to 256) with the smallest row tile whose ceil(B / R) clusters fit one
+// wave, else the widest; the per-tile kernels otherwise.
+//
+// Cluster design of the raw backward (kind 1's; replacing lstm_pallas.py:682
+// `_bwdf_call`; lstm_gates_kernel, lstm_bwd_cluster_kernel,
+// lstm_dx_kernel).  The per-tile backward carries three products through
+// its time loop (the gates recomputed from x and h_{t-1}, and dz @ [W_hh |
+// W_ih]^T), each pulling the weights and their transposes from L2 into one
+// SM, 3.1 MB a step a direction: ~259 us a step.  Only dh_{t-1} = dz_t
+// W_hh^T depends on the previous step.  So: (a) the gates of every active
+// row-step of both directions at once, from x and the saved outs (h_{t-1}),
+// as a tiled product with its epilogue applying the gate functions (rows
+// in a span prefix's order, so no row outside its span costs a product);
+// (b) the recurrence in a cluster of C = 8 CTAs per (direction, tile of R
+// rows), CTA c holding the W_hh columns of its units (131,072 bytes at
+// H=256) for the whole sequence: per step it forms its units' dz, then the
+// partial dh_{t-1} over its own gate columns for all H units, and a
+// reduce-scatter over DSMEM (st.async on the owner's mbarrier; H R floats
+// out of each CTA a step, the forward's exchange volume) hands each CTA the
+// C partials of its units, added in rank order so a run repeats exactly;
+// (c) dx after the loop from both directions' dz as one tiled product; (d)
+// the weight gradients by csrc/wgrad.cu as before.  Without W_ih in the
+// loop F does not bound the design: a second layer's F = 2H is taken.  The
+// products (a) and (c) run FP32 FMAs (no TF32: the port runs at the
+// `highest` precision) on 8 x 8 thread tiles, since a warp's LDS.128 costs
+// four wavefronts even as a broadcast.  What bounds it on the H100 (700 W)
+// at B=512, T=125: (a) ~2.0 ms, (b) ~2.7 ms (R = 36, two waves of 15
+// clusters, ~10.9 us a step: the product's shared-memory wavefronts, then
+// the exchange), (c) ~1.0 ms, (d) ~7.5 ms.  Shape rule
+// (ops/lstm_kernel.py:backward_design, from
+// abcd_lstm_bwd_cluster_max_active): H a multiple of 4 C up to 256 and
+// the slice fitting the card, at any batch (its 2 * ceil(B / 36) clusters
+// run in waves, as the per-tile kernel's blocks do); the per-tile kernel
+// otherwise.  (R = 16 takes ~5.5 us a step
+// against R = 36's ~10.9: it would win only at B <= 112, which no path
+// trains at.)
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -274,23 +319,66 @@ __global__ void __launch_bounds__(kMaxThreads) lstm_fwd_kernel(
 
 
 // ---------------------------------------------------------------------------
-// Cluster design of the raw-input forward (see the header)
+// Cluster design of the forward, raw input (row 2) or projected (row 3); see
+// the header
 // ---------------------------------------------------------------------------
 
 namespace cg = cooperative_groups;
 
 constexpr int kClusterCtas = 8;       // C: CTAs a cluster (the portable most)
-constexpr int kClusterRows = 10;      // R: batch rows a cluster's tile
+constexpr int kClusterRows = 10;      // R of the raw forward's tile
 constexpr int kGroupRows = 4;         // rows a thread owns
-constexpr int kRowStride = 12;        // h rows kept per k: R rounded to 4
-constexpr int kRowGroups = kRowStride / kGroupRows;
 constexpr int kClusterMaxThreads = 256;
 
+// Rows a tile (R), rows of h kept per k (R rounded to 4), row groups of four,
+// and the most threads a CTA has (the raw mode: two roles at R = 10; the
+// projected mode: one role of RS / 4 row groups, one warp each at H <= 256).
+template <bool kProj, int R>
+struct ClusterShape {
+  static_assert(kProj || R == kClusterRows, "the raw mode's x staging is "
+                "laid out for 10 rows");
+  static constexpr int RS = (R + 3) / 4 * 4;
+  static constexpr int RG = RS / kGroupRows;
+  static constexpr int kRoles = kProj ? 1 : 2;
+  static constexpr int kMaxThreads = kProj ? RG * 32 : kClusterMaxThreads;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
                "l"(src)
                : "memory");
+}
+
+// 4 bytes from src, or zeros (src unread) when !ok.
+__device__ __forceinline__ void cp_async4_zfill(float* dst, const float* src,
+                                                bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// 16 bytes from src (16-byte aligned), or zeros (src unread) when !ok.
+__device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src,
+                                                 bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -313,10 +401,6 @@ __device__ __forceinline__ void named_sync(int id, int n) {
 
 __device__ __forceinline__ void named_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -439,58 +523,67 @@ __device__ __forceinline__ void unit_dot(const float* __restrict__ w,
 }
 
 // Threads of one row group of one role: the CTA's H / C units, rounded up
-// to whole warps.  A CTA has two roles of kRowGroups row groups.
+// to whole warps.
 __host__ __device__ inline int cluster_group_threads(int H) {
   return (H / kClusterCtas + 31) / 32 * 32;
 }
 
+template <bool kProj, int R>
 __host__ __device__ inline int cluster_threads(int H) {
-  return 2 * kRowGroups * cluster_group_threads(H);
+  using S = ClusterShape<kProj, R>;
+  return S::kRoles * S::RG * cluster_group_threads(H);
 }
 
 // Floats of one step's x rows in shared memory, rounded up to whole
-// float4s.
+// float4s (the raw mode).
 __host__ __device__ inline int cluster_x_floats(int F) {
   return (kClusterRows * F + 3) & ~3;
 }
 
-// Shared memory of one CTA: the W_ih and W_hh slices, h double-buffered
-// (kRowStride rows a k), the x rows of one step and the x half's sums, and
-// the two h buffers' mbarriers: 232,000 bytes at F=129, H=256.
+// Shared memory of one CTA.  Raw mode: the W_ih and W_hh slices, h
+// double-buffered (RS rows a k), the x rows of one step and the x half's
+// sums, and the two h buffers' mbarriers: 232,000 bytes at F=129, H=256.
+// Projected mode: the W_hh slice, h double-buffered and the mbarriers.
+template <bool kProj, int R>
 long long cluster_smem_bytes(int F, int H) {
+  using S = ClusterShape<kProj, R>;
   const long long g4 = 4LL * (H / kClusterCtas);
-  return ((long long)(F + H) * g4 + 2LL * H * kRowStride +
-          cluster_x_floats(F) + (long long)kClusterRows * g4) *
-             (long long)sizeof(float) +
-         2LL * (long long)sizeof(uint64_t);
+  long long floats = (long long)H * g4 + 2LL * H * S::RS;
+  if (!kProj) floats += (long long)F * g4 + cluster_x_floats(F) + R * g4;
+  return floats * (long long)sizeof(float) + 2LL * (long long)sizeof(uint64_t);
 }
 
-// Grid (C, ceil(B / R), 2), cluster (C, 1, 1), cluster_threads(H) threads:
-// per role, per row group of four rows (the third holds rows 8, 9 and two
-// rows that are never active), one thread per unit of the CTA's slice (the
-// slice's columns 4 u .. 4 u + 3 are the unit's gates i, f, g, o).  Role 0
-// (the h warps) runs step t: it takes ax(t) into registers, waits on its
-// mbarrier for the peers' slices of h_t, computes the h half of the sums,
-// the gates, c and h of its unit and rows, and writes its h into the
-// next-h buffer here and, with st.async, in every peer.  Role 1 (the x
-// warps) meanwhile computes the x half of step t + 1 from x_{t+1} in
-// shared memory, stages x_{t+2} there, and writes ax(t+1) once the h warps
-// have taken ax(t).  One CTA barrier ends a step; outs and cs of step t
-// are stored after it.
-__global__ void __launch_bounds__(kClusterMaxThreads) lstm_fwd_cluster_kernel(
-    const float* __restrict__ x,        // (T, B, F)
-    const int* __restrict__ lengths,    // (B,)
-    const float* __restrict__ w_ih,     // (2, F, 4H)
-    const float* __restrict__ b_ih,     // (2, 4H)
-    const float* __restrict__ w_hh,     // (2, H, 4H)
-    const float* __restrict__ b_hh,     // (2, 4H)
-    float* __restrict__ outs,           // (T, 2, B, H)
-    float* __restrict__ cs,             // (T, 2, B, H) or nullptr
-    float* __restrict__ h_n,            // (2, B, H)
-    float* __restrict__ c_n,            // (2, B, H)
-    int T, int B, int F, int H) {
-  constexpr int R = kClusterRows;
-  constexpr int RS = kRowStride;
+// Grid (C, ceil(B / R), D), cluster (C, 1, 1), cluster_threads(H) threads:
+// per role, per row group of four rows, one thread per unit of the CTA's
+// slice (the slice's columns 4 u .. 4 u + 3 are the unit's gates i, f, g,
+// o).  Role 0 (the h warps) runs step t: it takes ax(t) into registers,
+// waits on its mbarrier for the peers' slices of h_t, computes the h half
+// of the sums, the gates, c and h of its unit and rows, and writes its h
+// into the next-h buffer here and, with st.async, in every peer.  In the
+// raw mode (D = 2, direction 1 reading x in flipped time) role 1 (the x
+// warps) meanwhile computes the x half of step t + 1 from x_{t+1} in shared
+// memory (the third row group holds rows 8, 9 and two rows that are never
+// active), stages x_{t+2} there, and writes ax(t+1) once the h warps have
+// taken ax(t).  In the projected mode (D = 1, `reverse` picking the span)
+// there is no role 1: ax(t) is the unit's four xp values, which each h
+// thread loads into registers one step ahead.  One CTA barrier ends a step;
+// outs and cs of step t are stored after it.
+template <bool kProj, int R>
+__global__ void __launch_bounds__(ClusterShape<kProj, R>::kMaxThreads)
+    lstm_fwd_cluster_kernel(
+        const float* __restrict__ x,       // raw (T, B, F) | xp (T, B, 4H)
+        const int* __restrict__ lengths,   // (B,)
+        const float* __restrict__ w_ih,    // raw (2, F, 4H) | unused
+        const float* __restrict__ b_ih,    // raw (2, 4H) | unused
+        const float* __restrict__ w_hh,    // (D, H, 4H)
+        const float* __restrict__ b_hh,    // (D, 4H)
+        float* __restrict__ outs,          // (T, D, B, H)
+        float* __restrict__ cs,            // (T, D, B, H) or nullptr
+        float* __restrict__ h_n,           // (D, B, H)
+        float* __restrict__ c_n,           // (D, B, H)
+        int T, int B, int F, int H, int reverse) {
+  using S = ClusterShape<kProj, R>;
+  constexpr int RS = S::RS;
   constexpr int C = kClusterCtas;
   constexpr int Q = kGroupRows;
   cg::cluster_group cluster = cg::this_cluster();
@@ -499,32 +592,36 @@ __global__ void __launch_bounds__(kClusterMaxThreads) lstm_fwd_cluster_kernel(
   const int G4 = 4 * U;                 // gate columns of this CTA
   const int G = 4 * H;
   const int GT = cluster_group_threads(H);
-  const int RT = kRowGroups * GT;       // threads of a role
+  const int RT = S::RG * GT;            // threads of a role
+  constexpr int D = kProj ? 1 : 2;      // directions: the grid's z
   const int d = blockIdx.z;
   const int r0 = blockIdx.y * R;
   const int nrows = min(R, B - r0);
   const int tid = threadIdx.x, nth = blockDim.x;
-  const int role = tid / RT;            // 0: h warps, 1: x warps
+  const int role = kProj ? 0 : tid / RT;  // 0: h warps, 1: x warps
   const int ridx = tid - role * RT;     // index within the role
   const int rb = (ridx / GT) * Q;       // first row of this thread
   const int ul = ridx % GT;
   const bool live = ul < U;             // lanes past the slice idle
   const int ucol = 4 * (live ? ul : U - 1);  // the unit's first column
   const int unit = rank * U + ucol / 4;
+  const bool rev = kProj ? reverse != 0 : d == 1;
 
   extern __shared__ float4 smem4[];
-  float* s_wi = reinterpret_cast<float*>(smem4);   // [F][G4]
-  float* s_wh = s_wi + F * G4;                     // [H][G4]
+  float* s_wi = reinterpret_cast<float*>(smem4);   // raw: [F][G4]
+  float* s_wh = s_wi + (kProj ? 0 : F * G4);       // [H][G4]
   float* s_h = s_wh + H * G4;                      // [2][H][RS]
-  // x_t's rows: rows 0-3 and 4-7 as [F][4] each, rows 8-9 as [F][2]
+  // raw: x_t's rows (rows 0-3 and 4-7 as [F][4] each, rows 8-9 as [F][2])
   float* s_x = s_h + 2 * H * RS;
-  float* s_ax = s_x + cluster_x_floats(F);         // [R][G4]
+  float* s_ax = s_x + (kProj ? 0 : cluster_x_floats(F));  // raw: [R][G4]
   // s_full[b]: the peers' slices of the h in buffer b have landed
-  uint64_t* s_full = reinterpret_cast<uint64_t*>(s_ax + R * G4);
+  uint64_t* s_full =
+      reinterpret_cast<uint64_t*>(s_ax + (kProj ? 0 : R * G4));
 
-  const float* wi = w_ih + (int64_t)d * F * G;
+  const float* wi = kProj ? nullptr : w_ih + (int64_t)d * F * G;
   const float* wh = w_hh + (int64_t)d * H * G;
-  for (int i = tid; i < 2 * H * RS + cluster_x_floats(F); i += nth)
+  for (int i = tid; i < 2 * H * RS + (kProj ? 0 : cluster_x_floats(F));
+       i += nth)
     s_h[i] = 0.f;
   if (tid == 0) {
     mbar_init(&s_full[0], 1);
@@ -533,9 +630,12 @@ __global__ void __launch_bounds__(kClusterMaxThreads) lstm_fwd_cluster_kernel(
   }
   // the slices, once: column c of the slice is gate c % 4 of unit
   // rank * U + c / 4
-  for (int i = tid; i < F * G4; i += nth) {
-    const int k = i / G4, c = i - k * G4;
-    cp_async4(s_wi + i, wi + (int64_t)k * G + (c & 3) * H + rank * U + (c >> 2));
+  if (!kProj) {
+    for (int i = tid; i < F * G4; i += nth) {
+      const int k = i / G4, c = i - k * G4;
+      cp_async4(s_wi + i,
+                wi + (int64_t)k * G + (c & 3) * H + rank * U + (c >> 2));
+    }
   }
   for (int i = tid; i < H * G4; i += nth) {
     const int k = i / G4, c = i - k * G4;
@@ -573,10 +673,22 @@ __global__ void __launch_bounds__(kClusterMaxThreads) lstm_fwd_cluster_kernel(
               make_float4(ax[0][q], ax[1][q], ax[2][q], ax[3][q]);
     }
   };
-  if (role == 1) stage_x(0);
+  // projected mode: the unit's four xp values of step t for the thread's
+  // rows (zeros past the batch)
+  auto load_xp = [&](int t, float4 v[Q]) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      v[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (live && rb + q < nrows) {
+        const float* p = x + ((int64_t)t * B + r0 + rb + q) * G + unit;
+        v[q] = make_float4(p[0], p[H], p[2 * H], p[3 * H]);
+      }
+    }
+  };
+  if (!kProj && role == 1) stage_x(0);
   cp_async_wait_all();
   __syncthreads();  // slices and x_0 in place
-  if (role == 1) {
+  if (!kProj && role == 1) {
     float ax[4][Q];
     x_half(ax);
     store_ax(ax);
@@ -587,7 +699,7 @@ __global__ void __launch_bounds__(kClusterMaxThreads) lstm_fwd_cluster_kernel(
   // barriers initialised, its h buffers zeroed) before any writes a peer
   cluster_arrive();
   cluster_wait();
-  const int tx_bytes = (C - 1) * U * kRowGroups * (int)sizeof(float4);
+  const int tx_bytes = (C - 1) * U * S::RG * (int)sizeof(float4);
 
   if (role == 0) {
     int len[Q];
@@ -600,20 +712,27 @@ __global__ void __launch_bounds__(kClusterMaxThreads) lstm_fwd_cluster_kernel(
     }
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
-      bx[g] = b_ih[d * G + g * H + unit];
+      bx[g] = kProj ? 0.f : b_ih[d * G + g * H + unit];
       bh[g] = b_hh[d * G + g * H + unit];
     }
-    const bool rev = d == 1;
+    float4 xn[Q];  // projected mode: xp of the next step, in flight
+    if (kProj) load_xp(0, xn);
     for (int t = 0; t < T; ++t) {
       const int cur = t & 1;
       float* hn = s_h + (cur ^ 1) * H * RS;
       float4 ax[Q];  // ax(t), which the x warps may then overwrite
+      if (kProj) {
 #pragma unroll
-      for (int q = 0; q < Q; ++q)
-        ax[q] = rb + q < R ? *reinterpret_cast<const float4*>(
-                                 s_ax + (rb + q) * G4 + ucol)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-      if (t + 1 < T) named_arrive(3, nth);
+        for (int q = 0; q < Q; ++q) ax[q] = xn[q];
+        if (t + 1 < T) load_xp(t + 1, xn);
+      } else {
+#pragma unroll
+        for (int q = 0; q < Q; ++q)
+          ax[q] = rb + q < R ? *reinterpret_cast<const float4*>(
+                                   s_ax + (rb + q) * G4 + ucol)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+        if (t + 1 < T) named_arrive(3, nth);
+      }
       // the peers' slices of h_t: buffer cur's ((t - 1) / 2)-th phase
       if (t > 0) mbar_wait(&s_full[cur], ((t - 1) >> 1) & 1);
       float ah[4][Q];
@@ -628,8 +747,10 @@ __global__ void __launch_bounds__(kClusterMaxThreads) lstm_fwd_cluster_kernel(
         float z[4];
 #pragma unroll
         for (int g = 0; g < 4; ++g)
-          // the reference's association: (x W_ih + b_ih) + h W_hh + b_hh
-          z[g] = ((axg[g] + bx[g]) + ah[g][q]) + bh[g];
+          // the reference's association: (x W_ih + b_ih) + h W_hh + b_hh,
+          // and xp + h W_hh + b_hh in the projected mode
+          z[g] = kProj ? (axg[g] + ah[g][q]) + bh[g]
+                       : ((axg[g] + bx[g]) + ah[g][q]) + bh[g];
         const float ig = sigmoid_fast(z[0]);
         const float fg = sigmoid_fast(z[1]);
         const float gg = tanh_fast(z[2]);
@@ -665,7 +786,7 @@ __global__ void __launch_bounds__(kClusterMaxThreads) lstm_fwd_cluster_kernel(
         for (int q = 0; q < Q; ++q) {
           if (rb + q < nrows) {
             const int64_t o =
-                (((int64_t)t * 2 + d) * B + r0 + rb + q) * H + unit;
+                (((int64_t)t * D + d) * B + r0 + rb + q) * H + unit;
             outs[o] = h[q];
             if (cs) cs[o] = c[q];
           }
@@ -702,8 +823,602 @@ __global__ void __launch_bounds__(kClusterMaxThreads) lstm_fwd_cluster_kernel(
   cluster_wait();
 }
 
-// Backward of the layer: the reverse-time adjoint of one direction for one
-// tile of R batch rows (the TPU's _bwdf_kernel / _bwd_kernel).  Step t of a
+// ---------------------------------------------------------------------------
+// Cluster design of the raw-input backward (row 2b): the gate recompute and
+// dx as tiled products over all row-steps, the dh recurrence in a cluster
+// ---------------------------------------------------------------------------
+
+constexpr int kGemmThreads = 256;   // 16 x 16 threads a tile
+constexpr int kGemmDepth = 16;      // k of one staged pair of tiles
+
+// Per thread (tr, tc) of a BM x BN tile: acc[i][j] += A[k][row(i)] *
+// B[k][col(j)] for the staged depth in order, A staged as [k][BM + 4] and B
+// as [k][BN + 4].  The thread's rows are TM / 4 float4 chunks, chunk c at
+// c BM / (TM / 4) + 4 tr (row(i) = that + i % 4 for i / 4 = c), its columns
+// likewise with tc, so a quarter-warp's LDS.128 of B is contiguous.  A warp's
+// LDS.128 costs four shared-memory wavefronts even when it broadcasts, so a
+// thread's TM TN FMAs a k cost TM + TN wavefronts: 8 x 8 balances the FMA
+// pipes (four instructions a cycle) against one wavefront a cycle, and with
+// the tiles' own stores shared memory bounds the products at about half
+// the FMA rate (deeper staging, 32 k or three and four stages, measured no
+// faster on the H100).
+template <int BM, int BN, int TM, int TN>
+__device__ __forceinline__ void gemm_depth(const float* __restrict__ sa,
+                                           const float* __restrict__ sb,
+                                           int tr, int tc,
+                                           float acc[TM][TN]) {
+  constexpr int LDA = BM + 4, LDB = BN + 4;
+  constexpr int CA = BM / (TM / 4), CB = BN / (TN / 4);
+#pragma unroll
+  for (int k = 0; k < kGemmDepth; ++k) {
+    float a[TM], b[TN];
+#pragma unroll
+    for (int c = 0; c < TM / 4; ++c) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(sa + k * LDA + c * CA + 4 * tr);
+      a[4 * c] = v.x, a[4 * c + 1] = v.y, a[4 * c + 2] = v.z,
+      a[4 * c + 3] = v.w;
+    }
+#pragma unroll
+    for (int c = 0; c < TN / 4; ++c) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(sb + k * LDB + c * CB + 4 * tc);
+      b[4 * c] = v.x, b[4 * c + 1] = v.y, b[4 * c + 2] = v.z,
+      b[4 * c + 3] = v.w;
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// Row and column of a thread's acc[i][j] within its tile (gemm_depth).
+template <int BM, int TM>
+__device__ __forceinline__ int tile_index(int i, int t) {
+  return (i / 4) * (BM / (TM / 4)) + 4 * t + (i % 4);
+}
+
+// Row m of a direction's active row-steps, in the order of the span prefix
+// (prefix[b] = the active steps of rows 0..b-1): its batch row, the last b
+// with prefix[b] <= m, and its index j within that row's span.
+__device__ __forceinline__ void active_row(const int* __restrict__ prefix,
+                                           int B, int m, int* b, int* j) {
+  int lo = 0, hi = B;  // prefix[lo] <= m < prefix[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (prefix[mid] <= m) lo = mid; else hi = mid;
+  }
+  *b = lo;
+  *j = m - prefix[lo];
+}
+
+// prefix[b] = sum of min(max(lengths[r], 0), T) over r < b, for b = 0..B:
+// the active steps of rows before b, in either direction (a row's span is
+// [0, len) or [T - len, T)).  One block of 256 threads.
+__global__ void __launch_bounds__(256) span_prefix_kernel(
+    const int* __restrict__ lengths, int* __restrict__ prefix, int T,
+    int B) {
+  __shared__ int s_part[256];
+  const int tid = threadIdx.x;
+  const int per = (B + 255) / 256;
+  const int lo = min(B, tid * per), hi = min(B, lo + per);
+  auto len = [&](int b) { return min(max(lengths[b], 0), T); };
+  int s = 0;
+  for (int b = lo; b < hi; ++b) s += len(b);
+  s_part[tid] = s;
+  __syncthreads();
+  if (tid == 0) {
+    int run = 0;
+    for (int i = 0; i < 256; ++i) {
+      const int v = s_part[i];
+      s_part[i] = run;
+      run += v;
+    }
+    prefix[B] = run;
+  }
+  __syncthreads();
+  int run = s_part[tid];
+  for (int b = lo; b < hi; ++b) {
+    prefix[b] = run;
+    run += len(b);
+  }
+}
+
+// (a) The gate recompute for every active row-step of both directions
+// (grid.z = direction): Z = (x_t W_ih + b_ih + h_{t-1} W_hh) + b_hh with
+// h_{t-1} = outs[t - 1] (zero at t = 0), one chain of FMAs a dot product:
+// x over F in order, then b_ih, then h over H in order (the forward sums
+// the h half apart and adds it: a second accumulator set would halve the
+// tile), then i, f, g, o = sigmoid, sigmoid, tanh, sigmoid, written into
+// the dz buffer
+// at (d, original time, b, .), where the recurrence reads them and writes
+// dz over them.  Rows are the active row-steps in the span prefix's order
+// (grid.y covers T * B rows; blocks past a direction's count return), so
+// no row outside its span costs a product.  The blocks of the first column
+// tile also write the h_prev stream (the same h_{t-1}) for dW_hh.
+template <int BM, int BN, int TM, int TN>
+__global__ void __launch_bounds__(kGemmThreads) lstm_gates_kernel(
+    const float* __restrict__ x,        // (T, B, F)
+    const int* __restrict__ prefix,     // (B + 1,)
+    const float* __restrict__ w_ih,     // (2, F, 4H)
+    const float* __restrict__ b_ih,     // (2, 4H)
+    const float* __restrict__ w_hh,     // (2, H, 4H)
+    const float* __restrict__ b_hh,     // (2, 4H)
+    const float* __restrict__ outs,     // (T, 2, B, H)
+    float* __restrict__ gates,          // (2, T, B, 4H), original time
+    float* __restrict__ hp_s,           // (2, T, B, H), original time
+    int T, int B, int F, int H) {
+  static_assert((BM / TM) * (BN / TN) == kGemmThreads, "one tile a block");
+  constexpr int LDA = BM + 4, LDB = BN + 4;
+  __shared__ __align__(16) float s_a[2][kGemmDepth * LDA];
+  __shared__ __align__(16) float s_b[2][kGemmDepth * LDB];
+  __shared__ int s_row[BM], s_t[BM];
+  // each row's x_t and h_{t-1} (nullptr: zeros, at t = 0 or past the rows)
+  __shared__ const float* s_xrow[BM];
+  __shared__ const float* s_hrow[BM];
+  const int d = blockIdx.z;
+  const int rows = prefix[B];
+  const int m0 = blockIdx.y * BM;
+  if (m0 >= rows) return;
+  const int n0 = blockIdx.x * BN;
+  const int G = 4 * H;
+  const int tid = threadIdx.x;
+  const int tr = tid / (BN / TN), tc = tid % (BN / TN);
+  const int mcount = min(BM, rows - m0);
+  if (tid < BM) {
+    int b = -1, j = 0;
+    if (tid < mcount) active_row(prefix, B, m0 + tid, &b, &j);
+    const int len = b < 0 ? 0 : prefix[b + 1] - prefix[b];
+    const int t = d == 0 ? j : T - len + j;  // the direction's own time
+    const int tx = d == 0 ? t : T - 1 - t;
+    s_row[tid] = b;
+    s_t[tid] = t;
+    s_xrow[tid] = b < 0 ? nullptr : x + ((int64_t)tx * B + b) * F;
+    s_hrow[tid] = b < 0 || t == 0
+                      ? nullptr
+                      : outs + (((int64_t)(t - 1) * 2 + d) * B + b) * H;
+  }
+  __syncthreads();
+
+  const int kx = (F + kGemmDepth - 1) / kGemmDepth;
+  const int kt_n = kx + (H + kGemmDepth - 1) / kGemmDepth;
+  const float* wi = w_ih + (int64_t)d * F * G;
+  const float* wh = w_hh + (int64_t)d * H * G;
+  // whole float4s of weights when the rows allow (G is a multiple of 4)
+  const bool w16 = (((uintptr_t)wi | (uintptr_t)wh) & 15) == 0;
+  auto load = [&](int kt, int buf) {
+    const bool xpart = kt < kx;
+    const int k0 = (xpart ? kt : kt - kx) * kGemmDepth;
+    const int K = xpart ? F : H;
+    for (int i = tid; i < BM * kGemmDepth; i += kGemmThreads) {
+      const int m = i / kGemmDepth, kk = i - m * kGemmDepth;
+      const float* row = xpart ? s_xrow[m] : s_hrow[m];
+      const bool ok = row != nullptr && k0 + kk < K;
+      cp_async4_zfill(&s_a[buf][kk * LDA + m], ok ? row + k0 + kk : x, ok);
+    }
+    const float* w = xpart ? wi : wh;
+    if (w16) {
+      for (int i = tid; i < kGemmDepth * BN / 4; i += kGemmThreads) {
+        const int kk = i / (BN / 4), n = 4 * (i - kk * (BN / 4));
+        const bool ok = k0 + kk < K && n0 + n < G;
+        cp_async16_zfill(&s_b[buf][kk * LDB + n],
+                         ok ? w + (int64_t)(k0 + kk) * G + n0 + n : w, ok);
+      }
+    } else {
+      for (int i = tid; i < kGemmDepth * BN; i += kGemmThreads) {
+        const int kk = i / BN, n = i - kk * BN;
+        const bool ok = k0 + kk < K && n0 + n < G;
+        cp_async4_zfill(&s_b[buf][kk * LDB + n],
+                        ok ? w + (int64_t)(k0 + kk) * G + n0 + n : w, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  const float* bi = b_ih + d * G;
+  const float* bh = b_hh + d * G;
+  load(0, 0);
+  for (int kt = 0; kt < kt_n; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < kt_n) {
+      load(kt + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == kx) {  // the x half is summed: b_ih, then the h half
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int n = n0 + tile_index<BN, TN>(j, tc);
+        const float bv = n < G ? bi[n] : 0.f;
+#pragma unroll
+        for (int i = 0; i < TM; ++i) acc[i][j] += bv;
+      }
+    }
+    gemm_depth<BM, BN, TM, TN>(s_a[buf], s_b[buf], tr, tc, acc);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = tile_index<BM, TM>(i, tr);
+    if (m >= mcount) continue;
+    const int b = s_row[m], t = s_t[m];
+    const int tx = d == 0 ? t : T - 1 - t;
+    float* dst = gates + (((int64_t)d * T + tx) * B + b) * G;
+#pragma unroll
+    for (int c = 0; c < TN / 4; ++c) {
+      const int n = n0 + tile_index<BN, TN>(4 * c, tc);
+      if (n >= G) continue;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float z = acc[i][4 * c + e] + bh[n + e];
+        v[e] = (n + e) / H == 2 ? tanhf(z) : sigmoid(z);
+      }
+      *reinterpret_cast<float4*>(dst + n) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+  if (blockIdx.x == 0) {
+    for (int i = tid; i < mcount * H; i += kGemmThreads) {
+      const int m = i / H, k = i - m * H;
+      const int b = s_row[m], t = s_t[m];
+      const int tx = d == 0 ? t : T - 1 - t;
+      hp_s[(((int64_t)d * T + tx) * B + b) * H + k] =
+          t > 0 ? outs[(((int64_t)(t - 1) * 2 + d) * B + b) * H + k] : 0.f;
+    }
+  }
+}
+
+// (c) dx after the loop: dx_t = dz_{0,t} W_ih[0]^T + dz_{1,t} W_ih[1]^T,
+// both directions' dz read at the same original time t from the dz stream,
+// one dot product over k = 0..8H-1 in order (direction 0's gate columns,
+// then direction 1's).  A row (t, b) has dz in either direction exactly when
+// t < len: rows are those, in the span prefix's order, and the wrapper's
+// zeros stand for the others.
+template <int BM, int BN, int TM, int TN>
+__global__ void __launch_bounds__(kGemmThreads) lstm_dx_kernel(
+    const float* __restrict__ dz_s,     // (2, T, B, 4H), original time
+    const int* __restrict__ prefix,     // (B + 1,)
+    const float* __restrict__ w_ih,     // (2, F, 4H)
+    float* __restrict__ dx,             // (T, B, F)
+    int T, int B, int F, int H) {
+  static_assert((BM / TM) * (BN / TN) == kGemmThreads, "one tile a block");
+  constexpr int LDA = BM + 4, LDB = BN + 4;
+  __shared__ __align__(16) float s_a[2][kGemmDepth * LDA];
+  __shared__ __align__(16) float s_b[2][kGemmDepth * LDB];
+  __shared__ int s_row[BM], s_tx[BM];
+  __shared__ const float* s_dzrow[BM];  // direction 0's dz of the row
+  const int rows = prefix[B];
+  const int m0 = blockIdx.y * BM;
+  if (m0 >= rows) return;
+  const int n0 = blockIdx.x * BN;
+  const int G = 4 * H;
+  const int tid = threadIdx.x;
+  const int tr = tid / (BN / TN), tc = tid % (BN / TN);
+  const int mcount = min(BM, rows - m0);
+  if (tid < BM) {
+    int b = -1, j = 0;
+    if (tid < mcount) active_row(prefix, B, m0 + tid, &b, &j);
+    s_row[tid] = b;
+    s_tx[tid] = j;
+    s_dzrow[tid] = b < 0 ? nullptr : dz_s + ((int64_t)j * B + b) * G;
+  }
+  __syncthreads();
+
+  const int kt_n = 2 * G / kGemmDepth;  // G is a multiple of 16
+  const int64_t dir_stride = (int64_t)T * B * G;
+  auto load = [&](int kt, int buf) {
+    const int k0 = kt * kGemmDepth;
+    const int dd = k0 / G, g0 = k0 - dd * G;
+    for (int i = tid; i < BM * kGemmDepth; i += kGemmThreads) {
+      const int m = i / kGemmDepth, kk = i - m * kGemmDepth;
+      const float* row = s_dzrow[m];
+      const bool ok = row != nullptr;
+      cp_async4_zfill(&s_a[buf][kk * LDA + m],
+                      ok ? row + dd * dir_stride + g0 + kk : dz_s, ok);
+    }
+    for (int i = tid; i < BN * kGemmDepth; i += kGemmThreads) {
+      const int n = i / kGemmDepth, kk = i - n * kGemmDepth;
+      const bool ok = n0 + n < F;
+      cp_async4_zfill(&s_b[buf][kk * LDB + n],
+                      ok ? w_ih + ((int64_t)dd * F + n0 + n) * G + g0 + kk
+                         : w_ih,
+                      ok);
+    }
+    cp_async_commit();
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  load(0, 0);
+  for (int kt = 0; kt < kt_n; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < kt_n) {
+      load(kt + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    gemm_depth<BM, BN, TM, TN>(s_a[buf], s_b[buf], tr, tc, acc);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = tile_index<BM, TM>(i, tr);
+    if (m >= mcount) continue;
+    float* dst = dx + ((int64_t)s_tx[m] * B + s_row[m]) * F;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + tile_index<BN, TN>(j, tc);
+      if (n < F) dst[n] = acc[i][j];
+    }
+  }
+}
+
+constexpr int kBwdClusterThreads = 256;  // 8 warps
+
+// Shared memory of one CTA of the backward recurrence: the W_hh slice
+// transposed ([4U][H]), the partial dh_{t-1} of every source rank
+// double-buffered ([2][C][R][U]), the CTA's dz ([R][4U]) and two mbarriers:
+// 2 H^2 + 10 H R floats' bytes, 192,528 at H=256, R=24.
+long long bwd_cluster_smem_bytes(int H, int R) {
+  const long long U = H / kClusterCtas;
+  return ((long long)4 * U * H + 2LL * kClusterCtas * R * U + 4LL * R * U) *
+             (long long)sizeof(float) +
+         2LL * (long long)sizeof(uint64_t);
+}
+
+// (b) The recurrence: one cluster of C CTAs per (direction, tile of R rows),
+// grid (C, ceil(B / R), 2).  CTA c holds the W_hh slice of units
+// [c U, (c + 1) U) (all four gates, U = H / C) for the whole sequence,
+// transposed: column j = g U + u as a row of H floats.  Step t (T - 1 down
+// to 0) runs in three phases:
+//   1. one thread per (unit, row; 8 warps, rows warp + 8 q): dh = dh_carry +
+//      douts[t]; from the gates of (a) (in registers, fetched a step ahead)
+//      and c_t, c_{t-1}, the unit's dz (zero where the row is inactive), dc
+//      and the pass-through part of dh_{t-1}; dz over the gates in the dz
+//      buffer and into shared memory;
+//   2. one thread per (4 consecutive k, a quarter of the rows; 8 k on 128
+//      or 192 threads, fewer warps, measured slower): the partial
+//      dh_{t-1}[r][k] = sum over the CTA's 4U gate columns j, in order, of
+//      dz[r][j] W_hh[k][col j], for all H k; each float4 of four k goes to
+//      the CTA owning those units (st.async counted on its mbarrier; its
+//      own with a plain store) into the slot of this rank: a reduce-scatter,
+//      H R floats out of each CTA a step;
+//   3. the (unit, row) threads add the C partials in rank order, then the
+//      pass-through: dh_{t-1}.
+// A step in which no row of the tile is active (past the longest row)
+// computes no product and exchanges nothing: dh passes through.
+template <int R>
+__global__ void __launch_bounds__(kBwdClusterThreads) lstm_bwd_cluster_kernel(
+    const int* __restrict__ lengths,    // (B,)
+    const float* __restrict__ w_hh,     // (2, H, 4H)
+    const float* __restrict__ cs,       // (T, 2, B, H)
+    const float* __restrict__ douts,    // (T, 2, B, H) or nullptr
+    const float* __restrict__ dh_n,     // (2, B, H)
+    const float* __restrict__ dc_n,     // (2, B, H)
+    float* __restrict__ dz_s,           // (2, T, B, 4H): gates in, dz out
+    int T, int B, int H) {
+  static_assert(R % 4 == 0, "four row groups in the product");
+  constexpr int C = kClusterCtas;
+  constexpr int Q = (R + 7) / 8;        // rows a thread in phases 1 and 3
+  constexpr int RG = R / 4;             // rows a thread in phase 2
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int U = H / C, G4 = 4 * U, G = 4 * H;
+  const int d = blockIdx.z;
+  const bool rev = d == 1;
+  const int r0 = blockIdx.y * R;
+  const int nrows = min(R, B - r0);
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int u = tid & 31, warp = tid >> 5;
+  const bool ulive = u < U;
+  const int unit = rank * U + (ulive ? u : 0);
+
+  extern __shared__ float4 smem4[];
+  float* s_w = reinterpret_cast<float*>(smem4);  // [G4][H]
+  float* s_x = s_w + G4 * H;                      // [2][C][R][U]
+  float* s_dz = s_x + 2 * C * R * U;              // [R][G4]
+  uint64_t* s_full = reinterpret_cast<uint64_t*>(s_dz + R * G4);
+
+  // the slice, once, transposed: row j of s_w is column (j / U) H + rank U
+  // + j % U of W_hh
+  const float* wh = w_hh + (int64_t)d * H * G;
+  for (int i = tid; i < G4 * H; i += nth) {
+    const int j = i / H, k = i - j * H;
+    cp_async4(s_w + i, wh + (int64_t)k * G + (j / U) * H + rank * U + j % U);
+  }
+  // the tile's longest span: a step is exchanged when any row is active
+  int maxlen = 0;
+  for (int r = 0; r < nrows; ++r)
+    maxlen = max(maxlen, min(max(lengths[r0 + r], 0), T));
+  auto any_active = [&](int t) { return rev ? t >= T - maxlen : t < maxlen; };
+  int n_ex = 0;
+  for (int t = 1; t < T; ++t) n_ex += any_active(t) ? 1 : 0;
+  const int tx_bytes = (C - 1) * R * U * (int)sizeof(float);
+  if (tid == 0) {
+    mbar_init(&s_full[0], 1);
+    mbar_init(&s_full[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (n_ex > 0) mbar_arrive_expect(&s_full[0], tx_bytes);
+    if (n_ex > 1) mbar_arrive_expect(&s_full[1], tx_bytes);
+  }
+
+  // phases 1 and 3: this thread's rows warp + 8 q, their carries
+  int len[Q];
+  float dh[Q], dc[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int r = warp + 8 * q;
+    const bool ok = ulive && r < nrows;
+    len[q] = ok ? lengths[r0 + r] : 0;
+    const int64_t o = ((int64_t)d * B + r0 + r) * H + unit;
+    dh[q] = ok ? dh_n[o] : 0.f;
+    dc[q] = ok ? dc_n[o] : 0.f;
+  }
+  // a step's inputs for the thread's rows, fetched one step ahead
+  struct StepIn {
+    float g[Q][4], c[Q], cp[Q], dout[Q];
+  };
+  auto fetch = [&](int t, StepIn& in) {
+    const int tx = rev ? T - 1 - t : t;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int r = warp + 8 * q;
+      const bool ok = ulive && r < nrows;
+      const bool act = ok && span_active(t, T, len[q], rev);
+      const int64_t b = r0 + r;
+      const float* gp = dz_s + (((int64_t)d * T + tx) * B + b) * G + unit;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) in.g[q][g] = act ? gp[g * H] : 0.f;
+      in.c[q] = act ? cs[(((int64_t)t * 2 + d) * B + b) * H + unit] : 0.f;
+      in.cp[q] = act && t > 0
+                     ? cs[(((int64_t)(t - 1) * 2 + d) * B + b) * H + unit]
+                     : 0.f;
+      in.dout[q] = ok && douts
+                       ? douts[(((int64_t)t * 2 + d) * B + b) * H + unit]
+                       : 0.f;
+    }
+  };
+  StepIn cur, nxt;
+  fetch(T - 1, cur);
+  cp_async_wait_all();
+  __syncthreads();  // the slice in place
+  // every CTA of the cluster has initialised its barriers before any
+  // writes a peer
+  cluster_arrive();
+  cluster_wait();
+
+  const int KQ = H / 4;
+  const int kq = tid % KQ, rg = tid / KQ;   // phase 2 (threads < H)
+  int ex = 0;                               // exchanges so far
+  for (int t = T - 1; t >= 0; --t) {
+    const int tx = rev ? T - 1 - t : t;
+    // phase 1
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int r = warp + 8 * q;
+      if (!ulive || r >= R) continue;
+      float dz[4] = {0.f, 0.f, 0.f, 0.f};
+      const float dht = douts ? dh[q] + cur.dout[q] : dh[q];
+      if (span_active(t, T, len[q], rev)) {
+        const float ig = cur.g[q][0], fg = cur.g[q][1], gg = cur.g[q][2],
+                    og = cur.g[q][3];
+        const float tc = tanhf(cur.c[q]);
+        const float do_ = dht * tc;
+        const float dc2 = dc[q] + dht * og * (1.f - tc * tc);
+        const float df = dc2 * cur.cp[q];
+        const float di = dc2 * gg;
+        const float dg = dc2 * ig;
+        dz[0] = di * ig * (1.f - ig);
+        dz[1] = df * fg * (1.f - fg);
+        dz[2] = dg * (1.f - gg * gg);
+        dz[3] = do_ * og * (1.f - og);
+        dh[q] = 0.f;  // the pass-through part of dh_{t-1}
+        dc[q] = dc2 * fg;
+      } else {
+        dh[q] = dht;
+      }
+#pragma unroll
+      for (int g = 0; g < 4; ++g) s_dz[r * G4 + g * U + u] = dz[g];
+      if (r < nrows) {
+        float* dst = dz_s + (((int64_t)d * T + tx) * B + r0 + r) * G + unit;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) dst[g * H] = dz[g];
+      }
+    }
+    if (t == 0 || !any_active(t)) {
+      // no dh_{t-1} is needed, or every row passes it through
+      if (t > 0) fetch(t - 1, cur);
+      continue;
+    }
+    fetch(t - 1, nxt);  // in flight behind the product
+    __syncthreads();    // s_dz complete
+    const int buf = ex & 1;
+    if (tid < H) {
+      // phase 2
+      float acc[RG][4];
+#pragma unroll
+      for (int r = 0; r < RG; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
+      const float* wcol = s_w + 4 * kq;
+      const float* dzr = s_dz + rg * RG * G4;
+      for (int j4 = 0; j4 < U; ++j4) {
+        float4 w[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          w[jj] = *reinterpret_cast<const float4*>(wcol + (4 * j4 + jj) * H);
+#pragma unroll
+        for (int r = 0; r < RG; ++r) {
+          const float4 z =
+              *reinterpret_cast<const float4*>(dzr + r * G4 + 4 * j4);
+          const float zs[4] = {z.x, z.y, z.z, z.w};
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            acc[r][0] = fmaf(zs[jj], w[jj].x, acc[r][0]);
+            acc[r][1] = fmaf(zs[jj], w[jj].y, acc[r][1]);
+            acc[r][2] = fmaf(zs[jj], w[jj].z, acc[r][2]);
+            acc[r][3] = fmaf(zs[jj], w[jj].w, acc[r][3]);
+          }
+        }
+      }
+      const int owner = 4 * kq / U, kl = 4 * kq - owner * U;
+#pragma unroll
+      for (int r = 0; r < RG; ++r) {
+        const float4 v = make_float4(acc[r][0], acc[r][1], acc[r][2],
+                                     acc[r][3]);
+        float4* dst = reinterpret_cast<float4*>(
+            s_x + (((int64_t)buf * C + rank) * R + rg * RG + r) * U + kl);
+        if (owner == rank)
+          *dst = v;
+        else
+          st_async_peer(dst, &s_full[buf], owner, v);
+      }
+    }
+    // the peers' partials of this exchange: buffer buf's (ex / 2)-th phase
+    mbar_wait(&s_full[buf], (ex >> 1) & 1);
+    __syncthreads();  // this CTA's own partials written
+    // phase 3
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int r = warp + 8 * q;
+      if (!ulive || r >= R) continue;
+      float s = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        s += s_x[(((int64_t)buf * C + c) * R + r) * U + u];
+      dh[q] = dh[q] + s;
+    }
+    // re-arm buffer buf for exchange ex + 2: its phase for exchange ex is
+    // complete, and no peer sends into it before this CTA's partials of
+    // exchange ex + 1
+    if (tid == 0 && ex + 2 < n_ex) mbar_arrive_expect(&s_full[buf], tx_bytes);
+    ++ex;
+    cur = nxt;
+  }
+  // no CTA leaves while a peer may still address its shared memory
+  cluster_arrive();
+  cluster_wait();
+}
+
+// Per-tile backward of the layer (kind 1 where the cluster design does not
+// take the shape: H=1024, H not a multiple of 32; kinds 3 and 5 always):
+// the reverse-time adjoint of one direction for one tile of R batch rows
+// (the TPU's _bwdf_kernel / _bwd_kernel).  Step t of a
 // direction (its own time, T - 1 down to 0) recomputes the gates from its
 // input and the saved h_{t-1}, c_{t-1} (zero at t == 0, where no saved state
 // exists), in exactly the forward's order of operations, then:
@@ -1038,28 +1753,70 @@ void dispatch_bwd(int rows, dim3 grid, int smem, cudaStream_t s,
      cs, douts, dh_n, dc_n, dz_s, hp_s, dx_s, T, B, F, H, reverse);
 }
 
-// Sets the cluster kernel's shared-memory allowance at these widths;
-// cudaErrorInvalidValue when H is not a multiple of C or the slices do not
-// fit the card's shared memory.
-cudaError_t cluster_prepare(int F, int H, int* smem_out, int* threads_out) {
-  const void* fn = (const void*)lstm_fwd_cluster_kernel;
-  const int threads = cluster_threads(H);
-  const long long smem = cluster_smem_bytes(F, H);
-  if (H % kClusterCtas != 0 || threads > kClusterMaxThreads ||
-      smem > smem_limit(fn))
+// One cluster kernel at one row tile: its function, shared memory, threads
+// at the widths given, the most threads it was built for, and the tile.
+struct ClusterLaunch {
+  const void* fn = nullptr;
+  long long smem = 0;
+  int threads = 0, max_threads = 0, rows = 0;
+};
+
+template <bool kProj, int R>
+ClusterLaunch fwd_cluster(int F, int H) {
+  return {(const void*)lstm_fwd_cluster_kernel<kProj, R>,
+          cluster_smem_bytes<kProj, R>(F, H), cluster_threads<kProj, R>(H),
+          ClusterShape<kProj, R>::kMaxThreads, R};
+}
+
+// The forward's cluster kernel: the raw mode at R = 10, the projected mode
+// at the row tiles built here; fn == nullptr for any other.
+ClusterLaunch fwd_cluster_of(bool proj, int rows, int F, int H) {
+  if (!proj)
+    return rows == kClusterRows ? fwd_cluster<false, kClusterRows>(F, H)
+                                : ClusterLaunch{};
+  switch (rows) {
+    case 12: return fwd_cluster<true, 12>(F, H);
+    case 36: return fwd_cluster<true, 36>(F, H);
+    default: return ClusterLaunch{};
+  }
+}
+
+template <int R>
+ClusterLaunch bwd_cluster(int H) {
+  return {(const void*)lstm_bwd_cluster_kernel<R>,
+          bwd_cluster_smem_bytes(H, R), kBwdClusterThreads,
+          kBwdClusterThreads, R};
+}
+
+// The backward recurrence's cluster kernel at its row tile (36: two waves
+// of the card's 15 resident clusters at B=512).
+constexpr int kBwdClusterRows = 36;
+
+ClusterLaunch bwd_cluster_of(int rows, int H) {
+  return rows == kBwdClusterRows ? bwd_cluster<kBwdClusterRows>(H)
+                                 : ClusterLaunch{};
+}
+
+// Sets a cluster kernel's shared-memory allowance; cudaErrorInvalidValue
+// when the tile is not built, H is not a multiple of `quantum` (C for the
+// forward; 4 C for the backward, whose float4 of four k belongs to one CTA),
+// the CTA's units do not fit its warps (H > 256), or shared memory does not
+// fit the card.
+cudaError_t cluster_prepare(const ClusterLaunch& k, int H, int quantum) {
+  if (k.fn == nullptr || H < quantum || H % quantum != 0 ||
+      H / kClusterCtas > 32 || k.threads > k.max_threads ||
+      k.smem > smem_limit(k.fn))
     return cudaErrorInvalidValue;
-  *smem_out = (int)smem;
-  *threads_out = threads;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+  return cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)k.smem);
 }
 
 void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
-                    int B, int smem, int threads, cudaStream_t s) {
+                    const ClusterLaunch& k, int B, int D, cudaStream_t s) {
   *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(kClusterCtas, (B + kClusterRows - 1) / kClusterRows, 2);
-  cfg->blockDim = dim3(threads);
-  cfg->dynamicSmemBytes = smem;
+  cfg->gridDim = dim3(kClusterCtas, (B + k.rows - 1) / k.rows, D);
+  cfg->blockDim = dim3(k.threads);
+  cfg->dynamicSmemBytes = k.smem;
   cfg->stream = s;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = kClusterCtas;
@@ -1068,6 +1825,21 @@ void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
   cfg->attrs = attr;
   cfg->numAttrs = 1;
 }
+
+// Resident clusters of a cluster kernel on this card
+// (cudaOccupancyMaxActiveClusters); 0 when it does not take these widths.
+int cluster_max_active(const ClusterLaunch& k, int H, int quantum) {
+  if (cluster_prepare(k, H, quantum) != cudaSuccess) return 0;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, k, k.rows, 1, 0);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, k.fn, &cfg) != cudaSuccess) return 0;
+  return n;
+}
+
+// The two products of the cluster backward: (a) gates, (c) dx.
+constexpr int kGatesBM = 128, kGatesBN = 128, kDxBM = 256, kDxBN = 64;
 
 }  // namespace
 
@@ -1113,22 +1885,14 @@ int abcd_lstm_bidir_fwd(const float* x, const int* lengths, const float* w_ih,
   return (int)cudaGetLastError();
 }
 
-// The cluster design of kind 0: how many of its clusters (C = 8 CTAs, R = 8
-// rows) can be resident on this card at once at widths (F, H)
+// The cluster design of kind 0: how many of its clusters (C = 8 CTAs, R =
+// 10 rows) can be resident on this card at once at widths (F, H)
 // (cudaOccupancyMaxActiveClusters); 0 when the design does not take these
 // widths.  The wrapper's shape rule reads it.
 int abcd_lstm_cluster_max_active(int F, int H) {
-  int smem = 0, threads = 0;
-  if (F < 1 || H < 1 || cluster_prepare(F, H, &smem, &threads) != cudaSuccess)
-    return 0;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cluster_config(&cfg, &attr, kClusterRows, smem, threads, 0);
-  int n = 0;
-  if (cudaOccupancyMaxActiveClusters(
-          &n, (const void*)lstm_fwd_cluster_kernel, &cfg) != cudaSuccess)
-    return 0;
-  return n;
+  if (F < 1 || H < 1) return 0;
+  return cluster_max_active(fwd_cluster_of(false, kClusterRows, F, H), H,
+                            kClusterCtas);
 }
 
 // Both directions over raw x (kind 0) in the cluster design.  Arguments as
@@ -1140,15 +1904,125 @@ int abcd_lstm_bidir_fwd_cluster(const float* x, const int* lengths,
                                 float* c_n, int T, int B, int F, int H,
                                 void* stream) {
   if (T < 1 || B < 1 || F < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  int smem = 0, threads = 0;
-  cudaError_t err = cluster_prepare(F, H, &smem, &threads);
+  const ClusterLaunch k = fwd_cluster_of(false, kClusterRows, F, H);
+  cudaError_t err = cluster_prepare(k, H, kClusterCtas);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cluster_config(&cfg, &attr, B, smem, threads, (cudaStream_t)stream);
-  err = cudaLaunchKernelEx(&cfg, lstm_fwd_cluster_kernel, x, lengths, w_ih,
-                           b_ih, w_hh, b_hh, outs, cs, h_n, c_n, T, B, F, H);
+  cluster_config(&cfg, &attr, k, B, 2, (cudaStream_t)stream);
+  err = cudaLaunchKernelEx(&cfg, lstm_fwd_cluster_kernel<false, kClusterRows>,
+                           x, lengths, w_ih, b_ih, w_hh, b_hh, outs, cs, h_n,
+                           c_n, T, B, F, H, 0);
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The projected mode's cluster design (kind 2's): resident clusters at
+// hidden size H and row tile `rows`; 0 when it does not take them.
+int abcd_lstm_fwd_cluster_max_active(int H, int rows) {
+  if (H < 1) return 0;
+  return cluster_max_active(fwd_cluster_of(true, rows, 0, H), H,
+                            kClusterCtas);
+}
+
+// One direction over xp (T, B, 4H) in the cluster design: arguments as
+// abcd_lstm_fwd's; `rows` is the cluster's row tile (12 or 36).
+int abcd_lstm_fwd_cluster(const float* xp, const int* lengths,
+                          const float* w_hh, const float* b_hh, float* outs,
+                          float* cs, float* h_n, float* c_n, int T, int B,
+                          int H, int reverse, int rows, void* stream) {
+  if (T < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  const ClusterLaunch k = fwd_cluster_of(true, rows, 0, H);
+  cudaError_t err = cluster_prepare(k, H, kClusterCtas);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, k, B, 1, (cudaStream_t)stream);
+  switch (rows) {
+#define ABCD_FWD_CLUSTER(RR)                                                 \
+  case RR:                                                                  \
+    err = cudaLaunchKernelEx(&cfg, lstm_fwd_cluster_kernel<true, RR>, xp,   \
+                             lengths, (const float*)nullptr,                \
+                             (const float*)nullptr, w_hh, b_hh, outs, cs,   \
+                             h_n, c_n, T, B, 0, H, reverse);                \
+    break;
+    ABCD_FWD_CLUSTER(12)
+    ABCD_FWD_CLUSTER(36)
+#undef ABCD_FWD_CLUSTER
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The raw backward's cluster recurrence: resident clusters at hidden size
+// H and row tile `rows`; 0 when it does not take them.
+int abcd_lstm_bwd_cluster_max_active(int H, int rows) {
+  if (H < 1) return 0;
+  return cluster_max_active(bwd_cluster_of(rows, H), H, 4 * kClusterCtas);
+}
+
+// prefix (B + 1) of the rows' active steps (see span_prefix_kernel).
+int abcd_lstm_span_prefix(const int* lengths, int* prefix, int T, int B,
+                          void* stream) {
+  if (T < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  span_prefix_kernel<<<1, 256, 0, (cudaStream_t)stream>>>(lengths, prefix,
+                                                          T, B);
+  return (int)cudaGetLastError();
+}
+
+// (a) of the cluster backward: the activated gates of every active
+// row-step of both directions into `gates` (2, T, B, 4H) at original time,
+// and the h_prev stream hp_s (2, T, B, H) at those row-steps (the caller
+// zeroes it: the other rows' entries meet a zero dz in dW_hh).
+int abcd_lstm_bidir_gates(const float* x, const int* prefix,
+                          const float* w_ih, const float* b_ih,
+                          const float* w_hh, const float* b_hh,
+                          const float* outs, float* gates, float* hp_s,
+                          int T, int B, int F, int H, void* stream) {
+  if (T < 1 || B < 1 || F < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((4 * H + kGatesBN - 1) / kGatesBN,
+                  (T * B + kGatesBM - 1) / kGatesBM, 2);
+  lstm_gates_kernel<kGatesBM, kGatesBN, 8, 8>
+      <<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(
+          x, prefix, w_ih, b_ih, w_hh, b_hh, outs, gates, hp_s, T, B, F, H);
+  return (int)cudaGetLastError();
+}
+
+// (b): the recurrence over the gates that (a) left in dz_s, which it
+// overwrites with dz (zeros at inactive row-steps).  douts may be nullptr.
+// `rows` is the cluster's row tile (36).
+int abcd_lstm_bidir_bwd_cluster(const int* lengths, const float* w_hh,
+                                const float* cs, const float* douts,
+                                const float* dh_n, const float* dc_n,
+                                float* dz_s, int T, int B, int H, int rows,
+                                void* stream) {
+  if (T < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  const ClusterLaunch k = bwd_cluster_of(rows, H);
+  cudaError_t err = cluster_prepare(k, H, 4 * kClusterCtas);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, k, B, 2, (cudaStream_t)stream);
+  err = cudaLaunchKernelEx(&cfg, lstm_bwd_cluster_kernel<kBwdClusterRows>,
+                           lengths, w_hh, cs, douts, dh_n, dc_n, dz_s, T, B,
+                           H);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// (c): dx (T, B, F) at the rows (t, b) with t < len from the dz stream;
+// the caller zeroes dx (the other rows' dx is zero).  4H must be a
+// multiple of 16.
+int abcd_lstm_bidir_dx(const float* dz_s, const int* prefix,
+                       const float* w_ih, float* dx, int T, int B, int F,
+                       int H, void* stream) {
+  if (T < 1 || B < 1 || F < 1 || H < 1 || (4 * H) % kGemmDepth != 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((F + kDxBN - 1) / kDxBN, (T * B + kDxBM - 1) / kDxBM, 1);
+  lstm_dx_kernel<kDxBM, kDxBN, 8, 8>
+      <<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(dz_s, prefix, w_ih,
+                                                        dx, T, B, F, H);
   return (int)cudaGetLastError();
 }
 

@@ -40,6 +40,13 @@ SIGNATURES = {
     "lstm": {"abcd_lstm_bidir_fwd": [_P] * 10 + [_I] * 5 + [_P],
              "abcd_lstm_bidir_fwd_cluster": [_P] * 10 + [_I] * 4 + [_P],
              "abcd_lstm_cluster_max_active": [_I] * 2,
+             "abcd_lstm_fwd_cluster": [_P] * 8 + [_I] * 5 + [_P],
+             "abcd_lstm_fwd_cluster_max_active": [_I] * 2,
+             "abcd_lstm_bwd_cluster_max_active": [_I] * 2,
+             "abcd_lstm_span_prefix": [_P, _P, _I, _I, _P],
+             "abcd_lstm_bidir_gates": [_P] * 9 + [_I] * 4 + [_P],
+             "abcd_lstm_bidir_bwd_cluster": [_P] * 7 + [_I] * 4 + [_P],
+             "abcd_lstm_bidir_dx": [_P] * 4 + [_I] * 4 + [_P],
              "abcd_lstm_fwd": [_P] * 8 + [_I] * 5 + [_P],
              "abcd_lstm_bidir_bwd": [_P] * 16 + [_I] * 5 + [_P],
              "abcd_lstm_bwd": [_P] * 12 + [_I] * 5 + [_P],

@@ -19,13 +19,17 @@
   package calls it; it is a public function of its own.
 
 A row's carries are frozen outside its span and ``outs`` holds the masked
-carry.  The kernels' time loops are sequential.  The raw forward has two
-designs, chosen by ``forward_design`` before the launch: the weights split
-across a thread-block cluster and held in its shared memory for the whole
-sequence, or one block per row tile re-reading them from L2 every step
-(which bounds every other kernel here; see the source).  The backwards
-recompute the gates from the saved h/c trajectories and leave the
-weight-gradient sums to ``ops/wgrad.py``; ``lstm_layer_bidir_fused_train``,
+carry.  The kernels' time loops are sequential.  The raw forward, the
+raw backward and the one-direction forward have two designs each, chosen
+by a shape rule before the launch (``forward_design``, ``backward_design``,
+``layer_design``): W_hh (and the raw forward's W_ih) split across a
+thread-block cluster and held in its shared memory for the whole sequence,
+or one block per row tile re-reading the weights from L2 every step (which
+bounds every other kernel here; see the source).  The raw backward's
+cluster design recomputes the gates for all row-steps at once and forms dx
+after the loop, leaving only dh's recurrence in the cluster.  The
+backwards recompute the gates from the saved h/c trajectories and leave
+the weight-gradient sums to ``ops/wgrad.py``; ``lstm_layer_bidir_fused_train``,
 ``lstm_layer_train`` and ``lstm_layer_bidir_train`` wire them into
 ``torch.autograd``.  Each wrapper
 launches its kernel for CUDA tensors and takes its twin only for CPU
@@ -58,6 +62,17 @@ _BIDIR_FWD, _BIDIR_BWD, _FWD, _BWD, _PAIR_FWD, _PAIR_BWD = 0, 1, 2, 3, 4, 5
 # stops winning (PERF.md).
 CLUSTER_ROWS = 10
 CLUSTER_MAX_WAVES = 7
+# The raw backward's cluster recurrence (lstm_bwd_cluster_kernel): batch
+# rows a cluster's tile (kBwdClusterRows there; B=512 in two waves of the
+# 15 resident clusters of an H100).  The one-direction forward's cluster
+# design (lstm_fwd_cluster_kernel's projected mode): the row tiles built
+# for it, a narrow one that fills a wave with the served batches and a
+# wide one that pays less a row (on an H100 at 700 W, ~5.1 us a step at
+# 12 rows, ~11.6 us at 36; PERF.md).  Both cluster designs take every
+# batch: at B=512 a row-step costs about a quarter (backward) and half
+# (forward) of the per-tile kernels', whose grids also run in waves.
+BWD_CLUSTER_ROWS = 36
+PROJ_CLUSTER_TILES = (12, 36)
 
 
 def lstm_step(w_hh: torch.Tensor, b_hh: torch.Tensor, x_proj: torch.Tensor,
@@ -166,12 +181,49 @@ def forward_design(max_active: int, batch: int) -> str:
     return "cluster" if waves <= CLUSTER_MAX_WAVES else "tile"
 
 
+def backward_design(max_active: int) -> str:
+    """The shape rule of the raw backward: ``"cluster"`` when its cluster
+    recurrence takes these widths (``max_active`` > 0, the card's resident
+    clusters for it at ``BWD_CLUSTER_ROWS``: H a multiple of 32 up to 256,
+    the W_hh slice in shared memory; F does not count), else ``"tile"``."""
+    return "cluster" if max_active > 0 else "tile"
+
+
+def layer_design(active: dict, batch: int):
+    """The shape rule of the one-direction forward: (``"cluster"``, row
+    tile) when the projected mode of the cluster design takes these widths
+    (``active`` maps each tile of ``PROJ_CLUSTER_TILES`` to the card's
+    resident clusters, 0 where it does not: H a multiple of 8 up to 256):
+    the smallest tile whose ceil(B / rows) clusters run in one wave, else
+    the widest; (``"tile"``, 0) otherwise, H=1024 among others."""
+    fits = sorted(rows for rows, n in active.items() if n > 0)
+    for rows in fits:
+        if -(-batch // rows) <= active[rows]:
+            return "cluster", rows
+    return ("cluster", fits[-1]) if fits else ("tile", 0)
+
+
 @functools.lru_cache(maxsize=None)
-def _cluster_active(lib, device_index: int, f: int, hidden: int) -> int:
-    """Resident clusters of the cluster design on this card (0: it does
-    not fit), queried once per card and widths."""
+def _cluster_active(lib, device_index: int, kind: str, f: int, hidden: int,
+                    rows: int) -> int:
+    """Resident clusters of a cluster design on this card (0: it does not
+    take these widths), queried once per card, design and widths: ``kind``
+    is the raw forward (``"fwd"``), the one-direction forward (``"proj"``)
+    or the raw backward's recurrence (``"bwd"``)."""
     with torch.cuda.device(device_index):
-        return lib.abcd_lstm_cluster_max_active(f, hidden)
+        if kind == "fwd":
+            return lib.abcd_lstm_cluster_max_active(f, hidden)
+        if kind == "proj":
+            return lib.abcd_lstm_fwd_cluster_max_active(hidden, rows)
+        return lib.abcd_lstm_bwd_cluster_max_active(hidden, rows)
+
+
+def _layer_design(lib, device, hidden: int, batch: int):
+    """(design, row tile) of the one-direction forward by ``layer_design``
+    on this card."""
+    return layer_design({rows: _cluster_active(lib, device.index, "proj", 0,
+                                               hidden, rows)
+                         for rows in PROJ_CLUSTER_TILES}, batch)
 
 
 def lstm_layer_bidir_fused(x, lengths, w_ih, b_ih, w_hh, b_hh,
@@ -196,8 +248,8 @@ def lstm_layer_bidir_fused(x, lengths, w_ih, b_ih, w_hh, b_hh,
         return lstm_layer_bidir_fused_plain(x, lengths, w_ih, b_ih, w_hh,
                                             b_hh, return_cs)
     lib = _build.load("lstm")
-    active = _cluster_active(lib, x.device.index, x.shape[2],
-                             w_hh.shape[1])
+    active = _cluster_active(lib, x.device.index, "fwd", x.shape[2],
+                             w_hh.shape[1], CLUSTER_ROWS)
     return lstm_layer_bidir_fused_on(forward_design(active, x.shape[1]),
                                      x, lengths, w_ih, b_ih, w_hh, b_hh,
                                      return_cs)
@@ -296,20 +348,11 @@ def lstm_layer_bidir_fused_bwd_plain(x, lengths, w_ih, b_ih, w_hh, b_hh,
     return dx, dw_ih, db, dw_hh, db.clone()
 
 
-def lstm_layer_bidir_fused_bwd(x, lengths, w_ih, b_ih, w_hh, b_hh, outs, cs,
-                               douts, dh_n, dc_n):
-    """The layer's backward: (dx, dw_ih, db_ih, dw_hh, db_hh).
-
-    CUDA tensors launch the reverse-time kernel, then ``ops/wgrad.py``'s
-    reductions of its streams (counted as one launch of this wrapper);
-    CPU tensors take ``lstm_layer_bidir_fused_bwd_plain``.  ``douts`` may
-    be None: the final layer's outs feed nothing, and the kernel then reads
-    no (T, 2, B, H) zero stream.
-    """
-    _check(x, lengths, w_ih, b_ih, w_hh, b_hh)
-    t, b, f = x.shape
-    hidden = w_hh.shape[1]
-    state = (t, 2, b, hidden)
+def _check_bwd_state(x, w_hh, outs, cs, douts, dh_n, dc_n):
+    """The raw backward's saved states and cotangents (douts may be
+    None)."""
+    t, b, _ = x.shape
+    state = (t, 2, b, w_hh.shape[1])
     for name, tensor, shape in (("outs", outs, state), ("cs", cs, state),
                                 ("douts", douts, state),
                                 ("dh_n", dh_n, state[1:]),
@@ -320,29 +363,125 @@ def lstm_layer_bidir_fused_bwd(x, lengths, w_ih, b_ih, w_hh, b_hh, outs, cs,
                 or tensor.device != x.device or not tensor.is_contiguous()):
             raise ValueError(f"{name} must be contiguous float32 {shape} on "
                              f"{x.device}")
+
+
+def lstm_layer_bidir_fused_bwd(x, lengths, w_ih, b_ih, w_hh, b_hh, outs, cs,
+                               douts, dh_n, dc_n):
+    """The layer's backward: (dx, dw_ih, db_ih, dw_hh, db_hh).
+
+    CUDA tensors launch the design that ``backward_design`` picks for the
+    shape, then ``ops/wgrad.py``'s reductions of its streams (counted as
+    one launch of this wrapper, and one on ``.cluster`` or ``.tile``); CPU
+    tensors take ``lstm_layer_bidir_fused_bwd_plain``.  ``douts`` may be
+    None: the final layer's outs feed nothing, and the kernel then reads no
+    (T, 2, B, H) zero stream.
+    """
+    _check(x, lengths, w_ih, b_ih, w_hh, b_hh)
+    _check_bwd_state(x, w_hh, outs, cs, douts, dh_n, dc_n)
     if x.device.type == "cpu":
         return lstm_layer_bidir_fused_bwd_plain(
             x, lengths, w_ih, b_ih, w_hh, b_hh, outs, cs, douts, dh_n, dc_n)
     lib = _build.load("lstm")
-    rows = _build.row_tile(lib, "lstm", _BIDIR_BWD, (f, hidden),
-                           "lstm_layer_bidir_fused backward")
+    design = backward_design(_cluster_active(
+        lib, x.device.index, "bwd", 0, w_hh.shape[1], BWD_CLUSTER_ROWS))
+    return _bidir_fused_bwd(lib, design, x, lengths, w_ih, b_ih, w_hh, b_hh,
+                            outs, cs, douts, dh_n, dc_n, None)
+
+
+def lstm_layer_bidir_fused_bwd_on(design: str, x, lengths, w_ih, b_ih, w_hh,
+                                  b_hh, outs, cs, douts, dh_n, dc_n,
+                                  marks=None):
+    """``lstm_layer_bidir_fused_bwd`` on CUDA tensors through the named
+    design, ``"cluster"`` or ``"tile"``, whatever the shape rule says: for
+    timing one design against the other.  Raises when the design does not
+    take the shape (before any launch) or a launch fails.
+
+    ``marks``, a list, gets CUDA events recorded on the current stream
+    around the parts: the cluster design's (a) gate recompute (with the
+    span prefix), (b) recurrence, (c) dx, (d) weight gradients (five
+    events); the per-tile kernel's recurrence with dx, and (d) (three)."""
+    _check(x, lengths, w_ih, b_ih, w_hh, b_hh)
+    _check_bwd_state(x, w_hh, outs, cs, douts, dh_n, dc_n)
+    if x.device.type != "cuda" or design not in ("cluster", "tile"):
+        raise ValueError(f"design {design!r} on {x.device}: a CUDA tensor "
+                         "and 'cluster' or 'tile' are needed")
+    return _bidir_fused_bwd(_build.load("lstm"), design, x, lengths, w_ih,
+                            b_ih, w_hh, b_hh, outs, cs, douts, dh_n, dc_n,
+                            marks)
+
+
+def _bidir_fused_bwd(lib, design, x, lengths, w_ih, b_ih, w_hh, b_hh, outs,
+                     cs, douts, dh_n, dc_n, marks):
+    """The backward's launches on checked CUDA tensors (see
+    ``lstm_layer_bidir_fused_bwd_on``)."""
+    t, b, f = x.shape
+    hidden = w_hh.shape[1]
     g = 4 * hidden
-    w_ih_t = w_ih.transpose(1, 2).contiguous()
-    w_hh_t = w_hh.transpose(1, 2).contiguous()
+    what = f"lstm_layer_bidir_fused backward ({design})"
+    if design == "tile":
+        rows = _build.row_tile(lib, "lstm", _BIDIR_BWD, (f, hidden), what)
+    elif _cluster_active(lib, x.device.index, "bwd", 0, hidden,
+                         BWD_CLUSTER_ROWS) <= 0:
+        raise RuntimeError(f"{what} refused: no cluster of its recurrence "
+                           f"is resident at H={hidden} on this card")
+    douts_ptr = None if douts is None else douts.data_ptr()
+
+    def mark():
+        if marks is not None:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            marks.append(event)
+
     dz = torch.empty((2, t, b, g), dtype=x.dtype, device=x.device)
-    hp = torch.empty((2, t, b, hidden), dtype=x.dtype, device=x.device)
-    dx_dir = torch.empty((2, t, b, f), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.abcd_lstm_bidir_bwd(
-            x.data_ptr(), lengths.data_ptr(), w_ih.data_ptr(),
-            b_ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-            w_ih_t.data_ptr(), w_hh_t.data_ptr(), outs.data_ptr(),
-            cs.data_ptr(), None if douts is None else douts.data_ptr(),
-            dh_n.data_ptr(), dc_n.data_ptr(), dz.data_ptr(), hp.data_ptr(),
-            dx_dir.data_ptr(), t, b, f, hidden, rows, stream)
-        _build.check(lib, err, "lstm_layer_bidir_fused backward")
-        dx = wgrad.add2(dx_dir[0], dx_dir[1])
+        mark()
+        if design == "tile":
+            w_ih_t = w_ih.transpose(1, 2).contiguous()
+            w_hh_t = w_hh.transpose(1, 2).contiguous()
+            hp = torch.empty((2, t, b, hidden), dtype=x.dtype,
+                             device=x.device)
+            dx_dir = torch.empty((2, t, b, f), dtype=x.dtype,
+                                 device=x.device)
+            err = lib.abcd_lstm_bidir_bwd(
+                x.data_ptr(), lengths.data_ptr(), w_ih.data_ptr(),
+                b_ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+                w_ih_t.data_ptr(), w_hh_t.data_ptr(), outs.data_ptr(),
+                cs.data_ptr(), douts_ptr, dh_n.data_ptr(), dc_n.data_ptr(),
+                dz.data_ptr(), hp.data_ptr(), dx_dir.data_ptr(), t, b, f,
+                hidden, rows, stream)
+            _build.check(lib, err, what)
+            dx = wgrad.add2(dx_dir[0], dx_dir[1])
+            mark()
+        else:
+            # (a) the gates of every active row-step into dz's buffer, and
+            # the h_prev stream; (b) the recurrence, dz over the gates;
+            # (c) dx.  Rows outside every span keep the zeros here.
+            prefix = torch.empty(b + 1, dtype=torch.int32, device=x.device)
+            hp = torch.zeros((2, t, b, hidden), dtype=x.dtype,
+                             device=x.device)
+            dx = torch.zeros((t, b, f), dtype=x.dtype, device=x.device)
+            err = lib.abcd_lstm_span_prefix(lengths.data_ptr(),
+                                            prefix.data_ptr(), t, b, stream)
+            _build.check(lib, err, what)
+            err = lib.abcd_lstm_bidir_gates(
+                x.data_ptr(), prefix.data_ptr(), w_ih.data_ptr(),
+                b_ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+                outs.data_ptr(), dz.data_ptr(), hp.data_ptr(), t, b, f,
+                hidden, stream)
+            _build.check(lib, err, what)
+            mark()
+            err = lib.abcd_lstm_bidir_bwd_cluster(
+                lengths.data_ptr(), w_hh.data_ptr(), cs.data_ptr(),
+                douts_ptr, dh_n.data_ptr(), dc_n.data_ptr(), dz.data_ptr(),
+                t, b, hidden, BWD_CLUSTER_ROWS, stream)
+            _build.check(lib, err, what)
+            mark()
+            err = lib.abcd_lstm_bidir_dx(dz.data_ptr(), prefix.data_ptr(),
+                                         w_ih.data_ptr(), dx.data_ptr(), t,
+                                         b, f, hidden, stream)
+            _build.check(lib, err, what)
+            mark()
         x_rows = x.view(t * b, f)
         dw_ih = torch.stack([wgrad.at_b(x_rows, dz[d].view(t * b, g))
                              for d in range(2)])
@@ -351,11 +490,15 @@ def lstm_layer_bidir_fused_bwd(x, lengths, w_ih, b_ih, w_hh, b_hh, outs, cs,
                              for d in range(2)])
         db = torch.cat([wgrad.at_b(None, dz[d].view(t * b, g))
                         for d in range(2)])
+        mark()
     lstm_layer_bidir_fused_bwd.launches += 1
+    getattr(lstm_layer_bidir_fused_bwd, design).launches += 1
     return dx, dw_ih, db, dw_hh, db.clone()
 
 
 lstm_layer_bidir_fused_bwd.launches = 0
+lstm_layer_bidir_fused_bwd.cluster = _build.Launches()
+lstm_layer_bidir_fused_bwd.tile = _build.Launches()
 
 
 class _LSTMBidirFused(torch.autograd.Function):
@@ -468,17 +611,41 @@ def lstm_layer(xp, lengths, w_hh, b_hh, reverse: bool = False,
 
     Returns (outs (T, B, H), h_n (B, H), c_n (B, H)), as
     ``lstm_pallas.lstm_layer``, and with ``return_cs`` the saved cell
-    states (T, B, H) for the backward.  CUDA tensors launch the kernel on
-    the current stream (and count one launch); CPU tensors take
-    ``lstm_layer_plain``.
+    states (T, B, H) for the backward.  CUDA tensors launch the design that
+    ``layer_design`` picks for the shape on the current stream (and count
+    one launch, on the wrapper and on ``.cluster`` or ``.tile``); CPU
+    tensors take ``lstm_layer_plain``.
     """
     _check_layer(xp, lengths, w_hh, b_hh)
     if xp.device.type == "cpu":
         return lstm_layer_plain(xp, lengths, w_hh, b_hh, reverse, return_cs)
+    lib = _build.load("lstm")
+    design, rows = _layer_design(lib, xp.device, w_hh.shape[0], xp.shape[1])
+    return lstm_layer_on(design, xp, lengths, w_hh, b_hh, reverse,
+                         return_cs, rows=rows)
+
+
+def lstm_layer_on(design: str, xp, lengths, w_hh, b_hh,
+                  reverse: bool = False, return_cs: bool = False,
+                  rows=None):
+    """``lstm_layer`` on CUDA tensors through the named design,
+    ``"cluster"`` or ``"tile"``, whatever the shape rule says: for timing
+    one design against the other.  Raises when the design does not take
+    the shape or its launch fails.  ``rows``: the cluster's row tile (one
+    of ``PROJ_CLUSTER_TILES``; by default the rule's, or the widest where
+    the rule keeps the per-tile kernel, whose launch then fails)."""
+    _check_layer(xp, lengths, w_hh, b_hh)
+    if xp.device.type != "cuda" or design not in ("cluster", "tile"):
+        raise ValueError(f"design {design!r} on {xp.device}: a CUDA tensor "
+                         "and 'cluster' or 'tile' are needed")
     t, b, _ = xp.shape
     hidden = w_hh.shape[0]
     lib = _build.load("lstm")
-    rows = _build.row_tile(lib, "lstm", _FWD, (0, hidden), "lstm_layer")
+    if design == "tile":
+        rows = _build.row_tile(lib, "lstm", _FWD, (0, hidden), "lstm_layer")
+    elif not rows:
+        picked, rows = _layer_design(lib, xp.device, hidden, b)
+        rows = rows if picked == "cluster" else max(PROJ_CLUSTER_TILES)
     outs = torch.empty((t, b, hidden), dtype=xp.dtype, device=xp.device)
     cs = torch.empty_like(outs) if return_cs else None
     h_n = torch.empty((b, hidden), dtype=xp.dtype, device=xp.device)
@@ -486,19 +653,25 @@ def lstm_layer(xp, lengths, w_hh, b_hh, reverse: bool = False,
     result = (outs, h_n, c_n, cs) if return_cs else (outs, h_n, c_n)
     if b == 0:
         return result
-    with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.abcd_lstm_fwd(
-            xp.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
+    ptrs = (xp.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
             b_hh.data_ptr(), outs.data_ptr(),
             None if cs is None else cs.data_ptr(), h_n.data_ptr(),
-            c_n.data_ptr(), t, b, hidden, int(reverse), rows, stream)
-    _build.check(lib, err, "lstm_layer")
+            c_n.data_ptr(), t, b, hidden, int(reverse))
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if design == "tile":
+            err = lib.abcd_lstm_fwd(*ptrs, rows, stream)
+        else:
+            err = lib.abcd_lstm_fwd_cluster(*ptrs, rows, stream)
+    _build.check(lib, err, f"lstm_layer ({design})")
     lstm_layer.launches += 1
+    getattr(lstm_layer, design).launches += 1
     return result
 
 
 lstm_layer.launches = 0
+lstm_layer.cluster = _build.Launches()
+lstm_layer.tile = _build.Launches()
 
 
 def lstm_layer_bwd_plain(xp, lengths, w_hh, b_hh, outs, cs, douts, dh_n,

@@ -1099,3 +1099,180 @@ def test_stft_dft_route_at_other_frames(cuda, fs):
     assert stft_kernel.log_spectrogram_kernel.dft.launches == before + 1
     torch.testing.assert_close(got, stft_kernel.log_spectrogram_plain(*args),
                                rtol=0, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned LSTM kernels of rows 2b and 3: the raw backward's cluster
+# route (gate recompute, recurrence in a cluster, dx) and the one-direction
+# forward's cluster route, each against the twin and the per-tile kernel
+# ---------------------------------------------------------------------------
+
+def _bwd_args(rng, cuda, t, b, f, h, with_douts):
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    args = _bidir_args(rng, cuda, t, b, f, h)
+    outs, _, _, cs = lk.lstm_layer_bidir_fused_plain(*args, return_cs=True)
+    normal = lambda *s: torch.from_numpy(rng.normal(size=s).astype(
+        np.float32)).to(cuda)
+    douts = normal(t, 2, b, h) if with_douts else None
+    return (*args, outs, cs, douts, normal(2, b, h), normal(2, b, h))
+
+
+@pytest.mark.parametrize("with_douts", [False, True])
+@pytest.mark.parametrize("shape", [(125, 512, 129), (37, 13, 129),
+                                   (33, 21, 129), (17, 21, 512)])
+def test_lstm_cluster_backward_matches_twin(cuda, shape, with_douts):
+    """Row 2b's cluster route at the training shape, at batches below one
+    tile's worth of clusters and at a second layer's F = 2H (which it
+    takes), ragged with a row of length 0: every gradient against the twin
+    and the per-tile route; the public wrapper takes the route its rule
+    names, once, with the same result."""
+    from seq2seq_abcd_vae_tpu_torch.ops import _build
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    t, b, f = shape
+    rng = np.random.default_rng(t * b + f + with_douts)
+    args = _bwd_args(rng, cuda, t, b, f, 256, with_douts)
+    lib = _build.load("lstm")
+    assert lk.backward_design(lib.abcd_lstm_bwd_cluster_max_active(
+        256, lk.BWD_CLUSTER_ROWS)) == "cluster"
+    before = (lk.lstm_layer_bidir_fused_bwd.launches,
+              lk.lstm_layer_bidir_fused_bwd.cluster.launches)
+    picked = lk.lstm_layer_bidir_fused_bwd(*args)
+    torch.cuda.synchronize()
+    assert (lk.lstm_layer_bidir_fused_bwd.launches,
+            lk.lstm_layer_bidir_fused_bwd.cluster.launches) == (
+                before[0] + 1, before[1] + 1)
+    got = lk.lstm_layer_bidir_fused_bwd_on("cluster", *args)
+    tile = lk.lstm_layer_bidir_fused_bwd_on("tile", *args)
+    want = lk.lstm_layer_bidir_fused_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, p, r, q in zip(("dx", "dw_ih", "db_ih", "dw_hh", "db_hh"),
+                                got, tile, want, picked):
+        assert _rel_max_err(g, r) <= 1e-4, name
+        assert _rel_max_err(g, p) <= 1e-4, name
+        torch.testing.assert_close(g, q, rtol=0, atol=0)   # runs repeat
+
+
+def test_lstm_cluster_backward_marks_its_parts(cuda):
+    """The timing hook records an event before (a) and after (a), (b), (c)
+    and (d), in order."""
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    rng = np.random.default_rng(9)
+    args = _bwd_args(rng, cuda, 9, 11, 129, 256, False)
+    marks = []
+    lk.lstm_layer_bidir_fused_bwd_on("cluster", *args, marks=marks)
+    torch.cuda.synchronize()
+    assert len(marks) == 5
+    assert all(marks[i].elapsed_time(marks[i + 1]) >= 0 for i in range(4))
+
+
+@pytest.mark.parametrize("h", [1024, 200])
+def test_lstm_cluster_backward_refuses_widths_it_does_not_take(cuda, h):
+    """H=1024 (the slice does not fit) and H=200 (not a multiple of 32):
+    the card reports no resident cluster, the rule keeps the per-tile
+    route, and a forced cluster launch is refused before any launch."""
+    from seq2seq_abcd_vae_tpu_torch.ops import _build
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    lib = _build.load("lstm")
+    assert lib.abcd_lstm_bwd_cluster_max_active(h, lk.BWD_CLUSTER_ROWS) == 0
+    rng = np.random.default_rng(h)
+    args = _bwd_args(rng, cuda, 5, 6, 9, h, False)
+    before = lk.lstm_layer_bidir_fused_bwd.tile.launches
+    got = lk.lstm_layer_bidir_fused_bwd(*args)
+    want = lk.lstm_layer_bidir_fused_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert lk.lstm_layer_bidir_fused_bwd.tile.launches == before + 1
+    for g, r in zip(got, want):
+        assert _rel_max_err(g, r) <= 1e-4
+    with pytest.raises(RuntimeError, match="refused"):
+        lk.lstm_layer_bidir_fused_bwd_on("cluster", *args)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", [(125, 512), (512, 64), (37, 13), (1, 3)])
+def test_lstm_layer_cluster_matches_twin(cuda, shape, reverse):
+    """Row 3's cluster route at the training (B=512, T=125) and served
+    (B=64, T=512) shapes, a small batch and one step, both span
+    directions, ragged with a row of length 0: outs, the final states and
+    the saved cell states against the twin and the per-tile kernel; the
+    public wrapper launches the route its rule names, once."""
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    t, b = shape
+    rng = np.random.default_rng(t + b + reverse)
+    lens = rng.integers(1, t + 1, size=b).astype(np.int32)
+    lens[:2] = (t, 0)[:b]
+    lengths = torch.from_numpy(lens).to(cuda)
+    xp = torch.from_numpy(rng.normal(size=(t, b, 1024)).astype(np.float32)
+                          ).to(cuda)
+    w_hh, b_hh = _uniform(rng, cuda, 1 / 16, 256, 1024), _uniform(
+        rng, cuda, 1 / 16, 1024)
+    before = (lk.lstm_layer.launches, lk.lstm_layer.cluster.launches)
+    lk.lstm_layer(xp, lengths, w_hh, b_hh, reverse)
+    torch.cuda.synchronize()
+    assert (lk.lstm_layer.launches, lk.lstm_layer.cluster.launches) == (
+        before[0] + 1, before[1] + 1)
+    got = lk.lstm_layer_on("cluster", xp, lengths, w_hh, b_hh, reverse, True)
+    tile = lk.lstm_layer_on("tile", xp, lengths, w_hh, b_hh, reverse, True)
+    want = lk.lstm_layer_plain(xp, lengths, w_hh, b_hh, reverse, True)
+    torch.cuda.synchronize()
+    for g, p, r in zip(got, tile, want):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
+        torch.testing.assert_close(g, p, rtol=0, atol=1e-5)
+    for rows in lk.PROJ_CLUSTER_TILES:   # each tile forced: the same sums
+        other = lk.lstm_layer_on("cluster", xp, lengths, w_hh, b_hh, reverse,
+                                 True, rows=rows)
+        for g, o in zip(got, other):
+            torch.testing.assert_close(g, o, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("h", [1024, 36])
+def test_lstm_layer_cluster_refuses_widths_it_does_not_take(cuda, h):
+    """H=1024 and H=36 (not a multiple of 8): no resident cluster, the
+    per-tile route, and a forced cluster launch raises."""
+    from seq2seq_abcd_vae_tpu_torch.ops import _build
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    lib = _build.load("lstm")
+    assert all(lib.abcd_lstm_fwd_cluster_max_active(h, rows) == 0
+               for rows in lk.PROJ_CLUSTER_TILES)
+    assert lib.abcd_lstm_fwd_cluster_max_active(256, 36) > 0
+    rng = np.random.default_rng(h)
+    lengths = torch.tensor([5, 0, 3, 1, 5, 2], dtype=torch.int32,
+                           device=cuda)
+    xp = torch.from_numpy(rng.normal(size=(5, 6, 4 * h)).astype(np.float32)
+                          ).to(cuda)
+    w_hh, b_hh = _uniform(rng, cuda, 1 / 16, h, 4 * h), _uniform(
+        rng, cuda, 1 / 16, 4 * h)
+    before = lk.lstm_layer.tile.launches
+    got = lk.lstm_layer(xp, lengths, w_hh, b_hh)
+    want = lk.lstm_layer_plain(xp, lengths, w_hh, b_hh)
+    torch.cuda.synchronize()
+    assert lk.lstm_layer.tile.launches == before + 1
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-5)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        lk.lstm_layer_on("cluster", xp, lengths, w_hh, b_hh)
+
+
+def test_lstm_cluster_backward_takes_unaligned_weights(cuda):
+    """Weights that are contiguous views at an odd float offset (not 16-byte
+    aligned): the gate recompute loads them a float at a time, and the
+    gradients still match the twin."""
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    rng = np.random.default_rng(17)
+    x, lengths, *w, outs, cs, douts, dh_n, dc_n = _bwd_args(
+        rng, cuda, 23, 19, 129, 256, True)
+
+    def unaligned(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        return view
+
+    args = (x, lengths, *(unaligned(t) for t in w), outs, cs, douts, dh_n,
+            dc_n)
+    got = lk.lstm_layer_bidir_fused_bwd_on("cluster", *args)
+    want = lk.lstm_layer_bidir_fused_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("dx", "dw_ih", "db_ih", "dw_hh", "db_hh"), got,
+                          want):
+        assert _rel_max_err(g, r) <= 1e-4, name
