@@ -10,13 +10,17 @@ sits in is the one it times.  Builds ``csrc/lstm.cu``,
 times each:
 
 - ``lstm_layer_bidir_fused`` forward (row 2) at the served shape (B=64,
-  T=512) and the training shape (B=512, T=125), F=129, H=256, held to its
-  twin first, beside cuDNN's bidirectional LSTM on a packed sequence
-  (``nn.LSTM``, the yardstick the port never calls); where the checkout
-  has both designs (``lstm_layer_bidir_fused_on``), each design forced,
-  and the card's resident clusters (``abcd_lstm_cluster_max_active``);
-- ``log_spectrogram_kernel`` (row 1) at B=64, T=512, fs=32000 and 16000,
-  held to its twin, beside ``torch.stft`` + abs + log;
+  T=512) and the training shape (B=512, T=125), F=129, H=256, and at
+  44.1 kHz's F=177 (B=64, T=512), held to its twin first, beside cuDNN's
+  bidirectional LSTM on a packed sequence (``nn.LSTM``, the yardstick the
+  port never calls); where the checkout has several designs
+  (``lstm_layer_bidir_fused_on``), each design that takes the shape
+  forced (the "proj" design also by its two parts, where the checkout has
+  it), the design the shape rule picked, and the card's resident clusters
+  (``abcd_lstm_cluster_max_active``);
+- ``log_spectrogram_kernel`` (row 1) at B=64, T=512, fs=32000, 16000 and
+  44100, held to its twin, beside ``torch.stft`` + abs + log, with the
+  route the frame took;
 - ``lstm_layer`` forward and backward (one direction over xp) and, where
   the checkout has it, ``lstm_layer_bidir`` forward and backward (both
   directions in one launch, held to its twins first), at B=512, T=125,
@@ -102,12 +106,30 @@ def row2(out, rng, dev, name, b, t, f=129, h=256):
     if not hasattr(lk, "lstm_layer_bidir_fused_on"):
         return
     lib = _build.load("lstm")
-    for design in ("cluster", "tile"):
+    designs = [d for d in ("cluster", "proj", "tile")
+               if hasattr(lk.lstm_layer_bidir_fused, d)]
+    if lib.abcd_lstm_cluster_max_active(f, h) <= 0:
+        designs.remove("cluster")
+    before = {d: getattr(lk.lstm_layer_bidir_fused, d).launches
+              for d in designs}
+    lk.lstm_layer_bidir_fused(*args)
+    out[f"row2_{name}_rule"] = [d for d in designs if getattr(
+        lk.lstm_layer_bidir_fused, d).launches > before[d]]
+    for design in designs:
         out[f"row2_{name}_{design}_err"] = max_err(
             lk.lstm_layer_bidir_fused_on(design, *args), want)
         out[f"row2_{name}_{design}_ms"] = [
             cuda_ms(lambda: lk.lstm_layer_bidir_fused_on(design, *args),
                     iters=5) for _ in range(3)]
+    if "proj" in designs:
+        splits = []
+        for _ in range(3):
+            marks = []
+            lk.lstm_layer_bidir_fused_on("proj", *args, marks=marks)
+            torch.cuda.synchronize()
+            splits.append([marks[i].elapsed_time(marks[i + 1])
+                           for i in range(2)])
+        out[f"row2_{name}_proj_split_ms"] = splits
     out[f"row2_{name}_max_active_clusters"] = \
         lib.abcd_lstm_cluster_max_active(f, h)
 
@@ -123,6 +145,9 @@ def row1(out, rng, dev, fs, b=64, t=512):
     cos_b, sin_b = stft.basis_tensors(frame, "hann_window", dev)
     args = (audio, cos_b, sin_b, frame, step, t, EPSILON, NORMALIZER)
     want = stft_kernel.log_spectrogram_plain(*args)
+    route = getattr(stft_kernel, "route", None)
+    out[f"row1_fs{fs}_route"] = (route(frame) if route else "fft" if
+                                 stft_kernel.fft_route(frame) else "dft")
     out[f"row1_fs{fs}_err"] = max_err(
         [stft_kernel.log_spectrogram_kernel(*args)], [want])
     out[f"row1_fs{fs}_ms"] = [
@@ -304,7 +329,8 @@ def main(label: str) -> int:
     rng = np.random.default_rng(0)
     row2(out, rng, dev, "serve", 64, 512)
     row2(out, rng, dev, "train", 512, 125)
-    for fs in (32000, 16000):
+    row2(out, rng, dev, "serve44k", 64, 512, f=177)
+    for fs in (32000, 16000, 44100):
         row1(out, rng, dev, fs)
     projected(out, rng, dev)
     for name, b, t in (("train", 512, 125), ("serve", 64, 512)):

@@ -15,10 +15,11 @@ run from the repository root.  It
 4. drives the serving path: ``serve_main`` on Unix sockets at ``-b 64``
    with ``--stft_method pallas``, answering requests of varied lengths
    across the buckets at fs=32000 (probs), the fixture's wav spans at
-   fs=16000 (logits), a few requests in features mode and a few at
-   fs=44100 (probs; frame 352, 177 bins: the STFT's DFT route and the
-   LSTM's per-tile kernel, where 32 and 16 kHz take the FFT route and the
-   cluster kernel), from concurrent clients;
+   fs=16000 (logits), a few requests in features mode, a few at fs=44100
+   (probs; frame 352, 177 bins: the STFT's FFT route by its mixed-radix
+   passes and the LSTM forward's "proj" design, where 32 and 16 kHz take
+   the radix-4/2 passes and the raw cluster design) and a few at
+   fs=26000 (frame 208: the STFT's DFT route), from concurrent clients;
 5. trains: writes a synthetic corpus (1024 segments of 8 classes, 0.10 to
    0.50 s, fs=32000, two speakers, in four wav files) and runs the
    training CLI ``seq2seq_abcd_vae_tpu_torch.cli.learning_main`` at the
@@ -115,14 +116,19 @@ run from the repository root.  It
     B=512, T=125, H=256 and at H=1024;
 15. times each kernel, its twin and one library call computing the same
     function (a yardstick the port never calls) with CUDA events, and
-    prints one ``{"kernels": [...]}`` line (41 entries: each route of the
-    STFT, FFT and DFT, of the LSTM's raw forward and backward and of its
+    prints one ``{"kernels": [...]}`` line (43 entries: each route of the
+    STFT, FFT by radix-4/2 or mixed-radix passes and DFT, of the LSTM's
+    raw forward (cluster, "proj", per-tile) and backward and of its
     one-direction forward, cluster and per-tile, on its own, with the
     launches the shape gave it; the raw backward's cluster route with its
     time split into the gate recompute, the recurrence, dx and the weight
-    gradients, also printed on a line of its own) with launches, times,
+    gradients, and the raw forward's "proj" design split into the input
+    projection and the recurrence, each also printed on a line of its own;
+    the per-tile LSTM routes at H=1024 beside cuDNN at that width) with
+    launches, times,
     the bound and the largest error, after the serve latencies,
-    the time of one served batch and of one training step by stage (the
+    the time of one served batch (at fs=32000, and at fs=44100 with the
+    routes its launches took) and of one training step by stage (the
     stream path's beside the fused path's), the training and encode
     throughputs;
 16. ends with ``{"ok": true, "device": {...}}`` as its last line.
@@ -440,19 +446,26 @@ def max_err(a, b) -> float:
     return (a.float().cpu() - b.float().cpu()).abs().max().item()
 
 
-def stft_phase(dev, rng, launches_fft, launches_dft):
-    """The STFT's two routes against the twin: the FFT route at fs=32000
-    and 16000 (B=64 and 512), the DFT route at fs=44100 (frame 352), silent
-    rows included; each timed at its main path's served shape (B=64,
-    T=512) beside the twin and torch.stft + abs + log."""
+def stft_phase(dev, rng, launches):
+    """The STFT's three kernels against the twin: the FFT route's radix-4/2
+    passes at fs=32000 and 16000 (B=64 and 512), its mixed-radix passes at
+    fs=44100, 48000 and 22050 (frames 352, 384, 176), the DFT route at
+    fs=26000 (frame 208, whose half is 8 * 13), silent rows included; each
+    rate but 16 kHz timed at the served shape (B=64, T=512) beside the twin
+    and torch.stft + abs + log.  ``launches`` maps each route (``fft``,
+    ``mixed``, ``dft``) to its main paths' count; each route's entry is
+    timed at its first rate."""
     from seq2seq_abcd_vae_tpu_torch.ops import stft, stft_kernel
-    checks = {"fft": {}, "dft": {}}
-    entries = []
+    checks = {"fft": {}, "mixed": {}, "dft": {}}
+    times = {}
+    entries = {}
     for fs, b, t in ((32000, BATCH, 512), (16000, BATCH, 512),
-                     (32000, 512, 512), (44100, BATCH, 512)):
+                     (32000, 512, 512), (44100, BATCH, 512),
+                     (48000, BATCH, 512), (22050, BATCH, 512),
+                     (26000, BATCH, 512)):
         frame = int(0.008 * fs)
         step = frame // 2
-        route = "fft" if stft_kernel.fft_route(frame) else "dft"
+        route = stft_kernel.route(frame)
         counter = getattr(stft_kernel.log_spectrogram_kernel, route)
         row = t * step + frame
         audio = torch.from_numpy(rng.integers(
@@ -483,9 +496,6 @@ def stft_phase(dev, rng, launches_fft, launches_dft):
             return torch.log(spec.abs() + EPSILON) / NORMALIZER
 
         lib_out = library().transpose(1, 2)
-        kernel_ms = cuda_ms(lambda: stft_kernel.log_spectrogram_kernel(*args))
-        plain_ms = cuda_ms(lambda: stft_kernel.log_spectrogram_plain(*args))
-        library_ms = cuda_ms(library)
         # the least work of the function, whatever the route: per frame the
         # window (frame multiplies) and a real FFT (about 2.5 * frame *
         # log2(frame) operations), then per bin the magnitude (2
@@ -495,23 +505,39 @@ def stft_phase(dev, rng, launches_fft, launches_dft):
                          + 7.0 * bins)
         nbytes = 4.0 * (b * ((t - 1) * step + frame) + b * t * bins
                         + 2 * frame * bins)
-        bms, by = bound_ms(flops, nbytes)
-        entries.append({
+        at = {"route": route,
+              "ms": cuda_ms(lambda: stft_kernel.log_spectrogram_kernel(
+                  *args)),
+              "plain_ms": cuda_ms(lambda: stft_kernel.log_spectrogram_plain(
+                  *args)),
+              "library_ms": cuda_ms(library),
+              "bound": bound_ms(flops, nbytes),
+              "library_max_abs_err": max_err(lib_out, want),
+              "kernel_vs_library_max_abs_err": max_err(got, lib_out)}
+        times[f"fs{fs}"] = at
+        if route in entries:
+            continue
+        entries[route] = {
             "name": f"log_spectrogram_{route}",
             "route": "cuda",
             "source": "seq2seq_abcd_vae_tpu_torch/csrc/stft.cu",
             "replaces": "seq2seq_abcd_vae_tpu/ops/stft_pallas.py:78",
-            "launches": launches_fft if route == "fft" else launches_dft,
-            "max_abs_err": max(checks[route].values()),
-            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": library_ms,
+            "launches": launches[route],
+            "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound"][0], "bound_by": at["bound"][1],
+            "library_ms": at["library_ms"],
             "library_call": "torch.stft + abs + log",
-            "library_max_abs_err": max_err(lib_out, want),
-            "kernel_vs_library_max_abs_err": max_err(got, lib_out),
+            "library_max_abs_err": at["library_max_abs_err"],
+            "kernel_vs_library_max_abs_err":
+                at["kernel_vs_library_max_abs_err"],
             "shape": f"B={b} T={t} frame={frame} bins={bins} (fs={fs})",
-            "tolerance": STFT_ATOL, "checks": checks[route],
-        })
-    return entries
+            "tolerance": STFT_ATOL}
+    for route, entry in entries.items():
+        entry["max_abs_err"] = max(checks[route].values())
+        entry["checks"] = checks[route]
+        entry["ms_by_rate"] = {k: v for k, v in times.items()
+                               if v["route"] == route}
+    return [entries[r] for r in ("fft", "mixed", "dft")]
 
 
 def _bidir_inputs(dev, rng, f, b, t, h=HIDDEN):
@@ -555,36 +581,51 @@ def _nn_lstm(args):
     return library
 
 
-def lstm_phase(dev, rng, launches_cluster, launches_tile):
-    """Row 2's forward, both designs, against the twin at the served shapes
-    (F=129 and 65 at B=64, T=512; F=177 at fs=44100, which the shape rule
-    sends to the per-tile kernel), at B=512, T=512 and at the training
-    shape (B=512, T=125); each design timed at the served and training
-    shapes beside the twin and cuDNN, the per-tile kernel also at its main
-    path's F=177."""
+LSTM_DESIGNS = ("cluster", "proj", "tile")
+
+
+def lstm_phase(dev, rng, launches):
+    """Row 2's forward, its three designs, against the twin: at the served
+    shapes (F=129 and 65 at B=64, T=512, which the shape rule gives the raw
+    cluster design; F=177 at fs=44100, which it gives the "proj" design),
+    at B=512, T=512, at the training shape (B=512, T=125; F=177 there with
+    the saved cell states) and at a second layer's F = 2H = 512; every
+    design that takes a shape is held there (the per-tile kernel forced
+    everywhere), and each timed beside the twin and cuDNN at the served
+    and training shapes, at F=177 and at F=512, the "proj" design also by
+    its two parts.  ``launches`` maps each design to its main paths'
+    count."""
     from seq2seq_abcd_vae_tpu_torch.ops import _build, lstm_kernel as lk
     h = HIDDEN
-    checks = {"cluster": {}, "tile": {}}
+    checks = {d: {} for d in LSTM_DESIGNS}
     times = {}
     lib = _build.load("lstm")
     active = lib.abcd_lstm_cluster_max_active(129, h)
+    pair_active = {r: lib.abcd_lstm_pair_cluster_max_active(h, r)
+                   for r in lk.PROJ_CLUSTER_TILES}
     lib_errs = {}
+    timed = ((129, BATCH, 512), (129, 512, 125), (177, BATCH, 512),
+             (177, 512, 125), (512, BATCH, 512))
     for f, b, t in ((129, BATCH, 512), (65, BATCH, 512), (129, 512, 512),
-                    (129, 512, 125), (177, BATCH, 512)):
+                    (129, 512, 125), (177, BATCH, 512), (177, 512, 125),
+                    (512, BATCH, 512)):
         args = _bidir_inputs(dev, rng, f, b, t)
-        before = {d: getattr(lk.lstm_layer_bidir_fused, d).launches
-                  for d in ("cluster", "tile")}
-        got = lk.lstm_layer_bidir_fused(*args)
-        picked = [d for d in before if getattr(
-            lk.lstm_layer_bidir_fused, d).launches == before[d] + 1]
-        want = lk.lstm_layer_bidir_fused_plain(*args)
-        fits = lib.abcd_lstm_cluster_max_active(f, h) > 0
-        designs = ("cluster", "tile") if fits else ("tile",)
+        with_cs = (f, b, t) == (177, 512, 125)
+        counters = {d: getattr(lk.lstm_layer_bidir_fused, d)
+                    for d in LSTM_DESIGNS}
+        before = {d: c.launches for d, c in counters.items()}
+        got = lk.lstm_layer_bidir_fused(*args, return_cs=with_cs)
+        picked = [d for d in LSTM_DESIGNS
+                  if counters[d].launches == before[d] + 1]
+        want = lk.lstm_layer_bidir_fused_plain(*args, return_cs=with_cs)
+        designs = [d for d in LSTM_DESIGNS if d != "cluster"
+                   or lib.abcd_lstm_cluster_max_active(f, h) > 0]
         outs = {d: (got if d == picked[0]
-                    else lk.lstm_layer_bidir_fused_on(d, *args))
+                    else lk.lstm_layer_bidir_fused_on(d, *args,
+                                                      return_cs=with_cs))
                 for d in designs}
         torch.cuda.synchronize()
-        shape = f"F{f}_B{b}_T{t}"
+        shape = f"F{f}_B{b}_T{t}" + ("_cs" if with_cs else "")
         for d, out in outs.items():
             err = max_err(out, want)
             checks[d][shape] = err
@@ -592,8 +633,7 @@ def lstm_phase(dev, rng, launches_cluster, launches_tile):
                 raise AssertionError(f"LSTM {d} design vs twin at {shape}: "
                                      f"{err} > {LSTM_ATOL}")
         checks.setdefault("rule", {})[shape] = picked[0]
-        if (f, b, t) not in ((129, BATCH, 512), (129, 512, 125),
-                             (177, BATCH, 512)):
+        if (f, b, t) not in timed:
             continue
         library = _nn_lstm(args)
         lib_h, lib_c = library()
@@ -601,6 +641,12 @@ def lstm_phase(dev, rng, launches_cluster, launches_tile):
                               max_err(lib_c, want[2]))
         times[shape] = {d: cuda_ms(lambda: lk.lstm_layer_bidir_fused_on(
             d, *args), iters=5) for d in designs}
+        marks = []
+        lk.lstm_layer_bidir_fused_on("proj", *args, marks=marks)
+        torch.cuda.synchronize()
+        times[shape]["proj_split_ms"] = {
+            "a_projection": marks[0].elapsed_time(marks[1]),
+            "b_recurrence": marks[1].elapsed_time(marks[2])}
         times[shape]["plain"] = cuda_ms(
             lambda: lk.lstm_layer_bidir_fused_plain(*args), iters=2,
             warmup=1)
@@ -610,17 +656,18 @@ def lstm_phase(dev, rng, launches_cluster, launches_tile):
         nbytes = 4.0 * (t * b * f + 2 * (f + h + 2) * 4 * h
                         + t * 2 * b * h + 2 * 2 * b * h) + 4 * b
         times[shape]["bound"] = bound_ms(flops, nbytes)
+        times[shape]["rule"] = picked[0]
     entries = []
-    for design, shape, launches in (
-            ("cluster", f"F129_B{BATCH}_T512", launches_cluster),
-            ("tile", f"F177_B{BATCH}_T512", launches_tile)):
+    for design, shape in (("cluster", f"F129_B{BATCH}_T512"),
+                          ("proj", f"F177_B{BATCH}_T512"),
+                          ("tile", f"F177_B{BATCH}_T512")):
         at = times[shape]
         entries.append({
             "name": f"lstm_layer_bidir_fused_{design}",
             "route": "cuda",
             "source": "seq2seq_abcd_vae_tpu_torch/csrc/lstm.cu",
             "replaces": "seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:776",
-            "launches": launches,
+            "launches": launches[design],
             "max_abs_err": max(checks[design].values()),
             "ms": at[design], "plain_ms": at["plain"],
             "bound_ms": at["bound"][0], "bound_by": at["bound"][1],
@@ -629,14 +676,22 @@ def lstm_phase(dev, rng, launches_cluster, launches_tile):
             "library_max_abs_err": lib_errs[shape],
             "shape": shape.replace("_", " "),
             "ms_by_shape": times, "max_active_clusters": active,
+            "pair_max_active_clusters": pair_active,
             "tolerance": LSTM_ATOL, "checks": checks,
         })
+    entries[1]["ms_by_part"] = times[f"F177_B{BATCH}_T512"]["proj_split_ms"]
+    print(f"row 2's \"proj\" design at B={BATCH} T=512 F=177, ms by part "
+          + json.dumps(entries[1]["ms_by_part"]), flush=True)
     return entries
 
 
-def step_phase(dev, ckpt_path, rng):
+def step_phase(dev, ckpt_path, rng, fs=32000,
+               modes=("probs", "logits", "features")):
     """encode_step on the kernels (card) vs on the twins (CPU), and where
-    the time of one served batch at the largest bucket goes (ms)."""
+    the time of one served batch at the largest bucket goes (ms), at the
+    checkpoint's rate ``fs``; with the routes that one encode_step's
+    launches took."""
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel, stft_kernel
     from seq2seq_abcd_vae_tpu_torch.data import audio as audio_mod
     from seq2seq_abcd_vae_tpu_torch.data.batching import FrontendSpec
     from seq2seq_abcd_vae_tpu_torch.infer.encode import Encoder, encode_step
@@ -644,7 +699,7 @@ def step_phase(dev, ckpt_path, rng):
     from seq2seq_abcd_vae_tpu_torch.models.encoder import encoder_apply
     from seq2seq_abcd_vae_tpu_torch.ops import stft as stft_ops
 
-    fs, bucket = 32000, 512
+    bucket = 512
     spec = FrontendSpec(int(0.008 * fs), int(0.004 * fs))
     reqs = random_requests(rng, fs, BATCH - 3)  # 3 padding rows
     audio = np.zeros((BATCH, spec.buffer_len(bucket)), np.float32)
@@ -687,7 +742,18 @@ def step_phase(dev, ckpt_path, rng):
         for _ in range(5):
             served_batch()
         breakdown["host_batch_wall"] = (time.perf_counter() - t0) / 5 * 1e3
-    for mode in ("probs", "logits", "features"):
+        routes = {f"log_spectrogram_{r}": getattr(
+            stft_kernel.log_spectrogram_kernel, r)
+            for r in ("fft", "mixed", "dft")}
+        routes.update({f"lstm_layer_bidir_fused_{d}": getattr(
+            lstm_kernel.lstm_layer_bidir_fused, d) for d in LSTM_DESIGNS})
+        before = {k: c.launches for k, c in routes.items()}
+        encode_step(enc.params, audio_d, frames_d, st, bucket, "probs")
+        torch.cuda.synchronize()
+        breakdown["launches_by_route"] = {
+            k: c.launches - before[k] for k, c in routes.items()
+            if c.launches > before[k]}
+    for mode in modes:
         outs = []
         for device in ("cuda", "cpu"):
             enc = Encoder(ckpt_path, device=device, stft_method="pallas")
@@ -759,9 +825,11 @@ def write_corpus(root: str, seed: int) -> str:
 # so a path's check takes the split as the run made it and holds its sum
 # to the wrapper's count (``expected``).
 ROUTES = {"log_spectrogram_fft": ("log_spectrogram", "fft"),
+          "log_spectrogram_mixed": ("log_spectrogram", "mixed"),
           "log_spectrogram_dft": ("log_spectrogram", "dft"),
           "lstm_layer_bidir_fused_cluster": ("lstm_layer_bidir_fused",
                                              "cluster"),
+          "lstm_layer_bidir_fused_proj": ("lstm_layer_bidir_fused", "proj"),
           "lstm_layer_bidir_fused_tile": ("lstm_layer_bidir_fused", "tile"),
           "lstm_layer_bidir_fused_bwd_cluster": (
               "lstm_layer_bidir_fused_bwd", "cluster"),
@@ -1104,6 +1172,26 @@ def lstm_train_phase(dev, rng, t, launches_cluster, launches_tile):
                              f"{wide_rel}")
     wide_ms = cuda_ms(lambda: lk.lstm_layer_bidir_fused_bwd(*wargs), iters=1,
                       warmup=0)
+    # cuDNN at the same width (the yardstick the per-tile routes' ranking
+    # reads): forward, and forward + backward, packed, the empty row dropped
+    wlstm = _nn_lstm_module(*ww)
+    wkeep = torch.from_numpy(wlens > 0).to(dev)
+    wx_lib = wx[:, wkeep].clone().requires_grad_(True)
+    wlens_lib = torch.from_numpy(wlens[wlens > 0].astype(np.int64))
+    wdh = torch.from_numpy(rng.normal(size=(2, len(wlens_lib), hh)).astype(
+        np.float32)).to(dev)
+
+    def wide_library(backward):
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            wx_lib, wlens_lib, enforce_sorted=False)
+        if not backward:
+            with torch.no_grad():
+                return wlstm(packed)[1]
+        _, (h_l, c_l) = wlstm(packed)
+        torch.autograd.backward((h_l, c_l), (wdh, wdh))
+
+    wide_lib_fwd_ms = cuda_ms(lambda: wide_library(False), iters=2, warmup=1)
+    wide_lib_ms = cuda_ms(lambda: wide_library(True), iters=2, warmup=1)
     common = {
         "route": "cuda",
         "source": "seq2seq_abcd_vae_tpu_torch/csrc/lstm.cu",
@@ -1127,11 +1215,13 @@ def lstm_train_phase(dev, rng, t, launches_cluster, launches_tile):
              main_path_shape=f"T={t} B={b} F={f} H={WIDE_HIDDEN}",
              main_path_shape_ms=wide_ms,
              main_path_shape_bound_ms=_bwd_bound(wlens, t, b, f,
-                                                 WIDE_HIDDEN)[0])]
+                                                 WIDE_HIDDEN)[0],
+             main_path_shape_library_ms=wide_lib_ms)]
     wide_forward = {"main_path_shape": f"T={t} B={b} F={f} H={hh} "
                                        "(return_cs)",
                     "main_path_shape_ms": wide_fwd_ms,
                     "main_path_shape_bound_ms": wide_fwd_bound[0],
+                    "main_path_shape_library_ms": wide_lib_fwd_ms,
                     "main_path_shape_max_abs_err": wide_fwd_err}
     return entries, {"forward_with_cs_ms": fwd_ms,
                      "forward_with_cs_err": fwd_err,
@@ -1952,6 +2042,7 @@ def lstm_layer_phase(dev, rng, launches_cluster, launches_tile,
         # cuDNN's unidirectional LSTM on the same recurrent weights over
         # packed sequences (the zero-length row dropped); it also computes
         # the input projection, which the kernel is handed
+        h = w_hh.shape[0]
         lstm = torch.nn.LSTM(f, h).to(dev)
         with torch.no_grad():
             lstm.weight_hh_l0.copy_(w_hh.T)
@@ -2045,6 +2136,9 @@ def lstm_layer_phase(dev, rng, launches_cluster, launches_tile,
             raise AssertionError(f"lstm_layer backward vs twin at {shape}: "
                                  f"{relb}")
     wide_bwd_ms = cuda_ms(lambda: lk.lstm_layer_bwd(*wide_bwd), 1, 1)
+    wide_lib_fwd, wide_lib_fwd_bwd = library_for(wlens, w_hh, b_hh, t, b)
+    wide_lib_ms = cuda_ms(wide_lib_fwd, 2, 1)
+    wide_lib_bwd_ms = cuda_ms(wide_lib_fwd_bwd, 2, 1)
     wide_bwd_bound = bound_ms(3 * int(wlens.sum()) * 2.0 * hh * 4 * hh,
                               bwd_bytes(t, b, hh))[0]
     train = times[f"B{TRAIN_BATCH}_T125"]
@@ -2069,7 +2163,8 @@ def lstm_layer_phase(dev, rng, launches_cluster, launches_tile,
              served_shape_ms=served["tile"],
              main_path_shape=f"T=125 B={TRAIN_BATCH} H={WIDE_HIDDEN}",
              main_path_shape_ms=wide_ms,
-             main_path_shape_bound_ms=wide_bound)]
+             main_path_shape_bound_ms=wide_bound,
+             main_path_shape_library_ms=wide_lib_ms)]
     bwd_entry = {
         "name": "lstm_layer_bwd", "route": "cuda",
         "source": "seq2seq_abcd_vae_tpu_torch/csrc/lstm.cu",
@@ -2086,6 +2181,7 @@ def lstm_layer_phase(dev, rng, launches_cluster, launches_tile,
         "main_path_shape": f"T=125 B={TRAIN_BATCH} H={WIDE_HIDDEN}",
         "main_path_shape_ms": wide_bwd_ms,
         "main_path_shape_bound_ms": wide_bwd_bound,
+        "main_path_shape_library_ms": wide_lib_bwd_ms,
         "tolerance": f"{GRAD_FRACTION} of each leaf's max |value|"}
     return fwd_entries, bwd_entry
 
@@ -4080,10 +4176,13 @@ def run(args, root, dev, rng, work) -> int:
     ckpt32 = make_checkpoint(os.path.join(work, "fs32000"), 129, args.seed)
     ckpt16 = make_checkpoint(os.path.join(work, "fs16000"), 65,
                              args.seed + 1)
-    # fs=44100: frame 352, 177 bins, which take the STFT's DFT route and,
-    # too wide for the cluster's shared memory, the LSTM's per-tile kernel
+    # fs=44100: frame 352, 177 bins, which take the STFT's mixed-radix FFT
+    # passes and, too wide for the raw cluster's shared memory, the LSTM's
+    # "proj" design; fs=26000: frame 208 (half 8 * 13), the DFT route
     ckpt44 = make_checkpoint(os.path.join(work, "fs44100"), 177,
                              args.seed + 2)
+    ckpt26 = make_checkpoint(os.path.join(work, "fs26000"), 105,
+                             args.seed + 3)
     common = ["-b", str(BATCH), "--stft_method", "pallas", "-d", "cuda"]
 
     # ---- the main path, counted -------------------------------------
@@ -4133,19 +4232,30 @@ def run(args, root, dev, rng, work) -> int:
         lambda path: concurrent_clients(path, reqs44, 44100, clients=2))
     check_answers(answers44, "probs", K)
 
+    reqs26 = random_requests(rng, 26000, 8)
+    (answers26, _), ping26 = run_service(
+        [ckpt26, str(NORMALIZER), "26000", "--mode", "probs"] + common,
+        os.path.join(work, "probs26.sock"),
+        lambda path: concurrent_clients(path, reqs26, 26000, clients=2))
+    check_answers(answers26, "probs", K)
+
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t_serve
+    # the per-tile forward's main path is the widest encoder's training
     launches = {name: fn.launches for name, fn in training_counters().items()
                 if name.startswith(("log_spectrogram",
                                     "lstm_layer_bidir_fused"))
-                and "_bwd" not in name}
+                and "_bwd" not in name
+                and name != "lstm_layer_bidir_fused_tile"}
     expected(training_counters())  # each wrapper's routes sum to its count
     batches = sum(p["stats"]["batches"]
-                  for p in (ping_probs, ping_logits, ping_feat, ping44))
+                  for p in (ping_probs, ping_logits, ping_feat, ping44,
+                            ping26))
     print(f"main path: {len(reqs32)} probs + {len(spans)} wav logits + "
           f"{len(reqs_feat)} features requests + {len(reqs44)} probs at "
-          f"fs=44100, {batches} batches (warm-up included) in "
-          f"{serve_s:.2f} s; launches {launches}", flush=True)
+          f"fs=44100 + {len(reqs26)} probs at fs=26000, {batches} batches "
+          f"(warm-up included) in {serve_s:.2f} s; launches {launches}",
+          flush=True)
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
@@ -4367,15 +4477,28 @@ def run(args, root, dev, rng, work) -> int:
         return sum(by_path(name).values())
 
     # ---- kernels vs twins, times ------------------------------------
-    kernels = [*stft_phase(dev, rng, total("log_spectrogram_fft"),
-                           total("log_spectrogram_dft")),
-               *lstm_phase(dev, rng, total("lstm_layer_bidir_fused_cluster"),
-                           total("lstm_layer_bidir_fused_tile"))]
+    kernels = [*stft_phase(dev, rng, {r: total(f"log_spectrogram_{r}")
+                                      for r in ("fft", "mixed", "dft")}),
+               *lstm_phase(dev, rng, {
+                   d: total(f"lstm_layer_bidir_fused_{d}")
+                   for d in LSTM_DESIGNS})]
     step_errs, breakdown = step_phase(dev, ckpt32, rng)
     print("encode_step kernels vs twins " + json.dumps(step_errs),
           flush=True)
     print(f"served batch B={BATCH} T=512 fs=32000, ms "
           + json.dumps(breakdown), flush=True)
+    # the 44.1 kHz served batch: the STFT's mixed-radix passes and row 2's
+    # "proj" design
+    step44_errs, breakdown44 = step_phase(dev, ckpt44, rng, fs=44100,
+                                          modes=("probs",))
+    print("encode_step at fs=44100, kernels vs twins "
+          + json.dumps(step44_errs), flush=True)
+    print(f"served batch B={BATCH} T=512 fs=44100, ms "
+          + json.dumps(breakdown44), flush=True)
+    if set(breakdown44["launches_by_route"]) != {
+            "log_spectrogram_mixed", "lstm_layer_bidir_fused_proj"}:
+        raise AssertionError("the 44.1 kHz served batch took the routes "
+                             f"{breakdown44['launches_by_route']}")
 
     checks, step_inputs = whole_step_phase(dev, corpus_dir, csv_path,
                                            args.seed)
@@ -4482,8 +4605,8 @@ def run(args, root, dev, rng, work) -> int:
         lacking = KERNEL_KEYS - set(entry)
         if lacking:
             raise AssertionError(f"kernel {entry['name']} lacks {lacking}")
-    if len(kernels) != 41:
-        raise AssertionError(f"{len(kernels)} kernel entries, expected 41")
+    if len(kernels) != 43:
+        raise AssertionError(f"{len(kernels)} kernel entries, expected 43")
     print("training step, kernels (card) vs twins (CPU) "
           + json.dumps(checks), flush=True)
     print("unidirectional training step, kernels (card) vs twins (CPU) "

@@ -88,15 +88,40 @@
 // puts B=64 in 14 (raw, one wave), and the projected mode's R = 36 puts
 // B=512 in 15, R = 12 B=64 in 6.
 //
+// "Proj" design of the raw forward (kind 0's third design; replacing
+// lstm_pallas.py:646 `_fwdf_call` where the raw cluster kernel's W_ih slice
+// does not fit: F > 129 at H=256, so the 177 bins of 44.1 kHz, the 193 of
+// 48 kHz and a second layer's F = 2H).  The per-tile kernel computes x_t
+// W_ih inside its sequential loop, re-reading both weights from L2 every
+// step (~47 us a step at any grid); only h_{t-1} W_hh depends on the
+// previous step.  So: (a) xp = x W_ih + b_ih for every active row-step of
+// both directions at once, as the raw backward's tiled FP32 product
+// (lstm_gates_kernel with kXp: rows in the span prefix's order, so a
+// row-step outside its span costs no product and is never written; one
+// chain a dot product, x over F in order, then b_ih), into a (T, 2, B, 4H)
+// buffer with direction 1 flipped in time: 268 MB at B=64, T=512 and
+// 524 MB at B=512, T=125 for H=256, where the TPU kernel kept the
+// projection in VMEM (seq2seq_abcd_vae_tpu/models/rnn.py:240-244); then (b)
+// the recurrence over it in the cluster design's projected mode extended
+// to both directions in one launch (kPair: grid z = direction), W_hh's
+// slice resident (131,072 bytes a CTA at H=256, whatever F is), each sum
+// (xp + h W_hh) + b_hh, so the order ((x W_ih + b_ih) + h W_hh) + b_hh of
+// the other designs.  At B=64 the 12-row tile puts both directions in 12
+// clusters, one wave of the 15 an H100 holds.
+//
 // Shape rules (ops/lstm_kernel.py, decided before the launch from the
-// cudaOccupancyMaxActiveClusters queries abcd_lstm_cluster_max_active and
-// abcd_lstm_fwd_cluster_max_active): forward_design takes the raw cluster
-// kernel when H is a multiple of C, its shared memory fits the card (F <=
-// 129 at H=256: not H=1024, not a second layer's F = 2H) and its grid of
-// 2 * ceil(B / R) clusters runs in few enough waves of the resident
-// clusters; layer_design takes the projected mode (H a multiple of C up
-// to 256) with the smallest row tile whose ceil(B / R) clusters fit one
-// wave, else the widest; the per-tile kernels otherwise.
+// cudaOccupancyMaxActiveClusters queries abcd_lstm_cluster_max_active,
+// abcd_lstm_pair_cluster_max_active and abcd_lstm_fwd_cluster_max_active):
+// forward_design takes the raw cluster kernel when H is a multiple of C,
+// its shared memory fits the card (F <= 129 at H=256: not H=1024, not
+// F=177 or a second layer's F = 2H) and its grid of 2 * ceil(B / R)
+// clusters runs in few enough waves of the resident clusters; else the
+// "proj" design where the pair's projected mode takes H (a multiple of C up
+// to 256; any F, any B), its row tile the smallest whose 2 * ceil(B / R)
+// clusters fit one wave, else the widest; else the per-tile kernel (H=1024,
+// H not a multiple of 8).  layer_design takes the projected mode (H a
+// multiple of C up to 256) with the smallest row tile whose ceil(B / R)
+// clusters fit one wave, else the widest; the per-tile kernels otherwise.
 //
 // Cluster design of the raw backward (kind 1's; replacing lstm_pallas.py:682
 // `_bwdf_call`; lstm_gates_kernel, lstm_bwd_cluster_kernel,
@@ -566,12 +591,16 @@ long long cluster_smem_bytes(int F, int H) {
 // active), stages x_{t+2} there, and writes ax(t+1) once the h warps have
 // taken ax(t).  In the projected mode (D = 1, `reverse` picking the span)
 // there is no role 1: ax(t) is the unit's four xp values, which each h
-// thread loads into registers one step ahead.  One CTA barrier ends a step;
-// outs and cs of step t are stored after it.
-template <bool kProj, int R>
+// thread loads into registers one step ahead (only at its rows' active
+// steps: elsewhere zeros, whose gates the span mask discards).  kPair
+// (projected mode over both directions, D = 2): xp is (T, 2, B, 4H) with
+// direction 1 already flipped in time and active on [T - len, T), as the
+// raw mode's direction 1.  One CTA barrier ends a step; outs and cs of
+// step t are stored after it.
+template <bool kProj, int R, bool kPair = false>
 __global__ void __launch_bounds__(ClusterShape<kProj, R>::kMaxThreads)
     lstm_fwd_cluster_kernel(
-        const float* __restrict__ x,       // raw (T, B, F) | xp (T, B, 4H)
+        const float* __restrict__ x,       // raw (T, B, F) | xp (T, D, B, 4H)
         const int* __restrict__ lengths,   // (B,)
         const float* __restrict__ w_ih,    // raw (2, F, 4H) | unused
         const float* __restrict__ b_ih,    // raw (2, 4H) | unused
@@ -593,7 +622,8 @@ __global__ void __launch_bounds__(ClusterShape<kProj, R>::kMaxThreads)
   const int G = 4 * H;
   const int GT = cluster_group_threads(H);
   const int RT = S::RG * GT;            // threads of a role
-  constexpr int D = kProj ? 1 : 2;      // directions: the grid's z
+  static_assert(kProj || !kPair, "the pair mode is a projected mode");
+  constexpr int D = kProj && !kPair ? 1 : 2;  // directions: the grid's z
   const int d = blockIdx.z;
   const int r0 = blockIdx.y * R;
   const int nrows = min(R, B - r0);
@@ -605,7 +635,7 @@ __global__ void __launch_bounds__(ClusterShape<kProj, R>::kMaxThreads)
   const bool live = ul < U;             // lanes past the slice idle
   const int ucol = 4 * (live ? ul : U - 1);  // the unit's first column
   const int unit = rank * U + ucol / 4;
-  const bool rev = kProj ? reverse != 0 : d == 1;
+  const bool rev = kProj && !kPair ? reverse != 0 : d == 1;
 
   extern __shared__ float4 smem4[];
   float* s_wi = reinterpret_cast<float*>(smem4);   // raw: [F][G4]
@@ -673,18 +703,6 @@ __global__ void __launch_bounds__(ClusterShape<kProj, R>::kMaxThreads)
               make_float4(ax[0][q], ax[1][q], ax[2][q], ax[3][q]);
     }
   };
-  // projected mode: the unit's four xp values of step t for the thread's
-  // rows (zeros past the batch)
-  auto load_xp = [&](int t, float4 v[Q]) {
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      v[q] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (live && rb + q < nrows) {
-        const float* p = x + ((int64_t)t * B + r0 + rb + q) * G + unit;
-        v[q] = make_float4(p[0], p[H], p[2 * H], p[3 * H]);
-      }
-    }
-  };
   if (!kProj && role == 1) stage_x(0);
   cp_async_wait_all();
   __syncthreads();  // slices and x_0 in place
@@ -715,6 +733,19 @@ __global__ void __launch_bounds__(ClusterShape<kProj, R>::kMaxThreads)
       bx[g] = kProj ? 0.f : b_ih[d * G + g * H + unit];
       bh[g] = b_hh[d * G + g * H + unit];
     }
+    // projected mode: the unit's four xp values of step t for the thread's
+    // rows (zeros past the batch and at steps outside a row's span)
+    auto load_xp = [&](int t, float4 v[Q]) {
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        v[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (live && rb + q < nrows && span_active(t, T, len[q], rev)) {
+          const float* p =
+              x + (((int64_t)t * D + d) * B + r0 + rb + q) * G + unit;
+          v[q] = make_float4(p[0], p[H], p[2 * H], p[3 * H]);
+        }
+      }
+    };
     float4 xn[Q];  // projected mode: xp of the next step, in flight
     if (kProj) load_xp(0, xn);
     for (int t = 0; t < T; ++t) {
@@ -937,7 +968,15 @@ __global__ void __launch_bounds__(256) span_prefix_kernel(
 // (grid.y covers T * B rows; blocks past a direction's count return), so
 // no row outside its span costs a product.  The blocks of the first column
 // tile also write the h_prev stream (the same h_{t-1}) for dW_hh.
-template <int BM, int BN, int TM, int TN>
+//
+// kXp: the raw forward's input projection instead (its "proj" design, part
+// (a)): xp = x_t W_ih + b_ih (x over F in order, then b_ih) for every
+// active row-step of both directions, written into `gates` as xp
+// (T, 2, B, 4H) at the direction's own time (direction 1 flipped), with no
+// h half, no b_hh and no gate function; w_hh, b_hh, outs and hp_s are not
+// read.  Row-steps outside the spans are left unwritten: the recurrence
+// loads no xp there.
+template <int BM, int BN, int TM, int TN, bool kXp = false>
 __global__ void __launch_bounds__(kGemmThreads) lstm_gates_kernel(
     const float* __restrict__ x,        // (T, B, F)
     const int* __restrict__ prefix,     // (B + 1,)
@@ -975,16 +1014,16 @@ __global__ void __launch_bounds__(kGemmThreads) lstm_gates_kernel(
     s_row[tid] = b;
     s_t[tid] = t;
     s_xrow[tid] = b < 0 ? nullptr : x + ((int64_t)tx * B + b) * F;
-    s_hrow[tid] = b < 0 || t == 0
+    s_hrow[tid] = kXp || b < 0 || t == 0
                       ? nullptr
                       : outs + (((int64_t)(t - 1) * 2 + d) * B + b) * H;
   }
   __syncthreads();
 
   const int kx = (F + kGemmDepth - 1) / kGemmDepth;
-  const int kt_n = kx + (H + kGemmDepth - 1) / kGemmDepth;
+  const int kt_n = kXp ? kx : kx + (H + kGemmDepth - 1) / kGemmDepth;
   const float* wi = w_ih + (int64_t)d * F * G;
-  const float* wh = w_hh + (int64_t)d * H * G;
+  const float* wh = kXp ? wi : w_hh + (int64_t)d * H * G;
   // whole float4s of weights when the rows allow (G is a multiple of 4)
   const bool w16 = (((uintptr_t)wi | (uintptr_t)wh) & 15) == 0;
   auto load = [&](int kt, int buf) {
@@ -1046,6 +1085,23 @@ __global__ void __launch_bounds__(kGemmThreads) lstm_gates_kernel(
     __syncthreads();
   }
 
+  if constexpr (kXp) {  // xp = x W_ih + b_ih, at the direction's own time
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int m = tile_index<BM, TM>(i, tr);
+      if (m >= mcount) continue;
+      float* dst = gates + (((int64_t)s_t[m] * 2 + d) * B + s_row[m]) * G;
+#pragma unroll
+      for (int c = 0; c < TN / 4; ++c) {
+        const int n = n0 + tile_index<BN, TN>(4 * c, tc);
+        if (n >= G) continue;
+        *reinterpret_cast<float4*>(dst + n) = make_float4(
+            acc[i][4 * c] + bi[n], acc[i][4 * c + 1] + bi[n + 1],
+            acc[i][4 * c + 2] + bi[n + 2], acc[i][4 * c + 3] + bi[n + 3]);
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int m = tile_index<BM, TM>(i, tr);
@@ -1761,22 +1817,26 @@ struct ClusterLaunch {
   int threads = 0, max_threads = 0, rows = 0;
 };
 
-template <bool kProj, int R>
+template <bool kProj, int R, bool kPair = false>
 ClusterLaunch fwd_cluster(int F, int H) {
-  return {(const void*)lstm_fwd_cluster_kernel<kProj, R>,
+  return {(const void*)lstm_fwd_cluster_kernel<kProj, R, kPair>,
           cluster_smem_bytes<kProj, R>(F, H), cluster_threads<kProj, R>(H),
           ClusterShape<kProj, R>::kMaxThreads, R};
 }
 
 // The forward's cluster kernel: the raw mode at R = 10, the projected mode
-// at the row tiles built here; fn == nullptr for any other.
-ClusterLaunch fwd_cluster_of(bool proj, int rows, int F, int H) {
+// (one direction, or both with `pair`) at the row tiles built here;
+// fn == nullptr for any other.
+ClusterLaunch fwd_cluster_of(bool proj, int rows, int F, int H,
+                             bool pair = false) {
   if (!proj)
     return rows == kClusterRows ? fwd_cluster<false, kClusterRows>(F, H)
                                 : ClusterLaunch{};
   switch (rows) {
-    case 12: return fwd_cluster<true, 12>(F, H);
-    case 36: return fwd_cluster<true, 36>(F, H);
+    case 12: return pair ? fwd_cluster<true, 12, true>(F, H)
+                         : fwd_cluster<true, 12>(F, H);
+    case 36: return pair ? fwd_cluster<true, 36, true>(F, H)
+                         : fwd_cluster<true, 36>(F, H);
     default: return ClusterLaunch{};
   }
 }
@@ -1949,6 +2009,62 @@ int abcd_lstm_fwd_cluster(const float* xp, const int* lengths,
     ABCD_FWD_CLUSTER(12)
     ABCD_FWD_CLUSTER(36)
 #undef ABCD_FWD_CLUSTER
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The raw forward's "proj" design, part (b): the projected mode over both
+// directions (kPair) at hidden size H and row tile `rows`: resident
+// clusters, 0 when it does not take them.
+int abcd_lstm_pair_cluster_max_active(int H, int rows) {
+  if (H < 1) return 0;
+  return cluster_max_active(fwd_cluster_of(true, rows, 0, H, true), H,
+                            kClusterCtas);
+}
+
+// Part (a) of the "proj" design: xp (T, 2, B, 4H) = x W_ih[d] + b_ih[d] at
+// every active row-step of both directions, direction 1 at its own flipped
+// time (rows in the span prefix's order; the others are left unwritten).
+int abcd_lstm_bidir_xp(const float* x, const int* prefix, const float* w_ih,
+                       const float* b_ih, float* xp, int T, int B, int F,
+                       int H, void* stream) {
+  if (T < 1 || B < 1 || F < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((4 * H + kGatesBN - 1) / kGatesBN,
+                  (T * B + kGatesBM - 1) / kGatesBM, 2);
+  lstm_gates_kernel<kGatesBM, kGatesBN, 8, 8, true>
+      <<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(
+          x, prefix, w_ih, b_ih, w_ih, b_ih, nullptr, xp, nullptr, T, B, F,
+          H);
+  return (int)cudaGetLastError();
+}
+
+// Part (b): both directions over that xp in the cluster design, one launch
+// (grid z = direction); outs, cs (or nullptr), h_n and c_n as the raw
+// forward's.  `rows` is the cluster's row tile (12 or 36).
+int abcd_lstm_bidir_fwd_proj(const float* xp, const int* lengths,
+                             const float* w_hh, const float* b_hh,
+                             float* outs, float* cs, float* h_n, float* c_n,
+                             int T, int B, int H, int rows, void* stream) {
+  if (T < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  const ClusterLaunch k = fwd_cluster_of(true, rows, 0, H, true);
+  cudaError_t err = cluster_prepare(k, H, kClusterCtas);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, k, B, 2, (cudaStream_t)stream);
+  switch (rows) {
+#define ABCD_PAIR_CLUSTER(RR)                                                \
+  case RR:                                                                  \
+    err = cudaLaunchKernelEx(&cfg, lstm_fwd_cluster_kernel<true, RR, true>, \
+                             xp, lengths, (const float*)nullptr,            \
+                             (const float*)nullptr, w_hh, b_hh, outs, cs,   \
+                             h_n, c_n, T, B, 0, H, 0);                      \
+    break;
+    ABCD_PAIR_CLUSTER(12)
+    ABCD_PAIR_CLUSTER(36)
+#undef ABCD_PAIR_CLUSTER
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;

@@ -5,8 +5,15 @@
 // one (B, T, bins) float32 result.  Two hand-written routes, chosen by the
 // wrapper (ops/stft_kernel.py) from the frame length before the launch:
 //
-// - FFT route (log_spectrogram_fft_kernel), for a power-of-two frame N from
-//   16 to 1024 (256 at 32 kHz, the publication config; 128 at 16 kHz).
+// - FFT route (log_spectrogram_fft_kernel), for every even frame N from
+//   16 to 1024 whose M = N / 2 has no prime factor above 11.  Two instances
+//   of one kernel: radix-4/2 passes only for a power-of-two M (kMixed =
+//   false: 256 at 32 kHz, the publication config; 128 at 16 kHz), and a
+//   mixed-radix one for any other such M (kMixed = true).  Common rates
+//   (8 ms frame): 11.025 kHz N=88 (M = 4 * 11), 16 kHz 128, 22.05 kHz 176
+//   (M = 8 * 11), 24 kHz 192 (M = 32 * 3), 32 kHz 256, 44.1 kHz 352 (M =
+//   16 * 11), 48 kHz 384 (M = 64 * 3), 96 kHz 768 (M = 128 * 3) all take
+//   it; 26 kHz's 208 (M = 8 * 13) or a prime M take the DFT route.
 //   What bounds it: the function needs only the bytes of audio in and
 //   spectrogram out (about 0.01 ms at B=64, T=512, fs=32 kHz against
 //   3.35 TB/s); an FFT's O(N log N) operations per frame sit far below
@@ -19,23 +26,32 @@
 //   ops/stft_kernel.fft_twiddles).  Each warp then takes whole frames in
 //   turn: the windowed frame packed as M = N / 2 complex points z[n] =
 //   x[2n] + i x[2n+1], a Stockham FFT of z in the warp's two shared buffers
-//   (radix-4 passes while two bits are left, then one radix-2 pass; pass
-//   (R, p), butterfly i, k = i mod p: inputs z[i + r M / R] times
-//   W_{pR}^{r k}, an R-point DFT, outputs at (i - k) R + k + q p), the
-//   first pass reading the audio span directly; then the real-split step
+//   (the passes of fft_plan: radix 4 while two factors of 2 are left, then
+//   one radix-2 pass, then radix 3, 5, 7 and 11 passes; pass (R, p),
+//   butterfly i, k = i mod p: inputs z[i + r M / R] times W_{pR}^{r k} =
+//   W_N^{r k N / (p R)}, an R-point DFT, outputs at (i - k) R + k + q p),
+//   the first pass reading the audio span directly; then the real-split step
 //   X[k] = (E - i W_N^k O) / 2, E / O = Z[k] +/- conj(Z[M - k]), and
-//   log(|X[k]| + eps) / N written coalesced, for 0 < k < M.  The buffers
-//   are padded by one complex per 16 (index + index / 16), which keeps
-//   every pass's reads and all but the p = 4 pass's writes free of bank
-//   conflicts.  The two real bins, DC and Nyquist (k = 0, M), are sums of
-//   +/- w[n] x[n] whose values near zero are a one-dimensional Gaussian's,
-//   far likelier than a complex bin's: their log is where float32 rounding
-//   shows.  Warps 0 and 1 sum them directly, as the DFT route does (the
-//   basis columns 0 and M, one FMA chain over n in order), lane f for frame
-//   f, each lane's chain started one step after its left neighbour's so
-//   that the lanes' shared-memory reads fall in distinct banks.
-// - DFT route (log_spectrogram_kernel), for every other frame (352 at
-//   44.1 kHz, 384 at 48 kHz): the direct DFT of PR 3, 4 * N float32
+//   log(|X[k]| + eps) / N written coalesced, for 0 < k < M.  An odd
+//   radix's R-point DFT pairs outputs q and R - q: with a_r = v_r +
+//   v_{R-r} and b_r = v_r - v_{R-r} (0 < r <= (R - 1) / 2), y_q, y_{R-q} =
+//   v_0 + sum c_{rq} a_r -/+ i sum s_{rq} b_r, c and s the cosine and sine
+//   of 2 pi r q / R read from the table at W_N^{(r q mod R) N / R}: about
+//   R^2 FMAs a butterfly, a quarter of the direct sum's.  The buffers are
+//   padded by one complex per 16 (index + index / 16), which keeps every
+//   pass's reads and all but the p = 4 pass's writes free of bank
+//   conflicts for a power-of-two M; an odd radix's writes at stride R
+//   (p = 1) fall two lanes to a bank pair, no worse than a float2 access
+//   costs anyway, so the same pad serves it.  The two real bins, DC and
+//   Nyquist (k = 0, M), are sums of +/- w[n] x[n] whose values near zero
+//   are a one-dimensional Gaussian's, far likelier than a complex bin's:
+//   their log is where float32 rounding shows.  Warps 0 and 1 sum them
+//   directly, as the DFT route does (the basis columns 0 and M, one FMA
+//   chain over n in order), lane f for frame f, each lane's chain started
+//   one step after its left neighbour's so that the lanes' shared-memory
+//   reads fall in distinct banks.
+// - DFT route (log_spectrogram_kernel), for every other frame (208 at
+//   26 kHz, a prime M): a direct DFT, 4 * N float32
 //   operations per output, so it is bound by its own arithmetic, far above
 //   the byte bound.  One block computes a tile of 32 bins x 32 frames of one
 //   row with the windowed basis tile and the audio span staged in shared
@@ -145,14 +161,108 @@ __host__ __device__ inline int fft_span_floats(int frame, int step) {
   return ((kFrames - 1) * step + frame + 3) & ~3;
 }
 
+// One radix-R Stockham pass of a warp's frame (R = 2, 3, 4, 5, 7 or 11;
+// see the header): butterflies i = lane, lane + 32, ... < M / R.  `in` ==
+// nullptr: the first pass, reading the windowed audio at xs.  p is the
+// product of the earlier passes' radices.  kPow2 (M a power of two): k =
+// i mod p by a mask, and the audio read a float2 a point; otherwise by a
+// division and two scalar loads (M may be odd, and a frame's span then
+// starts at an odd float).
+template <int R, bool kPow2>
+__device__ __forceinline__ void stockham_pass(const float2* in,
+                                              const float* __restrict__ xs,
+                                              const float* __restrict__ s_win,
+                                              float2* outb,
+                                              const float2* __restrict__ s_tw,
+                                              int M, int N, int p, int lane) {
+  constexpr int kHalf = (R - 1) / 2;
+  const int nb = M / R;               // butterflies, also the stride
+  const int tw_step = N / (p * R);    // W_{pR}^{rk} = W_N^{r k tw_step}
+  // an odd radix's cos and sin of 2 pi j / R, j = 1..kHalf
+  float cr[kHalf > 0 ? kHalf : 1], sr[kHalf > 0 ? kHalf : 1];
+  if constexpr (R % 2 == 1) {
+#pragma unroll
+    for (int j = 1; j <= kHalf; ++j) {
+      const float2 w = s_tw[j * (N / R)];
+      cr[j - 1] = w.x;
+      sr[j - 1] = -w.y;
+    }
+  }
+  for (int i = lane; i < nb; i += 32) {
+    const int k = kPow2 ? i & (p - 1) : i % p;
+    float2 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int n = i + r * nb;
+      if (in == nullptr) {
+        const float2 a =
+            kPow2 ? *reinterpret_cast<const float2*>(xs + 2 * n)
+                  : make_float2(xs[2 * n], xs[2 * n + 1]);
+        v[r] = make_float2(a.x * s_win[2 * n], a.y * s_win[2 * n + 1]);
+      } else {
+        v[r] = in[pad16(n)];
+      }
+      if (r > 0) v[r] = cmul(v[r], s_tw[r * k * tw_step]);
+    }
+    const int j = (i - k) * R + k;
+    if constexpr (R == 4) {
+      const float2 a = make_float2(v[0].x + v[2].x, v[0].y + v[2].y);
+      const float2 b = make_float2(v[0].x - v[2].x, v[0].y - v[2].y);
+      const float2 c = make_float2(v[1].x + v[3].x, v[1].y + v[3].y);
+      const float2 e = make_float2(v[1].x - v[3].x, v[1].y - v[3].y);
+      outb[pad16(j)] = make_float2(a.x + c.x, a.y + c.y);
+      outb[pad16(j + p)] = make_float2(b.x + e.y, b.y - e.x);
+      outb[pad16(j + 2 * p)] = make_float2(a.x - c.x, a.y - c.y);
+      outb[pad16(j + 3 * p)] = make_float2(b.x - e.y, b.y + e.x);
+    } else if constexpr (R == 2) {
+      outb[pad16(j)] = make_float2(v[0].x + v[1].x, v[0].y + v[1].y);
+      outb[pad16(j + p)] = make_float2(v[0].x - v[1].x, v[0].y - v[1].y);
+    } else {
+      // y_q, y_{R-q} = v_0 + sum_r c a_r -/+ i sum_r s b_r
+      float2 a[kHalf > 0 ? kHalf : 1], b[kHalf > 0 ? kHalf : 1];
+      float2 y0 = v[0];
+#pragma unroll
+      for (int r = 1; r <= kHalf; ++r) {
+        a[r - 1] = make_float2(v[r].x + v[R - r].x, v[r].y + v[R - r].y);
+        b[r - 1] = make_float2(v[r].x - v[R - r].x, v[r].y - v[R - r].y);
+        y0 = make_float2(y0.x + a[r - 1].x, y0.y + a[r - 1].y);
+      }
+      outb[pad16(j)] = y0;
+#pragma unroll
+      for (int q = 1; q <= kHalf; ++q) {
+        float2 ac = v[0];
+        float2 bs = make_float2(0.f, 0.f);
+#pragma unroll
+        for (int r = 1; r <= kHalf; ++r) {
+          const int m = (r * q) % R;   // a constant once unrolled
+          const float c = m <= kHalf ? cr[m - 1] : cr[R - m - 1];
+          const float sn = m <= kHalf ? sr[m - 1] : -sr[R - m - 1];
+          ac = make_float2(fmaf(c, a[r - 1].x, ac.x),
+                           fmaf(c, a[r - 1].y, ac.y));
+          bs = make_float2(fmaf(sn, b[r - 1].x, bs.x),
+                           fmaf(sn, b[r - 1].y, bs.y));
+        }
+        outb[pad16(j + q * p)] = make_float2(ac.x + bs.y, ac.y - bs.x);
+        outb[pad16(j + (R - q) * p)] = make_float2(ac.x - bs.y,
+                                                   ac.y + bs.x);
+      }
+    }
+  }
+}
+
+// The passes of `plan` (fft_plan, 4 bits a radix, the first pass lowest):
+// kMixed = false, radix 4 and 2 over a power-of-two M; kMixed = true, any
+// radix of 2, 3, 4, 5, 7 and 11.
+template <bool kMixed>
 __global__ void __launch_bounds__(32 * kWarps)
 log_spectrogram_fft_kernel(const float* __restrict__ audio, int64_t row_len,
                            const float* __restrict__ cos_b,
                            const float* __restrict__ sin_b,
                            const float2* __restrict__ twiddle,
                            float* __restrict__ out, int frame, int step,
-                           int num_frames, int bins, int log2m,
-                           float epsilon, float inv_normalizer) {
+                           int num_frames, int bins,
+                           unsigned long long plan, float epsilon,
+                           float inv_normalizer) {
   extern __shared__ float4 smem4[];
   const int N = frame;
   const int M = N >> 1;
@@ -223,46 +333,45 @@ log_spectrogram_fft_kernel(const float* __restrict__ audio, int64_t row_len,
     const float2* in = nullptr;   // nullptr: the first pass reads xs
     float2* outb = buf0;
     int p = 1;
-    for (int rem = log2m; rem > 0;) {
-      const int R = rem >= 2 ? 4 : 2;
-      const int nb = M / R;                 // butterflies, also the stride
-      const int tw_step = 2 * (M / (p * R));
-      for (int i = lane; i < nb; i += 32) {
-        const int k = i & (p - 1);
-        float2 v[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          if (r < R) {
-            const int n = i + r * nb;
-            if (in == nullptr) {
-              const float2 a = *reinterpret_cast<const float2*>(xs + 2 * n);
-              v[r] = make_float2(a.x * s_win[2 * n], a.y * s_win[2 * n + 1]);
-            } else {
-              v[r] = in[pad16(n)];
-            }
-            if (r > 0) v[r] = cmul(v[r], s_tw[r * k * tw_step]);
-          }
-        }
-        const int j = (i - k) * R + k;
-        if (R == 4) {
-          const float2 a = make_float2(v[0].x + v[2].x, v[0].y + v[2].y);
-          const float2 b = make_float2(v[0].x - v[2].x, v[0].y - v[2].y);
-          const float2 c = make_float2(v[1].x + v[3].x, v[1].y + v[3].y);
-          const float2 e = make_float2(v[1].x - v[3].x, v[1].y - v[3].y);
-          outb[pad16(j)] = make_float2(a.x + c.x, a.y + c.y);
-          outb[pad16(j + p)] = make_float2(b.x + e.y, b.y - e.x);
-          outb[pad16(j + 2 * p)] = make_float2(a.x - c.x, a.y - c.y);
-          outb[pad16(j + 3 * p)] = make_float2(b.x - e.y, b.y + e.x);
-        } else {
-          outb[pad16(j)] = make_float2(v[0].x + v[1].x, v[0].y + v[1].y);
-          outb[pad16(j + p)] = make_float2(v[0].x - v[1].x, v[0].y - v[1].y);
+    for (unsigned long long rest = plan; rest != 0; rest >>= 4) {
+      const int R = (int)(rest & 15);
+      if constexpr (!kMixed) {
+        if (R == 4)
+          stockham_pass<4, true>(in, xs, s_win, outb, s_tw, M, N, p, lane);
+        else
+          stockham_pass<2, true>(in, xs, s_win, outb, s_tw, M, N, p, lane);
+      } else {
+        switch (R) {  // warp-uniform
+          case 4:
+            stockham_pass<4, false>(in, xs, s_win, outb, s_tw, M, N, p,
+                                    lane);
+            break;
+          case 2:
+            stockham_pass<2, false>(in, xs, s_win, outb, s_tw, M, N, p,
+                                    lane);
+            break;
+          case 3:
+            stockham_pass<3, false>(in, xs, s_win, outb, s_tw, M, N, p,
+                                    lane);
+            break;
+          case 5:
+            stockham_pass<5, false>(in, xs, s_win, outb, s_tw, M, N, p,
+                                    lane);
+            break;
+          case 7:
+            stockham_pass<7, false>(in, xs, s_win, outb, s_tw, M, N, p,
+                                    lane);
+            break;
+          default:
+            stockham_pass<11, false>(in, xs, s_win, outb, s_tw, M, N, p,
+                                     lane);
+            break;
         }
       }
       __syncwarp();
       in = outb;
       outb = outb == buf0 ? buf1 : buf0;
       p *= R;
-      rem -= R == 4 ? 2 : 1;
     }
 
     // real split: X[k] = (E - i W_N^k O) / 2 for 0 < k < M
@@ -283,12 +392,6 @@ log_spectrogram_fft_kernel(const float* __restrict__ audio, int64_t row_len,
   }
 }
 
-int ilog2(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return l;
-}
-
 // Bytes of dynamic shared memory one block of the FFT route needs.
 long long fft_smem_bytes(int frame, int step) {
   return (long long)frame * 24 +
@@ -296,11 +399,32 @@ long long fft_smem_bytes(int frame, int step) {
          (long long)kWarps * 2 * padded_points(frame / 2) * 8;
 }
 
-// The frames the FFT route takes (ops/stft_kernel.fft_route): a power of
-// two from 16 to 1024.
+// The Stockham passes of an M-point FFT (ops/stft_kernel.fft_radices):
+// radix 4 while two factors of 2 are left, then one radix 2, then radix 3,
+// 5, 7 and 11, 4 bits a pass with the first pass lowest; 0 when M has
+// another prime factor.
+unsigned long long fft_plan(int m) {
+  if (m < 2) return 0;
+  unsigned long long plan = 0;
+  int shift = 0;
+  auto take = [&](int r) {
+    plan |= (unsigned long long)r << shift;
+    shift += 4;
+    m /= r;
+  };
+  while (m % 4 == 0) take(4);
+  if (m % 2 == 0) take(2);
+  static const int kOdd[] = {3, 5, 7, 11};
+  for (const int r : kOdd)
+    while (m % r == 0) take(r);
+  return m == 1 ? plan : 0;
+}
+
+// The frames the FFT route takes (ops/stft_kernel.fft_route): even, from
+// 16 to 1024, with M = N / 2 factoring over 2, 3, 5, 7 and 11.
 bool fft_frame_ok(int frame) {
-  return frame >= kFftMinFrame && frame <= kFftMaxFrame &&
-         (frame & (frame - 1)) == 0;
+  return frame >= kFftMinFrame && frame <= kFftMaxFrame && frame % 2 == 0 &&
+         fft_plan(frame / 2) != 0;
 }
 
 }  // namespace
@@ -337,8 +461,9 @@ int abcd_log_spectrogram(const float* audio, long long row_len,
 
 // FFT route: the same arguments and twiddle (frame,) complex64 W_N^j (the
 // window is read from column 0 of cos_b; columns 0 and M of the basis give
-// the real bins).  cudaErrorInvalidValue for a frame the route does not
-// take.
+// the real bins).  The radix-4/2 instance for a power-of-two M, the
+// mixed-radix one otherwise.  cudaErrorInvalidValue for a frame the route
+// does not take.
 int abcd_log_spectrogram_fft(const float* audio, long long row_len,
                              const float* cos_b, const float* sin_b,
                              const float* twiddle, float* out, int batch,
@@ -347,18 +472,19 @@ int abcd_log_spectrogram_fft(const float* audio, long long row_len,
                              float inv_normalizer, void* stream) {
   if (!fft_frame_ok(frame) || bins != frame / 2 + 1)
     return (int)cudaErrorInvalidValue;
+  const int m = frame / 2;
+  const bool mixed = (m & (m - 1)) != 0;
+  auto kernel = mixed ? log_spectrogram_fft_kernel<true>
+                      : log_spectrogram_fft_kernel<false>;
   const int smem = (int)fft_smem_bytes(frame, step);
   cudaError_t err = cudaFuncSetAttribute(
-      log_spectrogram_fft_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((num_frames + kFrames - 1) / kFrames, batch);
-  log_spectrogram_fft_kernel<<<grid, 32 * kWarps, smem,
-                               (cudaStream_t)stream>>>(
-      audio, row_len, cos_b, sin_b, reinterpret_cast<const float2*>(twiddle),
-      out,
-      frame, step, num_frames, bins, ilog2(frame / 2), epsilon,
-      inv_normalizer);
+  const float2* tw = reinterpret_cast<const float2*>(twiddle);
+  kernel<<<grid, 32 * kWarps, smem, (cudaStream_t)stream>>>(
+      audio, row_len, cos_b, sin_b, tw, out, frame, step, num_frames, bins,
+      fft_plan(m), epsilon, inv_normalizer);
   return (int)cudaGetLastError();
 }
 

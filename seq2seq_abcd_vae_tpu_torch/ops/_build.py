@@ -42,6 +42,9 @@ SIGNATURES = {
              "abcd_lstm_cluster_max_active": [_I] * 2,
              "abcd_lstm_fwd_cluster": [_P] * 8 + [_I] * 5 + [_P],
              "abcd_lstm_fwd_cluster_max_active": [_I] * 2,
+             "abcd_lstm_pair_cluster_max_active": [_I] * 2,
+             "abcd_lstm_bidir_xp": [_P] * 5 + [_I] * 4 + [_P],
+             "abcd_lstm_bidir_fwd_proj": [_P] * 8 + [_I] * 4 + [_P],
              "abcd_lstm_bwd_cluster_max_active": [_I] * 2,
              "abcd_lstm_span_prefix": [_P, _P, _I, _I, _P],
              "abcd_lstm_bidir_gates": [_P] * 9 + [_I] * 4 + [_P],

@@ -19,13 +19,18 @@
   package calls it; it is a public function of its own.
 
 A row's carries are frozen outside its span and ``outs`` holds the masked
-carry.  The kernels' time loops are sequential.  The raw forward, the
-raw backward and the one-direction forward have two designs each, chosen
-by a shape rule before the launch (``forward_design``, ``backward_design``,
-``layer_design``): W_hh (and the raw forward's W_ih) split across a
-thread-block cluster and held in its shared memory for the whole sequence,
-or one block per row tile re-reading the weights from L2 every step (which
-bounds every other kernel here; see the source).  The raw backward's
+carry.  The kernels' time loops are sequential.  The raw backward and the
+one-direction forward have two designs each, and the raw forward three,
+chosen by a shape rule before the launch (``forward_design``,
+``backward_design``, ``layer_design``): W_hh (and the raw forward's W_ih)
+split across a thread-block cluster and held in its shared memory for the
+whole sequence, or one block per row tile re-reading the weights from L2
+every step (which bounds every other kernel here; see the source).  The
+raw forward's third design, ``"proj"``, takes the widths whose W_ih slice
+does not fit a cluster (F=177 at 44.1 kHz, F=193 at 48 kHz, a second
+layer's F = 2H): the input projection of every active row-step of both
+directions as one tiled product, then both directions' recurrence over it
+in the cluster design's projected mode, one launch.  The raw backward's
 cluster design recomputes the gates for all row-steps at once and forms dx
 after the loop, leaving only dh's recurrence in the cluster.  The
 backwards recompute the gates from the saved h/c trajectories and leave
@@ -59,7 +64,8 @@ _BIDIR_FWD, _BIDIR_BWD, _FWD, _BWD, _PAIR_FWD, _PAIR_BWD = 0, 1, 2, 3, 4, 5
 # an H100 (700 W) a wave of cluster steps takes ~6.2 us a step and the
 # per-tile kernel ~47 us a step at any batch up to 1,056 rows, so seven
 # waves (B <= 520 with 15 resident clusters) is where the cluster design
-# stops winning (PERF.md).
+# stops winning against it (PERF.md); a larger batch takes the "proj"
+# design where it takes H.
 CLUSTER_ROWS = 10
 CLUSTER_MAX_WAVES = 7
 # The raw backward's cluster recurrence (lstm_bwd_cluster_kernel): batch
@@ -167,18 +173,21 @@ def _check(x, lengths, w_ih, b_ih, w_hh, b_hh, gates: int = 4):
         raise ValueError(f"unsupported device {x.device}")
 
 
-def forward_design(max_active: int, batch: int) -> str:
-    """The shape rule of the raw forward: ``"cluster"`` when the cluster
-    design fits these widths (``max_active`` > 0, the card's
-    ``cudaOccupancyMaxActiveClusters`` for it) and its 2 * ceil(B / R)
-    clusters run in at most ``CLUSTER_MAX_WAVES`` waves, else ``"tile"``
-    (the per-tile kernel: H=1024, a second layer's F = 2H, or a batch too
-    large for the card's resident clusters)."""
-    if max_active <= 0:
-        return "tile"
-    clusters = 2 * -(-batch // CLUSTER_ROWS)
-    waves = -(-clusters // max_active)
-    return "cluster" if waves <= CLUSTER_MAX_WAVES else "tile"
+def forward_design(max_active: int, batch: int, pair_active: dict) -> str:
+    """The shape rule of the raw forward, in this order: ``"cluster"`` when
+    the raw cluster design fits these widths (``max_active`` > 0, the
+    card's ``cudaOccupancyMaxActiveClusters`` for it: F <= 129 at H=256)
+    and its 2 * ceil(B / R) clusters run in at most ``CLUSTER_MAX_WAVES``
+    waves; else ``"proj"`` when the pair's projected mode takes H
+    (``pair_active`` maps each tile of ``PROJ_CLUSTER_TILES`` to the card's
+    resident clusters for it, 0 where it does not: H a multiple of 8 up to
+    256, any F, any B); else ``"tile"`` (the per-tile kernel: H=1024, H
+    not a multiple of 8)."""
+    if max_active > 0:
+        clusters = 2 * -(-batch // CLUSTER_ROWS)
+        if -(-clusters // max_active) <= CLUSTER_MAX_WAVES:
+            return "cluster"
+    return "proj" if any(n > 0 for n in pair_active.values()) else "tile"
 
 
 def backward_design(max_active: int) -> str:
@@ -189,16 +198,18 @@ def backward_design(max_active: int) -> str:
     return "cluster" if max_active > 0 else "tile"
 
 
-def layer_design(active: dict, batch: int):
+def layer_design(active: dict, batch: int, directions: int = 1):
     """The shape rule of the one-direction forward: (``"cluster"``, row
     tile) when the projected mode of the cluster design takes these widths
     (``active`` maps each tile of ``PROJ_CLUSTER_TILES`` to the card's
     resident clusters, 0 where it does not: H a multiple of 8 up to 256):
-    the smallest tile whose ceil(B / rows) clusters run in one wave, else
-    the widest; (``"tile"``, 0) otherwise, H=1024 among others."""
+    the smallest tile whose ``directions`` * ceil(B / rows) clusters run
+    in one wave, else the widest; (``"tile"``, 0) otherwise, H=1024 among
+    others.  With ``directions`` = 2 it picks the raw forward's ``"proj"``
+    row tile."""
     fits = sorted(rows for rows, n in active.items() if n > 0)
     for rows in fits:
-        if -(-batch // rows) <= active[rows]:
+        if directions * -(-batch // rows) <= active[rows]:
             return "cluster", rows
     return ("cluster", fits[-1]) if fits else ("tile", 0)
 
@@ -208,22 +219,30 @@ def _cluster_active(lib, device_index: int, kind: str, f: int, hidden: int,
                     rows: int) -> int:
     """Resident clusters of a cluster design on this card (0: it does not
     take these widths), queried once per card, design and widths: ``kind``
-    is the raw forward (``"fwd"``), the one-direction forward (``"proj"``)
-    or the raw backward's recurrence (``"bwd"``)."""
+    is the raw forward (``"fwd"``), the one-direction forward
+    (``"layer"``), the raw forward's pair recurrence (``"pair"``) or the
+    raw backward's recurrence (``"bwd"``)."""
     with torch.cuda.device(device_index):
         if kind == "fwd":
             return lib.abcd_lstm_cluster_max_active(f, hidden)
-        if kind == "proj":
+        if kind == "layer":
             return lib.abcd_lstm_fwd_cluster_max_active(hidden, rows)
+        if kind == "pair":
+            return lib.abcd_lstm_pair_cluster_max_active(hidden, rows)
         return lib.abcd_lstm_bwd_cluster_max_active(hidden, rows)
+
+
+def _tile_active(lib, device, kind: str, hidden: int) -> dict:
+    """Resident clusters of each tile of ``PROJ_CLUSTER_TILES`` for the
+    projected mode of one direction (``"layer"``) or two (``"pair"``)."""
+    return {rows: _cluster_active(lib, device.index, kind, 0, hidden, rows)
+            for rows in PROJ_CLUSTER_TILES}
 
 
 def _layer_design(lib, device, hidden: int, batch: int):
     """(design, row tile) of the one-direction forward by ``layer_design``
     on this card."""
-    return layer_design({rows: _cluster_active(lib, device.index, "proj", 0,
-                                               hidden, rows)
-                         for rows in PROJ_CLUSTER_TILES}, batch)
+    return layer_design(_tile_active(lib, device, "layer", hidden), batch)
 
 
 def lstm_layer_bidir_fused(x, lengths, w_ih, b_ih, w_hh, b_hh,
@@ -240,31 +259,36 @@ def lstm_layer_bidir_fused(x, lengths, w_ih, b_ih, w_hh, b_hh,
     saved cell states (T, 2, B, H) for the backward (serving asks for
     none, so it writes no extra bytes).  CUDA tensors launch the design
     that ``forward_design`` picks for the shape on the current stream (and
-    count one launch, on the wrapper and on ``.cluster`` or ``.tile``); CPU
-    tensors take ``lstm_layer_bidir_fused_plain``.
+    count one launch, on the wrapper and on ``.cluster``, ``.proj`` or
+    ``.tile``); CPU tensors take ``lstm_layer_bidir_fused_plain``.
     """
     _check(x, lengths, w_ih, b_ih, w_hh, b_hh)
     if x.device.type == "cpu":
         return lstm_layer_bidir_fused_plain(x, lengths, w_ih, b_ih, w_hh,
                                             b_hh, return_cs)
     lib = _build.load("lstm")
-    active = _cluster_active(lib, x.device.index, "fwd", x.shape[2],
-                             w_hh.shape[1], CLUSTER_ROWS)
-    return lstm_layer_bidir_fused_on(forward_design(active, x.shape[1]),
-                                     x, lengths, w_ih, b_ih, w_hh, b_hh,
-                                     return_cs)
+    hidden = w_hh.shape[1]
+    active = _cluster_active(lib, x.device.index, "fwd", x.shape[2], hidden,
+                             CLUSTER_ROWS)
+    design = forward_design(active, x.shape[1],
+                            _tile_active(lib, x.device, "pair", hidden))
+    return lstm_layer_bidir_fused_on(design, x, lengths, w_ih, b_ih, w_hh,
+                                     b_hh, return_cs)
 
 
 def lstm_layer_bidir_fused_on(design: str, x, lengths, w_ih, b_ih, w_hh,
-                              b_hh, return_cs: bool = False):
+                              b_hh, return_cs: bool = False, marks=None):
     """``lstm_layer_bidir_fused`` on CUDA tensors through the named design,
-    ``"cluster"`` or ``"tile"``, whatever the shape rule says: for timing
-    one design against the other.  Raises when the design does not take
-    the shape or its launch fails."""
+    ``"cluster"``, ``"proj"`` or ``"tile"``, whatever the shape rule says:
+    for timing one design against another.  Raises when the design does
+    not take the shape or its launch fails.  ``marks``, a list, gets CUDA
+    events recorded on the current stream around the ``"proj"`` design's
+    parts, (a) the input projection (with the span prefix) and (b) the
+    recurrence (three events)."""
     _check(x, lengths, w_ih, b_ih, w_hh, b_hh)
-    if x.device.type != "cuda" or design not in ("cluster", "tile"):
+    if x.device.type != "cuda" or design not in ("cluster", "proj", "tile"):
         raise ValueError(f"design {design!r} on {x.device}: a CUDA tensor "
-                         "and 'cluster' or 'tile' are needed")
+                         "and 'cluster', 'proj' or 'tile' are needed")
     t, b, f = x.shape
     hidden = w_hh.shape[1]
     lib = _build.load("lstm")
@@ -275,6 +299,7 @@ def lstm_layer_bidir_fused_on(design: str, x, lengths, w_ih, b_ih, w_hh,
     result = (outs, h_n, c_n, cs) if return_cs else (outs, h_n, c_n)
     if b == 0:
         return result
+    what = f"lstm_layer_bidir_fused ({design})"
     ptrs = (x.data_ptr(), lengths.data_ptr(), w_ih.data_ptr(),
             b_ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
             outs.data_ptr(), None if cs is None else cs.data_ptr(),
@@ -282,13 +307,47 @@ def lstm_layer_bidir_fused_on(design: str, x, lengths, w_ih, b_ih, w_hh,
     if design == "tile":
         rows = _build.row_tile(lib, "lstm", _BIDIR_FWD, (f, hidden),
                                "lstm_layer_bidir_fused")
+    elif design == "proj":
+        picked, rows = layer_design(_tile_active(lib, x.device, "pair",
+                                                 hidden), b, directions=2)
+        if picked != "cluster":
+            raise RuntimeError(f"{what} refused: no cluster of its "
+                               f"recurrence is resident at H={hidden} on "
+                               "this card")
+
+    def mark():
+        if marks is not None:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            marks.append(event)
+
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if design == "tile":
             err = lib.abcd_lstm_bidir_fwd(*ptrs, rows, stream)
-        else:
+        elif design == "cluster":
             err = lib.abcd_lstm_bidir_fwd_cluster(*ptrs, stream)
-    _build.check(lib, err, f"lstm_layer_bidir_fused ({design})")
+        else:
+            # (a) xp of every active row-step (the others unwritten, and
+            # never read), then (b) the pair recurrence over it
+            mark()
+            prefix = torch.empty(b + 1, dtype=torch.int32, device=x.device)
+            xp = torch.empty((t, 2, b, 4 * hidden), dtype=x.dtype,
+                             device=x.device)
+            err = lib.abcd_lstm_span_prefix(lengths.data_ptr(),
+                                            prefix.data_ptr(), t, b, stream)
+            _build.check(lib, err, what)
+            err = lib.abcd_lstm_bidir_xp(x.data_ptr(), prefix.data_ptr(),
+                                         w_ih.data_ptr(), b_ih.data_ptr(),
+                                         xp.data_ptr(), t, b, f, hidden,
+                                         stream)
+            _build.check(lib, err, what)
+            mark()
+            err = lib.abcd_lstm_bidir_fwd_proj(
+                xp.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
+                b_hh.data_ptr(), *ptrs[6:10], t, b, hidden, rows, stream)
+            mark()
+    _build.check(lib, err, what)
     lstm_layer_bidir_fused.launches += 1
     getattr(lstm_layer_bidir_fused, design).launches += 1
     return result
@@ -296,6 +355,7 @@ def lstm_layer_bidir_fused_on(design: str, x, lengths, w_ih, b_ih, w_hh,
 
 lstm_layer_bidir_fused.launches = 0
 lstm_layer_bidir_fused.cluster = _build.Launches()
+lstm_layer_bidir_fused.proj = _build.Launches()
 lstm_layer_bidir_fused.tile = _build.Launches()
 
 

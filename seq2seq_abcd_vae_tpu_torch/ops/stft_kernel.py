@@ -5,11 +5,16 @@ Replaces seq2seq_abcd_vae_tpu/ops/stft_pallas.py:log_spectrogram_pallas.
 The kernels compute, for centred audio rows and the windowed DFT basis of
 ``ops/stft.dft_basis``, ``log(|frames @ (cos - i sin)| + eps) / N`` in one
 pass in float32.  Two routes, chosen by ``fft_route`` from the frame
-length before the launch: a shared-memory FFT for a power-of-two frame
-(the publication config's 256 at 32 kHz, 128 at 16 kHz) and a direct DFT
-for any other (352 at 44.1 kHz); see the source for both designs.  The
-wrapper launches a kernel for CUDA tensors and takes the twin only for CPU
-tensors.
+length before the launch: a shared-memory FFT for every even frame from 16
+to 1024 whose half factors over 2, 3, 5, 7 and 11, and a direct DFT for
+any other.  The FFT route has two instances, counted apart: radix-4/2
+passes for a power-of-two frame (``.fft``) and mixed-radix passes for the
+others (``.mixed``).  With the 8 ms frame, 11.025 kHz (88), 22.05 (176),
+24 (192), 44.1 (352), 48 (384) and 96 kHz (768) take the mixed-radix
+passes, 16 (128) and 32 kHz (256, the publication config) the radix-4/2
+ones, and 26 kHz (208 = 2 * 8 * 13) or a frame whose half is prime the
+DFT route; see the source for the designs.  The wrapper launches a kernel
+for CUDA tensors and takes the twin only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 from . import _build
 
 FFT_MIN_FRAME, FFT_MAX_FRAME = 16, 1024
+FFT_RADICES = (4, 2, 3, 5, 7, 11)
 
 
 def supports(frame_length: int, step_size: int) -> bool:
@@ -29,12 +35,38 @@ def supports(frame_length: int, step_size: int) -> bool:
     return frame_length == 2 * step_size
 
 
+@functools.lru_cache(maxsize=None)
+def fft_radices(points: int):
+    """The Stockham passes of a ``points``-point FFT, first pass first
+    (csrc/stft.cu:fft_plan): radix 4 while two factors of 2 are left, then
+    one radix 2, then radix 3, 5, 7 and 11; None when ``points`` has
+    another prime factor."""
+    if points < 2:
+        return None
+    passes = []
+    for radix in FFT_RADICES:
+        while points % radix == 0 and (radix != 2 or 2 not in passes):
+            passes.append(radix)
+            points //= radix
+    return tuple(passes) if points == 1 else None
+
+
 def fft_route(frame_length: int) -> bool:
-    """Whether the FFT route takes this frame: a power of two from 16 to
-    1024 (csrc/stft.cu:fft_frame_ok refuses any other); the DFT route
-    takes every other."""
+    """Whether the FFT route takes this frame: even, from 16 to 1024, its
+    half factoring over 2, 3, 5, 7 and 11 (csrc/stft.cu:fft_frame_ok
+    refuses any other); the DFT route takes every other."""
     return (FFT_MIN_FRAME <= frame_length <= FFT_MAX_FRAME
-            and frame_length & (frame_length - 1) == 0)
+            and frame_length % 2 == 0
+            and fft_radices(frame_length // 2) is not None)
+
+
+def route(frame_length: int) -> str:
+    """The kernel that takes this frame: ``"fft"`` (radix-4/2 passes, a
+    power-of-two frame), ``"mixed"`` (the FFT route's mixed-radix passes)
+    or ``"dft"``."""
+    if not fft_route(frame_length):
+        return "dft"
+    return "fft" if frame_length & (frame_length - 1) == 0 else "mixed"
 
 
 def fft_twiddle_table(frame_length: int) -> np.ndarray:
@@ -103,10 +135,13 @@ def log_spectrogram_kernel(audio: torch.Tensor, cos_b: torch.Tensor,
 
     CUDA tensors launch the FFT route's kernel when ``fft_route`` takes the
     frame, else the DFT route's, on the current stream (and count one
-    launch, on the wrapper and on ``.fft`` or ``.dft``); CPU tensors take
+    launch, on the wrapper and on ``.fft``, ``.mixed`` or ``.dft``, as
+    ``route`` names it); CPU tensors take
     ``log_spectrogram_plain``.  The FFT route reads the window from column
     0 of ``cos_b`` (cos 0 = 1) and sums the real bins (DC and Nyquist) from
-    the basis's columns 0 and N / 2, as the DFT route does.
+    the basis's columns 0 and N / 2, as the DFT route does.  The 8 ms
+    frame of 16 and 32 kHz takes the radix-4/2 passes; of 11.025, 22.05,
+    24, 44.1, 48 and 96 kHz the mixed-radix ones; of 26 kHz the DFT route.
     """
     _check(audio, cos_b, sin_b, frame_length, step_size, num_frames)
     if audio.device.type == "cpu":
@@ -122,9 +157,9 @@ def log_spectrogram_kernel(audio: torch.Tensor, cos_b: torch.Tensor,
                       device=audio.device)
     if batch == 0:
         return out
-    route = "fft" if fft_route(frame_length) else "dft"
+    kernel = route(frame_length)
     tables = (audio.data_ptr(), row_len, cos_b.data_ptr(), sin_b.data_ptr())
-    if route == "fft":
+    if kernel != "dft":
         launch = lib.abcd_log_spectrogram_fft
         tables += (fft_twiddles(frame_length, audio.device).data_ptr(),)
     else:
@@ -134,12 +169,13 @@ def log_spectrogram_kernel(audio: torch.Tensor, cos_b: torch.Tensor,
         err = launch(*tables, out.data_ptr(), batch, frame_length, step_size,
                      num_frames, bins, float(epsilon),
                      1.0 / float(normalizer), stream)
-    _build.check(lib, err, f"log_spectrogram ({route})")
+    _build.check(lib, err, f"log_spectrogram ({kernel})")
     log_spectrogram_kernel.launches += 1
-    getattr(log_spectrogram_kernel, route).launches += 1
+    getattr(log_spectrogram_kernel, kernel).launches += 1
     return out
 
 
 log_spectrogram_kernel.launches = 0
 log_spectrogram_kernel.fft = _build.Launches()
+log_spectrogram_kernel.mixed = _build.Launches()
 log_spectrogram_kernel.dft = _build.Launches()

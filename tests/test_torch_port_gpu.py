@@ -975,9 +975,12 @@ def test_lstm_cluster_forward_matches_twin(cuda, shape):
     t, b, f = shape
     rng = np.random.default_rng(t + b)
     args = _bidir_args(rng, cuda, t, b, f, 256)
-    active = _build.load("lstm").abcd_lstm_cluster_max_active(f, 256)
+    lib = _build.load("lstm")
+    active = lib.abcd_lstm_cluster_max_active(f, 256)
+    pair = {r: lib.abcd_lstm_pair_cluster_max_active(256, r)
+            for r in lk.PROJ_CLUSTER_TILES}
     design = getattr(lk.lstm_layer_bidir_fused,
-                     lk.forward_design(active, b))
+                     lk.forward_design(active, b, pair))
     before = (lk.lstm_layer_bidir_fused.launches, design.launches)
     lk.lstm_layer_bidir_fused(*args)
     torch.cuda.synchronize()
@@ -1035,11 +1038,13 @@ def test_lstm_cluster_cs_feeds_the_backward(cuda):
         assert _rel_max_err(g, r) <= 1e-4, name
 
 
-@pytest.mark.parametrize("f,h", [(129, 1024), (512, 256)])
-def test_lstm_forward_rule_keeps_wide_shapes_per_tile(cuda, f, h):
-    """H=1024 and a second layer's F = 2H: the cluster's slices do not fit,
-    the card reports no resident cluster, and the shape rule sends the
-    call to the per-tile kernel, which still matches its twin."""
+@pytest.mark.parametrize("f,h,design", [(129, 1024, "tile"),
+                                        (512, 256, "proj")])
+def test_lstm_forward_rule_keeps_wide_shapes_per_tile(cuda, f, h, design):
+    """H=1024 and a second layer's F = 2H: the raw cluster's slices do not
+    fit and the card reports no resident cluster for it; the shape rule
+    sends F = 2H at H=256 to the "proj" design and H=1024, which no
+    cluster takes, to the per-tile kernel, each matching its twin."""
     from seq2seq_abcd_vae_tpu_torch.ops import _build
     from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
     lib = _build.load("lstm")
@@ -1047,11 +1052,12 @@ def test_lstm_forward_rule_keeps_wide_shapes_per_tile(cuda, f, h):
     assert lib.abcd_lstm_cluster_max_active(129, 256) > 0
     rng = np.random.default_rng(f + h)
     args = _bidir_args(rng, cuda, 5, 6, f, h)
-    before = lk.lstm_layer_bidir_fused.tile.launches
+    counter = getattr(lk.lstm_layer_bidir_fused, design)
+    before = counter.launches
     got = lk.lstm_layer_bidir_fused(*args)
     want = lk.lstm_layer_bidir_fused_plain(*args)
     torch.cuda.synchronize()
-    assert lk.lstm_layer_bidir_fused.tile.launches == before + 1
+    assert counter.launches == before + 1
     for g, r in zip(got, want):
         torch.testing.assert_close(g, r, rtol=0, atol=1e-5)
     with pytest.raises(RuntimeError, match="launch failed"):
@@ -1088,10 +1094,10 @@ def test_stft_fft_route_matches_twin_and_rfft(cuda, fs):
     torch.testing.assert_close(got[-2:], want[-2:], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("fs", [44100, 48000])
+@pytest.mark.parametrize("fs", [26000, 27250])
 def test_stft_dft_route_at_other_frames(cuda, fs):
-    """A frame that is not a power of two (352 at 44.1 kHz, 384 at 48 kHz)
-    reaches the DFT route."""
+    """A frame whose half has a prime factor above 11 (208 at 26 kHz, half
+    8 * 13; 218 at 27.25 kHz, half 109) reaches the DFT route."""
     args = _stft_case(cuda, fs, t=64)
     before = stft_kernel.log_spectrogram_kernel.dft.launches
     got = stft_kernel.log_spectrogram_kernel(*args)
@@ -1099,6 +1105,146 @@ def test_stft_dft_route_at_other_frames(cuda, fs):
     assert stft_kernel.log_spectrogram_kernel.dft.launches == before + 1
     torch.testing.assert_close(got, stft_kernel.log_spectrogram_plain(*args),
                                rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("fs,b,t", [(44100, 64, 512), (48000, 64, 512),
+                                    (22050, 64, 512), (11025, 5, 33),
+                                    (96000, 4, 40), (24000, 3, 9)])
+def test_stft_mixed_radix_route_matches_twin_and_rfft(cuda, fs, b, t):
+    """The FFT route's mixed-radix passes (352 at 44.1 kHz: 4, 4, 11; 384
+    at 48 kHz: 4, 4, 4, 3; 176, 88, 768, 192) against the twin and against
+    a float64 torch.fft.rfft of the same windowed frames, silent rows
+    included.  The passes give the complex bins, held to the float64
+    answer at the twin's tolerance; DC and Nyquist are float32 sums of the
+    basis's columns, the twin's and the TPU kernel's own arithmetic, which
+    at the rare frames whose sum nearly cancels is off the float64 answer
+    by more than that after the log, so they get the JAX package's bound
+    for its kernel against rfft (tests/test_stft_pallas.py)."""
+    args = _stft_case(cuda, fs, b=b, t=t)
+    assert stft_kernel.route(args[3]) == "mixed"
+    before = stft_kernel.log_spectrogram_kernel.mixed.launches
+    got = stft_kernel.log_spectrogram_kernel(*args)
+    torch.cuda.synchronize()
+    assert stft_kernel.log_spectrogram_kernel.mixed.launches == before + 1
+    want = stft_kernel.log_spectrogram_plain(*args)
+    audio, cos_b, _, frame, step, t, eps, norm = args
+    frames = audio.double().unfold(-1, frame, step)[..., :t, :]
+    amp = torch.fft.rfft(frames * cos_b[:, 0].double(), dim=-1).abs()
+    exact = (torch.log(amp + eps) / norm).float()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+    torch.testing.assert_close(got[..., 1:-1], exact[..., 1:-1], rtol=0,
+                               atol=1e-3)
+    torch.testing.assert_close(got[..., [0, -1]], exact[..., [0, -1]],
+                               rtol=5e-3, atol=5e-3)
+    torch.testing.assert_close(got[-2:], want[-2:], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(512, 64, 177), (125, 512, 177),
+                                   (512, 64, 193), (64, 13, 512),
+                                   (7, 5, 9, 40), (3, 1, 9, 40),
+                                   (6, 9, 33, 64), (1, 8, 177, 256)])
+def test_lstm_proj_forward_matches_twin(cuda, shape):
+    """Row 2's "proj" design (the input projection of every active
+    row-step, then both directions' recurrence in one cluster launch), at
+    44.1 and 48 kHz's F=177 and 193 (B=64, T=512; B=512, T=125), a second
+    layer's F = 2H, a batch smaller than a tile, the only row of length 0,
+    idle lanes (H / 8 units not filling a warp) and one step: outs, the
+    final states and the saved cell states against the twin, and against
+    the per-tile kernel; the public function launches the design the rule
+    names."""
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    t, b, f, h = (*shape, 256)[:4]
+    rng = np.random.default_rng(sum(shape) + 1)
+    args = _bidir_args(rng, cuda, t, b, f, h, [0] if b == 1 else None)
+    got = lk.lstm_layer_bidir_fused_on("proj", *args, return_cs=True)
+    want = lk.lstm_layer_bidir_fused_plain(*args, return_cs=True)
+    tile = lk.lstm_layer_bidir_fused_on("tile", *args, return_cs=True)
+    torch.cuda.synchronize()
+    for g, r, p in zip(got, want, tile):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
+        torch.testing.assert_close(g, p, rtol=0, atol=1e-5)
+    if h == 256 and f > 129:
+        before = lk.lstm_layer_bidir_fused.proj.launches
+        lk.lstm_layer_bidir_fused(*args)
+        torch.cuda.synchronize()
+        assert lk.lstm_layer_bidir_fused.proj.launches == before + 1
+
+
+def test_lstm_proj_forward_repeats_and_marks_its_parts(cuda):
+    """Two runs agree bit for bit, and ``marks`` gets the three events
+    around the projection and the recurrence."""
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    rng = np.random.default_rng(5)
+    args = _bidir_args(rng, cuda, 40, 21, 177, 256)
+    marks = []
+    first = lk.lstm_layer_bidir_fused_on("proj", *args, marks=marks)
+    second = lk.lstm_layer_bidir_fused_on("proj", *args)
+    torch.cuda.synchronize()
+    assert len(marks) == 3
+    assert all(marks[i].elapsed_time(marks[i + 1]) >= 0 for i in range(2))
+    for g, r in zip(first, second):
+        assert torch.equal(g, r)
+
+
+def test_lstm_proj_cs_feeds_the_backward(cuda):
+    """The "proj" design's saved cell states are what the backward needs:
+    the backward run on them gives the backward twin's gradients on the
+    twin's states (F=177, the 44.1 kHz training path)."""
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    rng = np.random.default_rng(37)
+    t, b, f, h = 125, 64, 177, 256
+    args = _bidir_args(rng, cuda, t, b, f, h)
+    outs, h_n, c_n, cs = lk.lstm_layer_bidir_fused_on("proj", *args,
+                                                      return_cs=True)
+    want = lk.lstm_layer_bidir_fused_plain(*args, return_cs=True)
+    normal = lambda shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(cuda)
+    cot = (normal(outs.shape), normal(h_n.shape), normal(c_n.shape))
+    got = lk.lstm_layer_bidir_fused_bwd(*args, outs, cs, *cot)
+    ref = lk.lstm_layer_bidir_fused_bwd_plain(*args, want[0], want[3], *cot)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("dx", "dw_ih", "db_ih", "dw_hh", "db_hh"), got,
+                          ref):
+        assert _rel_max_err(g, r) <= 1e-4, name
+
+
+@pytest.mark.parametrize("h", [1024, 36])
+def test_lstm_proj_forward_refuses_widths_it_does_not_take(cuda, h):
+    """H=1024 and H=36 (not a multiple of 8): no resident cluster of the
+    pair recurrence, so the rule keeps the per-tile kernel and a forced
+    "proj" call raises before any launch."""
+    from seq2seq_abcd_vae_tpu_torch.ops import _build
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    lib = _build.load("lstm")
+    assert all(lib.abcd_lstm_pair_cluster_max_active(h, rows) == 0
+               for rows in lk.PROJ_CLUSTER_TILES)
+    rng = np.random.default_rng(h + 3)
+    args = _bidir_args(rng, cuda, 4, 3, 177, h)
+    before = lk.lstm_layer_bidir_fused.proj.launches
+    with pytest.raises(RuntimeError, match="refused"):
+        lk.lstm_layer_bidir_fused_on("proj", *args)
+    assert lk.lstm_layer_bidir_fused.proj.launches == before
+
+
+def test_lstm_proj_forward_takes_unaligned_weights(cuda):
+    """Weights at an odd float offset (not 16-byte aligned): the projection
+    loads W_ih a float at a time and still matches the twin."""
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    rng = np.random.default_rng(23)
+    x, lengths, *w = _bidir_args(rng, cuda, 23, 19, 177, 256)
+
+    def unaligned(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    args = (x, lengths, *(unaligned(t) for t in w))
+    got = lk.lstm_layer_bidir_fused_on("proj", *args)
+    want = lk.lstm_layer_bidir_fused_plain(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------

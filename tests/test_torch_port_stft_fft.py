@@ -159,11 +159,15 @@ def test_twiddle_table_rounds_float64_once():
 
 
 @pytest.mark.parametrize("fs,route", [(16000, True), (32000, True),
-                                      (22050, False), (44100, False),
-                                      (48000, False), (128000, True)])
+                                      (22050, True), (44100, True),
+                                      (48000, True), (128000, True),
+                                      (11025, True), (24000, True),
+                                      (96000, True), (26000, False)])
 def test_route_by_frame_length(fs, route):
-    """Power-of-two frames (the publication's 16 and 32 kHz) take the FFT
-    route; 352 at 44.1 kHz or 384 at 48 kHz the DFT route."""
+    """Frames whose half factors over 2, 3, 5, 7 and 11 take the FFT route:
+    the publication's 16 and 32 kHz (powers of two), and 176 at 22.05 kHz,
+    352 at 44.1 kHz or 384 at 48 kHz (mixed radix); 208 at 26 kHz (half 8
+    * 13) the DFT route."""
     frame = int(0.008 * fs)
     assert stft_kernel.fft_route(frame) is route
     assert stft_kernel.supports(frame, frame // 2)
@@ -171,12 +175,17 @@ def test_route_by_frame_length(fs, route):
 
 def test_lstm_forward_shape_rule():
     """The cluster design where it fits and its grid runs in few waves of
-    resident clusters; the per-tile kernel otherwise."""
+    resident clusters; else the "proj" design where its pair recurrence
+    takes H; the per-tile kernel otherwise."""
     rule = lstm_kernel.forward_design
     rows = lstm_kernel.CLUSTER_ROWS
-    assert rule(16, 64) == "cluster"            # 16 clusters, one wave
-    assert rule(0, 64) == "tile"                # the slices do not fit
+    pair = dict.fromkeys(lstm_kernel.PROJ_CLUSTER_TILES, 15)
+    none = dict.fromkeys(lstm_kernel.PROJ_CLUSTER_TILES, 0)
+    assert rule(16, 64, pair) == "cluster"      # 16 clusters, one wave
+    assert rule(0, 64, pair) == "proj"          # the slices do not fit
+    assert rule(0, 64, none) == "tile"          # nor does the pair's
     most = 16 * lstm_kernel.CLUSTER_MAX_WAVES * rows // 2
-    assert rule(16, most) == "cluster"
-    assert rule(16, most + 1) == "tile"
-    assert rule(1, 1) == "cluster"              # a partial tile
+    assert rule(16, most, pair) == "cluster"
+    assert rule(16, most + 1, pair) == "proj"
+    assert rule(16, most + 1, none) == "tile"
+    assert rule(1, 1, none) == "cluster"        # a partial tile
