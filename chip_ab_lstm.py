@@ -31,6 +31,11 @@ times each:
   2b, forward for row 3); where the checkout has both designs
   (``lstm_layer_bidir_fused_bwd_on``, ``lstm_layer_on``), each design
   forced, and row 2b's cluster route split into its four parts;
+- the backwards at their wide training path's H=1024 (B=512, T=125, F=129):
+  ``lstm_layer_bidir_fused_bwd`` (row 2b) and ``lstm_layer_bwd`` (row 3b),
+  by the public wrappers, held to their twins, beside cuDNN's forward +
+  backward; where the checkout has ``lstm_layer_bwd_on``, row 3b at H=256
+  and H=1024 by each design that takes the shape, split into its parts;
 
 all with ragged lengths (row 2 with no empty row, which cuDNN's packed
 sequence refuses; the others with one).  Prints one JSON line (with the
@@ -264,14 +269,15 @@ def row2b(out, rng, dev, name, b, t, f=129, h=256):
         out[f"row2b_{name}_{design}_ms"] = [
             cuda_ms(lambda: lk.lstm_layer_bidir_fused_bwd_on(design, *args),
                     iters=3) for _ in range(3)]
-    splits = []
-    for _ in range(3):
-        marks = []
-        lk.lstm_layer_bidir_fused_bwd_on("cluster", *args, marks=marks)
-        torch.cuda.synchronize()
-        splits.append([marks[i].elapsed_time(marks[i + 1])
-                       for i in range(4)])
-    out[f"row2b_{name}_cluster_split_ms"] = splits
+    for design in ("cluster", "tile"):
+        splits = []
+        for _ in range(3):
+            marks = []
+            lk.lstm_layer_bidir_fused_bwd_on(design, *args, marks=marks)
+            torch.cuda.synchronize()
+            splits.append([marks[i].elapsed_time(marks[i + 1])
+                           for i in range(len(marks) - 1)])
+        out[f"row2b_{name}_{design}_split_ms"] = splits
 
 
 def row3(out, rng, dev, name, b, t, h=256):
@@ -315,6 +321,100 @@ def row3(out, rng, dev, name, b, t, h=256):
             for _ in range(3)]
 
 
+def wide_bwd(out, rng, dev, t=125, b=512, f=129, h=1024):
+    """Rows 2b and 3b at H=1024 (and row 3b's designs at H=256): errors,
+    times, cuDNN's forward + backward."""
+    lens, lengths = _ragged(rng, dev, b, t)
+    bound = 1 / np.sqrt(h)
+
+    def uniform(*shape):
+        return torch.from_numpy(rng.uniform(-bound, bound, size=shape)
+                                .astype(np.float32)).to(dev)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(dev)
+
+    def rel(got, want):
+        return max(((g - r).abs().max() / r.abs().max()).item()
+                   for g, r in zip(got, want))
+
+    x = normal(t, b, f)
+    w = [uniform(*s) for s in ((2, f, 4 * h), (2, 4 * h), (2, h, 4 * h),
+                               (2, 4 * h))]
+    outs, _, _, cs = lk.lstm_layer_bidir_fused_plain(x, lengths, *w,
+                                                     return_cs=True)
+    dh_n, dc_n = normal(2, b, h), normal(2, b, h)
+    args = (x, lengths, *w, outs, cs, None, dh_n, dc_n)
+    out["row2b_h1024_rel"] = rel(lk.lstm_layer_bidir_fused_bwd(*args),
+                                 lk.lstm_layer_bidir_fused_bwd_plain(*args))
+    out["row2b_h1024_ms"] = [
+        cuda_ms(lambda: lk.lstm_layer_bidir_fused_bwd(*args), iters=1,
+                warmup=1) for _ in range(3)]
+    lstm = torch.nn.LSTM(f, h, bidirectional=True).to(dev)
+    with torch.no_grad():
+        for d, sfx in enumerate(("", "_reverse")):
+            getattr(lstm, "weight_ih_l0" + sfx).copy_(w[0][d].T)
+            getattr(lstm, "bias_ih_l0" + sfx).copy_(w[1][d])
+            getattr(lstm, "weight_hh_l0" + sfx).copy_(w[2][d].T)
+            getattr(lstm, "bias_hh_l0" + sfx).copy_(w[3][d])
+    x_lib = x.clone().requires_grad_(True)
+
+    def library():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            x_lib, torch.from_numpy(lens), enforce_sorted=False)
+        _, (hh, cc) = lstm(packed)
+        torch.autograd.backward((hh, cc), (dh_n, dc_n))
+
+    out["row2b_h1024_nn_lstm_ms"] = [cuda_ms(library, iters=3)
+                                     for _ in range(3)]
+    del args, outs, cs, lstm, x_lib
+    for hh in (1024, 256):
+        bound = 1 / np.sqrt(hh)
+        xp, w_hh, b_hh = normal(t, b, 4 * hh), uniform(hh, 4 * hh), \
+            uniform(4 * hh)
+        ref = lk.lstm_layer_plain(xp, lengths, w_hh, b_hh, False, True)
+        bwd = (xp, lengths, w_hh, b_hh, ref[0], ref[3], None,
+               normal(b, hh), normal(b, hh))
+        name = f"row3b_h{hh}"
+        out[name + "_rel"] = rel(lk.lstm_layer_bwd(*bwd),
+                                 lk.lstm_layer_bwd_plain(*bwd))
+        out[name + "_ms"] = [cuda_ms(lambda: lk.lstm_layer_bwd(*bwd),
+                                     iters=1 if hh == 1024 else 5, warmup=1)
+                             for _ in range(3)]
+        uni = torch.nn.LSTM(f, hh).to(dev)
+        with torch.no_grad():
+            uni.weight_hh_l0.copy_(w_hh.T)
+            uni.bias_hh_l0.copy_(b_hh)
+        keep = torch.from_numpy(lens > 0).to(dev)
+        xk = normal(t, b, f)[:, keep].clone().requires_grad_(True)
+        dh_lib = normal(1, int(keep.sum()), hh)
+
+        def uni_library():
+            packed = torch.nn.utils.rnn.pack_padded_sequence(
+                xk, torch.from_numpy(lens[lens > 0]), enforce_sorted=False)
+            _, (h_l, c_l) = uni(packed)
+            torch.autograd.backward((h_l, c_l), (dh_lib, dh_lib))
+
+        out[name + "_nn_lstm_ms"] = [cuda_ms(uni_library, iters=3)
+                                     for _ in range(3)]
+        if not hasattr(lk, "lstm_layer_bwd_on"):
+            continue
+        for design in (("cluster", "tile") if hh == 256 else ("tile",)):
+            out[f"{name}_{design}_ms"] = [
+                cuda_ms(lambda: lk.lstm_layer_bwd_on(design, *bwd),
+                        iters=1 if hh == 1024 else 5, warmup=1)
+                for _ in range(3)]
+            splits = []
+            for _ in range(3):
+                marks = []
+                lk.lstm_layer_bwd_on(design, *bwd, marks=marks)
+                torch.cuda.synchronize()
+                splits.append([marks[i].elapsed_time(marks[i + 1])
+                               for i in range(3)])
+            out[f"{name}_{design}_split_ms"] = splits
+
+
 def main(label: str) -> int:
     if not torch.cuda.is_available():
         print("chip_ab_lstm: no CUDA device", file=sys.stderr)
@@ -336,6 +436,7 @@ def main(label: str) -> int:
     for name, b, t in (("train", 512, 125), ("serve", 64, 512)):
         row2b(out, rng, dev, name, b, t)
         row3(out, rng, dev, name, b, t)
+    wide_bwd(out, rng, dev)
     print(json.dumps(out))
     for name in ("lstm", "stft"):
         for line in report.get(name, "").splitlines():

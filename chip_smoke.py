@@ -836,7 +836,9 @@ ROUTES = {"log_spectrogram_fft": ("log_spectrogram", "fft"),
           "lstm_layer_bidir_fused_bwd_tile": ("lstm_layer_bidir_fused_bwd",
                                               "tile"),
           "lstm_layer_cluster": ("lstm_layer", "cluster"),
-          "lstm_layer_tile": ("lstm_layer", "tile")}
+          "lstm_layer_tile": ("lstm_layer", "tile"),
+          "lstm_layer_bwd_cluster": ("lstm_layer_bwd", "cluster"),
+          "lstm_layer_bwd_tile": ("lstm_layer_bwd", "tile")}
 
 
 def with_routes(counters: dict) -> dict:
@@ -1034,13 +1036,15 @@ def lstm_train_phase(dev, rng, t, launches_cluster, launches_tile):
     F=129), at B=13 and 21, at a second layer's F = 2H (which the cluster
     route takes), each with and without douts, ragged with a row of length
     0; the public wrapper takes the route its rule names; H=1024 and H=200
-    (not a multiple of 32), forced to the cluster route, raise.  Each route
-    timed at the training shape beside the twin and cuDNN's forward +
-    backward, the cluster route's time split into (a) the gate recompute,
-    (b) the recurrence, (c) dx, (d) the weight gradients; the per-tile
-    routes of row 2b and of row 2's forward (saving cs) also held to the
-    twins and timed at their main path's H=1024.  The forward with saved
-    cs is held to its twin and timed too."""
+    (not a multiple of 32), forced to the cluster route, raise, and the
+    public wrapper takes the grid route (``"tile"``) there, bit for bit
+    across calls.  Each route timed beside the twin and cuDNN's forward +
+    backward: the cluster route at the training shape, its time split into
+    (a) the gate recompute, (b) the recurrence, (c) dx, (d) the weight
+    gradients; the grid route at its main path's H=1024 (split the same
+    way), and forced at H=256.  Row 2's per-tile forward (saving cs) is
+    held to its twin and timed at H=1024 too, and the forward with saved
+    cs at the training shape."""
     from seq2seq_abcd_vae_tpu_torch.ops import _build
     from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
     b, f, h = TRAIN_BATCH, 129, HIDDEN
@@ -1096,6 +1100,22 @@ def lstm_train_phase(dev, rng, t, launches_cluster, launches_tile):
             refused[f"H{hh}"] = str(e)[:100]
         else:
             raise AssertionError(f"row 2b's cluster route took H={hh}")
+    # the grid route where the rule gives it: H=200 (correctness only)
+    for with_douts in (False, True):
+        _, args = _bwd_case(dev, rng, 37, 21, f, 200, with_douts)
+        before = lk.lstm_layer_bidir_fused_bwd.tile.launches
+        got = lk.lstm_layer_bidir_fused_bwd(*args)
+        if lk.lstm_layer_bidir_fused_bwd.tile.launches != before + 1:
+            raise AssertionError("row 2b at H=200 did not take the grid "
+                                 "route")
+        want = lk.lstm_layer_bidir_fused_bwd_plain(*args)
+        torch.cuda.synchronize()
+        shape = f"T37_B21_F{f}_H200_douts{int(with_douts)}"
+        checks["tile"][shape] = max(rel_err(g, r) for g, r in zip(got, want))
+        abs_errs["tile"] = max(abs_errs["tile"], max_err(got, want))
+        if checks["tile"][shape] > GRAD_FRACTION:
+            raise AssertionError(f"row 2b grid route vs twin at {shape}: "
+                                 f"{checks['tile'][shape]}")
     lens, args = timed
     times = {d: cuda_ms(lambda: lk.lstm_layer_bidir_fused_bwd_on(d, *args),
                         iters=5) for d in ("cluster", "tile")}
@@ -1162,16 +1182,42 @@ def lstm_train_phase(dev, rng, t, launches_cluster, launches_tile):
         2 * steps * 2.0 * (f + hh) * 4 * hh,
         4.0 * (t * b * f + 2 * (f + hh + 2) * 4 * hh      # x, weights
                + 2 * t * 2 * b * hh + 2 * 2 * b * hh) + 4 * b)  # outs, cs
-    wide_got = lk.lstm_layer_bidir_fused_bwd(*wargs)
-    wide_want = lk.lstm_layer_bidir_fused_bwd_plain(*wargs)
-    torch.cuda.synchronize()
-    wide_rel = max(rel_err(g, r) for g, r in zip(wide_got, wide_want))
-    checks["tile"][f"T{t}_B{b}_F{f}_H{WIDE_HIDDEN}"] = wide_rel
-    if wide_rel > GRAD_FRACTION:
-        raise AssertionError(f"row 2b per-tile route at H={WIDE_HIDDEN}: "
-                             f"{wide_rel}")
-    wide_ms = cuda_ms(lambda: lk.lstm_layer_bidir_fused_bwd(*wargs), iters=1,
-                      warmup=0)
+    _, dargs = _bwd_case(dev, rng, t, b, f, WIDE_HIDDEN, True)
+    for with_douts, cargs in ((False, wargs), (True, dargs)):
+        before = lk.lstm_layer_bidir_fused_bwd.tile.launches
+        wide_got = lk.lstm_layer_bidir_fused_bwd(*cargs)
+        if lk.lstm_layer_bidir_fused_bwd.tile.launches != before + 1:
+            raise AssertionError(f"row 2b at H={WIDE_HIDDEN} did not take "
+                                 "the grid route")
+        again = lk.lstm_layer_bidir_fused_bwd(*cargs)
+        wide_want = lk.lstm_layer_bidir_fused_bwd_plain(*cargs)
+        torch.cuda.synchronize()
+        if max_err(wide_got, again) != 0.0:
+            raise AssertionError(f"row 2b grid route differs between calls "
+                                 f"at H={WIDE_HIDDEN}")
+        wide_rel = max(rel_err(g, r) for g, r in zip(wide_got, wide_want))
+        shape = f"T{t}_B{b}_F{f}_H{WIDE_HIDDEN}_douts{int(with_douts)}"
+        checks["tile"][shape] = wide_rel
+        abs_errs["tile"] = max(abs_errs["tile"], max_err(wide_got, wide_want))
+        if wide_rel > GRAD_FRACTION:
+            raise AssertionError(f"row 2b grid route at H={WIDE_HIDDEN}: "
+                                 f"{wide_rel}")
+    del dargs, again
+    wide_ms = cuda_ms(lambda: lk.lstm_layer_bidir_fused_bwd(*wargs), iters=3,
+                      warmup=1)
+    wide_plain_ms = cuda_ms(
+        lambda: lk.lstm_layer_bidir_fused_bwd_plain(*wargs), iters=1,
+        warmup=0)
+    split = []
+    for _ in range(3):
+        marks = []
+        lk.lstm_layer_bidir_fused_bwd_on("tile", *wargs, marks=marks)
+        torch.cuda.synchronize()
+        split.append([marks[i].elapsed_time(marks[i + 1]) for i in range(4)])
+    wide_split = dict(zip(("a_gates", "b_recurrence", "c_dx", "d_wgrad"),
+                          np.median(np.asarray(split), axis=0).tolist()))
+    print(f"row 2b grid route at H={WIDE_HIDDEN}, ms by part "
+          + json.dumps(wide_split), flush=True)
     # cuDNN at the same width (the yardstick the per-tile routes' ranking
     # reads): forward, and forward + backward, packed, the empty row dropped
     wlstm = _nn_lstm_module(*ww)
@@ -1211,12 +1257,13 @@ def lstm_train_phase(dev, rng, t, launches_cluster, launches_tile):
              rel_errs_by_leaf=rel, ms=times["cluster"], split_ms=split_ms),
         dict(common, name="lstm_layer_bidir_fused_bwd_tile",
              launches=launches_tile, max_abs_err=abs_errs["tile"],
-             max_rel_err=max(checks["tile"].values()), ms=times["tile"],
-             main_path_shape=f"T={t} B={b} F={f} H={WIDE_HIDDEN}",
-             main_path_shape_ms=wide_ms,
-             main_path_shape_bound_ms=_bwd_bound(wlens, t, b, f,
-                                                 WIDE_HIDDEN)[0],
-             main_path_shape_library_ms=wide_lib_ms)]
+             max_rel_err=max(checks["tile"].values()), ms=wide_ms,
+             plain_ms=wide_plain_ms,
+             bound_ms=_bwd_bound(wlens, t, b, f, WIDE_HIDDEN)[0],
+             bound_by=_bwd_bound(wlens, t, b, f, WIDE_HIDDEN)[1],
+             library_ms=wide_lib_ms,
+             shape=f"T={t} B={b} F={f} H={WIDE_HIDDEN} (douts zero)",
+             split_ms=wide_split, ms_forced_at_training_shape=times["tile"])]
     wide_forward = {"main_path_shape": f"T={t} B={b} F={f} H={hh} "
                                        "(return_cs)",
                     "main_path_shape_ms": wide_fwd_ms,
@@ -1690,6 +1737,9 @@ def uni_train_phase(dev, work: str, corpus_dir: str, csv_path: str,
     if launches["lstm_layer_cluster"] != steps:
         raise AssertionError("the one-direction LSTM forward at B=512 did "
                              f"not take its cluster route: {launches}")
+    if launches["lstm_layer_bwd_cluster"] != train_steps:
+        raise AssertionError("the one-direction LSTM backward at H=256 did "
+                             f"not take its cluster route: {launches}")
     epochs = first.epoch_seconds + second.epoch_seconds
     later = [n / sec for _, sec, n in epochs[1:]]
     return {"launches": launches, "train_steps": train_steps,
@@ -1707,8 +1757,8 @@ def wide_train_phase(dev, work: str, corpus_dir: str, csv_path: str,
     takes), bidirectional or with ``--unidirectional_encoder``, trained
     through the CLI for one epoch (no pretraining, no resume: depth cut),
     counted: the cluster designs do not take H=1024, so the LSTM encoder's
-    kernels run by their per-tile routes, the forward once per step and
-    the backward once per training step."""
+    forward runs by its per-tile route once per step and its backward by
+    the grid design (``"tile"``) once per training step."""
     from seq2seq_abcd_vae_tpu_torch.cli import learning_main
     job = "wide-uni" if unidirectional else "wide"
     argv = [corpus_dir, csv_path, "-S", work, "-j", job, "-b",
@@ -1746,9 +1796,7 @@ def wide_train_phase(dev, work: str, corpus_dir: str, csv_path: str,
           f"{wall:.2f} s; launches {launches}", flush=True)
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
-    tiles = {layer + "_tile": steps}
-    if not unidirectional:
-        tiles[layer + "_bwd_tile"] = train
+    tiles = {layer + "_tile": steps, layer + "_bwd_tile": train}
     if any(launches[k] != n for k, n in tiles.items()):
         raise AssertionError(f"{job}: the per-tile routes did not run: "
                              f"{launches}")
@@ -1967,19 +2015,25 @@ def lstm_layer_phase(dev, rng, launches_cluster, launches_tile,
     H=1024 and H=36 (not a multiple of 8), forced to the cluster route,
     raise.  Each route timed at both shapes beside the twin and cuDNN's
     LSTM, the per-tile route also at its main path's H=1024.  Row 3b, the
-    backward (one kernel), vs its twin at the same shapes and at H=1024
-    (its wide main path's width, with and without douts), and timed at
-    both."""
+    backward, by both designs vs its twin at the same shapes (the public
+    wrapper takes the cluster route at H=256, bit for bit across calls;
+    the grid route forced beside it) and at H=1024 (its wide main path's
+    width: the grid route, with and without douts, both span directions),
+    each timed at its width beside the twin and cuDNN's forward +
+    backward, the cluster route split into (a) gates, (b) recurrence, (d)
+    weight gradients.  ``launches_bwd`` maps ``lstm_layer_bwd`` and its
+    two routes to their main paths' launches."""
     from seq2seq_abcd_vae_tpu_torch.ops import _build
     from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
     h, f = HIDDEN, 129
     lib = _build.load("lstm")
     active = {rows: lib.abcd_lstm_fwd_cluster_max_active(h, rows)
               for rows in lk.PROJ_CLUSTER_TILES}
-    checks = {"cluster": {}, "tile": {}, "cluster_vs_tile": {}, "bwd": {}}
+    checks = {"cluster": {}, "tile": {}, "cluster_vs_tile": {}, "bwd": {},
+              "bwd_tile": {}}
     picked_rows = {}
     inputs = {}
-    bwd_abs = 0.0
+    bwd_abs = {"cluster": 0.0, "tile": 0.0}
     for b, t in ((TRAIN_BATCH, 125), (BATCH, 512), (13, 37)):
         lens, lengths = _ragged(rng, dev, b, t)
         xp = torch.from_numpy(rng.normal(size=(t, b, 4 * h)).astype(
@@ -2012,16 +2066,27 @@ def lstm_layer_phase(dev, rng, launches_cluster, launches_tile,
                 np.float32)).to(dev)
             bwd = (xp, lengths, w_hh, b_hh, outs, cs, None, normal(b, h),
                    normal(b, h), reverse)
+            before = lk.lstm_layer_bwd.cluster.launches
             got_b = lk.lstm_layer_bwd(*bwd)
+            if lk.lstm_layer_bwd.cluster.launches != before + 1:
+                raise AssertionError(f"row 3b at B={b} did not take the "
+                                     "cluster route")
+            again = lk.lstm_layer_bwd(*bwd)
+            tile_b = lk.lstm_layer_bwd_on("tile", *bwd)
             want_b = lk.lstm_layer_bwd_plain(*bwd)
             torch.cuda.synchronize()
-            relb = {n: rel_err(g, r) for n, g, r in zip(
-                ("dxp", "dw_hh", "db_hh"), got_b, want_b)}
-            checks["bwd"][shape] = max(relb.values())
-            bwd_abs = max(bwd_abs, max_err(got_b, want_b))
-            if max(relb.values()) > GRAD_FRACTION:
-                raise AssertionError(f"lstm_layer backward vs twin at "
-                                     f"{shape}: {relb}")
+            if max_err(got_b, again) != 0.0:
+                raise AssertionError(f"row 3b cluster route differs between "
+                                     f"calls at {shape}")
+            for key, got_d in (("bwd", got_b), ("bwd_tile", tile_b)):
+                relb = {n: rel_err(g, r) for n, g, r in zip(
+                    ("dxp", "dw_hh", "db_hh"), got_d, want_b)}
+                checks[key][shape] = max(relb.values())
+                route = "cluster" if key == "bwd" else "tile"
+                bwd_abs[route] = max(bwd_abs[route], max_err(got_d, want_b))
+                if max(relb.values()) > GRAD_FRACTION:
+                    raise AssertionError(f"lstm_layer backward ({route}) vs "
+                                         f"twin at {shape}: {relb}")
             if not reverse:
                 inputs[(b, t)] = (lens, xp, lengths, w_hh, b_hh, bwd)
     refused = {}
@@ -2093,6 +2158,18 @@ def lstm_layer_phase(dev, rng, launches_cluster, launches_tile,
                                fwd_bytes(t, b, h))
         if b == TRAIN_BATCH:
             at["bwd"] = cuda_ms(lambda: lk.lstm_layer_bwd(*bwd), 5)
+            at["bwd_tile"] = cuda_ms(lambda: lk.lstm_layer_bwd_on("tile",
+                                                                  *bwd), 5)
+            split = []
+            for _ in range(3):
+                marks = []
+                lk.lstm_layer_bwd_on("cluster", *bwd, marks=marks)
+                torch.cuda.synchronize()
+                split.append([marks[i].elapsed_time(marks[i + 1])
+                              for i in range(3)])
+            at["bwd_split_ms"] = dict(zip(
+                ("a_gates", "b_recurrence", "d_wgrad"),
+                np.median(np.asarray(split), axis=0).tolist()))
             at["bwd_plain"] = cuda_ms(lambda: lk.lstm_layer_bwd_plain(*bwd),
                                       2, 1)
             at["bwd_library"] = cuda_ms(lib_fwd_bwd, 5)
@@ -2118,24 +2195,46 @@ def lstm_layer_phase(dev, rng, launches_cluster, launches_tile,
                                             True), 2, 1)
     wide_bound = bound_ms(int(wlens.sum()) * 2.0 * hh * 4 * hh,
                           fwd_bytes(t, b, hh))[0]
-    outs, _, _, cs = ref
     normal = lambda *s: torch.from_numpy(rng.normal(size=s).astype(
         np.float32)).to(dev)
-    for douts in (None, normal(t, b, hh)):
-        wide_bwd = (xp, wlengths, w_hh, b_hh, outs, cs, douts,
-                    normal(b, hh), normal(b, hh), False)
-        got_b = lk.lstm_layer_bwd(*wide_bwd)
-        want_b = lk.lstm_layer_bwd_plain(*wide_bwd)
+    for reverse in (False, True):
+        outs, _, _, cs = (ref if not reverse else lk.lstm_layer_plain(
+            xp, wlengths, w_hh, b_hh, True, True))
+        for douts in (None, normal(t, b, hh)):
+            wide_bwd = (xp, wlengths, w_hh, b_hh, outs, cs, douts,
+                        normal(b, hh), normal(b, hh), reverse)
+            before = lk.lstm_layer_bwd.tile.launches
+            got_b = lk.lstm_layer_bwd(*wide_bwd)
+            if lk.lstm_layer_bwd.tile.launches != before + 1:
+                raise AssertionError(f"row 3b at H={hh} did not take the "
+                                     "grid route")
+            want_b = lk.lstm_layer_bwd_plain(*wide_bwd)
+            torch.cuda.synchronize()
+            relb = {n: rel_err(g, r) for n, g, r in zip(
+                ("dxp", "dw_hh", "db_hh"), got_b, want_b)}
+            shape = (f"B{b}_T{t}_H{hh}_rev{int(reverse)}_douts"
+                     f"{int(douts is not None)}")
+            checks["bwd_tile"][shape] = max(relb.values())
+            bwd_abs["tile"] = max(bwd_abs["tile"], max_err(got_b, want_b))
+            if max(relb.values()) > GRAD_FRACTION:
+                raise AssertionError(f"lstm_layer backward vs twin at "
+                                     f"{shape}: {relb}")
+    again = lk.lstm_layer_bwd(*wide_bwd)
+    torch.cuda.synchronize()
+    if max_err(got_b, again) != 0.0:
+        raise AssertionError(f"row 3b grid route differs between calls at "
+                             f"H={hh}")
+    wide_bwd_ms = cuda_ms(lambda: lk.lstm_layer_bwd(*wide_bwd), 3, 1)
+    wide_bwd_plain_ms = cuda_ms(lambda: lk.lstm_layer_bwd_plain(*wide_bwd),
+                                1, 0)
+    split = []
+    for _ in range(3):
+        marks = []
+        lk.lstm_layer_bwd_on("tile", *wide_bwd, marks=marks)
         torch.cuda.synchronize()
-        relb = {n: rel_err(g, r) for n, g, r in zip(
-            ("dxp", "dw_hh", "db_hh"), got_b, want_b)}
-        shape = f"B{b}_T{t}_H{hh}_douts{int(douts is not None)}"
-        checks["bwd"][shape] = max(relb.values())
-        bwd_abs = max(bwd_abs, max_err(got_b, want_b))
-        if max(relb.values()) > GRAD_FRACTION:
-            raise AssertionError(f"lstm_layer backward vs twin at {shape}: "
-                                 f"{relb}")
-    wide_bwd_ms = cuda_ms(lambda: lk.lstm_layer_bwd(*wide_bwd), 1, 1)
+        split.append([marks[i].elapsed_time(marks[i + 1]) for i in range(3)])
+    wide_bwd_split = dict(zip(("a_gates", "b_recurrence", "d_wgrad"),
+                              np.median(np.asarray(split), axis=0).tolist()))
     wide_lib_fwd, wide_lib_fwd_bwd = library_for(wlens, w_hh, b_hh, t, b)
     wide_lib_ms = cuda_ms(wide_lib_fwd, 2, 1)
     wide_lib_bwd_ms = cuda_ms(wide_lib_fwd_bwd, 2, 1)
@@ -2168,10 +2267,11 @@ def lstm_layer_phase(dev, rng, launches_cluster, launches_tile,
     bwd_entry = {
         "name": "lstm_layer_bwd", "route": "cuda",
         "source": "seq2seq_abcd_vae_tpu_torch/csrc/lstm.cu",
-        "helper_source": "seq2seq_abcd_vae_tpu_torch/csrc/wgrad.cu",
         "replaces": "seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:192",
-        "launches": launches_bwd, "max_abs_err": bwd_abs,
-        "max_rel_err": max(checks["bwd"].values()),
+        "launches": launches_bwd["lstm_layer_bwd"],
+        "max_abs_err": max(bwd_abs.values()),
+        "max_rel_err": max(max(checks["bwd"].values()),
+                           max(checks["bwd_tile"].values())),
         "ms": train["bwd"], "plain_ms": train["bwd_plain"],
         "bound_ms": train["bwd_bound"][0], "bound_by": train["bwd_bound"][1],
         "library_ms": train["bwd_library"],
@@ -2183,7 +2283,31 @@ def lstm_layer_phase(dev, rng, launches_cluster, launches_tile,
         "main_path_shape_bound_ms": wide_bwd_bound,
         "main_path_shape_library_ms": wide_lib_bwd_ms,
         "tolerance": f"{GRAD_FRACTION} of each leaf's max |value|"}
-    return fwd_entries, bwd_entry
+    # the two designs apart, each at the width whose main path takes it
+    bwd_common = {k: bwd_entry[k] for k in ("route", "source", "replaces",
+                                            "library_call", "tolerance")}
+    bwd_routes = [
+        dict(bwd_common, name="lstm_layer_bwd_cluster",
+             launches=launches_bwd["lstm_layer_bwd_cluster"],
+             max_abs_err=bwd_abs["cluster"],
+             max_rel_err=max(checks["bwd"].values()), ms=train["bwd"],
+             plain_ms=train["bwd_plain"], bound_ms=train["bwd_bound"][0],
+             bound_by=train["bwd_bound"][1],
+             library_ms=train["bwd_library"], shape=common["shape"],
+             split_ms=train["bwd_split_ms"],
+             grid_route_ms_same_shape=train["bwd_tile"]),
+        dict(bwd_common, name="lstm_layer_bwd_tile",
+             launches=launches_bwd["lstm_layer_bwd_tile"],
+             max_abs_err=bwd_abs["tile"],
+             max_rel_err=max(checks["bwd_tile"].values()), ms=wide_bwd_ms,
+             plain_ms=wide_bwd_plain_ms, bound_ms=wide_bwd_bound,
+             bound_by=bound_ms(3 * int(wlens.sum()) * 2.0 * hh * 4 * hh,
+                               bwd_bytes(t, b, hh))[1],
+             library_ms=wide_lib_bwd_ms,
+             shape=f"T=125 B={TRAIN_BATCH} H={WIDE_HIDDEN} (xp given; "
+                   "ragged, one empty row)",
+             split_ms=wide_bwd_split)]
+    return fwd_entries, [bwd_entry, *bwd_routes]
 
 
 def decoder_loop_phase(dev, rng, launches):
@@ -4520,10 +4644,10 @@ def run(args, root, dev, rng, work) -> int:
     dec_fwd, dec_bwd = decoder_train_phase(
         dev, rng, t_train, total("decoder_loop_fused_losses_fwd"),
         total("decoder_loop_fused_losses_bwd"))
-    uni_fwds, uni_bwd = lstm_layer_phase(dev, rng,
-                                         total("lstm_layer_cluster"),
-                                         total("lstm_layer_tile"),
-                                         total("lstm_layer_bwd"))
+    uni_fwds, uni_bwds = lstm_layer_phase(
+        dev, rng, total("lstm_layer_cluster"), total("lstm_layer_tile"),
+        {k: total(k) for k in ("lstm_layer_bwd", "lstm_layer_bwd_cluster",
+                               "lstm_layer_bwd_tile")})
     loop = decoder_loop_phase(dev, rng, total("decoder_loop"))
     gru_checks, gru_inputs = whole_step_phase(dev, corpus_dir, csv_path,
                                               args.seed, rnn_type="GRU")
@@ -4584,7 +4708,7 @@ def run(args, root, dev, rng, work) -> int:
         seed_entries += seed_kernel_phase(dev, rng, t_train, cell,
                                           total(name + "_fwd"),
                                           total(name + "_bwd"))
-    kernels += [*lstm_bwds, dec_fwd, dec_bwd, *uni_fwds, uni_bwd, loop,
+    kernels += [*lstm_bwds, dec_fwd, dec_bwd, *uni_fwds, *uni_bwds, loop,
                 gru_fwd,
                 gru_bwd, gru_dec_fwd, gru_dec_bwd, elman_fwd, elman_bwd,
                 rnn_dec_fwd, rnn_dec_bwd, gru_uni_fwd, gru_uni_bwd,
@@ -4605,8 +4729,8 @@ def run(args, root, dev, rng, work) -> int:
         lacking = KERNEL_KEYS - set(entry)
         if lacking:
             raise AssertionError(f"kernel {entry['name']} lacks {lacking}")
-    if len(kernels) != 43:
-        raise AssertionError(f"{len(kernels)} kernel entries, expected 43")
+    if len(kernels) != 45:
+        raise AssertionError(f"{len(kernels)} kernel entries, expected 45")
     print("training step, kernels (card) vs twins (CPU) "
           + json.dumps(checks), flush=True)
     print("unidirectional training step, kernels (card) vs twins (CPU) "

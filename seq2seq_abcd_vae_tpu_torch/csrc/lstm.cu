@@ -12,18 +12,20 @@
 //   axis (seq2seq_abcd_vae_tpu/ops/_mask_utils.py:span_mask), so its outs
 //   are in flipped time, as the TPU kernel writes them.
 // - projected input (kProj = true): a precomputed xp = x @ W_ih + b_ih.
-//   One direction over xp (T, B, 4H) (kinds 2 and 3) replaces
+//   One direction over xp (T, B, 4H) (kind 2; its backward by the cluster
+//   and grid designs below) replaces
 //   seq2seq_abcd_vae_tpu/ops/lstm_pallas.py:lstm_layer, forward
 //   (`_fwd_call` / `_fwd_kernel`) and backward (`_bwd_call` /
 //   `_bwd_kernel`); `reverse` selects the span [T - len, T) (the caller
 //   flips xp in time, as models/rnn.py:run_rnn_layer does).  Both
-//   directions over xp (T, 2, B, 4H) in one launch (kPair = true, kinds 4
-//   and 5) replace lstm_pallas.py:lstm_layer_bidir, forward (`_fwd2_call` /
-//   `_fwd2_kernel`) and backward (`_bwd2_call` / `_bwd2_kernel`): the TPU
-//   kernel steps both directions' time loops in one grid, and here the two
-//   directions are the y blocks of one launch; direction 1's xp is already
-//   flipped in time and active on [T - len, T), as in the raw mode.  The
-//   backward's dxp is its dz stream (direction-major, (D, T, B, 4H)).
+//   directions over xp (T, 2, B, 4H) in one launch (kPair = true, kind 4,
+//   and lstm_pair_bwd_kernel, kind 5) replace lstm_pallas.py:
+//   lstm_layer_bidir, forward (`_fwd2_call` / `_fwd2_kernel`) and backward
+//   (`_bwd2_call` / `_bwd2_kernel`): the TPU kernel steps both directions'
+//   time loops in one grid, and here the two directions are the y blocks of
+//   one launch; direction 1's xp is already flipped in time and active on
+//   [T - len, T), as in the raw mode.  The backwards' dxp is their dz
+//   stream (direction-major, (D, T, B, 4H)).
 //
 // In both modes outs holds the MASKED carry h after each step (a row's
 // carries are frozen outside its span), gates are in torch order
@@ -34,8 +36,9 @@
 // but the time loop is sequential and every step needs all of the weights
 // (1.58 MB per direction at H=256, F=129), far more than one SM holds.
 //
-// Per-tile design (lstm_fwd_kernel, lstm_bwd_kernel; every kind): CUDA
-// blocks run in no order, so the time loop lives inside the block, as the
+// Per-tile design (lstm_fwd_kernel, kinds 0, 2 and 4; lstm_pair_bwd_kernel,
+// kind 5): CUDA blocks run in no order, so the time loop lives inside the
+// block, as the
 // TPU's sequential grid axis did.  One block per (direction, tile of R
 // batch rows) owns all 4H gate columns of its rows; R (8, 4 or 2) is chosen
 // at launch so that the block's shared memory fits the card.  In the
@@ -152,10 +155,33 @@
 // (ops/lstm_kernel.py:backward_design, from
 // abcd_lstm_bwd_cluster_max_active): H a multiple of 4 C up to 256 and
 // the slice fitting the card, at any batch (its 2 * ceil(B / 36) clusters
-// run in waves, as the per-tile kernel's blocks do); the per-tile kernel
-// otherwise.  (R = 16 takes ~5.5 us a step
+// run in waves); the grid design otherwise.  (R = 16 takes ~5.5 us a step
 // against R = 36's ~10.9: it would win only at B <= 112, which no path
-// trains at.)
+// trains at.)  The one-direction backward (kind 3's; replacing
+// lstm_pallas.py:192 `_bwd_call`) takes the same rule and the same
+// cluster recurrence with D = 1: (a) the gates from xp
+// (lstm_gates_kernel's kGatesLayer mode), (b) the recurrence, whose dz is
+// dxp, and (d) below.
+//
+// Grid design of both backwards (design "tile": H=1024, H not a multiple
+// of 32; lstm_bwd_step_kernel).  Where W_hh does not fit a cluster (16 MB
+// a direction at H=1024), the recurrence dh_{t-1} = dz_t W_hh^T is one
+// tiled product a step over the whole grid, (B x 4H) by (4H x H) for
+// every direction at once, W_hh^T read through L2 (both directions fit
+// the 50 MB L2), one launch a step issued from a C loop
+// (abcd_lstm_bwd_grid), the step's elementwise backward (dz_{t-1} over the
+// gates, the dc carry, the pass-through of dh) in the product's epilogue.
+// Rows are ordered by length, longest first, so that the rows active at a
+// step are a prefix and a tile of inactive rows skips its product; a
+// cluster of eight CTAs splits each tile's depth and adds the partial
+// tiles in rank order over DSMEM, so the grid has 8x the CTAs as the
+// active rows thin out and a run repeats bit for bit.  (a) and (c) are
+// the cluster design's; (d) of both designs of the one-direction backward
+// and of the raw grid design sums over the active row-steps only in the
+// span prefix's order (lstm_wgrad_kernel: 8 x 8 thread tiles, [x | h_prev]
+// against dz; lstm_bias_kernel: the bias row).  On the H100 (700 W) at
+// B=512, T=125, F=129, H=1024: (a) ~17 ms, (b) ~29 ms (~0.24 ms a step: the
+// product at about a third of the FP32 rate), (c) ~4 ms, (d) ~20 ms.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -956,6 +982,9 @@ __global__ void __launch_bounds__(256) span_prefix_kernel(
   }
 }
 
+// The three modes of lstm_gates_kernel.
+enum GatesMode { kGatesRaw = 0, kGatesXp = 1, kGatesLayer = 2 };
+
 // (a) The gate recompute for every active row-step of both directions
 // (grid.z = direction): Z = (x_t W_ih + b_ih + h_{t-1} W_hh) + b_hh with
 // h_{t-1} = outs[t - 1] (zero at t = 0), one chain of FMAs a dot product:
@@ -966,29 +995,39 @@ __global__ void __launch_bounds__(256) span_prefix_kernel(
 // at (d, original time, b, .), where the recurrence reads them and writes
 // dz over them.  Rows are the active row-steps in the span prefix's order
 // (grid.y covers T * B rows; blocks past a direction's count return), so
-// no row outside its span costs a product.  The blocks of the first column
-// tile also write the h_prev stream (the same h_{t-1}) for dW_hh.
+// no row outside its span costs a product.  Where hp_s is given, the
+// blocks of the first column tile also write the h_prev stream (the same
+// h_{t-1}) for dW_hh.
 //
-// kXp: the raw forward's input projection instead (its "proj" design, part
-// (a)): xp = x_t W_ih + b_ih (x over F in order, then b_ih) for every
+// kGatesXp: the raw forward's input projection instead (its "proj" design,
+// part (a)): xp = x_t W_ih + b_ih (x over F in order, then b_ih) for every
 // active row-step of both directions, written into `gates` as xp
 // (T, 2, B, 4H) at the direction's own time (direction 1 flipped), with no
 // h half, no b_hh and no gate function; w_hh, b_hh, outs and hp_s are not
 // read.  Row-steps outside the spans are left unwritten: the recurrence
 // loads no xp there.
-template <int BM, int BN, int TM, int TN, bool kXp = false>
+//
+// kGatesLayer: one direction over a precomputed xp (T, B, 4H) (row 3b's
+// part (a); grid.z = 1, `reverse` picking the span [T - len, T)): Z =
+// (xp_t + h_{t-1} W_hh) + b_hh, the h half one chain over H in order then
+// added to xp as the forward adds it, the gate functions applied, written
+// into `gates` (T, B, 4H) at xp's own time.  `x` is xp; w_ih, b_ih and
+// hp_s are not read.
+template <int BM, int BN, int TM, int TN, int kMode = kGatesRaw>
 __global__ void __launch_bounds__(kGemmThreads) lstm_gates_kernel(
-    const float* __restrict__ x,        // (T, B, F)
+    const float* __restrict__ x,        // raw (T, B, F) | layer: xp (T, B, 4H)
     const int* __restrict__ prefix,     // (B + 1,)
-    const float* __restrict__ w_ih,     // (2, F, 4H)
-    const float* __restrict__ b_ih,     // (2, 4H)
-    const float* __restrict__ w_hh,     // (2, H, 4H)
-    const float* __restrict__ b_hh,     // (2, 4H)
-    const float* __restrict__ outs,     // (T, 2, B, H)
-    float* __restrict__ gates,          // (2, T, B, 4H), original time
-    float* __restrict__ hp_s,           // (2, T, B, H), original time
-    int T, int B, int F, int H) {
+    const float* __restrict__ w_ih,     // (2, F, 4H) | layer: unused
+    const float* __restrict__ b_ih,     // (2, 4H) | layer: unused
+    const float* __restrict__ w_hh,     // (D, H, 4H)
+    const float* __restrict__ b_hh,     // (D, 4H)
+    const float* __restrict__ outs,     // (T, D, B, H)
+    float* __restrict__ gates,          // (D, T, B, 4H), original time
+    float* __restrict__ hp_s,           // (2, T, B, H) or nullptr
+    int T, int B, int F, int H, int reverse) {
   static_assert((BM / TM) * (BN / TN) == kGemmThreads, "one tile a block");
+  constexpr bool kXp = kMode == kGatesXp, kLayer = kMode == kGatesLayer;
+  constexpr int D = kLayer ? 1 : 2;
   constexpr int LDA = BM + 4, LDB = BN + 4;
   __shared__ __align__(16) float s_a[2][kGemmDepth * LDA];
   __shared__ __align__(16) float s_b[2][kGemmDepth * LDB];
@@ -997,6 +1036,7 @@ __global__ void __launch_bounds__(kGemmThreads) lstm_gates_kernel(
   __shared__ const float* s_xrow[BM];
   __shared__ const float* s_hrow[BM];
   const int d = blockIdx.z;
+  const bool rev = kLayer ? reverse != 0 : d == 1;
   const int rows = prefix[B];
   const int m0 = blockIdx.y * BM;
   if (m0 >= rows) return;
@@ -1009,20 +1049,20 @@ __global__ void __launch_bounds__(kGemmThreads) lstm_gates_kernel(
     int b = -1, j = 0;
     if (tid < mcount) active_row(prefix, B, m0 + tid, &b, &j);
     const int len = b < 0 ? 0 : prefix[b + 1] - prefix[b];
-    const int t = d == 0 ? j : T - len + j;  // the direction's own time
-    const int tx = d == 0 ? t : T - 1 - t;
+    const int t = rev ? T - len + j : j;     // the direction's own time
+    const int tx = d == 0 ? t : T - 1 - t;   // x's time
     s_row[tid] = b;
     s_t[tid] = t;
-    s_xrow[tid] = b < 0 ? nullptr : x + ((int64_t)tx * B + b) * F;
+    s_xrow[tid] = kLayer || b < 0 ? nullptr : x + ((int64_t)tx * B + b) * F;
     s_hrow[tid] = kXp || b < 0 || t == 0
                       ? nullptr
-                      : outs + (((int64_t)(t - 1) * 2 + d) * B + b) * H;
+                      : outs + (((int64_t)(t - 1) * D + d) * B + b) * H;
   }
   __syncthreads();
 
-  const int kx = (F + kGemmDepth - 1) / kGemmDepth;
+  const int kx = kLayer ? 0 : (F + kGemmDepth - 1) / kGemmDepth;
   const int kt_n = kXp ? kx : kx + (H + kGemmDepth - 1) / kGemmDepth;
-  const float* wi = w_ih + (int64_t)d * F * G;
+  const float* wi = kLayer ? nullptr : w_ih + (int64_t)d * F * G;
   const float* wh = kXp ? wi : w_hh + (int64_t)d * H * G;
   // whole float4s of weights when the rows allow (G is a multiple of 4)
   const bool w16 = (((uintptr_t)wi | (uintptr_t)wh) & 15) == 0;
@@ -1060,7 +1100,7 @@ __global__ void __launch_bounds__(kGemmThreads) lstm_gates_kernel(
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  const float* bi = b_ih + d * G;
+  const float* bi = kLayer ? nullptr : b_ih + d * G;
   const float* bh = b_hh + d * G;
   load(0, 0);
   for (int kt = 0; kt < kt_n; ++kt) {
@@ -1072,7 +1112,7 @@ __global__ void __launch_bounds__(kGemmThreads) lstm_gates_kernel(
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kt == kx) {  // the x half is summed: b_ih, then the h half
+    if (!kLayer && kt == kx) {  // the x half is summed: b_ih, then the h half
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int n = n0 + tile_index<BN, TN>(j, tc);
@@ -1109,6 +1149,8 @@ __global__ void __launch_bounds__(kGemmThreads) lstm_gates_kernel(
     const int b = s_row[m], t = s_t[m];
     const int tx = d == 0 ? t : T - 1 - t;
     float* dst = gates + (((int64_t)d * T + tx) * B + b) * G;
+    // layer mode: the row-step's xp (xp's own time: tx == t)
+    const float* xp = kLayer ? x + ((int64_t)t * B + b) * G : nullptr;
 #pragma unroll
     for (int c = 0; c < TN / 4; ++c) {
       const int n = n0 + tile_index<BN, TN>(4 * c, tc);
@@ -1116,13 +1158,14 @@ __global__ void __launch_bounds__(kGemmThreads) lstm_gates_kernel(
       float v[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float z = acc[i][4 * c + e] + bh[n + e];
+        const float z = kLayer ? (xp[n + e] + acc[i][4 * c + e]) + bh[n + e]
+                               : acc[i][4 * c + e] + bh[n + e];
         v[e] = (n + e) / H == 2 ? tanhf(z) : sigmoid(z);
       }
       *reinterpret_cast<float4*>(dst + n) = make_float4(v[0], v[1], v[2], v[3]);
     }
   }
-  if (blockIdx.x == 0) {
+  if (!kLayer && hp_s != nullptr && blockIdx.x == 0) {
     for (int i = tid; i < mcount * H; i += kGemmThreads) {
       const int m = i / H, k = i - m * H;
       const int b = s_row[m], t = s_t[m];
@@ -1169,24 +1212,24 @@ __global__ void __launch_bounds__(kGemmThreads) lstm_dx_kernel(
   }
   __syncthreads();
 
-  const int kt_n = 2 * G / kGemmDepth;  // G is a multiple of 16
+  const int kt_n = (2 * G + kGemmDepth - 1) / kGemmDepth;
   const int64_t dir_stride = (int64_t)T * B * G;
   auto load = [&](int kt, int buf) {
     const int k0 = kt * kGemmDepth;
-    const int dd = k0 / G, g0 = k0 - dd * G;
     for (int i = tid; i < BM * kGemmDepth; i += kGemmThreads) {
       const int m = i / kGemmDepth, kk = i - m * kGemmDepth;
+      const int k = k0 + kk, dd = k >= G, g = k - dd * G;
       const float* row = s_dzrow[m];
-      const bool ok = row != nullptr;
+      const bool ok = row != nullptr && k < 2 * G;
       cp_async4_zfill(&s_a[buf][kk * LDA + m],
-                      ok ? row + dd * dir_stride + g0 + kk : dz_s, ok);
+                      ok ? row + dd * dir_stride + g : dz_s, ok);
     }
     for (int i = tid; i < BN * kGemmDepth; i += kGemmThreads) {
       const int n = i / kGemmDepth, kk = i - n * kGemmDepth;
-      const bool ok = n0 + n < F;
+      const int k = k0 + kk, dd = k >= G, g = k - dd * G;
+      const bool ok = n0 + n < F && k < 2 * G;
       cp_async4_zfill(&s_b[buf][kk * LDB + n],
-                      ok ? w_ih + ((int64_t)dd * F + n0 + n) * G + g0 + kk
-                         : w_ih,
+                      ok ? w_ih + ((int64_t)dd * F + n0 + n) * G + g : w_ih,
                       ok);
     }
     cp_async_commit();
@@ -1238,7 +1281,10 @@ long long bwd_cluster_smem_bytes(int H, int R) {
 }
 
 // (b) The recurrence: one cluster of C CTAs per (direction, tile of R rows),
-// grid (C, ceil(B / R), 2).  CTA c holds the W_hh slice of units
+// grid (C, ceil(B / R), D).  D = 2: both directions of the raw layer, the
+// streams (T, 2, B, .) and dz_s at original time (direction 1 flipped);
+// D = 1: row 3b's one direction over xp, `reverse` picking the span, every
+// stream in xp's own time.  CTA c holds the W_hh slice of units
 // [c U, (c + 1) U) (all four gates, U = H / C) for the whole sequence,
 // transposed: column j = g U + u as a row of H floats.  Step t (T - 1 down
 // to 0) runs in three phases:
@@ -1261,13 +1307,13 @@ long long bwd_cluster_smem_bytes(int H, int R) {
 template <int R>
 __global__ void __launch_bounds__(kBwdClusterThreads) lstm_bwd_cluster_kernel(
     const int* __restrict__ lengths,    // (B,)
-    const float* __restrict__ w_hh,     // (2, H, 4H)
-    const float* __restrict__ cs,       // (T, 2, B, H)
-    const float* __restrict__ douts,    // (T, 2, B, H) or nullptr
-    const float* __restrict__ dh_n,     // (2, B, H)
-    const float* __restrict__ dc_n,     // (2, B, H)
-    float* __restrict__ dz_s,           // (2, T, B, 4H): gates in, dz out
-    int T, int B, int H) {
+    const float* __restrict__ w_hh,     // (D, H, 4H)
+    const float* __restrict__ cs,       // (T, D, B, H)
+    const float* __restrict__ douts,    // (T, D, B, H) or nullptr
+    const float* __restrict__ dh_n,     // (D, B, H)
+    const float* __restrict__ dc_n,     // (D, B, H)
+    float* __restrict__ dz_s,           // (D, T, B, 4H): gates in, dz out
+    int T, int B, int H, int reverse) {
   static_assert(R % 4 == 0, "four row groups in the product");
   constexpr int C = kClusterCtas;
   constexpr int Q = (R + 7) / 8;        // rows a thread in phases 1 and 3
@@ -1275,8 +1321,9 @@ __global__ void __launch_bounds__(kBwdClusterThreads) lstm_bwd_cluster_kernel(
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int U = H / C, G4 = 4 * U, G = 4 * H;
-  const int d = blockIdx.z;
-  const bool rev = d == 1;
+  const int D = gridDim.z, d = blockIdx.z;
+  const bool rev = D == 2 ? d == 1 : reverse != 0;
+  const bool flip = D == 2 && d == 1;   // dz_s at original time
   const int r0 = blockIdx.y * R;
   const int nrows = min(R, B - r0);
   const int tid = threadIdx.x, nth = blockDim.x;
@@ -1330,7 +1377,7 @@ __global__ void __launch_bounds__(kBwdClusterThreads) lstm_bwd_cluster_kernel(
     float g[Q][4], c[Q], cp[Q], dout[Q];
   };
   auto fetch = [&](int t, StepIn& in) {
-    const int tx = rev ? T - 1 - t : t;
+    const int tx = flip ? T - 1 - t : t;
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       const int r = warp + 8 * q;
@@ -1340,12 +1387,12 @@ __global__ void __launch_bounds__(kBwdClusterThreads) lstm_bwd_cluster_kernel(
       const float* gp = dz_s + (((int64_t)d * T + tx) * B + b) * G + unit;
 #pragma unroll
       for (int g = 0; g < 4; ++g) in.g[q][g] = act ? gp[g * H] : 0.f;
-      in.c[q] = act ? cs[(((int64_t)t * 2 + d) * B + b) * H + unit] : 0.f;
+      in.c[q] = act ? cs[(((int64_t)t * D + d) * B + b) * H + unit] : 0.f;
       in.cp[q] = act && t > 0
-                     ? cs[(((int64_t)(t - 1) * 2 + d) * B + b) * H + unit]
+                     ? cs[(((int64_t)(t - 1) * D + d) * B + b) * H + unit]
                      : 0.f;
       in.dout[q] = ok && douts
-                       ? douts[(((int64_t)t * 2 + d) * B + b) * H + unit]
+                       ? douts[(((int64_t)t * D + d) * B + b) * H + unit]
                        : 0.f;
     }
   };
@@ -1362,7 +1409,7 @@ __global__ void __launch_bounds__(kBwdClusterThreads) lstm_bwd_cluster_kernel(
   const int kq = tid % KQ, rg = tid / KQ;   // phase 2 (threads < H)
   int ex = 0;                               // exchanges so far
   for (int t = T - 1; t >= 0; --t) {
-    const int tx = rev ? T - 1 - t : t;
+    const int tx = flip ? T - 1 - t : t;
     // phase 1
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
@@ -1471,65 +1518,517 @@ __global__ void __launch_bounds__(kBwdClusterThreads) lstm_bwd_cluster_kernel(
   cluster_wait();
 }
 
-// Per-tile backward of the layer (kind 1 where the cluster design does not
-// take the shape: H=1024, H not a multiple of 32; kinds 3 and 5 always):
-// the reverse-time adjoint of one direction for one tile of R batch rows
-// (the TPU's _bwdf_kernel / _bwd_kernel).  Step t of a
-// direction (its own time, T - 1 down to 0) recomputes the gates from its
-// input and the saved h_{t-1}, c_{t-1} (zero at t == 0, where no saved state
-// exists), in exactly the forward's order of operations, then:
-//   dh = dh_carry + douts[t];  dh_step, dc_step = (dh, dc) if the row is
-//   active at t, else 0 (and the carry passes through unchanged);
-//   dc2 = dc_step + dh_step * o * (1 - tanh(c2)^2);  dz = gate cotangents;
-//   dh_{t-1} = dz @ W_hh^T (+ dh if inactive);  dc_{t-1} = dc2 * f (or dc);
-//   raw mode: dx_t = dz @ W_ih^T  (projected mode: dxp_t = dz).
-// A thread owns hidden units u = tid, tid + blockDim, ...: it recomputes a
-// unit's four gates for the tile's rows in registers and writes dz to shared
-// memory; after a barrier every thread forms columns of dz @ [W_hh | W_ih]^T
-// from the transposed weights (coalesced across threads).  The weight
-// gradients need sums over all (t, b): the kernel writes dz and h_{t-1} as
-// streams, and csrc/wgrad.cu reduces them (dW_ih = x^T dz, dW_hh =
-// h_prev^T dz, db = sum dz).  Raw mode writes the streams and each
-// direction's dx in original time (the wrapper adds the two dx); projected
-// mode writes them in xp's own time order, (D, T, B, .) direction-major.
-template <int R, bool kProj, bool kPair = false>
-__global__ void __launch_bounds__(kBwdThreads) lstm_bwd_kernel(
-    const float* __restrict__ x,        // raw (T, B, F) | xp (T[, 2], B, 4H)
+// ---------------------------------------------------------------------------
+// Grid design of the backward (row 2b where the cluster recurrence does not
+// take H: H=1024, H not a multiple of 32; row 3b likewise): the recurrence
+// as one tiled product a step over the whole grid, the step's elementwise
+// backward fused into its epilogue
+// ---------------------------------------------------------------------------
+
+// order[i] = the batch row of rank i by active steps, longest first (ties
+// in row order).  A row's span is [0, len) or [T - len, T), so at any step
+// of either direction the active rows are a prefix of this order.  One
+// block; O(B^2) comparisons.
+__global__ void __launch_bounds__(1024) length_order_kernel(
+    const int* __restrict__ lengths, int* __restrict__ order, int T, int B) {
+  auto len = [&](int b) { return min(max(lengths[b], 0), T); };
+  for (int b = threadIdx.x; b < B; b += blockDim.x) {
+    const int lb = len(b);
+    int rank = 0;
+    for (int r = 0; r < B; ++r) {
+      const int lr = len(r);
+      rank += lr > lb || (lr == lb && r < b);
+    }
+    order[rank] = b;
+  }
+}
+
+// One (row, unit) of step t's elementwise backward, in the twin's order of
+// operations: dh is the cotangent reaching h_t (the carry, douts[t] added),
+// dc the cell carry.  An active row-step reads the activated gates at g
+// (stride H), c_t and c_{t-1}, writes dz over the gates, and leaves a zero
+// pass-through and dc2 * f; an inactive one writes dz = 0 and passes dh and
+// dc on.  Returns the pass-through part of dh_{t-1} and stores the new dc.
+__device__ __forceinline__ float step_bwd(float dh, float* dc, bool act,
+                                          float* g, int H, float c,
+                                          float cp) {
+  if (!act) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) g[q * H] = 0.f;
+    return dh;
+  }
+  const float ig = g[0], fg = g[H], gg = g[2 * H], og = g[3 * H];
+  const float tc = tanhf(c);
+  const float do_ = dh * tc;
+  const float dc2 = *dc + dh * og * (1.f - tc * tc);
+  const float df = dc2 * cp;
+  const float di = dc2 * gg;
+  const float dg = dc2 * ig;
+  g[0] = di * ig * (1.f - ig);
+  g[H] = df * fg * (1.f - fg);
+  g[2 * H] = dg * (1.f - gg * gg);
+  g[3 * H] = do_ * og * (1.f - og);
+  *dc = dc2 * fg;
+  return 0.f;
+}
+
+// Step t of direction d for unit k of batch row b, dh the cotangent
+// reaching h_t before douts[t]: the elementwise backward (step_bwd) against
+// the streams, its carries into dh_s / dc_s.  Layouts as
+// lstm_bwd_step_kernel's.
+__device__ __forceinline__ void step_bwd_at(
+    int t, int d, int D, bool rev, bool flip, int b, int k, float dh,
+    float dc, const int* __restrict__ lengths, const float* __restrict__ cs,
+    const float* __restrict__ douts, float* __restrict__ dz_s,
+    float* __restrict__ dh_s, float* __restrict__ dc_s, int T, int B,
+    int H) {
+  const int64_t so = (((int64_t)t * D + d) * B + b) * H + k;
+  if (douts) dh += douts[so];
+  const bool act = span_active(t, T, min(max(lengths[b], 0), T), rev);
+  const int tx = flip ? T - 1 - t : t;
+  float* g = dz_s + (((int64_t)d * T + tx) * B + b) * (4 * H) + k;
+  const float c = act ? cs[so] : 0.f;
+  const float cp =
+      act && t > 0 ? cs[(((int64_t)(t - 1) * D + d) * B + b) * H + k] : 0.f;
+  const int64_t o = ((int64_t)d * B + b) * H + k;
+  dh_s[o] = step_bwd(dh, &dc, act, g, H, c, cp);
+  dc_s[o] = dc;
+}
+
+// The last step (t = T - 1) of every direction (grid.z = D) from dh_n and
+// dc_n; one thread per (row, unit).
+__global__ void __launch_bounds__(256) lstm_bwd_first_kernel(
+    const int* __restrict__ lengths, const float* __restrict__ cs,
+    const float* __restrict__ douts, const float* __restrict__ dh_n,
+    const float* __restrict__ dc_n, float* __restrict__ dz_s,
+    float* __restrict__ dh_s, float* __restrict__ dc_s, int T, int B, int H,
+    int reverse) {
+  const int D = gridDim.z, d = blockIdx.z;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (int64_t)B * H) return;
+  const int b = (int)(i / H), k = (int)(i - (int64_t)b * H);
+  const int64_t o = (int64_t)d * B * H + i;
+  step_bwd_at(T - 1, d, D, D == 2 ? d == 1 : reverse != 0, D == 2 && d == 1,
+              b, k, dh_n[o], dc_n[o], lengths, cs, douts, dz_s, dh_s, dc_s,
+              T, B, H);
+}
+
+// The per-step product's tile and split: a cluster of kStepSplit CTAs owns
+// a BM x BN tile of dh_{t-1} (rows x units) of one direction, CTA r the
+// r-th eighth of the depth 4H.
+constexpr int kStepBM = 64, kStepBN = 128, kStepTM = 8, kStepTN = 8;
+constexpr int kStepThreads = (kStepBM / kStepTM) * (kStepBN / kStepTN);
+constexpr int kStepSplit = 8;
+
+// Step s (s = T - 1 down to 1) of the recurrence for every direction at
+// once (grid (kStepSplit * ceil(H / BN), ceil(B / BM), D), clusters of
+// kStepSplit along x): dh_{s-1} = pass-through + dz_s W_hh^T, a (B x 4H) by
+// (4H x H) product over the rows in `order` (longest first), then step
+// s - 1's elementwise backward for the tile's (row, unit) pairs, which
+// writes dz_{s-1} over its gates.  Each CTA sums its eighth of the depth
+// (one chain of FMAs an output, k in order) on 8 x 8 thread tiles
+// (gemm_depth); the cluster's eight partial tiles are then added in rank
+// order over distributed shared memory, CTA r finishing rows [r BM / 8,
+// (r + 1) BM / 8) of the tile: no atomics, so a run repeats bit for bit.  A
+// tile whose longest row is inactive at step s has dz_s = 0: it skips the
+// product.
+//
+// Why this tile (B=512, H=1024 on an H100, 700 W): 8 x 8 x 8 x D CTAs of
+// 128 threads at full activity (three fit a SM), and 64 x D still when a
+// single row tile is active, each with 512 of the 4H = 4096 deep: late in
+// the backward's sweep few rows are active and a step costs one CTA's
+// depth.  Against a split in four, the one-direction backward (D = 1) went
+// from 20.6 to ~17.5 ms of recurrence; both directions (D = 2), which fill
+// the card, stayed at ~29 ms.  A step reads 384 MB from L2 at full
+// activity (each dz row's slice by the 8 column tiles, W_hh^T, 16 MB a
+// direction and both in the 50 MB L2, by the 8 row tiles), below the
+// product's 8.6 GFLOP at the rate the tiles reach.
+template <int BM, int BN, int TM, int TN>
+__global__ void __launch_bounds__(kStepThreads) lstm_bwd_step_kernel(
     const int* __restrict__ lengths,    // (B,)
-    const float* __restrict__ w_ih,     // raw (D, F, 4H) | unused
-    const float* __restrict__ b_ih,     // raw (D, 4H) | unused
-    const float* __restrict__ w_hh,     // (D, H, 4H)
-    const float* __restrict__ b_hh,     // (D, 4H)
-    const float* __restrict__ w_ihT,    // raw (D, 4H, F) | unused
+    const int* __restrict__ order,      // (B,)
     const float* __restrict__ w_hhT,    // (D, 4H, H)
-    const float* __restrict__ outs,     // (T, D, B, H)
     const float* __restrict__ cs,       // (T, D, B, H)
     const float* __restrict__ douts,    // (T, D, B, H) or nullptr
-    const float* __restrict__ dh_n,     // (D, B, H)
-    const float* __restrict__ dc_n,     // (D, B, H)
-    float* __restrict__ dz_s,           // (D, T, B, 4H)
-    float* __restrict__ hp_s,           // (D, T, B, H)
-    float* __restrict__ dx_s,           // raw (D, T, B, F) | unused
-    int T, int B, int F, int H, int reverse) {
+    float* __restrict__ dz_s,           // (D, T, B, 4H): gates in, dz out
+    float* __restrict__ dh_s,           // (D, B, H) pass-through of dh
+    float* __restrict__ dc_s,           // (D, B, H) dc carry
+    int s, int T, int B, int H, int reverse) {
+  static_assert((BM / TM) * (BN / TN) == kStepThreads, "one tile a CTA");
+  static_assert(BM % kStepSplit == 0, "the tile's rows split evenly");
+  constexpr int LDA = BM + 4, LDB = BN + 4, LDR = BN + 4;
+  constexpr int kStage = 2 * kGemmDepth * (LDA + LDB);
+  // the staging of the product, then the CTA's partial tile
+  __shared__ __align__(16) float s_buf[kStage > BM * LDR ? kStage : BM * LDR];
+  __shared__ int s_row[BM];
+  __shared__ const float* s_arow[BM];
+  float* s_a = s_buf;                        // [2][depth][LDA]
+  float* s_b = s_buf + 2 * kGemmDepth * LDA;  // [2][depth][LDB]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int D = gridDim.z, d = blockIdx.z;
+  const bool rev = D == 2 ? d == 1 : reverse != 0;
+  const bool flip = D == 2 && d == 1;
+  const int n0 = (blockIdx.x / kStepSplit) * BN;
+  const int m0 = blockIdx.y * BM;
+  const int G = 4 * H;
+  const int tid = threadIdx.x;
+  const int tr = tid / (BN / TN), tc = tid % (BN / TN);
+  const int txs = flip ? T - 1 - s : s;
+  if (tid < BM) {
+    const int b = m0 + tid < B ? order[m0 + tid] : -1;
+    s_row[tid] = b;
+    s_arow[tid] = b < 0 ? nullptr : dz_s + (((int64_t)d * T + txs) * B + b) * G;
+  }
+  // the tile's longest row decides whether any row is active at step s
+  const bool active =
+      span_active(s, T, min(max(lengths[order[m0]], 0), T), rev);
+  __syncthreads();
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  if (active) {
+    const int chunks = (G + kGemmDepth - 1) / kGemmDepth;
+    const int per = (chunks + kStepSplit - 1) / kStepSplit;
+    const int kt0 = rank * per, kt1 = min(chunks, kt0 + per);
+    const float* wT = w_hhT + (int64_t)d * G * H;
+    const bool w16 = (H & 3) == 0 && ((uintptr_t)wT & 15) == 0;
+    auto load = [&](int kt, int buf) {
+      const int k0 = kt * kGemmDepth;
+      float* sa = s_a + buf * kGemmDepth * LDA;
+      float* sb = s_b + buf * kGemmDepth * LDB;
+      for (int i = tid; i < BM * kGemmDepth; i += kStepThreads) {
+        const int m = i / kGemmDepth, kk = i - m * kGemmDepth;
+        const float* row = s_arow[m];
+        const bool ok = row != nullptr && k0 + kk < G;
+        cp_async4_zfill(&sa[kk * LDA + m], ok ? row + k0 + kk : w_hhT, ok);
+      }
+      if (w16) {
+        for (int i = tid; i < kGemmDepth * BN / 4; i += kStepThreads) {
+          const int kk = i / (BN / 4), n = 4 * (i - kk * (BN / 4));
+          const bool ok = k0 + kk < G && n0 + n < H;
+          cp_async16_zfill(&sb[kk * LDB + n],
+                           ok ? wT + (int64_t)(k0 + kk) * H + n0 + n : wT,
+                           ok);
+        }
+      } else {
+        for (int i = tid; i < kGemmDepth * BN; i += kStepThreads) {
+          const int kk = i / BN, n = i - kk * BN;
+          const bool ok = k0 + kk < G && n0 + n < H;
+          cp_async4_zfill(&sb[kk * LDB + n],
+                          ok ? wT + (int64_t)(k0 + kk) * H + n0 + n : wT,
+                          ok);
+        }
+      }
+      cp_async_commit();
+    };
+    if (kt0 < kt1) load(kt0, 0);
+    for (int kt = kt0; kt < kt1; ++kt) {
+      const int buf = (kt - kt0) & 1;
+      if (kt + 1 < kt1) {
+        load(kt + 1, buf ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      gemm_depth<BM, BN, TM, TN>(s_a + buf * kGemmDepth * LDA,
+                                 s_b + buf * kGemmDepth * LDB, tr, tc, acc);
+      __syncthreads();
+    }
+    // the partial tile, row-major, for the peers
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int m = tile_index<BM, TM>(i, tr);
+#pragma unroll
+      for (int c = 0; c < TN / 4; ++c) {
+        const int n = tile_index<BN, TN>(4 * c, tc);
+        *reinterpret_cast<float4*>(&s_buf[m * LDR + n]) =
+            make_float4(acc[i][4 * c], acc[i][4 * c + 1], acc[i][4 * c + 2],
+                        acc[i][4 * c + 3]);
+      }
+    }
+  }
+  cluster.sync();  // every partial tile of the cluster written
+  constexpr int RM = BM / kStepSplit;  // rows this CTA finishes
+  const float* part[kStepSplit];
+#pragma unroll
+  for (int c = 0; c < kStepSplit; ++c)
+    part[c] = cluster.map_shared_rank(s_buf, c);
+  for (int e = tid; e < RM * BN; e += kStepThreads) {
+    const int m = rank * RM + e / BN, n = e % BN;
+    const int b = s_row[m], k = n0 + n;
+    if (b < 0 || k >= H) continue;
+    float p = 0.f;
+    if (active) {
+#pragma unroll
+      for (int c = 0; c < kStepSplit; ++c) p += part[c][m * LDR + n];
+    }
+    const int64_t o = ((int64_t)d * B + b) * H + k;
+    step_bwd_at(s - 1, d, D, rev, flip, b, k, dh_s[o] + p, dc_s[o], lengths,
+                cs, douts, dz_s, dh_s, dc_s, T, B, H);
+  }
+  cluster.sync();  // no CTA leaves while a peer may read its partial tile
+}
+
+// (d) The weight gradients over the active row-steps, in the span prefix's
+// order: for each direction (grid.z = D x splits) C (K x 4H) = sum over
+// rows m of A_m^T dz_m with A_m = [x row | h_prev row] (raw, K = F + H) or
+// the h_prev row (layer, K = H), and the bias row sum over m of dz_m (lstm_bias_kernel).  Row
+// m is (b, j) of active_row at the direction's own time t (x and dz at
+// original time for the raw layer's direction 1; h_prev = outs[t - 1], zero
+// at t = 0), so no row-step outside its span costs a product.  Each split
+// takes a contiguous run of the rows and writes its partial tile into
+// `part`; lstm_wgrad_sum_kernel adds the splits in order.  8 x 8 thread
+// tiles (gemm_depth), the rows staged 16 at a time.  (Summing the bias row
+// here too, in the first K tile's blocks, took the kernel from 127
+// registers to 241: one block a SM, and ~25% slower.)
+template <int BM, int BN, int TM, int TN>
+__global__ void __launch_bounds__(kGemmThreads) lstm_wgrad_kernel(
+    const float* __restrict__ x,        // raw (T, B, F) | nullptr
+    const int* __restrict__ prefix,     // (B + 1,)
+    const float* __restrict__ outs,     // (T, D, B, H)
+    const float* __restrict__ dz_s,     // (D, T, B, 4H)
+    float* __restrict__ part,           // (splits, D, K + 1, 4H)
+    int T, int B, int F, int H, int D, int reverse) {
+  static_assert((BM / TM) * (BN / TN) == kGemmThreads, "one tile a block");
+  constexpr int LDA = BM + 4, LDB = BN + 4;
+  __shared__ __align__(16) float s_a[2][kGemmDepth * LDA];
+  __shared__ __align__(16) float s_b[2][kGemmDepth * LDB];
+  // the row pointers of a stage, found two stages ahead (three buffers)
+  __shared__ const float* s_xrow[3][kGemmDepth];
+  __shared__ const float* s_hrow[3][kGemmDepth];
+  __shared__ const float* s_zrow[3][kGemmDepth];
+  const int d = blockIdx.z % D, split = blockIdx.z / D;
+  const int splits = gridDim.z / D;
+  const bool rev = D == 2 ? d == 1 : reverse != 0;
+  const bool flip = D == 2 && d == 1;
+  const int G = 4 * H, K = F + H;
+  const int k0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int tid = threadIdx.x;
+  const int tr = tid / (BN / TN), tc = tid % (BN / TN);
+  const int rows = prefix[B];
+  const int per = (rows + splits - 1) / splits;
+  const int r_begin = min(rows, split * per), r_end = min(rows, r_begin + per);
+  const int n_st = (r_end - r_begin + kGemmDepth - 1) / kGemmDepth;
+
+  // the row pointers of stage st into buffer st % 3 (threads < depth)
+  auto resolve = [&](int st) {
+    if (tid < kGemmDepth) {
+      const int m = r_begin + st * kGemmDepth + tid;
+      const float *xr = nullptr, *hr = nullptr, *zr = nullptr;
+      if (m < r_end) {
+        int b, j;
+        active_row(prefix, B, m, &b, &j);
+        const int len = prefix[b + 1] - prefix[b];
+        const int t = rev ? T - len + j : j;
+        const int tx = flip ? T - 1 - t : t;
+        if (x) xr = x + ((int64_t)tx * B + b) * F;
+        if (t > 0) hr = outs + (((int64_t)(t - 1) * D + d) * B + b) * H;
+        zr = dz_s + (((int64_t)d * T + tx) * B + b) * G;
+      }
+      s_xrow[st % 3][tid] = xr;
+      s_hrow[st % 3][tid] = hr;
+      s_zrow[st % 3][tid] = zr;
+    }
+  };
+  // stage st's rows into buffer st & 1.  Each thread stages one column of
+  // A (k) and one float4 of B (n) for every few rows, so its column's
+  // source and bounds are worked out once.
+  static_assert(kGemmThreads % BM == 0 && kGemmThreads % (BN / 4) == 0,
+                "a thread's columns are fixed");
+  const int ka = tid % BM, k = k0 + ka;
+  const bool from_x = k < F, in_k = k < K;
+  const int koff = from_x ? k : k - F;
+  const int nb = 4 * (tid % (BN / 4));
+  const bool in_n = n0 + nb < G;
+  auto load = [&](int st) {
+    const int buf = st & 1, pb = st % 3;
+    for (int mm = tid / BM; mm < kGemmDepth; mm += kGemmThreads / BM) {
+      const float* row = from_x ? s_xrow[pb][mm] : s_hrow[pb][mm];
+      const bool ok = in_k && row != nullptr;
+      cp_async4_zfill(&s_a[buf][mm * LDA + ka], ok ? row + koff : dz_s, ok);
+    }
+    for (int mm = tid / (BN / 4); mm < kGemmDepth;
+         mm += kGemmThreads / (BN / 4)) {
+      const float* row = s_zrow[pb][mm];
+      const bool ok = in_n && row != nullptr;
+      cp_async16_zfill(&s_b[buf][mm * LDB + nb], ok ? row + n0 + nb : dz_s,
+                       ok);
+    }
+    cp_async_commit();
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  if (n_st > 0) {
+    resolve(0);
+    if (n_st > 1) resolve(1);
+    __syncthreads();
+    load(0);
+  }
+  for (int st = 0; st < n_st; ++st) {
+    const int buf = st & 1;
+    if (st + 1 < n_st) {
+      load(st + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // stage st in place
+    // the first warp finds stage st + 2's rows (its binary searches'
+    // latency) while the other warps compute
+    if (st + 2 < n_st) resolve(st + 2);
+    gemm_depth<BM, BN, TM, TN>(s_a[buf], s_b[buf], tr, tc, acc);
+    __syncthreads();  // stage st read; stage st + 2's pointers written
+  }
+  float* dst = part + ((int64_t)split * D + d) * (K + 1) * G;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int k = k0 + tile_index<BM, TM>(i, tr);
+    if (k >= K) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + tile_index<BN, TN>(j, tc);
+      if (n < G) dst[(int64_t)k * G + n] = acc[i][j];
+    }
+  }
+}
+
+// The bias row of (d) for each direction and split (grid (ceil(4H / 64),
+// 1, D x splits), 256 threads): a thread sums one column of dz over every
+// fourth row of the split's run, in order, and the four partial sums are
+// added in order; no atomics.
+constexpr int kBiasCols = 64, kBiasGroups = 4;
+__global__ void __launch_bounds__(kBiasCols * kBiasGroups) lstm_bias_kernel(
+    const int* __restrict__ prefix,     // (B + 1,)
+    const float* __restrict__ dz_s,     // (D, T, B, 4H)
+    float* __restrict__ part,           // (splits, D, K + 1, 4H)
+    int T, int B, int F, int H, int D, int reverse) {
+  constexpr int kRows = kBiasCols * kBiasGroups;  // rows resolved at once
+  __shared__ const float* s_zrow[kRows];
+  __shared__ float s_sum[kBiasGroups][kBiasCols];
+  const int d = blockIdx.z % D, split = blockIdx.z / D;
+  const int splits = gridDim.z / D;
+  const bool rev = D == 2 ? d == 1 : reverse != 0;
+  const bool flip = D == 2 && d == 1;
+  const int G = 4 * H, K = F + H;
+  const int tid = threadIdx.x;
+  const int c = tid % kBiasCols, grp = tid / kBiasCols;
+  const int n = blockIdx.x * kBiasCols + c;
+  const int rows = prefix[B];
+  const int per = (rows + splits - 1) / splits;
+  const int r_begin = min(rows, split * per), r_end = min(rows, r_begin + per);
+  float sum = 0.f;
+  for (int m0 = r_begin; m0 < r_end; m0 += kRows) {
+    const int m = m0 + tid;
+    const float* zr = nullptr;
+    if (m < r_end) {
+      int b, j;
+      active_row(prefix, B, m, &b, &j);
+      const int len = prefix[b + 1] - prefix[b];
+      const int t = rev ? T - len + j : j;
+      const int tx = flip ? T - 1 - t : t;
+      zr = dz_s + (((int64_t)d * T + tx) * B + b) * G;
+    }
+    s_zrow[tid] = zr;
+    __syncthreads();
+    const int count = min(kRows, r_end - m0);
+    if (n < G)
+      for (int i = grp; i < count; i += kBiasGroups) sum += s_zrow[i][n];
+    __syncthreads();
+  }
+  s_sum[grp][c] = sum;
+  __syncthreads();
+  if (grp == 0 && n < G) {
+    float total = 0.f;
+#pragma unroll
+    for (int g = 0; g < kBiasGroups; ++g) total += s_sum[g][c];
+    part[(((int64_t)split * D + d) * (K + 1) + K) * G + n] = total;
+  }
+}
+
+// The splits of lstm_wgrad_kernel added in order, each row of C scattered
+// to dW_ih (rows < F), dW_hh (rows F .. K - 1) or db (row K).
+__global__ void __launch_bounds__(256) lstm_wgrad_sum_kernel(
+    const float* __restrict__ part, int splits, int D, int F, int H,
+    float* __restrict__ dw_ih, float* __restrict__ dw_hh,
+    float* __restrict__ db) {
+  const int G = 4 * H, K = F + H;
+  const int64_t size = (int64_t)D * (K + 1) * G;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= size) return;
+  float s = 0.f;
+  for (int z = 0; z < splits; ++z) s += part[(int64_t)z * size + i];
+  const int d = (int)(i / ((int64_t)(K + 1) * G));
+  const int64_t r = i - (int64_t)d * (K + 1) * G;
+  const int k = (int)(r / G), n = (int)(r - (int64_t)k * G);
+  if (k < F)
+    dw_ih[((int64_t)d * F + k) * G + n] = s;
+  else if (k < K)
+    dw_hh[((int64_t)d * H + k - F) * G + n] = s;
+  else
+    db[(int64_t)d * G + n] = s;
+}
+
+constexpr int kWgradBM = 128, kWgradBN = 128;
+
+// Per-tile backward of both directions over xp (kind 5, lstm_layer_bidir's
+// backward; the TPU's _bwd2_kernel): the reverse-time adjoint of one
+// direction (grid.y; direction 1's xp already flipped in time, active on
+// [T - len, T)) for one tile of R batch rows.  (The raw and one-direction
+// modes of this kernel, kinds 1 and 3, gave way to the cluster and grid
+// designs.)  Step t (its own time, T - 1 down to 0) recomputes the gates
+// from xp and the saved h_{t-1}, c_{t-1} (zero at t == 0, where no saved
+// state exists), in exactly the forward's order of operations, then:
+//   dh = dh_carry + douts[t];  dh_step, dc_step = (dh, dc) if the row is
+//   active at t, else 0 (and the carry passes through unchanged);
+//   dc2 = dc_step + dh_step * o * (1 - tanh(c2)^2);  dz = gate cotangents
+//   (= dxp_t);  dh_{t-1} = dz @ W_hh^T (+ dh if inactive);  dc_{t-1} =
+//   dc2 * f (or dc).
+// A thread owns hidden units u = tid, tid + blockDim, ...: it recomputes a
+// unit's four gates for the tile's rows in registers and writes dz to shared
+// memory; after a barrier every thread forms columns of dz @ W_hh^T from
+// the transposed weights (coalesced across threads).  The weight gradients
+// need sums over all (t, b): the kernel writes dz and h_{t-1} as streams in
+// xp's own time order, (2, T, B, .) direction-major, and csrc/wgrad.cu
+// reduces them (dW_hh = h_prev^T dz, db = sum dz).
+template <int R>
+__global__ void __launch_bounds__(kBwdThreads) lstm_pair_bwd_kernel(
+    const float* __restrict__ xp,       // (T, 2, B, 4H)
+    const int* __restrict__ lengths,    // (B,)
+    const float* __restrict__ w_hh,     // (2, H, 4H)
+    const float* __restrict__ b_hh,     // (2, 4H)
+    const float* __restrict__ w_hhT,    // (2, 4H, H)
+    const float* __restrict__ outs,     // (T, 2, B, H)
+    const float* __restrict__ cs,       // (T, 2, B, H)
+    const float* __restrict__ douts,    // (T, 2, B, H) or nullptr
+    const float* __restrict__ dh_n,     // (2, B, H)
+    const float* __restrict__ dc_n,     // (2, B, H)
+    float* __restrict__ dz_s,           // (2, T, B, 4H)
+    float* __restrict__ hp_s,           // (2, T, B, H)
+    int T, int B, int H) {
   extern __shared__ float smem[];
   const int G = 4 * H;
-  const int Fx = kProj ? 0 : F;
-  float* s_x = smem;                  // [R][F]  raw mode only
-  float* s_hp = s_x + R * Fx;         // [R][H]
+  float* s_hp = smem;                 // [R][H]
   float* s_dz = s_hp + R * H;         // [R][4H]
   float* s_dh = s_dz + R * G;         // [R][H]
   float* s_dc = s_dh + R * H;         // [R][H]
 
-  const int D = gridDim.y;
+  constexpr int D = 2;
   const int d = blockIdx.y;
-  const bool rev = (kProj && !kPair) ? reverse != 0 : d == 1;
+  const bool rev = d == 1;
   const int r0 = blockIdx.x * R;
   const int nrows = min(R, B - r0);
   const int tid = threadIdx.x;
   const int nth = blockDim.x;
-  const float* wi = kProj ? nullptr : w_ih + (int64_t)d * F * G;
   const float* wh = w_hh + (int64_t)d * H * G;
-  const float* wiT = kProj ? nullptr : w_ihT + (int64_t)d * G * F;
   const float* whT = w_hhT + (int64_t)d * G * H;
 
   int len[R];
@@ -1544,13 +2043,6 @@ __global__ void __launch_bounds__(kBwdThreads) lstm_bwd_kernel(
   }
 
   for (int t = T - 1; t >= 0; --t) {
-    // time of this step in the streams' order
-    const int tx = (kProj || d == 0) ? t : T - 1 - t;
-    if (!kProj) {
-      const float* xsrc = x + ((int64_t)tx * B + r0) * F;
-      for (int i = tid; i < R * F; i += nth)
-        s_x[i] = i < nrows * F ? xsrc[i] : 0.f;
-    }
     for (int i = tid; i < R * H; i += nth) {
       const int r = i / H, u = i % H;
       float v = 0.f;
@@ -1569,29 +2061,12 @@ __global__ void __launch_bounds__(kBwdThreads) lstm_bwd_kernel(
           ax[g][r] = 0.f;
           ah[g][r] = 0.f;
         }
-      if (kProj) {
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          if (r < nrows) {
-            const float* xp =
-                x + (kPair ? ((int64_t)t * 2 + d) * B + r0 + r
-                           : (int64_t)t * B + r0 + r) * G + u;
+      for (int r = 0; r < R; ++r) {
+        if (r < nrows) {
+          const float* x = xp + (((int64_t)t * 2 + d) * B + r0 + r) * G + u;
 #pragma unroll
-            for (int g = 0; g < 4; ++g) ax[g][r] = xp[g * H];
-          }
-        }
-      } else {
-#pragma unroll 8
-        for (int k = 0; k < F; ++k) {
-          float w[4];
-#pragma unroll
-          for (int g = 0; g < 4; ++g) w[g] = __ldg(wi + (int64_t)k * G + g * H + u);
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            const float xv = s_x[r * F + k];
-#pragma unroll
-            for (int g = 0; g < 4; ++g) ax[g][r] = fmaf(xv, w[g], ax[g][r]);
-          }
+          for (int g = 0; g < 4; ++g) ax[g][r] = x[g * H];
         }
       }
 #pragma unroll 8
@@ -1606,12 +2081,9 @@ __global__ void __launch_bounds__(kBwdThreads) lstm_bwd_kernel(
           for (int g = 0; g < 4; ++g) ah[g][r] = fmaf(hv, w[g], ah[g][r]);
         }
       }
-      float bx[4], bh[4];
+      float bh[4];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        bx[g] = kProj ? 0.f : b_ih[d * G + g * H + u];
-        bh[g] = b_hh[d * G + g * H + u];
-      }
+      for (int g = 0; g < 4; ++g) bh[g] = b_hh[d * G + g * H + u];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int i_rh = r * H + u;
@@ -1622,9 +2094,7 @@ __global__ void __launch_bounds__(kBwdThreads) lstm_bwd_kernel(
         }
         float z[4];
 #pragma unroll
-        for (int g = 0; g < 4; ++g)
-          z[g] = kProj ? (ax[g][r] + ah[g][r]) + bh[g]
-                       : ((ax[g][r] + bx[g]) + ah[g][r]) + bh[g];
+        for (int g = 0; g < 4; ++g) z[g] = (ax[g][r] + ah[g][r]) + bh[g];
         const float ig = sigmoid(z[0]);
         const float fg = sigmoid(z[1]);
         const float gg = tanhf(z[2]);
@@ -1656,52 +2126,43 @@ __global__ void __launch_bounds__(kBwdThreads) lstm_bwd_kernel(
     }
     __syncthreads();  // s_dz complete
 
-    // streams for the weight gradients (and the projected mode's dxp)
+    // streams for the weight gradients (dz is also dxp)
     for (int i = tid; i < nrows * G; i += nth) {
       const int r = i / G, j = i % G;
-      dz_s[(((int64_t)d * T + tx) * B + r0 + r) * G + j] = s_dz[i];
+      dz_s[(((int64_t)d * T + t) * B + r0 + r) * G + j] = s_dz[i];
     }
     for (int i = tid; i < nrows * H; i += nth) {
       const int r = i / H, u = i % H;
-      hp_s[(((int64_t)d * T + tx) * B + r0 + r) * H + u] = s_hp[i];
+      hp_s[(((int64_t)d * T + t) * B + r0 + r) * H + u] = s_hp[i];
     }
-    // dh_{t-1} = pass-through + dz @ W_hh^T;  raw mode: dx_t = dz @ W_ih^T
-    for (int col = tid; col < H + Fx; col += nth) {
-      const bool is_h = col < H;
-      const int c = is_h ? col : col - H;
-      const float* wT = is_h ? whT + c : wiT + c;
-      const int ld = is_h ? H : F;
+    // dh_{t-1} = pass-through + dz @ W_hh^T
+    for (int c = tid; c < H; c += nth) {
       float acc[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] = 0.f;
 #pragma unroll 4
       for (int j = 0; j < G; ++j) {
-        const float w = __ldg(wT + (int64_t)j * ld);
+        const float w = __ldg(whT + c + (int64_t)j * H);
 #pragma unroll
         for (int r = 0; r < R; ++r) acc[r] = fmaf(s_dz[r * G + j], w, acc[r]);
       }
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (r >= nrows) continue;
-        if (is_h) {
-          s_dh[r * H + c] += acc[r];
-        } else {
-          dx_s[(((int64_t)d * T + tx) * B + r0 + r) * F + c] = acc[r];
-        }
-      }
+      for (int r = 0; r < R; ++r)
+        if (r < nrows) s_dh[r * H + c] += acc[r];
     }
-    __syncthreads();  // s_dh holds dh_{t-1}; s_x, s_hp, s_dz free again
+    __syncthreads();  // s_dh holds dh_{t-1}; s_hp, s_dz free again
   }
 }
 
-// kind: 0 raw forward, 1 raw backward, 2 projected forward, 3 projected
-// backward (one direction), 4 projected forward, 5 projected backward (both
-// directions in one launch: the kPair kernels, on a grid two blocks high).
+// kind: 0 raw forward, 2 projected forward, 4 projected forward and 5 its
+// backward (both directions in one launch: the kPair kernels and
+// lstm_pair_bwd_kernel, on a grid two blocks high); kinds 1 and 3 are no
+// longer built.
 long long smem_bytes(int kind, int rows, int F, int H) {
   const bool proj = kind >= 2;
   const long long per_row = (kind % 2 == 0)
       ? 3LL * H + (proj ? 0 : 2LL * F)   // forward: h (x2), c, x (x2)
-      : 7LL * H + (proj ? 0 : F);        // backward: hp, dz (4H), dh, dc, x
+      : 7LL * H;                         // backward: hp, dz (4H), dh, dc
   return (long long)rows * per_row * (long long)sizeof(float);
 }
 
@@ -1709,11 +2170,9 @@ template <int R>
 const void* kernel_of(int kind) {
   switch (kind) {
     case 0: return (const void*)lstm_fwd_kernel<R, false>;
-    case 1: return (const void*)lstm_bwd_kernel<R, false>;
     case 2: return (const void*)lstm_fwd_kernel<R, true>;
-    case 3: return (const void*)lstm_bwd_kernel<R, true>;
     case 4: return (const void*)lstm_fwd_kernel<R, true, true>;
-    case 5: return (const void*)lstm_bwd_kernel<R, true, true>;
+    case 5: return (const void*)lstm_pair_bwd_kernel<R>;
     default: return nullptr;
   }
 }
@@ -1781,32 +2240,16 @@ void dispatch_fwd(int rows, dim3 grid, int smem, cudaStream_t s,
      T, B, F, H, reverse);
 }
 
-template <int R, bool kProj, bool kPair>
-void launch_bwd(dim3 grid, int smem, cudaStream_t s, const float* x,
-                const int* lengths, const float* w_ih, const float* b_ih,
-                const float* w_hh, const float* b_hh, const float* w_ihT,
-                const float* w_hhT, const float* outs, const float* cs,
-                const float* douts, const float* dh_n, const float* dc_n,
-                float* dz_s, float* hp_s, float* dx_s, int T, int B, int F,
-                int H, int reverse) {
-  lstm_bwd_kernel<R, kProj, kPair><<<grid, kBwdThreads, smem, s>>>(
-      x, lengths, w_ih, b_ih, w_hh, b_hh, w_ihT, w_hhT, outs, cs, douts,
-      dh_n, dc_n, dz_s, hp_s, dx_s, T, B, F, H, reverse);
-}
-
-template <bool kProj, bool kPair = false>
-void dispatch_bwd(int rows, dim3 grid, int smem, cudaStream_t s,
-                  const float* x, const int* lengths, const float* w_ih,
-                  const float* b_ih, const float* w_hh, const float* b_hh,
-                  const float* w_ihT, const float* w_hhT, const float* outs,
-                  const float* cs, const float* douts, const float* dh_n,
-                  const float* dc_n, float* dz_s, float* hp_s, float* dx_s,
-                  int T, int B, int F, int H, int reverse) {
-  auto go = rows == 8   ? &launch_bwd<8, kProj, kPair>
-            : rows == 4 ? &launch_bwd<4, kProj, kPair>
-                        : &launch_bwd<2, kProj, kPair>;
-  go(grid, smem, s, x, lengths, w_ih, b_ih, w_hh, b_hh, w_ihT, w_hhT, outs,
-     cs, douts, dh_n, dc_n, dz_s, hp_s, dx_s, T, B, F, H, reverse);
+template <int R>
+void launch_pair_bwd(dim3 grid, int smem, cudaStream_t s, const float* xp,
+                     const int* lengths, const float* w_hh,
+                     const float* b_hh, const float* w_hhT,
+                     const float* outs, const float* cs, const float* douts,
+                     const float* dh_n, const float* dc_n, float* dz_s,
+                     float* hp_s, int T, int B, int H) {
+  lstm_pair_bwd_kernel<R><<<grid, kBwdThreads, smem, s>>>(
+      xp, lengths, w_hh, b_hh, w_hhT, outs, cs, douts, dh_n, dc_n, dz_s,
+      hp_s, T, B, H);
 }
 
 // One cluster kernel at one row tile: its function, shared memory, threads
@@ -1906,8 +2349,9 @@ constexpr int kGatesBM = 128, kGatesBN = 128, kDxBM = 256, kDxBN = 64;
 extern "C" {
 
 // The largest row tile (8, 4 or 2) whose shared memory fits the card for
-// kernel `kind` (0 raw forward, 1 raw backward, 2 / 4 projected forward of
-// one / both directions, 3 / 5 their backwards); 0 when none does.
+// per-tile kernel `kind` (0 raw forward, 2 / 4 projected forward of one /
+// both directions, 5 the latter's backward; kinds 1 and 3 are not built);
+// 0 when none does.
 int abcd_lstm_rows(int kind, int F, int H) {
   for (int rows = 8; rows >= 2; rows /= 2) {
     const void* fn = kernel_for(kind, rows);
@@ -2033,10 +2477,10 @@ int abcd_lstm_bidir_xp(const float* x, const int* prefix, const float* w_ih,
   if (T < 1 || B < 1 || F < 1 || H < 1) return (int)cudaErrorInvalidValue;
   const dim3 grid((4 * H + kGatesBN - 1) / kGatesBN,
                   (T * B + kGatesBM - 1) / kGatesBM, 2);
-  lstm_gates_kernel<kGatesBM, kGatesBN, 8, 8, true>
+  lstm_gates_kernel<kGatesBM, kGatesBN, 8, 8, kGatesXp>
       <<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(
           x, prefix, w_ih, b_ih, w_ih, b_ih, nullptr, xp, nullptr, T, B, F,
-          H);
+          H, 0);
   return (int)cudaGetLastError();
 }
 
@@ -2101,7 +2545,8 @@ int abcd_lstm_bidir_gates(const float* x, const int* prefix,
                   (T * B + kGatesBM - 1) / kGatesBM, 2);
   lstm_gates_kernel<kGatesBM, kGatesBN, 8, 8>
       <<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(
-          x, prefix, w_ih, b_ih, w_hh, b_hh, outs, gates, hp_s, T, B, F, H);
+          x, prefix, w_ih, b_ih, w_hh, b_hh, outs, gates, hp_s, T, B, F, H,
+          0);
   return (int)cudaGetLastError();
 }
 
@@ -2122,19 +2567,40 @@ int abcd_lstm_bidir_bwd_cluster(const int* lengths, const float* w_hh,
   cluster_config(&cfg, &attr, k, B, 2, (cudaStream_t)stream);
   err = cudaLaunchKernelEx(&cfg, lstm_bwd_cluster_kernel<kBwdClusterRows>,
                            lengths, w_hh, cs, douts, dh_n, dc_n, dz_s, T, B,
-                           H);
+                           H, 0);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Row 3b's cluster route, part (b): the same recurrence over one direction
+// (D = 1; `reverse` picks the span), every stream in xp's own time: the
+// gates that abcd_lstm_layer_gates left in dz_s (T, B, 4H) become dz (zeros
+// at inactive row-steps), which is dxp.
+int abcd_lstm_bwd_cluster(const int* lengths, const float* w_hh,
+                          const float* cs, const float* douts,
+                          const float* dh_n, const float* dc_n, float* dz_s,
+                          int T, int B, int H, int reverse, int rows,
+                          void* stream) {
+  if (T < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  const ClusterLaunch k = bwd_cluster_of(rows, H);
+  cudaError_t err = cluster_prepare(k, H, 4 * kClusterCtas);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, k, B, 1, (cudaStream_t)stream);
+  err = cudaLaunchKernelEx(&cfg, lstm_bwd_cluster_kernel<kBwdClusterRows>,
+                           lengths, w_hh, cs, douts, dh_n, dc_n, dz_s, T, B,
+                           H, reverse);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 // (c): dx (T, B, F) at the rows (t, b) with t < len from the dz stream;
-// the caller zeroes dx (the other rows' dx is zero).  4H must be a
-// multiple of 16.
+// the caller zeroes dx (the other rows' dx is zero).
 int abcd_lstm_bidir_dx(const float* dz_s, const int* prefix,
                        const float* w_ih, float* dx, int T, int B, int F,
                        int H, void* stream) {
-  if (T < 1 || B < 1 || F < 1 || H < 1 || (4 * H) % kGemmDepth != 0)
-    return (int)cudaErrorInvalidValue;
+  if (T < 1 || B < 1 || F < 1 || H < 1) return (int)cudaErrorInvalidValue;
   const dim3 grid((F + kDxBN - 1) / kDxBN, (T * B + kDxBM - 1) / kDxBM, 1);
   lstm_dx_kernel<kDxBM, kDxBN, 8, 8>
       <<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(dz_s, prefix, w_ih,
@@ -2156,49 +2622,6 @@ int abcd_lstm_fwd(const float* xp, const int* lengths, const float* w_hh,
   dispatch_fwd<true>(rows, grid, smem, (cudaStream_t)stream, xp, lengths,
                      nullptr, nullptr, w_hh, b_hh, outs, cs, h_n, c_n, T, B,
                      0, H, reverse);
-  return (int)cudaGetLastError();
-}
-
-// The raw layer's backward (kind 1; see lstm_bwd_kernel).  douts may be
-// nullptr (a zero cotangent: the final layer's outs feed nothing).  Writes
-// the dz, h_prev and per-direction dx streams, which the wrapper reduces
-// with csrc/wgrad.cu.
-int abcd_lstm_bidir_bwd(const float* x, const int* lengths,
-                        const float* w_ih, const float* b_ih,
-                        const float* w_hh, const float* b_hh,
-                        const float* w_ihT, const float* w_hhT,
-                        const float* outs, const float* cs,
-                        const float* douts, const float* dh_n,
-                        const float* dc_n, float* dz_s, float* hp_s,
-                        float* dx_s, int T, int B, int F, int H, int rows,
-                        void* stream) {
-  if (H < 1 || F < 1 || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  int smem = 0;
-  cudaError_t err = prepare(1, rows, F, H, &smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + rows - 1) / rows, 2);
-  dispatch_bwd<false>(rows, grid, smem, (cudaStream_t)stream, x, lengths,
-                      w_ih, b_ih, w_hh, b_hh, w_ihT, w_hhT, outs, cs, douts,
-                      dh_n, dc_n, dz_s, hp_s, dx_s, T, B, F, H, 0);
-  return (int)cudaGetLastError();
-}
-
-// The projected layer's backward (kind 3): writes dxp (= the dz stream,
-// (T, B, 4H) in xp's time order) and the h_prev stream for dW_hh.
-int abcd_lstm_bwd(const float* xp, const int* lengths, const float* w_hh,
-                  const float* b_hh, const float* w_hhT, const float* outs,
-                  const float* cs, const float* douts, const float* dh_n,
-                  const float* dc_n, float* dxp, float* hp_s, int T, int B,
-                  int H, int reverse, int rows, void* stream) {
-  if (H < 1 || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  int smem = 0;
-  cudaError_t err = prepare(3, rows, 0, H, &smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + rows - 1) / rows, 1);
-  dispatch_bwd<true>(rows, grid, smem, (cudaStream_t)stream, xp, lengths,
-                     nullptr, nullptr, w_hh, b_hh, nullptr, w_hhT, outs, cs,
-                     douts, dh_n, dc_n, dxp, hp_s, nullptr, T, B, 0, H,
-                     reverse);
   return (int)cudaGetLastError();
 }
 
@@ -2235,10 +2658,120 @@ int abcd_lstm_bidir_proj_bwd(const float* xp, const int* lengths,
   cudaError_t err = prepare(5, rows, 0, H, &smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + rows - 1) / rows, 2);
-  dispatch_bwd<true, true>(rows, grid, smem, (cudaStream_t)stream, xp,
-                           lengths, nullptr, nullptr, w_hh, b_hh, nullptr,
-                           w_hhT, outs, cs, douts, dh_n, dc_n, dz_s, hp_s,
-                           nullptr, T, B, 0, H, 0);
+  auto go = rows == 8   ? &launch_pair_bwd<8>
+            : rows == 4 ? &launch_pair_bwd<4>
+                        : &launch_pair_bwd<2>;
+  go(grid, smem, (cudaStream_t)stream, xp, lengths, w_hh, b_hh, w_hhT, outs,
+     cs, douts, dh_n, dc_n, dz_s, hp_s, T, B, H);
+  return (int)cudaGetLastError();
+}
+
+// Row 3b's part (a): the activated gates of every active row-step of one
+// direction over xp (T, B, 4H) into `gates` (T, B, 4H) at xp's own time;
+// `reverse` picks the span.
+int abcd_lstm_layer_gates(const float* xp, const int* prefix,
+                          const float* w_hh, const float* b_hh,
+                          const float* outs, float* gates, int T, int B,
+                          int H, int reverse, void* stream) {
+  if (T < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((4 * H + kGatesBN - 1) / kGatesBN,
+                  (T * B + kGatesBM - 1) / kGatesBM, 1);
+  lstm_gates_kernel<kGatesBM, kGatesBN, 8, 8, kGatesLayer>
+      <<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(
+          xp, prefix, nullptr, nullptr, w_hh, b_hh, outs, gates, nullptr, T,
+          B, 0, H, reverse);
+  return (int)cudaGetLastError();
+}
+
+// Part (b) of the grid design, for D = 2 (row 2b: the streams (T, 2, B, .)
+// and dz_s (2, T, B, 4H) at original time) or D = 1 (row 3b: xp's own time,
+// `reverse` picking the span): the rows ordered by length (into `order`,
+// B ints), the last step's elementwise backward, then one launch of the
+// per-step product a step, s = T - 1 down to 1.  w_hhT is W_hh transposed,
+// (D, 4H, H); dh_s and dc_s (D, B, H) hold the carries between launches.
+// The gates that part (a) left in dz_s become dz (zeros at inactive
+// row-steps).  douts may be nullptr.
+int abcd_lstm_bwd_grid(const int* lengths, int* order, const float* w_hhT,
+                       const float* cs, const float* douts,
+                       const float* dh_n, const float* dc_n, float* dz_s,
+                       float* dh_s, float* dc_s, int T, int B, int H, int D,
+                       int reverse, void* stream) {
+  if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  length_order_kernel<<<1, 1024, 0, st>>>(lengths, order, T, B);
+  const long long n = (long long)B * H;
+  lstm_bwd_first_kernel<<<dim3((unsigned)((n + 255) / 256), 1, D), 256, 0,
+                          st>>>(lengths, cs, douts, dh_n, dc_n, dz_s, dh_s,
+                                dc_s, T, B, H, reverse);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kStepSplit * ((H + kStepBN - 1) / kStepBN),
+                     (B + kStepBM - 1) / kStepBM, D);
+  cfg.blockDim = dim3(kStepThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kStepSplit;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  for (int s = T - 1; s >= 1; --s) {
+    err = cudaLaunchKernelEx(
+        &cfg, lstm_bwd_step_kernel<kStepBM, kStepBN, kStepTM, kStepTN>,
+        lengths, (const int*)order, w_hhT, cs, douts, dz_s, dh_s, dc_s, s, T,
+        B, H, reverse);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Splits of the rows for abcd_lstm_wgrad: blocks for about four waves of
+// two a SM on an H100 (132 SMs), at least 1,024 row-steps each: the
+// one-direction backward at H=256 has 16 tiles of C, and 62 splits took
+// its weight gradients from 1.09 to 0.87 ms.  The wrapper sizes the
+// workspace, splits * D * (F + H + 1) * 4H floats, from this.
+int abcd_lstm_wgrad_splits(int T, int B, int F, int H, int D) {
+  const int tiles = ((4 * H + kWgradBN - 1) / kWgradBN) *
+                    ((F + H + kWgradBM - 1) / kWgradBM) * D;
+  int splits = (4 * 264 + tiles / 2) / tiles;
+  const long long by_rows = (long long)T * B / 1024;
+  if (splits > by_rows) splits = (int)by_rows;
+  if (splits > 64) splits = 64;
+  return splits < 1 ? 1 : splits;
+}
+
+// Part (d) of the grid design and of row 3b's cluster route: over the
+// active row-steps in the span prefix's order, dW_ih (D, F, 4H) = x^T dz
+// (raw, D = 2; x nullptr and F = 0 for the layer, dw_ih unused), dW_hh
+// (D, H, 4H) = h_prev^T dz and db (D, 4H) = the column sums of dz, in a
+// fixed order.  `part` holds splits * D * (F + H + 1) * 4H floats.
+int abcd_lstm_wgrad(const float* x, const int* prefix, const float* outs,
+                    const float* dz_s, float* part, float* dw_ih,
+                    float* dw_hh, float* db, int T, int B, int F, int H,
+                    int D, int reverse, int splits, void* stream) {
+  if (T < 1 || B < 1 || F < 0 || H < 1 || D < 1 || D > 2 || splits < 1 ||
+      (F > 0) != (x != nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid((4 * H + kWgradBN - 1) / kWgradBN,
+                  (F + H + kWgradBM - 1) / kWgradBM, D * splits);
+  lstm_wgrad_kernel<kWgradBM, kWgradBN, 8, 8><<<grid, kGemmThreads, 0, st>>>(
+      x, prefix, outs, dz_s, part, T, B, F, H, D, reverse);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  lstm_bias_kernel<<<dim3((4 * H + kBiasCols - 1) / kBiasCols, 1,
+                          D * splits),
+                     kBiasCols * kBiasGroups, 0, st>>>(prefix, dz_s, part, T,
+                                                       B, F, H, D, reverse);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long size = (long long)D * (F + H + 1) * 4 * H;
+  lstm_wgrad_sum_kernel<<<(unsigned)((size + 255) / 256), 256, 0, st>>>(
+      part, splits, D, F, H, dw_ih, dw_hh, db);
   return (int)cudaGetLastError();
 }
 

@@ -49,10 +49,13 @@ SIGNATURES = {
              "abcd_lstm_span_prefix": [_P, _P, _I, _I, _P],
              "abcd_lstm_bidir_gates": [_P] * 9 + [_I] * 4 + [_P],
              "abcd_lstm_bidir_bwd_cluster": [_P] * 7 + [_I] * 4 + [_P],
+             "abcd_lstm_bwd_cluster": [_P] * 7 + [_I] * 5 + [_P],
              "abcd_lstm_bidir_dx": [_P] * 4 + [_I] * 4 + [_P],
+             "abcd_lstm_layer_gates": [_P] * 6 + [_I] * 4 + [_P],
+             "abcd_lstm_bwd_grid": [_P] * 10 + [_I] * 5 + [_P],
+             "abcd_lstm_wgrad_splits": [_I] * 5,
+             "abcd_lstm_wgrad": [_P] * 8 + [_I] * 7 + [_P],
              "abcd_lstm_fwd": [_P] * 8 + [_I] * 5 + [_P],
-             "abcd_lstm_bidir_bwd": [_P] * 16 + [_I] * 5 + [_P],
-             "abcd_lstm_bwd": [_P] * 12 + [_I] * 5 + [_P],
              "abcd_lstm_bidir_proj_fwd": [_P] * 8 + [_I] * 4 + [_P],
              "abcd_lstm_bidir_proj_bwd": [_P] * 12 + [_I] * 4 + [_P],
              "abcd_lstm_rows": [_I] * 3,

@@ -19,24 +19,29 @@
   package calls it; it is a public function of its own.
 
 A row's carries are frozen outside its span and ``outs`` holds the masked
-carry.  The kernels' time loops are sequential.  The raw backward and the
-one-direction forward have two designs each, and the raw forward three,
-chosen by a shape rule before the launch (``forward_design``,
-``backward_design``, ``layer_design``): W_hh (and the raw forward's W_ih)
-split across a thread-block cluster and held in its shared memory for the
-whole sequence, or one block per row tile re-reading the weights from L2
-every step (which bounds every other kernel here; see the source).  The
-raw forward's third design, ``"proj"``, takes the widths whose W_ih slice
-does not fit a cluster (F=177 at 44.1 kHz, F=193 at 48 kHz, a second
-layer's F = 2H): the input projection of every active row-step of both
-directions as one tiled product, then both directions' recurrence over it
-in the cluster design's projected mode, one launch.  The raw backward's
-cluster design recomputes the gates for all row-steps at once and forms dx
-after the loop, leaving only dh's recurrence in the cluster.  The
-backwards recompute the gates from the saved h/c trajectories and leave
-the weight-gradient sums to ``ops/wgrad.py``; ``lstm_layer_bidir_fused_train``,
-``lstm_layer_train`` and ``lstm_layer_bidir_train`` wire them into
-``torch.autograd``.  Each wrapper
+carry.  The kernels' time loops are sequential.  The forwards have two
+designs (one direction) or three (raw), chosen by a shape rule before the
+launch (``forward_design``, ``layer_design``): W_hh (and the raw
+forward's W_ih) split across a thread-block cluster and held in its shared
+memory for the whole sequence, or one block per row tile re-reading the
+weights from L2 every step (see the source).  The raw forward's third
+design, ``"proj"``, takes the widths whose W_ih slice does not fit a
+cluster (F=177 at 44.1 kHz, F=193 at 48 kHz, a second layer's F = 2H): the
+input projection of every active row-step of both directions as one tiled
+product, then both directions' recurrence over it in the cluster design's
+projected mode, one launch.  The backwards of both layers (raw and one
+direction) have two designs, by ``backward_design``: both recompute the
+gates of every active row-step at once as one tiled product, so only dh's
+recurrence stays sequential; ``"cluster"`` (H a multiple of 32 up to 256)
+runs it in thread-block clusters holding W_hh, ``"tile"`` (H=1024, H=200,
+any other H) as one tiled product a step over the whole grid, issued from
+a C loop; the raw layer then forms dx after the loop, and the weight
+gradients are taken over the active row-steps only (``"cluster"`` of the
+raw layer still reduces its streams with ``ops/wgrad.py``).  The
+backwards recompute the gates from the saved h/c trajectories;
+``lstm_layer_bidir_fused_train``, ``lstm_layer_train`` and
+``lstm_layer_bidir_train`` wire them into ``torch.autograd``.  Each
+wrapper
 launches its kernel for CUDA tensors and takes its twin only for CPU
 tensors.  The kernels pick their row tile (8, 4 or 2 rows a block) at
 launch so that shared memory fits the card; the widest hidden size is what
@@ -55,8 +60,8 @@ import torch
 
 from . import _build, wgrad
 
-# kernel kinds of csrc/lstm.cu (abcd_lstm_rows)
-_BIDIR_FWD, _BIDIR_BWD, _FWD, _BWD, _PAIR_FWD, _PAIR_BWD = 0, 1, 2, 3, 4, 5
+# kernel kinds of csrc/lstm.cu's per-tile kernels (abcd_lstm_rows)
+_BIDIR_FWD, _FWD, _PAIR_FWD, _PAIR_BWD = 0, 2, 4, 5
 
 # The raw forward's cluster design (csrc/lstm.cu, lstm_fwd_cluster_kernel):
 # batch rows a cluster's tile (kClusterRows there), and the most waves of
@@ -191,10 +196,12 @@ def forward_design(max_active: int, batch: int, pair_active: dict) -> str:
 
 
 def backward_design(max_active: int) -> str:
-    """The shape rule of the raw backward: ``"cluster"`` when its cluster
-    recurrence takes these widths (``max_active`` > 0, the card's resident
-    clusters for it at ``BWD_CLUSTER_ROWS``: H a multiple of 32 up to 256,
-    the W_hh slice in shared memory; F does not count), else ``"tile"``."""
+    """The shape rule of both backwards (raw and one direction):
+    ``"cluster"`` when the cluster recurrence takes these widths
+    (``max_active`` > 0, the card's resident clusters for it at
+    ``BWD_CLUSTER_ROWS``: H a multiple of 32 up to 256, the W_hh slice in
+    shared memory; F does not count), else ``"tile"``, the grid design,
+    which takes any H."""
     return "cluster" if max_active > 0 else "tile"
 
 
@@ -212,6 +219,13 @@ def layer_design(active: dict, batch: int, directions: int = 1):
         if directions * -(-batch // rows) <= active[rows]:
             return "cluster", rows
     return ("cluster", fits[-1]) if fits else ("tile", 0)
+
+
+def backward_design_for(lib, device_index: int, hidden: int) -> str:
+    """The design ``backward_design`` picks for both backwards on this card
+    at hidden size H."""
+    return backward_design(_cluster_active(lib, device_index, "bwd", 0,
+                                           hidden, BWD_CLUSTER_ROWS))
 
 
 @functools.lru_cache(maxsize=None)
@@ -315,12 +329,7 @@ def lstm_layer_bidir_fused_on(design: str, x, lengths, w_ih, b_ih, w_hh,
                                f"recurrence is resident at H={hidden} on "
                                "this card")
 
-    def mark():
-        if marks is not None:
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-            marks.append(event)
-
+    mark = _marker(marks)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if design == "tile":
@@ -331,12 +340,9 @@ def lstm_layer_bidir_fused_on(design: str, x, lengths, w_ih, b_ih, w_hh,
             # (a) xp of every active row-step (the others unwritten, and
             # never read), then (b) the pair recurrence over it
             mark()
-            prefix = torch.empty(b + 1, dtype=torch.int32, device=x.device)
+            prefix = _span_prefix(lib, lengths, t, b, stream, what)
             xp = torch.empty((t, 2, b, 4 * hidden), dtype=x.dtype,
                              device=x.device)
-            err = lib.abcd_lstm_span_prefix(lengths.data_ptr(),
-                                            prefix.data_ptr(), t, b, stream)
-            _build.check(lib, err, what)
             err = lib.abcd_lstm_bidir_xp(x.data_ptr(), prefix.data_ptr(),
                                          w_ih.data_ptr(), b_ih.data_ptr(),
                                          xp.data_ptr(), t, b, f, hidden,
@@ -442,8 +448,7 @@ def lstm_layer_bidir_fused_bwd(x, lengths, w_ih, b_ih, w_hh, b_hh, outs, cs,
         return lstm_layer_bidir_fused_bwd_plain(
             x, lengths, w_ih, b_ih, w_hh, b_hh, outs, cs, douts, dh_n, dc_n)
     lib = _build.load("lstm")
-    design = backward_design(_cluster_active(
-        lib, x.device.index, "bwd", 0, w_hh.shape[1], BWD_CLUSTER_ROWS))
+    design = backward_design_for(lib, x.device.index, w_hh.shape[1])
     return _bidir_fused_bwd(lib, design, x, lengths, w_ih, b_ih, w_hh, b_hh,
                             outs, cs, douts, dh_n, dc_n, None)
 
@@ -457,9 +462,9 @@ def lstm_layer_bidir_fused_bwd_on(design: str, x, lengths, w_ih, b_ih, w_hh,
     take the shape (before any launch) or a launch fails.
 
     ``marks``, a list, gets CUDA events recorded on the current stream
-    around the parts: the cluster design's (a) gate recompute (with the
-    span prefix), (b) recurrence, (c) dx, (d) weight gradients (five
-    events); the per-tile kernel's recurrence with dx, and (d) (three)."""
+    around the parts of either design: (a) gate recompute (with the span
+    prefix), (b) recurrence, (c) dx, (d) weight gradients (five
+    events)."""
     _check(x, lengths, w_ih, b_ih, w_hh, b_hh)
     _check_bwd_state(x, w_hh, outs, cs, douts, dh_n, dc_n)
     if x.device.type != "cuda" or design not in ("cluster", "tile"):
@@ -470,6 +475,67 @@ def lstm_layer_bidir_fused_bwd_on(design: str, x, lengths, w_ih, b_ih, w_hh,
                             marks)
 
 
+def _marker(marks):
+    """A function recording a CUDA event into ``marks`` (None: nothing)."""
+    def mark():
+        if marks is not None:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            marks.append(event)
+    return mark
+
+
+def _span_prefix(lib, lengths, t, b, stream, what):
+    """(B + 1,) active steps of the rows before each row (either span)."""
+    prefix = torch.empty(b + 1, dtype=torch.int32, device=lengths.device)
+    err = lib.abcd_lstm_span_prefix(lengths.data_ptr(), prefix.data_ptr(), t,
+                                    b, stream)
+    _build.check(lib, err, what)
+    return prefix
+
+
+def _grid_recurrence(lib, lengths, w_hh, cs, douts, dh_n, dc_n, dz, reverse,
+                     stream, what):
+    """The grid design's part (b) over the gates in ``dz``, which become dz:
+    w_hh (D, H, 4H), the streams (T, D, B, .), D = 1 or 2."""
+    d, hidden = w_hh.shape[0], w_hh.shape[1]
+    b = lengths.shape[0]
+    w_hh_t = w_hh.transpose(1, 2).contiguous()
+    order = torch.empty(b, dtype=torch.int32, device=dz.device)
+    dh_s = torch.empty((d, b, hidden), dtype=dz.dtype, device=dz.device)
+    dc_s = torch.empty_like(dh_s)
+    err = lib.abcd_lstm_bwd_grid(
+        lengths.data_ptr(), order.data_ptr(), w_hh_t.data_ptr(),
+        cs.data_ptr(), None if douts is None else douts.data_ptr(),
+        dh_n.data_ptr(), dc_n.data_ptr(), dz.data_ptr(), dh_s.data_ptr(),
+        dc_s.data_ptr(), cs.shape[0], b, hidden, d, int(reverse), stream)
+    _build.check(lib, err, what)
+
+
+def _prefix_wgrad(lib, x, prefix, outs, dz, d, hidden, reverse, stream,
+                  what):
+    """Part (d) over the active row-steps: (dw_ih (D, F, 4H) or None
+    without x, dw_hh (D, H, 4H), db (D, 4H))."""
+    t, b = outs.shape[0], outs.shape[-2]
+    f = 0 if x is None else x.shape[2]
+    g = 4 * hidden
+    dev = dz.device
+    splits = lib.abcd_lstm_wgrad_splits(t, b, f, hidden, d)
+    part = torch.empty((splits, d, f + hidden + 1, g), dtype=dz.dtype,
+                       device=dev)
+    dw_ih = (None if x is None else
+             torch.empty((d, f, g), dtype=dz.dtype, device=dev))
+    dw_hh = torch.empty((d, hidden, g), dtype=dz.dtype, device=dev)
+    db = torch.empty((d, g), dtype=dz.dtype, device=dev)
+    err = lib.abcd_lstm_wgrad(
+        None if x is None else x.data_ptr(), prefix.data_ptr(),
+        outs.data_ptr(), dz.data_ptr(), part.data_ptr(),
+        None if dw_ih is None else dw_ih.data_ptr(), dw_hh.data_ptr(),
+        db.data_ptr(), t, b, f, hidden, d, int(reverse), splits, stream)
+    _build.check(lib, err, what)
+    return dw_ih, dw_hh, db
+
+
 def _bidir_fused_bwd(lib, design, x, lengths, w_ih, b_ih, w_hh, b_hh, outs,
                      cs, douts, dh_n, dc_n, marks):
     """The backward's launches on checked CUDA tensors (see
@@ -478,78 +544,61 @@ def _bidir_fused_bwd(lib, design, x, lengths, w_ih, b_ih, w_hh, b_hh, outs,
     hidden = w_hh.shape[1]
     g = 4 * hidden
     what = f"lstm_layer_bidir_fused backward ({design})"
-    if design == "tile":
-        rows = _build.row_tile(lib, "lstm", _BIDIR_BWD, (f, hidden), what)
-    elif _cluster_active(lib, x.device.index, "bwd", 0, hidden,
-                         BWD_CLUSTER_ROWS) <= 0:
+    if design == "cluster" and _cluster_active(
+            lib, x.device.index, "bwd", 0, hidden, BWD_CLUSTER_ROWS) <= 0:
         raise RuntimeError(f"{what} refused: no cluster of its recurrence "
                            f"is resident at H={hidden} on this card")
     douts_ptr = None if douts is None else douts.data_ptr()
-
-    def mark():
-        if marks is not None:
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-            marks.append(event)
-
+    mark = _marker(marks)
+    # the gates of every active row-step, then dz over them; rows outside
+    # every span keep dx's zeros
     dz = torch.empty((2, t, b, g), dtype=x.dtype, device=x.device)
+    dx = torch.zeros((t, b, f), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         mark()
+        # (a) the gates (and, for the cluster design's weight gradients,
+        # the h_prev stream)
+        prefix = _span_prefix(lib, lengths, t, b, stream, what)
+        hp = (torch.zeros((2, t, b, hidden), dtype=x.dtype, device=x.device)
+              if design == "cluster" else None)
+        err = lib.abcd_lstm_bidir_gates(
+            x.data_ptr(), prefix.data_ptr(), w_ih.data_ptr(),
+            b_ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+            outs.data_ptr(), dz.data_ptr(),
+            None if hp is None else hp.data_ptr(), t, b, f, hidden, stream)
+        _build.check(lib, err, what)
+        mark()
+        # (b) the recurrence
         if design == "tile":
-            w_ih_t = w_ih.transpose(1, 2).contiguous()
-            w_hh_t = w_hh.transpose(1, 2).contiguous()
-            hp = torch.empty((2, t, b, hidden), dtype=x.dtype,
-                             device=x.device)
-            dx_dir = torch.empty((2, t, b, f), dtype=x.dtype,
-                                 device=x.device)
-            err = lib.abcd_lstm_bidir_bwd(
-                x.data_ptr(), lengths.data_ptr(), w_ih.data_ptr(),
-                b_ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-                w_ih_t.data_ptr(), w_hh_t.data_ptr(), outs.data_ptr(),
-                cs.data_ptr(), douts_ptr, dh_n.data_ptr(), dc_n.data_ptr(),
-                dz.data_ptr(), hp.data_ptr(), dx_dir.data_ptr(), t, b, f,
-                hidden, rows, stream)
-            _build.check(lib, err, what)
-            dx = wgrad.add2(dx_dir[0], dx_dir[1])
-            mark()
+            _grid_recurrence(lib, lengths, w_hh, cs, douts, dh_n, dc_n, dz,
+                             False, stream, what)
         else:
-            # (a) the gates of every active row-step into dz's buffer, and
-            # the h_prev stream; (b) the recurrence, dz over the gates;
-            # (c) dx.  Rows outside every span keep the zeros here.
-            prefix = torch.empty(b + 1, dtype=torch.int32, device=x.device)
-            hp = torch.zeros((2, t, b, hidden), dtype=x.dtype,
-                             device=x.device)
-            dx = torch.zeros((t, b, f), dtype=x.dtype, device=x.device)
-            err = lib.abcd_lstm_span_prefix(lengths.data_ptr(),
-                                            prefix.data_ptr(), t, b, stream)
-            _build.check(lib, err, what)
-            err = lib.abcd_lstm_bidir_gates(
-                x.data_ptr(), prefix.data_ptr(), w_ih.data_ptr(),
-                b_ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-                outs.data_ptr(), dz.data_ptr(), hp.data_ptr(), t, b, f,
-                hidden, stream)
-            _build.check(lib, err, what)
-            mark()
             err = lib.abcd_lstm_bidir_bwd_cluster(
                 lengths.data_ptr(), w_hh.data_ptr(), cs.data_ptr(),
                 douts_ptr, dh_n.data_ptr(), dc_n.data_ptr(), dz.data_ptr(),
                 t, b, hidden, BWD_CLUSTER_ROWS, stream)
             _build.check(lib, err, what)
-            mark()
-            err = lib.abcd_lstm_bidir_dx(dz.data_ptr(), prefix.data_ptr(),
-                                         w_ih.data_ptr(), dx.data_ptr(), t,
-                                         b, f, hidden, stream)
-            _build.check(lib, err, what)
-            mark()
-        x_rows = x.view(t * b, f)
-        dw_ih = torch.stack([wgrad.at_b(x_rows, dz[d].view(t * b, g))
-                             for d in range(2)])
-        dw_hh = torch.stack([wgrad.at_b(hp[d].view(t * b, hidden),
-                                        dz[d].view(t * b, g))
-                             for d in range(2)])
-        db = torch.cat([wgrad.at_b(None, dz[d].view(t * b, g))
-                        for d in range(2)])
+        mark()
+        # (c) dx
+        err = lib.abcd_lstm_bidir_dx(dz.data_ptr(), prefix.data_ptr(),
+                                     w_ih.data_ptr(), dx.data_ptr(), t, b, f,
+                                     hidden, stream)
+        _build.check(lib, err, what)
+        mark()
+        # (d) the weight gradients
+        if design == "tile":
+            dw_ih, dw_hh, db = _prefix_wgrad(lib, x, prefix, outs, dz, 2,
+                                             hidden, False, stream, what)
+        else:
+            x_rows = x.view(t * b, f)
+            dw_ih = torch.stack([wgrad.at_b(x_rows, dz[d].view(t * b, g))
+                                 for d in range(2)])
+            dw_hh = torch.stack([wgrad.at_b(hp[d].view(t * b, hidden),
+                                            dz[d].view(t * b, g))
+                                 for d in range(2)])
+            db = torch.cat([wgrad.at_b(None, dz[d].view(t * b, g))
+                            for d in range(2)])
         mark()
     lstm_layer_bidir_fused_bwd.launches += 1
     getattr(lstm_layer_bidir_fused_bwd, design).launches += 1
@@ -781,42 +830,88 @@ def lstm_layer_bwd(xp, lengths, w_hh, b_hh, outs, cs, douts, dh_n, dc_n,
                    reverse: bool = False):
     """The one-direction layer's backward: (dxp, dw_hh, db_hh).
 
-    CUDA tensors launch the reverse-time kernel, then ``ops/wgrad.py``'s
-    reductions of its streams (counted as one launch of this wrapper);
-    CPU tensors take ``lstm_layer_bwd_plain``.  ``douts`` may be None: the
-    final layer's outs feed nothing, and the kernel then reads no
-    (T, B, H) zero stream.
+    CUDA tensors launch the design that ``backward_design`` picks for the
+    shape (the raw backward's rule and values), counted as one launch of
+    this wrapper and one on ``.cluster`` or ``.tile``; CPU tensors take
+    ``lstm_layer_bwd_plain``.  ``douts`` may be None: the final layer's outs
+    feed nothing, and the kernels then read no (T, B, H) zero stream.
     """
     _check_layer(xp, lengths, w_hh, b_hh, outs=outs, cs=cs, douts=douts,
                  dh_n=dh_n, dc_n=dc_n)
     if xp.device.type == "cpu":
         return lstm_layer_bwd_plain(xp, lengths, w_hh, b_hh, outs, cs,
                                     douts, dh_n, dc_n, reverse)
+    lib = _build.load("lstm")
+    design = backward_design_for(lib, xp.device.index, w_hh.shape[0])
+    return _layer_bwd(lib, design, xp, lengths, w_hh, b_hh, outs, cs, douts,
+                      dh_n, dc_n, reverse, None)
+
+
+def lstm_layer_bwd_on(design: str, xp, lengths, w_hh, b_hh, outs, cs, douts,
+                      dh_n, dc_n, reverse: bool = False, marks=None):
+    """``lstm_layer_bwd`` on CUDA tensors through the named design,
+    ``"cluster"`` or ``"tile"``, whatever the shape rule says: for timing
+    one design against the other.  Raises when the design does not take
+    the shape (before any launch) or a launch fails.  ``marks``, a list,
+    gets CUDA events recorded on the current stream around (a) the gate
+    recompute (with the span prefix), (b) the recurrence and (d) the
+    weight gradients (four events)."""
+    _check_layer(xp, lengths, w_hh, b_hh, outs=outs, cs=cs, douts=douts,
+                 dh_n=dh_n, dc_n=dc_n)
+    if xp.device.type != "cuda" or design not in ("cluster", "tile"):
+        raise ValueError(f"design {design!r} on {xp.device}: a CUDA tensor "
+                         "and 'cluster' or 'tile' are needed")
+    return _layer_bwd(_build.load("lstm"), design, xp, lengths, w_hh, b_hh,
+                      outs, cs, douts, dh_n, dc_n, reverse, marks)
+
+
+def _layer_bwd(lib, design, xp, lengths, w_hh, b_hh, outs, cs, douts, dh_n,
+               dc_n, reverse, marks):
+    """Row 3b's launches on checked CUDA tensors: (a) the gates of every
+    active row-step, (b) the recurrence over them (dz, which is dxp), (d)
+    the weight gradients over the active row-steps."""
     t, b, g = xp.shape
     hidden = w_hh.shape[0]
-    lib = _build.load("lstm")
-    rows = _build.row_tile(lib, "lstm", _BWD, (0, hidden),
-                           "lstm_layer backward")
-    w_hh_t = w_hh.transpose(0, 1).contiguous()
+    what = f"lstm_layer backward ({design})"
+    if design == "cluster" and _cluster_active(
+            lib, xp.device.index, "bwd", 0, hidden, BWD_CLUSTER_ROWS) <= 0:
+        raise RuntimeError(f"{what} refused: no cluster of its recurrence "
+                           f"is resident at H={hidden} on this card")
+    mark = _marker(marks)
     dxp = torch.empty((t, b, g), dtype=xp.dtype, device=xp.device)
-    hp = torch.empty((t, b, hidden), dtype=xp.dtype, device=xp.device)
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.abcd_lstm_bwd(
-            xp.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
-            b_hh.data_ptr(), w_hh_t.data_ptr(), outs.data_ptr(),
-            cs.data_ptr(), None if douts is None else douts.data_ptr(),
-            dh_n.data_ptr(), dc_n.data_ptr(), dxp.data_ptr(), hp.data_ptr(),
-            t, b, hidden, int(reverse), rows, stream)
-        _build.check(lib, err, "lstm_layer backward")
-        rows_dz = dxp.view(t * b, g)
-        dw_hh = wgrad.at_b(hp.view(t * b, hidden), rows_dz)
-        db_hh = wgrad.at_b(None, rows_dz).reshape(-1)
+        mark()
+        prefix = _span_prefix(lib, lengths, t, b, stream, what)
+        err = lib.abcd_lstm_layer_gates(
+            xp.data_ptr(), prefix.data_ptr(), w_hh.data_ptr(),
+            b_hh.data_ptr(), outs.data_ptr(), dxp.data_ptr(), t, b, hidden,
+            int(reverse), stream)
+        _build.check(lib, err, what)
+        mark()
+        if design == "tile":
+            _grid_recurrence(lib, lengths, w_hh.unsqueeze(0),
+                             cs.unsqueeze(1), douts, dh_n, dc_n, dxp,
+                             reverse, stream, what)
+        else:
+            err = lib.abcd_lstm_bwd_cluster(
+                lengths.data_ptr(), w_hh.data_ptr(), cs.data_ptr(),
+                None if douts is None else douts.data_ptr(),
+                dh_n.data_ptr(), dc_n.data_ptr(), dxp.data_ptr(), t, b,
+                hidden, int(reverse), BWD_CLUSTER_ROWS, stream)
+            _build.check(lib, err, what)
+        mark()
+        _, dw_hh, db_hh = _prefix_wgrad(lib, None, prefix, outs, dxp, 1,
+                                        hidden, reverse, stream, what)
+        mark()
     lstm_layer_bwd.launches += 1
-    return dxp, dw_hh, db_hh
+    getattr(lstm_layer_bwd, design).launches += 1
+    return dxp, dw_hh[0], db_hh[0]
 
 
 lstm_layer_bwd.launches = 0
+lstm_layer_bwd.cluster = _build.Launches()
+lstm_layer_bwd.tile = _build.Launches()
 
 
 class _LSTMLayer(torch.autograd.Function):

@@ -87,9 +87,11 @@ def test_kernels_on_ragged_shapes(cuda):
 
 def test_lstm_kernel_hidden_limit(cuda):
     """The widest hidden size the JAX CLI takes (1024) runs through the
-    bidirectional forward and backward kernels with a smaller row tile and
-    matches the twins; a hidden size whose shared memory no row tile fits
-    is refused by the wrapper's row-tile choice, not by a launch failure."""
+    bidirectional forward and backward kernels and matches the twins (the
+    backward by its grid design, which needs no row tile: the per-tile raw
+    backward, kind 1, is no longer built); a hidden size whose shared
+    memory no row tile of a per-tile kernel fits is refused by the
+    wrapper's row-tile choice, not by a launch failure."""
     from seq2seq_abcd_vae_tpu_torch.ops import _build
     rng = np.random.default_rng(11)
     t, b, f, h = 5, 6, 129, 1024
@@ -111,9 +113,10 @@ def test_lstm_kernel_hidden_limit(cuda):
                     lstm_kernel.lstm_layer_bidir_fused_bwd_plain(*bwd)):
         assert _rel_max_err(g, r) <= 1e-4
     lib = _build.load("lstm")
-    assert lib.abcd_lstm_rows(1, f, h) == 4  # 8 rows need 233,504 bytes
+    assert lib.abcd_lstm_rows(1, f, h) == 0
     with pytest.raises(ValueError, match="shared memory"):
-        _build.row_tile(lib, "lstm", 3, (0, 4200), "lstm_layer backward")
+        _build.row_tile(lib, "lstm", 5, (0, 4200),
+                        "lstm_layer_bidir backward")
 
 
 @pytest.mark.parametrize("reverse", [False, True])
@@ -1422,3 +1425,116 @@ def test_lstm_cluster_backward_takes_unaligned_weights(cuda):
     for name, g, r in zip(("dx", "dw_ih", "db_ih", "dw_hh", "db_hh"), got,
                           want):
         assert _rel_max_err(g, r) <= 1e-4, name
+
+
+# ---------------------------------------------------------------------------
+# the LSTM backwards' grid design (design "tile": rows 2b and 3b where the
+# cluster recurrence does not take H) and row 3b's cluster route, each
+# against the twin, the other design and itself
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("with_douts", [False, True])
+@pytest.mark.parametrize("shape", [(125, 512, 129, 1024), (37, 21, 129, 200),
+                                   (17, 70, 33, 1024), (9, 13, 129, 256)])
+def test_lstm_grid_backward_matches_twin(cuda, shape, with_douts):
+    """Row 2b's grid route at the wide training shape (H=1024), at H=200
+    (not a multiple of 32), at a batch past one row tile and forced at
+    H=256 (where the rule keeps the cluster route, against which it is
+    held too): every gradient against the twin; runs repeat bit for bit;
+    the public wrapper launches the route its rule names, once."""
+    from seq2seq_abcd_vae_tpu_torch.ops import _build
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    t, b, f, h = shape
+    rng = np.random.default_rng(t * b + h + with_douts)
+    args = _bwd_args(rng, cuda, t, b, f, h, with_douts)
+    design = lk.backward_design_for(_build.load("lstm"), 0, h)
+    assert design == ("cluster" if h == 256 else "tile")
+    route = getattr(lk.lstm_layer_bidir_fused_bwd, design)
+    before = (lk.lstm_layer_bidir_fused_bwd.launches, route.launches)
+    picked = lk.lstm_layer_bidir_fused_bwd(*args)
+    torch.cuda.synchronize()
+    assert (lk.lstm_layer_bidir_fused_bwd.launches, route.launches) == (
+        before[0] + 1, before[1] + 1)
+    got = lk.lstm_layer_bidir_fused_bwd_on("tile", *args)
+    again = lk.lstm_layer_bidir_fused_bwd_on("tile", *args)
+    want = lk.lstm_layer_bidir_fused_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, a, p, r in zip(("dx", "dw_ih", "db_ih", "dw_hh", "db_hh"),
+                                got, again, picked, want):
+        assert _rel_max_err(g, r) <= 1e-4, name
+        assert _rel_max_err(g, p) <= 1e-4, name
+        torch.testing.assert_close(g, a, rtol=0, atol=0)   # runs repeat
+
+
+def _layer_bwd_args(rng, cuda, t, b, h, reverse, with_douts):
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    lens = rng.integers(1, t + 1, size=b).astype(np.int32)
+    lens[:2] = (t, 0)[:b]
+    lengths = torch.from_numpy(lens).to(cuda)
+    xp = torch.from_numpy(rng.normal(size=(t, b, 4 * h)).astype(np.float32)
+                          ).to(cuda)
+    w_hh = _uniform(rng, cuda, 1 / np.sqrt(h), h, 4 * h)
+    b_hh = _uniform(rng, cuda, 1 / np.sqrt(h), 4 * h)
+    outs, _, _, cs = lk.lstm_layer_plain(xp, lengths, w_hh, b_hh, reverse,
+                                         True)
+    normal = lambda *s: torch.from_numpy(rng.normal(size=s).astype(
+        np.float32)).to(cuda)
+    return (xp, lengths, w_hh, b_hh, outs, cs,
+            normal(t, b, h) if with_douts else None, normal(b, h),
+            normal(b, h), reverse)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", [(125, 512, 256), (125, 512, 1024),
+                                   (37, 13, 256), (1, 3, 256), (5, 6, 200),
+                                   (7, 5, 20)])
+def test_lstm_layer_backward_routes_match_twin(cuda, shape, reverse):
+    """Row 3b by both designs: the cluster route at H=256 (the
+    ``--unidirectional_encoder`` training width; the grid route forced
+    beside it) and the grid route at H=1024, H=200 and H=20, both span
+    directions, with douts on the reversed ones: (dxp, dW_hh, db_hh)
+    against the twin; runs repeat bit for bit; the public wrapper launches
+    the route its rule names, once."""
+    from seq2seq_abcd_vae_tpu_torch.ops import _build
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    t, b, h = shape
+    rng = np.random.default_rng(t + b + h + reverse)
+    args = _layer_bwd_args(rng, cuda, t, b, h, reverse, reverse)
+    design = lk.backward_design_for(_build.load("lstm"), 0, h)
+    assert design == ("cluster" if h == 256 else "tile")
+    route = getattr(lk.lstm_layer_bwd, design)
+    before = (lk.lstm_layer_bwd.launches, route.launches)
+    picked = lk.lstm_layer_bwd(*args)
+    torch.cuda.synchronize()
+    assert (lk.lstm_layer_bwd.launches, route.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = lk.lstm_layer_bwd_plain(*args)
+    designs = ("cluster", "tile") if h == 256 else ("tile",)
+    for d in designs:
+        got = lk.lstm_layer_bwd_on(d, *args)
+        again = lk.lstm_layer_bwd_on(d, *args)
+        torch.cuda.synchronize()
+        for name, g, a, r in zip(("dxp", "dw_hh", "db_hh"), got, again, want):
+            assert _rel_max_err(g, r) <= 1e-4, (d, name)
+            torch.testing.assert_close(g, a, rtol=0, atol=0)
+        if d == design:
+            for g, p in zip(got, picked):
+                torch.testing.assert_close(g, p, rtol=0, atol=0)
+
+
+def test_lstm_layer_backward_marks_and_refusals(cuda):
+    """The timing hook records an event before (a) and after (a), (b) and
+    (d), in order; the cluster route refuses H=1024 before any launch."""
+    from seq2seq_abcd_vae_tpu_torch.ops import lstm_kernel as lk
+    rng = np.random.default_rng(3)
+    args = _layer_bwd_args(rng, cuda, 9, 11, 256, False, False)
+    for design in ("cluster", "tile"):
+        marks = []
+        lk.lstm_layer_bwd_on(design, *args, marks=marks)
+        torch.cuda.synchronize()
+        assert len(marks) == 4
+        assert all(marks[i].elapsed_time(marks[i + 1]) >= 0
+                   for i in range(3))
+    wide = _layer_bwd_args(rng, cuda, 5, 6, 1024, False, False)
+    with pytest.raises(RuntimeError, match="refused"):
+        lk.lstm_layer_bwd_on("cluster", *wide)
